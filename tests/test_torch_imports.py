@@ -1,0 +1,128 @@
+"""The port stands alone: it imports neither JAX nor the reference
+package, and its entry points refuse to run without a CUDA device unless
+the caller asks for the CPU."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "src", "repro_torch")
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+
+
+def _port_files():
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "examples", "torch_serve_tiered.py")]
+    for root, _, names in os.walk(PORT):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _imported_roots(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_import_of_jax_or_the_reference_package(path):
+    assert not (_imported_roots(path) & FORBIDDEN)
+
+
+def test_port_mirrors_the_reference_layout():
+    for rel in ("configs/base.py", "configs/registry.py",
+                "configs/qwen2_1_5b.py", "models/params.py",
+                "models/compute.py", "models/layers.py",
+                "models/attention.py", "models/transformer.py",
+                "models/model_zoo.py", "kernels/paged_attention/kernel.py",
+                "kernels/paged_attention/ops.py",
+                "kernels/paged_attention/ref.py", "core/znuma.py",
+                "core/slices.py", "core/telemetry.py",
+                "core/latency_model.py", "runtime/fault.py",
+                "serving/kv_cache.py", "serving/scheduler.py",
+                "serving/engine.py", "launch/serve.py"):
+        assert os.path.isfile(os.path.join(PORT, rel)), rel
+        assert os.path.isfile(os.path.join(REPO, "src", "repro", rel)), rel
+    assert os.path.isfile(os.path.join(PORT, "csrc", "paged_attention.cu"))
+
+
+def _run(code_or_args, **kw):
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    return subprocess.run([sys.executable, *code_or_args], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120, **kw)
+
+
+def test_importing_the_port_pulls_in_neither_jax_nor_repro():
+    code = ("import sys, pkgutil, importlib, repro_torch\n"
+            "import repro_torch.launch.serve\n"
+            "for m in pkgutil.walk_packages(repro_torch.__path__, "
+            "'repro_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "print('BAD', bad)\n")
+    proc = _run(["-c", code])
+    assert proc.returncode == 0, proc.stderr
+    assert "BAD []" in proc.stdout
+
+
+def test_entry_points_refuse_to_run_without_a_card():
+    """This machine has no CUDA device: ``device=None`` must raise, never
+    run on the CPU."""
+    import torch
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.device import resolve_device
+    from repro_torch.launch import serve
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serving.kv_cache import KVConfig, TieredPagedKV
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+        return
+    cfg = get_smoke("qwen2-1.5b")
+    for call in (lambda: resolve_device(None),
+                 lambda: resolve_device("cuda"),
+                 lambda: build_model(cfg),
+                 lambda: params_from_numpy({}, cfg),
+                 lambda: TieredPagedKV(KVConfig(1, 1, 8)),
+                 lambda: serve.main([])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_cuda_tensor_path_never_falls_back_in_source():
+    """The wrapper has no ``try`` around build or launch."""
+    for rel in ("kernels/paged_attention/ops.py",
+                "kernels/paged_attention/kernel.py", "kernels/build.py"):
+        with open(os.path.join(PORT, rel)) as f:
+            tree = ast.parse(f.read())
+        assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], rel
+    for path in _port_files():
+        with open(path) as f:
+            assert "scaled_dot_product_attention" not in f.read(), path
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    """With no CUDA device visible the script exits non-zero and prints no
+    result; so does a copy of it that stands alone, without the package."""
+    import shutil
+    hidden = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), alone)
+    for script, cwd in (("chip_smoke.py", REPO), (str(alone), tmp_path)):
+        proc = subprocess.run([sys.executable, script], cwd=cwd, env=hidden,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode != 0
+        assert '"ok": true' not in proc.stdout
+        assert proc.stdout.strip() == ""
