@@ -3,14 +3,23 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the sources in this checkout, holds
-each against its plain PyTorch version on the card, serves a few requests
-through ``repro_torch.launch.serve`` with qwen2-1.5b at full width, and
-shows that the serving path went through the kernels.  Every phase prints
-one JSON line; any failure ends the process with a non-zero exit code.
-Nothing runs on the CPU in place of the card: without a CUDA device the
-script exits at once.  It imports only the port (``repro_torch``), never
-the reference package.
+Builds the port's CUDA kernels from the sources in this checkout (one
+``nvcc`` per source, started together), holds each against its plain
+PyTorch version on the card, and drives the port's two serving paths:
+
+* tiered-KV serving (``repro_torch.launch.serve``, paged decode attention,
+  K2) with qwen2-1.5b at full width: a few requests to completion;
+* ring-cache serving (``runtime/serve.py``: ``LM.prefill``/``LM.decode``,
+  flash attention in the prefill, K3) with h2o-danube-1.8b at full width
+  and depth: two 8192-token prompts, then 32 greedy decode steps, so the
+  sliding-window ring wraps.
+
+Each path is driven with the kernels' launch counts set to 0 just before
+it and read just after, which shows that it went through its kernel.
+Every phase prints one JSON line; any failure ends the process with a
+non-zero exit code.  Nothing runs on the CPU in place of the card: without
+a CUDA device the script exits at once.  It imports only the port
+(``repro_torch``), never the reference package.
 
 The last three lines are: the ``{"kernels": [...]}`` record, the card's
 name and power limit as ``nvidia-smi`` prints them, and ``{"ok": true,
@@ -35,7 +44,19 @@ TOL = {torch.float32: 2e-6, torch.bfloat16: 2e-2}
 # output is ~0.03 in size and 2e-2 would pass a wrong one: there bf16 is held
 # to a few times its measured error (4.9e-4, one rounding of the output).
 TOL_FULL = {torch.float32: 2e-6, torch.bfloat16: 4e-3}
+# K3 at the full-width shape is held against the blocked plain version run
+# in fp32 on the same bf16 inputs: K3 keeps every sum in fp32 and rounds
+# its output to bf16 once, so each element must lie within half a unit in
+# the last place of the fp32 result, 2**-8 of it (rtol 3.9e-3, plus 1e-4 of
+# it for the fp32 sums' order), and 1e-5 for outputs near 0.  The bf16
+# plain version also rounds p to bf16 before p @ V, which alone moves an
+# output by up to ~1e-2; 2e-2 would pass a wrong row where a long window
+# averages its V rows to ~0.02.
+K3_TOL_FULL = dict(atol=1e-5, rtol=4e-3)
 LAYERS = 28                      # qwen2-1.5b: launches per decode step
+DANUBE_LAYERS = 24               # h2o-danube-1.8b: K3 launches per prefill
+K3_FULL = dict(b=2, s=8192, hq=32, hkv=8, d=80, window=4096)
+RING_BATCH, RING_PROMPT, RING_STEPS = 2, 8192, 32
 FULL = dict(b=8, hq=12, hkv=2, d=128, page=16, max_len=2048, num_pages=1280)
 SERVE_ARGS = ["--arch", "qwen2-1.5b", "--full", "--dtype", "bfloat16",
               "--requests", "16", "--max-batch", "8", "--page-size", "16",
@@ -51,17 +72,23 @@ def emit(phase: str, **fields) -> None:
 # ------------------------------------------------------------------ build --
 def phase_build():
     from repro_torch.kernels import build
-    from repro_torch.kernels.paged_attention import kernel as K
+    from repro_torch.kernels.flash_attention import kernel as K3
+    from repro_torch.kernels.paged_attention import kernel as K2
     t0 = time.perf_counter()
-    K.build()
+    build.build_libraries([K2.NAME, K3.NAME])
     seconds = time.perf_counter() - t0
-    with open(f"{build.library_path(K.NAME)}.log") as f:
-        log = f.read()
-    regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
-    spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
-    emit("build", kernel=K.NAME, source=K.SOURCE, seconds=round(seconds, 2),
-         flags=" ".join(build.NVCC_FLAGS), instantiations=len(regs),
-         max_registers=max(regs), spill_store_bytes=sum(spills))
+    for K in (K2, K3):
+        K.build()                                   # load and bind
+        with open(f"{build.library_path(K.NAME)}.log") as f:
+            log = f.read()
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores",
+                                             log)]
+        emit("build", kernel=K.NAME, source=K.SOURCE,
+             seconds_both_in_parallel=round(seconds, 2),
+             flags=" ".join(build.NVCC_FLAGS), instantiations=len(regs),
+             registers=regs, max_registers=max(regs), spill_stores=spills,
+             spill_store_bytes=sum(spills))
 
 
 # ---------------------------------------------------------------- kernels --
@@ -88,13 +115,16 @@ def _paged_inputs(rng, b, g, hkv, d, page, num_pages, lens, width, dtype, dev,
             torch.from_numpy(np.asarray(lens, np.int32)).to(dev))
 
 
-def _max_err(got, want, tol, what):
+def _max_err(got, want, tol, what, rtol=None):
+    """Max |got - want|; exits unless every element is within
+    tol + rtol * |want| (rtol defaults to tol)."""
+    rtol = tol if rtol is None else rtol
     got, want = got.float(), want.float()
     err = (got - want).abs()
-    if not bool((err <= tol + tol * want.abs()).all()):
-        raise SystemExit(f"paged_attention disagrees with its plain version "
-                         f"at {what}: max abs err {float(err.max()):.3e}, "
-                         f"tolerance {tol:g}")
+    if not bool((err <= tol + rtol * want.abs()).all()):
+        raise SystemExit(f"{what}: the kernel disagrees with its plain "
+                         f"version, max abs err {float(err.max()):.3e}, "
+                         f"tolerance {tol:g} + {rtol:g} * |plain|")
     return float(err.max())
 
 
@@ -136,7 +166,8 @@ def phase_kernels(dev):
             torch.cuda.synchronize()
             errs[dtype] = max(errs[dtype], _max_err(
                 got, want, TOL[dtype],
-                f"b={b} g={g} hkv={hkv} d={d} page={page} {dtype}"))
+                f"paged_attention b={b} g={g} hkv={hkv} d={d} page={page} "
+                f"{dtype}"))
             n_shapes += 1
 
     # the full-width shape of the serving path: ragged rows, padded table,
@@ -160,7 +191,7 @@ def phase_kernels(dev):
             torch.cuda.synchronize()
             errs[dtype] = max(errs[dtype], _max_err(
                 got, want, TOL_FULL[dtype],
-                f"full width, layer {li}, {dtype}"))
+                f"paged_attention full width, layer {li}, {dtype}"))
         n_shapes += 1
         if dtype is not torch.bfloat16:
             continue
@@ -204,6 +235,157 @@ def phase_kernels(dev):
         library_note="no single PyTorch call computes attention through a "
                      "block table",
         **timing)
+    emit("kernels", kernels=[record])
+    return record
+
+
+def _band_pairs(sq, skv, window):
+    """(query, key) pairs inside the causal / window band: the work the
+    function needs, whatever implements it."""
+    q = np.arange(sq)
+    lo = np.zeros(sq, np.int64) if window is None \
+        else np.maximum(0, q - window + 1)
+    return int((np.minimum(q + 1, skv) - lo).clip(min=0).sum())
+
+
+def _sdpa_library_call(q, k, v, mask, scale):
+    """The library yardstick (``library_ms``): one PyTorch call computing
+    the same function.  The port never calls it."""
+    import torch.nn.functional as F
+    out = F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, scale=scale, enable_gqa=True)
+    return out.transpose(1, 2)
+
+
+def phase_kernels_flash(dev):
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models.attention import blocked_attention
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def rand(shape, dtype, std=0.5):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n_shapes = 0
+    # the reference sweep (b 1-2, g {1,2,4}, hkv {1,2}, d {16,32,64},
+    # window {None,7,33}, 2-4 blocks of 16), then the head dims, lengths,
+    # window and group sizes of the serving paths, and one non-causal case
+    # with Sq != Skv: (b, sq, skv, g, hkv, d, window, causal)
+    sweep = []
+    for i, (b, g, hkv, d, w) in enumerate(
+            (b, g, hkv, d, w) for b in (1, 2) for g in (1, 2, 4)
+            for hkv in (1, 2) for d in (16, 32, 64) for w in (None, 7, 33)):
+        s_len = 16 * (2 + i % 3)
+        sweep.append((b, s_len, s_len, g, hkv, d, w, True))
+    sweep += [(2, 37, 37, 2, 2, 24, None, True), (2, 37, 37, 2, 2, 24, 7, True),
+              (1, 1000, 1000, 4, 2, 80, None, True),
+              (2, 1000, 1000, 4, 8, 80, 33, True),
+              (1, 1000, 1000, 6, 2, 128, 4096, True),
+              (2, 300, 300, 4, 8, 80, 4096, True),
+              (2, 37, 37, 6, 2, 128, 7, True),
+              (2, 37, 45, 2, 2, 24, None, False)]
+    for b, sq, skv, g, hkv, d, w, causal in sweep:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = rand((b, sq, hkv * g, d), dtype)
+            k = rand((b, skv, hkv, d), dtype)
+            v = rand((b, skv, hkv, d), dtype)
+            got = ops.flash_attention(q, k, v, causal=causal, window=w)
+            want = attention_ref(q, k, v, causal=causal, window=w)
+            torch.cuda.synchronize()
+            errs[dtype] = max(errs[dtype], _max_err(
+                got, want, TOL[dtype],
+                f"flash_attention b={b} sq={sq} skv={skv} g={g} hkv={hkv} "
+                f"d={d} window={w} causal={causal} {dtype}"))
+            n_shapes += 1
+
+    # the full-width shape of the ring path's prefill, one set of inputs
+    # per layer so that every launch finds its data cold, as the 24 layers
+    # of a prefill do
+    f = K3_FULL
+    b, s_len, hq, hkv, d, w = (f[x] for x in ("b", "s", "hq", "hkv", "d",
+                                               "window"))
+    dtype, scale, L = torch.bfloat16, d ** -0.5, DANUBE_LAYERS
+    q = rand((L, b, s_len, hq, d), dtype, std=1.0)
+    k = rand((L, b, s_len, hkv, d), dtype, std=1.0)
+    v = rand((L, b, s_len, hkv, d), dtype, std=1.0)
+    pos = torch.arange(s_len, device=dev).expand(b, s_len)
+    full_err = 0.0
+    for li in (0, L - 1):
+        got = ops.flash_attention(q[li], k[li], v[li], causal=True, window=w,
+                                  scale=scale)
+        want = blocked_attention(q[li].float(), k[li].float(), v[li].float(),
+                                 scale, pos, pos, window=w, causal=True)
+        torch.cuda.synchronize()
+        full_err = max(full_err, _max_err(
+            got, want, K3_TOL_FULL["atol"],
+            f"flash_attention full width, layer {li} (vs fp32 plain)",
+            rtol=K3_TOL_FULL["rtol"]))
+    n_shapes += 1
+    qi, ki = torch.arange(s_len, device=dev)[:, None], \
+        torch.arange(s_len, device=dev)[None]
+    band = (ki <= qi) & (ki > qi - w)
+    lib = _sdpa_library_call(q[0], k[0], v[0], band, scale)
+    ours = ops.flash_attention(q[0], k[0], v[0], window=w, scale=scale)
+    torch.cuda.synchronize()
+    library_err = float((lib.float() - ours.float()).abs().max())
+
+    def over_layers(fn, layers):
+        """ms a call of fn(li) over ``layers``, by CUDA events."""
+        fn(layers[0])                                    # warm up
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for li in layers:
+            fn(li)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / len(layers)
+
+    def kern(li):
+        ops.flash_attention(q[li], k[li], v[li], window=w, scale=scale)
+
+    def plain(li):
+        blocked_attention(q[li], k[li], v[li], scale, pos, pos, window=w,
+                          causal=True)
+
+    def library(li):
+        _sdpa_library_call(q[li], k[li], v[li], band, scale)
+
+    every = list(range(L))
+    # plain, kernel, kernel, plain, library: all inside this one run
+    plain_a = over_layers(plain, every)
+    kern_a = over_layers(kern, every)
+    kern_b = over_layers(kern, every)
+    plain_b = over_layers(plain, every)
+    lib_ms = over_layers(library, every)
+    pairs = _band_pairs(s_len, s_len, w)
+    item = q.element_size()
+    nbytes = (2 * b * s_len * hq * d + 2 * b * s_len * hkv * d) * item
+    flops = 4 * b * hq * d * pairs                      # q.K and p.V
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    record = dict(
+        name=K.NAME, route="cuda", source=K.SOURCE,
+        replaces="src/repro/kernels/flash_attention/kernel.py:72",
+        max_abs_err=max(*errs.values(), full_err),
+        max_err_fp32=errs[torch.float32], max_err_bf16=errs[torch.bfloat16],
+        max_err_bf16_full_width=full_err,
+        tol_fp32=TOL[torch.float32], tol_bf16=TOL[torch.bfloat16],
+        tol_bf16_full_width=K3_TOL_FULL, shapes_checked=n_shapes,
+        ms=min(kern_a, kern_b), plain_ms=min(plain_a, plain_b),
+        ms_runs=[kern_a, kern_b], plain_ms_runs=[plain_a, plain_b],
+        library_ms=lib_ms,
+        library_call="PyTorch's fused scaled-dot-product attention "
+                     "(enable_gqa=True, boolean band mask)",
+        library_max_abs_err_vs_kernel=library_err,
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bytes=nbytes, flops=flops, band_pairs=pairs,
+        timed_shape=dict(f, dtype="bfloat16", layers=L))
     emit("kernels", kernels=[record])
     return record
 
@@ -304,6 +486,131 @@ def phase_serve_full(dev):
     return launches
 
 
+# ------------------------------------------------------ ring_parity_small --
+def _ring_run(model, prompt, steps, *, seed):
+    """Prefill B 2 prompts through ``make_prefill_step`` with flash
+    attention, then ``steps`` greedy decode steps through
+    ``make_decode_step``.  Returns (token stream, logits of every call on
+    the host, cache, host seconds of the prefill, of each decode step)."""
+    from repro_torch.runtime.serve import make_decode_step, make_prefill_step
+    from repro_torch.sharding.rules import ShardCtx
+    cfg, dev = model.cfg, model.device
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (RING_BATCH,
+                                                             prompt)))
+    positions = torch.arange(prompt, device=dev).expand(RING_BATCH, prompt)
+    cache = model.init_cache(RING_BATCH, prompt + steps,
+                             dtype=torch.float32
+                             if model.embed.tok.dtype == torch.float32
+                             else None)
+    ctx = ShardCtx(attn_impl="flash")
+    prefill, decode = make_prefill_step(model, ctx), make_decode_step(model,
+                                                                      ctx)
+    toks = toks.to(dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(toks, positions, cache)
+    tok = torch.argmax(logits[:, -1], dim=-1)
+    stream = [tok.tolist()]                      # waits for the device
+    prefill_s = time.perf_counter() - t0
+    all_logits, step_s = [logits[:, -1].cpu()], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        pos = torch.full((RING_BATCH,), prompt + i, dtype=torch.int64,
+                         device=dev)
+        logits, cache = decode(tok[:, None], pos, cache)
+        tok = torch.argmax(logits[:, 0], dim=-1)
+        stream.append(tok.tolist())              # waits for the device
+        step_s.append(time.perf_counter() - t0)
+        all_logits.append(logits[:, 0].cpu())
+    return stream, torch.stack(all_logits), cache, prefill_s, step_s
+
+
+def phase_ring_parity_small(dev):
+    """danube's smoke config (window 16), fp32, same weights: prompts of 40
+    tokens (the ring wraps twice) and 6 decode steps on the card (K3) and
+    on the CPU (the plain blocked version) must give the same tokens, the
+    same ring positions and logits within 1e-4."""
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models.model_zoo import build_model
+    cfg = get_smoke("h2o-danube-1.8b")
+    cpu_model = build_model(cfg, device="cpu", dtype=torch.float32)
+    cpu_model.init_params(torch.Generator().manual_seed(0))
+    gpu_model = build_model(cfg, device=dev, dtype=torch.float32)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    before = ops.launches
+    g_stream, g_logits, g_cache, _, _ = _ring_run(gpu_model, 40, 6, seed=3)
+    gpu_launches = ops.launches - before
+    c_stream, c_logits, c_cache, _, _ = _ring_run(cpu_model, 40, 6, seed=3)
+    g_pos = g_cache["groups"][0]["blocks"][0]["pos"].cpu()
+    c_pos = c_cache["groups"][0]["blocks"][0]["pos"]
+    logit_err = float((g_logits - c_logits).abs().max())
+    checks = {
+        "streams_equal": g_stream == c_stream,
+        "pos_equal": torch.equal(g_pos, c_pos),
+        "logits_within_1e-4": logit_err <= 1e-4,
+        "launches": gpu_launches == cfg.num_layers,   # 2 layers x 1 prefill
+        "none_from_cpu": ops.launches - before == gpu_launches,
+    }
+    emit("ring_parity_small", ok=all(checks.values()), checks=checks,
+         arch=cfg.name, window=cfg.sliding_window, prompt=40, decode_steps=6,
+         kernel_launches=gpu_launches, max_logit_err=logit_err)
+    if not all(checks.values()):
+        raise SystemExit(f"ring_parity_small failed: {checks}")
+
+
+# -------------------------------------------------------------- ring_full --
+def phase_ring_full(dev):
+    """h2o-danube-1.8b at full width and depth in bf16, seeded random
+    weights: two 8192-token prompts, then 32 greedy decode steps."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models.model_zoo import build_model
+    cfg = get_config("h2o-danube-1.8b")
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=dev)          # bf16 weights, fp32 norms
+    model.init_params(torch.Generator(device=dev).manual_seed(0))
+    ops.launches = 0                        # just before the main path ...
+    t0 = time.perf_counter()
+    stream, logits, cache, prefill_s, step_s = _ring_run(
+        model, RING_PROMPT, RING_STEPS, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launches                 # ... and read just after it
+    last = RING_PROMPT + RING_STEPS - 1
+    want = torch.arange(last - cfg.sliding_window + 1, last + 1, device=dev,
+                        dtype=torch.int32)
+    pos = cache["groups"][0]["blocks"][0]["pos"]         # (L, B, W)
+    checks = {
+        "launches": launches == DANUBE_LAYERS,
+        "logits_finite": bool(torch.isfinite(logits).all()),
+        "logits_shape": tuple(logits.shape) == (RING_STEPS + 1, RING_BATCH,
+                                                cfg.vocab_size),
+        "tokens_in_vocab": all(0 <= t < cfg.vocab_size
+                               for row in stream for t in row),
+        "ring_wrapped": bool((pos.sort(dim=-1).values == want).all()),
+        "on_card": model.device.type == "cuda" and pos.is_cuda,
+    }
+    emit("ring_full", ok=all(checks.values()), checks=checks, arch=cfg.name,
+         layers=cfg.num_layers, params=sum(p.numel()
+                                           for p in model.parameters()),
+         batch=RING_BATCH, prompt=RING_PROMPT, decode_steps=RING_STEPS,
+         ring_width=pos.shape[-1], ring_positions=[int(pos.min()),
+                                                   int(pos.max())],
+         kernel_launches=launches,
+         prefill_ms=prefill_s * 1e3,
+         decode_ms_per_step_median=statistics.median(step_s) * 1e3,
+         decode_ms_per_step_mean=statistics.fmean(step_s) * 1e3,
+         decode_tokens_per_s=RING_BATCH * RING_STEPS / sum(step_s),
+         wall_seconds=wall,
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
+    if not all(checks.values()):
+        raise SystemExit(f"ring_full failed: {checks}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script runs on "
@@ -315,15 +622,23 @@ def main() -> int:
     from repro_torch.device import nvidia_smi_line, resolve_device
 
     dev = resolve_device(None)
+    # fp32 products in full fp32 (the fp32 tolerances rule TF32 out)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi_line()
     emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
          torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0])
     phase_build()
-    record = phase_kernels(dev)
+    paged = phase_kernels(dev)
+    flash = phase_kernels_flash(dev)
+    torch.cuda.empty_cache()
     phase_parity_small(dev)
-    record["launches"] = phase_serve_full(dev)
-    print(json.dumps({"kernels": [record]}), flush=True)
+    paged["launches"] = phase_serve_full(dev)
+    torch.cuda.empty_cache()
+    phase_ring_parity_small(dev)
+    flash["launches"] = phase_ring_full(dev)
+    print(json.dumps({"kernels": [paged, flash]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

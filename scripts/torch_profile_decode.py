@@ -1,28 +1,41 @@
 #!/usr/bin/env python3
-"""Where a decode step of the PyTorch/CUDA port spends its time.
+"""Where a serving step of the PyTorch/CUDA port spends its time.
 
     PYTHONPATH=src python scripts/torch_profile_decode.py
 
-Builds the engine of ``repro_torch.launch.serve`` for qwen2-1.5b at full
-width in bf16 on the card with a full batch, lets it reach a steady state,
-then traces a window of decode steps with ``torch.profiler`` and prints
-one JSON object: wall time per step with and without the tracer, the
-device's busy time per step (sum of kernel time), its idle share of an
-untraced step, the number of kernels a step launches, and the kernels
-that take the most device time.  Needs a CUDA device; nothing moves to
-the CPU.
+Two paths, one JSON object each:
+
+* ``paged``: the engine of ``repro_torch.launch.serve`` for qwen2-1.5b at
+  full width in bf16 with a full batch, traced over a window of decode
+  steps once it has reached a steady state;
+* ``ring``: the ring-cache steps of ``repro_torch.runtime.serve`` for
+  h2o-danube-1.8b at full width in bf16, two 8192-token prompts: one
+  prefill (flash attention) traced on its own, then a window of decode
+  steps past the ring's wrap.
+
+Each object holds the wall time per step with and without the tracer
+(``torch.profiler``), the device's busy time per step (sum of kernel
+time), its idle share of an untraced step, the number of kernels a step
+launches, and the kernels that take the most device time.  Needs a CUDA
+device; nothing moves to the CPU.
 """
 from __future__ import annotations
 
 import json
 import time
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from repro_torch.configs.registry import get_config
 from repro_torch.device import nvidia_smi_line
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.launch import serve
+from repro_torch.models.model_zoo import build_model
+from repro_torch.runtime.serve import make_decode_step, make_prefill_step
+from repro_torch.sharding.rules import ShardCtx
 
 STEPS = 20       # decode steps in each timed window
 WARMUP = 10      # steps before the first window
@@ -35,53 +48,124 @@ SERVE_ARGS = ["--arch", "qwen2-1.5b", "--full", "--dtype", "bfloat16",
               "--pool-pages", "1024", "--prompt-len", "128", "1025",
               "--new-tokens", str(NEW_TOKENS), str(NEW_TOKENS + 1),
               "--seed", "0"]
+RING_BATCH, RING_PROMPT = 2, 8192    # two prompts of twice the window
 
 
-def main():
-    eng, _ = serve.build_engine(SERVE_ARGS)
-    for _ in range(WARMUP):
-        eng.step()
-    torch.cuda.synchronize()
-
-    # the step time without the tracer's cost, on the same steady batch
-    t0 = time.perf_counter()
-    for _ in range(STEPS):
-        assert eng.step() == BATCH
-    torch.cuda.synchronize()
-    untraced = time.perf_counter() - t0
-
-    pa_ops.launches = 0
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
-        for _ in range(STEPS):
-            assert eng.step() == BATCH
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-
+def _breakdown(prof, steps, untraced_s, traced_s):
+    """Per-step figures of a traced window of ``steps`` steps; the kernel
+    rows are (name, launches, device µs)."""
     rows = [(e.key, e.count, e.self_device_time_total)
             for e in prof.key_averages() if e.self_device_time_total > 0
             and e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(r[2] for r in rows)
-    n_kernels = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[2])
-    print(json.dumps({
-        "card": nvidia_smi_line(), "arch": eng.model.cfg.name,
-        "dtype": "bfloat16", "batch": BATCH, "steps": STEPS,
-        "seq_lens": sorted(eng.kv.lens.values()),
-        "wall_ms_per_step_untraced": untraced / STEPS * 1e3,
-        "wall_ms_per_step_traced": wall / STEPS * 1e3,
-        "device_busy_ms_per_step": busy_us / STEPS / 1e3,
+    return {
+        "wall_ms_per_step_untraced": untraced_s / steps * 1e3,
+        "wall_ms_per_step_traced": traced_s / steps * 1e3,
+        "device_busy_ms_per_step": busy_us / steps / 1e3,
         "device_idle_share_of_untraced_step":
-            (1 - busy_us / 1e6 / untraced) if busy_us else None,
+            (1 - busy_us / 1e6 / untraced_s) if busy_us else None,
         "device_time_seen": bool(busy_us),
-        "kernels_per_step": n_kernels / STEPS,
-        "paged_attention_launches_per_step": pa_ops.launches / STEPS,
+        "kernels_per_step": sum(r[1] for r in rows) / steps,
         "top_kernels": [
-            {"name": k[:90], "per_step": c / STEPS,
-             "device_ms_per_step": us / STEPS / 1e3,
+            {"name": k[:90], "per_step": c / steps,
+             "device_ms_per_step": us / steps / 1e3,
              "share_of_busy": us / busy_us} for k, c, us in rows[:TOP]],
-    }, indent=1))
+    }
+
+
+def _traced(fn, steps):
+    """(profile, wall seconds) of ``steps`` calls of fn under the tracer."""
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    return prof, time.perf_counter() - t0
+
+
+def _untraced(fn, steps):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def profile_ring():
+    cfg = get_config("h2o-danube-1.8b")
+    model = build_model(cfg)                     # bf16 weights, on the card
+    model.init_params(torch.Generator(device=model.device).manual_seed(0))
+    dev = model.device
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (RING_BATCH, RING_PROMPT))).to(dev)
+    positions = torch.arange(RING_PROMPT, device=dev).expand(RING_BATCH,
+                                                             RING_PROMPT)
+    n_steps = WARMUP + 2 * STEPS
+    cache = model.init_cache(RING_BATCH, RING_PROMPT + n_steps)
+    ctx = ShardCtx(attn_impl="flash")
+    prefill, decode = make_prefill_step(model, ctx), make_decode_step(model,
+                                                                      ctx)
+    state = {}
+
+    def pre():
+        state["logits"], _ = prefill(toks, positions, cache)
+
+    _untraced(pre, 1)              # warm-up: builds K3, first cuBLAS calls
+    pre_untraced = _untraced(pre, 1)
+    fa_ops.launches = 0
+    pre_prof, pre_traced = _traced(pre, 1)
+    prefill_launches = fa_ops.launches
+    state["tok"] = torch.argmax(state["logits"][:, -1], dim=-1)
+    state["pos"] = RING_PROMPT
+
+    def dec():
+        pos = torch.full((RING_BATCH,), state["pos"], dtype=torch.int64,
+                         device=dev)
+        logits, _ = decode(state["tok"][:, None], pos, cache)
+        state["tok"] = torch.argmax(logits[:, 0], dim=-1)
+        state["tok"].tolist()                    # the ids reach the host
+        state["pos"] += 1
+
+    _untraced(dec, WARMUP)
+    dec_untraced = _untraced(dec, STEPS)
+    dec_prof, dec_traced = _traced(dec, STEPS)
+    return {
+        "path": "ring", "card": nvidia_smi_line(), "arch": cfg.name,
+        "dtype": "bfloat16", "batch": RING_BATCH, "prompt": RING_PROMPT,
+        "flash_attention_launches_per_prefill": prefill_launches,
+        "prefill": _breakdown(pre_prof, 1, pre_untraced, pre_traced),
+        "decode_positions": [RING_PROMPT + WARMUP + STEPS,
+                             RING_PROMPT + WARMUP + 2 * STEPS - 1],
+        "decode": _breakdown(dec_prof, STEPS, dec_untraced, dec_traced),
+    }
+
+
+def profile_paged():
+    eng, _ = serve.build_engine(SERVE_ARGS)
+
+    def step():
+        assert eng.step() == BATCH
+
+    _untraced(eng.step, WARMUP)
+    # the step time without the tracer's cost, on the same steady batch
+    untraced = _untraced(step, STEPS)
+    pa_ops.launches = 0
+    prof, traced = _traced(step, STEPS)
+    return {"path": "paged", "card": nvidia_smi_line(),
+            "arch": eng.model.cfg.name, "dtype": "bfloat16", "batch": BATCH,
+            "steps": STEPS, "seq_lens": sorted(eng.kv.lens.values()),
+            "paged_attention_launches_per_step": pa_ops.launches / STEPS,
+            **_breakdown(prof, STEPS, untraced, traced)}
+
+
+def main():
+    print(json.dumps(profile_paged(), indent=1), flush=True)
+    torch.cuda.empty_cache()
+    print(json.dumps(profile_ring(), indent=1), flush=True)
 
 
 if __name__ == "__main__":

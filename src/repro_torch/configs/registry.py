@@ -9,6 +9,7 @@ from repro_torch.configs.base import ArchConfig
 # the order in which the reference's other nine arrive.
 _MODULES = {
     "qwen2-1.5b": "qwen2_1_5b",
+    "h2o-danube-1.8b": "h2o_danube_1_8b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -42,25 +42,42 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
+def build_libraries(names) -> list[Path]:
+    """Compile each ``csrc/<name>.cu`` whose library is not built yet, one
+    ``nvcc`` per source, all started together.  The compiler's output
+    (registers, shared memory, spills per kernel) is kept beside each
+    library as ``<library>.log``."""
+    libs = [library_path(n) for n in names]
+    todo = [(n, lib) for n, lib in zip(names, libs) if not lib.exists()]
+    if todo:
+        nvcc = find_nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name, lib in todo:
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC_DIR / f"{name}.cu")]
+        procs.append((name, lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for name, lib, tmp, proc in procs:
+        log = proc.communicate()[0]
+        Path(f"{lib}.log").write_text(log)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed on {name}.cu "
+                          f"(exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, lib)     # atomic: a reader never sees half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
+
+
 def build_library(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built.
-    The compiler's output (registers, shared memory, spills per kernel)
-    is kept beside the library as ``<library>.log``."""
-    lib = library_path(name)
-    if lib.exists():
-        return lib
-    nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    Path(f"{lib}.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on {name}.cu "
-                           f"(exit {proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)             # atomic: a reader never sees half a file
-    return lib
+    """Compile ``csrc/<name>.cu`` unless its library is already built."""
+    return build_libraries([name])[0]
 
 
 def load_library(name: str) -> ctypes.CDLL:
@@ -68,3 +85,19 @@ def load_library(name: str) -> ctypes.CDLL:
     if name not in _LIBS:
         _LIBS[name] = ctypes.CDLL(str(build_library(name)))
     return _LIBS[name]
+
+
+def bind(name: str, launch_argtypes: list):
+    """(launch, error_string) C functions of library ``name``: the entry
+    point ``<name>_launch`` returning an int error code, and
+    ``<name>_error_string`` mapping a code to its message.  Every pointer
+    and the stream must be ``c_void_p`` in ``launch_argtypes``: ctypes
+    passes a bare Python int as a 32-bit int and would cut them."""
+    lib = load_library(name)
+    launch = getattr(lib, f"{name}_launch")
+    launch.argtypes = launch_argtypes
+    launch.restype = ctypes.c_int
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return launch, err

@@ -1,0 +1,31 @@
+"""Plain PyTorch oracle for the flash-attention kernel."""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -2.0 ** 30
+
+
+def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None,
+                  scale: float | None = None):
+    """q: (B,Sq,Hq,D); k,v: (B,Skv,Hkv,D). fp32 softmax, GQA by repeat."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    sq, hq = q.shape[1], q.shape[2]
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    kr = k.repeat_interleave(g, dim=2)
+    vr = v.repeat_interleave(g, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                          kr.to(torch.float32)) * scale
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits = torch.where(mask[None, None], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vr.to(torch.float32))
+    return out.to(q.dtype)

@@ -12,7 +12,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import load_library
+from repro_torch.kernels.build import bind
 
 NAME = "paged_attention"
 SOURCE = "src/repro_torch/csrc/paged_attention.cu"
@@ -25,20 +25,11 @@ _fns = None
 
 
 def _functions():
-    """(launch, error_string) of the built library, with argtypes set:
-    every pointer and the stream are ``c_void_p`` (a bare Python int would
-    be passed as a 32-bit int and the pointer cut)."""
+    """(launch, error_string) of the built library, bound once."""
     global _fns
     if _fns is None:
-        lib = load_library(NAME)
-        launch = lib.paged_attention_launch
-        launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        launch.restype = ctypes.c_int
-        err = lib.paged_attention_error_string
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        _fns = (launch, err)
+        _fns = bind(NAME, [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     return _fns
 
 

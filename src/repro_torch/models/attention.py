@@ -1,9 +1,19 @@
-"""GQA attention with QKV-bias and qk-norm: projections, the dense and the
-blocked (flash-style) attention cores.
+"""GQA attention (prefill / decode) with QKV-bias, qk-norm and
+sliding-window variants, plus the unified ring-buffer KV cache.
 
-The serving slice needs the forward pass only; the blocked core's
-hand-written backward and the ring-buffer KV cache arrive with the
-training and ring-cache slices.
+The KV cache is a *ring buffer* of width W:
+
+  * full attention:   W = max_seq_len  (slot == position, never wraps)
+  * sliding window:   W = window       (slot = position mod W)
+
+Each slot stores the absolute position it holds (``pos``, -1 = empty), so
+the decode mask is position arithmetic and wrap-around is free.  Where the
+reference returns a new cache from each update, the port writes the cache's
+tensors in place and returns the same dict: the reference's decode step
+donates its cache, so no caller holds the old one.
+
+Serving needs the forward pass only; the blocked core's hand-written
+backward arrives with the training slice.
 """
 from __future__ import annotations
 
@@ -12,7 +22,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.compute import einsum_f32
-from repro_torch.models.layers import SpecModule, rms_norm
+from repro_torch.models.layers import (SpecModule, apply_rope, rms_norm,
+                                       rope_cos_sin)
 from repro_torch.models.params import ParamSpec
 
 NEG_INF = -2.0 ** 30  # large-negative that survives bf16/f32 softmax
@@ -73,6 +84,70 @@ def causal_mask(sq: int, skv: int, window: int | None, offset: int = 0,
     if window is not None:
         m &= kj > qi - window
     return m
+
+
+# ------------------------------------------------------------- KV cache ----
+def kv_cache_specs(cfg: ArchConfig, batch: int, max_len: int,
+                   prefix_axes=()) -> dict:
+    """Ring-buffer cache specs for one attention layer (stacked by caller)."""
+    w = ring_width(cfg, max_len)
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    pa = prefix_axes
+    return {
+        "k": ParamSpec((batch, w, hkv, hd), torch.bfloat16,
+                       pa + ("batch", "kv_seq", "kv_heads", None), "zeros"),
+        "v": ParamSpec((batch, w, hkv, hd), torch.bfloat16,
+                       pa + ("batch", "kv_seq", "kv_heads", None), "zeros"),
+        "pos": ParamSpec((batch, w), torch.int32, pa + ("batch", "kv_seq"),
+                         "zeros"),
+    }
+
+
+def ring_width(cfg: ArchConfig, max_len: int) -> int:
+    if cfg.sliding_window is not None:
+        return min(cfg.sliding_window, max_len)
+    return max_len
+
+
+def init_cache_pos(cache: dict) -> dict:
+    """Mark all slots empty (pos = -1), in place."""
+    cache["pos"].fill_(-1)
+    return cache
+
+
+def ring_cache_update(cache: dict, k_new, v_new, positions):
+    """k_new/v_new: (B, 1, Hkv, D); positions: (B,) absolute index.  Writes
+    each row's slot ``position % W`` in place."""
+    width = cache["k"].shape[1]
+    rows = torch.arange(positions.shape[0], device=positions.device)
+    slots = (positions % width).long()
+    cache["k"][rows, slots] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][rows, slots] = v_new[:, 0].to(cache["v"].dtype)
+    cache["pos"][rows, slots] = positions.to(cache["pos"].dtype)
+    return cache
+
+
+def ring_cache_mask(pos_buf, positions, window: int | None):
+    """(B, 1, 1, 1, W) mask of valid slots for the current query position."""
+    p = positions[:, None].to(torch.int32)
+    m = (pos_buf >= 0) & (pos_buf <= p)
+    if window is not None:
+        m &= pos_buf > p - window
+    return m[:, None, None, None, :]
+
+
+def ring_cache_fill(cache: dict, k, v, positions):
+    """Bulk-fill the ring cache from a prefill, in place. k/v: (B,S,Hkv,D);
+    positions: (B,S). Keeps the last ``width`` tokens."""
+    w = cache["k"].shape[1]
+    keep = min(k.shape[1], w)
+    ks, vs, ps = k[:, -keep:], v[:, -keep:], positions[:, -keep:]
+    rows = torch.arange(k.shape[0], device=k.device)[:, None]
+    slots = (ps % w).long()
+    cache["k"][rows, slots] = ks.to(cache["k"].dtype)
+    cache["v"][rows, slots] = vs.to(cache["v"].dtype)
+    cache["pos"][rows, slots] = ps.to(cache["pos"].dtype)
+    return cache
 
 
 # ------------------------------------------------- blocked (flash) path ----
@@ -162,13 +237,17 @@ def _self_attention(q, k, v, cfg: ArchConfig, positions, causal: bool,
                     impl: str):
     s = q.shape[1]
     scale = cfg.head_dim ** -0.5
+    if impl == "flash" and causal:
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        return fa_ops.flash_attention(q, k, v, causal=True,
+                                      window=cfg.sliding_window, scale=scale)
     if impl == "blocked":
         return blocked_attention(q, k, v, scale, positions, positions,
                                  window=cfg.sliding_window if causal else None,
                                  causal=causal)
-    if impl != "dot":
-        raise NotImplementedError(
-            f"attention impl {impl!r} is not ported yet (see ROADMAP.md)")
+    if impl not in ("dot", "flash"):
+        raise ValueError(f"attention impl {impl!r}; one of blocked, dot, "
+                         "flash")
     if causal:
         m = causal_mask(s, s, cfg.sliding_window,
                         device=q.device)[None, None, None]
@@ -195,3 +274,32 @@ class Attention(SpecModule):
         y = torch.einsum("bshe,hed->bsd", out, self.wo)
         bo = getattr(self, "bo", None)
         return y if bo is None else y + bo.to(y.dtype)
+
+
+def attn_prefill(mixer: Attention, x, cache: dict, positions, *,
+                 impl: str = "blocked"):
+    """Prefill: causal self-attention + bulk ring-cache fill (in place).
+    x: (B, S, d); positions: (B, S).  Returns (y, cache)."""
+    cfg = mixer.cfg
+    q, k, v = mixer.project_qkv(x)
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    out = _self_attention(q, k, v, cfg, positions, True, impl)
+    cache = ring_cache_fill(cache, k, v, positions)
+    return mixer.project_out(out), cache
+
+
+def attn_decode(mixer: Attention, x, cache: dict, positions):
+    """One-token decode. x: (B, 1, d); positions: (B,) absolute index.
+    Returns (y, cache); the cache is written in place."""
+    cfg = mixer.cfg
+    q, k, v = mixer.project_qkv(x)
+    cos, sin = rope_cos_sin(positions[:, None], cfg.head_dim, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    cache = ring_cache_update(cache, k, v, positions)
+    mask = ring_cache_mask(cache["pos"], positions, cfg.sliding_window)
+    out = grouped_dot_attention(q, cache["k"], cache["v"], mask,
+                                cfg.head_dim ** -0.5)
+    return mixer.project_out(out), cache

@@ -15,7 +15,9 @@ reference's own, so nothing is transposed:
     final_norm/scale (d,)                               final_norm.scale
 
 The leading ``L`` ("layers") dim of a group's stacked leaves is unstacked
-into that group's ``L`` blocks.
+into that group's ``L`` blocks.  The ring cache keeps that stacked layout
+in the port too (``models/transformer.py``), so ``cache_from_numpy`` and
+``cache_to_numpy`` carry it across leaf for leaf.
 """
 from __future__ import annotations
 
@@ -23,8 +25,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
 from repro_torch.models.model_zoo import build_model
-from repro_torch.models.transformer import LM
+from repro_torch.models.params import map_with_path
+from repro_torch.models.transformer import LM, cache_specs
 
 
 def _flatten(tree, prefix=()) -> dict[tuple, np.ndarray]:
@@ -82,3 +86,51 @@ def params_from_numpy(tree, cfg: ArchConfig, *, device=None,
     if extra:
         raise ValueError(f"tree leaves not consumed by the model: {extra}")
     return model
+
+
+def _path_str(path) -> str:
+    return "/".join(map(str, path))
+
+
+@torch.no_grad()
+def cache_from_numpy(tree, cfg: ArchConfig, *, device=None,
+                     dtype: torch.dtype | None = torch.float32) -> dict:
+    """The reference's ring cache (nested dicts / tuples of numpy arrays)
+    as the port's cache of tensors on ``device`` (``None`` is the card).
+    Batch and width are read from the tree's first ``k`` leaf.  K/V are
+    cast to ``dtype`` (``None``: their declared bf16); ``pos`` stays
+    int32.  Raises ``ValueError`` on a missing or extra leaf and on a
+    shape the config does not give."""
+    device = resolve_device(device)
+    flat = _flatten(tree)
+    ks = [a for p, a in flat.items() if p and p[-1] == "k" and a.ndim == 5]
+    if not ks:
+        raise ValueError("cache tree has no (L,B,W,Hkv,D) 'k' leaf")
+    batch, width = ks[0].shape[1:3]
+    want = {}
+    map_with_path(want.__setitem__, cache_specs(cfg, batch, width))
+    missing = sorted(_path_str(p) for p in set(want) - set(flat))
+    extra = sorted(_path_str(p) for p in set(flat) - set(want))
+    if missing or extra:
+        raise ValueError(f"cache tree: missing leaves {missing}, leaves the "
+                         f"model does not hold {extra}")
+
+    def take(path, spec):
+        src = flat[path]
+        if tuple(src.shape) != tuple(spec.shape):
+            raise ValueError(f"{_path_str(path)}: tree gives shape "
+                             f"{tuple(src.shape)}, model wants "
+                             f"{tuple(spec.shape)}")
+        dt = spec.dtype if path[-1] == "pos" else dtype or spec.dtype
+        return torch.tensor(src, dtype=dt, device=device)
+    return map_with_path(take, cache_specs(cfg, batch, width))
+
+
+def cache_to_numpy(cache) -> dict:
+    """The port's cache as nested dicts / tuples of numpy arrays: K/V in
+    fp32 (numpy has no bfloat16), ``pos`` in int32."""
+    def give(_, t):
+        if t.is_floating_point():
+            t = t.to(torch.float32)
+        return t.detach().cpu().numpy()
+    return map_with_path(give, cache)

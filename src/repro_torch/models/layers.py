@@ -160,5 +160,11 @@ class Embedding(SpecModule):
     def __init__(self, cfg: ArchConfig, *, device, dtype):
         super().__init__(embed_specs(cfg), device=device, dtype=dtype)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return embed_tokens(self.tok, tokens)
+    def forward(self, tokens: torch.Tensor,
+                embeds: torch.Tensor | None = None) -> torch.Tensor:
+        """tokens: (B, S) -> (B, S, d); ``embeds`` (B, S', d) from a
+        modality frontend are put before the tokens' rows."""
+        x = embed_tokens(self.tok, tokens)
+        if embeds is not None:
+            x = torch.cat([embeds.to(x.dtype), x], dim=1)
+        return x

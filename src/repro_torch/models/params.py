@@ -55,6 +55,18 @@ def tree_map_specs(fn: Callable[[ParamSpec], Any], specs):
     raise TypeError(f"not a spec tree: {type(specs).__name__}")
 
 
+def map_with_path(fn: Callable[[tuple, Any], Any], tree, prefix=()):
+    """Map ``fn(path, leaf)`` over the leaves of nested dicts / tuples; a
+    path is the tuple of keys and indices down to the leaf."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, prefix + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(map_with_path(fn, v, prefix + (i,))
+                     for i, v in enumerate(tree))
+    return fn(prefix, tree)
+
+
 def tree_leaves(specs) -> list[ParamSpec]:
     out: list[ParamSpec] = []
     tree_map_specs(out.append, specs)

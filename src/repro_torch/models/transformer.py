@@ -5,11 +5,16 @@ group's parameters on a leading "layers" dim and scans them; here a group
 is an ``nn.ModuleList`` of ``repeat`` block tuples, walked by a Python
 loop.  ``LM.specs()`` still reports the reference's stacked shapes, which
 is what ``models/convert.py`` checks a foreign parameter tree against.
+The ring cache keeps the reference's stacked layout,
+``{"groups": ({"blocks": ({"k": (L,B,W,Hkv,D), "v": ..., "pos": (L,B,W)},)},)}``,
+and a layer works on its ``[layer]`` views, so updates land in place.
 
-The port has the homogeneous attention + MLP block.  MLA, Mamba and MoE
-blocks, and the ring-cache ``prefill``/``decode`` entry points, follow
-with their slices; the paged serving path drives the blocks itself
-(``serving/engine.py``).
+Entry points:
+  prefill  — forward + bulk cache fill, returns hidden states + cache
+  decode   — single-token step over the cache
+The paged serving path drives the blocks itself (``serving/engine.py``).
+The port has the homogeneous attention + MLP block; MLA, Mamba and MoE
+blocks and the training ``forward`` follow with their slices.
 """
 from __future__ import annotations
 
@@ -21,7 +26,10 @@ from repro_torch.models import attention as attn
 from repro_torch.models.layers import (MLP, Embedding, Norm, SpecModule,
                                        embed_specs, lm_logits, mlp_specs,
                                        norm_specs)
-from repro_torch.models.params import stack_specs
+from repro_torch.models.params import map_with_path, stack_specs
+from repro_torch.sharding.rules import ShardCtx
+
+_NULL_CTX = ShardCtx()
 
 
 # ----------------------------------------------------------------- specs ---
@@ -40,21 +48,63 @@ def block_specs(cfg: ArchConfig, blk: Block) -> dict:
     return sp
 
 
+def block_cache_specs(cfg: ArchConfig, blk: Block, batch: int,
+                      max_len: int) -> dict:
+    if blk.mixer == "attn":
+        return attn.kv_cache_specs(cfg, batch, max_len)
+    raise NotImplementedError(
+        f"mixer {blk.mixer!r} is not ported yet (see ROADMAP.md)")
+
+
+def cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
+    """The reference's ring-cache tree, as ParamSpecs (stacked layers)."""
+    groups = []
+    for g in cfg.groups:
+        blocks = tuple(
+            stack_specs(block_cache_specs(cfg, b, batch, max_len), g.repeat)
+            for b in g.blocks)
+        groups.append({"blocks": blocks})
+    return {"groups": tuple(groups)}
+
+
 class TransformerBlock(nn.Module):
-    """Parameters of one pre-norm residual block: norm1 -> mixer, norm2 ->
-    ffn.  The serving engine walks the blocks itself, because it writes
+    """One pre-norm residual block: norm1 -> mixer, norm2 -> ffn.  The
+    paged serving engine walks the blocks' parts itself, because it writes
     each layer's K/V into the paged pool between projection and
-    attention."""
+    attention; the ring-cache entry points call the block."""
 
     def __init__(self, cfg: ArchConfig, blk: Block, *, device, dtype):
         super().__init__()
         block_specs(cfg, blk)            # raises on what is not ported
+        self.kind = blk
         kw = dict(device=device, dtype=dtype)
         self.norm1 = Norm(cfg.d_model, cfg.norm, cfg.norm_eps, **kw)
         self.mixer = attn.Attention(cfg, **kw)
         if blk.ffn != "none":
             self.norm2 = Norm(cfg.d_model, cfg.norm, cfg.norm_eps, **kw)
             self.ffn = MLP(cfg, cfg.d_ff, **kw)
+
+    def _apply_mixer(self, h, positions, cache: dict, ctx: ShardCtx,
+                     mode: str):
+        """mode: prefill | decode.  Returns y; the cache is updated in
+        place."""
+        if mode == "prefill":
+            y, _ = attn.attn_prefill(self.mixer, h, cache, positions,
+                                     impl=ctx.attn_impl)
+        elif mode == "decode":
+            y, _ = attn.attn_decode(self.mixer, h, cache, positions)
+        else:
+            raise NotImplementedError(
+                f"mode {mode!r} is not ported yet (see ROADMAP.md, M15)")
+        return y
+
+    def forward(self, x, positions, cache: dict, *, ctx: ShardCtx,
+                mode: str):
+        """Pre-norm residual block over ``cache``, this layer's views."""
+        x = x + self._apply_mixer(self.norm1(x), positions, cache, ctx, mode)
+        if self.kind.ffn != "none":
+            x = x + self.ffn(self.norm2(x))
+        return x
 
 
 # -------------------------------------------------------------- LM model ---
@@ -94,6 +144,22 @@ class LM(nn.Module):
             "final_norm": norm_specs(cfg.d_model, cfg.norm),
         }
 
+    def cache_specs(self, batch: int, max_len: int) -> dict:
+        return cache_specs(self.cfg, batch, max_len)
+
+    def init_cache(self, batch: int, max_len: int,
+                   dtype: torch.dtype | None = None) -> dict:
+        """An empty ring cache on the model's device: K/V zeros, every
+        ``pos`` -1.  ``dtype=None`` keeps the specs' bf16 K/V, a dtype
+        casts them to it; ``pos`` stays int32."""
+        def make(path, spec):
+            if path[-1] == "pos":
+                return torch.full(spec.shape, -1, dtype=spec.dtype,
+                                  device=self.device)
+            return torch.zeros(spec.shape, dtype=dtype or spec.dtype,
+                               device=self.device)
+        return map_with_path(make, self.cache_specs(batch, max_len))
+
     def init_params(self, generator: torch.Generator | None = None) -> "LM":
         """Seeded random init, drawn on the parameters' device.  The
         generator must live on that device."""
@@ -110,7 +176,7 @@ class LM(nn.Module):
         """All blocks in forward order."""
         return [b for g in self.groups for layer in g for b in layer]
 
-    # ---- embedding / head ----
+    # ---- embedding / head (``self.embed(tokens, embeds)``: Embedding) ----
     def lm_head_weight(self) -> torch.Tensor:
         w = getattr(self.embed, "lm_head", None)
         return self.embed.tok.T if w is None else w
@@ -118,3 +184,35 @@ class LM(nn.Module):
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         return lm_logits(hidden, self.embed.tok,
                          getattr(self.embed, "lm_head", None))
+
+    # ---- stacks ----
+    def _run_groups(self, x, positions, ctx: ShardCtx, cache: dict,
+                    mode: str):
+        for gi, group in enumerate(self.groups):
+            gc = cache["groups"][gi]["blocks"]
+            for li, layer in enumerate(group):
+                for bi, blk in enumerate(layer):
+                    views = {name: t[li] for name, t in gc[bi].items()}
+                    x = blk(x, positions, views, ctx=ctx, mode=mode)
+            x = ctx.constrain(x)
+        return x
+
+    # ---- public entry points ----
+    def prefill(self, tokens, positions, cache: dict,
+                ctx: ShardCtx = _NULL_CTX, embeds=None):
+        """Process the prompt, fill the cache in place.  tokens: (B,S);
+        positions: (B,S).  Returns (hidden, cache, aux); aux is 0 without
+        MoE blocks."""
+        x = self.embed(tokens, embeds)
+        x = self._run_groups(x, positions, ctx, cache, "prefill")
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return self.final_norm(x), cache, aux
+
+    def decode(self, tokens, positions, cache: dict,
+               ctx: ShardCtx = _NULL_CTX):
+        """One token per sequence. tokens: (B,1); positions: (B,).
+        Returns (logits (B,1,V) fp32, cache); the cache is written in
+        place."""
+        x = self.embed(tokens)
+        x = self._run_groups(x, positions, ctx, cache, "decode")
+        return self.logits(self.final_norm(x)), cache

@@ -50,10 +50,16 @@ def test_port_mirrors_the_reference_layout():
                 "core/slices.py", "core/telemetry.py",
                 "core/latency_model.py", "runtime/fault.py",
                 "serving/kv_cache.py", "serving/scheduler.py",
-                "serving/engine.py", "launch/serve.py"):
+                "serving/engine.py", "launch/serve.py",
+                "configs/h2o_danube_1_8b.py",
+                "kernels/flash_attention/kernel.py",
+                "kernels/flash_attention/ops.py",
+                "kernels/flash_attention/ref.py", "sharding/rules.py",
+                "runtime/serve.py"):
         assert os.path.isfile(os.path.join(PORT, rel)), rel
         assert os.path.isfile(os.path.join(REPO, "src", "repro", rel)), rel
-    assert os.path.isfile(os.path.join(PORT, "csrc", "paged_attention.cu"))
+    for name in ("paged_attention.cu", "flash_attention.cu"):
+        assert os.path.isfile(os.path.join(PORT, "csrc", name)), name
 
 
 def _run(code_or_args, **kw):
@@ -83,7 +89,7 @@ def test_entry_points_refuse_to_run_without_a_card():
     from repro_torch.configs.registry import get_smoke
     from repro_torch.device import resolve_device
     from repro_torch.launch import serve
-    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.models.convert import cache_from_numpy, params_from_numpy
     from repro_torch.models.model_zoo import build_model
     from repro_torch.serving.kv_cache import KVConfig, TieredPagedKV
     if torch.cuda.is_available():
@@ -94,6 +100,7 @@ def test_entry_points_refuse_to_run_without_a_card():
                  lambda: resolve_device("cuda"),
                  lambda: build_model(cfg),
                  lambda: params_from_numpy({}, cfg),
+                 lambda: cache_from_numpy({}, cfg),
                  lambda: TieredPagedKV(KVConfig(1, 1, 8)),
                  lambda: serve.main([])):
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -102,15 +109,30 @@ def test_entry_points_refuse_to_run_without_a_card():
 
 
 def test_cuda_tensor_path_never_falls_back_in_source():
-    """The wrapper has no ``try`` around build or launch."""
+    """The wrappers have no ``try`` around build or launch, and the port
+    never calls PyTorch's fused attention: only ``chip_smoke.py`` times it,
+    as the library yardstick, in one function of its own."""
     for rel in ("kernels/paged_attention/ops.py",
-                "kernels/paged_attention/kernel.py", "kernels/build.py"):
+                "kernels/paged_attention/kernel.py", "kernels/build.py",
+                "kernels/flash_attention/ops.py",
+                "kernels/flash_attention/kernel.py"):
         with open(os.path.join(PORT, rel)) as f:
             tree = ast.parse(f.read())
         assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], rel
+    smoke = os.path.join(REPO, "chip_smoke.py")
     for path in _port_files():
         with open(path) as f:
-            assert "scaled_dot_product_attention" not in f.read(), path
+            src = f.read()
+        if path != smoke:
+            assert "scaled_dot_product_attention" not in src, path
+            continue
+        yardstick = [n for n in ast.walk(ast.parse(src))
+                     if isinstance(n, ast.FunctionDef)
+                     and n.name == "_sdpa_library_call"]
+        assert len(yardstick) == 1
+        inside = ast.get_source_segment(src, yardstick[0])
+        assert src.count("scaled_dot_product_attention") == \
+            inside.count("scaled_dot_product_attention")
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
