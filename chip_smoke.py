@@ -44,15 +44,13 @@ TOL = {torch.float32: 2e-6, torch.bfloat16: 2e-2}
 # output is ~0.03 in size and 2e-2 would pass a wrong one: there bf16 is held
 # to a few times its measured error (4.9e-4, one rounding of the output).
 TOL_FULL = {torch.float32: 2e-6, torch.bfloat16: 4e-3}
-# K3 at the full-width shape is held against the blocked plain version run
-# in fp32 on the same bf16 inputs: K3 keeps every sum in fp32 and rounds
-# its output to bf16 once, so each element must lie within half a unit in
-# the last place of the fp32 result, 2**-8 of it (rtol 3.9e-3, plus 1e-4 of
-# it for the fp32 sums' order), and 1e-5 for outputs near 0.  The bf16
-# plain version also rounds p to bf16 before p @ V, which alone moves an
-# output by up to ~1e-2; 2e-2 would pass a wrong row where a long window
-# averages its V rows to ~0.02.
-K3_TOL_FULL = dict(atol=1e-5, rtol=4e-3)
+# K3 (bf16, tensor cores) at the full-width shape is held against the
+# blocked plain version run in fp32 on the same bf16 inputs, elementwise
+# within kernels/flash_attention/ref.py::bf16_bound:
+#   1e-5 + 2**-8 |plain| + 2**-8 (P |V|).
+# The kernel rounds p to bf16 before p @ V (as SDPA does), which moves an
+# output by at most 2**-9 sum(p |v|), and rounds its output once (2**-9
+# |out|); each 2**-8 leaves a factor of 2 for the order of the sums.
 LAYERS = 28                      # qwen2-1.5b: launches per decode step
 DANUBE_LAYERS = 24               # h2o-danube-1.8b: K3 launches per prefill
 K3_FULL = dict(b=2, s=8192, hq=32, hkv=8, d=80, window=4096)
@@ -115,22 +113,31 @@ def _paged_inputs(rng, b, g, hkv, d, page, num_pages, lens, width, dtype, dev,
             torch.from_numpy(np.asarray(lens, np.int32)).to(dev))
 
 
-def _max_err(got, want, tol, what, rtol=None):
+def _max_err(got, want, tol, what):
     """Max |got - want|; exits unless every element is within
-    tol + rtol * |want| (rtol defaults to tol)."""
-    rtol = tol if rtol is None else rtol
+    tol + tol * |want|."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
-    if not bool((err <= tol + rtol * want.abs()).all()):
+    if not bool((err <= tol + tol * want.abs()).all()):
         raise SystemExit(f"{what}: the kernel disagrees with its plain "
                          f"version, max abs err {float(err.max()):.3e}, "
-                         f"tolerance {tol:g} + {rtol:g} * |plain|")
+                         f"tolerance {tol:g} + {tol:g} * |plain|")
     return float(err.max())
 
 
-def _time_ms(fn, reps):
+def _time_ms(fn, reps, graph=False):
+    """ms a call of fn by CUDA events.  With ``graph``, fn is captured once
+    in a CUDA graph and the replays are timed: the device's time, without
+    the host's time to enqueue (which exceeds a short kernel's)."""
     fn()
     torch.cuda.synchronize()
+    if graph:
+        captured = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(captured, capture_error_mode="relaxed"):
+            fn()
+        fn = captured.replay
+        fn()
+        torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -170,6 +177,38 @@ def phase_kernels(dev):
                 f"{dtype}"))
             n_shapes += 1
 
+    # the split-KV edges on this card: splits > 1 with lens 1, lengths that
+    # end on split boundaries, a table far wider than its rows need, and
+    # B * Hkv of two blocks an SM (one split): (b, g, hkv, d, page, width,
+    # lens; None: boundary lengths)
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    edge_rng = np.random.default_rng(1)  # leaves rng's draws as they were
+    edges = {"lens_1": (2, 6, 2, 128, 16, 64, [1, 1]),
+             "ends_on_boundary": (3, 6, 2, 128, 16, 128, None),
+             "wide_table": (2, 4, 2, 64, 8, 256, [100, 7]),
+             "one_split": (sm, 2, 2, 64, 8, 4, edge_rng.integers(1, 33, sm))}
+    edge_splits = {}
+    for name, (b, g, hkv, d, page, width, lens) in edges.items():
+        splits = K.num_splits(b, hkv, width, page, sm)
+        per = K.split_tokens(width, page, splits)
+        if lens is None:
+            lens = [per, 2 * per, min(splits * per, width * page)]
+        if (splits == 1) != (name == "one_split"):
+            raise SystemExit(f"paged_attention edge {name}: {splits} splits")
+        edge_splits[name] = dict(splits=splits, split_tokens=per,
+                                 lens=[int(x) for x in lens][:4])
+        for dtype in (torch.float32, torch.bfloat16):
+            q, kp, vp, tbl, ln = _paged_inputs(edge_rng, b, g, hkv, d, page,
+                                               512, lens, width, dtype, dev)
+            got = ops.paged_attention(q, kp[0], vp[0], tbl, ln)
+            want = paged_attention_ref(q, kp[0], vp[0], tbl, ln,
+                                       scale=d ** -0.5)
+            torch.cuda.synchronize()
+            errs[dtype] = max(errs[dtype], _max_err(
+                got, want, TOL[dtype],
+                f"paged_attention edge {name}, {splits} splits, {dtype}"))
+            n_shapes += 1
+
     # the full-width shape of the serving path: ragged rows, padded table,
     # one pool per layer so that every launch finds its pages cold, as the
     # 28 layers of a decode step do
@@ -204,11 +243,14 @@ def phase_kernels(dev):
             for li in range(LAYERS):
                 paged_attention_ref(q, kp[li], vp[li], tbl, ln, scale=scale)
 
-        # plain, kernel, kernel, plain: both versions within one run
-        plain_a = _time_ms(run_plain, 3) / LAYERS
-        kern_a = _time_ms(run_kernel, 10) / LAYERS
-        kern_b = _time_ms(run_kernel, 10) / LAYERS
-        plain_b = _time_ms(run_plain, 3) / LAYERS
+        # plain, kernel, kernel, plain: both versions within one run, on
+        # the device's clock (graph replays) and as eager calls, whose time
+        # is the host's enqueue rate where that is the slower
+        plain_a, kern_a, kern_b, plain_b = (
+            _time_ms(fn, 10, graph=True) / LAYERS
+            for fn in (run_plain, run_kernel, run_kernel, run_plain))
+        eager = [_time_ms(fn, 3) / LAYERS
+                 for fn in (run_plain, run_kernel, run_kernel, run_plain)]
         tokens = int(lens.sum())
         item = q.element_size()
         nbytes = (2 * tokens * f["hkv"] * f["d"] * item        # K and V rows
@@ -219,9 +261,14 @@ def phase_kernels(dev):
         t_ops = flops / PEAK_FLOPS[dtype] * 1e3
         timing = dict(ms=min(kern_a, kern_b), plain_ms=min(plain_a, plain_b),
                       ms_runs=[kern_a, kern_b], plain_ms_runs=[plain_a, plain_b],
+                      timing="CUDA graph replays of the 28 layers' calls",
+                      eager_ms_runs=eager[1:3],
+                      eager_plain_ms_runs=[eager[0], eager[3]],
                       bound_ms=max(t_bytes, t_ops),
                       bound_by="bytes" if t_bytes >= t_ops else "operations",
                       bytes=nbytes, flops=flops, tokens=tokens,
+                      splits=K.num_splits(f["b"], f["hkv"], width, f["page"],
+                                          sm),
                       timed_shape=dict(f, dtype="bfloat16",
                                        lens=[int(x) for x in lens]))
     record = dict(
@@ -231,7 +278,10 @@ def phase_kernels(dev):
         max_err_fp32=errs[torch.float32], max_err_bf16=errs[torch.bfloat16],
         tol_fp32=TOL[torch.float32], tol_bf16=TOL[torch.bfloat16],
         tol_bf16_full_width=TOL_FULL[torch.bfloat16],
-        shapes_checked=n_shapes, library_ms=None,
+        shapes_checked=n_shapes, split_edges=edge_splits, sm_count=sm,
+        design="split-KV: grid (Hkv, B, splits), 64-token tiles by 2-stage "
+               "cp.async, fp32 CUDA-core dot products, merge kernel",
+        library_ms=None,
         library_note="no single PyTorch call computes attention through a "
                      "block table",
         **timing)
@@ -258,10 +308,32 @@ def _sdpa_library_call(q, k, v, mask, scale):
     return out.transpose(1, 2)
 
 
+def _sdpa_backends(q, k, v, mask, scale):
+    """Which of SDPA's backends accept the library call's inputs, each tried
+    alone, and the ms a call of each that does (one layer, CUDA events);
+    None where the backend refuses them or runs out of memory."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    out = {}
+    for backend in SDPBackend.__members__.values():
+        if backend.name == "ERROR":
+            continue
+        try:
+            with sdpa_kernel(backend):
+                out[backend.name] = _time_ms(
+                    lambda: _sdpa_library_call(q, k, v, mask, scale),
+                    1 if backend.name == "MATH" else 5)
+        except RuntimeError as e:               # refused, or out of memory
+            out[backend.name] = None
+            out[f"{backend.name}_refusal"] = str(e).splitlines()[0][:160]
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernels_flash(dev):
     from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.kernels.flash_attention import ops
-    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                         bf16_bound)
     from repro_torch.models.attention import blocked_attention
     gen = torch.Generator(device=dev).manual_seed(1)
 
@@ -272,8 +344,11 @@ def phase_kernels_flash(dev):
     n_shapes = 0
     # the reference sweep (b 1-2, g {1,2,4}, hkv {1,2}, d {16,32,64},
     # window {None,7,33}, 2-4 blocks of 16), then the head dims, lengths,
-    # window and group sizes of the serving paths, and one non-causal case
-    # with Sq != Skv: (b, sq, skv, g, hkv, d, window, causal)
+    # window and group sizes of the serving paths, one non-causal case with
+    # Sq != Skv, and the tensor-core kernel's edges: D 24 (contraction
+    # padded to 32), g 6 (126 of 128 rows), a window of 7 (inside one
+    # tile), Sq 1, 63 and 65 (a tile and one row either side):
+    # (b, sq, skv, g, hkv, d, window, causal)
     sweep = []
     for i, (b, g, hkv, d, w) in enumerate(
             (b, g, hkv, d, w) for b in (1, 2) for g in (1, 2, 4)
@@ -286,7 +361,11 @@ def phase_kernels_flash(dev):
               (1, 1000, 1000, 6, 2, 128, 4096, True),
               (2, 300, 300, 4, 8, 80, 4096, True),
               (2, 37, 37, 6, 2, 128, 7, True),
-              (2, 37, 45, 2, 2, 24, None, False)]
+              (2, 37, 45, 2, 2, 24, None, False),
+              (1, 1, 1, 4, 2, 80, None, True), (2, 1, 65, 6, 2, 24, None, False),
+              (2, 63, 63, 6, 2, 24, 7, True), (2, 65, 65, 6, 1, 80, 7, True),
+              (2, 65, 65, 4, 8, 80, 4096, True), (1, 63, 63, 6, 2, 128, None, True),
+              (1, 65, 65, 1, 2, 16, 33, True), (2, 129, 129, 6, 2, 64, 7, True)]
     for b, sq, skv, g, hkv, d, w, causal in sweep:
         for dtype in (torch.float32, torch.bfloat16):
             q = rand((b, sq, hkv * g, d), dtype)
@@ -312,17 +391,26 @@ def phase_kernels_flash(dev):
     k = rand((L, b, s_len, hkv, d), dtype, std=1.0)
     v = rand((L, b, s_len, hkv, d), dtype, std=1.0)
     pos = torch.arange(s_len, device=dev).expand(b, s_len)
-    full_err = 0.0
+    full_err, bound_use = 0.0, 0.0
     for li in (0, L - 1):
         got = ops.flash_attention(q[li], k[li], v[li], causal=True, window=w,
                                   scale=scale)
-        want = blocked_attention(q[li].float(), k[li].float(), v[li].float(),
-                                 scale, pos, pos, window=w, causal=True)
+        want, want_abs_v = (
+            blocked_attention(q[li].float(), k[li].float(), vv, scale, pos,
+                              pos, window=w, causal=True)
+            for vv in (v[li].float(), v[li].float().abs()))
         torch.cuda.synchronize()
-        full_err = max(full_err, _max_err(
-            got, want, K3_TOL_FULL["atol"],
-            f"flash_attention full width, layer {li} (vs fp32 plain)",
-            rtol=K3_TOL_FULL["rtol"]))
+        err = (got.float() - want).abs()
+        ratio = float((err / bf16_bound(want, want_abs_v)).max())
+        if ratio > 1.0:
+            raise SystemExit(
+                f"flash_attention full width, layer {li}: the kernel is "
+                f"outside the bf16 bound against the fp32 plain version "
+                f"(max abs err {float(err.max()):.3e}, {ratio:.3f} of the "
+                "bound)")
+        full_err, bound_use = max(full_err, float(err.max())), max(bound_use,
+                                                                   ratio)
+        del want, want_abs_v, err
     n_shapes += 1
     qi, ki = torch.arange(s_len, device=dev)[:, None], \
         torch.arange(s_len, device=dev)[None]
@@ -331,6 +419,7 @@ def phase_kernels_flash(dev):
     ours = ops.flash_attention(q[0], k[0], v[0], window=w, scale=scale)
     torch.cuda.synchronize()
     library_err = float((lib.float() - ours.float()).abs().max())
+    backends = _sdpa_backends(q[0], k[0], v[0], band, scale)
 
     def over_layers(fn, layers):
         """ms a call of fn(li) over ``layers``, by CUDA events."""
@@ -375,12 +464,18 @@ def phase_kernels_flash(dev):
         max_err_fp32=errs[torch.float32], max_err_bf16=errs[torch.bfloat16],
         max_err_bf16_full_width=full_err,
         tol_fp32=TOL[torch.float32], tol_bf16=TOL[torch.bfloat16],
-        tol_bf16_full_width=K3_TOL_FULL, shapes_checked=n_shapes,
+        tol_bf16_full_width="1e-5 + 2**-8 |plain| + 2**-8 (P |V|), "
+                            "ref.py::bf16_bound",
+        max_share_of_bf16_bound_full_width=bound_use,
+        shapes_checked=n_shapes,
+        design="bf16: mma.sync m16n8k16 (FlashAttention-2), ldmatrix, "
+               "2-stage cp.async ring, 128 rows a block; fp32: CUDA cores",
         ms=min(kern_a, kern_b), plain_ms=min(plain_a, plain_b),
         ms_runs=[kern_a, kern_b], plain_ms_runs=[plain_a, plain_b],
         library_ms=lib_ms,
         library_call="PyTorch's fused scaled-dot-product attention "
                      "(enable_gqa=True, boolean band mask)",
+        library_backends=backends,
         library_max_abs_err_vs_kernel=library_err,
         bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",

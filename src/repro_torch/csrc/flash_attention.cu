@@ -13,17 +13,13 @@
 //
 //   q    (B, Sq, Hq, D)     Hq = Hkv * g, query head h*g+gi -> KV head h
 //   k/v  (B, Skv, Hkv, D)
-//   out  (B, Sq, Hq, D) contiguous, in q's type; fp32 arithmetic throughout
+//   out  (B, Sq, Hq, D) contiguous, in q's type; sums in fp32
 //   key j is attended by query i iff j < Skv, (causal) j <= i and
 //   (window) j > i - window; positions start at 0 for both.
 //
-// Work split: a block has 256 threads and 128 rows, a row being one
-// (query position, query head) pair: the tile holds 128 / g positions times
-// the g heads, so each K/V tile is read once for the whole group.  Threads
-// form 16 row groups of 8 rows; the 16 threads of a row group (one half
-// warp) split the tile's 64 keys four each for the logits, and the D
-// columns of the output for p @ V, so the row-wise max and sum are half-warp
-// shuffles.  The running (m, l) and the output rows live in registers.
+// Rows: a block has 256 threads and 128 rows, a row being one (query
+// position, query head) pair: the tile holds 128 / g positions times the g
+// heads, so each 64-key K/V tile is read once for the whole group.
 //
 // Band: the block visits the KV tiles from the one holding
 // max(0, first_position - window + 1) to the one holding
@@ -32,18 +28,46 @@
 // l = 64 and acc = sum(v), and its first valid tile wipes them through
 // corr = exp(NEG_INF - m) = 0 in fp32; a masked key after the first valid
 // one gives p = exp(NEG_INF - m) = 0.  The rescale-then-accumulate order of
-// the reference is kept.
+// the reference is kept.  Keys are masked with the true Skv.
 //
 // Bound: at the serving shape (B 2, S 8192, Hq 32, Hkv 8, D 80, window
-// 4096) the two products need ~2.1e11 FLOP against ~2e8 bytes, far above
-// the card's ~295 FLOP/byte, so the bound is operations (tensor-core rate
-// for bf16).  What the design does about it: every K/V element is read from
-// device memory once per block (16-byte loads) and reused for 128 rows from
-// shared memory; the logits are a register-tiled 8x4 outer product per
-// thread with float4 shared-memory reads.  What it does not do yet: it runs
-// on the CUDA cores in fp32 (no mma/wgmma, no TMA, no overlap of the next
-// tile's loads with this tile's arithmetic).  Making it fast is left to a
-// later change.
+// 4096) the two products need ~5.2e11 FLOP against ~2.1e8 bytes, far above
+// the card's ~295 FLOP/byte, so the bound is operations: the tensor cores'
+// bf16 rate.
+//
+// Two kernels, chosen by dtype:
+//
+// * bf16, flash_attention_tc (the serving path): FlashAttention-2 on the
+//   tensor cores with mma.sync.m16n8k16 (bf16 in, fp32 accumulate).  Each of
+//   the 8 warps owns 16 rows.  Q's A fragments are loaded once by ldmatrix
+//   and stay in registers; S = Q K^T for a 64-key tile accumulates in fp32
+//   registers; mask, running max and sum are quad shuffles on the
+//   accumulator layout, in log2 units (exp2f); P is rounded to bf16 in
+//   registers and used directly as the A operand of P V (V's B fragments by
+//   ldmatrix.trans); O accumulates in fp32 and is rounded to bf16 once at
+//   the end.  K/V tiles go through a two-stage ring in shared memory by
+//   16-byte cp.async copies, so tile n+1 loads while tile n computes, with
+//   one barrier a tile.  Rows are padded by 16 bytes, so the 8 rows an
+//   ldmatrix reads fall in 8 distinct bank groups (D 80 has 160-byte rows).
+//   D 24 has its contraction zero-padded to 32 in shared memory (and so in
+//   Q's fragments); P V needs only multiples of 8.  Shared memory is
+//   2 x 128 x (D_pad + 8) bf16: 45 KB at D 80, 68 KB at D 128, so two
+//   blocks share an SM.  Tiles that lie inside the band for every position
+//   of the block skip the mask.  Rounding p to bf16 before P V moves an
+//   output by at most 2^-9 * sum(p |v|), as SDPA's does; chip_smoke.py holds
+//   the kernel to that bound (kernels/flash_attention/ref.py::bf16_bound).
+//   What it leaves: mma.sync reaches a fraction of the tensor cores' rate;
+//   wgmma with TMA copies and warp-specialised producer / consumer warps
+//   is the next step, a larger change than this one.
+//
+// * fp32, flash_attention_fwd: kept on the CUDA cores, because an fp32
+//   product on the tensor cores would be TF32 and break the 2e-6 fp32
+//   tolerance.  Threads form 16 row groups of 8 rows; the 16 threads of a
+//   row group (one half warp) split the tile's 64 keys four each for the
+//   logits, and the D columns of the output for p @ V, so the row-wise max
+//   and sum are half-warp shuffles; (m, l) and the output rows live in
+//   registers.  Every K/V element is read from device memory once per block
+//   (16-byte loads) and reused for 128 rows from shared memory.
 //
 // Built without --use_fast_math: expf must stay the accurate one for the
 // fp32 tolerance.
@@ -88,26 +112,7 @@ struct Vec16<float> {
   }
 };
 
-template <>
-struct Vec16<__nv_bfloat16> {
-  static constexpr int kElems = 8;
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              float* out) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-};
-
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 // N floats (a multiple of 4) into shared memory as 16-byte stores.
 template <int N>
@@ -327,13 +332,309 @@ flash_attention_fwd(const Params<T> p) {
   }
 }
 
-template <typename T, int D>
-int launch(const Params<T>& p, int batch, cudaStream_t stream) {
+// ------------------------------------------------ bf16 on the tensor cores --
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zeros where !valid
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
+                                           bool valid) {
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned addr, unsigned (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x2_trans(unsigned addr, unsigned& r0,
+                                              unsigned& r1) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r0), "=r"(r1)
+      : "r"(addr));
+}
+
+// c (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats -> one register of two bf16, the first in the low half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory of the bf16 kernel: two stages of 128 rows of D_pad + 8
+// bf16 (the 16 bytes of padding put the 8 rows an ldmatrix reads in 8
+// distinct bank groups).  A stage holds the K tile in rows 0-63 and the V
+// tile in rows 64-127; stage 1 first holds the query tile, which goes into
+// registers before stage 1 gets its first K/V tile.
+template <int D>
+struct TcShape {
+  static constexpr int kDp = (D + 15) / 16 * 16;  // contraction, padded
+  static constexpr int kStride = kDp + 8;         // bf16 a shared row
+  static constexpr int kStage = kRows * kStride;  // bf16 a stage
+  static constexpr size_t kSmemBytes = 2 * kStage * sizeof(__nv_bfloat16);
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, D <= 80 ? 2 : 1)
+flash_attention_tc(const Params<__nv_bfloat16> p) {
+  using S = TcShape<D>;
+  constexpr int kKSteps = S::kDp / 16;       // k-steps of Q.K^T
+  constexpr int kNTiles = D / 8;             // 8-wide column tiles of out
+  constexpr int kChunks = D / 8;             // 16-byte vectors a row
+  static_assert(D % 8 == 0, "rows must be whole 16-byte vectors");
+  static_assert(kRows == 16 * (kThreads / 32), "16 rows a warp");
+
+  extern __shared__ __align__(16) __nv_bfloat16 sm[];
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int g = p.g;
+  const int q0 = blockIdx.x * p.tile_q;
+  const int rows = p.tile_q * g;              // rows in use, <= kRows
+  const int q_last = min(q0 + p.tile_q, p.sq) - 1;
+
+  // ---- D 24: the contraction's padding columns are zeros in every row
+  if (S::kDp != D) {
+    for (int r = tid; r < 2 * kRows; r += kThreads)
+      for (int c = D; c < S::kDp; c += 8)
+        *reinterpret_cast<uint4*>(sm + r * S::kStride + c) =
+            make_uint4(0, 0, 0, 0);
+  }
+
+  // ---- the query tile into stage 1; rows beyond the tile or Sq are zeros
+  __nv_bfloat16* q_s = sm + S::kStage;
+  for (int i = tid; i < kRows * kChunks; i += kThreads) {
+    const int r = i / kChunks;
+    const int c = (i % kChunks) * 8;
+    const int qi = q0 + r / g;
+    const bool ok = r < rows && qi < p.sq;
+    const __nv_bfloat16* src =
+        ok ? p.q + b * p.q_sb + qi * p.q_ss + (long long)(h * g + r % g) * p.q_sh + c
+           : p.q;
+    cp_async16(smem_addr(q_s + r * S::kStride + c), src, ok);
+  }
+  cp_async_commit();
+
+  // ---- the KV tiles that meet the band of positions q0 .. q_last
+  int k_begin = 0;
+  if (p.window > 0) k_begin = max(0, q0 - p.window + 1);
+  const int k_end = p.causal ? min(p.skv, q_last + 1) : p.skv;
+  const int kt0 = (k_begin / kTileK) * kTileK;
+  const int n_tiles = max(0, (k_end - kt0 + kTileK - 1) / kTileK);
+
+  // K rows 0-63, V rows 64-127 of a stage; keys beyond Skv are zeros
+  auto load_tile = [&](int stage, int k0) {
+    __nv_bfloat16* base = sm + stage * S::kStage;
+    for (int i = tid; i < kTileK * kChunks; i += kThreads) {
+      const int j = i / kChunks;
+      const int c = (i % kChunks) * 8;
+      const int kp = k0 + j;
+      const bool ok = kp < p.skv;
+      const long long kr = ok ? b * p.k_sb + kp * p.k_ss + h * p.k_sh + c : 0;
+      const long long vr = ok ? b * p.v_sb + kp * p.v_ss + h * p.v_sh + c : 0;
+      cp_async16(smem_addr(base + j * S::kStride + c), p.k + kr, ok);
+      cp_async16(smem_addr(base + (kTileK + j) * S::kStride + c), p.v + vr,
+                 ok);
+    }
+    cp_async_commit();
+  };
+  if (n_tiles > 0) load_tile(0, kt0);
+
+  cp_async_wait_all();
+  __syncthreads();
+  // Q's A fragments for every k-step stay in registers
+  unsigned qf[kKSteps][4];
+#pragma unroll
+  for (int kk = 0; kk < kKSteps; ++kk)
+    ldsm_x4(smem_addr(q_s + (warp * 16 + lane % 16) * S::kStride + kk * 16 +
+                      (lane / 16) * 8),
+            qf[kk]);
+
+  // this thread's two rows of the accumulator layout: r, r + 8
+  const int r0 = warp * 16 + lane / 4;
+  const int qpos[2] = {q0 + r0 / g, q0 + (r0 + 8) / g};
+  const int t2 = 2 * (lane % 4);             // first of its two columns
+  const float scale_log2 = p.scale * kLog2e;
+  float o[kNTiles][4];
+#pragma unroll
+  for (int n = 0; n < kNTiles; ++n)
+    o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.0f, 0.0f};                 // this thread's share of the row
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = kt0 + it * kTileK;
+    if (it > 0) cp_async_wait_all();
+    // tile it is in; every warp is done with tile it-1 (and with Q)
+    __syncthreads();
+    if (it + 1 < n_tiles) load_tile((it + 1) & 1, k0 + kTileK);
+    const __nv_bfloat16* k_s = sm + (it & 1) * S::kStage;
+    const __nv_bfloat16* v_s = k_s + kTileK * S::kStride;
+
+    // ---- S = Q K^T over the 64 keys: 8 column tiles of 8 keys
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        unsigned kb[4];
+        ldsm_x4(smem_addr(k_s +
+                          (np * 16 + lane % 8 + (lane / 16) * 8) * S::kStride +
+                          kk * 16 + ((lane / 8) % 2) * 8),
+                kb);
+        mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
+        mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+      }
+    }
+
+    // ---- scale to log2 units; mask unless the tile lies inside the band
+    // for every position of the block
+    const bool inside = k0 + kTileK <= p.skv &&
+                        (!p.causal || k0 + kTileK - 1 <= q0) &&
+                        (p.window <= 0 || k0 > q_last - p.window);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (!inside) {
+          const int kp = k0 + 8 * j + t2 + (e & 1);
+          const int qp = qpos[e / 2];
+          const bool ok = kp < p.skv && (!p.causal || kp <= qp) &&
+                          (p.window <= 0 || kp > qp - p.window);
+          x = ok ? x : kNegInf;
+        }
+        s[j][e] = x;
+      }
+
+    // ---- running softmax of the two rows: rescale first
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * hr], s[j][2 * hr + 1]));
+      const float m_new = fmaxf(m[hr], quad_max(mx));
+      const float corr = exp2f(m[hr] - m_new);
+      m[hr] = m_new;
+      l[hr] *= corr;
+#pragma unroll
+      for (int n = 0; n < kNTiles; ++n) {
+        o[n][2 * hr] *= corr;
+        o[n][2 * hr + 1] *= corr;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[j][2 * hr] = exp2f(s[j][2 * hr] - m_new);
+        s[j][2 * hr + 1] = exp2f(s[j][2 * hr + 1] - m_new);
+        l[hr] += s[j][2 * hr] + s[j][2 * hr + 1];
+      }
+    }
+
+    // ---- O += P V: P rounded to bf16 in registers is the A operand
+#pragma unroll
+    for (int kk = 0; kk < kTileK / 16; ++kk) {
+      const unsigned pa[4] = {
+          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const __nv_bfloat16* v_row =
+          v_s + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * S::kStride;
+#pragma unroll
+      for (int n = 0; n + 1 < kNTiles; n += 2) {
+        unsigned vb[4];
+        ldsm_x4_trans(smem_addr(v_row + n * 8 + (lane / 16) * 8), vb);
+        mma_bf16(o[n], pa, vb[0], vb[1]);
+        mma_bf16(o[n + 1], pa, vb[2], vb[3]);
+      }
+      if (kNTiles % 2) {
+        unsigned v0, v1;
+        ldsm_x2_trans(smem_addr(v_row + (kNTiles - 1) * 8), v0, v1);
+        mma_bf16(o[kNTiles - 1], pa, v0, v1);
+      }
+    }
+  }
+
+  // ---- out = O / l for the rows that are real, rounded to bf16 once
+  const int hq = p.hkv * g;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const float inv = 1.0f / fmaxf(quad_sum(l[hr]), 1e-30f);
+    const int r = r0 + 8 * hr;
+    if (r >= rows || qpos[hr] >= p.sq) continue;
+    __nv_bfloat16* dst =
+        p.out + (((long long)b * p.sq + qpos[hr]) * hq + h * g + r % g) * D + t2;
+#pragma unroll
+    for (int n = 0; n < kNTiles; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) =
+          __floats2bfloat162_rn(o[n][2 * hr] * inv, o[n][2 * hr + 1] * inv);
+  }
+}
+
+template <int D>
+int launch(const Params<float>& p, int batch, cudaStream_t stream) {
   const size_t bytes = smem_floats(D) * sizeof(float);
   if (bytes > (size_t)kMaxSmemBytes) return -2;
-  auto kernel = flash_attention_fwd<T, D>;
+  auto kernel = flash_attention_fwd<float, D>;
   // The attribute belongs to the current device, so it is set on every
   // call rather than remembered per process.
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((p.sq + p.tile_q - 1) / p.tile_q, p.hkv, batch);
+  kernel<<<grid, kThreads, bytes, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch(const Params<__nv_bfloat16>& p, int batch, cudaStream_t stream) {
+  const size_t bytes = TcShape<D>::kSmemBytes;
+  auto kernel = flash_attention_tc<D>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
@@ -345,12 +646,12 @@ int launch(const Params<T>& p, int batch, cudaStream_t stream) {
 template <typename T>
 int launch_dim(int d, Params<T>& p, int batch, cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<T, 16>(p, batch, stream);
-    case 24: return launch<T, 24>(p, batch, stream);
-    case 32: return launch<T, 32>(p, batch, stream);
-    case 64: return launch<T, 64>(p, batch, stream);
-    case 80: return launch<T, 80>(p, batch, stream);
-    case 128: return launch<T, 128>(p, batch, stream);
+    case 16: return launch<16>(p, batch, stream);
+    case 24: return launch<24>(p, batch, stream);
+    case 32: return launch<32>(p, batch, stream);
+    case 64: return launch<64>(p, batch, stream);
+    case 80: return launch<80>(p, batch, stream);
+    case 128: return launch<128>(p, batch, stream);
     default: return -1;
   }
 }

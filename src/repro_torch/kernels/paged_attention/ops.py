@@ -5,6 +5,8 @@ to the plain version, and only because it lies on the CPU.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels.paged_attention import kernel as K
@@ -65,8 +67,19 @@ def paged_attention(q, k_pages, v_pages, block_table, seq_lens, *,
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError("paged_attention: the page pools must be 16-byte "
                          "aligned (the kernel loads 16 bytes a thread)")
+    b, hq, _ = q.shape
+    hkv = k_pages.shape[0]
+    splits = K.num_splits(b, hkv, block_table.shape[1], page,
+                          _sm_count(q.device))
+    scratch = torch.empty(b * hq * splits * (d + 2), dtype=torch.float32,
+                          device=q.device)
     out = torch.empty_like(q)
     K.paged_attention_kernel(q, k_pages, v_pages, block_table, seq_lens, out,
-                             scale=scale)
+                             scratch, splits=splits, scale=scale)
     launches += 1
     return out
+
+
+@functools.cache
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -13,6 +13,7 @@ from repro.kernels.flash_attention.kernel import flash_attention_kernel
 from repro.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref as port_ref
+from repro_torch.kernels.flash_attention.ref import bf16_bound
 
 _JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -146,3 +147,45 @@ def test_wrapper_refuses_bad_inputs(breakage):
         q, k, v = q.to("meta"), k.to("meta"), v.to("meta")
     with pytest.raises(exc):
         fa_ops.flash_attention(q, k, v, **kw)
+
+
+def _emulate_bf16_kernel(q, k, v, window):
+    """The bf16 kernel's rounding in plain fp32: p rounded to bf16 before
+    p @ V (the sum l of the unrounded p), the output rounded to bf16."""
+    g = q.shape[2] // k.shape[2]
+    kr = k.float().repeat_interleave(g, dim=2)
+    vr = v.float().repeat_interleave(g, dim=2)
+    s_len = q.shape[1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr) \
+        * q.shape[-1] ** -0.5
+    i = torch.arange(s_len)[:, None]
+    j = torch.arange(s_len)[None]
+    logits = torch.where((j <= i) & (j > i - window), logits, -2.0 ** 30)
+    p = torch.exp(logits - logits.max(dim=-1, keepdim=True).values)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(torch.bfloat16).float(), vr)
+    return (out / p.sum(-1).transpose(1, 2)[..., None]).to(torch.bfloat16)
+
+
+def test_bf16_bound_holds_the_kernels_rounding_and_no_more():
+    """danube-like shape (D 80, g 4, window shorter than the sequence),
+    bf16 inputs: an emulation of the kernel's rounding lies within the
+    bound against the fp32 plain version; the same output with one row
+    moved by 4x its bound does not."""
+    rng = np.random.default_rng(13)
+    b, s_len, hkv, g, d, window = 2, 96, 2, 4, 80, 40
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .to(torch.bfloat16)
+               for shape in ((b, s_len, hkv * g, d), (b, s_len, hkv, d),
+                             (b, s_len, hkv, d)))
+    plain = port_ref(q.float(), k.float(), v.float(), window=window)
+    plain_abs_v = port_ref(q.float(), k.float(), v.float().abs(),
+                           window=window)
+    bound = bf16_bound(plain, plain_abs_v)
+    emulated = _emulate_bf16_kernel(q, k, v, window).float()
+    err = (emulated - plain).abs()
+    assert bool((err <= bound).all())
+    assert float((err / bound).max()) > 0.1      # the bound is not slack
+    moved = emulated.clone()
+    moved[1, 70, 5] = plain[1, 70, 5] + 4 * bound[1, 70, 5]
+    assert not bool(((moved - plain).abs() <= bound).all())
+    assert bool(((moved - plain).abs() <= bound)[0].all())

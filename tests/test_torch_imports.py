@@ -15,7 +15,8 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 def _port_files():
     files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "examples", "torch_serve_tiered.py")]
+             os.path.join(REPO, "examples", "torch_serve_tiered.py"),
+             os.path.join(REPO, "scripts", "torch_profile_decode.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)

@@ -1,6 +1,7 @@
 """Port's paged decode attention (plain version, the CPU path of the
 wrapper) held against the reference's Pallas kernel in interpret mode and
 its jnp oracle, on the same numpy-made inputs."""
+import inspect
 import itertools
 
 import jax.numpy as jnp
@@ -10,8 +11,10 @@ import torch
 
 from repro.kernels.paged_attention.kernel import paged_attention_kernel
 from repro.kernels.paged_attention.ref import paged_attention_ref as jax_ref
+from repro_torch.kernels.paged_attention import kernel as pa_kernel
 from repro_torch.kernels.paged_attention import ops as pa_ops
-from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.kernels.paged_attention.ref import (paged_attention_ref,
+                                                     paged_attention_split_ref)
 
 _JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -103,3 +106,82 @@ def test_wrapper_refuses_bad_inputs(breakage):
         lens, exc = lens[:1], ValueError
     with pytest.raises(exc):
         pa_ops.paged_attention(q, kp, vp, tbl, lens)
+
+
+# (b, g, hkv, d, page, width in pages, lens, sm_count): the kernel's split
+# edges on the card's 132 SMs, and SM counts that give one split or many
+_SPLIT_CASES = {
+    "lens_1": (2, 6, 2, 128, 16, 16, [1, 1], 132),
+    "empty_split": (3, 2, 2, 32, 16, 16, [200, 40, 129], 132),
+    "ends_on_boundary": (3, 4, 1, 64, 8, 24, [64, 128, 192], 132),
+    "padded_table": (2, 2, 2, 32, 8, 40, [50, 9], 132),
+    "one_split": (2, 3, 2, 16, 4, 20, [80, 33], 1),
+    "many_splits": (2, 1, 1, 16, 8, 32, [256, 70], 1000),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_SPLIT_CASES))
+def test_split_and_merge_matches_plain_and_reference(case):
+    """The kernel's split-KV algorithm in plain PyTorch, cut where the
+    kernel cuts, equals the one-pass plain version and the reference's
+    Pallas kernel within 2e-6 in fp32."""
+    b, g, hkv, d, page, width, lens, sm = _SPLIT_CASES[case]
+    splits = pa_kernel.num_splits(b, hkv, width, page, sm)
+    per = pa_kernel.split_tokens(width, page, splits)
+    if case == "one_split":
+        assert splits == 1
+    elif case == "ends_on_boundary":
+        assert splits > 1 and all(n % per == 0 for n in lens)
+    else:
+        assert splits > 1
+    if case in ("lens_1", "empty_split"):       # some split starts past a row
+        assert min(lens) <= per * (splits - 1)
+    rng = np.random.default_rng(sum(map(ord, case)))
+    npages = 64
+    q = rng.standard_normal((b, hkv * g, d)).astype(np.float32)
+    kp = rng.standard_normal((hkv, npages, page, d)).astype(np.float32)
+    vp = rng.standard_normal((hkv, npages, page, d)).astype(np.float32)
+    tbl = np.zeros((b, width), np.int32)        # padded with page 0
+    for i, n in enumerate(lens):
+        tbl[i, :-(-n // page)] = rng.permutation(npages)[:-(-n // page)]
+    lens = np.asarray(lens, np.int32)
+    scale = d ** -0.5
+    targs = tuple(torch.from_numpy(a) for a in (q, kp, vp, tbl, lens))
+    got = paged_attention_split_ref(*targs, scale=scale, sm_count=sm)
+    assert got.dtype == torch.float32 and got.shape == (b, hkv * g, d)
+    plain = paged_attention_ref(*targs, scale=scale)
+    want = np.asarray(paged_attention_kernel(
+        *(jnp.asarray(a) for a in (q, kp, vp, tbl, lens)), scale=scale,
+        interpret=True))
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=2e-6,
+                               atol=2e-6)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-6, atol=2e-6)
+
+
+@pytest.mark.parametrize("shape", [(8, 2, 128, 16), (2, 2, 16, 16),
+                                   (3, 2, 9, 8), (1, 1, 1, 4), (8, 2, 129, 16),
+                                   (132, 2, 8, 8), (1, 6, 512, 16)])
+def test_num_splits_cuts_whole_tiles_from_the_width(shape):
+    batch, hkv, width, page = shape
+    splits = pa_kernel.num_splits(batch, hkv, width, page, 132)
+    per = pa_kernel.split_tokens(width, page, splits)
+    n = width * page
+    assert splits >= 1 and per % pa_kernel.TILE_TOKENS == 0
+    assert (splits - 1) * per < n <= splits * per   # no split past the width
+    if batch * hkv >= 2 * 132:
+        assert splits == 1
+    else:      # aims at two blocks an SM: reaches one at least, if tiles allow
+        tiles = -(-n // pa_kernel.TILE_TOKENS)
+        assert 2 * batch * hkv * splits >= min(2 * 132, batch * hkv * tiles)
+    if shape == (8, 2, 128, 16):       # the serving path's timed shape
+        assert (splits, per) == (16, 128)
+
+
+def test_num_splits_never_sees_the_lengths():
+    """The split count comes from shapes alone: the lengths live on the
+    device, and reading them would cost a host sync per layer."""
+    params = inspect.signature(pa_kernel.num_splits).parameters
+    assert list(params) == ["batch", "hkv", "pages_per_seq", "page_size",
+                            "sm_count"]
+    assert list(inspect.signature(pa_kernel.split_tokens).parameters) == [
+        "pages_per_seq", "page_size", "splits"]
