@@ -5,14 +5,18 @@
 
 Builds the port's CUDA kernels from the sources in this checkout (one
 ``nvcc`` per source, started together), holds each against its plain
-PyTorch version on the card, and drives the port's two serving paths:
+PyTorch version on the card, and drives the port's three paths:
 
 * tiered-KV serving (``repro_torch.launch.serve``, paged decode attention,
   K2) with qwen2-1.5b at full width: a few requests to completion;
 * ring-cache serving (``runtime/serve.py``: ``LM.prefill``/``LM.decode``,
   flash attention in the prefill, K3) with h2o-danube-1.8b at full width
   and depth: two 8192-token prompts, then 32 greedy decode steps, so the
-  sliding-window ring wraps.
+  sliding-window ring wraps;
+* Pond's provisioning loop (``core/cluster_sim.py::savings_analysis`` over
+  ``core/replay_engine.py::CompiledReplay``, the event sweep K1) on a
+  cluster row of 256 servers with 16-socket pools and a 7-day trace: the
+  all-local and static-pool provisioning, held to the reference's results.
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after, which shows that it went through its kernel.
@@ -56,6 +60,36 @@ DANUBE_LAYERS = 24               # h2o-danube-1.8b: K3 launches per prefill
 K3_FULL = dict(b=2, s=8192, hq=32, hkv=8, d=80, window=4096)
 RING_BATCH, RING_PROMPT, RING_STEPS = 2, 8192, 32
 FULL = dict(b=8, hq=12, hkv=2, d=128, page=16, max_len=2048, num_pages=1280)
+# Pond's provisioning loop at full width: a cluster row of 256 servers x 64
+# cores with 16-socket pools (32 groups of 8 servers), 4.75 GB a core, a
+# 7-day trace at 0.8 core utilisation (Population seed 0, trace seed 2):
+# 44,862 VMs, 89,724 events.
+PROV_FULL = dict(n_servers=256, days=7, seed=2, static_pool_frac=0.30)
+# The reference's results for it, from the JAX package on a CPU:
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -c "
+#   from repro.core import cluster_sim as cs, traces
+#   cfg = cs.ClusterConfig(n_servers=256, pool_sockets=16, gb_per_core=4.75)
+#   h = 7 * 86400; n = cs.arrivals_for_util(cfg, 0.8, h)
+#   vms = traces.Population(seed=0).sample_vms(n, h, seed=2, start_id=10**6)
+#   c = {}; print(cs.savings_analysis(vms, cfg, 'local', cache=c))
+#   print(cs.savings_analysis(vms, cfg, 'static', static_pool_frac=0.30,
+#                             cache=c))"
+_PROV_COMMON = dict(baseline_server_gb=384.0, n_servers=256, n_groups=32,
+                    mitigations=0)
+PROV_FULL_WANT = {
+    "local": dict(name="local", server_gb=384.0, pool_group_gb=0.0,
+                  mispredictions=0.0, reject_rate=0.0, **_PROV_COMMON),
+    "static": dict(name="static", server_gb=270.0,
+                   pool_group_gb=369.37278106508876,
+                   mispredictions=0.04284806740671392,
+                   reject_rate=0.004993089920199724, **_PROV_COMMON)}
+# K1's operations bound: int32 operations per (ARRIVE event, lane, server)
+# that the step needs — pooled mask 8 (fc >= c, um + l, <= sgb, up[g] + p,
+# <= pgb, two ANDs, the score select), fallback mask 4 (um + m, <=, AND,
+# select), two first-minimum reductions 3 each (compare, two selects) — over
+# H100's int32 rate, 64 int32 lanes an SM a clock.
+K1_OPS_PER_ARRIVE_SERVER = 18
+INT32_LANES_PER_SM = 64
 SERVE_ARGS = ["--arch", "qwen2-1.5b", "--full", "--dtype", "bfloat16",
               "--requests", "16", "--max-batch", "8", "--page-size", "16",
               "--local-pages", "256", "--pool-pages", "1024",
@@ -70,12 +104,13 @@ def emit(phase: str, **fields) -> None:
 # ------------------------------------------------------------------ build --
 def phase_build():
     from repro_torch.kernels import build
+    from repro_torch.kernels.event_sweep import kernel as K1
     from repro_torch.kernels.flash_attention import kernel as K3
     from repro_torch.kernels.paged_attention import kernel as K2
     t0 = time.perf_counter()
-    build.build_libraries([K2.NAME, K3.NAME])
+    build.build_libraries([K2.NAME, K3.NAME, K1.NAME])
     seconds = time.perf_counter() - t0
-    for K in (K2, K3):
+    for K in (K2, K3, K1):
         K.build()                                   # load and bind
         with open(f"{build.library_path(K.NAME)}.log") as f:
             log = f.read()
@@ -83,7 +118,7 @@ def phase_build():
         spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores",
                                              log)]
         emit("build", kernel=K.NAME, source=K.SOURCE,
-             seconds_both_in_parallel=round(seconds, 2),
+             seconds_all_in_parallel=round(seconds, 2),
              flags=" ".join(build.NVCC_FLAGS), instantiations=len(regs),
              registers=regs, max_registers=max(regs), spill_stores=spills,
              spill_store_bytes=sum(spills))
@@ -706,6 +741,354 @@ def phase_ring_full(dev):
     return launches
 
 
+# ------------------------------------------------- provisioning loop (K1) --
+def _prov_config(n_servers):
+    from repro_torch.core.cluster_sim import ClusterConfig
+    return ClusterConfig(n_servers=n_servers, pool_sockets=16,
+                         gb_per_core=4.75)
+
+
+_FULL_TRACE = {}
+
+
+def _full_trace():
+    """The full-width trace (``PROV_FULL``), sampled once; returns (cfg,
+    vms, sampling seconds)."""
+    if not _FULL_TRACE:
+        from repro_torch.core import cluster_sim, traces
+        cfg = _prov_config(PROV_FULL["n_servers"])
+        horizon = PROV_FULL["days"] * 86400
+        t0 = time.perf_counter()
+        n = cluster_sim.arrivals_for_util(cfg, 0.8, horizon)
+        vms = traces.Population(seed=0).sample_vms(
+            n, horizon, seed=PROV_FULL["seed"], start_id=10 ** 6)
+        _FULL_TRACE.update(cfg=cfg, vms=vms,
+                           seconds=time.perf_counter() - t0)
+    return _FULL_TRACE["cfg"], _FULL_TRACE["vms"], _FULL_TRACE["seconds"]
+
+
+def _k1_inputs(ev, n_slots, n_servers, spg, cores, sgb, pgb, state_dtype,
+               dev):
+    """K1's arguments on ``dev``: events, group_of and the all-free state
+    for lanes (sgb, pgb) in ``state_dtype`` ("int16"/"int32")."""
+    from repro_torch.core import sweep_core
+    from repro_torch.kernels.event_sweep.cases import EVENT_KEYS
+    np_dt = sweep_core.state_np_dtype(state_dtype)
+    n_groups = -(-n_servers // spg)
+    fc, um, up, slots, _ = sweep_core.init_state(
+        len(sgb), n_servers, cores, n_servers, n_groups, n_slots, np_dt)
+    events = tuple(torch.from_numpy(np.ascontiguousarray(ev[k], np.int32))
+                   .to(dev) for k in EVENT_KEYS)
+    group_of = torch.from_numpy(
+        (np.arange(n_servers) // spg).astype(np.int32)).to(dev)
+    state = tuple(torch.from_numpy(a).to(dev) for a in
+                  (fc, um, up, slots, np.asarray(sgb).astype(np_dt),
+                   np.asarray(pgb).astype(np_dt)))
+    return events, group_of, state
+
+
+def _k1_both(events, group_of, state):
+    """K1 and its plain version on copies of the same state (both on the
+    card); returns the two final states with their rejects."""
+    from repro_torch.kernels.event_sweep import ops
+    from repro_torch.kernels.event_sweep.ref import event_sweep_ref
+    out = []
+    for fn in (ops.event_sweep, event_sweep_ref):
+        st = [t.clone() for t in state]
+        rej = torch.zeros(st[0].shape[0], dtype=torch.int32,
+                          device=st[0].device)
+        fn(*events, group_of, *st, rej)
+        out.append(st[:4] + [rej])
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_kernels_sweep(dev):
+    """K1 against its plain version on the card (whole final state and the
+    rejects, ``==``), its rates against the port's scalar oracle at the
+    full-width trace, and its time there beside its bound."""
+    from repro_torch.core import cluster_sim, sweep_core
+    from repro_torch.core.replay_engine import CompiledReplay
+    from repro_torch.kernels.event_sweep import cases, ops
+    from repro_torch.kernels.event_sweep import kernel as K
+    from repro_torch.kernels.event_sweep.ref import event_sweep_ref
+    rng = np.random.default_rng(14)
+    checked, max_err = [], 0
+    # (name, stream, n_slots, servers, servers a group, cores, sgb, pgb)
+    runs = []
+    ev, n_slots = cases.edge_stream()
+    lanes = np.asarray(cases.EDGE_LANES)
+    runs.append(("edges", ev, n_slots, 3, 2, 8, lanes[:, 0], lanes[:, 1]))
+    for s, spg, n_lanes, mig in ((1, 8, 1, 0.2), (7, 4, 16, 0.2),
+                                 (33, 8, 84, 0.2), (256, 8, 200, 0.2),
+                                 (33, 8, 16, 0.0)):
+        ev, n_slots = cases.random_stream(rng, 900, mig_frac=mig)
+        sgb, pgb = cases.lane_capacities(rng, n_lanes, s, 64)
+        runs.append((f"S{s}_lanes{n_lanes}_mig{mig}", ev, n_slots, s, spg,
+                     64, sgb, pgb))
+    for name, ev, n_slots, s, spg, cores, sgb, pgb in runs:
+        for dt in ("int16", "int32"):
+            events, group_of, state = _k1_inputs(ev, n_slots, s, spg, cores,
+                                                 sgb, pgb, dt, dev)
+            got, want = _k1_both(events, group_of, state)
+            for a, b in zip(got, want):
+                max_err = max(max_err, int((a.long() - b.long()).abs()
+                                           .max()))
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise SystemExit(f"event_sweep {name} {dt}: the kernel's "
+                                 "final state differs from its plain "
+                                 "version's")
+            checked.append(dict(case=name, state_dtype=dt,
+                                events=len(ev["kind"]), servers=s,
+                                lanes=len(sgb), n_slots=n_slots,
+                                rejects=int(want[4].sum())))
+
+    # the full-width trace: rates == the port's scalar oracle
+    cfg, vms, _ = _full_trace()
+    dec, _ = cluster_sim.policy_decisions(
+        vms, "static", static_pool_frac=PROV_FULL["static_pool_frac"])
+    eng = CompiledReplay(vms, dec, cfg, device=dev)
+    big = 768.0 * cfg.n_servers
+    cand = np.array([[270.0, 369.37278106508876], [300.0, 200.0],
+                     [250.0, 100.0], [768.0, big]])
+    rates = eng.reject_rates(cand[:, 0], cand[:, 1])
+    oracle = [cluster_sim.replay_reject_rate(vms, dec, cfg, s, p)
+              for s, p in cand]
+    if rates.tolist() != oracle:
+        raise SystemExit(f"event_sweep full width: rates {rates.tolist()} "
+                         f"!= the scalar oracle's {oracle}")
+
+    # times at the full trace: fig3's 16-lane frontier and the pool
+    # search's 84 lanes, each state type forced, 5 launches on fresh state
+    evs, group_of, n_slots = eng._device_events()
+    n_ev, n_srv, n_grp = eng.n_events, eng.n_servers, eng.n_groups
+    n_arrive = int((evs[0] == sweep_core.ARRIVE).sum())
+    widths = {16: (np.linspace(150.0, 700.0, 16),
+                   np.linspace(0.0, 2000.0, 16)),
+              84: (np.repeat(np.linspace(270.0, 384.0, 7), 12),
+                   np.tile(np.linspace(0.0, 3000.0, 12), 7))}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock_mhz = float(_smi("clocks.max.sm"))
+    int32_rate = sms * INT32_LANES_PER_SM * clock_mhz * 1e6
+
+    def bound(c, item, e, arrive):
+        ops_ = K1_OPS_PER_ARRIVE_SERVER * arrive * c * n_srv
+        state = (2 * c * n_srv + c * n_grp + n_slots * c) * item
+        nbytes = 24 * e + 4 * n_srv + 2 * state + 2 * c * item + 8 * c
+        t_ops, t_bytes = ops_ / int32_rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        return dict(bound_ms=max(t_ops, t_bytes),
+                    bound_by="operations" if t_ops >= t_bytes else "bytes",
+                    int32_ops=ops_, bytes=nbytes)
+
+    def fresh(c, dt, reps, cut=None):
+        sgb, pgb = sweep_core.quantize_capacities(*widths[c])
+        np_dt = sweep_core.state_np_dtype(dt)
+        st = sweep_core.init_state(c, n_srv, eng.cores_per_server, n_srv,
+                                   n_grp, n_slots, np_dt)[:4]
+        ev_c = evs if cut is None else tuple(e[:cut].contiguous()
+                                             for e in evs)
+        caps = [torch.from_numpy(a.astype(np_dt)).to(dev)
+                for a in (sgb, pgb)]
+        return ev_c, [[torch.from_numpy(a.copy()).to(dev) for a in st]
+                      + caps for _ in range(reps)]
+
+    def time_kernel(ev_c, states):
+        ops.event_sweep(*ev_c, group_of, *[t.clone() for t in states[0]])
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for st in states:
+            ops.event_sweep(*ev_c, group_of, *st)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / len(states)
+
+    timings = {}
+    for c in (16, 84):
+        for dt in ("int16", "int32"):
+            ev_c, states = fresh(c, dt, 5)
+            ms = time_kernel(ev_c, states)
+            item = 2 if dt == "int16" else 4
+            timings[f"lanes{c}_{dt}"] = dict(
+                ms=ms, ns_per_event=ms * 1e6 / n_ev,
+                **bound(c, item, n_ev, n_arrive))
+    # the plain version beside the kernel at a 2,048-event cut (16 lanes)
+    cut = 2048
+    ev_c, states = fresh(16, "int16", 5, cut=cut)
+    cut_ms = time_kernel(ev_c, states)
+    ev_c, states = fresh(16, "int16", 1, cut=cut)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    event_sweep_ref(*ev_c, group_of, *states[0],
+                    torch.zeros(16, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    plain_cut_ms = (time.perf_counter() - t0) * 1e3
+    main = timings["lanes16_int16"]
+    record = dict(
+        name=K.NAME, route="cuda", source=K.SOURCE,
+        replaces="src/repro/core/sweep_core.py:138",
+        max_abs_err=max_err, tolerance="== (integer state, exact)",
+        cases_checked=len(checked), cases=checked,
+        full_width_rates=rates.tolist(), full_width_oracle=oracle,
+        design="one warp a lane, state in shared memory, 64-bit shuffle "
+               "argmin, events by 2-stage cp.async tiles of 1024",
+        ms=main["ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"],
+        timed_shape=dict(events=n_ev, arrivals=n_arrive, servers=n_srv,
+                         groups=n_grp, n_slots=n_slots, lanes=16,
+                         state_dtype="int16"),
+        timings=timings,
+        plain_ms=plain_cut_ms, plain_cut_events=cut,
+        ms_at_plain_cut=cut_ms,
+        plain_note="the plain version (a Python loop of tensor ops an "
+                   "event) at a 2,048-event cut of the trace, 16 lanes, "
+                   "int16, one run by the host clock; ms_at_plain_cut is "
+                   "the kernel on the same cut",
+        int32_rate_ops_per_s=int32_rate, sm_clock_max_mhz=clock_mhz,
+        library_ms=None,
+        library_note="no PyTorch call computes a sequential best-fit sweep")
+    emit("kernels", kernels=[record])
+    return record
+
+
+def _smi(field: str) -> str:
+    import subprocess
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={field}",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def _savings_pair(vms, cfg, static_frac, device):
+    """The provisioning loop as a user calls it: local, then static, one
+    shared cache.  Returns (local, static, the all-local engine)."""
+    from repro_torch.core.cluster_sim import savings_analysis
+    cache = {}
+    local = savings_analysis(vms, cfg, "local", cache=cache, device=device)
+    static = savings_analysis(vms, cfg, "static", cache=cache,
+                              static_pool_frac=static_frac, device=device)
+    return local, static, cache["local_engine"]
+
+
+def phase_provision_parity_small(dev):
+    """The 8-server world (seed 3; static 0.25 and local) on the card (K1)
+    and on the CPU (its plain version): equal PolicyResults and equal
+    frontier rates."""
+    import dataclasses
+    from repro_torch.core import cluster_sim, traces
+    from repro_torch.core.replay_engine import CompiledReplay
+    from repro_torch.kernels.event_sweep import ops
+    cfg = cluster_sim.ClusterConfig(n_servers=8, pool_sockets=8,
+                                    gb_per_core=4.75)
+    horizon = 4 * 86400
+    n = cluster_sim.arrivals_for_util(cfg, 0.8, horizon)
+    vms = traces.Population(seed=0).sample_vms(n, horizon, seed=3,
+                                               start_id=10 ** 6)
+    dec, _ = cluster_sim.policy_decisions(vms, "static",
+                                          static_pool_frac=0.25)
+    server = np.array([768.0, 200.0, 140.0, 250.0, 180.0, 60.0, 219.7, 0.0])
+    pool = np.array([6144.0, 300.0, 150.0, 0.0, 40.0, 6144.0, 83.3, 100.0])
+    out = {}
+    for d in (dev, "cpu"):
+        before = ops.launches
+        res = _savings_pair(vms, cfg, 0.25, d)[:2]
+        rates = CompiledReplay(vms, dec, cfg, device=d).reject_rates(server,
+                                                                     pool)
+        out[str(d)] = ([dataclasses.asdict(r) for r in res], rates.tolist(),
+                       ops.launches - before)
+    (g_res, g_rates, g_n), (c_res, c_rates, c_n) = out[str(dev)], out["cpu"]
+    checks = {"results_equal": g_res == c_res, "rates_equal": g_rates == c_rates,
+              "launches_on_card": g_n > 0, "none_on_cpu": c_n == 0}
+    emit("provision_parity_small", ok=all(checks.values()), checks=checks,
+         servers=8, vms=n, results=g_res, frontier_rates=g_rates,
+         kernel_launches=g_n)
+    if not all(checks.values()):
+        raise SystemExit(f"provision_parity_small failed: {checks}")
+
+
+def phase_provision_full(dev):
+    """Pond's provisioning loop at full width (``PROV_FULL``): local and
+    static savings_analysis on one shared cache, held to the reference's
+    PolicyResults."""
+    import dataclasses
+    from repro_torch.core import cluster_sim, replay_engine
+    from repro_torch.kernels.event_sweep import ops
+    cfg, vms, sample_s = _full_trace()
+    frac = PROV_FULL["static_pool_frac"]
+    t0 = time.perf_counter()
+    for policy in ("local", "static"):
+        cluster_sim.policy_decisions(vms, policy, static_pool_frac=frac)
+    decisions_s = time.perf_counter() - t0
+    replay_engine.stats_reset()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()    # by the phases before this one
+    ops.launches = 0                        # just before the main path ...
+    t0 = time.perf_counter()
+    local, static, eng = _savings_pair(vms, cfg, frac, None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launches                 # ... and read just after it
+    peak = torch.cuda.max_memory_allocated()
+    stats = replay_engine.stats_snapshot()
+    times = replay_engine.stage_times()
+    dec, _ = cluster_sim.policy_decisions(vms, "static",
+                                          static_pool_frac=frac)
+    t1 = time.perf_counter()
+    oracle = cluster_sim.replay_reject_rate(vms, dec, cfg, static.server_gb,
+                                            static.pool_group_gb)
+    oracle_s = time.perf_counter() - t1
+    # the same loop again under the tracer, for the device's busy time
+    # (the sum of kernel times); its idle share is of the untraced wall
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _savings_pair(vms, cfg, frac, None)
+        torch.cuda.synchronize()
+    kernels = sorted(((e.key, e.count, e.self_device_time_total)
+                      for e in prof.key_averages()
+                      if e.self_device_time_total > 0),
+                     key=lambda r: -r[2])
+    busy_s = sum(r[2] for r in kernels) / 1e6
+    got = [dataclasses.asdict(r) for r in (local, static)]
+    checks = {
+        "local_equals_reference": got[0] == PROV_FULL_WANT["local"],
+        "static_equals_reference": got[1] == PROV_FULL_WANT["static"],
+        "reject_rate_is_the_oracles": static.reject_rate == oracle,
+        "launches_equal_sweeps": launches == stats["sweeps"] and launches > 0,
+        "on_card": eng.device.type == "cuda",
+    }
+    lanes = [n for n, _ in times.sweeps]
+    emit("provision_full", ok=all(checks.values()), checks=checks,
+         config=dict(PROV_FULL, cores_per_server=cfg.cores_per_server,
+                     pool_sockets=cfg.pool_sockets, gb_per_core=cfg.gb_per_core,
+                     groups=cfg.n_groups),
+         vms=len(vms), results=got, savings=[local.savings, static.savings],
+         kernel_launches=launches, sweeps=len(lanes), sweep_lanes=lanes,
+         sweep_state_dtypes=[d for _, d in times.sweeps],
+         engine_stats=stats,
+         candidate_events_per_s=stats["events_per_sec"],
+         host_seconds=dict(sampling=sample_s, decisions=decisions_s,
+                           compile=times.compile_s,
+                           trajectories=times.trajectory_s,
+                           device_sweeps=times.sweep_s,
+                           other=wall - times.compile_s - times.trajectory_s
+                           - times.sweep_s,
+                           oracle_at_chosen_point=oracle_s),
+         wall_seconds=wall,
+         device_busy_seconds=busy_s if kernels else None,
+         device_idle_share_of_untraced_wall=(1 - busy_s / wall) if kernels
+         else None,
+         device_kernels=[dict(name=k[:60], count=c, seconds=us / 1e6)
+                         for k, c, us in kernels[:5]],
+         peak_memory_bytes=peak, held_before_bytes=held,
+         peak_memory_of_the_loop_bytes=peak - held)
+    if not all(checks.values()):
+        raise SystemExit(f"provision_full failed: {checks}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script runs on "
@@ -733,7 +1116,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_ring_parity_small(dev)
     flash["launches"] = phase_ring_full(dev)
-    print(json.dumps({"kernels": [paged, flash]}), flush=True)
+    torch.cuda.empty_cache()
+    sweep = phase_kernels_sweep(dev)
+    phase_provision_parity_small(dev)
+    sweep["launches"] = phase_provision_full(dev)
+    print(json.dumps({"kernels": [paged, flash, sweep]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

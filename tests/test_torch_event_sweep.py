@@ -1,0 +1,292 @@
+"""K1's module: the plain event sweep of the port against the reference's
+scan (``sweep_core.build_sweep(dt, with_carry=True)`` under ``jax.jit``)
+on the same numpy inputs, the whole final state compared with ``==``; the
+host helpers of ``core/sweep_core.py`` against the reference's; and the
+wrapper's checks.  The CUDA kernel itself is held to the plain version on
+the card by ``chip_smoke.py``."""
+import functools
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.core import sweep_core as jax_sc
+from repro_torch.core import sweep_core as sc
+from repro_torch.core.replay_engine import CompiledReplay
+from repro_torch.kernels.event_sweep import cases
+from repro_torch.kernels.event_sweep import ops
+from repro_torch.kernels.event_sweep.cases import EVENT_KEYS
+from tests._torch_port_util import PORT_WORLD_CFG, POOL, SERVER, port_world
+
+DTYPES = ("int16", "int32")
+
+
+@functools.cache
+def _jax_sweep(state_dtype):
+    return jax.jit(jax_sc.build_sweep(state_dtype, with_carry=True))
+
+
+def _reference(events, n_slots, n_servers, spg, cores, sgb, pgb,
+               state_dtype):
+    """The reference's scan run as its engine runs it: lanes padded to a
+    candidate bucket (replicating the last lane), servers and groups to
+    multiples of 16, slots to 32 and events to 256 (PAD); returns the
+    final state cut back to the true extents.  (On unpadded int16 shapes
+    the reference's scan can write a slot update into another row on this
+    jax version: ROADMAP F7.)"""
+    n = len(sgb)
+    np_dt = sc.state_np_dtype(state_dtype)
+    width = jax_sc.bucket_width(n)
+    s_pad = jax_sc.pad_up(n_servers, jax_sc.LANE_PAD)
+    n_groups = -(-n_servers // spg)
+    g_pad = jax_sc.pad_up(n_groups, jax_sc.LANE_PAD)
+    slot_pad = jax_sc.pad_up(n_slots, jax_sc.SLOT_PAD)
+    e_pad = jax_sc.pad_up(len(events["kind"]), jax_sc.EVENT_PAD)
+    caps = jax_sc.lane_capacities(np.asarray(sgb, float),
+                                  np.asarray(pgb, float), 0, n, width,
+                                  np_dt)
+    state = jax_sc.init_state(width, n_servers, cores, s_pad, g_pad,
+                              slot_pad, np_dt)
+    group_of = np.zeros(s_pad, np.int32)
+    group_of[:n_servers] = np.arange(n_servers) // spg
+    evs = []
+    for k in EVENT_KEYS:
+        a = np.full(e_pad, jax_sc.PAD if k == "kind" else 0, np.int32)
+        a[:len(events[k])] = events[k]
+        evs.append(a)
+    out = _jax_sweep(state_dtype)(tuple(evs), group_of, *state, *caps)
+    fc, um, up, slots, rej = (np.asarray(a) for a in out)
+    return [fc[:n, :n_servers], um[:n, :n_servers], up[:n, :n_groups],
+            slots[:n_slots, :n], rej[:n]]
+
+
+def _both(events, n_slots, n_servers, spg, cores, sgb, pgb, state_dtype):
+    """Final (fc, um, up, slots, rejects) of the reference's scan and of
+    the port's plain version, as numpy, from the same inputs."""
+    np_dt = sc.state_np_dtype(state_dtype)
+    n_groups = -(-n_servers // spg)
+    state = sc.init_state(len(sgb), n_servers, cores, n_servers, n_groups,
+                          n_slots, np_dt)
+    group_of = (np.arange(n_servers) // spg).astype(np.int32)
+    caps = (np.asarray(sgb).astype(np_dt), np.asarray(pgb).astype(np_dt))
+    evs = tuple(np.asarray(events[k], np.int32) for k in EVENT_KEYS)
+    want = _reference(events, n_slots, n_servers, spg, cores, sgb, pgb,
+                      state_dtype)
+    t = [torch.from_numpy(a.copy()) for a in (*state, *caps)]
+    fc, um, up, slots, rej, sgb_t, pgb_t = t
+    ops.event_sweep(*(torch.from_numpy(e) for e in evs),
+                    torch.from_numpy(group_of), fc, um, up, slots, sgb_t,
+                    pgb_t, rej)
+    return want, [a.numpy() for a in (fc, um, up, slots, rej)]
+
+
+def _assert_equal(want, got):
+    for name, a, b in zip(("fc", "um", "up", "slots", "rejects"), want, got):
+        assert a.dtype == b.dtype, name
+        assert a.tolist() == b.tolist(), name
+
+
+@pytest.mark.parametrize("state_dtype", DTYPES)
+@pytest.mark.parametrize("policy", ["static", "pond"])
+def test_plain_sweep_matches_reference_scan_on_world_streams(policy,
+                                                             state_dtype):
+    _, _, pvms, pdec = port_world(3, policy)
+    eng = CompiledReplay(pvms, pdec, PORT_WORLD_CFG, device="cpu")
+    evs, _, n_slots = eng._device_events()
+    if policy == "pond":
+        assert (evs[0] == sc.MIGRATE).any()       # QoS migrations replay
+    events = dict(zip(EVENT_KEYS, (e.numpy() for e in evs)))
+    sgb, pgb = sc.quantize_capacities(SERVER, POOL)
+    want, got = _both(events, n_slots, 8, 4, 64, sgb, pgb, state_dtype)
+    _assert_equal(want, got)
+    assert 0 < got[4].min() < got[4].max() <= len(pvms)
+
+
+@pytest.mark.parametrize("state_dtype", DTYPES)
+def test_plain_sweep_matches_reference_scan_on_edge_stream(state_dtype):
+    events, n_slots = cases.edge_stream()
+    assert set(events["kind"].tolist()) == {sc.ARRIVE, sc.DEPART,
+                                            sc.MIGRATE, sc.PAD, sc.FAIL,
+                                            sc.RECOVER}
+    lanes = np.asarray(cases.EDGE_LANES)
+    want, got = _both(events, n_slots, 3, 2, 8, lanes[:, 0], lanes[:, 1],
+                      state_dtype)
+    _assert_equal(want, got)
+    fc, um, up, slots, rej = got
+    # every VM left: cores and slots are all back
+    assert (fc == 8).all() and (slots == -1).all()
+    # lane (16, 0): the fallback placed VM 2 all-local and its MIGRATE
+    # still returned pool, so used pool stays negative (not clamped) and
+    # as much local memory stays used (its DEPART returns mem_gb only)
+    assert up[1, 0] < 0
+    assert (um.sum(1) == -up.sum(1)).all()
+    # nothing fits lane (0, 0); VM 3 (16 cores) fits no lane
+    assert rej[4] == 6 and rej.min() == 1
+
+
+@pytest.mark.parametrize("state_dtype", DTYPES)
+@pytest.mark.parametrize("n_servers,spg,n_lanes,mig_frac",
+                         [(1, 8, 1, 0.2), (7, 4, 16, 0.2), (33, 8, 5, 0.2),
+                          (7, 4, 9, 0.0)])
+def test_plain_sweep_matches_reference_scan_on_random_streams(
+        n_servers, spg, n_lanes, mig_frac, state_dtype):
+    rng = np.random.default_rng(n_servers * 100 + n_lanes)
+    events, n_slots = cases.random_stream(rng, 250, mig_frac=mig_frac)
+    if mig_frac:
+        assert (events["kind"] == sc.MIGRATE).any()
+    sgb, pgb = cases.lane_capacities(rng, n_lanes, n_servers, 64)
+    want, got = _both(events, n_slots, n_servers, spg, 64, sgb, pgb,
+                      state_dtype)
+    _assert_equal(want, got)
+
+
+def test_a_sweep_cut_in_two_carries_its_state():
+    """The final state written in place is the carry: two sweeps over the
+    halves of a stream give the sweep over the whole stream."""
+    rng = np.random.default_rng(5)
+    events, n_slots = cases.random_stream(rng, 200)
+    sgb, pgb = cases.lane_capacities(rng, 6, 7, 64)
+    want, _ = _both(events, n_slots, 7, 4, 64, sgb, pgb, "int32")
+    state = [torch.from_numpy(a) for a in sc.init_state(
+        6, 7, 64, 7, 2, n_slots, np.int32)]
+    caps = [torch.from_numpy(a.astype(np.int32)) for a in (sgb, pgb)]
+    group_of = torch.from_numpy((np.arange(7) // 4).astype(np.int32))
+    half = len(events["kind"]) // 2
+    for lo, hi in ((0, half), (half, None)):
+        ops.event_sweep(*(torch.from_numpy(events[k][lo:hi].copy())
+                          for k in EVENT_KEYS), group_of, *state[:4],
+                        *caps, state[4])
+    _assert_equal(want, [t.numpy() for t in state])
+
+
+# ------------------------------------------------------------ host helpers --
+def test_pick_state_dtype_matches_reference_at_its_boundaries():
+    safe = sc.I16_SAFE
+    assert safe == jax_sc.I16_SAFE and sc.I16_BIG == jax_sc.I16_BIG \
+        and sc.I32_BIG == jax_sc.I32_BIG
+    kw = dict(cores_per_server=64.0, n_servers=16, pay_mem_max=32.0,
+              pay_pool_max=8.0)
+    sgb = np.array([float(safe - 32)])
+    pgb = np.array([float(safe - 8)])
+    calls = [dict(sgb_i=sgb, pgb_i=pgb), dict(sgb_i=sgb + 1.0, pgb_i=pgb),
+             dict(sgb_i=sgb, pgb_i=pgb + 1.0),
+             dict(sgb_i=np.array([-1.0]), pgb_i=np.array([0.0])),
+             dict(sgb_i=np.array([]), pgb_i=np.array([])),
+             dict(sgb_i=sgb, pgb_i=np.array([0.0]),
+                  mig_pool_sum=float(safe - 8)),
+             dict(sgb_i=sgb, pgb_i=np.array([0.0]),
+                  mig_pool_sum=float(safe - 7)),
+             dict(sgb_i=sgb, pgb_i=pgb, cores_per_server=float(1 << 14)),
+             dict(sgb_i=sgb, pgb_i=pgb, n_servers=(1 << 13))]
+    got = [sc.pick_state_dtype(**(kw | c)) for c in calls]
+    assert got == [jax_sc.pick_state_dtype(**(kw | c)) for c in calls]
+    assert got == ["int16", "int32", "int32", "int32", "int32", "int16",
+                   "int32", "int32", "int32"]
+
+
+def test_quantize_and_init_state_match_reference():
+    s = np.array([200.7, np.inf, -3.5, 0.0, 2.0 ** 40])
+    p = np.array([-np.inf, 12.2, 0.0, 7.999, 5.0])
+    for a, b in zip(sc.quantize_capacities(s, p),
+                    jax_sc.quantize_capacities(s, p)):
+        assert a.tolist() == b.tolist()
+    for dt in (np.int16, np.int32):
+        for args in ((3, 8, 64.0, 8, 1, 5), (1, 7, 48.0, 16, 2, 32)):
+            for a, b in zip(sc.init_state(*args, dt),
+                            jax_sc.init_state(*args, dt)):
+                assert a.dtype == b.dtype and a.tolist() == b.tolist()
+
+
+@pytest.mark.parametrize("policy", ["static", "pond"])
+def test_assign_slots_matches_reference(policy):
+    vms, dec, pvms, pdec = port_world(4, policy)
+    eng = CompiledReplay(pvms, pdec, PORT_WORLD_CFG, device="cpu")
+    got = sc.assign_slots(eng._ev_kind, eng._ev_vm, eng.n_vms)
+    want = jax_sc.assign_slots(eng._ev_kind, eng._ev_vm, eng.n_vms)
+    assert got[0].tolist() == want[0].tolist() and got[1] == want[1]
+
+
+def test_get_sweep_is_k1_and_refuses_the_unported_keys():
+    rng = np.random.default_rng(2)
+    events, n_slots = cases.random_stream(rng, 40)
+    sgb, pgb = cases.lane_capacities(rng, 3, 4, 64)
+    want, _ = _both(events, n_slots, 4, 2, 64, sgb, pgb, "int16")
+    st = [torch.from_numpy(a) for a in sc.init_state(3, 4, 64, 4, 2,
+                                                     n_slots, np.int16)]
+    rej = sc.get_sweep("int16")(
+        tuple(torch.from_numpy(events[k]) for k in EVENT_KEYS),
+        torch.from_numpy((np.arange(4) // 2).astype(np.int32)), *st[:4],
+        *(torch.from_numpy(a.astype(np.int16)) for a in (sgb, pgb)))
+    assert rej.tolist() == want[4].tolist()
+    for kw, what in ((dict(with_carry=True), "M5"),
+                     (dict(batched=True), "M4"), (dict(mesh=object()),
+                                                  "M13")):
+        with pytest.raises(NotImplementedError, match=what):
+            sc.get_sweep("int32", **kw)
+    with pytest.raises(ValueError):
+        sc.get_sweep("int8")
+
+
+# ----------------------------------------------------------------- wrapper --
+def _small_args(state_dtype=torch.int32):
+    rng = np.random.default_rng(9)
+    events, n_slots = cases.random_stream(rng, 30)
+    np_dt = np.int16 if state_dtype == torch.int16 else np.int32
+    st = sc.init_state(4, 5, 64, 5, 2, n_slots, np_dt)[:4]
+    sgb, pgb = cases.lane_capacities(rng, 4, 5, 64)
+    return ([torch.from_numpy(events[k]) for k in EVENT_KEYS],
+            torch.from_numpy((np.arange(5) // 4).astype(np.int32)),
+            [torch.from_numpy(a) for a in st],
+            [torch.from_numpy(a.astype(np_dt)) for a in (sgb, pgb)])
+
+
+def test_wrapper_takes_plain_path_on_cpu_and_counts_no_launch():
+    events, group_of, st, caps = _small_args()
+    ops.launches = 0
+    rej = ops.event_sweep(*events, group_of, *st, *caps)
+    assert rej.dtype == torch.int32 and rej.shape == (4,)
+    assert ops.launches == 0
+
+
+@pytest.mark.parametrize("breakage", ["state_dtype", "event_dtype",
+                                      "mixed_state", "lanes", "servers",
+                                      "event_length", "noncontiguous",
+                                      "device"])
+def test_wrapper_refuses_bad_inputs(breakage):
+    events, group_of, st, caps = _small_args()
+    exc = ValueError
+    if breakage == "state_dtype":
+        st, caps, exc = [t.long() for t in st], [t.long() for t in caps], \
+            TypeError
+    elif breakage == "event_dtype":
+        events[2], exc = events[2].long(), TypeError
+    elif breakage == "mixed_state":
+        st[1], exc = st[1].to(torch.int16), TypeError
+    elif breakage == "lanes":
+        caps[0] = caps[0][:3].contiguous()
+    elif breakage == "servers":
+        group_of = group_of[:4].contiguous()
+    elif breakage == "event_length":
+        events[5] = events[5][:-1].contiguous()
+    elif breakage == "noncontiguous":
+        st[0] = st[0].t().contiguous().t()
+    else:
+        st[0] = st[0].to("meta")
+    with pytest.raises(exc):
+        ops.event_sweep(*events, group_of, *st, *caps)
+
+
+def test_kernel_plan_fits_the_full_config_and_refuses_too_large_a_lane():
+    from repro_torch.kernels.event_sweep import kernel as K
+    # the full-width row: 256 servers, 32 groups, 1,517 slots
+    for item in (2, 4):
+        assert K.lanes_per_block(16, 256, 32, 1517, item, 132) == 1
+        assert K.lanes_per_block(200, 256, 32, 1517, item, 132) == 2
+        assert K.lanes_per_block(5000, 256, 32, 1517, item, 132) == 8
+        assert K.shared_bytes(256, 32, 1517, item, 8) <= K.MAX_SHARED
+    # a slot column too large for shared memory: the limit is named
+    with pytest.raises(ValueError, match="232448"):
+        K.lanes_per_block(1, 256, 32, 100_000, 4, 132)
+    # lanes per block shrink to what the shared memory holds
+    assert K.lanes_per_block(5000, 256, 32, 20_000, 4, 132) == 2

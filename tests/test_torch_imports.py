@@ -6,6 +6,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -16,6 +17,7 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 def _port_files():
     files = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "examples", "torch_serve_tiered.py"),
+             os.path.join(REPO, "examples", "torch_cluster_savings.py"),
              os.path.join(REPO, "scripts", "torch_profile_decode.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
@@ -56,11 +58,19 @@ def test_port_mirrors_the_reference_layout():
                 "kernels/flash_attention/kernel.py",
                 "kernels/flash_attention/ops.py",
                 "kernels/flash_attention/ref.py", "sharding/rules.py",
-                "runtime/serve.py"):
+                "runtime/serve.py", "core/traces.py", "core/qos.py",
+                "core/policy_engine.py", "core/sweep_core.py",
+                "core/replay_engine.py", "core/cluster_sim.py"):
         assert os.path.isfile(os.path.join(PORT, rel)), rel
         assert os.path.isfile(os.path.join(REPO, "src", "repro", rel)), rel
-    for name in ("paged_attention.cu", "flash_attention.cu"):
+    for name in ("paged_attention.cu", "flash_attention.cu",
+                 "event_sweep.cu"):
         assert os.path.isfile(os.path.join(PORT, "csrc", name)), name
+    # K1 replaces a lax.scan, not a Pallas kernel: its module has no
+    # counterpart path in the reference
+    for name in ("kernel.py", "ops.py", "ref.py"):
+        assert os.path.isfile(os.path.join(PORT, "kernels", "event_sweep",
+                                           name)), name
 
 
 def _run(code_or_args, **kw):
@@ -87,7 +97,11 @@ def test_entry_points_refuse_to_run_without_a_card():
     """This machine has no CUDA device: ``device=None`` must raise, never
     run on the CPU."""
     import torch
+    import importlib.util
     from repro_torch.configs.registry import get_smoke
+    from repro_torch.core import cluster_sim
+    from repro_torch.core.policy_engine import PolicyDecisions
+    from repro_torch.core.replay_engine import CompiledReplay
     from repro_torch.device import resolve_device
     from repro_torch.launch import serve
     from repro_torch.models.convert import cache_from_numpy, params_from_numpy
@@ -97,7 +111,17 @@ def test_entry_points_refuse_to_run_without_a_card():
         assert resolve_device(None).type == "cuda"
         return
     cfg = get_smoke("qwen2-1.5b")
+    spec = importlib.util.spec_from_file_location(
+        "torch_cluster_savings",
+        os.path.join(REPO, "examples", "torch_cluster_savings.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    empty = PolicyDecisions(*(np.zeros(0),) * 4)
+    cluster = cluster_sim.ClusterConfig(n_servers=8)
     for call in (lambda: resolve_device(None),
+                 lambda: CompiledReplay([], empty, cluster),
+                 lambda: cluster_sim.savings_analysis([], cluster, "local"),
+                 lambda: example.main(["--days", "0.1"]),
                  lambda: resolve_device("cuda"),
                  lambda: build_model(cfg),
                  lambda: params_from_numpy({}, cfg),
@@ -116,7 +140,9 @@ def test_cuda_tensor_path_never_falls_back_in_source():
     for rel in ("kernels/paged_attention/ops.py",
                 "kernels/paged_attention/kernel.py", "kernels/build.py",
                 "kernels/flash_attention/ops.py",
-                "kernels/flash_attention/kernel.py"):
+                "kernels/flash_attention/kernel.py",
+                "kernels/event_sweep/ops.py",
+                "kernels/event_sweep/kernel.py"):
         with open(os.path.join(PORT, rel)) as f:
             tree = ast.parse(f.read())
         assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], rel
