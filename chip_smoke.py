@@ -122,6 +122,15 @@ def phase_build():
              flags=" ".join(build.NVCC_FLAGS), instantiations=len(regs),
              registers=regs, max_registers=max(regs), spill_stores=spills,
              spill_store_bytes=sum(spills))
+        if K is K1:
+            # registers, stack frame and spills of every K1 variant
+            report = K1.ptxas_report(log)
+            emit("build_variants", kernel=K.NAME, variants=report,
+                 registers_variants_without_stack_or_spills=all(
+                     v.get("stack_bytes") == 0
+                     and v.get("spill_store_bytes") == 0
+                     for v in report if v.get("variant", "").startswith(
+                         "registers")))
 
 
 # ---------------------------------------------------------------- kernels --
@@ -787,20 +796,22 @@ def _k1_inputs(ev, n_slots, n_servers, spg, cores, sgb, pgb, state_dtype,
     return events, group_of, state
 
 
-def _k1_both(events, group_of, state):
-    """K1 and its plain version on copies of the same state (both on the
-    card); returns the two final states with their rejects."""
-    from repro_torch.kernels.event_sweep import ops
-    from repro_torch.kernels.event_sweep.ref import event_sweep_ref
-    out = []
-    for fn in (ops.event_sweep, event_sweep_ref):
-        st = [t.clone() for t in state]
-        rej = torch.zeros(st[0].shape[0], dtype=torch.int32,
-                          device=st[0].device)
-        fn(*events, group_of, *st, rej)
-        out.append(st[:4] + [rej])
+def _k1_run(fn, events, group_of, state, **kw):
+    """fn (K1's wrapper or its plain version) on a copy of ``state``;
+    returns the final state with its rejects."""
+    st = [t.clone() for t in state]
+    rej = torch.zeros(st[0].shape[0], dtype=torch.int32, device=st[0].device)
+    fn(*events, group_of, *st, rej, **kw)
     torch.cuda.synchronize()
-    return out
+    return st[:4] + [rej]
+
+
+def _k1_variants(n_servers):
+    """The K1 variants that take ``n_servers``."""
+    from repro_torch.kernels.event_sweep import kernel as K
+    if n_servers > K.MAX_REGISTER_SERVERS:
+        return ["shared"]
+    return ["registers", "shared"]
 
 
 def phase_kernels_sweep(dev):
@@ -819,9 +830,13 @@ def phase_kernels_sweep(dev):
     ev, n_slots = cases.edge_stream()
     lanes = np.asarray(cases.EDGE_LANES)
     runs.append(("edges", ev, n_slots, 3, 2, 8, lanes[:, 0], lanes[:, 1]))
+    # S100 gives a thread of the registers variant (4 servers) two groups
+    # of 3; S300 runs it at 16 servers a thread with 150 groups (more than
+    # its keys carry); S600 lies above its limit (512 servers)
     for s, spg, n_lanes, mig in ((1, 8, 1, 0.2), (7, 4, 16, 0.2),
                                  (33, 8, 84, 0.2), (256, 8, 200, 0.2),
-                                 (33, 8, 16, 0.0)):
+                                 (33, 8, 16, 0.0), (100, 3, 16, 0.2),
+                                 (300, 2, 16, 0.2), (600, 8, 16, 0.2)):
         ev, n_slots = cases.random_stream(rng, 900, mig_frac=mig)
         sgb, pgb = cases.lane_capacities(rng, n_lanes, s, 64)
         runs.append((f"S{s}_lanes{n_lanes}_mig{mig}", ev, n_slots, s, spg,
@@ -830,18 +845,29 @@ def phase_kernels_sweep(dev):
         for dt in ("int16", "int32"):
             events, group_of, state = _k1_inputs(ev, n_slots, s, spg, cores,
                                                  sgb, pgb, dt, dev)
-            got, want = _k1_both(events, group_of, state)
-            for a, b in zip(got, want):
-                max_err = max(max_err, int((a.long() - b.long()).abs()
-                                           .max()))
-            if not all(torch.equal(a, b) for a, b in zip(got, want)):
-                raise SystemExit(f"event_sweep {name} {dt}: the kernel's "
-                                 "final state differs from its plain "
-                                 "version's")
-            checked.append(dict(case=name, state_dtype=dt,
-                                events=len(ev["kind"]), servers=s,
-                                lanes=len(sgb), n_slots=n_slots,
-                                rejects=int(want[4].sum())))
+            want = _k1_run(event_sweep_ref, events, group_of, state)
+            # every variant that takes this shape, then the wrapper's own
+            # choice, each against the plain version
+            for variant in _k1_variants(s) + [None]:
+                got = _k1_run(ops.event_sweep, events, group_of, state,
+                              variant=variant)
+                plan = ops.last_plan
+                for a, b in zip(got, want):
+                    max_err = max(max_err, int((a.long() - b.long()).abs()
+                                               .max()))
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise SystemExit(
+                        f"event_sweep {name} {dt} {plan.variant}: the "
+                        "kernel's final state differs from its plain "
+                        "version's")
+                checked.append(dict(case=name, state_dtype=dt,
+                                    variant=plan.variant,
+                                    chosen=variant is None,
+                                    servers_per_thread=plan
+                                    .servers_per_thread,
+                                    events=len(ev["kind"]), servers=s,
+                                    lanes=len(sgb), n_slots=n_slots,
+                                    rejects=int(want[4].sum())))
 
     # the full-width trace: rates == the port's scalar oracle
     cfg, vms, _ = _full_trace()
@@ -858,15 +884,22 @@ def phase_kernels_sweep(dev):
         raise SystemExit(f"event_sweep full width: rates {rates.tolist()} "
                          f"!= the scalar oracle's {oracle}")
 
-    # times at the full trace: fig3's 16-lane frontier and the pool
-    # search's 84 lanes, each state type forced, 5 launches on fresh state
+    # times at the full trace: fig3's 16-lane frontier, the pool search's
+    # 84 lanes, one, four and eight lanes an SM (132, 528, 1056), each state
+    # type forced, 5 launches on fresh state
     evs, group_of, n_slots = eng._device_events()
     n_ev, n_srv, n_grp = eng.n_events, eng.n_servers, eng.n_groups
     n_arrive = int((evs[0] == sweep_core.ARRIVE).sum())
     widths = {16: (np.linspace(150.0, 700.0, 16),
                    np.linspace(0.0, 2000.0, 16)),
               84: (np.repeat(np.linspace(270.0, 384.0, 7), 12),
-                   np.tile(np.linspace(0.0, 3000.0, 12), 7))}
+                   np.tile(np.linspace(0.0, 3000.0, 12), 7)),
+              132: (np.repeat(np.linspace(270.0, 384.0, 11), 12),
+                    np.tile(np.linspace(0.0, 3000.0, 12), 11)),
+              528: (np.repeat(np.linspace(150.0, 700.0, 44), 12),
+                    np.tile(np.linspace(0.0, 3000.0, 12), 44)),
+              1056: (np.repeat(np.linspace(150.0, 700.0, 88), 12),
+                     np.tile(np.linspace(0.0, 3000.0, 12), 88))}
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     clock_mhz = float(_smi("clocks.max.sm"))
     int32_rate = sms * INT32_LANES_PER_SM * clock_mhz * 1e6
@@ -892,27 +925,67 @@ def phase_kernels_sweep(dev):
         return ev_c, [[torch.from_numpy(a.copy()).to(dev) for a in st]
                       + caps for _ in range(reps)]
 
-    def time_kernel(ev_c, states):
-        ops.event_sweep(*ev_c, group_of, *[t.clone() for t in states[0]])
+    def time_kernel(ev_c, states, variant=None):
+        ops.event_sweep(*ev_c, group_of, *[t.clone() for t in states[0]],
+                        variant=variant)
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for st in states:
-            ops.event_sweep(*ev_c, group_of, *st)
+            ops.event_sweep(*ev_c, group_of, *st, variant=variant)
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / len(states)
 
-    timings = {}
-    for c in (16, 84):
-        for dt in ("int16", "int32"):
-            ev_c, states = fresh(c, dt, 5)
-            ms = time_kernel(ev_c, states)
-            item = 2 if dt == "int16" else 4
-            timings[f"lanes{c}_{dt}"] = dict(
-                ms=ms, ns_per_event=ms * 1e6 / n_ev,
-                **bound(c, item, n_ev, n_arrive))
+    def timed(c, dt, variant=None):
+        ev_c, states = fresh(c, dt, 5)
+        ms = time_kernel(ev_c, states, variant)
+        plan = ops.last_plan
+        return dict(ms=ms, ns_per_event=ms * 1e6 / n_ev,
+                    variant=plan.variant,
+                    servers_per_thread=plan.servers_per_thread,
+                    lanes_per_block=plan.lanes_per_block,
+                    **bound(c, 2 if dt == "int16" else 4, n_ev, n_arrive))
+
+    timings = {f"lanes{c}_{dt}": timed(c, dt)
+               for c in (16, 84, 132, 528, 1056)
+               for dt in ("int16", "int32")}
+    # every variant at 16 lanes, in the same call, on the whole trace and
+    # on copies of it in which every event but some kinds is a PAD (read
+    # and skipped): ns an event of a kind is (its stream's ms - the all-PAD
+    # stream's) / its count; and the registers and shared variants' final
+    # states at the full trace against each other
+    kind = evs[0]
+    streams, kind_counts = {}, {}
+    for name, kinds in (("pad", ()), ("arrive", (sweep_core.ARRIVE,)),
+                        ("depart_migrate", (sweep_core.DEPART,
+                                            sweep_core.MIGRATE))):
+        keep = torch.isin(kind, torch.tensor(kinds, dtype=kind.dtype,
+                                             device=dev))
+        streams[name] = (torch.where(keep, kind, sweep_core.PAD)
+                         .contiguous(), *evs[1:])
+        kind_counts[name] = int(keep.sum())
+    variant_timings, by_kind, full_equal = {}, {}, {}
+    for dt in ("int16", "int32"):
+        for variant in _k1_variants(n_srv):
+            key = f"{variant}_lanes16_{dt}"
+            variant_timings[key] = timed(16, dt, variant)
+            ms = {name: time_kernel(ev_s, fresh(16, dt, 5)[1], variant)
+                  for name, ev_s in streams.items()}
+            ns = {name: (ms[name] - ms["pad"]) * 1e6 / kind_counts[name]
+                  for name in ("arrive", "depart_migrate")}
+            by_kind[key] = dict(ms=dict(all=variant_timings[key]["ms"],
+                                        **ms),
+                                ns_an_event=dict(
+                                    pad=ms["pad"] * 1e6 / n_ev, **ns))
+        ev_c, states = fresh(16, dt, 1)
+        outs = [_k1_run(ops.event_sweep, ev_c, group_of, states[0],
+                        variant=v) for v in ("registers", "shared")]
+        full_equal[dt] = all(torch.equal(a, b) for a, b in zip(*outs))
+    if not all(full_equal.values()):
+        raise SystemExit(f"event_sweep full trace: the registers and shared "
+                         f"variants' final states differ: {full_equal}")
     # the plain version beside the kernel at a 2,048-event cut (16 lanes)
     cut = 2048
     ev_c, states = fresh(16, "int16", 5, cut=cut)
@@ -931,14 +1004,23 @@ def phase_kernels_sweep(dev):
         max_abs_err=max_err, tolerance="== (integer state, exact)",
         cases_checked=len(checked), cases=checked,
         full_width_rates=rates.tolist(), full_width_oracle=oracle,
-        design="one warp a lane, state in shared memory, 64-bit shuffle "
-               "argmin, events by 2-stage cp.async tiles of 1024",
+        design="registers variant up to 512 servers: one warp a lane, a "
+               "thread's K = S/32 servers (free cores, used local, group, "
+               "a copy of the group's pool) in registers, branch-free masks "
+               "against per-event bounds, a tree over K then redux.sync "
+               "(one packed (f, server) key for int16, two steps for "
+               "int32), predicated updates, the slot column in shared "
+               "memory by thread 0 alone; shared variant beyond (the first "
+               "port's kernel: the lane in shared memory, a 64-bit shuffle "
+               "argmin); events by 2-stage cp.async tiles of 1024",
+        full_trace_variants_equal=full_equal,
         ms=main["ms"], bound_ms=main["bound_ms"],
         bound_by=main["bound_by"],
         timed_shape=dict(events=n_ev, arrivals=n_arrive, servers=n_srv,
                          groups=n_grp, n_slots=n_slots, lanes=16,
                          state_dtype="int16"),
-        timings=timings,
+        timings=timings, variant_timings=variant_timings,
+        by_kind=by_kind, kind_counts=kind_counts,
         plain_ms=plain_cut_ms, plain_cut_events=cut,
         ms_at_plain_cut=cut_ms,
         plain_note="the plain version (a Python loop of tensor ops an "

@@ -3,13 +3,15 @@
 The kernel is ``csrc/event_sweep.cu``; it replaces the reference's
 ``src/repro/core/sweep_core.py::build_sweep`` (a ``lax.scan``; the design
 note is at the top of the source).  This module builds it at first use,
-plans how many candidate lanes share a block and hands raw pointers to its
-C entry point; shapes, dtypes and contiguity are the wrapper's business
+plans a launch (the variant, servers a thread, how many candidate lanes
+share a block) and hands raw pointers to its C entry point; shapes, dtypes and contiguity are the wrapper's business
 (``ops.py``).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import re
 
 import torch
 
@@ -22,50 +24,135 @@ TILE = 1024                      # events a shared-memory stage
 STAGES = 2
 MAX_LANES_PER_BLOCK = 8          # warps (one a lane) of a block
 MAX_SHARED = 232448              # bytes of shared memory a block may use
+# the registers variant: servers a thread, a template parameter of the
+# kernel; it covers S <= 32 * 16 servers, the shared variant any S whose
+# lane fits a block's shared memory
+SERVERS_PER_THREAD = (1, 2, 4, 8, 16)
+MAX_REGISTER_SERVERS = 32 * SERVERS_PER_THREAD[-1]
+# the variants and their codes at the C entry point; the registers variant
+# takes its first minimum by one packed (f, server) key with int16 state,
+# by two steps (least f, then least server) with int32
+VARIANTS = {"shared": 0, "registers": 1}
 
 _fns = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How one sweep launches: the variant, servers a thread (0 for the
+    shared variant) and lanes (warps) a block."""
+    variant: str
+    servers_per_thread: int
+    lanes_per_block: int
 
 
 def _round16(n: int) -> int:
     return -(-n // 16) * 16
 
 
+def choose_variant(n_servers: int) -> str:
+    """The registers variant up to MAX_REGISTER_SERVERS servers, the
+    shared one beyond."""
+    return "registers" if n_servers <= MAX_REGISTER_SERVERS else "shared"
+
+
+def servers_per_thread(n_servers: int) -> int:
+    """K of the registers variant: the least of SERVERS_PER_THREAD with
+    32 K >= S.  Raises beyond MAX_REGISTER_SERVERS."""
+    for k in SERVERS_PER_THREAD:
+        if 32 * k >= n_servers:
+            return k
+    raise ValueError(f"event_sweep: the registers variant takes at most "
+                     f"{MAX_REGISTER_SERVERS} servers, got {n_servers}")
+
+
 def shared_bytes(n_servers: int, n_groups: int, n_slots: int, item: int,
-                 lanes: int) -> int:
+                 lanes: int, variant: str = "registers") -> int:
     """A block's shared memory: two stages of six int32 event arrays,
-    ``group_of``, and one region a lane holding its fc, um, up and slot
-    column in the state's type (``item`` bytes), each rounded to 16 bytes.
-    The C entry point computes the same."""
-    lane = _round16((2 * n_servers + n_groups + n_slots) * item)
-    return STAGES * 6 * TILE * 4 + _round16(n_servers * 4) + lanes * lane
+    ``group_of``, and one region a lane in the state's type (``item``
+    bytes): the slot column alone for the registers variants, fc, um, up
+    and the slot column for the shared one; each rounded to 16 bytes.  The
+    C entry point computes the same."""
+    per_lane = n_slots + (2 * n_servers + n_groups
+                          if variant == "shared" else 0)
+    return (STAGES * 6 * TILE * 4 + _round16(n_servers * 4)
+            + lanes * _round16(per_lane * item))
 
 
 def lanes_per_block(n_lanes: int, n_servers: int, n_groups: int,
-                    n_slots: int, item: int, sm_count: int) -> int:
-    """Lanes (warps) a block holds: few enough that the blocks spread over
-    every SM (a lane is a sequential chain of events, so each wants an
-    SM's issue slots to itself), at most ``MAX_LANES_PER_BLOCK``, and no
-    more than the shared memory holds.  Raises, with the limit, when not
-    even one lane fits."""
-    want = min(MAX_LANES_PER_BLOCK, max(1, -(-n_lanes // sm_count)))
-    while want > 1 and shared_bytes(n_servers, n_groups, n_slots, item,
-                                    want) > MAX_SHARED:
-        want -= 1
-    need = shared_bytes(n_servers, n_groups, n_slots, item, 1)
+                    n_slots: int, item: int, sm_count: int,
+                    variant: str = "registers") -> int:
+    """Lanes (warps) a block holds: one a block while there are no more
+    lanes than SMs (a lane is a sequential chain of events, so each wants
+    an SM's issue slots to itself), then as many as spread the lanes
+    evenly over the SMs, at most ``MAX_LANES_PER_BLOCK``, and no more than
+    the shared memory holds.  Raises, with the limit, when not even one
+    lane fits."""
+    need = shared_bytes(n_servers, n_groups, n_slots, item, 1, variant)
     if need > MAX_SHARED:
         raise ValueError(
-            f"event_sweep: one lane's state ({n_servers} servers, "
-            f"{n_groups} groups, {n_slots} slots at {item} bytes) and the "
-            f"event stages need {need} bytes of shared memory; a block has "
-            f"at most {MAX_SHARED}")
+            f"event_sweep: one lane of the {variant} variant ({n_servers} "
+            f"servers, {n_groups} groups, {n_slots} slots at {item} bytes) "
+            f"and the event stages need {need} bytes of shared memory; a "
+            f"block has at most {MAX_SHARED}")
+    want = min(MAX_LANES_PER_BLOCK, max(1, -(-n_lanes // sm_count)))
+    while want > 1 and shared_bytes(n_servers, n_groups, n_slots, item,
+                                    want, variant) > MAX_SHARED:
+        want -= 1
     return want
+
+
+def plan(n_lanes: int, n_servers: int, n_groups: int, n_slots: int,
+         item: int, sm_count: int, variant: str | None = None) -> Plan:
+    """The launch plan of one sweep; ``variant`` forces one of
+    :data:`VARIANTS` (None: :func:`choose_variant`)."""
+    variant = variant or choose_variant(n_servers)
+    if variant not in VARIANTS:
+        raise ValueError(f"event_sweep: variant {variant!r} is not one of "
+                         f"{sorted(VARIANTS)}")
+    shared = variant == "shared"
+    k = 0 if shared else servers_per_thread(n_servers)
+    lanes = lanes_per_block(n_lanes, n_servers, n_groups, n_slots, item,
+                            sm_count, variant)
+    return Plan(variant, k, lanes)
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+_NAME = re.compile(r"sweep_(regs|shared)_kernelI([si])(?:Li(\d+)E)?E")
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """Registers, stack frame and spills of each kernel instantiation, from
+    the ``nvcc -Xptxas -v`` log of the build; the variant, state type and
+    servers a thread are read from the mangled name."""
+    out, cur = [], None
+    for line in log.splitlines():
+        if m := _ENTRY.search(line):
+            cur = dict(function=m.group(1))
+            if n := _NAME.search(m.group(1)):
+                regs = n.group(1) == "regs"
+                cur.update(
+                    variant="registers" if regs else "shared",
+                    state_dtype="int16" if n.group(2) == "s" else "int32",
+                    servers_per_thread=int(n.group(3)) if regs else 0)
+            out.append(cur)
+        elif cur is not None and (m := _FRAME.search(line)):
+            cur.update(stack_bytes=int(m.group(1)),
+                       spill_store_bytes=int(m.group(2)),
+                       spill_load_bytes=int(m.group(3)))
+        elif cur is not None and (m := _REGS.search(line)):
+            cur.update(registers=int(m.group(1)))
+    return out
 
 
 def _functions():
     """(launch, error_string) of the built library, bound once."""
     global _fns
     if _fns is None:
-        _fns = bind(NAME, [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
+        _fns = bind(NAME, [ctypes.c_void_p] * 14 + [ctypes.c_int] * 9
                     + [ctypes.c_void_p])
     return _fns
 
@@ -76,11 +163,11 @@ def build() -> None:
 
 
 def event_sweep_kernel(events, group_of, fc, um, up, slots, sgb, pgb,
-                       rejects, *, lanes: int) -> None:
+                       rejects, *, plan: Plan) -> None:
     """Enqueue one sweep over all events on PyTorch's current stream of
     ``fc``'s device; updates fc, um, up, slots and rejects in place; does
     not synchronise.  Arguments are CUDA tensors the wrapper has already
-    checked; ``lanes`` is :func:`lanes_per_block`'s plan."""
+    checked; ``plan`` is :func:`plan`'s."""
     launch, err = _functions()
     n_lanes, n_servers = fc.shape
     with torch.cuda.device(fc.device):
@@ -90,7 +177,8 @@ def event_sweep_kernel(events, group_of, fc, um, up, slots, sgb, pgb,
                     slots.data_ptr(), sgb.data_ptr(), pgb.data_ptr(),
                     rejects.data_ptr(), events[0].shape[0], n_lanes,
                     n_servers, up.shape[1], slots.shape[0],
-                    fc.element_size(), lanes, stream)
+                    fc.element_size(), VARIANTS[plan.variant],
+                    plan.servers_per_thread, plan.lanes_per_block, stream)
     if rc != 0:
         raise RuntimeError(f"event_sweep kernel launch failed ({rc}): "
                            f"{err(rc).decode()}")

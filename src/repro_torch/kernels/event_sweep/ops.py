@@ -15,6 +15,9 @@ from repro_torch.kernels.event_sweep import ref as R
 # Number of kernel launches made by this process; callers that want to
 # show a path went through the kernel set it to 0 and read it afterwards.
 launches = 0
+# The plan (kernel.Plan: variant, servers a thread, lanes a block) of the
+# last launch, so a caller can see which variant ran.
+last_plan = None
 
 
 def _check(events, group_of, fc, um, up, slots, sgb, pgb, rejects):
@@ -59,7 +62,7 @@ def _check(events, group_of, fc, um, up, slots, sgb, pgb, rejects):
 
 
 def event_sweep(kind, slot, cores, local, pool, mem, group_of, fc, um, up,
-                slots, sgb, pgb, rejects=None):
+                slots, sgb, pgb, rejects=None, *, variant=None):
     """Replay every event for every candidate lane.
 
     Events: six int32 (E,) arrays; ``group_of`` (S,) int32; state fc, um
@@ -67,13 +70,19 @@ def event_sweep(kind, slot, cores, local, pool, mem, group_of, fc, um, up,
     state dtype (int16 or int32).  ``rejects`` (C,) int32 is added to
     (zeros when None).  The final state is written into fc, um, up and
     slots in place (a later sweep can carry it on); returns the rejects.
+    On the card ``variant`` forces one of ``kernel.VARIANTS`` (None: the
+    registers variant up to ``kernel.MAX_REGISTER_SERVERS`` servers, the
+    shared one beyond).
     """
-    global launches
+    global launches, last_plan
     events = (kind, slot, cores, local, pool, mem)
     if rejects is None:
         rejects = torch.zeros(fc.shape[0], dtype=torch.int32,
                               device=fc.device)
     _check(events, group_of, fc, um, up, slots, sgb, pgb, rejects)
+    if variant is not None and variant not in K.VARIANTS:
+        raise ValueError(f"event_sweep: variant {variant!r} is not one of "
+                         f"{sorted(K.VARIANTS)}")
     if fc.device.type == "cpu":
         return R.event_sweep_ref(*events, group_of, fc, um, up, slots, sgb,
                                  pgb, rejects)
@@ -83,11 +92,12 @@ def event_sweep(kind, slot, cores, local, pool, mem, group_of, fc, um, up,
         raise ValueError("event_sweep: the event arrays must be 16-byte "
                          "aligned (the kernel stages them 16 bytes a copy)")
     c, s = fc.shape
-    lanes = K.lanes_per_block(c, s, up.shape[1], slots.shape[0],
-                              fc.element_size(), _sm_count(fc.device))
+    plan = K.plan(c, s, up.shape[1], slots.shape[0], fc.element_size(),
+                  _sm_count(fc.device), variant)
     K.event_sweep_kernel(events, group_of, fc, um, up, slots, sgb, pgb,
-                         rejects, lanes=lanes)
+                         rejects, plan=plan)
     launches += 1
+    last_plan = plan
     return rejects
 
 

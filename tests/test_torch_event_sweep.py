@@ -5,6 +5,8 @@ host helpers of ``core/sweep_core.py`` against the reference's; and the
 wrapper's checks.  The CUDA kernel itself is held to the plain version on
 the card by ``chip_smoke.py``."""
 import functools
+import os
+import re
 
 import jax
 import numpy as np
@@ -243,16 +245,21 @@ def _small_args(state_dtype=torch.int32):
 
 def test_wrapper_takes_plain_path_on_cpu_and_counts_no_launch():
     events, group_of, st, caps = _small_args()
-    ops.launches = 0
+    ops.launches, ops.last_plan = 0, None
     rej = ops.event_sweep(*events, group_of, *st, *caps)
     assert rej.dtype == torch.int32 and rej.shape == (4,)
-    assert ops.launches == 0
+    assert ops.launches == 0 and ops.last_plan is None
+    # a variant is the kernel's: the plain version gives the same answer
+    events, group_of, st, caps = _small_args()
+    assert ops.event_sweep(*events, group_of, *st, *caps,
+                           variant="shared").tolist() == rej.tolist()
+    assert ops.launches == 0 and ops.last_plan is None
 
 
 @pytest.mark.parametrize("breakage", ["state_dtype", "event_dtype",
                                       "mixed_state", "lanes", "servers",
                                       "event_length", "noncontiguous",
-                                      "device"])
+                                      "device", "variant"])
 def test_wrapper_refuses_bad_inputs(breakage):
     events, group_of, st, caps = _small_args()
     exc = ValueError
@@ -271,22 +278,118 @@ def test_wrapper_refuses_bad_inputs(breakage):
         events[5] = events[5][:-1].contiguous()
     elif breakage == "noncontiguous":
         st[0] = st[0].t().contiguous().t()
-    else:
+    elif breakage == "device":
         st[0] = st[0].to("meta")
     with pytest.raises(exc):
-        ops.event_sweep(*events, group_of, *st, *caps)
+        ops.event_sweep(*events, group_of, *st, *caps,
+                        variant="warp" if breakage == "variant" else None)
 
 
 def test_kernel_plan_fits_the_full_config_and_refuses_too_large_a_lane():
     from repro_torch.kernels.event_sweep import kernel as K
+    stages = K.STAGES * 6 * K.TILE * 4
     # the full-width row: 256 servers, 32 groups, 1,517 slots
     for item in (2, 4):
-        assert K.lanes_per_block(16, 256, 32, 1517, item, 132) == 1
+        plan = K.plan(16, 256, 32, 1517, item, 132)
+        assert (plan.variant, plan.servers_per_thread,
+                plan.lanes_per_block) == ("registers", 8, 1)
+        # one lane an SM while there are no more lanes than SMs, then as
+        # many as spread the lanes evenly over them
+        assert K.lanes_per_block(132, 256, 32, 1517, item, 132) == 1
         assert K.lanes_per_block(200, 256, 32, 1517, item, 132) == 2
+        assert K.lanes_per_block(528, 256, 32, 1517, item, 132) == 4
         assert K.lanes_per_block(5000, 256, 32, 1517, item, 132) == 8
-        assert K.shared_bytes(256, 32, 1517, item, 8) <= K.MAX_SHARED
+        # a lane of the registers variant holds its slot column alone
+        slot_col = -(-1517 * item // 16) * 16
+        assert K.shared_bytes(256, 32, 1517, item, 8) \
+            == stages + 256 * 4 + 8 * slot_col <= K.MAX_SHARED
+        assert K.shared_bytes(256, 32, 1517, item, 8, "shared") \
+            == stages + 256 * 4 + 8 * (-(-(2 * 256 + 32 + 1517) * item
+                                         // 16) * 16) <= K.MAX_SHARED
     # a slot column too large for shared memory: the limit is named
-    with pytest.raises(ValueError, match="232448"):
-        K.lanes_per_block(1, 256, 32, 100_000, 4, 132)
+    for variant in ("registers", "shared"):
+        with pytest.raises(ValueError, match="232448"):
+            K.lanes_per_block(1, 256, 32, 100_000, 4, 132, variant)
     # lanes per block shrink to what the shared memory holds
     assert K.lanes_per_block(5000, 256, 32, 20_000, 4, 132) == 2
+    assert K.lanes_per_block(5000, 256, 32, 20_000, 4, 132, "shared") == 2
+
+
+@pytest.mark.parametrize("n_servers,variant,k",
+                         [(1, "registers", 1), (32, "registers", 1),
+                          (33, "registers", 2), (256, "registers", 8),
+                          (512, "registers", 16), (513, "shared", 0),
+                          (600, "shared", 0)])
+def test_kernel_variant_follows_the_server_count(n_servers, variant, k):
+    from repro_torch.kernels.event_sweep import kernel as K
+    plan = K.plan(16, n_servers, 8, 100, 2, 132)
+    assert (plan.variant, plan.servers_per_thread) == (variant, k)
+    assert K.MAX_REGISTER_SERVERS == 512
+    forced = K.plan(16, n_servers, 8, 100, 2, 132, "shared")
+    assert (forced.variant, forced.servers_per_thread) == ("shared", 0)
+    if variant == "registers":
+        regs = K.plan(16, n_servers, 8, 100, 4, 132, "registers")
+        assert (regs.variant, regs.servers_per_thread) == (variant, k)
+    else:     # beyond the registers variant's limit, named in the error
+        with pytest.raises(ValueError, match="512"):
+            K.plan(16, n_servers, 8, 100, 2, 132, "registers")
+    with pytest.raises(ValueError, match="variant"):
+        K.plan(16, n_servers, 8, 100, 2, 132, "warp")
+
+
+def _cu_constant(name):
+    """An ``int`` constant of the kernel's source (``N`` or ``A << B``)."""
+    from repro_torch.kernels.event_sweep import kernel as K
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, K.SOURCE)) as f:
+        expr = re.search(rf"constexpr int {name} = ([^;]+);", f.read())[1]
+    a, _, b = expr.partition("<<")
+    return int(a) << int(b or 0)
+
+
+@pytest.mark.parametrize("item,n_servers,fits",
+                         [(2, 1, True), (2, 512, True), (2, 513, False),
+                          (4, 1, False), (4, 256, False)])
+def test_packed_key_fits_at_its_boundary(item, n_servers, fits):
+    """The registers variant takes its first minimum as the least of one
+    32-bit key (f + kScoreOffset) << kIndexBits | server for int16 state
+    (``item`` 2), two steps for int32: the key holds every int16 f and
+    every server the variant takes, ordered as (f, server); neither a
+    server past its limit (where the shared variant runs) nor an int32 f
+    fits."""
+    from repro_torch.kernels.event_sweep import kernel as K
+    index_bits = _cu_constant("kIndexBits")
+    offset = _cu_constant("kScoreOffset")
+    assert 32 * _cu_constant("kMaxK") == K.MAX_REGISTER_SERVERS
+    lo, hi = -(1 << (8 * item - 1)), (1 << (8 * item - 1)) - 1
+    pairs = [(score, server) for score in (lo, -1, 0, 1, sc.I16_BIG, hi)
+             for server in (0, 1, n_servers - 1)]
+    keys = [(score + offset) << index_bits | server
+            for score, server in pairs]
+    got = (0 <= min(keys) and max(keys) < 1 << 32
+           and n_servers <= 1 << index_bits
+           and sorted(range(len(pairs)), key=keys.__getitem__)
+           == sorted(range(len(pairs)), key=pairs.__getitem__))
+    assert got is fits
+    if item == 2:
+        assert (K.choose_variant(n_servers) == "registers") is fits
+
+
+def test_ptxas_report_reads_each_variant():
+    from repro_torch.kernels.event_sweep import kernel as K
+    names = ["_ZN12_GLOBAL__N_117sweep_regs_kernelIsLi8EEEvNS_6EventsE",
+             "_ZN12_GLOBAL__N_117sweep_regs_kernelIiLi16EEEvNS_6EventsE",
+             "_ZN12_GLOBAL__N_119sweep_shared_kernelIsEEvNS_6EventsE"]
+    log = "ptxas info    : 0 bytes gmem\n"
+    for i, n in enumerate(names):
+        log += (f"ptxas info    : Compiling entry function '{n}' for "
+                f"'sm_90a'\nptxas info    : Function properties for {n}\n"
+                f"    {8 * i} bytes stack frame, {4 * i} bytes spill stores, "
+                f"{4 * i} bytes spill loads\nptxas info    : Used {40 + i} "
+                "registers, used 1 barriers, 448 bytes cmem[0]\n")
+    got = K.ptxas_report(log)
+    assert [(r["variant"], r["state_dtype"], r["servers_per_thread"],
+             r["registers"], r["stack_bytes"], r["spill_store_bytes"])
+            for r in got] == [("registers", "int16", 8, 40, 0, 0),
+                              ("registers", "int32", 16, 41, 8, 4),
+                              ("shared", "int16", 0, 42, 16, 8)]
