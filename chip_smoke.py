@@ -16,7 +16,13 @@ PyTorch version on the card, and drives the port's three paths:
 * Pond's provisioning loop (``core/cluster_sim.py::savings_analysis`` over
   ``core/replay_engine.py::CompiledReplay``, the event sweep K1) on a
   cluster row of 256 servers with 16-socket pools and a 7-day trace: the
-  all-local and static-pool provisioning, held to the reference's results.
+  all-local and static-pool provisioning, held to the reference's results;
+* Pond's own policy priced over a seed batch (Fig 21's path:
+  ``cluster_sim.savings_analysis_batched`` over
+  ``replay_engine.CompiledReplayBatch``, K1's trace axis, with the
+  predictors and a control plane a trace) on the same cluster row and
+  three 7-day traces: all-local, static and ``pond``, held to the
+  reference's results.
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after, which shows that it went through its kernel.
@@ -83,6 +89,59 @@ PROV_FULL_WANT = {
                    pool_group_gb=369.37278106508876,
                    mispredictions=0.04284806740671392,
                    reject_rate=0.004993089920199724, **_PROV_COMMON)}
+# Pond's own policy over a seed batch at full width, with
+# benchmarks/fig21_e2e.py's settings: PROV_FULL's cluster and trace length,
+# trace seeds 2, 3, 4; the models trained on 2,000 VMs over 10 days (trace
+# seed 1) as benchmarks/common.py trains them; a static pool of 0.15.
+POND_BATCH_FULL = dict(seeds=(2, 3, 4), static_pool_frac=0.15,
+                       train_vms=2000, train_days=10, train_seed=1)
+# The reference's results for it, from the JAX package on a CPU:
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -c "
+#   import numpy as np
+#   from repro.core import cluster_sim as cs, traces
+#   from repro.core.control_plane import ControlPlane, ControlPlaneConfig
+#   from repro.core.pool_manager import PoolManager
+#   from repro.core.predictors.models import (LatencySensitivityModel,
+#                                             UntouchedMemoryModel)
+#   pop = traces.Population(seed=0)
+#   tr = pop.sample_vms(2000, 10 * 86400, seed=1)
+#   li = LatencySensitivityModel(pdm=0.05).fit(traces.pmu_matrix(tr),
+#                                              traces.slowdowns(tr, 182))
+#   hist = traces.build_history(tr)
+#   um = UntouchedMemoryModel(0.05).fit(traces.metadata_features(tr, hist),
+#                                       np.array([v.untouched for v in tr]))
+#   cfg = cs.ClusterConfig(n_servers=256, pool_sockets=16, gb_per_core=4.75)
+#   h = 7 * 86400; n = cs.arrivals_for_util(cfg, 0.8, h)
+#   vl = [pop.sample_vms(n, h, seed=s, start_id=10**6) for s in (2, 3, 4)]
+#   c = {}
+#   for p in ('local', 'static', 'pond'):
+#       cps = [ControlPlane(ControlPlaneConfig(li_threshold=0.05,
+#                                              um_quantile=0.05), li, um,
+#                           PoolManager(pool_gb=4096, buffer_gb=64),
+#                           history=dict(hist)) for _ in vl]
+#       print(cs.savings_analysis_batched(vl, cfg, p, control_planes=cps,
+#                                         static_pool_frac=0.15, cache=c))"
+#   (its tier_pricing is None on this path and is not compared)
+_POND_ROWS = {
+    "local": [(384.0, 0.0, 0.0, 0, 0.0)] * 3,
+    "static": [(330.0, 175.35936, 0.014433150550577326, 0,
+                0.004970799340198832),
+               (330.0, 166.2752, 0.014605902545584236, 0,
+                0.004970799340198832),
+               (330.0, 206.664, 0.014160090945566403, 0,
+                0.004903927600196157)],
+    "pond": [(228.0, 662.4464, 0.009523650305380946, 3221,
+              0.00494850876019794),
+             (222.0, 614.4192, 0.009289599215371584, 3341,
+              0.004903927600196157),
+             (228.0, 632.2848000000001, 0.008565155365342607, 3090,
+              0.004970799340198832)]}
+POND_BATCH_WANT = {
+    policy: [dict(name=policy, server_gb=sgb, pool_group_gb=pgb,
+                  baseline_server_gb=384.0, n_servers=256, n_groups=32,
+                  mispredictions=mis, mitigations=mit, reject_rate=rate)
+             for sgb, pgb, mis, mit, rate in rows]
+    for policy, rows in _POND_ROWS.items()}
 # K1's operations bound: int32 operations per (ARRIVE event, lane, server)
 # that the step needs — pooled mask 8 (fc >= c, um + l, <= sgb, up[g] + p,
 # <= pgb, two ANDs, the score select), fallback mask 4 (um + m, <=, AND,
@@ -814,6 +873,243 @@ def _k1_variants(n_servers):
     return ["registers", "shared"]
 
 
+# ------------------------------------------------ Fig 21's inputs (K1, M8) --
+_POND = {}
+
+
+def _pond_plane(li, um, hist):
+    """A fresh control plane with Fig 21's settings (its decisions extend
+    its history, so each trace gets its own)."""
+    from repro_torch.core.control_plane import (ControlPlane,
+                                                ControlPlaneConfig)
+    from repro_torch.core.pool_manager import PoolManager
+    return ControlPlane(ControlPlaneConfig(li_threshold=0.05,
+                                           um_quantile=0.05), li, um,
+                        PoolManager(pool_gb=4096, buffer_gb=64),
+                        history=dict(hist))
+
+
+def _pond_inputs():
+    """``POND_BATCH_FULL``'s traces (seed 2's is ``_full_trace``'s), Pond's
+    two models and the customers' history, made once, with the host
+    seconds of sampling and of fitting."""
+    if not _POND:
+        from repro_torch.core import cluster_sim, traces
+        from repro_torch.core.predictors.models import (
+            LatencySensitivityModel, UntouchedMemoryModel)
+        f = POND_BATCH_FULL
+        cfg, vms2, sample_s = _full_trace()
+        horizon = PROV_FULL["days"] * 86400
+        n = cluster_sim.arrivals_for_util(cfg, 0.8, horizon)
+        pop = traces.Population(seed=0)
+        t0 = time.perf_counter()
+        vms_list = [vms2 if seed == PROV_FULL["seed"] else
+                    pop.sample_vms(n, horizon, seed=seed, start_id=10 ** 6)
+                    for seed in f["seeds"]]
+        sample_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        train = pop.sample_vms(f["train_vms"], f["train_days"] * 86400,
+                               seed=f["train_seed"])
+        li = LatencySensitivityModel(pdm=0.05).fit(
+            traces.pmu_matrix(train), traces.slowdowns(train, 182))
+        hist = traces.build_history(train)
+        um = UntouchedMemoryModel(0.05).fit(
+            traces.metadata_features(train, hist),
+            np.array([v.untouched for v in train]))
+        _POND.update(cfg=cfg, vms_list=vms_list, li=li, um=um, hist=hist,
+                     sampling_s=sample_s,
+                     fitting_s=time.perf_counter() - t0)
+    return _POND
+
+
+def _pond_decisions():
+    """The pond decisions of each ``POND_BATCH_FULL`` trace, from fresh
+    planes (the same decisions the phase's own planes make), made once."""
+    inp = _pond_inputs()
+    if "decisions" not in inp:
+        from repro_torch.core import cluster_sim
+        inp["decisions"] = [cluster_sim.policy_decisions(
+            vms, "pond", _pond_plane(inp["li"], inp["um"], inp["hist"]),
+            as_arrays=True)[0] for vms in inp["vms_list"]]
+    return inp["decisions"]
+
+
+def _k1_trace_state(counts, n_cand, n_slots, n_servers, spg, cores, sgb,
+                    pgb, state_dtype, dev):
+    """group_of and the all-free state of T x n_cand trace-major lanes
+    (sgb, pgb: (T, n_cand)) on ``dev``."""
+    from repro_torch.core import sweep_core
+    np_dt = sweep_core.state_np_dtype(state_dtype)
+    n_groups = -(-n_servers // spg)
+    fc, um, up, slots, _ = sweep_core.init_state(
+        len(counts) * n_cand, n_servers, cores, n_servers, n_groups, n_slots,
+        np_dt)
+    group_of = torch.from_numpy(
+        (np.arange(n_servers) // spg).astype(np.int32)).to(dev)
+    state = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
+                  (fc, um, up, slots, np.asarray(sgb).reshape(-1)
+                   .astype(np_dt), np.asarray(pgb).reshape(-1)
+                   .astype(np_dt)))
+    return group_of, state
+
+
+def _lanes_of(state, t, n):
+    """Trace t's lanes (n a trace) of a state (fc, um, up, slots, then
+    per-lane vectors: rejects, or sgb and pgb), each contiguous."""
+    lanes = slice(t * n, (t + 1) * n)
+    return [(a[:, lanes] if i == 3 else a[lanes]).contiguous()
+            for i, a in enumerate(state)]
+
+
+def _k1_trace_axis(dev, int32_rate):
+    """K1's trace axis on the card: ``==`` its plain version on T traces of
+    unequal lengths and peaks (T 1, 2, 3, 7; a per-trace lane count the
+    lanes a block do not divide; 600 servers on the shared variant), each
+    variant that takes the shape and the wrapper's choice, both state
+    types; at full width (3 pond traces x 28 lanes, 256 servers) ``==``
+    three single-trace launches, and ``==`` the plain version on the
+    traces' first 2,048 events; times: the batched launch against the
+    three single launches, in turns."""
+    from repro_torch.core import sweep_core
+    from repro_torch.core.replay_engine import (CompiledReplay,
+                                                CompiledReplayBatch)
+    from repro_torch.kernels.event_sweep import cases, ops
+    from repro_torch.kernels.event_sweep.ref import event_sweep_ref
+    rng = np.random.default_rng(16)
+    checked = []
+
+    def check(name, evs, counts, n_cand, n_slots, s, spg, cores, sgb, pgb,
+              dt):
+        starts = ops.trace_starts(counts)
+        group_of, state = _k1_trace_state(counts, n_cand, n_slots, s, spg,
+                                          cores, sgb, pgb, dt, dev)
+        want = _k1_run(event_sweep_ref, evs, group_of, state,
+                       trace_starts=starts, trace_counts=counts)
+        for variant in _k1_variants(s) + [None]:
+            got = _k1_run(ops.event_sweep, evs, group_of, state,
+                          variant=variant, trace_events=counts)
+            plan = ops.last_plan
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise SystemExit(f"event_sweep trace axis {name} {dt} "
+                                 f"{plan.variant}: the kernel's final state "
+                                 "differs from its plain version's")
+            checked.append(dict(case=name, state_dtype=dt,
+                                variant=plan.variant, chosen=variant is None,
+                                lanes_per_block=plan.lanes_per_block,
+                                traces=len(counts), lanes_a_trace=n_cand,
+                                events=counts, servers=s, n_slots=n_slots,
+                                rejects=int(want[4].sum())))
+        return want
+
+    # (T, lanes a trace, servers, servers a group): 300 lanes a trace is
+    # not a multiple of the 7 lanes a block that 900 lanes take
+    for n_tr, n_cand, s, spg in ((1, 16, 33, 8), (2, 9, 7, 4),
+                                 (3, 300, 33, 8), (7, 5, 100, 3),
+                                 (3, 4, 600, 8)):
+        streams, slot_counts = zip(*(cases.random_stream(
+            rng, 500 + 130 * i, mig_frac=0.2) for i in range(n_tr)))
+        evs, counts = ops.pack_traces(
+            [tuple(ev[k] for k in cases.EVENT_KEYS) for ev in streams], dev)
+        caps = [cases.lane_capacities(rng, n_cand, s, 64)
+                for _ in range(n_tr)]
+        sgb, pgb = (np.stack([c[j] for c in caps]) for j in range(2))
+        for dt in ("int16", "int32"):
+            check(f"T{n_tr}_lanes{n_cand}_S{s}", evs, counts, n_cand,
+                  max(slot_counts), s, spg, 64, sgb, pgb, dt)
+
+    # full width: the pond batch's three traces, 28 lanes each (the pool
+    # search's 7 server sizes x 4 pool points)
+    inp = _pond_inputs()
+    cfg = inp["cfg"]
+    batch = CompiledReplayBatch([CompiledReplay(v, d, cfg, device=dev)
+                                 for v, d in zip(inp["vms_list"],
+                                                 _pond_decisions())])
+    evs, group_of, n_slots, counts = batch._device_events()
+    starts = ops.trace_starts(counts)
+    n_tr, n_cand = batch.k, 28
+    sgb = np.tile(np.repeat(np.linspace(220.0, 384.0, 7), 4), (n_tr, 1))
+    pgb = np.tile(np.tile(np.linspace(0.0, 1200.0, 4), 7), (n_tr, 1))
+    s, spg = cfg.n_servers, cfg.servers_per_group
+    singles = [tuple(e[e0:e0 + n] for e in evs)
+               for e0, n in zip(starts, counts)]
+    arrivals = [int((ev[0] == sweep_core.ARRIVE).sum()) for ev in singles]
+    full = {}
+    for dt in ("int16", "int32"):
+        _, state = _k1_trace_state(counts, n_cand, n_slots, s, spg,
+                                   cfg.cores_per_server, sgb, pgb, dt, dev)
+        got = _k1_run(ops.event_sweep, evs, group_of, state,
+                      trace_events=counts)
+        plan = ops.last_plan
+        one = [_k1_run(ops.event_sweep, singles[t], group_of,
+                       _lanes_of(state, t, n_cand)) for t in range(n_tr)]
+        if not all(torch.equal(a, b) for t in range(n_tr)
+                   for a, b in zip(_lanes_of(got, t, n_cand), one[t])):
+            raise SystemExit(f"event_sweep trace axis full width {dt}: the "
+                             "batched launch differs from three "
+                             "single-trace launches")
+        # the plain version on each trace's first 2,048 events
+        cut = [tuple(e[:2048] for e in ev) for ev in singles]
+        cut_evs, cut_counts = ops.pack_traces(cut, dev)
+        check("full_width_first_2048", cut_evs, cut_counts, n_cand, n_slots,
+              s, spg, cfg.cores_per_server, sgb, pgb, dt)
+
+        # times, in turns: three single launches, the batched launch, the
+        # batched launch, three single launches (5 sweeps each, on fresh
+        # state)
+        def run_batched(st):
+            ops.event_sweep(*evs, group_of, *st, trace_events=counts)
+
+        def run_singles(st):
+            for t in range(n_tr):
+                ops.event_sweep(*singles[t], group_of, *st[6 * t:6 * t + 6])
+
+        def batched_states():
+            return [t.clone() for t in state]
+
+        def single_states():             # each trace's lanes apart
+            return [a for t in range(n_tr) for a in _lanes_of(state, t,
+                                                               n_cand)]
+
+        def timed(fn, make, reps=5):
+            states = [make() for _ in range(reps + 1)]
+            fn(states[0])
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for st in states[1:]:
+                fn(st)
+            end.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(end) / reps
+
+        runs = [timed(*f) for f in ((run_singles, single_states),
+                                    (run_batched, batched_states),
+                                    (run_batched, batched_states),
+                                    (run_singles, single_states))]
+        item = 2 if dt == "int16" else 4
+        lanes = n_tr * n_cand
+        ops_ = K1_OPS_PER_ARRIVE_SERVER * sum(arrivals) * n_cand * s
+        st_bytes = (2 * lanes * s + lanes * cfg.n_groups
+                    + n_slots * lanes) * item
+        nbytes = (24 * sum(counts) + 4 * s + 2 * st_bytes + 2 * lanes * item
+                  + 8 * lanes)
+        t_ops, t_bytes = (ops_ / int32_rate * 1e3,
+                          nbytes / HBM_BYTES_PER_S * 1e3)
+        full[dt] = dict(
+            batched_ms=min(runs[1:3]), three_singles_ms=min(runs[0], runs[3]),
+            ms_runs=dict(singles=[runs[0], runs[3]], batched=runs[1:3]),
+            variant=plan.variant, lanes_per_block=plan.lanes_per_block,
+            bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            int32_ops=ops_, bytes=nbytes)
+    return dict(cases_checked=len(checked), cases=checked,
+                full_width=dict(traces=n_tr, lanes_a_trace=n_cand,
+                                servers=s, events=counts, arrivals=arrivals,
+                                n_slots=n_slots, equal_to_single_launches=True,
+                                **full))
+
+
 def phase_kernels_sweep(dev):
     """K1 against its plain version on the card (whole final state and the
     rejects, ``==``), its rates against the port's scalar oracle at the
@@ -925,15 +1221,16 @@ def phase_kernels_sweep(dev):
         return ev_c, [[torch.from_numpy(a.copy()).to(dev) for a in st]
                       + caps for _ in range(reps)]
 
-    def time_kernel(ev_c, states, variant=None):
+    def time_kernel(ev_c, states, variant=None, trace_events=None):
         ops.event_sweep(*ev_c, group_of, *[t.clone() for t in states[0]],
-                        variant=variant)
+                        variant=variant, trace_events=trace_events)
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for st in states:
-            ops.event_sweep(*ev_c, group_of, *st, variant=variant)
+            ops.event_sweep(*ev_c, group_of, *st, variant=variant,
+                            trace_events=trace_events)
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / len(states)
@@ -951,6 +1248,35 @@ def phase_kernels_sweep(dev):
     timings = {f"lanes{c}_{dt}": timed(c, dt)
                for c in (16, 84, 132, 528, 1056)
                for dt in ("int16", "int32")}
+    # the trace axis's own cost (T = 1 takes the single-trace build by
+    # dispatch, so the axis costs only when T > 1): the full trace three
+    # times over as one batch of 3 x 16 lanes, each trace's lanes the
+    # 16-lane frontier's, against one 16-lane launch, in turns (single,
+    # batch, batch, single); each trace's rejects == the single launch's
+    evs3, counts3 = ops.pack_traces([evs] * 3, dev)
+
+    def thrice(states):
+        return [[torch.cat([t] * 3, dim=1 if i == 3 else 0)
+                 for i, t in enumerate(st)] for st in states]
+
+    axis_cost = {}
+    for dt in ("int16", "int32"):
+        _, states = fresh(16, dt, 5)
+        one = ops.event_sweep(*evs, group_of,
+                              *[t.clone() for t in states[0]])
+        three = ops.event_sweep(*evs3, group_of, *thrice(states[:1])[0],
+                                trace_events=counts3)
+        if not torch.equal(three, one.repeat(3)):
+            raise SystemExit(f"event_sweep {dt}: the full trace thrice in "
+                             "one batch differs from the single launch")
+        r = [time_kernel(evs, fresh(16, dt, 5)[1]) if single else
+             time_kernel(evs3, thrice(fresh(16, dt, 5)[1]),
+                         trace_events=counts3)
+             for single in (True, False, False, True)]
+        single_ms, batch_ms = min(r[0], r[3]), min(r[1], r[2])
+        axis_cost[dt] = dict(single_16_ms=single_ms, batch_3x16_ms=batch_ms,
+                             ratio=batch_ms / single_ms, runs=r)
+    trace_axis = _k1_trace_axis(dev, int32_rate)
     # every variant at 16 lanes, in the same call, on the whole trace and
     # on copies of it in which every event but some kinds is a PAD (read
     # and skipped): ns an event of a kind is (its stream's ms - the all-PAD
@@ -1012,7 +1338,9 @@ def phase_kernels_sweep(dev):
                "int32), predicated updates, the slot column in shared "
                "memory by thread 0 alone; shared variant beyond (the first "
                "port's kernel: the lane in shared memory, a 64-bit shuffle "
-               "argmin); events by 2-stage cp.async tiles of 1024",
+               "argmin); events by 2-stage cp.async tiles of 1024; a trace "
+               "axis: T streams in one set of event arrays, a block one "
+               "trace's lanes (grid: blocks a trace x T)",
         full_trace_variants_equal=full_equal,
         ms=main["ms"], bound_ms=main["bound_ms"],
         bound_by=main["bound_by"],
@@ -1021,6 +1349,11 @@ def phase_kernels_sweep(dev):
                          state_dtype="int16"),
         timings=timings, variant_timings=variant_timings,
         by_kind=by_kind, kind_counts=kind_counts,
+        trace_axis=trace_axis, trace_axis_cost=axis_cost,
+        trace_axis_cost_note="the full trace three times over as one "
+                             "batch of 3 x 16 lanes (the batched build) "
+                             "against one 16-lane launch (the single-trace "
+                             "build, which T = 1 takes), in turns",
         plain_ms=plain_cut_ms, plain_cut_events=cut,
         ms_at_plain_cut=cut_ms,
         plain_note="the plain version (a Python loop of tensor ops an "
@@ -1171,6 +1504,161 @@ def phase_provision_full(dev):
     return launches
 
 
+def _pond_loop(vms_list, cfg, models, frac, device):
+    """Fig 21's loop as a user calls it: ``savings_analysis_batched`` for
+    local, static and pond (a fresh control plane a trace) on one shared
+    cache.  Returns ({policy: [PolicyResult a trace]}, the pond planes,
+    the all-local batch)."""
+    from repro_torch.core.cluster_sim import savings_analysis_batched
+    cache, out = {}, {}
+    planes = [_pond_plane(*models) for _ in vms_list]
+    for policy in ("local", "static", "pond"):
+        out[policy] = savings_analysis_batched(
+            vms_list, cfg, policy, static_pool_frac=frac, cache=cache,
+            control_planes=planes if policy == "pond" else None,
+            device=device)
+    return out, planes, cache["local_batch"]
+
+
+def phase_pond_batch_parity_small(dev):
+    """Fig 21's batched loop on a small world (8 servers, trace seeds 3
+    and 4, models fitted on 300 VMs) on the card (K1's trace axis) and on
+    the CPU (its plain version): equal PolicyResults for local, static and
+    pond, and equal control-plane end states."""
+    import dataclasses
+    from repro_torch.core import cluster_sim, traces
+    from repro_torch.core.predictors.models import (LatencySensitivityModel,
+                                                    UntouchedMemoryModel)
+    from repro_torch.kernels.event_sweep import ops
+    cfg = cluster_sim.ClusterConfig(n_servers=8, pool_sockets=8,
+                                    gb_per_core=4.75)
+    horizon = 2 * 86400
+    pop = traces.Population(seed=0)
+    train = pop.sample_vms(300, 10 * 86400, seed=1)
+    hist = traces.build_history(train)
+    models = (LatencySensitivityModel(pdm=0.05).fit(
+        traces.pmu_matrix(train), traces.slowdowns(train, 182)),
+        UntouchedMemoryModel(0.05).fit(
+            traces.metadata_features(train, hist),
+            np.array([v.untouched for v in train])), hist)
+    n = cluster_sim.arrivals_for_util(cfg, 0.8, horizon)
+    vms_list = [pop.sample_vms(n, horizon, seed=s, start_id=10 ** 6)
+                for s in (3, 4)]
+    out = {}
+    for d in (dev, "cpu"):
+        before = ops.launches
+        res, planes, _ = _pond_loop(vms_list, cfg, models, 0.25, d)
+        out[str(d)] = (
+            {p: [dataclasses.asdict(r) for r in rs] for p, rs in res.items()},
+            [([dataclasses.astuple(m) for m in cp.mitigation.log],
+              {c: list(h) for c, h in cp.history.items()})
+             for cp in planes], ops.launches - before)
+    (g_res, g_planes, g_n), (c_res, c_planes, c_n) = out[str(dev)], out["cpu"]
+    checks = {"results_equal": g_res == c_res,
+              "planes_equal": g_planes == c_planes,
+              "pond_mitigates": all(r["mitigations"] > 0
+                                    for r in g_res["pond"]),
+              "launches_on_card": g_n > 0, "none_on_cpu": c_n == 0}
+    emit("pond_batch_parity_small", ok=all(checks.values()), checks=checks,
+         servers=8, seeds=[3, 4], vms=n, results=g_res, kernel_launches=g_n)
+    if not all(checks.values()):
+        raise SystemExit(f"pond_batch_parity_small failed: {checks}")
+
+
+def phase_pond_batch_full(dev):
+    """Pond's own policy over a seed batch at full width
+    (``POND_BATCH_FULL``, Fig 21's path): local, static and pond through
+    ``savings_analysis_batched`` on one shared cache, every PolicyResult
+    held to the reference's."""
+    import dataclasses
+    from repro_torch.core import cluster_sim, replay_engine
+    from repro_torch.kernels.event_sweep import ops
+    inp = _pond_inputs()
+    cfg, vms_list = inp["cfg"], inp["vms_list"]
+    models = (inp["li"], inp["um"], inp["hist"])
+    frac = POND_BATCH_FULL["static_pool_frac"]
+    replay_engine.stats_reset()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()    # by the phases before this one
+    ops.launches = 0                        # just before the main path ...
+    t0 = time.perf_counter()
+    res, planes, local_batch = _pond_loop(vms_list, cfg, models, frac, None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launches                 # ... and read just after it
+    peak = torch.cuda.max_memory_allocated()
+    stats = replay_engine.stats_snapshot()
+    times = replay_engine.stage_times()
+    # the chosen point's rate against the port's scalar oracle, pond's
+    # first trace (its decisions from a fresh plane are the loop's)
+    pond0 = res["pond"][0]
+    t1 = time.perf_counter()
+    oracle = cluster_sim.replay_reject_rate(
+        vms_list[0], _pond_decisions()[0].as_vmdecisions(), cfg,
+        pond0.server_gb, pond0.pool_group_gb)
+    oracle_s = time.perf_counter() - t1
+    # the same loop again under the tracer, for the device's busy time
+    # (the sum of kernel times); its idle share is of the untraced wall
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _pond_loop(vms_list, cfg, models, frac, None)
+        torch.cuda.synchronize()
+    kernels = sorted(((e.key, e.count, e.self_device_time_total)
+                      for e in prof.key_averages()
+                      if e.self_device_time_total > 0),
+                     key=lambda r: -r[2])
+    busy_s = sum(r[2] for r in kernels) / 1e6
+    got = {p: [dataclasses.asdict(r) for r in rs] for p, rs in res.items()}
+    summary = {p: cluster_sim.summarize_savings(rs) for p, rs in res.items()}
+    checks = {f"{p}_equals_reference": got[p] == POND_BATCH_WANT[p]
+              for p in POND_BATCH_WANT}
+    checks |= {
+        "pond_mitigations_are_the_planes": [r.mitigations for r in
+                                            res["pond"]]
+        == [len(cp.mitigation.log) for cp in planes],
+        "pond_reject_rate_is_the_oracles": pond0.reject_rate == oracle,
+        "launches_equal_sweeps": launches == stats["sweeps"] and launches > 0,
+        "no_trajectories": times.trajectory_s == 0.0,
+        "on_card": local_batch.device.type == "cuda",
+    }
+    lanes = [n for n, _ in times.sweeps]
+    other = (wall - times.decisions_s - times.compile_s - times.sweep_s
+             - times.trajectory_s)
+    emit("pond_batch_full", ok=all(checks.values()), checks=checks,
+         config=dict(POND_BATCH_FULL, n_servers=cfg.n_servers,
+                     days=PROV_FULL["days"],
+                     cores_per_server=cfg.cores_per_server,
+                     pool_sockets=cfg.pool_sockets,
+                     gb_per_core=cfg.gb_per_core, groups=cfg.n_groups),
+         vms=[len(v) for v in vms_list], results=got,
+         savings={p: dict(mean=s["savings_mean"], std=s["savings_std"])
+                  for p, s in summary.items()},
+         mispredictions_mean=summary["pond"]["mispred_mean"],
+         kernel_launches=launches, sweeps=len(lanes), sweep_lanes=lanes,
+         sweep_state_dtypes=[d for _, d in times.sweeps],
+         engine_stats=stats,
+         candidate_events_per_s=stats["events_per_sec"],
+         host_seconds=dict(sampling=inp["sampling_s"],
+                           fitting=inp["fitting_s"],
+                           decisions=times.decisions_s,
+                           compile_and_upload=times.compile_s,
+                           device_sweeps=times.sweep_s,
+                           trajectories=times.trajectory_s, other=other,
+                           oracle_at_chosen_point=oracle_s),
+         wall_seconds=wall,
+         device_busy_seconds=busy_s if kernels else None,
+         device_idle_share_of_untraced_wall=(1 - busy_s / wall) if kernels
+         else None,
+         device_kernels=[dict(name=k[:60], count=c, seconds=us / 1e6)
+                         for k, c, us in kernels[:5]],
+         peak_memory_bytes=peak, held_before_bytes=held,
+         peak_memory_of_the_loop_bytes=peak - held)
+    if not all(checks.values()):
+        raise SystemExit(f"pond_batch_full failed: {checks}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script runs on "
@@ -1201,7 +1689,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     sweep = phase_kernels_sweep(dev)
     phase_provision_parity_small(dev)
-    sweep["launches"] = phase_provision_full(dev)
+    by_path = {"provision_full": phase_provision_full(dev)}
+    phase_pond_batch_parity_small(dev)
+    by_path["pond_batch_full"] = phase_pond_batch_full(dev)
+    sweep["launches"] = sum(by_path.values())
+    sweep["launches_by_path"] = by_path
     print(json.dumps({"kernels": [paged, flash, sweep]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

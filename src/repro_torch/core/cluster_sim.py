@@ -2,9 +2,13 @@
 
 ``savings_analysis`` finds the least uniform (server_gb, pool_gb) that
 schedules a trace with at most ``reject_tol`` more rejections than the
-cores alone cause, for a memory policy — all-local (the baseline) or a
-static x % pool for every VM — and reports the DRAM it saves against the
-all-local baseline.  Required DRAM = servers x per-server local DRAM +
+cores alone cause, for a memory policy — all-local (the baseline), a
+static x % pool for every VM, or Pond's own (``pond``: the predictors and
+the control plane decide each VM's split, the QoS monitor migrates
+mispredicted VMs) — and reports the DRAM it saves against the all-local
+baseline.  ``savings_analysis_batched`` does the same for a batch of
+traces in lockstep (Fig 21's seed batches), one sweep a round for all of
+them; ``summarize_savings`` gives a batch's mean ± spread.  Required DRAM = servers x per-server local DRAM +
 pool groups x per-group pool DRAM.  Pool groups span ``pool_sockets``
 sockets (2 sockets per server).
 
@@ -13,18 +17,20 @@ compiled once per decision set and uploaded to the device, the
 server-size searches replicate the scalar bisection bit for bit while
 pricing whole dyadic probe trees per sweep (one launch of kernel K1 a
 sweep), and the 7 per-server-size pool searches run as one lockstep
-bracketing search.  ``replay_reject_rate`` is the port's own copy of the
-scalar per-event oracle the engine is held to.
+bracketing search.  The batched entry point prices every trace of a
+batch in one launch of K1's trace axis a round
+(``replay_engine.CompiledReplayBatch``).  ``replay_reject_rate`` is the
+port's own copy of the scalar per-event oracle the engine is held to.
 
 Not ported yet (ROADMAP): the scalar-oracle search (``use_engine=False``,
-M3), the streaming engines past a shard budget (M5), the tier-hierarchy
-pricing (M11) and the ``pond`` policy's control-plane walk (M8; its
-decisions can be passed in as ``decisions=``).
+M3b), the streaming engines past a shard budget (M5) and the
+tier-hierarchy pricing (M11).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 
 import numpy as np
 
@@ -111,18 +117,21 @@ def policy_decisions(vms, policy: str, control_plane=None,
                      spill_harm_prob: float = 0.25,
                      engine: str = "auto", as_arrays: bool = False):
     """Per-VM memory split + misprediction accounting (placement-free),
-    by the compiled pipeline (``policy_engine.policy_decisions_compiled``).
-    Returns ``(decisions, mispredictions)``: a ``VMDecision`` list, or the
-    struct-of-arrays ``PolicyDecisions`` with ``as_arrays=True``.  The
-    reference's scalar walk (``engine="scalar"``) is the equivalence
-    reference there and is not ported."""
+    by the compiled pipeline (``policy_engine.policy_decisions_compiled``)
+    for ``local``, ``static`` and ``pond`` (which needs ``control_plane``
+    and advances its state).  Returns ``(decisions, mispredictions)``: a
+    ``VMDecision`` list, or the struct-of-arrays ``PolicyDecisions`` with
+    ``as_arrays=True``.  The reference's scalar walk (``engine="scalar"``)
+    is the equivalence reference there and is not ported."""
     if engine != "auto":
         raise NotImplementedError("the scalar policy walk is the "
                                   "reference's; the port has the compiled "
                                   "pipeline only")
+    t0 = time.perf_counter()
     dec = policy_engine.policy_decisions_compiled(
         vms, policy, control_plane, static_pool_frac, latency, pdm,
         spill_harm_prob)
+    replay_engine.add_decisions_time(time.perf_counter() - t0)
     return (dec if as_arrays else dec.as_vmdecisions()), dec.mispredictions
 
 
@@ -193,6 +202,23 @@ def replay_reject_rate(vms, decisions, cfg: ClusterConfig,
     return rejects / max(len(vms), 1)
 
 
+def _n_events(vms, dec) -> int:
+    """Compiled event count: 2 per VM + 1 per QoS migration."""
+    return 2 * len(vms) + (
+        dec.n_migrations if hasattr(dec, "n_migrations")
+        else sum(1 for d in dec if d.t_migrate is not None))
+
+
+def _refuse_past_shard_budget(vms, dec, max_events_per_shard) -> None:
+    n_events = _n_events(vms, dec)
+    if max_events_per_shard is not None and \
+            n_events > max_events_per_shard:
+        raise NotImplementedError(
+            f"{n_events} events exceed max_events_per_shard="
+            f"{max_events_per_shard}: streaming engines come with "
+            "ROADMAP M5")
+
+
 def _search_min(f, lo: float, hi: float, tol_frac: float = 0.02) -> float:
     """Least x in [lo, hi] with f(x) True (f monotone)."""
     if not f(hi):
@@ -233,11 +259,13 @@ def savings_analysis(vms, cfg: ClusterConfig, policy: str,
     memoizes the all-local engine and the baseline provisioning search,
     which do not depend on the policy.
 
-    ``decisions``: precomputed ``policy_engine.PolicyDecisions`` (the way
-    the ``pond`` policy's decisions are carried in until ROADMAP M8);
-    skips the policy walk and prices the given split directly
-    (``policy`` is then just the result label; misprediction/mitigation
-    counts come from the object).
+    ``control_plane``: the ``pond`` policy's ``ControlPlane`` (its models,
+    pool manager and history; the decisions advance its state).
+
+    ``decisions``: precomputed ``policy_engine.PolicyDecisions``; skips
+    the policy walk and prices the given split directly (``policy`` is
+    then just the result label; misprediction/mitigation counts come from
+    the object).
 
     Usage::
 
@@ -249,7 +277,7 @@ def savings_analysis(vms, cfg: ClusterConfig, policy: str,
     """
     if not use_engine:
         raise NotImplementedError("the scalar-oracle search is the "
-                                  "reference's (ROADMAP M3)")
+                                  "reference's (ROADMAP M3b)")
     if tier_hierarchy is not None:
         raise NotImplementedError("tier-hierarchy pricing comes with the "
                                   "latency engine (ROADMAP M11)")
@@ -260,33 +288,23 @@ def savings_analysis(vms, cfg: ClusterConfig, policy: str,
         dec_in, mispred = policy_decisions(
             vms, policy, control_plane, static_pool_frac, latency, pdm,
             spill_harm_prob, as_arrays=True)
-        mitig = 0
+        mitig = len(control_plane.mitigation.log) if control_plane else 0
     hi_server = cfg.cores_per_server * 12.0
     big_pool = hi_server * cfg.n_servers
     n_pts = 7
 
     def _compile(vms_, dec_):
-        # 2 events per VM + 1 per QoS migration
-        n_events = 2 * len(vms_) + (
-            dec_.n_migrations if hasattr(dec_, "n_migrations")
-            else sum(1 for d in dec_ if d.t_migrate is not None))
-        if max_events_per_shard is not None and \
-                n_events > max_events_per_shard:
-            raise NotImplementedError(
-                f"{n_events} events exceed max_events_per_shard="
-                f"{max_events_per_shard}: streaming engines come with "
-                "ROADMAP M5")
+        _refuse_past_shard_budget(vms_, dec_, max_events_per_shard)
         return replay_engine.CompiledReplay(vms_, dec_, cfg, device=device)
 
     eng = _compile(vms, dec_in)
     # cores-bound reject floor: memory tolerance is measured on top of it
     r0 = float(eng.reject_rates(hi_server, big_pool)[0])
     tol = r0 + reject_tol
-    cap = int(math.floor(tol * len(vms)))   # early-exit reject budget
 
     if policy == "local":                   # decisions ARE all-local
         base_gb = replay_engine.search_min_batched(
-            lambda g: eng.reject_rates(g, 0.0, cap) <= tol,
+            lambda g: eng.reject_rates(g, 0.0) <= tol,
             0.0, hi_server)
         if cache is not None:
             cache["local_engine"] = eng
@@ -294,7 +312,7 @@ def savings_analysis(vms, cfg: ClusterConfig, policy: str,
         return PolicyResult(policy, base_gb, 0.0, base_gb, cfg.n_servers,
                             cfg.n_groups, mispred, 0, r0)
     min_server = replay_engine.search_min_batched(
-        lambda g: eng.reject_rates(g, big_pool, cap) <= tol,
+        lambda g: eng.reject_rates(g, big_pool) <= tol,
         0.0, hi_server)
     # the all-local baseline ignores the pool entirely: share its engine
     # and search result across policies of one trace
@@ -307,7 +325,7 @@ def savings_analysis(vms, cfg: ClusterConfig, policy: str,
     base_gb = cache.get(("base_gb", tol)) if cache is not None else None
     if base_gb is None:
         base_gb = replay_engine.search_min_batched(
-            lambda g: eng_local.reject_rates(g, 0.0, cap) <= tol,
+            lambda g: eng_local.reject_rates(g, 0.0) <= tol,
             0.0, hi_server)
         if cache is not None:
             cache[("base_gb", tol)] = base_gb
@@ -316,10 +334,162 @@ def savings_analysis(vms, cfg: ClusterConfig, policy: str,
     # sizes and pick the least total DRAM (one lockstep bracketing search)
     server_grid = np.linspace(min_server, base_gb, n_pts)
     pool_grid = replay_engine.pool_search_batched(
-        eng, server_grid, big_pool, tol, reject_cap=cap)
+        eng, server_grid, big_pool, tol)
     totals = cfg.n_servers * server_grid + cfg.n_groups * pool_grid
     rates = eng.reject_rates(server_grid, pool_grid)
     b = int(np.argmin(totals))
     return PolicyResult(policy, float(server_grid[b]), float(pool_grid[b]),
                         base_gb, cfg.n_servers, cfg.n_groups, mispred,
                         mitig, float(rates[b]))
+
+
+def savings_analysis_batched(vms_list, cfg: ClusterConfig, policy: str,
+                             control_planes=None,
+                             static_pool_frac: float = 0.15,
+                             latency: int = 182, pdm: float = 0.05,
+                             spill_harm_prob: float = 0.25,
+                             reject_tol: float = 0.005,
+                             cache: dict | None = None,
+                             max_events_per_shard: int | None = None,
+                             decisions=None,
+                             device=None) -> list[PolicyResult]:
+    """``savings_analysis`` for K traces at once — one sweep instead of K.
+
+    Pond's headline savings (§4, Figs 3/21) are statistical claims over
+    many workload mixes.  This prices a whole batch of traces in lockstep
+    on a ``replay_engine.CompiledReplayBatch``: every search round is ONE
+    launch of K1 covering all K traces' probes, and the pool frontier
+    search needs no per-trace trajectory replays (it brackets with each
+    trace's ``peak_pool_demand``).  Returns one :class:`PolicyResult` per
+    trace, equal to the reference's (summarise with
+    :func:`summarize_savings`); every sweep runs on ``device`` (default:
+    the CUDA card; ``"cpu"`` runs K1's plain version).
+
+    ``control_planes``: one (fresh) ControlPlane per trace for the
+    ``pond`` policy — decisions mutate per-customer history, so traces
+    must not share one.  ``cache``: share the all-local baseline batch
+    across policies of the SAME trace list (like ``savings_analysis``).
+    ``decisions``: precomputed per-trace ``policy_engine.PolicyDecisions``
+    aligned with ``vms_list``; ``policy`` is then just the result label.
+    ``max_events_per_shard``: a trace past the budget raises (the
+    streaming batch is ROADMAP M5).
+
+    Usage (Fig 21's rows over three seeds)::
+
+        cache = {}
+        static = savings_analysis_batched(vms_list, cfg, "static",
+                                          cache=cache)
+        pond = savings_analysis_batched(
+            vms_list, cfg, "pond", cache=cache,
+            control_planes=[make_plane() for _ in vms_list])
+        print(summarize_savings(static), summarize_savings(pond))
+    """
+    k = len(vms_list)
+    if not k:
+        return []
+    cps = list(control_planes) if control_planes is not None \
+        else [None] * k
+    if decisions is not None and len(decisions) != k:
+        raise ValueError(f"decisions must align with the {k} traces")
+    if decisions is not None:
+        dec_list = list(decisions)
+        mispred = [d.mispredictions for d in dec_list]
+        mitig = [d.n_mitigations for d in dec_list]
+    else:
+        per = [policy_decisions(vms, policy, cp, static_pool_frac,
+                                latency, pdm, spill_harm_prob,
+                                as_arrays=True)
+               for vms, cp in zip(vms_list, cps)]
+        dec_list = [d for d, _ in per]
+        mispred = [m for _, m in per]
+        mitig = [len(cp.mitigation.log) if cp else 0 for cp in cps]
+    hi_server = cfg.cores_per_server * 12.0
+    big_pool = hi_server * cfg.n_servers
+    hi_vec = np.full(k, hi_server)
+
+    def _compile_engine(vms_, dec_):
+        _refuse_past_shard_budget(vms_, dec_, max_events_per_shard)
+        return replay_engine.CompiledReplay(vms_, dec_, cfg, device=device)
+
+    batch = replay_engine.CompiledReplayBatch(
+        [_compile_engine(v, d) for v, d in zip(vms_list, dec_list)])
+    # cores-bound reject floor per trace; tolerance is on top of it
+    r0 = batch.reject_rates(hi_server, big_pool)[:, 0]
+    tol = r0 + reject_tol
+
+    def results(server_gb, pool_gb, base_gb, rates):
+        return [PolicyResult(policy, float(server_gb[i]),
+                             float(pool_gb[i]), float(base_gb[i]),
+                             cfg.n_servers, cfg.n_groups, mispred[i],
+                             mitig[i], float(rates[i]))
+                for i in range(k)]
+
+    if policy == "local":
+        base_gb = replay_engine.search_min_multi(
+            lambda g: batch.reject_rates(g, np.zeros_like(g))
+            <= tol[:, None], np.zeros(k), hi_vec)
+        if cache is not None:
+            cache["local_batch"] = batch
+            cache[("base_gb_multi", tuple(tol))] = base_gb
+        return results(base_gb, np.zeros(k), base_gb, r0)
+
+    min_server = replay_engine.search_min_multi(
+        lambda g: batch.reject_rates(g, np.full_like(g, big_pool))
+        <= tol[:, None], np.zeros(k), hi_vec)
+    # the all-local baseline ignores the pool: share its batch + search
+    # across policies of one trace list, and compile each UNIQUE trace
+    # once (decision grids repeat traces across rows)
+    if cache is not None and "local_batch" in cache:
+        local_batch = cache["local_batch"]
+    else:
+        uniq_local: dict = {}
+        engines = []
+        for vms in vms_list:
+            e = uniq_local.get(id(vms))
+            if e is None:
+                e = _compile_engine(vms, _all_local_decisions(vms))
+                uniq_local[id(vms)] = e
+            engines.append(e)
+        local_batch = replay_engine.CompiledReplayBatch(engines)
+        if cache is not None:
+            cache["local_batch"] = local_batch
+    base_gb = cache.get(("base_gb_multi", tuple(tol))) \
+        if cache is not None else None
+    if base_gb is None:
+        base_gb = replay_engine.search_min_multi(
+            lambda g: local_batch.reject_rates(g, np.zeros_like(g))
+            <= tol[:, None], np.zeros(k), hi_vec)
+        if cache is not None:
+            cache[("base_gb_multi", tuple(tol))] = base_gb
+    # joint provisioning sweep, one lockstep bracketing search for all
+    # (trace, server-size) points (see savings_analysis for why the
+    # optimum is not the (min server, min pool) corner)
+    n_pts = 7
+    server_grids = np.linspace(min_server, base_gb, n_pts, axis=1)
+    pool_grids = replay_engine.pool_search_multi(
+        batch, server_grids, big_pool, tol)
+    totals = cfg.n_servers * server_grids + cfg.n_groups * pool_grids
+    b = totals.argmin(axis=1)
+    rows = np.arange(k)
+    sgb = server_grids[rows, b]
+    pgb = pool_grids[rows, b]
+    rates = batch.reject_rates(sgb[:, None], pgb[:, None])[:, 0]
+    return results(sgb, pgb, base_gb, rates)
+
+
+def summarize_savings(results) -> dict:
+    """Mean ± spread of a seed batch's PolicyResults (Fig 3/21 rows)."""
+    sv = np.array([r.savings for r in results])
+    return {"n_seeds": len(results),
+            "savings_mean": float(sv.mean()),
+            "savings_std": float(sv.std()),
+            "savings_min": float(sv.min()),
+            "savings_max": float(sv.max()),
+            "server_gb_mean": float(np.mean([r.server_gb
+                                             for r in results])),
+            "pool_group_gb_mean": float(np.mean([r.pool_group_gb
+                                                 for r in results])),
+            "reject_rate_mean": float(np.mean([r.reject_rate
+                                               for r in results])),
+            "mispred_mean": float(np.mean([r.mispredictions
+                                           for r in results]))}

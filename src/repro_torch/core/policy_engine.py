@@ -5,12 +5,24 @@ GB, pool GB, whether it is fully pooled and when (if ever) a QoS
 mitigation migrates its pool memory to local.  :class:`PolicyDecisions`
 holds these as arrays; ``core/replay_engine.py::CompiledReplay`` compiles
 them natively.  :func:`policy_decisions_compiled` computes them for the
-``local`` and ``static`` policies, vectorised, bit-exact against the
-reference's scalar walk (decisions and the misprediction rate, summed in
-the scalar loop's float order).  The ``pond`` policy needs the predictors
-and the control plane (ROADMAP M8); until then its decisions are carried
-in as arrays (``PolicyDecisions`` built from numpy), MIGRATE events
-included.
+``local``, ``static`` and ``pond`` policies, vectorised, bit-exact
+against the reference's scalar control-plane walk: decisions, the
+misprediction rate (summed in the scalar loop's float order) and, for
+``pond``, the control plane's end state (histories, monitor checks, the
+mitigation log).  ``pond`` runs Pond's whole decide -> place -> monitor
+-> mitigate pipeline on the host, as the reference does:
+
+* history percentiles as sorted segment ops (:func:`_prefix_percentiles`,
+  every prefix of every customer's untouched history, bitwise
+  ``np.percentile``, numpy's ``gamma >= 0.5`` lerp branch included);
+* one forest call scores every VM's sensitivity and one GBM call prices
+  every VM's untouched quantile (row-bitwise, ``core/predictors``);
+* spill detection, sensitivity sampling and the migration times
+  (``arrival + 60``) as array ops.
+
+Not ported yet: the grid axis (``grid_decisions``, ``make_grid``,
+``fit_um_grid``, ``thresholds_for_fp``; ROADMAP M8b) and the ``obs``
+spans (M12).
 """
 from __future__ import annotations
 
@@ -20,6 +32,15 @@ import math
 import numpy as np
 
 from repro_torch.core import qos, traces
+
+#: quantiles of the customer history used as UM-model features
+#: (``traces.metadata_features``)
+_QS = (80.0, 90.0, 95.0, 99.0)
+_PRIOR = 0.5          # no-history feature prior
+_MIN_HIST_FEAT = 3    # metadata_features' hardcoded history floor
+_MONITOR_DELAY = 60.0  # the scalar loop samples QoS at arrival + 60s
+#: column budget (elements) for one prefix-membership block
+_PREFIX_BLOCK_ELEMS = 4_000_000
 
 
 # ------------------------------------------------------------- decisions ---
@@ -75,6 +96,108 @@ def decisions_from_list(decisions) -> PolicyDecisions:
                      for d in decisions), float, n))
 
 
+# --------------------------------------------------- history percentiles ---
+def _np_lerp(a: np.ndarray, b: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """numpy's percentile lerp, branch for branch: ``a + (b-a)*t`` but
+    ``b - (b-a)*(1-t)`` when ``t >= 0.5`` (the rewrite numpy applies for
+    monotonicity).  Replicating the branch keeps the vectorized
+    percentiles bit-identical to ``np.percentile``."""
+    d = b - a
+    out = a + d * t
+    hi = t >= 0.5
+    if hi.any():
+        out = np.where(hi, b - d * (1.0 - t), out)
+    return out
+
+
+def _prefix_percentiles(customers: np.ndarray, untouched: np.ndarray,
+                        history: dict | None,
+                        qs=_QS) -> tuple[np.ndarray, np.ndarray]:
+    """History length and feature percentiles for every VM of a trace.
+
+    For VM ``i`` (trace order), the customer's history at decision time
+    is its seeded sequence from ``history`` plus the ``untouched``
+    observations of the customer's EARLIER VMs (the scalar loop appends
+    via ``record_untouched`` after each decision).  Returns
+
+    * ``n_hist``  — (N,) history length at decision time, and
+    * ``percs``   — (N, len(qs)) float64, ``np.percentile(h, qs)``
+      bit-for-bit where ``n_hist >= 3``, the 0.5 prior row elsewhere.
+
+    Instead of re-sorting each prefix (the per-VM history walk), each
+    customer's seed+append values are sorted ONCE; a cumulative count
+    of prefix membership over the sorted order answers every prefix's
+    order statistics at the ranks the linear-interpolation formula
+    needs, in column blocks that bound the membership matrix to
+    ``_PREFIX_BLOCK_ELEMS`` elements.
+    """
+    cust = np.asarray(customers, np.int64)
+    ut = np.asarray(untouched, float)
+    n = len(cust)
+    qf = np.asarray(qs, float) / 100.0
+    percs = np.full((n, len(qf)), _PRIOR)
+    n_hist = np.zeros(n, np.int64)
+    if not n:
+        return n_hist, percs
+    hist = history or {}
+    order = np.argsort(cust, kind="stable")
+    bounds = np.flatnonzero(np.diff(cust[order])) + 1
+    for g in np.split(order, bounds):           # one group per customer
+        c = int(cust[g[0]])
+        seed = hist.get(c)
+        seed = (np.asarray(seed, float) if seed is not None
+                else np.empty(0))
+        ns = len(seed)
+        k = len(g)
+        n_hist[g] = ns + np.arange(k)
+        j0 = max(0, _MIN_HIST_FEAT - ns)        # first prefix with n >= 3
+        if j0 >= k:
+            continue
+        vals = np.concatenate([seed, ut[g]])
+        birth = np.concatenate([np.full(ns, -1, np.int64),
+                                np.arange(k, dtype=np.int64)])
+        o = np.argsort(vals, kind="stable")
+        vs, bs = vals[o], birth[o]
+        m = len(vals)
+        cols = np.arange(j0, k)
+        nj = ns + cols
+        vi = qf[None, :] * (nj[:, None] - 1)    # same op as np.percentile
+        lo = np.floor(vi)
+        gamma = vi - lo
+        lo_i = lo.astype(np.int64)
+        blk = max(1, _PREFIX_BLOCK_ELEMS // m)
+        out = np.empty((len(cols), len(qf)))
+        for b0 in range(0, len(cols), blk):
+            cb = cols[b0:b0 + blk]
+            # membership of each sorted value in each prefix, counted
+            # cumulatively: the rank-r member of prefix j sits at the
+            # first sorted position whose count reaches r + 1
+            count = np.cumsum(bs[:, None] < cb[None, :], axis=0,
+                              dtype=np.int32)
+            for qi in range(len(qf)):
+                rlo = lo_i[b0:b0 + blk, qi]
+                ilo = (count < (rlo + 1)[None, :].astype(np.int32)).sum(0)
+                ihi = (count < (rlo + 2)[None, :].astype(np.int32)).sum(0)
+                out[b0:b0 + blk, qi] = _np_lerp(
+                    vs[ilo], vs[ihi], gamma[b0:b0 + blk, qi])
+        percs[g[j0:]] = out
+    return n_hist, percs
+
+
+def metadata_features_compiled(table: traces.VMTable,
+                               percs: np.ndarray) -> np.ndarray:
+    """UM feature matrix from a :class:`~repro_torch.core.traces.VMTable` and
+    precomputed history percentiles — bit-identical to
+    ``traces.metadata_features`` row by row (float64 columns cast to
+    float32 exactly like ``np.asarray(rows, np.float32)``)."""
+    cols = np.column_stack([
+        percs,
+        table.vm_type.astype(float), table.cores.astype(float),
+        table.mem_gb, table.location.astype(float),
+        table.guest_os.astype(float)])
+    return cols.astype(np.float32)
+
+
 # ----------------------------------------------------- compiled pipeline ---
 def _sequential_mispred(full: np.ndarray, spill: np.ndarray,
                         harm: np.ndarray, spill_harm_prob: float,
@@ -97,38 +220,92 @@ def policy_decisions_compiled(vms, policy: str, control_plane=None,
                               spill_harm_prob: float = 0.25,
                               table: traces.VMTable | None = None
                               ) -> PolicyDecisions:
-    """Vectorised per-VM memory split for ``local`` and ``static``.
+    """Vectorised per-VM memory split, bit-exact against the scalar walk.
 
     ``local`` keeps every VM's memory local; ``static`` puts
-    ``floor(mem_gb * static_pool_frac)`` GB of each VM in the pool.
-    ``pond`` raises (ROADMAP M8: it needs the predictors).
+    ``floor(mem_gb * static_pool_frac)`` GB of each VM in the pool;
+    ``pond`` asks ``control_plane``'s models (history percentiles, one
+    forest call for every VM's sensitivity, one GBM call for every
+    untouched quantile) and runs its QoS monitor, and advances the control
+    plane to the scalar loop's end state: per-customer histories extend
+    in place (copy-on-first-write kept), ``monitor.checks`` counts every
+    pool-backed VM, and ``mitigation.log``/``.migrated`` gain the same
+    entries in trace order.  Requires unique ``vm_id``s.
 
     Usage::
 
-        dec = policy_decisions_compiled(vms, "static",
-                                        static_pool_frac=0.25)
+        cp = ControlPlane(ControlPlaneConfig(li_threshold=0.05), li, um,
+                          PoolManager(4096), history=dict(hist))
+        dec = policy_decisions_compiled(vms, "pond", control_plane=cp)
         eng = replay_engine.CompiledReplay(vms, dec, cfg)
+        assert dec.n_mitigations == len(cp.mitigation.log)
     """
     table = table if table is not None else traces.vm_table(vms)
     n = len(table)
     mem = table.mem_gb
     slows = table.slow182 if latency == 182 else table.slow222
+    t_mig = np.full(n, np.nan)
     fully = np.zeros(n, bool)
+    n_mitig = 0
     if policy == "local":
         local, pool = mem.copy(), np.zeros(n)
     elif policy == "static":
         pool = np.floor(mem * static_pool_frac)
         local = mem - pool
     elif policy == "pond":
-        raise NotImplementedError(
-            "the pond policy needs the predictors and the control plane, "
-            "which are not ported yet (ROADMAP M8); carry its decisions "
-            "in as a PolicyDecisions built from numpy arrays")
+        cp = control_plane
+        if cp is None:
+            raise ValueError("the pond policy needs a control_plane")
+        cfg = cp.cfg
+        # decide: history percentiles + LI sensitivity + UM quantile
+        # predictions -> local/pool split per VM
+        n_hist, percs = _prefix_percentiles(table.customer, table.untouched,
+                                            cp.history)
+        if cp.li_model is not None:
+            p = np.asarray(cp.li_model.p_sensitive_batch(table.pmu))
+        else:
+            p = np.ones(n)
+        has_hist = (n_hist >= cfg.min_history_vms) \
+            & (cp.li_model is not None)
+        fully = has_hist & (p < cfg.li_threshold)
+        if cp.um_model is not None:
+            feat = metadata_features_compiled(table, percs)
+            um = cp.um_model.predict(feat).astype(np.float64)
+        else:
+            um = np.zeros(n)
+        pool = np.floor(um * mem)
+        local = mem - pool
+        pool[fully] = mem[fully]
+        local[fully] = 0.0
+        # place: every VM's untouched observation appends, per customer in
+        # trace order (the same end state as record_untouched)
+        order = np.argsort(table.customer, kind="stable")
+        bounds = np.flatnonzero(np.diff(table.customer[order])) + 1
+        for g in np.split(order, bounds):
+            cp.extend_untouched(int(table.customer[g[0]]),
+                                table.untouched[g].tolist())
+        # monitor: every pool-backed VM is checked once at arrival + 60s;
+        # spilled + predicted-sensitive ones migrate
+        pool_pos = pool > 0
+        spilled = fully | (pool > table.untouched * mem + 1e-9)
+        prev = cp.mitigation.migrated
+        not_prev = (~np.isin(table.vm_id,
+                             np.fromiter(prev, np.int64, len(prev)))
+                    if prev else np.ones(n, bool))
+        mitigate = pool_pos & spilled & not_prev \
+            & (p >= cp.monitor.threshold)
+        cp.monitor.checks += int(pool_pos.sum())
+        # mitigate
+        mi = np.flatnonzero(mitigate)
+        t_mig[mi] = table.arrival[mi] + _MONITOR_DELAY
+        for i in mi:
+            cp.mitigation.migrate(int(table.vm_id[i]), float(pool[i]),
+                                  float(t_mig[i]))
+        n_mitig = len(mi)
     else:
         raise ValueError(policy)
     spill = pool > table.untouched * mem + 1e-9
     mispred = _sequential_mispred(fully, spill,
                                   qos.exceeds_pdm(slows, pdm),
                                   spill_harm_prob, n)
-    return PolicyDecisions(local, pool, fully, np.full(n, np.nan), mispred,
-                           0)
+    return PolicyDecisions(local, pool, fully, t_mig, mispred, n_mitig)

@@ -19,9 +19,16 @@ all server-size points' pool searches in lockstep, bracketed by each
 size's infinite-pool trajectory (a Python replay on the host, as in the
 reference) and warm-started from its neighbours.
 
+``CompiledReplayBatch`` prices K traces side by side: their event streams
+lie one after another in one set of device arrays and one launch of K1
+(its trace axis) sweeps every (trace, candidate) lane.
+``search_min_multi`` and ``pool_search_multi`` are the lockstep searches
+over such a batch (the pool search bracketed by each trace's
+``peak_pool_demand``, no trajectories).
+
 Not ported yet (ROADMAP): the numpy divergence-window backend (M1b) and
-with it non-integral decisions, failure schedules (M10), the trace batch
-(M4) and streaming engines (M5), and the ``obs`` spans (M12).
+with it non-integral decisions, failure schedules (M10), streaming engines
+(M5), ``devices=`` (M13), fleets (M9) and the ``obs`` spans (M12).
 """
 from __future__ import annotations
 
@@ -33,6 +40,8 @@ import torch
 
 from repro_torch.core import sweep_core
 from repro_torch.device import resolve_device
+from repro_torch.kernels.event_sweep import kernel as K1
+from repro_torch.kernels.event_sweep.ops import pack_traces, trace_starts
 
 ARRIVE, DEPART, MIGRATE = (sweep_core.ARRIVE, sweep_core.DEPART,
                            sweep_core.MIGRATE)
@@ -91,6 +100,7 @@ class StageTimes:
     """Host seconds by stage since the last reset, and the lanes and state
     type of every sweep: what the provisioning loop spends where (the
     reference's ``obs`` spans are ROADMAP M12)."""
+    decisions_s: float = 0.0      # cluster_sim.policy_decisions
     compile_s: float = 0.0        # CompiledReplay construction + upload
     trajectory_s: float = 0.0     # Python reference trajectories
     sweep_s: float = 0.0          # reject_rates: K1 launch + read-back
@@ -109,6 +119,11 @@ def stats_reset() -> None:
 
 def stats_snapshot() -> dict:
     return _STATS.as_dict()
+
+
+def add_decisions_time(seconds: float) -> None:
+    """Charge host seconds of a policy walk to :class:`StageTimes`."""
+    _TIMES.decisions_s += seconds
 
 
 def stage_times() -> StageTimes:
@@ -246,16 +261,11 @@ class CompiledReplay:
         return self._peak_pool
 
     # --------------------------------------------------- device compile --
-    def _device_events(self):
-        """``(events, group_of, n_slots)``: the slot-mapped int32 event
-        arrays ``(kind, slot, cores, local, pool, mem)`` and ``group_of``
-        on the engine's device, uploaded once and cached.  VMs are
+    def _host_events(self):
+        """``(events, n_slots)``: the slot-mapped int32 event arrays
+        ``(kind, slot, cores, local, pool, mem)`` as host numpy.  VMs are
         assigned reusable slots (freed on departure), so the per-candidate
-        placement state is sized by PEAK CONCURRENCY.  Nothing is padded:
-        K1 takes the true event, server, group and slot counts."""
-        if self._dev_ev is not None:
-            return self._dev_ev
-        t0 = time.perf_counter()
+        placement state is sized by PEAK CONCURRENCY."""
         ev_slot, n_slots = sweep_core.assign_slots(
             self._ev_kind, self._ev_vm, self.n_vms)
         vmx = np.asarray(self._ev_vm, np.int64)
@@ -265,6 +275,17 @@ class CompiledReplay:
                 np.asarray(self._local, np.int32)[vmx],
                 np.asarray(self._pool, np.int32)[vmx],
                 np.asarray(self._mem, np.int32)[vmx])
+        return host, n_slots
+
+    def _device_events(self):
+        """``(events, group_of, n_slots)``: :meth:`_host_events` and
+        ``group_of`` on the engine's device, uploaded once and cached.
+        Nothing is padded: K1 takes the true event, server, group and slot
+        counts."""
+        if self._dev_ev is not None:
+            return self._dev_ev
+        t0 = time.perf_counter()
+        host, n_slots = self._host_events()
         evs = tuple(torch.from_numpy(a).to(self.device) for a in host)
         group = torch.from_numpy(self.group_of.astype(np.int32)).to(
             self.device)
@@ -453,7 +474,6 @@ class CompiledReplay:
             rates = eng.reject_rates(np.linspace(200., 400., 9),
                                      np.linspace(0., 800., 9))
         """
-        t0 = time.perf_counter()
         server_gb = np.atleast_1d(np.asarray(server_gb, float))
         pool_gb = np.atleast_1d(np.asarray(pool_gb, float))
         server_gb, pool_gb = np.broadcast_arrays(server_gb, pool_gb)
@@ -464,11 +484,178 @@ class CompiledReplay:
             raise NotImplementedError(
                 "non-integral decisions need the numpy divergence-window "
                 "backend, which is not ported yet (ROADMAP M1b)")
+        self._device_events()       # compile + upload: its own stage
+        t0 = time.perf_counter()
         rates = self._reject_rates_device(server_gb, pool_gb,
                                           state_dtype=state_dtype)
         _STATS.sweeps += 1
         _STATS.events += self.n_events
         _STATS.candidate_events += self.n_events * n0
+        _STATS.wall_s += time.perf_counter() - t0
+        _TIMES.sweep_s += time.perf_counter() - t0
+        return rates
+
+
+# ----------------------------------------------------------- trace batch ---
+def _validate_cluster_shape(engines, what: str):
+    """One batch requires one cluster shape (the batched sweep shares the
+    group map and the state's extents across rows) and one device."""
+    if not engines:
+        raise ValueError(f"{what} needs >= 1 engine")
+    e0 = engines[0]
+    shape = (e0.n_servers, e0.n_groups, e0.cores_per_server)
+    for e in engines[1:]:
+        if (e.n_servers, e.n_groups, e.cores_per_server) != shape:
+            raise ValueError(
+                "all traces in a batch must share one cluster shape; "
+                f"got {(e.n_servers, e.n_groups, e.cores_per_server)} "
+                f"vs {shape}")
+        if e.device != e0.device:
+            raise ValueError(f"all traces in a batch must lie on one "
+                             f"device; got {e.device} vs {e0.device}")
+
+
+def _batch_pick_state_dtype(engines, sgb_i: np.ndarray,
+                            pgb_i: np.ndarray) -> str:
+    """int16 only when EVERY trace row packs safely: one launch shares one
+    state dtype across the batch, so any row that needs int32 (payload
+    headroom, migrate-pool deficit) forces the whole batch to int32.
+    Bit-exactness is unaffected either way — int16 is only ever picked
+    where it is provably equivalent."""
+    if all(e._pick_state_dtype(sgb_i[i], pgb_i[i]) == "int16"
+           for i, e in enumerate(engines)):
+        return "int16"
+    return "int32"
+
+
+def _broadcast_candidates(k: int, server_gb, pool_gb):
+    """Normalise candidates to float ``(K, n_cand)`` arrays: 1-D inputs
+    are shared across traces, 2-D inputs give per-trace grids (the shape
+    the lockstep searches need)."""
+    s = np.atleast_1d(np.asarray(server_gb, float))
+    p = np.atleast_1d(np.asarray(pool_gb, float))
+    s, p = np.broadcast_arrays(s, p)
+    if s.ndim == 1:
+        s = np.broadcast_to(s, (k,) + s.shape)
+        p = np.broadcast_to(p, (k,) + p.shape)
+    if s.ndim != 2 or s.shape[0] != k:
+        raise ValueError(
+            f"candidates must be 1-D (shared) or ({k}, n_cand) "
+            f"per-trace; got shape {s.shape}")
+    return np.ascontiguousarray(s), np.ascontiguousarray(p)
+
+
+class CompiledReplayBatch:
+    """K compiled traces priced side by side, one K1 launch a sweep.
+
+    The slot-mapped event streams of K :class:`CompiledReplay` engines
+    (one cluster shape, one device) lie one after another in one set of
+    device arrays, each from a multiple of 4 events
+    (``ops.trace_starts``), uploaded once; one launch of K1's trace axis
+    sweeps every (trace, candidate) lane, each trace's lanes over its own
+    events (no padding to the longest trace).  Candidate capacities may be
+    shared across traces (1-D) or per trace (``(K, n_cand)``, the shape
+    lockstep searches need).
+
+    Bit-exactness contract: row ``k`` of :meth:`reject_rates` equals
+    ``engines[k].reject_rates(...)`` bit for bit — each lane's integer
+    replay is independent of its neighbours.
+
+    Usage::
+
+        engines = [CompiledReplay(vms_k, dec_k, cfg) for ...]
+        batch = CompiledReplayBatch(engines)
+        rates = batch.reject_rates([200., 300.], [100., 100.])  # (K, 2)
+    """
+
+    def __init__(self, engines):
+        _validate_cluster_shape(engines, "CompiledReplayBatch")
+        e0 = engines[0]
+        self.engines = list(engines)
+        self.k = len(engines)
+        self.device = e0.device
+        self.n_servers = e0.n_servers
+        self.n_groups = e0.n_groups
+        self.cores_per_server = e0.cores_per_server
+        self.n_vms = np.array([e.n_vms for e in engines], np.int64)
+        self.n_events = np.array([e.n_events for e in engines], np.int64)
+        self._exact = all(e._exact for e in engines)
+        self._dev_ev = None
+
+    def _device_events(self):
+        """``(events, group_of, n_slots, trace_events)``: every trace's
+        slot-mapped event arrays one after another (PAD events fill the
+        gaps up to each multiple of 4), ``group_of``, the largest trace's
+        slot count and the traces' event counts; uploaded once."""
+        if self._dev_ev is not None:
+            return self._dev_ev
+        t0 = time.perf_counter()
+        per = [e._host_events() for e in self.engines]
+        cols, counts = pack_traces([host for host, _ in per], self.device)
+        group = torch.from_numpy(
+            self.engines[0].group_of.astype(np.int32)).to(self.device)
+        self._dev_ev = (cols, group, max(n for _, n in per), counts)
+        _TIMES.compile_s += time.perf_counter() - t0
+        return self._dev_ev
+
+    def _pick_state_dtype(self, sgb_i: np.ndarray,
+                          pgb_i: np.ndarray) -> str:
+        return _batch_pick_state_dtype(self.engines, sgb_i, pgb_i)
+
+    def reject_rates(self, server_gb, pool_gb,
+                     reject_cap: int | None = None,
+                     state_dtype: str | None = None,
+                     devices=None) -> np.ndarray:
+        """Reject fraction per (trace, candidate): shape ``(K, n_cand)``.
+
+        ``server_gb``/``pool_gb`` broadcast like the single-trace API and
+        also take ``(K, n_cand)`` per-trace candidate grids.  One launch
+        of K1 prices every trace's candidates (one a ``kernel.MAX_TRACES``
+        traces); the state packs to int16 when every trace's capacities
+        permit, and ``state_dtype`` forces one packing (testing hook).
+        ``reject_cap`` is accepted and ignored: the sweep returns exact
+        rates.  ``devices`` (a device mesh) is ROADMAP M13; non-integral
+        decisions raise as in :class:`CompiledReplay` (M1b).
+        """
+        if devices is not None:
+            raise NotImplementedError("device meshes come with devices= "
+                                      "(ROADMAP M13)")
+        server_gb, pool_gb = _broadcast_candidates(self.k, server_gb,
+                                                   pool_gb)
+        n0 = server_gb.shape[1]
+        if not self.n_events.any():
+            return np.zeros((self.k, n0))
+        if not self._exact:
+            raise NotImplementedError(
+                "non-integral decisions need the numpy divergence-window "
+                "backend, which is not ported yet (ROADMAP M1b)")
+        # compile + upload (its own stage), then the sweep
+        evs, group_of, n_slots, counts = self._device_events()
+        t0 = time.perf_counter()
+        starts = trace_starts(counts)
+        sgb_i, pgb_i = sweep_core.quantize_capacities(server_gb, pool_gb)
+        dt_name = state_dtype or self._pick_state_dtype(sgb_i, pgb_i)
+        np_dt = sweep_core.state_np_dtype(dt_name)
+        sweep = sweep_core.get_sweep(dt_name, batched=True)
+        rejects = np.empty((self.k, n0), np.int64)
+        for lo in range(0, self.k, K1.MAX_TRACES):
+            hi = min(self.k, lo + K1.MAX_TRACES)
+            width = (hi - lo) * n0
+            state = sweep_core.init_state(
+                width, self.n_servers, self.cores_per_server,
+                self.n_servers, self.n_groups, n_slots, np_dt)[:4]
+            fc, um, up, slots = (torch.from_numpy(a).to(self.device)
+                                 for a in state)
+            sgb, pgb = (torch.from_numpy(a[lo:hi].reshape(-1).astype(np_dt))
+                        .to(self.device) for a in (sgb_i, pgb_i))
+            out = sweep(tuple(e[starts[lo]:] for e in evs), group_of, fc,
+                        um, up, slots, sgb, pgb, counts[lo:hi])
+            rejects[lo:hi] = out.cpu().numpy().reshape(hi - lo, n0)
+            _TIMES.sweeps.append((width, dt_name))
+        rates = rejects / np.maximum(self.n_vms, 1)[:, None]
+        _STATS.sweeps += 1
+        _STATS.events += int(self.n_events.max(initial=0))
+        _STATS.candidate_events += int(self.n_events.sum()) * n0
         _STATS.wall_s += time.perf_counter() - t0
         _TIMES.sweep_s += time.perf_counter() - t0
         return rates
@@ -588,5 +775,130 @@ def pool_search_batched(engine, server_grid: np.ndarray,
                 hi[i] = grids[j, k]
             else:
                 lo[i] = grids[j, -1]
+    hi[infeasible] = big_pool
+    return hi
+
+
+# ------------------------------------------------- multi-trace searches ---
+def search_min_multi(feasible, lo, hi, tol_frac: float = 0.02,
+                     depth: int = 4) -> np.ndarray:
+    """K independent ``_search_min`` bisections advanced in lockstep.
+
+    Per-trace replica of :func:`search_min_batched`: each round builds
+    every unconverged trace's depth-k dyadic probe tree (round 1 also
+    prices each trace's ``hi``) and evaluates ALL trees in one call to
+    ``feasible`` — with a :class:`CompiledReplayBatch` behind it, that is
+    one K1 launch per round instead of K.  Each trace's probe
+    sequence (and thus its result) is bit-identical to running the
+    scalar bisection on that trace alone.  Traces infeasible at ``hi``
+    return ``hi``.
+
+    ``feasible`` maps a ``(K, n_probes)`` capacity array to ``(K,
+    n_probes)`` bools, e.g.::
+
+        base_gb = search_min_multi(
+            lambda g: batch.reject_rates(g, 0.0) <= tol[:, None],
+            np.zeros(batch.k), np.full(batch.k, 768.0))
+    """
+    lo = np.array(lo, float)
+    hi = np.array(hi, float)
+    k = len(lo)
+    n_nodes = 2 ** depth - 1
+    done = np.zeros(k, bool)
+    first = True
+    while True:
+        active = ~done & ((hi - lo) > tol_frac * np.maximum(hi, 1.0))
+        if first:
+            active = ~done
+        if not active.any():
+            break
+        nodes = np.empty((k, n_nodes))
+        for i in range(k):
+            # converged rows re-price their frozen tree (uniform probe
+            # width keeps the sweep one rectangular batch); their
+            # brackets are no longer updated
+            row: list[float] = []
+            _dyadic_nodes(float(lo[i]), float(hi[i]), depth, row)
+            nodes[i] = row
+        probes = np.concatenate([nodes, hi[:, None]], 1) if first else nodes
+        feas = np.asarray(feasible(probes))
+        if first:
+            done |= ~feas[:, -1]          # infeasible even at hi
+            first = False
+        for i in np.flatnonzero(active & ~done):
+            fmap = dict(zip(probes[i].tolist(), feas[i].tolist()))
+            for _ in range(depth):
+                if (hi[i] - lo[i]) <= tol_frac * max(hi[i], 1.0):
+                    break
+                mid = 0.5 * (float(lo[i]) + float(hi[i]))
+                if fmap[mid]:
+                    hi[i] = mid
+                else:
+                    lo[i] = mid
+    return hi
+
+
+def pool_search_multi(batch, server_grids,
+                      big_pool: float, tol, tol_frac: float = 0.02,
+                      width: int = 4,
+                      reject_cap: int | None = None) -> np.ndarray:
+    """Minimum feasible pool_gb per (trace, server-size) point, lockstep.
+
+    Multi-trace analogue of :func:`pool_search_batched`: one bracketing
+    search over a ``(K, n_pts)`` server grid, evaluating ``width``
+    interior points for every point of every trace in ONE sweep per
+    round.  Brackets start at ``[0, peak_pool_demand]`` per trace —
+    a vectorized prefix-sum bound that replaces the per-trace trajectory
+    replays of the single-trace search — and warm-start from neighbors
+    within each trace (required pool is monotone non-increasing in
+    server_gb).  Points infeasible even at the upper bracket return
+    ``big_pool``.
+
+    ``batch`` is a :class:`CompiledReplayBatch` (the search needs only
+    ``reject_rates`` and each engine's ``peak_pool_demand``; the streaming
+    batch is ROADMAP M5).  ``reject_cap`` is passed on and ignored: the
+    batch returns exact rates, so the probe sequence — and the result —
+    is the reference's.
+    """
+    sg = np.asarray(server_grids, float)
+    if sg.ndim != 2 or sg.shape[0] != batch.k:
+        raise ValueError(f"server_grids must be (K={batch.k}, n_pts); "
+                         f"got {sg.shape}")
+    k, n_pts = sg.shape
+    tol = np.asarray(tol, float).reshape(k, 1)
+    lo = np.zeros((k, n_pts))
+    peaks = np.array([min(float(big_pool), e.peak_pool_demand())
+                      for e in batch.engines])
+    hi = np.broadcast_to(peaks[:, None], (k, n_pts)).copy()
+    infeasible = batch.reject_rates(sg, hi, reject_cap=reject_cap) > tol
+    fracs = np.arange(1, width + 1) / (width + 1.0)
+    while True:
+        prop_hi = np.minimum.accumulate(
+            np.where(infeasible, _INF, hi), axis=1)
+        hi = np.where(infeasible, hi, np.minimum(hi, prop_hi))
+        prop_lo = np.maximum.accumulate(
+            np.where(infeasible, -_INF, lo)[:, ::-1], axis=1)[:, ::-1]
+        lo = np.where(infeasible, lo, np.maximum(lo, prop_lo))
+        active = ~infeasible & ((hi - lo) > tol_frac * np.maximum(hi, 1.0))
+        if not active.any():
+            break
+        # converged points re-price their frozen bracket: the sweep needs
+        # one rectangular (K, n_pts * width) candidate block per round
+        grids = lo[..., None] + (hi - lo)[..., None] * fracs
+        r = batch.reject_rates(
+            np.repeat(sg, width, axis=1),
+            grids.reshape(k, n_pts * width),
+            reject_cap=reject_cap).reshape(k, n_pts, width)
+        f = r <= tol[:, :, None]
+        for i in range(k):
+            for j in np.flatnonzero(active[i]):
+                row = f[i, j]
+                if row.any():
+                    q = int(np.argmax(row))
+                    if q > 0:
+                        lo[i, j] = grids[i, j, q - 1]
+                    hi[i, j] = grids[i, j, q]
+                else:
+                    lo[i, j] = grids[i, j, -1]
     hi[infeasible] = big_pool
     return hi

@@ -11,7 +11,8 @@ surrounds the sweep on the host — numpy, copied from the reference's
 * the int16/int32 packing rules (:func:`pick_state_dtype`): the state
   packs to int16 exactly when no intermediate can overflow;
 * :func:`quantize_capacities`, :func:`init_state`, :func:`assign_slots`;
-* :func:`get_sweep`, which hands out K1's launcher for a state dtype.
+* :func:`get_sweep`, which hands out K1's launcher for a state dtype,
+  one trace or a batch of traces (K1's trace axis).
 
 The reference pads candidates to buckets, events to multiples of 256 and
 servers, groups and slots to multiples of 16/16/32, so that XLA compiles
@@ -34,17 +35,18 @@ def get_sweep(state_dtype: str = "int32", *, with_carry: bool = False,
     """K1's launcher for ``state_dtype``: a function of
     ``(events, group_of, fc, um, up, slots, sgb, pgb)`` returning the
     (C,) int32 reject counts and leaving the final state in its state
-    arguments (``kernels/event_sweep/ops.py::event_sweep``).
+    arguments (``kernels/event_sweep/ops.py::event_sweep``).  With
+    ``batched`` it takes one more argument, ``trace_events``: the event
+    counts of the T traces the arrays hold (laid out by
+    ``ops.trace_starts``), the lanes trace-major, C / T a trace — the
+    reference's vmapped sweep over a trace batch, as one launch.
 
-    The reference's other keys (a returned carry, a trace axis, a device
-    mesh) are not ported yet: they raise.
+    The reference's other keys (a returned carry, a device mesh) are not
+    ported yet: they raise.
     """
     if with_carry:
         raise NotImplementedError("carried-state sweeps come with the "
                                   "streaming engines (ROADMAP M5)")
-    if batched:
-        raise NotImplementedError("the trace-batch axis comes with "
-                                  "CompiledReplayBatch (ROADMAP M4)")
     if mesh is not None:
         raise NotImplementedError("device meshes come with devices= "
                                   "(ROADMAP M13)")
@@ -52,6 +54,13 @@ def get_sweep(state_dtype: str = "int32", *, with_carry: bool = False,
         raise ValueError(f"state_dtype must be 'int16' or 'int32', got "
                          f"{state_dtype!r}")
     from repro_torch.kernels.event_sweep import ops
+
+    if batched:
+        def sweep_batch(events, group_of, fc, um, up, slots, sgb, pgb,
+                        trace_events):
+            return ops.event_sweep(*events, group_of, fc, um, up, slots, sgb,
+                                   pgb, trace_events=trace_events)
+        return sweep_batch
 
     def sweep(events, group_of, fc, um, up, slots, sgb, pgb):
         return ops.event_sweep(*events, group_of, fc, um, up, slots, sgb,
@@ -117,7 +126,8 @@ def init_state(width: int, n_servers: int, cores_per_server: float,
     they never win a best fit — used local GB, used pool GB per (lane,
     group), the slot array (-1 = empty) and the int32 reject counters.
     K1 takes the true counts (``s_pad = n_servers``, ``g_pad = n_groups``);
-    the reference's trace axis ``k`` comes with ROADMAP M4.
+    a trace batch stacks its traces' lanes trace-major (``width`` = traces
+    x candidates, the slot count the largest trace's).
     """
     neg = state_sentinel("int16" if np_dt == np.int16 else "int32")
     fc0 = np.full((width, s_pad), -neg, np_dt)

@@ -13,7 +13,7 @@ Calibration targets (held by the reference's benchmarks and tests):
     counterexamples (Finding 4: >20% slowdown at 2% DRAM-bound).
   * VM shapes: 2-48 cores, 2-8 GB/core, lognormal lifetimes.
 
-Host numpy only.  File ingestion (real VM traces) waits for a later slice.
+Host numpy only.  File ingestion (real VM traces) waits for ROADMAP M3b.
 """
 from __future__ import annotations
 
@@ -213,3 +213,28 @@ def pmu_matrix(vms) -> np.ndarray:
 def slowdowns(vms, latency: int = 182) -> np.ndarray:
     return np.array([vm.slow182 if latency == 182 else vm.slow222
                      for vm in vms])
+
+
+# -------------------------------------------------- UM-model features ------
+def metadata_features(vms, history: dict | None = None) -> np.ndarray:
+    """UM-model features: customer history percentiles (the paper's
+    strongest feature) + VM metadata."""
+    hist = history or {}
+    rows = []
+    for vm in vms:
+        h = hist.get(vm.customer)
+        if h is None or len(h) < 3:
+            percs = [0.5, 0.5, 0.5, 0.5]        # no-history prior
+        else:
+            percs = list(np.percentile(h, [80, 90, 95, 99]))
+        rows.append(percs + [vm.vm_type, vm.cores, vm.mem_gb,
+                             vm.location, vm.guest_os])
+    return np.asarray(rows, np.float32)
+
+
+def build_history(vms) -> dict:
+    """Past untouched-memory observations per customer (rolling week)."""
+    hist: dict[int, list] = {}
+    for vm in vms:
+        hist.setdefault(vm.customer, []).append(vm.untouched)
+    return {c: np.asarray(v) for c, v in hist.items()}

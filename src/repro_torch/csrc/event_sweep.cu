@@ -30,6 +30,22 @@
 //   sgb, pgb  (C,) capacities                          T
 //   rejects   (C,) int32, added to                     in/out
 //
+// Trace axis.  One launch replays T event streams side by side (a batch of
+// traces priced in lockstep, the reference's vmapped build_sweep): the
+// six event arrays hold the traces one after another, trace t's events at
+// [start[t], start[t] + count[t]) with every start a multiple of 4 events
+// (so every row is 16-byte aligned), and the C = T * n_cand lanes are
+// trace-major, lane t * n_cand + j being candidate j of trace t.  The
+// slot column is sized by the largest trace's peak.  A block replays one
+// trace (blockIdx.y): its warps share each staged tile of that trace's
+// events, so a block never holds lanes of two traces; the grid is (blocks
+// a trace, T).  Each kernel is built twice (template kBatched).  T = 1
+// runs the single-trace build: start 0, its event count a scalar parameter
+// (E_one) and the lane the candidate, as before the axis.  On the H100 a
+// single trace through the batched build (count and start read from the
+// table) took 7-8 % longer with int16 state (17.4 against 16.1 ms at the
+// full trace, 16 lanes; int32 unchanged), and so do the batched launches.
+//
 // The final state is written back into the state arguments in place, so
 // a sweep over a trace cut in pieces is the sweep over the whole trace.
 // Indices the state or the events give outside their range (a group, a
@@ -96,6 +112,7 @@ constexpr int kArrive = 0, kDepart = 1, kMigrate = 2;
 constexpr int kTile = 1024;        // events a stage
 constexpr int kStages = 2;
 constexpr int kMaxLanesPerBlock = 8;
+constexpr int kMaxTraces = 256;     // traces a launch (the table below)
 constexpr int kMaxShared = 232448;  // bytes a block may use on sm_90
 constexpr int kMaxK = 16;           // servers a thread, registers variant
 constexpr int kIndexBits = 9;       // packed key: server index bits
@@ -146,8 +163,16 @@ struct Events {
   const int* a[6];  // kind, slot, cores, local, pool, mem
 };
 
-// Stage events [e0, e0 + n) of the six arrays into dst[6][kTile]; e0 is a
-// multiple of kTile and every array 16-byte aligned (the wrapper checks).
+// Where each trace's events lie in the event arrays; a kernel parameter
+// (__grid_constant__: indexed by blockIdx.y without a local copy).
+struct Traces {
+  int start[kMaxTraces];  // multiples of 4
+  int count[kMaxTraces];
+};
+
+// Stage events [e0, e0 + n) of the six arrays into dst[6][kTile]; e0 (a
+// trace's start plus a multiple of kTile) is a multiple of 4 and every
+// array 16-byte aligned (the wrapper checks).
 // The registers variant's; the shared one keeps its own (load_tile_flat).
 __device__ __forceinline__ void load_tile(const Events& ev, int* dst, int e0,
                                           int n) {
@@ -166,10 +191,11 @@ __device__ __forceinline__ void load_tile(const Events& ev, int* dst, int e0,
 // tile t is replayed, waits for tile t and returns it.  The caller ends
 // each tile with a block barrier (every warp is done with the stage).
 __device__ __forceinline__ const int* next_tile(const Events& ev, int* stage,
-                                                int E, int t) {
+                                                int e_base, int E, int t) {
   const int e1 = (t + 1) * kTile;
   if (e1 < E) {
-    load_tile(ev, stage + ((t + 1) & 1) * 6 * kTile, e1, min(kTile, E - e1));
+    load_tile(ev, stage + ((t + 1) & 1) * 6 * kTile, e_base + e1,
+              min(kTile, E - e1));
     cp_async_commit();
     cp_async_wait<1>();
   } else {
@@ -180,8 +206,8 @@ __device__ __forceinline__ const int* next_tile(const Events& ev, int* stage,
 }
 
 __device__ __forceinline__ void first_tile(const Events& ev, int* stage,
-                                           int E) {
-  if (E > 0) load_tile(ev, stage, 0, min(kTile, E));
+                                           int e_base, int E) {
+  if (E > 0) load_tile(ev, stage, e_base, min(kTile, E));
   cp_async_commit();
 }
 
@@ -247,14 +273,15 @@ __device__ __forceinline__ void read_event(const int* tk, int i, int& kind,
   m = tk[5 * kTile + i];
 }
 
-template <typename T, int K>
+template <typename T, int K, bool kBatched>
 __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
     sweep_regs_kernel(Events ev, const int* __restrict__ group_of,
                       T* __restrict__ fc, T* __restrict__ um,
                       T* __restrict__ up, T* __restrict__ slots,
                       const T* __restrict__ sgb, const T* __restrict__ pgb,
-                      int* __restrict__ rejects, int E, int C, int S, int G,
-                      int n_slots, int lanes_per_block) {
+                      int* __restrict__ rejects, int E_one, int C, int S,
+                      int G, int n_slots, int lanes_per_block, int n_cand,
+                      const __grid_constant__ Traces tr) {
   extern __shared__ __align__(16) unsigned char smem[];
   int* stage = reinterpret_cast<int*>(smem);
   int* grp_s = stage + kStages * 6 * kTile;
@@ -264,8 +291,13 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
   T* s_sl = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(grp_s) +
                                  round16(static_cast<size_t>(S) * 4)) +
             warp * stride;
-  const int lane = blockIdx.x * lanes_per_block + warp;
-  const bool active = lane < C;
+  // this block's trace, and this warp's candidate within it
+  const int trace = kBatched ? blockIdx.y : 0;
+  const int e_base = kBatched ? tr.start[trace] : 0;
+  const int E = kBatched ? tr.count[trace] : E_one;
+  const int cand = blockIdx.x * lanes_per_block + warp;
+  const bool active = cand < (kBatched ? n_cand : C);
+  const int lane = kBatched ? trace * n_cand + cand : cand;
   constexpr int big = sizeof(T) == 2 ? (1 << 14) : (1 << 30);
   // int16 scores take the packed key, int32 ones the two-step reduction
   constexpr bool kPacked = sizeof(T) == 2;
@@ -274,7 +306,7 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
   constexpr unsigned kNone = packed_key(big, 0);
   const int base = tid * K;
 
-  first_tile(ev, stage, E);
+  first_tile(ev, stage, e_base, E);
   for (int i = threadIdx.x; i < S; i += blockDim.x)
     grp_s[i] = clampi(group_of[i], G);
 
@@ -310,7 +342,7 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
   }
 
   for (int t = 0; t * kTile < E; ++t) {
-    const int* tk = next_tile(ev, stage, E, t);
+    const int* tk = next_tile(ev, stage, e_base, E, t);
     const int n = active ? min(kTile, E - t * kTile) : 0;
     // event i + 1 is read while event i is replayed: inside each branch,
     // after work of its own, so the copy into the loop's registers comes
@@ -483,14 +515,15 @@ __device__ __forceinline__ void load_tile_flat(const Events& ev, int* dst,
   }
 }
 
-template <typename T>
+template <typename T, bool kBatched>
 __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
     sweep_shared_kernel(Events ev, const int* __restrict__ group_of,
                         T* __restrict__ fc, T* __restrict__ um,
                         T* __restrict__ up, T* __restrict__ slots,
                         const T* __restrict__ sgb, const T* __restrict__ pgb,
-                        int* __restrict__ rejects, int E, int C, int S,
-                        int G, int n_slots, int lanes_per_block) {
+                        int* __restrict__ rejects, int E_one, int C, int S,
+                        int G, int n_slots, int lanes_per_block, int n_cand,
+                        const __grid_constant__ Traces tr) {
   extern __shared__ __align__(16) unsigned char smem[];
   int* stage = reinterpret_cast<int*>(smem);
   int* grp = stage + kStages * 6 * kTile;
@@ -504,12 +537,16 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
   T* s_um = mine + S;
   T* s_up = mine + 2 * S;
   T* s_sl = mine + 2 * S + G;
-  const int lane = blockIdx.x * lanes_per_block + warp;
-  const bool active = lane < C;
+  const int trace = kBatched ? blockIdx.y : 0;
+  const int e_base = kBatched ? tr.start[trace] : 0;
+  const int E = kBatched ? tr.count[trace] : E_one;
+  const int cand = blockIdx.x * lanes_per_block + warp;
+  const bool active = cand < (kBatched ? n_cand : C);
+  const int lane = kBatched ? trace * n_cand + cand : cand;
   const int big = sizeof(T) == 2 ? (1 << 14) : (1 << 30);
 
   const int n_tiles = (E + kTile - 1) / kTile;
-  if (n_tiles > 0) load_tile_flat(ev, stage, 0, min(kTile, E));
+  if (n_tiles > 0) load_tile_flat(ev, stage, e_base, min(kTile, E));
   cp_async_commit();
 
   for (int i = threadIdx.x; i < S; i += blockDim.x)
@@ -532,8 +569,8 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
   for (int t = 0; t < n_tiles; ++t) {
     const int e0 = t * kTile;
     if (t + 1 < n_tiles) {
-      load_tile_flat(ev, stage + ((t + 1) & 1) * 6 * kTile, e0 + kTile,
-                min(kTile, E - e0 - kTile));
+      load_tile_flat(ev, stage + ((t + 1) & 1) * 6 * kTile,
+                     e_base + e0 + kTile, min(kTile, E - e0 - kTile));
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -624,9 +661,11 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
 // ----------------------------------------------------------------- launch --
 struct Args {
   Events ev;
+  Traces tr;
+  int n_traces;
   const void *group_of, *sgb, *pgb;
   void *fc, *um, *up, *slots, *rejects;
-  int E, C, S, G, n_slots, lanes_per_block;
+  int C, n_cand, S, G, n_slots, lanes_per_block;
   cudaStream_t stream;
 };
 
@@ -639,58 +678,85 @@ int launch(Kernel kern, int variant, const Args& a) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (a.C + a.lanes_per_block - 1) / a.lanes_per_block;
-  kern<<<blocks, 32 * a.lanes_per_block, smem, a.stream>>>(
+  // blocks a trace x traces: a block never holds lanes of two traces
+  const dim3 grid((a.n_cand + a.lanes_per_block - 1) / a.lanes_per_block,
+                  a.n_traces);
+  kern<<<grid, 32 * a.lanes_per_block, smem, a.stream>>>(
       a.ev, static_cast<const int*>(a.group_of), static_cast<T*>(a.fc),
       static_cast<T*>(a.um), static_cast<T*>(a.up), static_cast<T*>(a.slots),
       static_cast<const T*>(a.sgb), static_cast<const T*>(a.pgb),
-      static_cast<int*>(a.rejects), a.E, a.C, a.S, a.G, a.n_slots,
-      a.lanes_per_block);
+      static_cast<int*>(a.rejects), a.tr.count[0], a.C, a.S, a.G, a.n_slots,
+      a.lanes_per_block, a.n_cand, a.tr);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool kBatched>
 int dispatch(int variant, int k, const Args& a) {
-  if (variant == kShared) return launch<T>(sweep_shared_kernel<T>, kShared, a);
+  if (variant == kShared)
+    return launch<T>(sweep_shared_kernel<T, kBatched>, kShared, a);
   if (variant != kRegisters || 32 * k < a.S) return -1;
   switch (k) {
-    case 1: return launch<T>(sweep_regs_kernel<T, 1>, kRegisters, a);
-    case 2: return launch<T>(sweep_regs_kernel<T, 2>, kRegisters, a);
-    case 4: return launch<T>(sweep_regs_kernel<T, 4>, kRegisters, a);
-    case 8: return launch<T>(sweep_regs_kernel<T, 8>, kRegisters, a);
-    case 16: return launch<T>(sweep_regs_kernel<T, 16>, kRegisters, a);
+    case 1: return launch<T>(sweep_regs_kernel<T, 1, kBatched>, kRegisters, a);
+    case 2: return launch<T>(sweep_regs_kernel<T, 2, kBatched>, kRegisters, a);
+    case 4: return launch<T>(sweep_regs_kernel<T, 4, kBatched>, kRegisters, a);
+    case 8: return launch<T>(sweep_regs_kernel<T, 8, kBatched>, kRegisters, a);
+    case 16:
+      return launch<T>(sweep_regs_kernel<T, 16, kBatched>, kRegisters, a);
     default: return -1;
   }
 }
 
+// the single-trace build when one trace starts at event 0, else the
+// batched one
+template <typename T>
+int dispatch_traces(int variant, int k, const Args& a) {
+  if (a.n_traces == 1 && a.tr.start[0] == 0)
+    return dispatch<T, false>(variant, k, a);
+  return dispatch<T, true>(variant, k, a);
+}
+
 }  // namespace
 
+// trace_start, trace_count: T host ints (trace t's events are rows
+// [trace_start[t], trace_start[t] + trace_count[t]) of the E-row event
+// arrays); C lanes, C / T a trace.
 extern "C" int event_sweep_launch(
     const void* kind, const void* slot, const void* cores, const void* local,
-    const void* pool, const void* mem, const void* group_of, void* fc,
-    void* um, void* up, void* slots, const void* sgb, const void* pgb,
-    void* rejects, int E, int C, int S, int G, int n_slots, int state_bytes,
-    int variant, int k, int lanes_per_block, void* stream) {
-  if (E < 0 || C <= 0 || S <= 0 || G <= 0 || n_slots <= 0 ||
-      lanes_per_block <= 0 || lanes_per_block > kMaxLanesPerBlock)
+    const void* pool, const void* mem, const int* trace_start,
+    const int* trace_count, int T, const void* group_of, void* fc, void* um,
+    void* up, void* slots, const void* sgb, const void* pgb, void* rejects,
+    int E, int C, int S, int G, int n_slots, int state_bytes, int variant,
+    int k, int lanes_per_block, void* stream) {
+  if (E < 0 || T <= 0 || T > kMaxTraces || C <= 0 || C % T != 0 || S <= 0 ||
+      G <= 0 || n_slots <= 0 || lanes_per_block <= 0 ||
+      lanes_per_block > kMaxLanesPerBlock)
     return -1;
   Args a{{{static_cast<const int*>(kind), static_cast<const int*>(slot),
            static_cast<const int*>(cores), static_cast<const int*>(local),
            static_cast<const int*>(pool), static_cast<const int*>(mem)}},
-         group_of, sgb, pgb, fc, um, up, slots, rejects,
-         E, C, S, G, n_slots, lanes_per_block,
+         {}, T, group_of, sgb, pgb, fc, um, up, slots, rejects,
+         C, C / T, S, G, n_slots, lanes_per_block,
          static_cast<cudaStream_t>(stream)};
+  for (int t = 0; t < T; ++t) {
+    const int s = trace_start[t], n = trace_count[t];
+    if (s < 0 || s % 4 != 0 || n < 0 || s > E - n) return -3;
+    a.tr.start[t] = s;
+    a.tr.count[t] = n;
+  }
   switch (state_bytes) {
-    case 2: return dispatch<int16_t>(variant, k, a);
-    case 4: return dispatch<int32_t>(variant, k, a);
+    case 2: return dispatch_traces<int16_t>(variant, k, a);
+    case 4: return dispatch_traces<int32_t>(variant, k, a);
     default: return -1;
   }
 }
 
 extern "C" const char* event_sweep_error_string(int code) {
   if (code == -1)
-    return "unsupported extent, lanes per block, variant, servers a thread "
-           "or state type";
+    return "unsupported extent, trace count, lanes per block, variant, "
+           "servers a thread or state type";
   if (code == -2) return "lane state too large for a block's shared memory";
+  if (code == -3)
+    return "a trace's events lie outside the event arrays or start off a "
+           "multiple of 4 events";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -4,8 +4,9 @@ The kernel is ``csrc/event_sweep.cu``; it replaces the reference's
 ``src/repro/core/sweep_core.py::build_sweep`` (a ``lax.scan``; the design
 note is at the top of the source).  This module builds it at first use,
 plans a launch (the variant, servers a thread, how many candidate lanes
-share a block) and hands raw pointers to its C entry point; shapes, dtypes and contiguity are the wrapper's business
-(``ops.py``).
+share a block) and hands raw pointers and the traces' places in the event
+arrays to its C entry point; shapes, dtypes and contiguity are the
+wrapper's business (``ops.py``).
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ STATE_DTYPES = (torch.int16, torch.int32)
 TILE = 1024                      # events a shared-memory stage
 STAGES = 2
 MAX_LANES_PER_BLOCK = 8          # warps (one a lane) of a block
+MAX_TRACES = 256                 # traces a launch (the kernel's table)
 MAX_SHARED = 232448              # bytes of shared memory a block may use
 # the registers variant: servers a thread, a template parameter of the
 # kernel; it covers S <= 32 * 16 servers, the shared variant any S whose
@@ -81,13 +83,15 @@ def shared_bytes(n_servers: int, n_groups: int, n_slots: int, item: int,
 
 def lanes_per_block(n_lanes: int, n_servers: int, n_groups: int,
                     n_slots: int, item: int, sm_count: int,
-                    variant: str = "registers") -> int:
-    """Lanes (warps) a block holds: one a block while there are no more
-    lanes than SMs (a lane is a sequential chain of events, so each wants
-    an SM's issue slots to itself), then as many as spread the lanes
-    evenly over the SMs, at most ``MAX_LANES_PER_BLOCK``, and no more than
-    the shared memory holds.  Raises, with the limit, when not even one
-    lane fits."""
+                    variant: str = "registers", n_traces: int = 1) -> int:
+    """Lanes (warps) a block holds, ``n_lanes`` being a trace's lanes and
+    ``n_traces`` the traces of the launch: one a block while there are no
+    more lanes in all than SMs (a lane is a sequential chain of events, so
+    each wants an SM's issue slots to itself), then as many as spread all
+    lanes evenly over the SMs, at most ``MAX_LANES_PER_BLOCK``, no more
+    than a trace has (a block replays one trace) and no more than the
+    shared memory holds.  Raises, with the limit, when not even one lane
+    fits."""
     need = shared_bytes(n_servers, n_groups, n_slots, item, 1, variant)
     if need > MAX_SHARED:
         raise ValueError(
@@ -95,7 +99,8 @@ def lanes_per_block(n_lanes: int, n_servers: int, n_groups: int,
             f"servers, {n_groups} groups, {n_slots} slots at {item} bytes) "
             f"and the event stages need {need} bytes of shared memory; a "
             f"block has at most {MAX_SHARED}")
-    want = min(MAX_LANES_PER_BLOCK, max(1, -(-n_lanes // sm_count)))
+    want = min(MAX_LANES_PER_BLOCK, n_lanes,
+               max(1, -(-(n_traces * n_lanes) // sm_count)))
     while want > 1 and shared_bytes(n_servers, n_groups, n_slots, item,
                                     want, variant) > MAX_SHARED:
         want -= 1
@@ -103,9 +108,11 @@ def lanes_per_block(n_lanes: int, n_servers: int, n_groups: int,
 
 
 def plan(n_lanes: int, n_servers: int, n_groups: int, n_slots: int,
-         item: int, sm_count: int, variant: str | None = None) -> Plan:
-    """The launch plan of one sweep; ``variant`` forces one of
-    :data:`VARIANTS` (None: :func:`choose_variant`)."""
+         item: int, sm_count: int, variant: str | None = None,
+         n_traces: int = 1) -> Plan:
+    """The launch plan of one sweep of ``n_traces`` traces, ``n_lanes``
+    lanes a trace; ``variant`` forces one of :data:`VARIANTS` (None:
+    :func:`choose_variant`)."""
     variant = variant or choose_variant(n_servers)
     if variant not in VARIANTS:
         raise ValueError(f"event_sweep: variant {variant!r} is not one of "
@@ -113,7 +120,7 @@ def plan(n_lanes: int, n_servers: int, n_groups: int, n_slots: int,
     shared = variant == "shared"
     k = 0 if shared else servers_per_thread(n_servers)
     lanes = lanes_per_block(n_lanes, n_servers, n_groups, n_slots, item,
-                            sm_count, variant)
+                            sm_count, variant, n_traces)
     return Plan(variant, k, lanes)
 
 
@@ -121,13 +128,15 @@ _ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 _FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                     r"(\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers")
-_NAME = re.compile(r"sweep_(regs|shared)_kernelI([si])(?:Li(\d+)E)?E")
+_NAME = re.compile(
+    r"sweep_(regs|shared)_kernelI([si])(?:Li(\d+)E)?(?:Lb([01])E)?E")
 
 
 def ptxas_report(log: str) -> list[dict]:
     """Registers, stack frame and spills of each kernel instantiation, from
-    the ``nvcc -Xptxas -v`` log of the build; the variant, state type and
-    servers a thread are read from the mangled name."""
+    the ``nvcc -Xptxas -v`` log of the build; the variant, state type,
+    servers a thread and whether it is the trace axis's batched build are
+    read from the mangled name."""
     out, cur = [], None
     for line in log.splitlines():
         if m := _ENTRY.search(line):
@@ -137,7 +146,8 @@ def ptxas_report(log: str) -> list[dict]:
                 cur.update(
                     variant="registers" if regs else "shared",
                     state_dtype="int16" if n.group(2) == "s" else "int32",
-                    servers_per_thread=int(n.group(3)) if regs else 0)
+                    servers_per_thread=int(n.group(3)) if regs else 0,
+                    batched=n.group(4) == "1")
             out.append(cur)
         elif cur is not None and (m := _FRAME.search(line)):
             cur.update(stack_bytes=int(m.group(1)),
@@ -152,7 +162,9 @@ def _functions():
     """(launch, error_string) of the built library, bound once."""
     global _fns
     if _fns is None:
-        _fns = bind(NAME, [ctypes.c_void_p] * 14 + [ctypes.c_int] * 9
+        ints = ctypes.POINTER(ctypes.c_int)
+        _fns = bind(NAME, [ctypes.c_void_p] * 6 + [ints, ints, ctypes.c_int]
+                    + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                     + [ctypes.c_void_p])
     return _fns
 
@@ -163,16 +175,22 @@ def build() -> None:
 
 
 def event_sweep_kernel(events, group_of, fc, um, up, slots, sgb, pgb,
-                       rejects, *, plan: Plan) -> None:
-    """Enqueue one sweep over all events on PyTorch's current stream of
-    ``fc``'s device; updates fc, um, up, slots and rejects in place; does
-    not synchronise.  Arguments are CUDA tensors the wrapper has already
-    checked; ``plan`` is :func:`plan`'s."""
+                       rejects, *, plan: Plan, trace_starts, trace_counts
+                       ) -> None:
+    """Enqueue one sweep of every trace's events on PyTorch's current
+    stream of ``fc``'s device; updates fc, um, up, slots and rejects in
+    place; does not synchronise.  Arguments are CUDA tensors the wrapper
+    has already checked, the trace layout host ints (starts multiples of
+    4); ``plan`` is :func:`plan`'s."""
     launch, err = _functions()
     n_lanes, n_servers = fc.shape
+    n_traces = len(trace_starts)
+    starts = (ctypes.c_int * n_traces)(*trace_starts)
+    counts = (ctypes.c_int * n_traces)(*trace_counts)
     with torch.cuda.device(fc.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = launch(*(e.data_ptr() for e in events), group_of.data_ptr(),
+        rc = launch(*(e.data_ptr() for e in events), starts, counts,
+                    n_traces, group_of.data_ptr(),
                     fc.data_ptr(), um.data_ptr(), up.data_ptr(),
                     slots.data_ptr(), sgb.data_ptr(), pgb.data_ptr(),
                     rejects.data_ptr(), events[0].shape[0], n_lanes,

@@ -9,6 +9,7 @@ import functools
 
 import torch
 
+from repro_torch.core.sweep_core import PAD
 from repro_torch.kernels.event_sweep import kernel as K
 from repro_torch.kernels.event_sweep import ref as R
 
@@ -61,8 +62,60 @@ def _check(events, group_of, fc, um, up, slots, sgb, pgb, rejects):
         raise ValueError("event_sweep: tensors must be contiguous")
 
 
+def trace_starts(trace_events) -> list[int]:
+    """Where each trace's events start when the traces lie one after
+    another in one set of event arrays, each padded to a multiple of 4
+    events (16 bytes, the kernel's staging copy): the layout the trace axis
+    of :func:`event_sweep` takes."""
+    starts, at = [], 0
+    for n in trace_events:
+        starts.append(at)
+        at += -(-int(n) // 4) * 4
+    return starts
+
+
+def pack_traces(streams, device=None):
+    """Event streams (each six 1-D int arrays or tensors: kind, slot,
+    cores, local, pool, mem) one after another as the trace axis of
+    :func:`event_sweep` takes them: six int32 tensors on ``device`` (the
+    CPU when None), each trace from its :func:`trace_starts` offset and PAD
+    events (a no-op) in the gaps, and the streams' event counts."""
+    counts = [len(ev[0]) for ev in streams]
+    starts = trace_starts(counts + [0])
+    cols = []
+    for j in range(6):
+        col = torch.full((starts[-1],), PAD if j == 0 else 0,
+                         dtype=torch.int32, device=device)
+        for ev, e0 in zip(streams, starts):
+            col[e0:e0 + len(ev[j])] = torch.as_tensor(ev[j]).to(col.device)
+        cols.append(col)
+    return tuple(cols), counts
+
+
+def _trace_layout(trace_events, n_events: int, n_lanes: int):
+    """(starts, counts) of the trace axis, checked against the event
+    arrays' length and the lanes."""
+    if trace_events is None:
+        return [0], [n_events]
+    counts = [int(n) for n in trace_events]
+    n_traces = len(counts)
+    if not 1 <= n_traces <= K.MAX_TRACES or min(counts) < 0:
+        raise ValueError(f"event_sweep: 1 to {K.MAX_TRACES} traces of >= 0 "
+                         f"events, got {counts[:8]}")
+    if n_lanes % n_traces:
+        raise ValueError(f"event_sweep: {n_lanes} lanes do not split into "
+                         f"{n_traces} traces")
+    starts = trace_starts(counts)
+    if starts[-1] + counts[-1] > n_events:
+        raise ValueError(f"event_sweep: the traces need "
+                         f"{starts[-1] + counts[-1]} events, the arrays "
+                         f"hold {n_events}")
+    return starts, counts
+
+
 def event_sweep(kind, slot, cores, local, pool, mem, group_of, fc, um, up,
-                slots, sgb, pgb, rejects=None, *, variant=None):
+                slots, sgb, pgb, rejects=None, *, variant=None,
+                trace_events=None):
     """Replay every event for every candidate lane.
 
     Events: six int32 (E,) arrays; ``group_of`` (S,) int32; state fc, um
@@ -73,6 +126,11 @@ def event_sweep(kind, slot, cores, local, pool, mem, group_of, fc, um, up,
     On the card ``variant`` forces one of ``kernel.VARIANTS`` (None: the
     registers variant up to ``kernel.MAX_REGISTER_SERVERS`` servers, the
     shared one beyond).
+
+    The trace axis: ``trace_events`` (T event counts) says the arrays hold
+    T traces laid out by :func:`trace_starts`, and the lanes are
+    trace-major, C / T a trace, each replaying its own trace's events (the
+    slot column is the largest trace's).  None: one trace of E events.
     """
     global launches, last_plan
     events = (kind, slot, cores, local, pool, mem)
@@ -80,22 +138,25 @@ def event_sweep(kind, slot, cores, local, pool, mem, group_of, fc, um, up,
         rejects = torch.zeros(fc.shape[0], dtype=torch.int32,
                               device=fc.device)
     _check(events, group_of, fc, um, up, slots, sgb, pgb, rejects)
+    starts, counts = _trace_layout(trace_events, kind.shape[0], fc.shape[0])
     if variant is not None and variant not in K.VARIANTS:
         raise ValueError(f"event_sweep: variant {variant!r} is not one of "
                          f"{sorted(K.VARIANTS)}")
     if fc.device.type == "cpu":
         return R.event_sweep_ref(*events, group_of, fc, um, up, slots, sgb,
-                                 pgb, rejects)
+                                 pgb, rejects, starts, counts)
     if fc.device.type != "cuda":
         raise ValueError(f"event_sweep: no kernel for {fc.device}")
     if any(e.data_ptr() % 16 for e in events):
         raise ValueError("event_sweep: the event arrays must be 16-byte "
                          "aligned (the kernel stages them 16 bytes a copy)")
     c, s = fc.shape
-    plan = K.plan(c, s, up.shape[1], slots.shape[0], fc.element_size(),
-                  _sm_count(fc.device), variant)
+    plan = K.plan(c // len(starts), s, up.shape[1], slots.shape[0],
+                  fc.element_size(), _sm_count(fc.device), variant,
+                  len(starts))
     K.event_sweep_kernel(events, group_of, fc, um, up, slots, sgb, pgb,
-                         rejects, plan=plan)
+                         rejects, plan=plan, trace_starts=starts,
+                         trace_counts=counts)
     launches += 1
     last_plan = plan
     return rejects

@@ -19,12 +19,36 @@ from repro_torch.core.sweep_core import (ARRIVE, DEPART, I16_BIG, I32_BIG,
 
 
 def event_sweep_ref(kind, slot, cores, local, pool, mem, group_of, fc, um,
-                    up, slots, sgb, pgb, rejects):
+                    up, slots, sgb, pgb, rejects, trace_starts=None,
+                    trace_counts=None):
     """The kernel's contract: events are six int32 (E,) tensors, group_of
     (S,) int32, state fc/um (C,S), up (C,G), slots (n_slots,C), capacities
     sgb/pgb (C,) in the state dtype (int16 or int32), rejects (C,) int32.
     Runs every event, writes the final state into fc, um, up, slots and
-    rejects in place, and returns ``rejects``."""
+    rejects in place, and returns ``rejects``.
+
+    The trace axis: with ``trace_starts``/``trace_counts`` (T ints each)
+    the arrays hold T streams, trace t's events at rows ``[trace_starts[t],
+    trace_starts[t] + trace_counts[t])``, and the C lanes are trace-major,
+    C / T a trace; each trace's lanes replay its own stream (views of the
+    state, written in place)."""
+    if trace_starts is None:
+        return _sweep_one(kind, slot, cores, local, pool, mem, group_of, fc,
+                          um, up, slots, sgb, pgb, rejects)
+    n = fc.shape[0] // len(trace_starts)
+    for t, (e0, count) in enumerate(zip(trace_starts, trace_counts)):
+        ev = (a[e0:e0 + count] for a in (kind, slot, cores, local, pool,
+                                          mem))
+        lanes = slice(t * n, (t + 1) * n)
+        _sweep_one(*ev, group_of, fc[lanes], um[lanes], up[lanes],
+                   slots[:, lanes], sgb[lanes], pgb[lanes], rejects[lanes])
+    return rejects
+
+
+def _sweep_one(kind, slot, cores, local, pool, mem, group_of, fc, um, up,
+               slots, sgb, pgb, rejects):
+    """One stream for every lane (the reference's scan step, event after
+    event); the state arguments may be views, written through."""
     dt = fc.dtype
     np_dt = np.int16 if dt == torch.int16 else np.int32
     big = I16_BIG if dt == torch.int16 else I32_BIG

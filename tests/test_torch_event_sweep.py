@@ -1,8 +1,9 @@
 """K1's module: the plain event sweep of the port against the reference's
 scan (``sweep_core.build_sweep(dt, with_carry=True)`` under ``jax.jit``)
-on the same numpy inputs, the whole final state compared with ``==``; the
-host helpers of ``core/sweep_core.py`` against the reference's; and the
-wrapper's checks.  The CUDA kernel itself is held to the plain version on
+on the same numpy inputs, the whole final state compared with ``==``; its
+trace axis against T single sweeps and the reference's vmapped scan over
+a trace batch; the host helpers of ``core/sweep_core.py`` against the
+reference's; and the wrapper's checks and the launch plan.  The CUDA kernel itself is held to the plain version on
 the card by ``chip_smoke.py``."""
 import functools
 import os
@@ -221,9 +222,18 @@ def test_get_sweep_is_k1_and_refuses_the_unported_keys():
         torch.from_numpy((np.arange(4) // 2).astype(np.int32)), *st[:4],
         *(torch.from_numpy(a.astype(np.int16)) for a in (sgb, pgb)))
     assert rej.tolist() == want[4].tolist()
+    # the trace axis is served: one trace through it is the same sweep
+    st = [torch.from_numpy(a) for a in sc.init_state(3, 4, 64, 4, 2,
+                                                     n_slots, np.int16)]
+    rej = sc.get_sweep("int16", batched=True)(
+        tuple(torch.from_numpy(events[k]) for k in EVENT_KEYS),
+        torch.from_numpy((np.arange(4) // 2).astype(np.int32)), *st[:4],
+        *(torch.from_numpy(a.astype(np.int16)) for a in (sgb, pgb)),
+        [len(events["kind"])])
+    assert rej.tolist() == want[4].tolist()
     for kw, what in ((dict(with_carry=True), "M5"),
-                     (dict(batched=True), "M4"), (dict(mesh=object()),
-                                                  "M13")):
+                     (dict(with_carry=True, batched=True), "M5"),
+                     (dict(mesh=object()), "M13")):
         with pytest.raises(NotImplementedError, match=what):
             sc.get_sweep("int32", **kw)
     with pytest.raises(ValueError):
@@ -379,7 +389,9 @@ def test_ptxas_report_reads_each_variant():
     from repro_torch.kernels.event_sweep import kernel as K
     names = ["_ZN12_GLOBAL__N_117sweep_regs_kernelIsLi8EEEvNS_6EventsE",
              "_ZN12_GLOBAL__N_117sweep_regs_kernelIiLi16EEEvNS_6EventsE",
-             "_ZN12_GLOBAL__N_119sweep_shared_kernelIsEEvNS_6EventsE"]
+             "_ZN12_GLOBAL__N_119sweep_shared_kernelIsEEvNS_6EventsE",
+             "_ZN12_GLOBAL__N_117sweep_regs_kernelIsLi8ELb1EEEvNS_6EventsE",
+             "_ZN12_GLOBAL__N_119sweep_shared_kernelIiLb0EEEvNS_6EventsE"]
     log = "ptxas info    : 0 bytes gmem\n"
     for i, n in enumerate(names):
         log += (f"ptxas info    : Compiling entry function '{n}' for "
@@ -392,4 +404,203 @@ def test_ptxas_report_reads_each_variant():
              r["registers"], r["stack_bytes"], r["spill_store_bytes"])
             for r in got] == [("registers", "int16", 8, 40, 0, 0),
                               ("registers", "int32", 16, 41, 8, 4),
-                              ("shared", "int16", 0, 42, 16, 8)]
+                              ("shared", "int16", 0, 42, 16, 8),
+                              ("registers", "int16", 8, 43, 24, 12),
+                              ("shared", "int32", 0, 44, 32, 16)]
+    # the trace axis's batched build and the single-trace one
+    assert [r["batched"] for r in got] == [False] * 3 + [True, False]
+
+
+# -------------------------------------------------------------- trace axis --
+@functools.cache
+def _jax_batched_sweep(state_dtype):
+    return jax.jit(jax.vmap(jax_sc.build_sweep(state_dtype, with_carry=True),
+                            in_axes=((0,) * 6, None, 0, 0, 0, 0, 0, 0, 0)))
+
+
+def _reference_batched(streams, n_slots, n_servers, spg, cores, sgb, pgb,
+                       state_dtype):
+    """The reference's vmapped scan over a trace batch, padded as its
+    engine pads it (rows to the longest trace's events rounded to 256 with
+    PAD, lanes to a bucket, servers, groups and slots as in
+    :func:`_reference`); returns each trace's final state at the true
+    extents."""
+    k, n = sgb.shape
+    np_dt = sc.state_np_dtype(state_dtype)
+    width = jax_sc.bucket_width(n)
+    s_pad = jax_sc.pad_up(n_servers, jax_sc.LANE_PAD)
+    n_groups = -(-n_servers // spg)
+    g_pad = jax_sc.pad_up(n_groups, jax_sc.LANE_PAD)
+    slot_pad = jax_sc.pad_up(n_slots, jax_sc.SLOT_PAD)
+    e_pad = jax_sc.pad_up(max(len(ev["kind"]) for ev in streams),
+                          jax_sc.EVENT_PAD)
+    evs = []
+    for key in EVENT_KEYS:
+        a = np.full((k, e_pad), jax_sc.PAD if key == "kind" else 0,
+                    np.int32)
+        for i, ev in enumerate(streams):
+            a[i, :len(ev[key])] = ev[key]
+        evs.append(a)
+    caps = [jax_sc.lane_capacities(np.asarray(sgb[i], float),
+                                   np.asarray(pgb[i], float), 0, n, width,
+                                   np_dt) for i in range(k)]
+    state = jax_sc.init_state(width, n_servers, cores, s_pad, g_pad,
+                              slot_pad, np_dt)
+    group_of = np.zeros(s_pad, np.int32)
+    group_of[:n_servers] = np.arange(n_servers) // spg
+    out = _jax_batched_sweep(state_dtype)(
+        tuple(evs), group_of, *(np.stack([a] * k) for a in state),
+        *(np.stack([c[j] for c in caps]) for j in range(2)))
+    fc, um, up, slots, rej = (np.asarray(a) for a in out)
+    return [[fc[i, :n, :n_servers], um[i, :n, :n_servers],
+             up[i, :n, :n_groups], slots[i, :n_slots, :n], rej[i, :n]]
+            for i in range(k)]
+
+
+def _trace_batch(rng, lengths, mig_frac=0.2):
+    """Random streams of unequal lengths (and so unequal slot counts) and
+    the port's trace-axis layout of them: (streams, n_slots per stream,
+    six int32 arrays with every trace from a multiple of 4 events)."""
+    streams, slot_counts = zip(*(cases.random_stream(rng, m,
+                                                     mig_frac=mig_frac)
+                                 for m in lengths))
+    cols, _ = ops.pack_traces([tuple(ev[k] for k in EVENT_KEYS)
+                               for ev in streams])
+    return list(streams), list(slot_counts), [c.numpy() for c in cols]
+
+
+@pytest.mark.parametrize("state_dtype", DTYPES)
+@pytest.mark.parametrize("n_traces,n_cand,n_servers,spg",
+                         [(1, 5, 7, 4), (2, 3, 33, 8), (3, 9, 7, 4),
+                          (7, 2, 4, 2)])
+def test_trace_axis_equals_single_sweeps_and_reference_batched_scan(
+        n_traces, n_cand, n_servers, spg, state_dtype):
+    """T traces of unequal lengths and peaks in one call: each trace's
+    lanes == a single sweep of that trace alone (the port) and == the
+    reference's vmapped scan over the batch, whole final state."""
+    rng = np.random.default_rng(40 + n_traces * 7 + n_cand)
+    streams, slot_counts, cols = _trace_batch(
+        rng, [120 + 37 * i for i in range(n_traces)])
+    assert len(set(slot_counts)) > 1 or n_traces == 1
+    n_slots = max(slot_counts)
+    caps = [cases.lane_capacities(rng, n_cand, n_servers, 64)
+            for _ in range(n_traces)]
+    sgb, pgb = (np.stack([c[j] for c in caps]) for j in range(2))
+    np_dt = sc.state_np_dtype(state_dtype)
+    n_groups = -(-n_servers // spg)
+    group_of = torch.from_numpy((np.arange(n_servers) // spg)
+                                .astype(np.int32))
+    state = [torch.from_numpy(a) for a in sc.init_state(
+        n_traces * n_cand, n_servers, 64, n_servers, n_groups, n_slots,
+        np_dt)]
+    ops.launches = 0
+    ops.event_sweep(*(torch.from_numpy(c) for c in cols), group_of,
+                    *state[:4], *(torch.from_numpy(a.reshape(-1)
+                                                   .astype(np_dt))
+                                  for a in (sgb, pgb)), state[4],
+                    trace_events=[len(ev["kind"]) for ev in streams])
+    assert ops.launches == 0                 # the plain version ran
+    got = [[t.numpy() for t in state]]
+    per_trace = [[a[i * n_cand:(i + 1) * n_cand] for a in got[0][:3]]
+                 + [got[0][3][:, i * n_cand:(i + 1) * n_cand],
+                    got[0][4][i * n_cand:(i + 1) * n_cand]]
+                 for i in range(n_traces)]
+    want = _reference_batched(streams, n_slots, n_servers, spg, 64, sgb,
+                              pgb, state_dtype)
+    for i, ev in enumerate(streams):
+        single, _ = _both(ev, n_slots, n_servers, spg, 64, sgb[i], pgb[i],
+                          state_dtype)[::-1]
+        _assert_equal(single, per_trace[i])
+        _assert_equal(want[i], per_trace[i])
+
+
+def test_trace_axis_refuses_layouts_the_kernel_cannot_take():
+    rng = np.random.default_rng(3)
+    streams, slot_counts, cols = _trace_batch(rng, [30, 41])
+    counts = [len(ev["kind"]) for ev in streams]
+    st = sc.init_state(4, 5, 64, 5, 2, max(slot_counts), np.int32)[:4]
+    sgb, pgb = cases.lane_capacities(rng, 4, 5, 64)
+
+    def call(trace_events, events=cols):
+        args = ([torch.from_numpy(c) for c in events],
+                torch.from_numpy((np.arange(5) // 4).astype(np.int32)),
+                [torch.from_numpy(a.copy()) for a in st],
+                [torch.from_numpy(a.astype(np.int32)) for a in (sgb, pgb)])
+        return ops.event_sweep(*args[0], args[1], *args[2], *args[3],
+                               trace_events=trace_events)
+    assert call(counts).shape == (4,)
+    with pytest.raises(ValueError, match="split"):
+        call(counts + [0])                      # 4 lanes, 3 traces
+    need = ops.trace_starts(counts)[-1] + counts[-1]
+    with pytest.raises(ValueError, match="hold"):
+        call(counts, [c[:need - 1].copy() for c in cols])
+    with pytest.raises(ValueError, match="traces"):
+        call([])
+    with pytest.raises(ValueError, match="traces"):
+        call([counts[0], -1])
+
+
+def test_trace_starts_keep_every_row_16_byte_aligned():
+    assert ops.trace_starts([]) == []
+    assert ops.trace_starts([0, 1, 4, 5, 3]) == [0, 0, 4, 8, 16]
+    rng = np.random.default_rng(8)
+    counts = rng.integers(0, 5000, 50).tolist()
+    starts = ops.trace_starts(counts)
+    assert all(s % 4 == 0 for s in starts)          # 16 bytes of int32
+    assert all(b - a >= n for a, b, n in zip(starts, starts[1:], counts))
+    from repro_torch.kernels.event_sweep import kernel as K
+    assert _cu_constant("kMaxTraces") == K.MAX_TRACES
+
+
+def test_pack_traces_lays_each_stream_at_its_start_with_pad_between():
+    """Each stream's rows from its ``trace_starts`` offset, PAD (kind) and
+    0 in the gaps, int32; numpy arrays and tensors alike."""
+    rng = np.random.default_rng(9)
+    streams = [cases.random_stream(rng, m)[0] for m in (5, 8, 1, 14)]
+    rows = [tuple(ev[k] for k in EVENT_KEYS) for ev in streams]
+    rows[1] = tuple(torch.from_numpy(np.asarray(a)) for a in rows[1])
+    cols, counts = ops.pack_traces(rows)
+    assert counts == [len(ev["kind"]) for ev in streams]
+    starts = ops.trace_starts(counts)
+    assert len(cols) == 6 and all(c.dtype == torch.int32
+                                  and c.device.type == "cpu"
+                                  and len(c) == starts[-1] + (-(-counts[-1]
+                                                                // 4) * 4)
+                                  for c in cols)
+    filled = np.zeros(len(cols[0]), bool)
+    for ev, e0, n in zip(streams, starts, counts):
+        filled[e0:e0 + n] = True
+        for j, key in enumerate(EVENT_KEYS):
+            np.testing.assert_array_equal(cols[j][e0:e0 + n].numpy(),
+                                          np.asarray(ev[key]))
+    assert (cols[0].numpy()[~filled] == sc.PAD).all()
+    assert all((c.numpy()[~filled] == 0).all() for c in cols[1:])
+
+
+@pytest.mark.parametrize("n_traces,n_cand", [(1, 16), (3, 28), (3, 300),
+                                             (7, 5), (2, 1), (40, 20),
+                                             (256, 3)])
+def test_lanes_per_block_never_straddles_a_trace(n_traces, n_cand):
+    """A block replays one trace: its lanes are candidates of one trace
+    (no more than a trace has), the grid (blocks a trace x traces) covers
+    every lane once, and T = 1 plans as the single-trace sweep did."""
+    from repro_torch.kernels.event_sweep import kernel as K
+    for item, sms in ((2, 132), (4, 132), (4, 16)):
+        plan = K.plan(n_cand, 256, 32, 1517, item, sms, n_traces=n_traces)
+        lpb = plan.lanes_per_block
+        assert 1 <= lpb <= min(n_cand, K.MAX_LANES_PER_BLOCK)
+        blocks = -(-n_cand // lpb)
+        lanes = [t * n_cand + b * lpb + w for t in range(n_traces)
+                 for b in range(blocks) for w in range(lpb)
+                 if b * lpb + w < n_cand]
+        assert sorted(lanes) == list(range(n_traces * n_cand))
+        if n_traces == 1:
+            assert lpb == min(K.MAX_LANES_PER_BLOCK,
+                              max(1, -(-n_cand // sms)))
+    # 3 traces x 28 lanes on 132 SMs: one lane a block, 84 blocks
+    assert K.plan(28, 256, 32, 1517, 2, 132, n_traces=3).lanes_per_block \
+        == 1
+    # 3 x 300 lanes spread over 132 SMs: 7 a block, which 300 is not a
+    # multiple of (the last block of each trace holds an idle warp)
+    assert K.plan(300, 256, 32, 1517, 2, 132,
+                  n_traces=3).lanes_per_block == 7

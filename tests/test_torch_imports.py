@@ -18,7 +18,9 @@ def _port_files():
     files = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "examples", "torch_serve_tiered.py"),
              os.path.join(REPO, "examples", "torch_cluster_savings.py"),
-             os.path.join(REPO, "scripts", "torch_profile_decode.py")]
+             os.path.join(REPO, "examples", "torch_fig21_savings.py"),
+             os.path.join(REPO, "scripts", "torch_profile_decode.py"),
+             os.path.join(REPO, "scripts", "torch_k1_ab.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -60,7 +62,10 @@ def test_port_mirrors_the_reference_layout():
                 "kernels/flash_attention/ref.py", "sharding/rules.py",
                 "runtime/serve.py", "core/traces.py", "core/qos.py",
                 "core/policy_engine.py", "core/sweep_core.py",
-                "core/replay_engine.py", "core/cluster_sim.py"):
+                "core/replay_engine.py", "core/cluster_sim.py",
+                "core/control_plane.py", "core/pool_manager.py",
+                "core/predictors/trees.py", "core/predictors/forest.py",
+                "core/predictors/gbm.py", "core/predictors/models.py"):
         assert os.path.isfile(os.path.join(PORT, rel)), rel
         assert os.path.isfile(os.path.join(REPO, "src", "repro", rel)), rel
     for name in ("paged_attention.cu", "flash_attention.cu",
@@ -116,12 +121,21 @@ def test_entry_points_refuse_to_run_without_a_card():
         os.path.join(REPO, "examples", "torch_cluster_savings.py"))
     example = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(example)
+    spec = importlib.util.spec_from_file_location(
+        "torch_fig21_savings",
+        os.path.join(REPO, "examples", "torch_fig21_savings.py"))
+    fig21 = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fig21)
     empty = PolicyDecisions(*(np.zeros(0),) * 4)
     cluster = cluster_sim.ClusterConfig(n_servers=8)
     for call in (lambda: resolve_device(None),
                  lambda: CompiledReplay([], empty, cluster),
                  lambda: cluster_sim.savings_analysis([], cluster, "local"),
+                 lambda: cluster_sim.savings_analysis_batched([[]], cluster,
+                                                              "local"),
                  lambda: example.main(["--days", "0.1"]),
+                 lambda: fig21.main(["--days", "0.1", "--seeds", "1",
+                                     "--servers", "2", "--train-vms", "60"]),
                  lambda: resolve_device("cuda"),
                  lambda: build_model(cfg),
                  lambda: params_from_numpy({}, cfg),

@@ -78,7 +78,7 @@ def test_policy_decisions_equal_reference(policy, seed):
     assert got.n_migrations == want.n_migrations
     packed = policy_engine.decisions_from_list(as_list)
     np.testing.assert_array_equal(packed.pool_gb, want.pool_gb)
-    with pytest.raises(NotImplementedError, match="M8"):
+    with pytest.raises(ValueError, match="control_plane"):
         cs.policy_decisions(pvms, "pond")
 
 
@@ -179,7 +179,9 @@ def test_savings_analysis_refuses_what_is_not_ported():
         with pytest.raises(NotImplementedError, match=what):
             cs.savings_analysis(pvms, PORT_WORLD_CFG, "static",
                                 device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="M8"):
+    # pond is ported: without its control plane it raises as the
+    # reference does
+    with pytest.raises(ValueError, match="control_plane"):
         cs.savings_analysis(pvms, PORT_WORLD_CFG, "pond", device="cpu")
 
 
