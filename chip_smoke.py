@@ -22,7 +22,14 @@ PyTorch version on the card, and drives the port's three paths:
   ``replay_engine.CompiledReplayBatch``, K1's trace axis, with the
   predictors and a control plane a trace) on the same cluster row and
   three 7-day traces: all-local, static and ``pond``, held to the
-  reference's results.
+  reference's results;
+* Pond's sensitivity and latency grids (``core/policy_engine.py``'s grid
+  axis, ``core/latency_engine.py``): Fig 17's 9-setting policy grid on the
+  same row and traces, its 27 cells priced in one
+  ``savings_analysis_batched`` through K1's trace axis and held to the
+  reference's results, and Fig 16's zNUMA spill grid at the width of the
+  qwen2-1.5b paged pool through the spill sweep kernel (K6), with Figs 4,
+  7, 18 and 20's grids on the card held to their numpy backend.
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after, which shows that it went through its kernel.
@@ -37,6 +44,7 @@ name and power limit as ``nvidia-smi`` prints them, and ``{"ok": true,
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -81,7 +89,7 @@ PROV_FULL = dict(n_servers=256, days=7, seed=2, static_pool_frac=0.30)
 #   print(cs.savings_analysis(vms, cfg, 'static', static_pool_frac=0.30,
 #                             cache=c))"
 _PROV_COMMON = dict(baseline_server_gb=384.0, n_servers=256, n_groups=32,
-                    mitigations=0)
+                    mitigations=0, tier_pricing=None)
 PROV_FULL_WANT = {
     "local": dict(name="local", server_gb=384.0, pool_group_gb=0.0,
                   mispredictions=0.0, reject_rate=0.0, **_PROV_COMMON),
@@ -121,7 +129,7 @@ POND_BATCH_FULL = dict(seeds=(2, 3, 4), static_pool_frac=0.15,
 #                           history=dict(hist)) for _ in vl]
 #       print(cs.savings_analysis_batched(vl, cfg, p, control_planes=cps,
 #                                         static_pool_frac=0.15, cache=c))"
-#   (its tier_pricing is None on this path and is not compared)
+#   (its tier_pricing is None on this path)
 _POND_ROWS = {
     "local": [(384.0, 0.0, 0.0, 0, 0.0)] * 3,
     "static": [(330.0, 175.35936, 0.014433150550577326, 0,
@@ -139,7 +147,8 @@ _POND_ROWS = {
 POND_BATCH_WANT = {
     policy: [dict(name=policy, server_gb=sgb, pool_group_gb=pgb,
                   baseline_server_gb=384.0, n_servers=256, n_groups=32,
-                  mispredictions=mis, mitigations=mit, reject_rate=rate)
+                  mispredictions=mis, mitigations=mit, reject_rate=rate,
+                  tier_pricing=None)
              for sgb, pgb, mis, mit, rate in rows]
     for policy, rows in _POND_ROWS.items()}
 # K1's operations bound: int32 operations per (ARRIVE event, lane, server)
@@ -149,6 +158,105 @@ POND_BATCH_WANT = {
 # H100's int32 rate, 64 int32 lanes an SM a clock.
 K1_OPS_PER_ARRIVE_SERVER = 18
 INT32_LANES_PER_SM = 64
+# Fig 17's policy grid at full width, benchmarks/fig17_sensitivity.py's
+# axes on POND_BATCH_FULL's row: its three traces, its latency model and
+# history; the UM models fitted on its 2,000 training VMs a tau, the
+# li-thresholds calibrated there from the FP targets; 9 settings x 3 traces
+# = 27 cells priced in one savings_analysis_batched (decisions of the numpy
+# backend, bitwise the reference's).
+FIG17_FULL = dict(taus=(0.02, 0.05, 0.2), fp_targets=(0.005, 0.02, 0.05),
+                  pdm=0.05)
+# Figs 18 and 20's taus (benchmarks/fig18_um_model.py, fig20_combined.py)
+FIG18_TAUS = (0.02, 0.05, 0.1, 0.2)
+FIG20_TAUS = (0.01, 0.02, 0.05, 0.1, 0.2)
+# The reference's settings and results for it, from the JAX package on a
+# CPU (each trace's cells priced in one call; a cell's result does not
+# depend on the other traces of a batch):
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -c "
+#   import dataclasses, numpy as np
+#   from repro.core import cluster_sim as cs, traces, policy_engine as pe
+#   from repro.core.predictors.models import LatencySensitivityModel
+#   pop = traces.Population(seed=0)
+#   tr = pop.sample_vms(2000, 10 * 86400, seed=1)
+#   pmu, slw = traces.pmu_matrix(tr), traces.slowdowns(tr, 182)
+#   li = LatencySensitivityModel(pdm=0.05).fit(pmu, slw)
+#   hist = traces.build_history(tr)
+#   ums = pe.fit_um_grid(traces.metadata_features(tr, hist),
+#                        np.array([v.untouched for v in tr]),
+#                        (0.02, 0.05, 0.2))
+#   st = pe.make_grid(taus=(0.02, 0.05, 0.2), pdms=(0.05,),
+#                     fp_targets=(0.005, 0.02, 0.05), li_model=li, pmu=pmu,
+#                     slowdowns=slw)
+#   print([dataclasses.astuple(s) for s in st])
+#   cfg = cs.ClusterConfig(n_servers=256, pool_sockets=16, gb_per_core=4.75)
+#   h = 7 * 86400; n = cs.arrivals_for_util(cfg, 0.8, h)
+#   vl = [pop.sample_vms(n, h, seed=s, start_id=10**6) for s in (2, 3, 4)]
+#   grid = pe.grid_decisions(vl, st, li, ums, hist, backend='numpy')
+#   for k in range(3):
+#       for r in cs.savings_analysis_batched(
+#               [vl[k]] * 9, cfg, 'pond-grid',
+#               decisions=[grid[s][k] for s in range(9)]):
+#           print((r.server_gb, r.pool_group_gb, r.mispredictions,
+#                  r.mitigations, r.reject_rate))"
+#   (the baseline is 384.0 GB on every trace: the cores-bound reject floor
+#   is 0.0 for any decisions of a trace, as for POND_BATCH_FULL's local
+#   rows; tier_pricing is None on this path)
+FIG17_SETTINGS_WANT = [(tau, 0.05, th, fp) for tau in (0.02, 0.05, 0.2)
+                       for th, fp in ((0.18, 0.005), (0.23, 0.02),
+                                      (0.62, 0.05))]
+_FIG17_ROWS = {  # trace seed: (server_gb, pool_group_gb, mispredictions,
+    # mitigations, reject_rate) a setting, in FIG17_SETTINGS_WANT's order
+    2: [
+        (261.5, 685.9353600000001, 0.034968347376398735, 887, 0.004970799340198832),
+        (261.5, 718.7558400000001, 0.038835763006553434, 809, 0.004993089920199724),
+        (259.0, 785.4105600000001, 0.06000066871740003, 669, 0.004970799340198832),
+        (219.0, 1091.2, 0.04003388168160135, 1979, 0.004881637020195266),
+        (272.0, 693.7212800000001, 0.04386786144175472, 1838, 0.00494850876019794),
+        (270.0, 776.84544, 0.06475413490259016, 1535, 0.004993089920199724),
+        (195.0, 1142.2880000000002, 0.05828986670233159, 5742, 0.004993089920199724),
+        (195.0, 1156.8230400000002, 0.061967812402478714, 5355, 0.004926218180197049),
+        (195.0, 1241.6716800000004, 0.08217979581828719, 4690, 0.00494850876019794),],
+    3: [
+        (261.5, 601.9379200000001, 0.03515224466140609, 891, 0.00494850876019794),
+        (259.0, 598.0128000000001, 0.03929271989657171, 809, 0.004993089920199724),
+        (278.0, 648.648, 0.05976661762739066, 684, 0.004970799340198832),
+        (272.0, 605.8393600000002, 0.040072890196602914, 1944, 0.00494850876019794),
+        (270.0, 642.99648, 0.04418550220676742, 1794, 0.004970799340198832),
+        (262.0, 679.9027200000002, 0.06445321207257813, 1539, 0.00494850876019794),
+        (256.0, 595.5622400000002, 0.05745396995229816, 5474, 0.004993089920199724),
+        (192.0, 1149.2870400000002, 0.06142169319245687, 5128, 0.00494850876019794),
+        (183.0, 1238.5318400000003, 0.08094824127323794, 4516, 0.00494850876019794),],
+    4: [
+        (237.0, 979.8451200000002, 0.03456154429138246, 771, 0.00494850876019794),
+        (237.0, 1016.1324800000001, 0.03864629307654585, 682, 0.004970799340198832),
+        (237.0, 1097.9356800000003, 0.05958272034238331, 568, 0.004792474700191699),
+        (219.0, 1078.4320000000002, 0.039303865186572154, 1799, 0.004993089920199724),
+        (216.0, 1123.75296, 0.04336075074673443, 1642, 0.004970799340198832),
+        (207.0, 1214.7696, 0.0641077080825643, 1398, 0.00494850876019794),
+        (195.0, 1124.53824, 0.055642860327225714, 5242, 0.004993089920199724),
+        (195.0, 1113.8572800000002, 0.05956600240738264, 4839, 0.004970799340198832),
+        (192.0, 1190.7273600000003, 0.07982813962819313, 4249, 0.004970799340198832),],
+}
+FIG17_WANT = [dict(name="pond-grid", server_gb=sgb, pool_group_gb=pgb,
+                   baseline_server_gb=384.0, n_servers=256, n_groups=32,
+                   mispredictions=mis, mitigations=mit, reject_rate=rate,
+                   tier_pricing=None)
+              for si in range(9) for seed in (2, 3, 4)
+              for sgb, pgb, mis, mit, rate in [_FIG17_ROWS[seed][si]]]
+# Fig 16's spill grid at full width (K6): benchmarks/fig16_spill.py's
+# paged-KV streams (3-6 pages a request, the oldest requests retire past
+# the peak) at the qwen2-1.5b paged pool of serve_full, 1,280 pages, 16,384
+# requests a stream, seeds 3-6 (147,020-147,562 events, 73,510-73,781 keys,
+# a peak demand of 1,286 pages); local tiers of 16, 32, ..., 1,280 pages
+# and a 1,024-page pool: 80 config lanes, a 23.6 MB tier map.
+SPILL_FULL = dict(seeds=(3, 4, 5, 6), n_requests=16384, peak_pages=1280,
+                  local_step=16, num_pool=1024)
+# K6's operations bound: int32 operations per (event, lane) that the step
+# needs — ALLOC 8 (free_l > 0; free_p > 0 and the choice; two decrements;
+# three counter adds), FREE 4 (two compares, two adds) — over the card's
+# int32 rate, as K1's.
+K6_OPS_PER_ALLOC_LANE = 8
+K6_OPS_PER_FREE_LANE = 4
 SERVE_ARGS = ["--arch", "qwen2-1.5b", "--full", "--dtype", "bfloat16",
               "--requests", "16", "--max-batch", "8", "--page-size", "16",
               "--local-pages", "256", "--pool-pages", "1024",
@@ -166,10 +274,11 @@ def phase_build():
     from repro_torch.kernels.event_sweep import kernel as K1
     from repro_torch.kernels.flash_attention import kernel as K3
     from repro_torch.kernels.paged_attention import kernel as K2
+    from repro_torch.kernels.spill_sweep import kernel as K6
     t0 = time.perf_counter()
-    build.build_libraries([K2.NAME, K3.NAME, K1.NAME])
+    build.build_libraries([K2.NAME, K3.NAME, K1.NAME, K6.NAME])
     seconds = time.perf_counter() - t0
-    for K in (K2, K3, K1):
+    for K in (K2, K3, K1, K6):
         K.build()                                   # load and bind
         with open(f"{build.library_path(K.NAME)}.log") as f:
             log = f.read()
@@ -593,7 +702,6 @@ def phase_parity_small(dev):
     """Smoke config, fp32, same weights and requests: the engine on the
     card (kernel) and on the CPU (plain version) must give identical token
     streams and identical statistics."""
-    import dataclasses
     from repro_torch.configs.registry import get_smoke
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.models.model_zoo import build_model
@@ -917,7 +1025,7 @@ def _pond_inputs():
             traces.metadata_features(train, hist),
             np.array([v.untouched for v in train]))
         _POND.update(cfg=cfg, vms_list=vms_list, li=li, um=um, hist=hist,
-                     sampling_s=sample_s,
+                     train=train, sampling_s=sample_s,
                      fitting_s=time.perf_counter() - t0)
     return _POND
 
@@ -1391,7 +1499,6 @@ def phase_provision_parity_small(dev):
     """The 8-server world (seed 3; static 0.25 and local) on the card (K1)
     and on the CPU (its plain version): equal PolicyResults and equal
     frontier rates."""
-    import dataclasses
     from repro_torch.core import cluster_sim, traces
     from repro_torch.core.replay_engine import CompiledReplay
     from repro_torch.kernels.event_sweep import ops
@@ -1427,7 +1534,6 @@ def phase_provision_full(dev):
     """Pond's provisioning loop at full width (``PROV_FULL``): local and
     static savings_analysis on one shared cache, held to the reference's
     PolicyResults."""
-    import dataclasses
     from repro_torch.core import cluster_sim, replay_engine
     from repro_torch.kernels.event_sweep import ops
     cfg, vms, sample_s = _full_trace()
@@ -1525,7 +1631,6 @@ def phase_pond_batch_parity_small(dev):
     and 4, models fitted on 300 VMs) on the card (K1's trace axis) and on
     the CPU (its plain version): equal PolicyResults for local, static and
     pond, and equal control-plane end states."""
-    import dataclasses
     from repro_torch.core import cluster_sim, traces
     from repro_torch.core.predictors.models import (LatencySensitivityModel,
                                                     UntouchedMemoryModel)
@@ -1570,7 +1675,6 @@ def phase_pond_batch_full(dev):
     (``POND_BATCH_FULL``, Fig 21's path): local, static and pond through
     ``savings_analysis_batched`` on one shared cache, every PolicyResult
     held to the reference's."""
-    import dataclasses
     from repro_torch.core import cluster_sim, replay_engine
     from repro_torch.kernels.event_sweep import ops
     inp = _pond_inputs()
@@ -1659,6 +1763,556 @@ def phase_pond_batch_full(dev):
     return launches
 
 
+# ------------------------------------------- the spill sweep (K6, M11) --
+_SPILL = {}
+
+
+def _spill_full():
+    """Fig 16's full-width streams (``SPILL_FULL``), made once: the PAD-
+    padded (K, E) kinds and keys, each stream's own arrays, the peaks, the
+    80 config lanes and the host seconds of making them."""
+    if not _SPILL:
+        from repro_torch.kernels.spill_sweep import cases
+        f = SPILL_FULL
+        t0 = time.perf_counter()
+        kinds, keys, streams, peaks = cases.kv_event_batch(
+            f["seeds"], f["n_requests"], f["peak_pages"])
+        nl = np.arange(f["local_step"], f["peak_pages"] + 1, f["local_step"],
+                       dtype=np.int32)
+        _SPILL.update(kinds=kinds, keys=keys, streams=streams, peaks=peaks,
+                      nl=nl, npl=np.full_like(nl, f["num_pool"]),
+                      n_keys=int(keys.max()) + 1,
+                      seconds=time.perf_counter() - t0)
+    return _SPILL
+
+
+def _spill_run(fn, kinds, keys, nl, npl, n_keys, dev):
+    """``fn`` (K6's wrapper or its plain version) on ``dev``: the five
+    counters and the final tier map."""
+    from repro_torch.kernels.spill_sweep import ops
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (kinds, keys, nl, npl)]
+    tier = torch.empty((kinds.shape[0], n_keys, len(nl)), dtype=torch.int8,
+                       device=dev)
+    out = (fn(*args, n_keys, tier=tier) if fn is ops.spill_sweep
+           else fn(*args, tier))
+    torch.cuda.synchronize()
+    return [*out, tier]
+
+
+def _pad4(a, value):
+    """(K, E) -> (K, E rounded up to a multiple of 4), as the wrapper
+    stages it."""
+    return np.pad(a, ((0, 0), (0, -a.shape[1] % 4)), constant_values=value)
+
+
+def phase_kernels_spill(dev):
+    """K6 against its plain version on the card (the five counters and
+    the final tier map, ``==``) over edge and seeded cases and the
+    full-width streams' first 2,048 events; at full width every lane of
+    seed 3's stream and 8 lanes of each other stream against the port's
+    scalar oracle; times at 80 and 1,280 lanes beside the bound; the plain
+    version's time on the 2,048-event cut."""
+    from repro_torch.core import latency_engine as le
+    from repro_torch.kernels import build
+    from repro_torch.kernels.spill_sweep import cases, ops
+    from repro_torch.kernels.spill_sweep import kernel as K6
+    from repro_torch.kernels.spill_sweep.ref import ALLOC, FREE, PAD
+    from repro_torch.kernels.spill_sweep.ref import spill_sweep_ref
+    checked, max_err = [], 0
+    full = _spill_full()
+    cut = 2048
+    runs = cases.edge_cases() + cases.seeded_cases() + [
+        ("full_width_first_2048", full["kinds"][:, :cut],
+         full["keys"][:, :cut], full["nl"], full["npl"])]
+    for name, kinds, keys, nl, npl in runs:
+        n_keys = int(keys.max(initial=0)) + 1
+        want = _spill_run(spill_sweep_ref, kinds, keys, nl, npl, n_keys, dev)
+        got = _spill_run(ops.spill_sweep, kinds, keys, nl, npl, n_keys, dev)
+        for a, b in zip(got, want):
+            max_err = max(max_err, int((a.long() - b.long()).abs().max()))
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise SystemExit(f"spill_sweep {name}: the kernel's counters or "
+                             "tier map differ from its plain version's")
+        checked.append(dict(case=name, streams=kinds.shape[0],
+                            events=kinds.shape[1], lanes=len(nl),
+                            keys=n_keys, plan=dataclasses.asdict(
+                                ops.last_plan),
+                            allocs=int(want[0].sum()),
+                            pool_allocs=int(want[1].sum()),
+                            failed=int(want[2].sum())))
+
+    # full width, one launch: seed 3's every lane and 8 lanes of each other
+    # stream against the port's scalar oracle (ZNumaAllocator)
+    kinds, keys, nl, npl = (full[k] for k in ("kinds", "keys", "nl", "npl"))
+    n_keys = full["n_keys"]
+    got = _spill_run(ops.spill_sweep, kinds, keys, nl, npl, n_keys, dev)
+    got = [g.cpu().numpy() for g in got[:5]]
+    t0 = time.perf_counter()
+    n_oracle = 0
+    for s, (k_s, b_s) in enumerate(full["streams"]):
+        lanes = range(len(nl)) if s == 0 else range(0, len(nl), 10)
+        for c in lanes:
+            ref = le.scalar_spill_replay(k_s, b_s, nl[c], npl[c])
+            want = [int(getattr(ref, f)) for f in (
+                "allocs", "pool_allocs", "failed", "local_in_use",
+                "pool_in_use")]
+            if [int(g[s, c]) for g in got] != want:
+                raise SystemExit(f"spill_sweep full width: stream {s} lane "
+                                 f"{c} differs from the scalar oracle")
+            n_oracle += 1
+    oracle_s = time.perf_counter() - t0
+
+    # times by CUDA events over 5 launches of the raw kernel (the wrapper's
+    # checks read the keys back to the host); the bound from this run's
+    # events and shapes
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock_mhz = float(_smi("clocks.max.sm"))
+    int32_rate = sms * INT32_LANES_PER_SM * clock_mhz * 1e6
+    n_alloc, n_free = int((kinds == ALLOC).sum()), int((kinds == FREE).sum())
+
+    def bound(c, e, n_k):
+        ops_ = c * (K6_OPS_PER_ALLOC_LANE * n_alloc
+                    + K6_OPS_PER_FREE_LANE * n_free)
+        nbytes = (8 * kinds.shape[0] * e + 8 * c + kinds.shape[0] * n_k * c
+                  + 5 * 4 * kinds.shape[0] * c)
+        t_ops = ops_ / int32_rate * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        return dict(bound_ms=max(t_ops, t_bytes),
+                    bound_by="operations" if t_ops >= t_bytes else "bytes",
+                    int32_ops=ops_, bytes=nbytes)
+
+    kinds_t = torch.from_numpy(_pad4(kinds, PAD)).to(dev)
+    keys_t = torch.from_numpy(_pad4(keys, 0)).to(dev)
+
+    def time_kernel(kd, ky, lanes, reps=5):
+        nl_t = torch.from_numpy(lanes).to(dev)
+        npl_t = torch.full_like(nl_t, SPILL_FULL["num_pool"])
+        n_st = kd.shape[0]
+        tier = torch.empty((n_st, n_keys, len(lanes)), dtype=torch.int8,
+                           device=dev)
+        out = torch.empty((5, n_st, len(lanes)), dtype=torch.int32,
+                          device=dev)
+        plan = K6.plan(len(lanes), n_st, sms)
+        K6.spill_sweep_kernel(kd, ky, nl_t, npl_t, tier, out, plan=plan)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            K6.spill_sweep_kernel(kd, ky, nl_t, npl_t, tier, out, plan=plan)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps, plan
+
+    n_ev = kinds.shape[1]
+    timings = {}
+    for name, lanes in (("lanes80", nl),
+                        ("lanes1280", np.arange(1, 1281, dtype=np.int32))):
+        ms, plan = time_kernel(kinds_t, keys_t, lanes)
+        timings[name] = dict(ms=ms, ns_per_event=ms * 1e6 / n_ev,
+                             lanes=len(lanes), streams=kinds.shape[0],
+                             plan=dataclasses.asdict(plan),
+                             **bound(len(lanes), n_ev, n_keys))
+    # the plain version beside the kernel on the 2,048-event cut (4
+    # streams x 80 lanes): the plain version once by the host clock
+    cut_ms, _ = time_kernel(kinds_t[:, :cut].contiguous(),
+                            keys_t[:, :cut].contiguous(), nl)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _spill_run(spill_sweep_ref, kinds[:, :cut], keys[:, :cut], nl, npl,
+               n_keys, dev)
+    plain_cut_ms = (time.perf_counter() - t0) * 1e3
+    with open(f"{build.library_path(K6.NAME)}.log") as f:
+        report = build.ptxas_entries(f.read())
+    main = timings["lanes80"]
+    record = dict(
+        name=K6.NAME, route="cuda", source=K6.SOURCE,
+        replaces="src/repro/core/latency_engine.py:253",
+        max_abs_err=max_err, tolerance="== (integer state, exact)",
+        cases_checked=len(checked), cases=checked,
+        full_width_oracle_lanes=n_oracle, oracle_seconds=oracle_s,
+        design="one thread a (stream, lane): free counters and counters "
+               "in registers; a block one stream's lanes, its events "
+               "staged by 2-stage 16-byte cp.async tiles of 2048; the tier "
+               "map in global memory as [stream][key][lane] int8, each "
+               "thread's column set to -1 by itself",
+        ms=main["ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        timed_shape=dict(streams=kinds.shape[0], events=n_ev,
+                         allocs=n_alloc, frees=n_free, keys=n_keys,
+                         lanes=len(nl), tier_map_bytes=kinds.shape[0]
+                         * n_keys * len(nl)),
+        timings=timings, ptxas=report,
+        plain_ms=plain_cut_ms, plain_cut_events=cut, ms_at_plain_cut=cut_ms,
+        plain_note="the plain version (a Python loop of tensor ops an "
+                   "event) on the full-width streams' first 2,048 events, "
+                   "4 streams x 80 lanes, one run by the host clock; "
+                   "ms_at_plain_cut is the kernel on the same cut",
+        int32_rate_ops_per_s=int32_rate, sm_clock_max_mhz=clock_mhz,
+        library_ms=None,
+        library_note="no PyTorch call computes a sequential per-lane "
+                     "allocator")
+    emit("kernels_spill", kernels=[record])
+    return record
+
+
+# ------------------------------------------ the latency grids (M11) -----
+def phase_latency_grids_parity_small(dev):
+    """Every latency_engine grid with ``backend="torch"`` on the card
+    ``==`` the numpy backend at the reference tests' small shapes; the
+    spill grid on the card ``==`` on the CPU (its plain version); tier
+    pricing on the card ``==`` numpy."""
+    from repro_torch.core import cluster_sim, latency_engine as le
+    from repro_torch.core import latency_model as lm
+    from repro_torch.core.policy_engine import PolicyDecisions
+    from repro_torch.kernels.spill_sweep import cases, ops
+    checks = {}
+
+    def same(name, fn, *args, **kw):
+        a = fn(*args, backend="torch", device=dev, **kw)
+        b = fn(*args, backend="numpy", **kw)
+        flat = lambda x: [dataclasses.astuple(p) if dataclasses.is_dataclass(
+            p) else np.asarray(p).tolist() for p in (
+            x if isinstance(x, (tuple, list)) else [x])]
+        checks[name] = flat(a) == flat(b)
+
+    for seed in (0, 1, 2):
+        rng = np.random.default_rng(seed)
+        for shape in ((40,), (1,), (1, 40), (3, 2, 25)):
+            same(f"bands_{seed}_{shape}", le.slowdown_band_grid,
+                 rng.lognormal(-3, 1.2, size=shape))
+        for depth, c in ((1, 1), (1, 4), (2, 3)):
+            hs = [lm.TierHierarchy(tuple(
+                lm.MemoryTier(f"t{i}", float(x)) for i, x in enumerate(
+                    np.sort(rng.uniform(0.2, 6.0, depth + 1)))),
+                cache_hit_rate=float(rng.uniform(0, 0.9)))
+                for _ in range(c)]
+            same(f"hierarchy_{seed}_{depth}_{c}", le.hierarchy_slowdown_grid,
+                 rng.uniform(0, 0.5, size=(7, depth)),
+                 *le.hierarchy_params(hs))
+        same(f"pdm_{seed}", le.pdm_violation_grid,
+             rng.lognormal(-3, 1.0, size=(4, 30)), [0.01, 0.05, 0.25])
+        for n in (1, 137):
+            same(f"li_curve_{seed}_{n}", le.li_curve_grid,
+                 np.round(rng.random(n), 2), rng.random(n) < 0.3)
+        li_curve = list(zip(np.sort(rng.random(21)).tolist(),
+                            np.sort(rng.random(21) / 8).tolist()))
+        um_curve = list(zip(np.sort(rng.random(9)).tolist(),
+                            np.sort(rng.random(9) / 10).tolist()))
+        same(f"combine_{seed}", le.combine_grid, li_curve, um_curve,
+             [0.0, 0.01, 0.02, 0.1, 1.0])
+        n = 60
+        same(f"qos_{seed}", le.qos_mitigation_grid,
+             np.round(rng.random(n), 2), rng.random(n) < 0.6,
+             np.where(rng.random(n) < 0.8, rng.uniform(1, 8, n), 0.0),
+             [0.0, 0.35, 0.5, 1.0], migrated=rng.random(n) < 0.1)
+        local = rng.integers(0, 16, 40).astype(float)
+        pool = np.where(rng.random(40) < 0.7, rng.integers(0, 12, 40), 0.0)
+        dec = PolicyDecisions(local, pool, np.zeros(40, bool),
+                              np.full(40, np.nan))
+        same(f"tiered_pricing_{seed}", cluster_sim.tiered_pricing, dec,
+             lm.TierHierarchy.three_tier(cache_hit_rate=0.25),
+             (0.0, 0.3, 1.0), 0.05)
+    same("combine_tie", le.combine_grid, [(0.5, 0.0), (0.5, 0.0)],
+         [(0.2, 0.0), (0.2, 0.0)], [0.05])
+    same("combine_empty", le.combine_grid, [(0.4, 0.5)], [(0.3, 0.5)],
+         [0.001])
+    same("pdm_boundary", le.pdm_violation_grid, [0.04, 0.05, 0.06], [0.05])
+    # the spill grid: card (K6) == CPU (its plain version) == numpy
+    before = ops.launches
+    n_spill = 0
+    for name, kinds, keys, nl, npl in cases.seeded_cases() + [
+            cases.edge_cases()[-1]]:
+        grids = [le.spill_grid(kinds, keys, nl, npl, **kw) for kw in (
+            dict(device=dev), dict(device="cpu"), dict(backend="numpy"))]
+        rows = [[getattr(g, f).tolist() for f in (
+            "allocs", "pool_allocs", "failed", "local_in_use",
+            "pool_in_use")] for g in grids]
+        checks[f"spill_{name}"] = rows[0] == rows[1] == rows[2]
+        n_spill += 1
+    launches = ops.launches - before
+    checks["spill_launches_on_card"] = launches == n_spill
+    ok = all(checks.values())
+    emit("latency_grids_parity_small", ok=ok, checks_count=len(checks),
+         failed=[k for k, v in checks.items() if not v],
+         spill_kernel_launches=launches)
+    if not ok:
+        raise SystemExit("latency_grids_parity_small failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+
+
+def _fig17_inputs():
+    """The UM models of Figs 17/18/20's taus fitted once on
+    ``POND_BATCH_FULL``'s training VMs, and Fig 17's grid of settings
+    calibrated there."""
+    inp = _pond_inputs()
+    if "um_models" not in inp:
+        from repro_torch.core import policy_engine, traces
+        train = inp["train"]
+        t0 = time.perf_counter()
+        inp["um_models"] = policy_engine.fit_um_grid(
+            traces.metadata_features(train, inp["hist"]),
+            np.array([v.untouched for v in train]), FIG20_TAUS)
+        inp["settings"] = policy_engine.make_grid(
+            taus=FIG17_FULL["taus"], pdms=(FIG17_FULL["pdm"],),
+            fp_targets=FIG17_FULL["fp_targets"], li_model=inp["li"],
+            pmu=traces.pmu_matrix(train),
+            slowdowns=traces.slowdowns(train, 182))
+        inp["um_fitting_s"] = time.perf_counter() - t0
+    return inp
+
+
+def _fig17_pricing(vms_list, grid, settings, cfg, device):
+    """Fig 17's pricing as ``benchmarks/fig17_sensitivity.py`` runs it:
+    every (setting, trace) cell in one ``savings_analysis_batched``."""
+    from repro_torch.core.cluster_sim import savings_analysis_batched
+    k = len(vms_list)
+    return savings_analysis_batched(
+        [v for _ in settings for v in vms_list], cfg, "pond-grid",
+        decisions=[grid[s][i] for s in range(len(settings))
+                   for i in range(k)], cache={}, device=device)
+
+
+def _small_figs(dev):
+    """Figs 4, 7, 18 and 20's grids at the reference's quick benchmark
+    sizes: each grid with a device side on the card ``==`` its numpy
+    backend; Fig 7's latency grids and Fig 18's UM curve are host numpy
+    (as the reference's), held to their scalar functions."""
+    from repro_torch.core import eqn1, latency_engine as le
+    from repro_torch.core import latency_model as lm, qos, traces
+    from repro_torch.core.predictors.models import LatencySensitivityModel
+    inp = _fig17_inputs()
+    pop = traces.Population(seed=0)
+    checks, t = {}, {}
+    # Fig 4: (3 seeds, 2 latencies, 158 workloads) slowdowns
+    t0 = time.perf_counter()
+    rows = []
+    for k, seed in enumerate((9, 10, 11)):
+        tb = traces.vm_table(pop.sample_vms(158, 86400, seed=seed,
+                                            start_id=(5 + k) * 10 ** 6))
+        rows.append(np.stack([tb.slow182, tb.slow222]))
+    slow = np.stack(rows)
+    bands = le.slowdown_band_grid(slow, device=dev)
+    checks["fig4_bands"] = bands.tolist() == le.slowdown_band_grid(
+        slow, backend="numpy").tolist() == [[[
+            (s < .01).mean(), (s < .05).mean(), (s > .25).mean()]
+            for s in row] for row in slow]
+    t["fig4"] = time.perf_counter() - t0
+    # Fig 7: 2..64 sockets
+    sockets = np.arange(2, 65)
+    checks["fig7_latency"] = [
+        (a, b, c, d) for a, b, c, d in zip(
+            le.pond_latency_ns_grid(sockets).tolist(),
+            le.switch_only_latency_ns_grid(sockets).tolist(),
+            le.added_latency_ns_grid(sockets).tolist(),
+            le.latency_increase_pct_grid(sockets).tolist())] == [
+        (lm.pond_latency_ns(s), lm.switch_only_latency_ns(s),
+         lm.added_latency_ns(s), lm.latency_increase_pct(s))
+        for s in sockets.tolist()]
+    # Figs 18 and 20: the test trace (2,000 VMs, seed 2), the taus' curve
+    t0 = time.perf_counter()
+    test = pop.sample_vms(2000, 10 * 86400, seed=2, start_id=10 ** 6)
+    xte = traces.metadata_features(test, inp["hist"])
+    ut_te = np.array([v.untouched for v in test])
+    um_models = inp["um_models"]
+    preds = {tau: um_models[tau].predict(xte).astype(np.float64)
+             for tau in FIG20_TAUS}
+    for name, taus in (("fig18", FIG18_TAUS), ("fig20", FIG20_TAUS)):
+        p = np.stack([preds[tau] for tau in taus])
+        um, op = le.um_curve_grid(p, ut_te)
+        checks[f"{name}_um_curve"] = list(zip(um.tolist(), op.tolist())) \
+            == [(float(r.mean()), float((ut_te < r).mean())) for r in p]
+    um_curve = list(zip(*(a.tolist() for a in le.um_curve_grid(
+        np.stack([preds[tau] for tau in FIG20_TAUS]), ut_te))))
+    t["fig18_fig20_curves"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train = inp["train"]
+    points = {}
+    for lat in (182, 222):
+        model = inp["li"] if lat == 182 else LatencySensitivityModel(
+            pdm=0.05).fit(traces.pmu_matrix(train),
+                          traces.slowdowns(train, 222))
+        p = model.p_sensitive(traces.pmu_matrix(test))
+        sens = qos.exceeds_pdm(traces.slowdowns(test, lat), model.pdm)
+        curves = [le.li_curve_grid(p, sens, **kw) for kw in (
+            dict(device=dev), dict(backend="numpy"))]
+        li_curve = list(zip(curves[0][1].tolist(), curves[0][2].tolist()))
+        pts = [le.combine_grid(li_curve, um_curve, [0.02], **kw)[0]
+               for kw in (dict(device=dev), dict(backend="numpy"))]
+        checks[f"fig20_{lat}"] = (
+            [a.tolist() for a in curves[0]] == [a.tolist() for a in curves[1]]
+            and dataclasses.astuple(pts[0]) == dataclasses.astuple(pts[1])
+            == dataclasses.astuple(eqn1.combine(li_curve, um_curve, 0.02)))
+        points[lat] = dataclasses.asdict(pts[0])
+    t["fig20_frontier"] = time.perf_counter() - t0
+    return checks, dict(fig20_points=points, host_seconds=t,
+                        fig4_bands_mean=bands.mean(0).tolist())
+
+
+def phase_fig_grids_full(dev):
+    """The sensitivity and latency grids on the card: Fig 17's policy grid
+    at full width (``FIG17_FULL`` on ``POND_BATCH_FULL``'s row: the tau
+    axis through ``predict_gbms_torch``, the 27 cells priced through K1's
+    trace axis and held to the reference's results), the spill grid of Fig
+    16 at full width (``SPILL_FULL``, one K6 launch) held to the numpy
+    backend, and Figs 4, 7, 18 and 20's grids at the reference's quick
+    sizes."""
+    from repro_torch.core import latency_engine as le, policy_engine
+    from repro_torch.core import replay_engine, traces
+    from repro_torch.core.predictors import gbm as G
+    from repro_torch.kernels.event_sweep import ops as k1_ops
+    from repro_torch.kernels.spill_sweep import ops as k6_ops
+    inp = _fig17_inputs()
+    cfg, vms_list, settings = inp["cfg"], inp["vms_list"], inp["settings"]
+    li, hist, um_models = inp["li"], inp["hist"], inp["um_models"]
+    spill = _spill_full()
+    host = dict(sampling=inp["sampling_s"], fitting=inp["fitting_s"],
+                um_grid_fitting=inp["um_fitting_s"],
+                spill_streams=spill["seconds"])
+    checks = {"settings_equal_reference": [
+        dataclasses.astuple(s) for s in settings] == FIG17_SETTINGS_WANT}
+
+    # the main path: Fig 17's grid (decisions, then the 27 cells priced on
+    # the card) and Fig 16's spill grid, the launch counts set to 0 just
+    # before and read just after
+    replay_engine.stats_reset()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    k1_ops.launches = 0
+    k6_ops.launches = 0
+    t0 = time.perf_counter()
+    grid = policy_engine.grid_decisions(vms_list, settings, li, um_models,
+                                        hist, backend="numpy")
+    host["grid_decisions_numpy"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    res = _fig17_pricing(vms_list, grid, settings, cfg, None)
+    torch.cuda.synchronize()
+    host["pricing_wall"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    sg = le.spill_grid(spill["kinds"], spill["keys"], spill["nl"],
+                       spill["npl"], backend="torch")
+    host["spill_grid_wall"] = time.perf_counter() - t1
+    wall = time.perf_counter() - t0
+    k1_launches, k6_launches = k1_ops.launches, k6_ops.launches
+    peak = torch.cuda.max_memory_allocated()
+    stats = replay_engine.stats_snapshot()
+    times = replay_engine.stage_times()
+    host.update(compile_and_upload=times.compile_s,
+                device_sweeps=times.sweep_s,
+                pricing_other=host["pricing_wall"] - times.compile_s
+                - times.sweep_s - times.decisions_s)
+
+    # the torch backend's decisions on the card: its tau predictions
+    # against numpy's, and how many floored decisions differ
+    t1 = time.perf_counter()
+    grid_t = policy_engine.grid_decisions(vms_list, settings, li, um_models,
+                                          hist, backend="torch")
+    host["grid_decisions_torch"] = time.perf_counter() - t1
+    tables = [traces.vm_table(v) for v in vms_list]
+    feats = np.concatenate([policy_engine.metadata_features_compiled(
+        tb, policy_engine._prefix_percentiles(tb.customer, tb.untouched,
+                                              hist)[1]) for tb in tables])
+    taus = sorted(FIG17_FULL["taus"])
+    raw = G.predict_gbms_torch(G.pack_gbms([um_models[t].gbm for t in taus]),
+                               feats, dev).cpu().numpy()
+    pred_diff = max(float(np.abs(np.clip(raw[i], 0, 1)
+                                 - um_models[t].predict(feats)).max())
+                    for i, t in enumerate(taus))
+    differ = []
+    for si, (row, row_t) in enumerate(zip(grid, grid_t)):
+        for k, (a, b) in enumerate(zip(row, row_t)):
+            bad = np.flatnonzero((a.pool_gb != b.pool_gb)
+                                 | (a.fully_pooled != b.fully_pooled))
+            differ += [dict(setting=si, trace=k, vm=int(i),
+                            pool_gb_numpy=float(a.pool_gb[i]),
+                            pool_gb_torch=float(b.pool_gb[i])) for i in bad]
+
+    # Fig 16's spill grid: the card == the numpy backend, every lane
+    t1 = time.perf_counter()
+    sg_np = le.spill_grid(spill["kinds"], spill["keys"], spill["nl"],
+                          spill["npl"], backend="numpy")
+    host["spill_grid_numpy"] = time.perf_counter() - t1
+    fields = ("allocs", "pool_allocs", "failed", "local_in_use",
+              "pool_in_use")
+    checks["spill_equals_numpy"] = all(
+        np.array_equal(getattr(sg, f), getattr(sg_np, f)) for f in fields)
+    fracs = sg.spill_fraction.mean(0)
+
+    # the main path again under the tracer, for the device's busy time;
+    # its idle share is of the untraced wall
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        policy_engine.grid_decisions(vms_list, settings, li, um_models, hist,
+                                     backend="numpy")
+        _fig17_pricing(vms_list, grid, settings, cfg, None)
+        le.spill_grid(spill["kinds"], spill["keys"], spill["nl"],
+                      spill["npl"], backend="torch")
+        torch.cuda.synchronize()
+    kernels = sorted(((e.key, e.count, e.self_device_time_total)
+                      for e in prof.key_averages()
+                      if e.self_device_time_total > 0),
+                     key=lambda r: -r[2])
+    busy_s = sum(r[2] for r in kernels) / 1e6
+
+    small_checks, small = _small_figs(dev)
+    checks |= small_checks
+    got = [dataclasses.asdict(r) for r in res]
+    checks |= {
+        "fig17_results_equal_reference": got == FIG17_WANT,
+        "fig17_mispredictions_and_mitigations_are_the_grids": [
+            (r.mispredictions, r.mitigations) for r in res] == [
+            (grid[s][k].mispredictions, grid[s][k].n_mitigations)
+            for s in range(len(settings)) for k in range(len(vms_list))],
+        "k1_launches_equal_sweeps": k1_launches == stats["sweeps"] > 0,
+        "k6_launched": k6_launches == 1,
+        "no_trajectories": times.trajectory_s == 0.0,
+    }
+    lanes = [n for n, _ in times.sweeps]
+    summary = {}
+    for si, s in enumerate(settings):
+        rows = res[si * len(vms_list):(si + 1) * len(vms_list)]
+        sv = np.array([r.savings for r in rows])
+        summary[s.label] = dict(savings_mean=float(sv.mean()),
+                                savings_std=float(sv.std()))
+    emit("fig_grids_full", ok=all(checks.values()), checks=checks,
+         config=dict(FIG17_FULL, seeds=POND_BATCH_FULL["seeds"],
+                     n_servers=cfg.n_servers, days=PROV_FULL["days"],
+                     settings=[dataclasses.astuple(s) for s in settings],
+                     spill=SPILL_FULL),
+         fig17_results=got, fig17_savings=summary,
+         torch_backend=dict(max_abs_tau_prediction_diff=pred_diff,
+                            floored_decisions_differing=len(differ),
+                            differing=differ[:20],
+                            cells=len(settings) * len(vms_list),
+                            vms=sum(len(v) for v in vms_list)),
+         spill=dict(streams=len(spill["streams"]),
+                    events=[len(k) for k, _ in spill["streams"]],
+                    keys=spill["n_keys"], peaks=spill["peaks"],
+                    lanes=len(spill["nl"]),
+                    spill_fraction_mean=fracs[::8].tolist(),
+                    failed=int(sg.failed.sum())),
+         small_figs=small,
+         k1_launches=k1_launches, k6_launches=k6_launches,
+         sweeps=len(lanes), sweep_lanes=lanes,
+         sweep_state_dtypes=[d for _, d in times.sweeps],
+         engine_stats=stats, host_seconds=host, wall_seconds=wall,
+         device_busy_seconds=busy_s if kernels else None,
+         device_idle_share_of_untraced_wall=(1 - busy_s / wall) if kernels
+         else None,
+         device_kernels=[dict(name=k[:60], count=c, seconds=us / 1e6)
+                         for k, c, us in kernels[:6]],
+         peak_memory_bytes=peak, held_before_bytes=held,
+         peak_memory_of_the_path_bytes=peak - held)
+    if differ:
+        print(f"fig_grids_full: {len(differ)} floored torch-backend "
+              f"decisions differ from numpy's: {differ[:20]}", flush=True)
+    if not all(checks.values()):
+        raise SystemExit("fig_grids_full failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return k1_launches, k6_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script runs on "
@@ -1692,9 +2346,13 @@ def main() -> int:
     by_path = {"provision_full": phase_provision_full(dev)}
     phase_pond_batch_parity_small(dev)
     by_path["pond_batch_full"] = phase_pond_batch_full(dev)
+    spill = phase_kernels_spill(dev)
+    phase_latency_grids_parity_small(dev)
+    by_path["fig_grids_full"], spill["launches"] = phase_fig_grids_full(dev)
+    spill["launches_by_path"] = {"fig_grids_full": spill["launches"]}
     sweep["launches"] = sum(by_path.values())
     sweep["launches_by_path"] = by_path
-    print(json.dumps({"kernels": [paged, flash, sweep]}), flush=True)
+    print(json.dumps({"kernels": [paged, flash, sweep, spill]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,10 @@ all-local, a static 15 % pool and Pond's own policy (the latency and
 untouched-memory models, the control plane and its QoS monitor), each
 priced over a batch of trace seeds in lockstep — every search round one
 launch of the event-sweep kernel (K1) over all seeds' candidates.  Rows
-are mean ± std of the savings across seeds, and Pond's mispredictions.
-(Fig 21's 3-tier pricing part waits for the latency engine.)
+are mean ± std of the savings across seeds, and Pond's mispredictions;
+then the QoS price of Pond's pool split (first seed) on a local/CXL/far
+hierarchy behind a DRAM cache, as the far tier takes 0, 25 and 50 % of
+each VM's pool memory (``cluster_sim.tiered_pricing``).
 
   PYTHONPATH=src python examples/torch_fig21_savings.py               # on the card
   PYTHONPATH=src python examples/torch_fig21_savings.py --device cpu \\
@@ -17,8 +19,10 @@ import time
 
 import numpy as np
 
-from repro_torch.core import cluster_sim, replay_engine, traces
+from repro_torch.core import (cluster_sim, policy_engine, replay_engine,
+                              traces)
 from repro_torch.core.control_plane import ControlPlane, ControlPlaneConfig
+from repro_torch.core.latency_model import TierHierarchy
 from repro_torch.core.pool_manager import PoolManager
 from repro_torch.core.predictors.models import (LatencySensitivityModel,
                                                 UntouchedMemoryModel)
@@ -97,6 +101,14 @@ def main(argv=None):
               f" mispred={s['mispred_mean']:.4f}")
     print(f"three policies in {wall:.2f}s ({stats['sweeps']} sweeps, "
           f"{stats['events_per_sec']:.0f} candidate-events/s)")
+    dec = policy_engine.policy_decisions_compiled(
+        vms_list[0], "pond", control_plane(li, um, hist))
+    for p in cluster_sim.tiered_pricing(
+            dec, TierHierarchy.three_tier(cache_hit_rate=0.3),
+            far_fracs=(0.0, 0.25, 0.5), device=args.device):
+        print(f"  3-tier far_frac={p.far_frac:.2f}: mean slowdown="
+              f"{p.mean_slowdown:.4f} PDM violations="
+              f"{p.violation_frac:.3f}")
     return rows
 
 

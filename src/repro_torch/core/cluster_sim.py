@@ -8,9 +8,11 @@ the control plane decide each VM's split, the QoS monitor migrates
 mispredicted VMs) — and reports the DRAM it saves against the all-local
 baseline.  ``savings_analysis_batched`` does the same for a batch of
 traces in lockstep (Fig 21's seed batches), one sweep a round for all of
-them; ``summarize_savings`` gives a batch's mean ± spread.  Required DRAM = servers x per-server local DRAM +
-pool groups x per-group pool DRAM.  Pool groups span ``pool_sockets``
-sockets (2 sockets per server).
+them; ``summarize_savings`` gives a batch's mean ± spread.  Required
+DRAM = servers x per-server local DRAM + pool groups x per-group pool
+DRAM.  Pool groups span ``pool_sockets`` sockets (2 sockets per server).
+``tiered_pricing`` prices a decision set's QoS on a local/CXL/far tier
+hierarchy (``savings_analysis(tier_hierarchy=...)`` attaches it).
 
 The searches run on ``replay_engine.CompiledReplay``: the trace is
 compiled once per decision set and uploaded to the device, the
@@ -23,8 +25,7 @@ batch in one launch of K1's trace axis a round
 port's own copy of the scalar per-event oracle the engine is held to.
 
 Not ported yet (ROADMAP): the scalar-oracle search (``use_engine=False``,
-M3b), the streaming engines past a shard budget (M5) and the
-tier-hierarchy pricing (M11).
+M3b) and the streaming engines past a shard budget (M5).
 """
 from __future__ import annotations
 
@@ -34,7 +35,8 @@ import time
 
 import numpy as np
 
-from repro_torch.core import policy_engine, replay_engine
+from repro_torch.core import (latency_engine, latency_model, policy_engine,
+                              replay_engine)
 
 
 @dataclasses.dataclass
@@ -80,6 +82,10 @@ class PolicyResult:
     mispredictions: float
     mitigations: int
     reject_rate: float
+    # attached by savings_analysis(tier_hierarchy=...): QoS price of the
+    # pool split on a 3-tier hierarchy (list[TierPricing], one per
+    # far_frac grid point); None when priced on the flat 2-tier model
+    tier_pricing: "list[TierPricing] | None" = None
 
     @property
     def total_gb(self) -> float:
@@ -93,6 +99,57 @@ class PolicyResult:
     @property
     def savings(self) -> float:
         return 1.0 - self.total_gb / self.baseline_gb
+
+
+@dataclasses.dataclass
+class TierPricing:
+    """QoS price of one pool split on a tier hierarchy (one grid row)."""
+    far_frac: float            # share of each VM's pool GB on the far tier
+    cache_hit_rate: float
+    mean_slowdown: float       # mean slowdown factor across pooled VMs
+    max_slowdown: float
+    violation_frac: float      # fraction of VMs with slowdown-1 >= pdm
+
+
+def tiered_pricing(decisions, hierarchy=None, far_fracs=(0.0, 0.25, 0.5),
+                   pdm: float = 0.05, backend: str = "auto",
+                   device=None) -> list:
+    """Price a decision set's QoS on a parameterized tier hierarchy.
+
+    Each VM's pool share (``pool_gb / mem_gb`` — the traffic fraction
+    under the uniform-touch model) splits between the CXL pool and the
+    far tier by ``far_frac``; one ``latency_engine`` grid pass (on
+    ``device`` with the torch backend, the card by default) returns the
+    slowdown factors and the inclusive PDM-violation fraction per config.
+    The split leaves the DRAM totals (and ``PolicyResult.savings``)
+    unchanged: the hierarchy prices *where* the pool GB live and what that
+    costs in slowdown.
+
+    ``decisions``: ``policy_engine.PolicyDecisions`` (or anything with
+    ``local_gb``/``pool_gb`` arrays).  ``hierarchy``: a 3-tier
+    ``latency_model.TierHierarchy`` (default ``three_tier()``).
+    """
+    hierarchy = hierarchy if hierarchy is not None \
+        else latency_model.TierHierarchy.three_tier()
+    if hierarchy.n_pool_tiers != 2:
+        raise ValueError("tiered_pricing prices local/CXL/far hierarchies")
+    mem = np.asarray(decisions.local_gb) + np.asarray(decisions.pool_gb)
+    traffic = np.where(mem > 0,
+                       np.asarray(decisions.pool_gb)
+                       / np.where(mem > 0, mem, 1.0), 0.0)
+    ratios, hits = latency_engine.hierarchy_params([hierarchy])
+    far_fracs = np.atleast_1d(np.asarray(far_fracs, float))
+    # (F, N, 2) traffic splits -> one grid pass -> (F, N, 1) slowdowns
+    fracs = np.stack([np.stack([traffic * (1.0 - f), traffic * f], -1)
+                      for f in far_fracs])
+    slow = latency_engine.hierarchy_slowdown_grid(
+        fracs, ratios, hits, backend=backend, device=device)[..., 0]
+    viol = latency_engine.pdm_violation_grid(
+        slow - 1.0, [pdm], backend=backend, device=device)[..., 0]
+    return [TierPricing(float(f), hierarchy.cache_hit_rate,
+                        float(slow[fi].mean()), float(slow[fi].max()),
+                        float(viol[fi]))
+            for fi, f in enumerate(far_fracs)]
 
 
 @dataclasses.dataclass
@@ -244,6 +301,7 @@ def savings_analysis(vms, cfg: ClusterConfig, policy: str,
                      decisions: "policy_engine.PolicyDecisions | None"
                      = None,
                      tier_hierarchy=None,
+                     far_fracs=(0.0, 0.25, 0.5),
                      device=None) -> PolicyResult:
     """Minimum uniform (server_gb, pool_gb) that schedules the trace.
 
@@ -267,6 +325,11 @@ def savings_analysis(vms, cfg: ClusterConfig, policy: str,
     then just the result label; misprediction/mitigation counts come from
     the object).
 
+    ``tier_hierarchy``: a 3-tier ``latency_model.TierHierarchy``; the
+    result's ``tier_pricing`` is then :func:`tiered_pricing` of the priced
+    decisions over ``far_fracs`` (on ``device``); DRAM totals and savings
+    are unchanged.
+
     Usage::
 
         cache = {}
@@ -278,9 +341,6 @@ def savings_analysis(vms, cfg: ClusterConfig, policy: str,
     if not use_engine:
         raise NotImplementedError("the scalar-oracle search is the "
                                   "reference's (ROADMAP M3b)")
-    if tier_hierarchy is not None:
-        raise NotImplementedError("tier-hierarchy pricing comes with the "
-                                  "latency engine (ROADMAP M11)")
     if decisions is not None:
         dec_in, mispred = decisions, decisions.mispredictions
         mitig = decisions.n_mitigations
@@ -292,6 +352,14 @@ def savings_analysis(vms, cfg: ClusterConfig, policy: str,
     hi_server = cfg.cores_per_server * 12.0
     big_pool = hi_server * cfg.n_servers
     n_pts = 7
+
+    def _finish(res: PolicyResult) -> PolicyResult:
+        # price the pool split's QoS on the 3-tier hierarchy over the
+        # far_fracs grid, one latency_engine pass
+        if tier_hierarchy is not None:
+            res.tier_pricing = tiered_pricing(dec_in, tier_hierarchy,
+                                              far_fracs, pdm, device=device)
+        return res
 
     def _compile(vms_, dec_):
         _refuse_past_shard_budget(vms_, dec_, max_events_per_shard)
@@ -309,8 +377,9 @@ def savings_analysis(vms, cfg: ClusterConfig, policy: str,
         if cache is not None:
             cache["local_engine"] = eng
             cache[("base_gb", tol)] = base_gb
-        return PolicyResult(policy, base_gb, 0.0, base_gb, cfg.n_servers,
-                            cfg.n_groups, mispred, 0, r0)
+        return _finish(PolicyResult(policy, base_gb, 0.0, base_gb,
+                                    cfg.n_servers, cfg.n_groups, mispred, 0,
+                                    r0))
     min_server = replay_engine.search_min_batched(
         lambda g: eng.reject_rates(g, big_pool) <= tol,
         0.0, hi_server)
@@ -338,9 +407,10 @@ def savings_analysis(vms, cfg: ClusterConfig, policy: str,
     totals = cfg.n_servers * server_grid + cfg.n_groups * pool_grid
     rates = eng.reject_rates(server_grid, pool_grid)
     b = int(np.argmin(totals))
-    return PolicyResult(policy, float(server_grid[b]), float(pool_grid[b]),
-                        base_gb, cfg.n_servers, cfg.n_groups, mispred,
-                        mitig, float(rates[b]))
+    return _finish(PolicyResult(policy, float(server_grid[b]),
+                                float(pool_grid[b]), base_gb, cfg.n_servers,
+                                cfg.n_groups, mispred, mitig,
+                                float(rates[b])))
 
 
 def savings_analysis_batched(vms_list, cfg: ClusterConfig, policy: str,

@@ -20,13 +20,21 @@ mitigation log).  ``pond`` runs Pond's whole decide -> place -> monitor
 * spill detection, sensitivity sampling and the migration times
   (``arrival + 60``) as array ops.
 
-Not ported yet: the grid axis (``grid_decisions``, ``make_grid``,
-``fit_um_grid``, ``thresholds_for_fp``; ROADMAP M8b) and the ``obs``
-spans (M12).
+On top of the single-policy pipeline, the **grid axis** prices many
+policy settings at once (Fig 17): :func:`grid_decisions` evaluates a list
+of :class:`PolicySetting` (tau, pdm, li-threshold / fp-target) against a
+trace batch with the features and forest probabilities computed once and
+the tau axis priced as one numpy ensemble walk a tau (bitwise a fresh
+control plane a setting) or in one torch pass over the stacked tau models
+(``gbm.predict_gbms_torch``); its decision grid feeds
+``cluster_sim.savings_analysis_batched(decisions=...)``.
+
+Not ported yet: the ``obs`` spans (M12).
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 
 import numpy as np
@@ -309,3 +317,164 @@ def policy_decisions_compiled(vms, policy: str, control_plane=None,
                                   qos.exceeds_pdm(slows, pdm),
                                   spill_harm_prob, n)
     return PolicyDecisions(local, pool, fully, t_mig, mispred, n_mitig)
+
+
+# -------------------------------------------------------------- grid axis --
+@dataclasses.dataclass
+class PolicySetting:
+    """One point of the (tau, pdm, li-threshold) policy grid.
+
+    ``tau`` selects the untouched-memory quantile model (one fitted
+    ``UntouchedMemoryModel`` per tau, see :func:`fit_um_grid`);
+    ``li_threshold`` is the sensitivity-probability cut (derive one from
+    an FP-rate budget with :func:`thresholds_for_fp`, the paper's FP
+    knob); ``pdm`` is the slowdown margin the misprediction accounting
+    charges against.
+    """
+    tau: float
+    pdm: float = 0.05
+    li_threshold: float = 0.05
+    fp_target: float | None = None      # provenance when derived from FP
+
+    @property
+    def label(self) -> str:
+        fp = "" if self.fp_target is None else f",fp={self.fp_target:g}"
+        return (f"tau={self.tau:g},pdm={self.pdm:g},"
+                f"li={self.li_threshold:g}{fp}")
+
+
+def make_grid(taus=(0.05,), pdms=(0.05,), li_thresholds=(0.05,),
+              fp_targets=None, li_model=None, pmu=None, slowdowns=None
+              ) -> list[PolicySetting]:
+    """Cartesian grid of :class:`PolicySetting`.
+
+    With ``fp_targets`` given (instead of raw thresholds), each target
+    resolves to the largest-LI threshold within the FP budget via
+    ``li_model.threshold_for_fp`` on the supplied calibration set.
+    """
+    if fp_targets is not None:
+        if li_model is None or pmu is None or slowdowns is None:
+            raise ValueError("fp_targets need li_model + pmu + slowdowns "
+                             "to calibrate thresholds")
+        th = thresholds_for_fp(li_model, pmu, slowdowns, fp_targets)
+        axis = list(zip(th, fp_targets))
+    else:
+        axis = [(float(t), None) for t in li_thresholds]
+    return [PolicySetting(float(tau), float(pdm), float(th), fp)
+            for tau, pdm, (th, fp)
+            in itertools.product(taus, pdms, axis)]
+
+
+def thresholds_for_fp(li_model, pmu: np.ndarray, slowdowns: np.ndarray,
+                      fp_targets) -> list[float]:
+    """Probability thresholds realizing each FP-rate budget (Fig 17's
+    knob): the largest-LI operating point with FP <= target."""
+    return [float(li_model.threshold_for_fp(pmu, slowdowns, fp).threshold)
+            for fp in fp_targets]
+
+
+def fit_um_grid(meta_features: np.ndarray, untouched: np.ndarray, taus,
+                seed: int = 0) -> dict:
+    """One fitted ``UntouchedMemoryModel`` per unique tau."""
+    from repro_torch.core.predictors.models import UntouchedMemoryModel
+    return {float(tau): UntouchedMemoryModel(float(tau)).fit(
+        meta_features, untouched, seed=seed) for tau in set(taus)}
+
+
+def grid_decisions(vms_list, settings, li_model, um_models: dict,
+                   history: dict | None, min_history_vms: int = 3,
+                   latency: int = 182, spill_harm_prob: float = 0.25,
+                   backend: str = "numpy", device=None) -> list:
+    """Price a whole policy grid against a trace batch in one pass.
+
+    Returns ``out[s][k]`` — the :class:`PolicyDecisions` of setting
+    ``settings[s]`` on trace ``vms_list[k]`` — with the shared work
+    hoisted out of the grid: history percentiles and UM features are
+    computed once per trace, the forest probabilities once over ALL
+    traces' VMs, and the tau axis priced either as one numpy ensemble walk
+    per unique tau (``backend="numpy"``, bit-exact vs a fresh
+    ``ControlPlane`` configured with the same setting) or as ONE torch
+    pass over the stacked tau models on ``device`` (``backend="torch"``,
+    or ``"auto"``; the card when ``device`` is None; float32, so a
+    prediction can differ from numpy's in its last bits and, rarely, a
+    floored pool GB with it).  With a single unique tau there is nothing
+    to stack, and every backend takes the numpy walk on the host, as the
+    reference's jax backend does: the card is not used and the decisions
+    are the numpy ones.  Nothing shared is mutated: each grid point
+    sees the same seeded ``history``, like pricing each setting on a fresh
+    control plane.
+
+    Usage (3 taus x 2 thresholds against 4 seeds, one call)::
+
+        settings = make_grid(taus=(0.05, 0.1, 0.2), pdms=(0.05,),
+                             li_thresholds=(0.05, 0.5))
+        grid = grid_decisions(vms_list, settings, li, um_models, hist)
+        flat_dec = [grid[s][k] for s in range(len(settings))
+                    for k in range(len(vms_list))]
+    """
+    if backend not in ("auto", "torch", "numpy"):
+        raise ValueError(f"backend {backend!r} is not auto, torch or numpy")
+    if not vms_list:
+        return [[] for _ in settings]
+    tables = [traces.vm_table(v) for v in vms_list]
+    sizes = [len(t) for t in tables]
+    splits = np.cumsum(sizes)[:-1]
+    # per-trace history percentiles (each trace starts from the seed)
+    per_trace = [_prefix_percentiles(t.customer, t.untouched, history)
+                 for t in tables]
+    n_hist = np.concatenate([nh for nh, _ in per_trace])
+    feats = np.concatenate(
+        [metadata_features_compiled(t, pc)
+         for t, (_, pc) in zip(tables, per_trace)])
+    pmu = np.concatenate([t.pmu for t in tables])
+    if li_model is not None:
+        p = np.asarray(li_model.p_sensitive_batch(pmu))
+    else:
+        p = np.ones(len(pmu))
+
+    # tau axis: one prediction vector per unique tau over ALL VMs
+    uniq_taus = sorted({s.tau for s in settings})
+    if backend != "numpy" and len(uniq_taus) > 1:
+        from repro_torch.core.predictors import gbm as G
+        packed = G.pack_gbms([um_models[t].gbm for t in uniq_taus])
+        raw = G.predict_gbms_torch(packed, feats, device).cpu().numpy()
+        um_by_tau = {t: np.clip(raw[i], 0.0, 1.0).astype(np.float64)
+                     for i, t in enumerate(uniq_taus)}
+    else:
+        um_by_tau = {t: um_models[t].predict(feats).astype(np.float64)
+                     for t in uniq_taus}
+
+    mem = np.concatenate([t.mem_gb for t in tables])
+    untouched = np.concatenate([t.untouched for t in tables])
+    arrival = np.concatenate([t.arrival for t in tables])
+    slows = np.concatenate([(t.slow182 if latency == 182 else t.slow222)
+                            for t in tables])
+    has_hist_base = (n_hist >= min_history_vms) & (li_model is not None)
+
+    out = []
+    for s in settings:
+        um = um_by_tau[s.tau]
+        fully = has_hist_base & (p < s.li_threshold)
+        pool = np.floor(um * mem)
+        local = mem - pool
+        pool[fully] = mem[fully]
+        local[fully] = 0.0
+        spill = pool > untouched * mem + 1e-9
+        spilled = fully | spill
+        mitigate = (pool > 0) & spilled & (p >= s.li_threshold)
+        t_mig = np.where(mitigate, arrival + _MONITOR_DELAY, np.nan)
+        harm = qos.exceeds_pdm(slows, s.pdm)
+        row = []
+        lo = 0
+        for k, hi in enumerate([*splits, len(mem)]):
+            sl = slice(lo, hi)
+            mispred = _sequential_mispred(
+                fully[sl], spill[sl], harm[sl], spill_harm_prob,
+                sizes[k])
+            row.append(PolicyDecisions(
+                local[sl].copy(), pool[sl].copy(), fully[sl].copy(),
+                t_mig[sl].copy(), mispred,
+                int(np.isfinite(t_mig[sl]).sum())))
+            lo = hi
+        out.append(row)
+    return out

@@ -2,8 +2,8 @@
 
 Bootstrap + per-split feature subsampling over ``trees.py``'s CART;
 predicted probability = ensemble mean of leaf class fractions.  A copy of
-the reference's numpy inference and fit (the packed inference is ROADMAP
-M8b).
+the reference's numpy inference and fit, and its packed inference in torch
+(:meth:`RandomForest.predict_proba_torch`).
 """
 from __future__ import annotations
 
@@ -12,11 +12,15 @@ import dataclasses
 import numpy as np
 
 from repro_torch.core.predictors import trees as T
+from repro_torch.device import resolve_device
 
 
 @dataclasses.dataclass
 class RandomForest:
     trees: list
+    # the packed ensemble on each device it ran on (predict_proba_torch)
+    packed: dict = dataclasses.field(default_factory=dict, repr=False,
+                                     compare=False)
 
     def predict_proba(self, x: np.ndarray) -> np.ndarray:
         return np.mean([t.predict(x) for t in self.trees], axis=0)
@@ -36,6 +40,15 @@ class RandomForest:
         """
         preds = T.predict_stack(self.trees, x)        # (T, N)
         return np.mean(np.ascontiguousarray(preds.T), axis=1)
+
+    def predict_proba_torch(self, x, device=None):
+        """Probabilities by the packed ensemble on ``device`` (the card
+        when None, ``"cpu"`` on purpose): float32, the numpy walk's to
+        ensemble rounding.  Returns a (B,) tensor on the device."""
+        dev = resolve_device(device)
+        if dev not in self.packed:
+            self.packed[dev] = T.upload(T.pack_trees(self.trees), dev)
+        return T.predict_torch(self.packed[dev], x)
 
 
 def fit_forest(x: np.ndarray, y: np.ndarray, n_trees: int = 40,

@@ -7,14 +7,17 @@ latency-insensitivity classifier and the quantile-GBM untouched-memory
 regressor (§4.4/§5 — sklearn/LightGBM in the paper, written from scratch
 here).  A copy of the reference's numpy half: the same generator calls in
 the same order, so a fit gives the reference's arrays bit for bit.  The
-packed-ensemble inference (``predict_stack_jax`` and what it feeds, the
-grid axis of Fig 17) is ROADMAP M8b.
+packed-ensemble inference (:func:`predict_stack_torch`, the reference's
+``predict_stack_jax``) is an eager, depth-bounded gather loop in torch on
+the ensemble's device, float32 like the reference's: it agrees with the
+numpy walk to float32 rounding of the ensemble sums, not bitwise.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass
@@ -122,8 +125,48 @@ def pack_trees(trees: list[Tree]) -> dict:
             "depth": max(t.depth for t in trees)}
 
 
+def upload(packed: dict, device) -> dict:
+    """A packed ensemble (:func:`pack_trees`, ``gbm.pack_gbms``) with its
+    arrays as tensors on ``device``; ints (the depth) stay as they are."""
+    return {k: torch.as_tensor(v, device=device)
+            if isinstance(v, (np.ndarray, torch.Tensor)) else v
+            for k, v in packed.items()}
+
+
+def predict_stack_torch(packed: dict, x) -> torch.Tensor:
+    """Per-tree predictions of a packed ensemble: x (B, F) -> (T, B).
+
+    ``packed``: :func:`pack_trees`' arrays as tensors (:func:`upload`);
+    every tree walks ``depth + 1`` steps, all trees and rows at once (a
+    leaf stays where it is).  ``x`` goes to the ensemble's device as
+    float32.  The substrate of the forest mean (:func:`predict_torch`),
+    the GBM's ``f0 + lr * sum`` and the multi-model grid path
+    (``gbm.predict_gbms_torch``).
+    """
+    feat, thr = packed["feature"], packed["threshold"]
+    left, right, value = packed["left"], packed["right"], packed["value"]
+    x = torch.as_tensor(x, dtype=torch.float32, device=feat.device)
+    rows = torch.arange(x.shape[0], device=feat.device)[None, :]
+    idx = torch.zeros((feat.shape[0], x.shape[0]), dtype=torch.long,
+                      device=feat.device)
+    for _ in range(packed["depth"] + 1):
+        f = feat.gather(1, idx)
+        xv = x[rows, f.clamp(min=0).long()]
+        nxt = torch.where(xv <= thr.gather(1, idx), left.gather(1, idx),
+                          right.gather(1, idx))
+        idx = torch.where(f < 0, idx, nxt.long())
+    return value.gather(1, idx)
+
+
+def predict_torch(packed: dict, x) -> torch.Tensor:
+    """Ensemble mean prediction.  x: (B, F) -> (B,) on the ensemble's
+    device."""
+    return predict_stack_torch(packed, x).mean(dim=0)
+
+
 def predict_stack(trees: list[Tree], x: np.ndarray) -> np.ndarray:
-    """(T, B) per-tree predictions.  Each tree's gather loop is elementwise
+    """numpy pendant of :func:`predict_stack_torch`: (T, B) per-tree
+    predictions.  Each tree's gather loop is elementwise
     per row, so row ``i`` of the stack is bit-identical to predicting row
     ``i`` alone — the property the compiled policy engine's batched
     inference relies on."""

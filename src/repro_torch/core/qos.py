@@ -7,8 +7,8 @@ The monitor inspects every running VM once per sampling interval:
   B3: the mitigation manager triggers a one-time memory reconfiguration —
       the hypervisor copies the VM's pool memory to local (50 ms/GB).
       After that the VM is all-local and never re-pooled (§4.2).
-A copy of the reference's ``core/qos.py`` (its predicate and these
-classes; the latency grids wait for ROADMAP M11).
+A copy of the reference's ``core/qos.py``; its grids over many VMs and
+thresholds are ``core/latency_engine.py``'s.
 """
 from __future__ import annotations
 

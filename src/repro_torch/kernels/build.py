@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -101,3 +102,28 @@ def bind(name: str, launch_argtypes: list):
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
     return launch, err
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_entries(log: str) -> list[dict]:
+    """Registers, stack frame and spills of each kernel (entry function)
+    of a build, from its ``nvcc -Xptxas -v`` log: one dict a kernel with
+    ``function`` (the mangled name), ``stack_bytes``,
+    ``spill_store_bytes``, ``spill_load_bytes`` and ``registers``."""
+    out, cur = [], None
+    for line in log.splitlines():
+        if m := _ENTRY.search(line):
+            cur = dict(function=m.group(1))
+            out.append(cur)
+        elif cur is not None and (m := _FRAME.search(line)):
+            cur.update(stack_bytes=int(m.group(1)),
+                       spill_store_bytes=int(m.group(2)),
+                       spill_load_bytes=int(m.group(3)))
+        elif cur is not None and (m := _REGS.search(line)):
+            cur.update(registers=int(m.group(1)))
+    return out

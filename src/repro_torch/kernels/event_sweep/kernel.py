@@ -16,7 +16,7 @@ import re
 
 import torch
 
-from repro_torch.kernels.build import bind
+from repro_torch.kernels.build import bind, ptxas_entries
 
 NAME = "event_sweep"
 SOURCE = "src/repro_torch/csrc/event_sweep.cu"
@@ -124,37 +124,24 @@ def plan(n_lanes: int, n_servers: int, n_groups: int, n_slots: int,
     return Plan(variant, k, lanes)
 
 
-_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
-_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                    r"(\d+) bytes spill loads")
-_REGS = re.compile(r"Used (\d+) registers")
 _NAME = re.compile(
     r"sweep_(regs|shared)_kernelI([si])(?:Li(\d+)E)?(?:Lb([01])E)?E")
 
 
 def ptxas_report(log: str) -> list[dict]:
     """Registers, stack frame and spills of each kernel instantiation, from
-    the ``nvcc -Xptxas -v`` log of the build; the variant, state type,
-    servers a thread and whether it is the trace axis's batched build are
-    read from the mangled name."""
-    out, cur = [], None
-    for line in log.splitlines():
-        if m := _ENTRY.search(line):
-            cur = dict(function=m.group(1))
-            if n := _NAME.search(m.group(1)):
-                regs = n.group(1) == "regs"
-                cur.update(
-                    variant="registers" if regs else "shared",
-                    state_dtype="int16" if n.group(2) == "s" else "int32",
-                    servers_per_thread=int(n.group(3)) if regs else 0,
-                    batched=n.group(4) == "1")
-            out.append(cur)
-        elif cur is not None and (m := _FRAME.search(line)):
-            cur.update(stack_bytes=int(m.group(1)),
-                       spill_store_bytes=int(m.group(2)),
-                       spill_load_bytes=int(m.group(3)))
-        elif cur is not None and (m := _REGS.search(line)):
-            cur.update(registers=int(m.group(1)))
+    the ``nvcc -Xptxas -v`` log of the build (``build.ptxas_entries``); the
+    variant, state type, servers a thread and whether it is the trace
+    axis's batched build are read from the mangled name."""
+    out = ptxas_entries(log)
+    for cur in out:
+        if n := _NAME.search(cur["function"]):
+            regs = n.group(1) == "regs"
+            cur.update(
+                variant="registers" if regs else "shared",
+                state_dtype="int16" if n.group(2) == "s" else "int32",
+                servers_per_thread=int(n.group(3)) if regs else 0,
+                batched=n.group(4) == "1")
     return out
 
 

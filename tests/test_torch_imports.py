@@ -19,6 +19,7 @@ def _port_files():
              os.path.join(REPO, "examples", "torch_serve_tiered.py"),
              os.path.join(REPO, "examples", "torch_cluster_savings.py"),
              os.path.join(REPO, "examples", "torch_fig21_savings.py"),
+             os.path.join(REPO, "examples", "torch_fig16_spill.py"),
              os.path.join(REPO, "scripts", "torch_profile_decode.py"),
              os.path.join(REPO, "scripts", "torch_k1_ab.py")]
     for root, _, names in os.walk(PORT):
@@ -65,17 +66,19 @@ def test_port_mirrors_the_reference_layout():
                 "core/replay_engine.py", "core/cluster_sim.py",
                 "core/control_plane.py", "core/pool_manager.py",
                 "core/predictors/trees.py", "core/predictors/forest.py",
-                "core/predictors/gbm.py", "core/predictors/models.py"):
+                "core/predictors/gbm.py", "core/predictors/models.py",
+                "core/latency_engine.py", "core/eqn1.py"):
         assert os.path.isfile(os.path.join(PORT, rel)), rel
         assert os.path.isfile(os.path.join(REPO, "src", "repro", rel)), rel
     for name in ("paged_attention.cu", "flash_attention.cu",
-                 "event_sweep.cu"):
+                 "event_sweep.cu", "spill_sweep.cu"):
         assert os.path.isfile(os.path.join(PORT, "csrc", name)), name
-    # K1 replaces a lax.scan, not a Pallas kernel: its module has no
-    # counterpart path in the reference
-    for name in ("kernel.py", "ops.py", "ref.py"):
-        assert os.path.isfile(os.path.join(PORT, "kernels", "event_sweep",
-                                           name)), name
+    # K1 and K6 replace lax.scans, not Pallas kernels: their modules have
+    # no counterpart path in the reference
+    for kernel in ("event_sweep", "spill_sweep"):
+        for name in ("kernel.py", "ops.py", "ref.py", "cases.py"):
+            assert os.path.isfile(os.path.join(PORT, "kernels", kernel,
+                                               name)), (kernel, name)
 
 
 def _run(code_or_args, **kw):
@@ -105,7 +108,12 @@ def test_entry_points_refuse_to_run_without_a_card():
     import importlib.util
     from repro_torch.configs.registry import get_smoke
     from repro_torch.core import cluster_sim
+    from repro_torch.core import latency_engine as le
     from repro_torch.core.policy_engine import PolicyDecisions
+    from repro_torch.core.predictors.forest import RandomForest
+    from repro_torch.core.predictors.gbm import (QuantileGBM, pack_gbms,
+                                                 predict_gbms_torch)
+    from repro_torch.core.predictors.trees import Tree
     from repro_torch.core.replay_engine import CompiledReplay
     from repro_torch.device import resolve_device
     from repro_torch.launch import serve
@@ -126,6 +134,15 @@ def test_entry_points_refuse_to_run_without_a_card():
         os.path.join(REPO, "examples", "torch_fig21_savings.py"))
     fig21 = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(fig21)
+    spec = importlib.util.spec_from_file_location(
+        "torch_fig16_spill",
+        os.path.join(REPO, "examples", "torch_fig16_spill.py"))
+    fig16 = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fig16)
+    leaf = Tree(np.array([-1], np.int32), np.zeros(1, np.float32),
+                np.zeros(1, np.int32), np.zeros(1, np.int32),
+                np.zeros(1, np.float32), 0)
+    gbm = QuantileGBM(0.0, [leaf], 0.1, 0.05)
     empty = PolicyDecisions(*(np.zeros(0),) * 4)
     cluster = cluster_sim.ClusterConfig(n_servers=8)
     for call in (lambda: resolve_device(None),
@@ -136,6 +153,16 @@ def test_entry_points_refuse_to_run_without_a_card():
                  lambda: example.main(["--days", "0.1"]),
                  lambda: fig21.main(["--days", "0.1", "--seeds", "1",
                                      "--servers", "2", "--train-vms", "60"]),
+                 lambda: fig16.main(["--requests", "4", "--peak-pages", "8",
+                                     "--local-step", "4"]),
+                 lambda: le.spill_grid([0], [0], [1], [1]),
+                 lambda: le.slowdown_band_grid([0.1]),
+                 lambda: cluster_sim.tiered_pricing(empty),
+                 lambda: RandomForest([]).predict_proba_torch(np.zeros((1, 1))),
+                 lambda: QuantileGBM(0.0, [], 0.1, 0.5).predict_torch(
+                     np.zeros((1, 1))),
+                 lambda: predict_gbms_torch(pack_gbms([gbm, gbm]),
+                                            np.zeros((1, 1))),
                  lambda: resolve_device("cuda"),
                  lambda: build_model(cfg),
                  lambda: params_from_numpy({}, cfg),
@@ -156,7 +183,9 @@ def test_cuda_tensor_path_never_falls_back_in_source():
                 "kernels/flash_attention/ops.py",
                 "kernels/flash_attention/kernel.py",
                 "kernels/event_sweep/ops.py",
-                "kernels/event_sweep/kernel.py"):
+                "kernels/event_sweep/kernel.py",
+                "kernels/spill_sweep/ops.py",
+                "kernels/spill_sweep/kernel.py"):
         with open(os.path.join(PORT, rel)) as f:
             tree = ast.parse(f.read())
         assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], rel

@@ -2,8 +2,8 @@
 and quantile GBMs fitted in both packages on the same seeded data give the
 same arrays and bitwise-equal predictions; batched inference equals
 per-row calls; ``convert.py`` rebuilds the reference's fitted models from
-their arrays.  (The reference's packed JAX inference is the grid axis,
-ROADMAP M8b, and is not compared here.)"""
+their arrays.  (The packed inference in torch is held to the reference's jax
+inference in ``tests/test_torch_policy_grid.py``.)"""
 import functools
 
 import numpy as np

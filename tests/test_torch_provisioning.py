@@ -174,11 +174,16 @@ def test_savings_analysis_shares_the_all_local_search_through_its_cache():
 def test_savings_analysis_refuses_what_is_not_ported():
     _, _, pvms, _ = port_world(3, "static")
     for kw, what in ((dict(use_engine=False), "M3"),
-                     (dict(max_events_per_shard=100), "M5"),
-                     (dict(tier_hierarchy=object()), "M11")):
+                     (dict(max_events_per_shard=100), "M5")):
         with pytest.raises(NotImplementedError, match=what):
             cs.savings_analysis(pvms, PORT_WORLD_CFG, "static",
                                 device="cpu", **kw)
+    # tier pricing is ported (M11): a hierarchy that is not local/CXL/far
+    # is refused, as the reference's tiered_pricing refuses it
+    from repro_torch.core.latency_model import TierHierarchy
+    with pytest.raises(ValueError, match="local/CXL/far"):
+        cs.savings_analysis(pvms, PORT_WORLD_CFG, "local", device="cpu",
+                            tier_hierarchy=TierHierarchy.from_tier_model())
     # pond is ported: without its control plane it raises as the
     # reference does
     with pytest.raises(ValueError, match="control_plane"):
