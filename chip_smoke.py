@@ -257,6 +257,11 @@ SPILL_FULL = dict(seeds=(3, 4, 5, 6), n_requests=16384, peak_pages=1280,
 # int32 rate, as K1's.
 K6_OPS_PER_ALLOC_LANE = 8
 K6_OPS_PER_FREE_LANE = 4
+# K6's timings start after a wait of this long on the card, so that the
+# host has enqueued every timed sweep before the first one starts: the
+# CUDA events then time the device's work, not the host's dispatch
+# (checked: the phase fails if enqueueing took longer)
+K6_WAIT_MS = 50
 SERVE_ARGS = ["--arch", "qwen2-1.5b", "--full", "--dtype", "bfloat16",
               "--requests", "16", "--max-batch", "8", "--page-size", "16",
               "--local-pages", "256", "--pool-pages", "1024",
@@ -1218,6 +1223,48 @@ def _k1_trace_axis(dev, int32_rate):
                                 **full))
 
 
+def _k1_past_the_slot_limit(dev):
+    """A trace whose peak concurrency is past K1's shared-memory slot
+    column at 256 servers with int32 state (45,568 slots; F8): 50,000 VMs
+    of the full-width row's population, arriving one a second and all
+    live at once before any departs, static 0.30.  The plan keeps the slot
+    column in global memory, and the reject rates of two candidates
+    (int32 state forced) ``==`` the port's scalar oracle."""
+    from repro_torch.core import cluster_sim, traces
+    from repro_torch.core.replay_engine import CompiledReplay
+    from repro_torch.kernels.event_sweep import ops
+    cfg = _prov_config(PROV_FULL["n_servers"])
+    n = 50_000
+    t0 = time.perf_counter()
+    vms = [dataclasses.replace(vm, arrival=float(i),
+                               lifetime=1e5 + float((i * 7919) % n))
+           for i, vm in enumerate(traces.Population(seed=0).sample_vms(
+               n, 7 * 86400, seed=5, start_id=10 ** 7))]
+    dec, _ = cluster_sim.policy_decisions(
+        vms, "static", static_pool_frac=PROV_FULL["static_pool_frac"])
+    eng = CompiledReplay(vms, dec, cfg, device=dev)
+    _, _, n_slots = eng._device_events()
+    cand = np.array([[384.0, 3000.0], [270.0, 500.0]])
+    ops.last_plan = None
+    t1 = time.perf_counter()
+    rates = eng.reject_rates(cand[:, 0], cand[:, 1], state_dtype="int32")
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t1
+    plan = ops.last_plan
+    oracle = [cluster_sim.replay_reject_rate(vms, dec, cfg, sg, pg)
+              for sg, pg in cand]
+    if plan is None or plan.slot_column != "global" or n_slots <= 45_568:
+        raise SystemExit(f"event_sweep past the slot limit: {n_slots} slots "
+                         f"ran with plan {plan}, not a global slot column")
+    if rates.tolist() != oracle:
+        raise SystemExit(f"event_sweep past the slot limit: rates "
+                         f"{rates.tolist()} != the scalar oracle's {oracle}")
+    return dict(vms=n, n_slots=n_slots, events=eng.n_events,
+                plan=dataclasses.asdict(plan), rates=rates.tolist(),
+                oracle=oracle, reject_rates_s=sweep_s,
+                host_s=time.perf_counter() - t0 - sweep_s)
+
+
 def phase_kernels_sweep(dev):
     """K1 against its plain version on the card (whole final state and the
     rejects, ``==``), its rates against the port's scalar oracle at the
@@ -1251,27 +1298,32 @@ def phase_kernels_sweep(dev):
                                                  sgb, pgb, dt, dev)
             want = _k1_run(event_sweep_ref, events, group_of, state)
             # every variant that takes this shape, then the wrapper's own
-            # choice, each against the plain version
+            # choice, each against the plain version, with the slot column
+            # where the plan puts it and forced into global memory (F8)
             for variant in _k1_variants(s) + [None]:
-                got = _k1_run(ops.event_sweep, events, group_of, state,
-                              variant=variant)
-                plan = ops.last_plan
-                for a, b in zip(got, want):
-                    max_err = max(max_err, int((a.long() - b.long()).abs()
-                                               .max()))
-                if not all(torch.equal(a, b) for a, b in zip(got, want)):
-                    raise SystemExit(
-                        f"event_sweep {name} {dt} {plan.variant}: the "
-                        "kernel's final state differs from its plain "
-                        "version's")
-                checked.append(dict(case=name, state_dtype=dt,
-                                    variant=plan.variant,
-                                    chosen=variant is None,
-                                    servers_per_thread=plan
-                                    .servers_per_thread,
-                                    events=len(ev["kind"]), servers=s,
-                                    lanes=len(sgb), n_slots=n_slots,
-                                    rejects=int(want[4].sum())))
+                for column in (None, "global"):
+                    got = _k1_run(ops.event_sweep, events, group_of, state,
+                                  variant=variant, slot_column=column)
+                    plan = ops.last_plan
+                    for a, b in zip(got, want):
+                        max_err = max(max_err, int((a.long() - b.long())
+                                                   .abs().max()))
+                    if not all(torch.equal(a, b)
+                               for a, b in zip(got, want)):
+                        raise SystemExit(
+                            f"event_sweep {name} {dt} {plan.variant} "
+                            f"({plan.slot_column} slot column): the "
+                            "kernel's final state differs from its plain "
+                            "version's")
+                    checked.append(dict(case=name, state_dtype=dt,
+                                        variant=plan.variant,
+                                        slot_column=plan.slot_column,
+                                        chosen=variant is None,
+                                        servers_per_thread=plan
+                                        .servers_per_thread,
+                                        events=len(ev["kind"]), servers=s,
+                                        lanes=len(sgb), n_slots=n_slots,
+                                        rejects=int(want[4].sum())))
 
     # the full-width trace: rates == the port's scalar oracle
     cfg, vms, _ = _full_trace()
@@ -1329,28 +1381,31 @@ def phase_kernels_sweep(dev):
         return ev_c, [[torch.from_numpy(a.copy()).to(dev) for a in st]
                       + caps for _ in range(reps)]
 
-    def time_kernel(ev_c, states, variant=None, trace_events=None):
+    def time_kernel(ev_c, states, variant=None, trace_events=None,
+                    slot_column=None):
+        kw = dict(variant=variant, trace_events=trace_events,
+                  slot_column=slot_column)
         ops.event_sweep(*ev_c, group_of, *[t.clone() for t in states[0]],
-                        variant=variant, trace_events=trace_events)
+                        **kw)
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for st in states:
-            ops.event_sweep(*ev_c, group_of, *st, variant=variant,
-                            trace_events=trace_events)
+            ops.event_sweep(*ev_c, group_of, *st, **kw)
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / len(states)
 
-    def timed(c, dt, variant=None):
+    def timed(c, dt, variant=None, slot_column=None):
         ev_c, states = fresh(c, dt, 5)
-        ms = time_kernel(ev_c, states, variant)
+        ms = time_kernel(ev_c, states, variant, slot_column=slot_column)
         plan = ops.last_plan
         return dict(ms=ms, ns_per_event=ms * 1e6 / n_ev,
                     variant=plan.variant,
                     servers_per_thread=plan.servers_per_thread,
                     lanes_per_block=plan.lanes_per_block,
+                    slot_column=plan.slot_column,
                     **bound(c, 2 if dt == "int16" else 4, n_ev, n_arrive))
 
     timings = {f"lanes{c}_{dt}": timed(c, dt)
@@ -1400,7 +1455,7 @@ def phase_kernels_sweep(dev):
         streams[name] = (torch.where(keep, kind, sweep_core.PAD)
                          .contiguous(), *evs[1:])
         kind_counts[name] = int(keep.sum())
-    variant_timings, by_kind, full_equal = {}, {}, {}
+    variant_timings, by_kind, full_equal, global_timings = {}, {}, {}, {}
     for dt in ("int16", "int32"):
         for variant in _k1_variants(n_srv):
             key = f"{variant}_lanes16_{dt}"
@@ -1417,9 +1472,18 @@ def phase_kernels_sweep(dev):
         outs = [_k1_run(ops.event_sweep, ev_c, group_of, states[0],
                         variant=v) for v in ("registers", "shared")]
         full_equal[dt] = all(torch.equal(a, b) for a, b in zip(*outs))
+        # the slot column in global memory (F8), each variant: the same
+        # final state as the shared-column run, and its time at 16 lanes
+        for v, shared_out in zip(("registers", "shared"), outs):
+            got = _k1_run(ops.event_sweep, ev_c, group_of, states[0],
+                          variant=v, slot_column="global")
+            full_equal[f"{dt}_{v}_global_slots"] = all(
+                torch.equal(a, b) for a, b in zip(got, shared_out))
+            global_timings[f"{v}_lanes16_{dt}"] = timed(16, dt, v, "global")
     if not all(full_equal.values()):
-        raise SystemExit(f"event_sweep full trace: the registers and shared "
-                         f"variants' final states differ: {full_equal}")
+        raise SystemExit(f"event_sweep full trace: the variants' or the slot "
+                         f"columns' final states differ: {full_equal}")
+    past_limit = _k1_past_the_slot_limit(dev)
     # the plain version beside the kernel at a 2,048-event cut (16 lanes)
     cut = 2048
     ev_c, states = fresh(16, "int16", 5, cut=cut)
@@ -1448,8 +1512,12 @@ def phase_kernels_sweep(dev):
                "port's kernel: the lane in shared memory, a 64-bit shuffle "
                "argmin); events by 2-stage cp.async tiles of 1024; a trace "
                "axis: T streams in one set of event arrays, a block one "
-               "trace's lanes (grid: blocks a trace x T)",
+               "trace's lanes (grid: blocks a trace x T); a slot column "
+               "too large for shared memory stays in its column of slots "
+               "in global memory (both variants, both builds)",
         full_trace_variants_equal=full_equal,
+        global_slot_column_timings=global_timings,
+        past_the_slot_limit=past_limit,
         ms=main["ms"], bound_ms=main["bound_ms"],
         bound_by=main["bound_by"],
         timed_shape=dict(events=n_ev, arrivals=n_arrive, servers=n_srv,
@@ -1808,11 +1876,16 @@ def _pad4(a, value):
 
 def phase_kernels_spill(dev):
     """K6 against its plain version on the card (the five counters and
-    the final tier map, ``==``) over edge and seeded cases and the
-    full-width streams' first 2,048 events; at full width every lane of
-    seed 3's stream and 8 lanes of each other stream against the port's
-    scalar oracle; times at 80 and 1,280 lanes beside the bound; the plain
-    version's time on the 2,048-event cut."""
+    the final tier map, ``==``) over edge and seeded cases, a case longer
+    than three tiles, 200 streams x 192 lanes (a plan whose tile is below
+    ``MAX_TILE``) and the full-width streams' first 2,048 events; at full
+    width every lane of seed 3's stream and 8 lanes of each other stream
+    against the port's scalar oracle; the whole device work of a sweep
+    (the links pass and the kernel with its final map) timed at 80 and
+    1,280 lanes beside the bound, the links (and the links kernel) and
+    the kernel each alone; the chain floor, a one-warp probe of the
+    walk's counter chain over the longest stream's events, timed; the
+    plain version's time on the 2,048-event cut."""
     from repro_torch.core import latency_engine as le
     from repro_torch.kernels import build
     from repro_torch.kernels.spill_sweep import cases, ops
@@ -1822,7 +1895,19 @@ def phase_kernels_spill(dev):
     checked, max_err = [], 0
     full = _spill_full()
     cut = 2048
+    long_k, long_b = cases.to_arrays(cases.random_events(
+        np.random.default_rng(17), 64, 4 * K6.MAX_TILE + 300))
+    # 200 streams x 192 lanes: 6 warps a block, so the plan halves the
+    # tile; the first stream has links planted across its tiles' bounds
+    half = K6.MAX_TILE // 2
+    wide = [cases.to_arrays(cases.tile_boundary_events(half))] + [
+        cases.to_arrays(cases.random_events(np.random.default_rng(100 + s),
+                                            48, 3 * half))
+        for s in range(199)]
     runs = cases.edge_cases() + cases.seeded_cases() + [
+        ("four_tiles", long_k[None], long_b[None], *cases.lane_configs(70)),
+        ("wide_half_tile", *cases.pad_streams(wide),
+         *cases.lane_configs(192)),
         ("full_width_first_2048", full["kinds"][:, :cut],
          full["keys"][:, :cut], full["nl"], full["npl"])]
     for name, kinds, keys, nl, npl in runs:
@@ -1834,6 +1919,9 @@ def phase_kernels_spill(dev):
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise SystemExit(f"spill_sweep {name}: the kernel's counters or "
                              "tier map differ from its plain version's")
+        if name == "wide_half_tile" and ops.last_plan.tile != half:
+            raise SystemExit(f"spill_sweep {name}: planned tile "
+                             f"{ops.last_plan.tile}, not {half}")
         checked.append(dict(case=name, streams=kinds.shape[0],
                             events=kinds.shape[1], lanes=len(nl),
                             keys=n_keys, plan=dataclasses.asdict(
@@ -1863,13 +1951,15 @@ def phase_kernels_spill(dev):
             n_oracle += 1
     oracle_s = time.perf_counter() - t0
 
-    # times by CUDA events over 5 launches of the raw kernel (the wrapper's
-    # checks read the keys back to the host); the bound from this run's
-    # events and shapes
+    # times by CUDA events over sweeps of the device work the wrapper
+    # enqueues after its checks (which read the keys back to the host):
+    # the links pass and the kernel with its final map; each alone too.
+    # The bound from this run's events and shapes
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     clock_mhz = float(_smi("clocks.max.sm"))
     int32_rate = sms * INT32_LANES_PER_SM * clock_mhz * 1e6
     n_alloc, n_free = int((kinds == ALLOC).sum()), int((kinds == FREE).sum())
+    longest = max(len(k_s) for k_s, _ in full["streams"])
 
     def bound(c, e, n_k):
         ops_ = c * (K6_OPS_PER_ALLOC_LANE * n_alloc
@@ -1885,39 +1975,96 @@ def phase_kernels_spill(dev):
     kinds_t = torch.from_numpy(_pad4(kinds, PAD)).to(dev)
     keys_t = torch.from_numpy(_pad4(keys, 0)).to(dev)
 
-    def time_kernel(kd, ky, lanes, reps=5):
+    def events_ms(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(K6_WAIT_MS * clock_mhz * 1e3))
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if enqueue_ms >= K6_WAIT_MS:
+            raise SystemExit(f"spill_sweep timing: enqueueing {reps} runs "
+                             f"took {enqueue_ms:.1f} ms, longer than the "
+                             f"{K6_WAIT_MS} ms wait before them")
+        return start.elapsed_time(end) / reps
+
+    def time_sweep(kd, ky, lanes):
         nl_t = torch.from_numpy(lanes).to(dev)
         npl_t = torch.full_like(nl_t, SPILL_FULL["num_pool"])
         n_st = kd.shape[0]
         tier = torch.empty((n_st, n_keys, len(lanes)), dtype=torch.int8,
                            device=dev)
+        ms = events_ms(lambda: ops.sweep_on_card(kd, ky, nl_t, npl_t, tier))
+        plan = ops.last_plan
+        links_ms = events_ms(lambda: ops.spill_links(kd, ky, n_keys), 20)
+        prev, last = ops.spill_links(kd, ky, n_keys)
+        # the links kernel alone, on the sort the links pass made
+        live = (kd == ALLOC) | (kd == FREE)
+        skey, order = torch.sort(torch.where(live, ky, n_keys), dim=1,
+                                 stable=True)
+        prev2 = torch.empty_like(prev)
+        last2 = torch.full_like(last, -1)
+        links_kernel_ms = events_ms(lambda: K6.spill_links_kernel(
+            skey, order, prev2, last2), 20)
+        if not (torch.equal(prev2, prev) and torch.equal(last2, last)):
+            raise SystemExit("spill_sweep: the links kernel alone differs "
+                             "from the links pass")
+        words = torch.empty((n_st, -(-len(lanes) // 32), kd.shape[1], 2),
+                            dtype=torch.int32, device=dev)
         out = torch.empty((5, n_st, len(lanes)), dtype=torch.int32,
                           device=dev)
-        plan = K6.plan(len(lanes), n_st, sms)
-        K6.spill_sweep_kernel(kd, ky, nl_t, npl_t, tier, out, plan=plan)
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            K6.spill_sweep_kernel(kd, ky, nl_t, npl_t, tier, out, plan=plan)
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps, plan
+        kernel_ms = events_ms(lambda: K6.spill_sweep_kernel(
+            kd, prev, last, nl_t, npl_t, words, tier, out, plan=plan))
+        return ms, links_ms, links_kernel_ms, kernel_ms, plan
+
+    # the chain floor: one warp through the walk's counter chain alone
+    # for the longest stream's events (rounded up to 8), timed
+    steps = -(-longest // 8) * 8
+    chain_out = torch.empty(32, dtype=torch.int32, device=dev)
+    chain_ms = events_ms(lambda: K6.spill_chain_kernel(steps, chain_out))
+    if not bool((chain_out == 1).all()):
+        raise SystemExit("spill_sweep chain probe: a counter left 1")
+    chain_cycles = chain_ms * 1e-3 * clock_mhz * 1e6 / steps
 
     n_ev = kinds.shape[1]
     timings = {}
     for name, lanes in (("lanes80", nl),
                         ("lanes1280", np.arange(1, 1281, dtype=np.int32))):
-        ms, plan = time_kernel(kinds_t, keys_t, lanes)
-        timings[name] = dict(ms=ms, ns_per_event=ms * 1e6 / n_ev,
-                             lanes=len(lanes), streams=kinds.shape[0],
+        ms, links_ms, links_kernel_ms, kernel_ms, plan = time_sweep(
+            kinds_t, keys_t, lanes)
+        timings[name] = dict(ms=ms, links_ms=links_ms,
+                             links_kernel_ms=links_kernel_ms,
+                             kernel_ms=kernel_ms,
+                             ns_per_event=ms * 1e6 / n_ev,
+                             kernel_ns_per_event=kernel_ms * 1e6 / n_ev,
+                             kernel_cycles_per_event=kernel_ms * 1e-3
+                             * clock_mhz * 1e6 / longest,
+                             lanes=len(lanes),
+                             streams=kinds.shape[0],
                              plan=dataclasses.asdict(plan),
                              **bound(len(lanes), n_ev, n_keys))
+    # the kernel alone at 80 lanes on copies of the streams in which every
+    # event but some kinds is a PAD (each copy with its own links): ns an
+    # event whatever its kind, the cost of the walk's skeleton
+    by_kind = {}
+    for name, keep in (("all", (ALLOC, FREE)), ("pad", ()),
+                       ("alloc", (ALLOC,)), ("free", (FREE,))):
+        kd_k = torch.where(torch.isin(kinds_t, torch.tensor(
+            keep, dtype=kinds_t.dtype, device=dev)), kinds_t, PAD)
+        ms = time_sweep(kd_k.contiguous(), keys_t, nl)[3]
+        by_kind[name] = dict(kernel_ms=ms,
+                             cycles_per_event=ms * 1e-3 * clock_mhz * 1e6
+                             / longest)
     # the plain version beside the kernel on the 2,048-event cut (4
     # streams x 80 lanes): the plain version once by the host clock
-    cut_ms, _ = time_kernel(kinds_t[:, :cut].contiguous(),
-                            keys_t[:, :cut].contiguous(), nl)
+    cut_ms = time_sweep(kinds_t[:, :cut].contiguous(),
+                        keys_t[:, :cut].contiguous(), nl)[0]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _spill_run(spill_sweep_ref, kinds[:, :cut], keys[:, :cut], nl, npl,
@@ -1932,17 +2079,34 @@ def phase_kernels_spill(dev):
         max_abs_err=max_err, tolerance="== (integer state, exact)",
         cases_checked=len(checked), cases=checked,
         full_width_oracle_lanes=n_oracle, oracle_seconds=oracle_s,
-        design="one thread a (stream, lane): free counters and counters "
-               "in registers; a block one stream's lanes, its events "
-               "staged by 2-stage 16-byte cp.async tiles of 2048; the tier "
-               "map in global memory as [stream][key][lane] int8, each "
-               "thread's column set to -1 by itself",
+        design="the linked form: each event's previous ALLOC or FREE of "
+               "its key and each key's last one, from the stream alone "
+               "(a stable device sort of the keys, then the links kernel); "
+               "one warp a (stream, 32 lanes), free counters in registers; "
+               "a key's tier after each event as two ballot words a warp "
+               "in a word array; a block one stream's warps, kinds and "
+               "links staged by 2-stage 16-byte cp.async tiles; a tile "
+               "fetches its earlier links' words by cp.async, the walk "
+               "reads every tier from shared memory an event ahead; the "
+               "final map from each key's last word in one parallel pass",
         ms=main["ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        links_ms=main["links_ms"], links_kernel_ms=main["links_kernel_ms"],
+        kernel_ms=main["kernel_ms"],
+        chain_floor_ms=chain_ms, chain_cycles_per_step=chain_cycles,
+        chain_floor_note=f"timed: one warp replays {steps} steps (the "
+                         f"longest stream's {longest} events, rounded up "
+                         "to 8) of the walk's free counter chain alone "
+                         "(spill_chain_kernel: a compare, then two "
+                         "predicated adds a step); reported, not the "
+                         "bound",
+        timing_note=f"CUDA events around 5 sweeps (20 links passes) "
+                    f"enqueued behind a {K6_WAIT_MS} ms wait on the card, "
+                    "so the host's dispatch is not timed",
         timed_shape=dict(streams=kinds.shape[0], events=n_ev,
-                         allocs=n_alloc, frees=n_free, keys=n_keys,
-                         lanes=len(nl), tier_map_bytes=kinds.shape[0]
-                         * n_keys * len(nl)),
-        timings=timings, ptxas=report,
+                         longest_stream=longest, allocs=n_alloc,
+                         frees=n_free, keys=n_keys, lanes=len(nl),
+                         tier_map_bytes=kinds.shape[0] * n_keys * len(nl)),
+        timings=timings, by_kind=by_kind, ptxas=report,
         plain_ms=plain_cut_ms, plain_cut_events=cut, ms_at_plain_cut=cut_ms,
         plain_note="the plain version (a Python loop of tensor ops an "
                    "event) on the full-width streams' first 2,048 events, "
@@ -2179,7 +2343,7 @@ def phase_fig_grids_full(dev):
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     k1_ops.launches = 0
-    k6_ops.launches = 0
+    k6_ops.launches = k6_ops.link_launches = 0
     t0 = time.perf_counter()
     grid = policy_engine.grid_decisions(vms_list, settings, li, um_models,
                                         hist, backend="numpy")
@@ -2194,6 +2358,7 @@ def phase_fig_grids_full(dev):
     host["spill_grid_wall"] = time.perf_counter() - t1
     wall = time.perf_counter() - t0
     k1_launches, k6_launches = k1_ops.launches, k6_ops.launches
+    k6_link_launches = k6_ops.link_launches
     peak = torch.cuda.max_memory_allocated()
     stats = replay_engine.stats_snapshot()
     times = replay_engine.stage_times()
@@ -2266,6 +2431,7 @@ def phase_fig_grids_full(dev):
             for s in range(len(settings)) for k in range(len(vms_list))],
         "k1_launches_equal_sweeps": k1_launches == stats["sweeps"] > 0,
         "k6_launched": k6_launches == 1,
+        "k6_links_launched": k6_link_launches == 1,
         "no_trajectories": times.trajectory_s == 0.0,
     }
     lanes = [n for n, _ in times.sweeps]
@@ -2294,7 +2460,7 @@ def phase_fig_grids_full(dev):
                     failed=int(sg.failed.sum())),
          small_figs=small,
          k1_launches=k1_launches, k6_launches=k6_launches,
-         sweeps=len(lanes), sweep_lanes=lanes,
+         k6_link_launches=k6_link_launches, sweeps=len(lanes), sweep_lanes=lanes,
          sweep_state_dtypes=[d for _, d in times.sweeps],
          engine_stats=stats, host_seconds=host, wall_seconds=wall,
          device_busy_seconds=busy_s if kernels else None,
@@ -2310,7 +2476,7 @@ def phase_fig_grids_full(dev):
     if not all(checks.values()):
         raise SystemExit("fig_grids_full failed: "
                          f"{[k for k, v in checks.items() if not v]}")
-    return k1_launches, k6_launches
+    return k1_launches, (k6_launches, k6_link_launches)
 
 
 def main() -> int:
@@ -2348,7 +2514,8 @@ def main() -> int:
     by_path["pond_batch_full"] = phase_pond_batch_full(dev)
     spill = phase_kernels_spill(dev)
     phase_latency_grids_parity_small(dev)
-    by_path["fig_grids_full"], spill["launches"] = phase_fig_grids_full(dev)
+    by_path["fig_grids_full"], (spill["launches"], spill["link_launches"]) \
+        = phase_fig_grids_full(dev)
     spill["launches_by_path"] = {"fig_grids_full": spill["launches"]}
     sweep["launches"] = sum(by_path.values())
     sweep["launches_by_path"] = by_path

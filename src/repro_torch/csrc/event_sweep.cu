@@ -101,6 +101,16 @@
 // by cp.async: tile n+1 is in flight while tile n is replayed.  Every warp
 // of the block reads the same tile, so the block barrier comes twice a
 // tile, not once an event.
+//
+// The slot column.  Both variants keep a lane's slot column in shared
+// memory while it fits beside the stages (and, for the shared variant,
+// the lane's fc, um and up).  Past that (at 256 servers, 45,568 slots in
+// int32 and 91,136 in int16) it stays where it lies, in its column of
+// `slots` (stride C) in global memory, and thread 0 reads and writes it
+// there: no copy in or out, and a DEPART's or MIGRATE's slot read becomes
+// a dependent global load (template kGlobalSlots, both builds of the
+// trace axis).  kernel.py::plan chooses; only the shared variant's fc, um
+// and up must still fit.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -127,18 +137,19 @@ __host__ __device__ constexpr size_t round16(size_t n) {
 
 // Shared memory of a block: the event stages, group_of, then one region a
 // lane in T: its fc, um, up and slot column for the shared variant, its
-// slot column alone for the registers variant.  kernel.py::shared_bytes
-// computes the same.
+// slot column alone for the registers variant; no slot column when it
+// lies in global memory.  kernel.py::shared_bytes computes the same.
 __host__ __device__ size_t lane_bytes(int variant, int S, int G, int n_slots,
-                                      int item) {
+                                      int item, bool global_slots) {
   const size_t n = variant == kShared ? static_cast<size_t>(2 * S + G) : 0;
-  return round16((n + n_slots) * item);
+  return round16((n + (global_slots ? 0 : n_slots)) * item);
 }
 __host__ __device__ size_t shared_bytes(int variant, int S, int G,
-                                        int n_slots, int item, int lanes) {
+                                        int n_slots, int item, int lanes,
+                                        bool global_slots) {
   return static_cast<size_t>(kStages) * 6 * kTile * 4 +
          round16(static_cast<size_t>(S) * 4) +
-         lanes * lane_bytes(variant, S, G, n_slots, item);
+         lanes * lane_bytes(variant, S, G, n_slots, item, global_slots);
 }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
@@ -273,7 +284,7 @@ __device__ __forceinline__ void read_event(const int* tk, int i, int& kind,
   m = tk[5 * kTile + i];
 }
 
-template <typename T, int K, bool kBatched>
+template <typename T, int K, bool kBatched, bool kGlobalSlots>
 __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
     sweep_regs_kernel(Events ev, const int* __restrict__ group_of,
                       T* __restrict__ fc, T* __restrict__ um,
@@ -286,7 +297,8 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
   int* stage = reinterpret_cast<int*>(smem);
   int* grp_s = stage + kStages * 6 * kTile;
   const size_t stride =
-      lane_bytes(kRegisters, S, G, n_slots, sizeof(T)) / sizeof(T);
+      lane_bytes(kRegisters, S, G, n_slots, sizeof(T), kGlobalSlots) /
+      sizeof(T);
   const int warp = threadIdx.x >> 5, tid = threadIdx.x & 31;
   T* s_sl = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(grp_s) +
                                  round16(static_cast<size_t>(S) * 4)) +
@@ -298,6 +310,9 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
   const int cand = blockIdx.x * lanes_per_block + warp;
   const bool active = cand < (kBatched ? n_cand : C);
   const int lane = kBatched ? trace * n_cand + cand : cand;
+  // the lane's slot column: slot j at sl_col[j * sl_stride]
+  T* const sl_col = kGlobalSlots ? slots + (active ? lane : 0) : s_sl;
+  const size_t sl_stride = kGlobalSlots ? static_cast<size_t>(C) : 1;
   constexpr int big = sizeof(T) == 2 ? (1 << 14) : (1 << 30);
   // int16 scores take the packed key, int32 ones the two-step reduction
   constexpr bool kPacked = sizeof(T) == 2;
@@ -334,8 +349,9 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
     fk[j] = kPacked ? static_cast<int>(packed_key(f, s)) : f;
   }
   if (active) {
-    for (int j = tid; j < n_slots; j += 32)
-      s_sl[j] = slots[static_cast<size_t>(j) * C + lane];
+    if (!kGlobalSlots)
+      for (int j = tid; j < n_slots; j += 32)
+        s_sl[j] = slots[static_cast<size_t>(j) * C + lane];
     sg = sgb[lane];
     pg = pgb[lane];
     rej = rejects[lane];
@@ -434,12 +450,13 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
         }
         rej += place ? 0 : 1;
         if (tid == 0)
-          s_sl[slot] = static_cast<T>(place ? sel * 2 + (feas1 ? 0 : 1) : -1);
+          sl_col[slot * sl_stride] =
+              static_cast<T>(place ? sel * 2 + (feas1 ? 0 : 1) : -1);
       } else if (cur_kind == kDepart || cur_kind == kMigrate) {
         // only thread 0 touches the slot column; the warp gets the slot
         // by shuffle
         int val = 0;
-        if (tid == 0) val = s_sl[slot];
+        if (tid == 0) val = sl_col[slot * sl_stride];
         val = __shfl_sync(kFull, val, 0);
         read_event(tk, nx, kind, sl, ec, el, ep, em);
         const int s = clampi(val >> 1, S);
@@ -454,7 +471,7 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
             add2_where(fk[j], u[j], hit, j, dk, -dm);
             add_where(q[j], g[j], gp, -p);
           }
-          if (tid == 0) s_sl[slot] = static_cast<T>(-1);
+          if (tid == 0) sl_col[slot * sl_stride] = static_cast<T>(-1);
         } else {  // MIGRATE: pool -> local when the local memory takes it
           const int room = bound<T>(sg, p);
           bool fits = false;
@@ -468,7 +485,8 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
             if (act && hit == j) u[j] += p;
             if (g[j] == gp) q[j] -= p;
           }
-          if (tid == 0 && act) s_sl[slot] = static_cast<T>(val | 1);
+          if (tid == 0 && act)
+            sl_col[slot * sl_stride] = static_cast<T>(val | 1);
         }
       } else {
         read_event(tk, nx, kind, sl, ec, el, ep, em);
@@ -489,8 +507,9 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
         up[row * G + g[j]] = static_cast<T>(q[j]);
       }
     }
-    for (int j = tid; j < n_slots; j += 32)
-      slots[static_cast<size_t>(j) * C + lane] = s_sl[j];
+    if (!kGlobalSlots)
+      for (int j = tid; j < n_slots; j += 32)
+        slots[static_cast<size_t>(j) * C + lane] = s_sl[j];
     if (tid == 0) rejects[lane] = rej;
   }
 }
@@ -515,7 +534,7 @@ __device__ __forceinline__ void load_tile_flat(const Events& ev, int* dst,
   }
 }
 
-template <typename T, bool kBatched>
+template <typename T, bool kBatched, bool kGlobalSlots>
 __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
     sweep_shared_kernel(Events ev, const int* __restrict__ group_of,
                         T* __restrict__ fc, T* __restrict__ um,
@@ -528,7 +547,8 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
   int* stage = reinterpret_cast<int*>(smem);
   int* grp = stage + kStages * 6 * kTile;
   const size_t stride =
-      lane_bytes(kShared, S, G, n_slots, sizeof(T)) / sizeof(T);
+      lane_bytes(kShared, S, G, n_slots, sizeof(T), kGlobalSlots) /
+      sizeof(T);
   const int warp = threadIdx.x >> 5, tid = threadIdx.x & 31;
   T* mine = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(grp) +
                                  round16(static_cast<size_t>(S) * 4)) +
@@ -543,6 +563,9 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
   const int cand = blockIdx.x * lanes_per_block + warp;
   const bool active = cand < (kBatched ? n_cand : C);
   const int lane = kBatched ? trace * n_cand + cand : cand;
+  // the lane's slot column: slot j at sl_col[j * sl_stride]
+  T* const sl_col = kGlobalSlots ? slots + (active ? lane : 0) : s_sl;
+  const size_t sl_stride = kGlobalSlots ? static_cast<size_t>(C) : 1;
   const int big = sizeof(T) == 2 ? (1 << 14) : (1 << 30);
 
   const int n_tiles = (E + kTile - 1) / kTile;
@@ -559,8 +582,9 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
       s_um[s] = um[row * S + s];
     }
     for (int g = tid; g < G; g += 32) s_up[g] = up[row * G + g];
-    for (int j = tid; j < n_slots; j += 32)
-      s_sl[j] = slots[static_cast<size_t>(j) * C + lane];
+    if (!kGlobalSlots)
+      for (int j = tid; j < n_slots; j += 32)
+        s_sl[j] = slots[static_cast<size_t>(j) * C + lane];
     sg = sgb[lane];
     pg = pgb[lane];
     rej = rejects[lane];
@@ -619,10 +643,11 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
             }
           }
           if (tid == 0)
-            s_sl[sl] = static_cast<T>(place ? sel * 2 + (feas1 ? 0 : 1) : -1);
+            sl_col[sl * sl_stride] =
+                static_cast<T>(place ? sel * 2 + (feas1 ? 0 : 1) : -1);
           rej += place ? 0 : 1;
         } else {
-          const int val = s_sl[sl];
+          const int val = sl_col[sl * sl_stride];
           __syncwarp();  // every thread has read the slot before it changes
           const int s = clampi(val >> 1, S);
           if (val >= 0 && (s & 31) == tid) {
@@ -634,10 +659,11 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
             } else if (s_um[s] + p <= sg) {  // MIGRATE: pool -> local
               s_um[s] = static_cast<T>(s_um[s] + p);
               s_up[grp[s]] = static_cast<T>(s_up[grp[s]] - p);
-              s_sl[sl] = static_cast<T>(val | 1);
+              sl_col[sl * sl_stride] = static_cast<T>(val | 1);
             }
           }
-          if (kind == kDepart && tid == 0) s_sl[sl] = static_cast<T>(-1);
+          if (kind == kDepart && tid == 0)
+            sl_col[sl * sl_stride] = static_cast<T>(-1);
         }
         __syncwarp();  // the owner's writes before the next event's reads
       }
@@ -652,8 +678,9 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
       um[row * S + s] = s_um[s];
     }
     for (int g = tid; g < G; g += 32) up[row * G + g] = s_up[g];
-    for (int j = tid; j < n_slots; j += 32)
-      slots[static_cast<size_t>(j) * C + lane] = s_sl[j];
+    if (!kGlobalSlots)
+      for (int j = tid; j < n_slots; j += 32)
+        slots[static_cast<size_t>(j) * C + lane] = s_sl[j];
     if (tid == 0) rejects[lane] = rej;
   }
 }
@@ -666,13 +693,14 @@ struct Args {
   const void *group_of, *sgb, *pgb;
   void *fc, *um, *up, *slots, *rejects;
   int C, n_cand, S, G, n_slots, lanes_per_block;
+  bool global_slots;
   cudaStream_t stream;
 };
 
 template <typename T, typename Kernel>
 int launch(Kernel kern, int variant, const Args& a) {
   const size_t smem = shared_bytes(variant, a.S, a.G, a.n_slots, sizeof(T),
-                                   a.lanes_per_block);
+                                   a.lanes_per_block, a.global_slots);
   if (smem > kMaxShared) return -2;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -690,29 +718,36 @@ int launch(Kernel kern, int variant, const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool kBatched>
+template <typename T, bool kBatched, bool kG>
 int dispatch(int variant, int k, const Args& a) {
   if (variant == kShared)
-    return launch<T>(sweep_shared_kernel<T, kBatched>, kShared, a);
+    return launch<T>(sweep_shared_kernel<T, kBatched, kG>, kShared, a);
   if (variant != kRegisters || 32 * k < a.S) return -1;
   switch (k) {
-    case 1: return launch<T>(sweep_regs_kernel<T, 1, kBatched>, kRegisters, a);
-    case 2: return launch<T>(sweep_regs_kernel<T, 2, kBatched>, kRegisters, a);
-    case 4: return launch<T>(sweep_regs_kernel<T, 4, kBatched>, kRegisters, a);
-    case 8: return launch<T>(sweep_regs_kernel<T, 8, kBatched>, kRegisters, a);
+    case 1:
+      return launch<T>(sweep_regs_kernel<T, 1, kBatched, kG>, kRegisters, a);
+    case 2:
+      return launch<T>(sweep_regs_kernel<T, 2, kBatched, kG>, kRegisters, a);
+    case 4:
+      return launch<T>(sweep_regs_kernel<T, 4, kBatched, kG>, kRegisters, a);
+    case 8:
+      return launch<T>(sweep_regs_kernel<T, 8, kBatched, kG>, kRegisters, a);
     case 16:
-      return launch<T>(sweep_regs_kernel<T, 16, kBatched>, kRegisters, a);
+      return launch<T>(sweep_regs_kernel<T, 16, kBatched, kG>, kRegisters, a);
     default: return -1;
   }
 }
 
 // the single-trace build when one trace starts at event 0, else the
-// batched one
+// batched one; the slot column in shared or in global memory
 template <typename T>
 int dispatch_traces(int variant, int k, const Args& a) {
-  if (a.n_traces == 1 && a.tr.start[0] == 0)
-    return dispatch<T, false>(variant, k, a);
-  return dispatch<T, true>(variant, k, a);
+  const bool one = a.n_traces == 1 && a.tr.start[0] == 0;
+  if (a.global_slots)
+    return one ? dispatch<T, false, true>(variant, k, a)
+               : dispatch<T, true, true>(variant, k, a);
+  return one ? dispatch<T, false, false>(variant, k, a)
+             : dispatch<T, true, false>(variant, k, a);
 }
 
 }  // namespace
@@ -726,16 +761,17 @@ extern "C" int event_sweep_launch(
     const int* trace_count, int T, const void* group_of, void* fc, void* um,
     void* up, void* slots, const void* sgb, const void* pgb, void* rejects,
     int E, int C, int S, int G, int n_slots, int state_bytes, int variant,
-    int k, int lanes_per_block, void* stream) {
+    int k, int lanes_per_block, int global_slots, void* stream) {
   if (E < 0 || T <= 0 || T > kMaxTraces || C <= 0 || C % T != 0 || S <= 0 ||
       G <= 0 || n_slots <= 0 || lanes_per_block <= 0 ||
-      lanes_per_block > kMaxLanesPerBlock)
+      lanes_per_block > kMaxLanesPerBlock ||
+      (global_slots != 0 && global_slots != 1))
     return -1;
   Args a{{{static_cast<const int*>(kind), static_cast<const int*>(slot),
            static_cast<const int*>(cores), static_cast<const int*>(local),
            static_cast<const int*>(pool), static_cast<const int*>(mem)}},
          {}, T, group_of, sgb, pgb, fc, um, up, slots, rejects,
-         C, C / T, S, G, n_slots, lanes_per_block,
+         C, C / T, S, G, n_slots, lanes_per_block, global_slots == 1,
          static_cast<cudaStream_t>(stream)};
   for (int t = 0; t < T; ++t) {
     const int s = trace_start[t], n = trace_count[t];
@@ -754,7 +790,10 @@ extern "C" const char* event_sweep_error_string(int code) {
   if (code == -1)
     return "unsupported extent, trace count, lanes per block, variant, "
            "servers a thread or state type";
-  if (code == -2) return "lane state too large for a block's shared memory";
+  if (code == -2)
+    return "lane state too large for a block's shared memory (the shared "
+           "variant's fc, um and up, or the slot column where it is kept "
+           "in shared memory)";
   if (code == -3)
     return "a trace's events lie outside the event arrays or start off a "
            "multiple of 4 events";

@@ -35,6 +35,9 @@ MAX_REGISTER_SERVERS = 32 * SERVERS_PER_THREAD[-1]
 # takes its first minimum by one packed (f, server) key with int16 state,
 # by two steps (least f, then least server) with int32
 VARIANTS = {"shared": 0, "registers": 1}
+# where a lane's slot column lives: shared memory while it fits beside the
+# stages, else its column of the ``slots`` tensor in global memory
+SLOT_COLUMNS = ("shared", "global")
 
 _fns = None
 
@@ -42,10 +45,12 @@ _fns = None
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """How one sweep launches: the variant, servers a thread (0 for the
-    shared variant) and lanes (warps) a block."""
+    shared variant), lanes (warps) a block and where a lane's slot column
+    lives (one of :data:`SLOT_COLUMNS`)."""
     variant: str
     servers_per_thread: int
     lanes_per_block: int
+    slot_column: str = "shared"
 
 
 def _round16(n: int) -> int:
@@ -69,21 +74,33 @@ def servers_per_thread(n_servers: int) -> int:
 
 
 def shared_bytes(n_servers: int, n_groups: int, n_slots: int, item: int,
-                 lanes: int, variant: str = "registers") -> int:
+                 lanes: int, variant: str = "registers",
+                 slot_column: str = "shared") -> int:
     """A block's shared memory: two stages of six int32 event arrays,
     ``group_of``, and one region a lane in the state's type (``item``
     bytes): the slot column alone for the registers variants, fc, um, up
-    and the slot column for the shared one; each rounded to 16 bytes.  The
-    C entry point computes the same."""
-    per_lane = n_slots + (2 * n_servers + n_groups
-                          if variant == "shared" else 0)
+    and the slot column for the shared one, no slot column where it lies
+    in global memory; each rounded to 16 bytes.  The C entry point
+    computes the same."""
+    per_lane = ((n_slots if slot_column == "shared" else 0)
+                + (2 * n_servers + n_groups if variant == "shared" else 0))
     return (STAGES * 6 * TILE * 4 + _round16(n_servers * 4)
             + lanes * _round16(per_lane * item))
 
 
+def choose_slot_column(n_servers: int, n_groups: int, n_slots: int,
+                       item: int, variant: str = "registers") -> str:
+    """Shared memory while one lane's slot column fits there beside the
+    stages (and the shared variant's fc, um, up), else global memory."""
+    fits = shared_bytes(n_servers, n_groups, n_slots, item, 1,
+                        variant) <= MAX_SHARED
+    return "shared" if fits else "global"
+
+
 def lanes_per_block(n_lanes: int, n_servers: int, n_groups: int,
                     n_slots: int, item: int, sm_count: int,
-                    variant: str = "registers", n_traces: int = 1) -> int:
+                    variant: str = "registers", n_traces: int = 1,
+                    slot_column: str = "shared") -> int:
     """Lanes (warps) a block holds, ``n_lanes`` being a trace's lanes and
     ``n_traces`` the traces of the launch: one a block while there are no
     more lanes in all than SMs (a lane is a sequential chain of events, so
@@ -91,48 +108,60 @@ def lanes_per_block(n_lanes: int, n_servers: int, n_groups: int,
     lanes evenly over the SMs, at most ``MAX_LANES_PER_BLOCK``, no more
     than a trace has (a block replays one trace) and no more than the
     shared memory holds.  Raises, with the limit, when not even one lane
-    fits."""
-    need = shared_bytes(n_servers, n_groups, n_slots, item, 1, variant)
+    fits (a slot column kept in shared memory too large for it, or the
+    shared variant's fc, um and up)."""
+    need = shared_bytes(n_servers, n_groups, n_slots, item, 1, variant,
+                        slot_column)
     if need > MAX_SHARED:
         raise ValueError(
             f"event_sweep: one lane of the {variant} variant ({n_servers} "
-            f"servers, {n_groups} groups, {n_slots} slots at {item} bytes) "
-            f"and the event stages need {need} bytes of shared memory; a "
-            f"block has at most {MAX_SHARED}")
+            f"servers, {n_groups} groups, {n_slots} slots at {item} bytes, "
+            f"the slot column in {slot_column} memory) and the event "
+            f"stages need {need} bytes of shared memory; a block has at "
+            f"most {MAX_SHARED}")
     want = min(MAX_LANES_PER_BLOCK, n_lanes,
                max(1, -(-(n_traces * n_lanes) // sm_count)))
     while want > 1 and shared_bytes(n_servers, n_groups, n_slots, item,
-                                    want, variant) > MAX_SHARED:
+                                    want, variant,
+                                    slot_column) > MAX_SHARED:
         want -= 1
     return want
 
 
 def plan(n_lanes: int, n_servers: int, n_groups: int, n_slots: int,
          item: int, sm_count: int, variant: str | None = None,
-         n_traces: int = 1) -> Plan:
+         n_traces: int = 1, slot_column: str | None = None) -> Plan:
     """The launch plan of one sweep of ``n_traces`` traces, ``n_lanes``
     lanes a trace; ``variant`` forces one of :data:`VARIANTS` (None:
-    :func:`choose_variant`)."""
+    :func:`choose_variant`), ``slot_column`` one of :data:`SLOT_COLUMNS`
+    (None: :func:`choose_slot_column`)."""
     variant = variant or choose_variant(n_servers)
     if variant not in VARIANTS:
         raise ValueError(f"event_sweep: variant {variant!r} is not one of "
                          f"{sorted(VARIANTS)}")
+    slot_column = slot_column or choose_slot_column(
+        n_servers, n_groups, n_slots, item, variant)
+    if slot_column not in SLOT_COLUMNS:
+        raise ValueError(f"event_sweep: slot_column {slot_column!r} is not "
+                         f"one of {SLOT_COLUMNS}")
     shared = variant == "shared"
     k = 0 if shared else servers_per_thread(n_servers)
     lanes = lanes_per_block(n_lanes, n_servers, n_groups, n_slots, item,
-                            sm_count, variant, n_traces)
-    return Plan(variant, k, lanes)
+                            sm_count, variant, n_traces, slot_column)
+    return Plan(variant, k, lanes, slot_column)
 
 
 _NAME = re.compile(
-    r"sweep_(regs|shared)_kernelI([si])(?:Li(\d+)E)?(?:Lb([01])E)?E")
+    r"sweep_(regs|shared)_kernelI([si])(?:Li(\d+)E)?(?:Lb([01])E)?"
+    r"(?:Lb([01])E)?E")
 
 
 def ptxas_report(log: str) -> list[dict]:
     """Registers, stack frame and spills of each kernel instantiation, from
     the ``nvcc -Xptxas -v`` log of the build (``build.ptxas_entries``); the
-    variant, state type, servers a thread and whether it is the trace
-    axis's batched build are read from the mangled name."""
+    variant, state type, servers a thread, whether it is the trace axis's
+    batched build and where its slot column lives are read from the
+    mangled name."""
     out = ptxas_entries(log)
     for cur in out:
         if n := _NAME.search(cur["function"]):
@@ -141,7 +170,8 @@ def ptxas_report(log: str) -> list[dict]:
                 variant="registers" if regs else "shared",
                 state_dtype="int16" if n.group(2) == "s" else "int32",
                 servers_per_thread=int(n.group(3)) if regs else 0,
-                batched=n.group(4) == "1")
+                batched=n.group(4) == "1",
+                slot_column="global" if n.group(5) == "1" else "shared")
     return out
 
 
@@ -151,7 +181,7 @@ def _functions():
     if _fns is None:
         ints = ctypes.POINTER(ctypes.c_int)
         _fns = bind(NAME, [ctypes.c_void_p] * 6 + [ints, ints, ctypes.c_int]
-                    + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+                    + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
                     + [ctypes.c_void_p])
     return _fns
 
@@ -183,7 +213,8 @@ def event_sweep_kernel(events, group_of, fc, um, up, slots, sgb, pgb,
                     rejects.data_ptr(), events[0].shape[0], n_lanes,
                     n_servers, up.shape[1], slots.shape[0],
                     fc.element_size(), VARIANTS[plan.variant],
-                    plan.servers_per_thread, plan.lanes_per_block, stream)
+                    plan.servers_per_thread, plan.lanes_per_block,
+                    int(plan.slot_column == "global"), stream)
     if rc != 0:
         raise RuntimeError(f"event_sweep kernel launch failed ({rc}): "
                            f"{err(rc).decode()}")

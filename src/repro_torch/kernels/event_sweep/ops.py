@@ -16,8 +16,8 @@ from repro_torch.kernels.event_sweep import ref as R
 # Number of kernel launches made by this process; callers that want to
 # show a path went through the kernel set it to 0 and read it afterwards.
 launches = 0
-# The plan (kernel.Plan: variant, servers a thread, lanes a block) of the
-# last launch, so a caller can see which variant ran.
+# The plan (kernel.Plan: variant, servers a thread, lanes a block, where
+# the slot column lives) of the last launch, so a caller can see what ran.
 last_plan = None
 
 
@@ -115,7 +115,7 @@ def _trace_layout(trace_events, n_events: int, n_lanes: int):
 
 def event_sweep(kind, slot, cores, local, pool, mem, group_of, fc, um, up,
                 slots, sgb, pgb, rejects=None, *, variant=None,
-                trace_events=None):
+                slot_column=None, trace_events=None):
     """Replay every event for every candidate lane.
 
     Events: six int32 (E,) arrays; ``group_of`` (S,) int32; state fc, um
@@ -125,7 +125,9 @@ def event_sweep(kind, slot, cores, local, pool, mem, group_of, fc, um, up,
     slots in place (a later sweep can carry it on); returns the rejects.
     On the card ``variant`` forces one of ``kernel.VARIANTS`` (None: the
     registers variant up to ``kernel.MAX_REGISTER_SERVERS`` servers, the
-    shared one beyond).
+    shared one beyond) and ``slot_column`` one of ``kernel.SLOT_COLUMNS``
+    (None: shared memory while a lane's slot column fits there, else
+    global memory); both are for tests and measurements.
 
     The trace axis: ``trace_events`` (T event counts) says the arrays hold
     T traces laid out by :func:`trace_starts`, and the lanes are
@@ -142,6 +144,9 @@ def event_sweep(kind, slot, cores, local, pool, mem, group_of, fc, um, up,
     if variant is not None and variant not in K.VARIANTS:
         raise ValueError(f"event_sweep: variant {variant!r} is not one of "
                          f"{sorted(K.VARIANTS)}")
+    if slot_column is not None and slot_column not in K.SLOT_COLUMNS:
+        raise ValueError(f"event_sweep: slot_column {slot_column!r} is not "
+                         f"one of {K.SLOT_COLUMNS}")
     if fc.device.type == "cpu":
         return R.event_sweep_ref(*events, group_of, fc, um, up, slots, sgb,
                                  pgb, rejects, starts, counts)
@@ -153,7 +158,7 @@ def event_sweep(kind, slot, cores, local, pool, mem, group_of, fc, um, up,
     c, s = fc.shape
     plan = K.plan(c // len(starts), s, up.shape[1], slots.shape[0],
                   fc.element_size(), _sm_count(fc.device), variant,
-                  len(starts))
+                  len(starts), slot_column)
     K.event_sweep_kernel(events, group_of, fc, um, up, slots, sgb, pgb,
                          rejects, plan=plan, trace_starts=starts,
                          trace_counts=counts)

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from repro_torch.kernels.spill_sweep.kernel import MAX_TILE
 from repro_torch.kernels.spill_sweep.ref import ALLOC, FREE, PAD
 
 
@@ -61,12 +62,32 @@ def lane_configs(n_lanes: int):
     return nl, npl
 
 
+def tile_boundary_events(tile: int = MAX_TILE) -> list:
+    """Random events over 16 keys, ``2 tile + 64`` of them, with links
+    planted across the kernel's tiles of ``tile`` events: a FREE exactly
+    one tile after its ALLOC; an ALLOC at a tile's last event freed at the
+    first event two tiles on; a FREE at a tile's first event of the ALLOC
+    two events back; an ALLOC of a key already bound across a boundary."""
+    ev = random_events(np.random.default_rng(18), 16, 3 * tile)[:2 * tile
+                                                                 + 64]
+    ev += [("pad", 0)] * (2 * tile + 64 - len(ev))
+    for at, e in ((3, ("alloc", 20)), (tile + 3, ("free", 20)),
+                  (tile - 1, ("alloc", 21)), (2 * tile, ("free", 21)),
+                  (tile - 2, ("alloc", 22)), (tile, ("free", 22)),
+                  (2 * tile - 1, ("alloc", 23)), (2 * tile + 1, ("alloc", 23)),
+                  (2 * tile + 2, ("free", 23))):
+        ev[at] = e
+    return ev
+
+
 def edge_cases() -> list:
     """``(name, kinds (K, E), keys (K, E), num_local, num_pool)``: PAD only;
     a FREE of an unbound key; failed allocations and a FREE of the key
     that failed; num_local 0 and num_pool 0; a key freed and allocated
-    again; 1, 33 and 130 lanes; K 1 and 3 with unequal lengths padded by
-    PAD."""
+    again; an ALLOC of a key already bound, succeeding and failing (the
+    old tier stays); a key freed twice; links across the kernel's tiles
+    (:func:`tile_boundary_events`); 1, 33 and 130 lanes; K 1 and 3 with
+    unequal lengths padded by PAD."""
     out = []
     one = lambda ev: tuple(a[None] for a in to_arrays(ev))
     nl3, np3 = (np.array([0, 1, 2], np.int32), np.array([0, 1, 0], np.int32))
@@ -84,6 +105,18 @@ def edge_cases() -> list:
     out.append(("realloc", *one([("alloc", 2), ("free", 2), ("alloc", 2),
                                  ("alloc", 1), ("free", 2), ("alloc", 2),
                                  ("free", 1), ("free", 2)]), nl3, np3))
+    out.append(("alloc_bound_succeeds", *one([("alloc", 0), ("alloc", 0),
+                                              ("free", 0), ("free", 0)]),
+                nl3, np3))
+    out.append(("alloc_bound_fails", *one([("alloc", 0), ("alloc", 1),
+                                           ("alloc", 0), ("free", 0),
+                                           ("alloc", 2), ("free", 1),
+                                           ("free", 2)]), nl3, np3))
+    out.append(("free_twice", *one([("alloc", 0), ("free", 0), ("free", 0),
+                                    ("alloc", 1), ("alloc", 0), ("free", 1),
+                                    ("free", 1), ("free", 0)]), nl3, np3))
+    out.append(("tile_boundaries", *one(tile_boundary_events()),
+                *lane_configs(9)))
     rng = np.random.default_rng(6)
     for n_lanes in (1, 33, 130):
         k, b = to_arrays(random_events(rng, 24, 150))

@@ -316,13 +316,37 @@ def test_kernel_plan_fits_the_full_config_and_refuses_too_large_a_lane():
         assert K.shared_bytes(256, 32, 1517, item, 8, "shared") \
             == stages + 256 * 4 + 8 * (-(-(2 * 256 + 32 + 1517) * item
                                          // 16) * 16) <= K.MAX_SHARED
-    # a slot column too large for shared memory: the limit is named
+    # a slot column too large for shared memory stays in global memory
+    # (F8): the plan says so, and its lanes no longer count one
     for variant in ("registers", "shared"):
+        for item in (2, 4):
+            plan = K.plan(16, 256, 32, 100_000, item, 132, variant)
+            assert (plan.variant, plan.slot_column) == (variant, "global")
+            assert K.shared_bytes(256, 32, 100_000, item, 8, variant,
+                                  "global") \
+                == K.shared_bytes(256, 32, 0, item, 8, variant)
+        # kept in shared memory, it does not fit: the limit is named
         with pytest.raises(ValueError, match="232448"):
             K.lanes_per_block(1, 256, 32, 100_000, 4, 132, variant)
+    # the limits at 256 servers: 45,568 slots in int32, 91,136 in int16
+    for item, most in ((4, 45_568), (2, 91_136)):
+        assert K.plan(1, 256, 32, most, item, 132).slot_column == "shared"
+        assert K.plan(1, 256, 32, most + 8, item,
+                      132).slot_column == "global"
+    assert K.plan(16, 256, 32, 1517, 4, 132,
+                  slot_column="global").slot_column == "global"
+    with pytest.raises(ValueError, match="slot_column"):
+        K.plan(16, 256, 32, 1517, 4, 132, slot_column="local")
+    # what stays refused: the shared variant's fc, um and up must fit
+    # (about 15 k servers with int32 state)
+    assert K.plan(1, 14_000, 1_000, 10, 4, 132).slot_column == "shared"
+    with pytest.raises(ValueError, match="232448"):
+        K.plan(1, 16_000, 1_000, 10, 4, 132)
     # lanes per block shrink to what the shared memory holds
     assert K.lanes_per_block(5000, 256, 32, 20_000, 4, 132) == 2
     assert K.lanes_per_block(5000, 256, 32, 20_000, 4, 132, "shared") == 2
+    assert K.lanes_per_block(5000, 256, 32, 20_000, 4, 132,
+                             slot_column="global") == 8
 
 
 @pytest.mark.parametrize("n_servers,variant,k",
@@ -409,6 +433,23 @@ def test_ptxas_report_reads_each_variant():
                               ("shared", "int32", 0, 44, 32, 16)]
     # the trace axis's batched build and the single-trace one
     assert [r["batched"] for r in got] == [False] * 3 + [True, False]
+    assert {r["slot_column"] for r in got} == {"shared"}
+
+
+def test_ptxas_report_reads_the_slot_column():
+    from repro_torch.kernels.event_sweep import kernel as K
+    names = ["_ZN12_GLOBAL__N_117sweep_regs_kernelIsLi8ELb0ELb1EEEvNS_6EventsE",
+             "_ZN12_GLOBAL__N_117sweep_regs_kernelIiLi4ELb1ELb0EEEvNS_6EventsE",
+             "_ZN12_GLOBAL__N_119sweep_shared_kernelIiLb1ELb1EEEvNS_6EventsE"]
+    log = "".join(f"ptxas info    : Compiling entry function '{n}' for "
+                  f"'sm_90a'\nptxas info    : Used {40 + i} registers\n"
+                  for i, n in enumerate(names))
+    got = K.ptxas_report(log)
+    assert [(r["variant"], r["state_dtype"], r["servers_per_thread"],
+             r["batched"], r["slot_column"], r["registers"])
+            for r in got] == [("registers", "int16", 8, False, "global", 40),
+                              ("registers", "int32", 4, True, "shared", 41),
+                              ("shared", "int32", 0, True, "global", 42)]
 
 
 # -------------------------------------------------------------- trace axis --

@@ -11,7 +11,9 @@ than 96 config lanes (ROADMAP F9); the port takes any number, held
 against the reference called in chunks of at most 96.  The launch plan,
 the ptxas-log reader (``build.ptxas_entries``) and the wrapper's
 refusals are CPU tests too; the kernel itself runs on the card
-(``chip_smoke.py``, phase ``kernels_spill``).
+(``chip_smoke.py``, phase ``kernels_spill``).  The kernel's linked form
+(its links and its tiled walk in plain torch) is held here too, and in
+``tests/test_torch_spill_links.py``.
 """
 import numpy as np
 import pytest
@@ -180,16 +182,23 @@ def test_wrapper_refuses_bad_shapes_and_types():
 
 def test_launch_plan_spreads_warps_over_the_sms():
     # Fig 16 at full width: 4 streams x 80 lanes = 12 warps, one a block
-    assert K.plan(80, 4, 132) == K.Plan(1, 3)
+    assert K.plan(80, 4, 132) == K.Plan(1, 3, K.MAX_TILE)
     # 4 x 1,280 lanes = 160 warps on 132 SMs: two a block
-    assert K.plan(1280, 4, 132) == K.Plan(2, 20)
-    # never more warps a block than a stream's lanes fill, nor than 8
-    assert K.plan(33, 1000, 132) == K.Plan(2, 1)
-    assert K.plan(4096, 64, 132) == K.Plan(K.MAX_WARPS_PER_BLOCK, 16)
-    for c, k in ((1, 1), (97, 3), (1280, 4), (130, 7)):
+    assert K.plan(1280, 4, 132) == K.Plan(2, 20, K.MAX_TILE)
+    # never more warps a block than a stream's lanes fill, nor than 8; the
+    # tile halves where 8 warps' buffers do not fit beside the stages
+    assert K.plan(33, 1000, 132) == K.Plan(2, 1, K.MAX_TILE)
+    assert K.plan(4096, 64, 132) == K.Plan(K.MAX_WARPS_PER_BLOCK, 16,
+                                           K.MAX_TILE // 2)
+    for c, k in ((1, 1), (97, 3), (1280, 4), (130, 7), (8000, 50)):
         p = K.plan(c, k, 132)
         assert 32 * p.warps_per_block * p.blocks_per_stream >= c
         assert 1 <= p.warps_per_block <= K.MAX_WARPS_PER_BLOCK
+        assert K.shared_bytes(p.tile, p.warps_per_block) <= K.MAX_SHARED
+        assert p.tile % 4 == 0 and p.tile <= K.MAX_TILE
+    # five warps still take the largest tile (204,816 bytes), six do not
+    assert K.shared_bytes(K.MAX_TILE, 5) == 204816 <= K.MAX_SHARED
+    assert K.plan(6 * 32, 200, 132).tile == K.MAX_TILE // 2
     with pytest.raises(ValueError):
         K.plan(0, 1, 132)
 
