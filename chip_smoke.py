@@ -29,7 +29,13 @@ PyTorch version on the card, and drives the port's three paths:
   ``savings_analysis_batched`` through K1's trace axis and held to the
   reference's results, and Fig 16's zNUMA spill grid at the width of the
   qwen2-1.5b paged pool through the spill sweep kernel (K6), with Figs 4,
-  7, 18 and 20's grids on the card held to their numpy backend.
+  7, 18 and 20's grids on the card held to their numpy backend;
+* Pond's failure layer (``replay_engine.CompiledReplay.availability`` and
+  ``CompiledReplayBatch.availability``, the failure sweep K5) on the same
+  cluster row and trace: ``benchmarks/fig_availability.py``'s
+  savings-vs-availability frontier (four failure rates x six DRAM sizes,
+  both mitigations) and one trace's per-failure distribution, held to the
+  reference's results.
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after, which shows that it went through its kernel.
@@ -257,11 +263,85 @@ SPILL_FULL = dict(seeds=(3, 4, 5, 6), n_requests=16384, peak_pages=1280,
 # int32 rate, as K1's.
 K6_OPS_PER_ALLOC_LANE = 8
 K6_OPS_PER_FREE_LANE = 4
-# K6's timings start after a wait of this long on the card, so that the
-# host has enqueued every timed sweep before the first one starts: the
-# CUDA events then time the device's work, not the host's dispatch
-# (checked: the phase fails if enqueueing took longer)
-K6_WAIT_MS = 50
+# K6's and K5's timings start after a wait of this long on the card, so
+# that the host has enqueued every timed sweep before the first one starts:
+# the CUDA events then time the device's work, not the host's dispatch
+# (checked: ``_card_ms`` fails if enqueueing took longer)
+CARD_WAIT_MS = 50
+# Pond's failure layer at full width (``AVAIL_FULL``): PROV_FULL's row and
+# trace (256 servers, 32 domains of 8, 7 days, seed 2) with the static 0.25
+# decisions of benchmarks/fig_availability.py, four failure schedules (MTBF
+# 2, 8, 24, 96 h, a 1,800 s repair, seeds 0-3: 2,124 / 633 / 242 / 49
+# FAILs) and six server sizes, 1.0 ... 0.5 of 304 GB, the pool
+# ceil(peak_pool_demand) = 15,057 GB.
+AVAIL_FULL = dict(mtbf_h=(2, 8, 24, 96), repair_s=1800.0,
+                  dram_fracs=(1.0, 0.9, 0.8, 0.7, 0.6, 0.5),
+                  static_pool_frac=0.25, single_mtbf_h=24)
+# The reference's results for it, from the JAX package on a CPU (rejects =
+# reject_rate x 44,862 VMs; per-failure rows: the single-trace call at MTBF
+# 24 h, remigrate, as int32, by SHA-1):
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -c "
+#   import numpy as np
+#   from repro.core import cluster_sim as cs, traces, replay_engine as re
+#   from repro.runtime.fault import FailureSchedule
+#   cfg = cs.ClusterConfig(n_servers=256, pool_sockets=16, gb_per_core=4.75)
+#   h = 7 * 86400; n = cs.arrivals_for_util(cfg, 0.8, h)
+#   vms = traces.Population(seed=0).sample_vms(n, h, seed=2, start_id=10**6)
+#   dec, _ = cs.policy_decisions(vms, 'static', static_pool_frac=0.25)
+#   s = [FailureSchedule.generate(h, 32, m * 3600., 1800., seed=i)
+#        for i, m in enumerate((2, 8, 24, 96))]
+#   e = [re.CompiledReplay(vms, dec, cfg, failure_schedule=x) for x in s]
+#   srv = np.round(304 * np.array([1, .9, .8, .7, .6, .5]))
+#   pool = np.full(6, np.ceil(e[0].peak_pool_demand()))
+#   for m in ('remigrate', 'kill'):
+#       print(re.CompiledReplayBatch(e).availability(srv, pool, m,
+#                                                    backend='jax'))
+#   print(e[2].availability(srv, pool, 'remigrate', backend='jax'))"
+AVAIL_FULL_WANT = {
+    "remigrate": dict(
+        rejects=[[0, 254, 254, 254, 929, 929]] * 3
+        + [[0, 254, 254, 254, 929, 933]],
+        affected=[[26663, 26687, 26640, 26555, 26019, 26048],
+                  [13768, 13737, 13722, 13852, 13297, 13385],
+                  [6983, 6955, 6775, 6955, 6800, 6994],
+                  [1762, 1701, 1734, 1651, 1657, 1687]],
+        killed=[[3994, 6489, 12192, 17877, 22413, 24711],
+                [2400, 3908, 7113, 10408, 12083, 12881],
+                [1415, 2198, 3851, 5303, 6073, 6763],
+                [333, 599, 1000, 1233, 1427, 1635]],
+        remigrated=[[22669, 20198, 14448, 8678, 3606, 1337],
+                    [11368, 9829, 6609, 3444, 1214, 504],
+                    [5568, 4757, 2924, 1652, 727, 231],
+                    [1429, 1102, 734, 418, 230, 52]],
+        lost_vm_minutes=[
+            [1585956, 2653551, 4838481, 7347021, 9151652, 10065488],
+            [1249595, 2127814, 3840970, 5551173, 6308525, 6760301],
+            [871293, 1360542, 2462193, 3374601, 3874409, 4223994],
+            [229412, 493806, 751361, 1016797, 1089392, 1127547]]),
+    "kill": dict(
+        rejects=[[0, 254, 254, 254, 929, 929]] * 3
+        + [[0, 254, 254, 254, 929, 931]],
+        affected=[[26480, 26358, 26354, 26331, 25979, 26170],
+                  [13615, 13454, 13569, 13357, 13389, 13306],
+                  [6899, 6992, 6991, 7176, 6863, 6822],
+                  [1592, 1742, 1734, 1706, 1648, 1680]],
+        killed=[[26480, 26358, 26354, 26331, 25979, 26170],
+                [13615, 13454, 13569, 13357, 13389, 13306],
+                [6899, 6992, 6991, 7176, 6863, 6822],
+                [1592, 1742, 1734, 1706, 1648, 1680]],
+        remigrated=[[0] * 6] * 4,
+        lost_vm_minutes=[
+            [10752375, 10683620, 10672280, 10697139, 10543356, 10564102],
+            [7123568, 7021083, 7052208, 7049191, 6993344, 7000675],
+            [4465709, 4421356, 4455852, 4440454, 4331015, 4426625],
+            [1255563, 1315961, 1298163, 1364690, 1273638, 1231231]])}
+AVAIL_FULL_WANT_SINGLE = dict(
+    shape=[242, 6], sha1="6604e5470fe2f0327c0d4c15399384f713714123",
+    affected=[6983, 6955, 6775, 6955, 6800, 6994], max=145)
+# K5's operations bound: K1's ARRIVE term, plus one int32 operation a
+# (FAIL, slot, lane) — reading each slot of the lane's column once, the
+# least a FAIL pass does to find the affected VMs
+K5_OPS_PER_FAIL_SLOT_LANE = 1
 SERVE_ARGS = ["--arch", "qwen2-1.5b", "--full", "--dtype", "bfloat16",
               "--requests", "16", "--max-batch", "8", "--page-size", "16",
               "--local-pages", "256", "--pool-pages", "1024",
@@ -277,13 +357,14 @@ def emit(phase: str, **fields) -> None:
 def phase_build():
     from repro_torch.kernels import build
     from repro_torch.kernels.event_sweep import kernel as K1
+    from repro_torch.kernels.fail_sweep import kernel as K5
     from repro_torch.kernels.flash_attention import kernel as K3
     from repro_torch.kernels.paged_attention import kernel as K2
     from repro_torch.kernels.spill_sweep import kernel as K6
     t0 = time.perf_counter()
-    build.build_libraries([K2.NAME, K3.NAME, K1.NAME, K6.NAME])
+    build.build_libraries([K2.NAME, K3.NAME, K1.NAME, K6.NAME, K5.NAME])
     seconds = time.perf_counter() - t0
-    for K in (K2, K3, K1, K6):
+    for K in (K2, K3, K1, K6, K5):
         K.build()                                   # load and bind
         with open(f"{build.library_path(K.NAME)}.log") as f:
             log = f.read()
@@ -295,9 +376,9 @@ def phase_build():
              flags=" ".join(build.NVCC_FLAGS), instantiations=len(regs),
              registers=regs, max_registers=max(regs), spill_stores=spills,
              spill_store_bytes=sum(spills))
-        if K is K1:
-            # registers, stack frame and spills of every K1 variant
-            report = K1.ptxas_report(log)
+        if K in (K1, K5):
+            # registers, stack frame and spills of every K1 or K5 variant
+            report = K.ptxas_report(log)
             emit("build_variants", kernel=K.NAME, variants=report,
                  registers_variants_without_stack_or_spills=all(
                      v.get("stack_bytes") == 0
@@ -1874,6 +1955,29 @@ def _pad4(a, value):
     return np.pad(a, ((0, 0), (0, -a.shape[1] % 4)), constant_values=value)
 
 
+def _card_ms(runs, clock_mhz, what):
+    """Mean device ms of ``runs`` (callables, each one piece of work) by
+    CUDA events recorded behind a ``CARD_WAIT_MS`` wait on the card, so
+    that the window holds no host dispatch; fails if enqueueing the runs
+    took longer than the wait."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(CARD_WAIT_MS * clock_mhz * 1e3))
+    t0 = time.perf_counter()
+    start.record()
+    for run in runs:
+        run()
+    end.record()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    if enqueue_ms >= CARD_WAIT_MS:
+        raise SystemExit(f"{what} timing: enqueueing {len(runs)} runs took "
+                         f"{enqueue_ms:.1f} ms, longer than the "
+                         f"{CARD_WAIT_MS} ms wait before them")
+    return start.elapsed_time(end) / len(runs)
+
+
 def phase_kernels_spill(dev):
     """K6 against its plain version on the card (the five counters and
     the final tier map, ``==``) over edge and seeded cases, a case longer
@@ -1977,22 +2081,7 @@ def phase_kernels_spill(dev):
 
     def events_ms(fn, reps=5):
         fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(K6_WAIT_MS * clock_mhz * 1e3))
-        t0 = time.perf_counter()
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        enqueue_ms = (time.perf_counter() - t0) * 1e3
-        torch.cuda.synchronize()
-        if enqueue_ms >= K6_WAIT_MS:
-            raise SystemExit(f"spill_sweep timing: enqueueing {reps} runs "
-                             f"took {enqueue_ms:.1f} ms, longer than the "
-                             f"{K6_WAIT_MS} ms wait before them")
-        return start.elapsed_time(end) / reps
+        return _card_ms([fn] * reps, clock_mhz, "spill_sweep")
 
     def time_sweep(kd, ky, lanes):
         nl_t = torch.from_numpy(lanes).to(dev)
@@ -2100,7 +2189,7 @@ def phase_kernels_spill(dev):
                          "predicated adds a step); reported, not the "
                          "bound",
         timing_note=f"CUDA events around 5 sweeps (20 links passes) "
-                    f"enqueued behind a {K6_WAIT_MS} ms wait on the card, "
+                    f"enqueued behind a {CARD_WAIT_MS} ms wait on the card, "
                     "so the host's dispatch is not timed",
         timed_shape=dict(streams=kinds.shape[0], events=n_ev,
                          longest_stream=longest, allocs=n_alloc,
@@ -2479,6 +2568,635 @@ def phase_fig_grids_full(dev):
     return k1_launches, (k6_launches, k6_link_launches)
 
 
+# ------------------------------------------ the failure layer (K5, M10) --
+_AVAIL = {}
+
+
+def _avail_inputs():
+    """``AVAIL_FULL``'s cluster, trace (``PROV_FULL``'s), static 0.25
+    decisions, schedules and candidates, made once."""
+    if not _AVAIL:
+        from repro_torch.core import cluster_sim
+        from repro_torch.runtime.fault import FailureSchedule
+        cfg, vms, _ = _full_trace()
+        horizon = PROV_FULL["days"] * 86400
+        dec, _ = cluster_sim.policy_decisions(
+            vms, "static", static_pool_frac=AVAIL_FULL["static_pool_frac"],
+            as_arrays=True)
+        scheds = [FailureSchedule.generate(horizon, cfg.n_groups,
+                                           m * 3600.0, AVAIL_FULL["repair_s"],
+                                           seed=i)
+                  for i, m in enumerate(AVAIL_FULL["mtbf_h"])]
+        full_gb = cfg.gb_per_core * cfg.cores_per_server
+        server = np.round(full_gb * np.asarray(AVAIL_FULL["dram_fracs"]))
+        _AVAIL.update(cfg=cfg, vms=vms, dec=dec, scheds=scheds,
+                      server=server)
+    return _AVAIL
+
+
+def _k5_inputs(ev, n_slots, n_servers, spg, cores, sgb, pgb, state_dtype,
+               dev):
+    """K5's arguments on ``dev``: the eight event arrays, group_of and the
+    all-free state with all domains up for lanes (sgb, pgb)."""
+    from repro_torch.core import sweep_core
+    from repro_torch.kernels.fail_sweep.cases import FAIL_EVENT_KEYS
+    np_dt = sweep_core.state_np_dtype(state_dtype)
+    n_groups = -(-n_servers // spg)
+    st = sweep_core.init_state(len(sgb), n_servers, cores, n_servers,
+                               n_groups, n_slots, np_dt)[:4]
+    st += (sweep_core.init_fail_state(len(sgb), n_groups),
+           np.asarray(sgb).astype(np_dt), np.asarray(pgb).astype(np_dt))
+    events = tuple(torch.from_numpy(np.ascontiguousarray(ev[k], np.int32))
+                   .to(dev) for k in FAIL_EVENT_KEYS)
+    group_of = torch.from_numpy(
+        (np.arange(n_servers) // spg).astype(np.int32)).to(dev)
+    return events, group_of, tuple(torch.from_numpy(a).to(dev) for a in st)
+
+
+def _k5_run(kernel, events, group_of, state, mitigation, n_dist=0,
+            trace_events=None, slot_column=None):
+    """K5 (``kernel``) or its plain version on a copy of ``state``:
+    [fc, um, up, slots, down, counters, per-FAIL rows or None]."""
+    from repro_torch.kernels.event_sweep.ops import trace_layout
+    from repro_torch.kernels.fail_sweep import ops
+    from repro_torch.kernels.fail_sweep.ref import fail_sweep_ref
+    st = [t.clone() for t in state]
+    dev = st[0].device
+    out = torch.zeros((5, st[0].shape[0]), dtype=torch.int32, device=dev)
+    dist = (torch.zeros((n_dist, st[0].shape[0]), dtype=torch.int32,
+                        device=dev) if n_dist else None)
+    if kernel:
+        ops.fail_sweep(*events, group_of, *st, out, mitigation=mitigation,
+                       dist=dist, trace_events=trace_events,
+                       slot_column=slot_column)
+    else:
+        starts, counts = trace_layout(trace_events, events[0].shape[0],
+                                      st[0].shape[0])
+        fail_sweep_ref(*events, group_of, *st, out, dist,
+                       remigrate=mitigation == "remigrate",
+                       trace_starts=starts, trace_counts=counts)
+    torch.cuda.synchronize()
+    return st[:5] + [out, dist]
+
+
+def _k5_cases():
+    """(name, events, n_slots, servers, servers a group, cores, sgb, pgb,
+    state types) of every K5 check but the trace axis's."""
+    from repro_torch.kernels.fail_sweep import cases
+    rng = np.random.default_rng(19)
+    runs = []
+    for name, (ev, n_slots), shape, lanes, dts in (
+            ("edges", cases.edge_stream(), cases.EDGE_SHAPE,
+             cases.EDGE_LANES, ("int16", "int32")),
+            ("demand_past_int16", cases.demand_stream(), cases.DEMAND_SHAPE,
+             cases.DEMAND_LANES, ("int16",))):
+        lanes = np.asarray(lanes)
+        runs.append((name, ev, n_slots, shape["n_servers"], shape["spg"],
+                     shape["cores"], lanes[:, 0], lanes[:, 1], dts))
+    # 4 and 8 servers (not multiples of 32), 33 (two a thread), one lane,
+    # 300 lanes (three a block), 256 servers (the full row's K 8), 500
+    # servers at K 16 with 250 groups
+    for s, spg, n_lanes, n_vms in ((4, 2, 5, 200), (8, 4, 12, 200),
+                                   (33, 8, 9, 300), (7, 4, 1, 200),
+                                   (64, 8, 300, 300), (256, 8, 16, 900),
+                                   (500, 2, 16, 900)):
+        ev, n_slots = cases.random_fail_stream(rng, n_vms, -(-s // spg))
+        sgb, pgb = cases.lane_capacities(rng, n_lanes, s, 64)
+        runs.append((f"S{s}_lanes{n_lanes}", ev, n_slots, s, spg, 64, sgb,
+                     pgb, ("int16", "int32")))
+    return runs
+
+
+def _k5_checks(dev):
+    """K5 against its plain version on the card, ``==`` on the counters,
+    the per-FAIL rows and the whole final state: every case of
+    ``_k5_cases`` in its state types, both mitigations, with per-FAIL rows
+    and without, the slot column where the plan puts it and in global
+    memory; then the trace axis (three streams whose schedules differ in
+    length, 5 lanes a trace).  Returns (checked, max_abs_err)."""
+    from repro_torch.core import sweep_core
+    from repro_torch.kernels.event_sweep.ops import pack_traces
+    from repro_torch.kernels.fail_sweep import cases, ops
+    from repro_torch.kernels.fail_sweep.cases import FAIL_EVENT_KEYS
+    checked, max_err = [], 0
+
+    def compare(name, got, want):
+        nonlocal max_err
+        for a, b in zip(got, want):
+            if a is None:
+                continue
+            max_err = max(max_err, int((a.long() - b.long()).abs().max()))
+        if not all(a is b or torch.equal(a, b) for a, b in zip(got, want)):
+            raise SystemExit(f"fail_sweep {name}: the kernel's counters, "
+                             "rows or final state differ from its plain "
+                             "version's")
+
+    for name, ev, n_slots, s, spg, cores, sgb, pgb, dts in _k5_cases():
+        n_fail = int((ev["kind"] == sweep_core.FAIL).sum())
+        for dt in dts:
+            events, group_of, state = _k5_inputs(ev, n_slots, s, spg, cores,
+                                                 sgb, pgb, dt, dev)
+            for mit in ("remigrate", "kill"):
+                want = _k5_run(False, events, group_of, state, mit, n_fail)
+                for n_dist, column in ((n_fail, None), (0, None),
+                                       (n_fail, "global")):
+                    got = _k5_run(True, events, group_of, state, mit, n_dist,
+                                  slot_column=column)
+                    ref = want if n_dist else want[:6] + [None]
+                    tag = f"{name} {dt} {mit} {ops.last_plan}"
+                    compare(tag, got, ref)
+                    checked.append(dict(
+                        case=name, state_dtype=dt, mitigation=mit,
+                        rows=bool(n_dist), plan=dataclasses.asdict(
+                            ops.last_plan), servers=s, lanes=len(sgb),
+                        events=len(ev["kind"]), failures=n_fail,
+                        affected=int(want[5][1].sum()),
+                        killed=int(want[5][2].sum())))
+    # the trace axis: three streams, schedules of other lengths
+    rng = np.random.default_rng(23)
+    streams = [cases.random_fail_stream(rng, n, 2, mtbf_frac=f)
+               for n, f in ((220, 0.1), (150, 0.3), (260, 0.05))]
+    cols, counts = pack_traces([tuple(ev[k] for k in FAIL_EVENT_KEYS)
+                                for ev, _ in streams], dev,
+                               fills=(sweep_core.PAD,) + (0,) * 6 + (-1,))
+    n_slots = max(n for _, n in streams)
+    sgb, pgb = cases.lane_capacities(rng, 5, 8, 64)
+    for dt in ("int16", "int32"):
+        _, group_of, state = _k5_inputs(streams[0][0], n_slots, 8, 4, 64,
+                                        np.tile(sgb, 3), np.tile(pgb, 3), dt,
+                                        dev)
+        for mit in ("remigrate", "kill"):
+            want = _k5_run(False, cols, group_of, state, mit,
+                           trace_events=counts)
+            for column in (None, "global"):
+                got = _k5_run(True, cols, group_of, state, mit,
+                              trace_events=counts, slot_column=column)
+                compare(f"trace axis {dt} {mit} {column}", got, want)
+                checked.append(dict(case="trace_axis_3", state_dtype=dt,
+                                    mitigation=mit, plan=dataclasses.asdict(
+                                        ops.last_plan), trace_events=counts,
+                                    affected=int(want[5][1].sum())))
+    return checked, max_err
+
+
+def _k5_timed(evs, group_of, n_servers, n_groups, cores, n_slots, sgb_i,
+              pgb_i, np_dt, mitigation, rows, counts, clock_mhz, reps=5):
+    """K5's kernel function itself (no wrapper checks) over ``evs``: one
+    trace, or the trace axis as ``ops.pack_traces`` lays it out, with
+    ``counts`` the traces' event counts, and the lanes (sgb_i, pgb_i) in
+    each trace; ``rows`` per-FAIL rows (one trace).  One warm-up, then
+    ``reps`` runs on fresh state timed by ``_card_ms``.  Returns dict(ms,
+    plan, the warm-up's counters summed over the lanes, the rows' SHA-1
+    where there are rows)."""
+    import hashlib
+
+    from repro_torch.core import sweep_core
+    from repro_torch.kernels.event_sweep.ops import trace_starts
+    from repro_torch.kernels.fail_sweep import kernel as K5
+    dev = group_of.device
+    k, width = len(counts), len(counts) * len(sgb_i)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = K5.plan(len(sgb_i), n_servers, n_slots, np.dtype(np_dt).itemsize,
+                   sms, k)
+    st = sweep_core.init_state(width, n_servers, cores, n_servers, n_groups,
+                               n_slots, np_dt)[:4]
+    st += (sweep_core.init_fail_state(width, n_groups),
+           np.tile(sgb_i, k).astype(np_dt), np.tile(pgb_i, k).astype(np_dt))
+    states = [[torch.from_numpy(a.copy()).to(dev) for a in st]
+              for _ in range(reps + 1)]
+    outs = [torch.zeros((5, width), dtype=torch.int32, device=dev)
+            for _ in range(reps + 1)]
+    arrivals = torch.empty((width, n_slots), dtype=torch.int32, device=dev)
+    dist = (torch.zeros((rows, width), dtype=torch.int32, device=dev)
+            if rows else None)
+    starts = trace_starts(counts)
+
+    def run(i):
+        K5.fail_sweep_kernel(evs, group_of, *states[i], arrivals, outs[i],
+                             dist, remigrate=mitigation == "remigrate",
+                             plan=plan, trace_starts=starts,
+                             trace_counts=counts)
+    run(0)
+    torch.cuda.synchronize()
+    res = dict(counters=outs[0].sum(1).tolist(),
+               plan=dataclasses.asdict(plan))
+    if rows:
+        res["rows_sha1"] = hashlib.sha1(
+            dist.cpu().numpy().tobytes()).hexdigest()
+    res["ms"] = _card_ms([lambda i=i: run(i) for i in range(1, reps + 1)],
+                         clock_mhz, "fail_sweep")
+    return res
+
+
+def phase_kernels_fail(dev):
+    """K5 against its plain version on the card (``_k5_checks``, and
+    2,048-event cuts at the main path's shapes); at full width
+    (``AVAIL_FULL``'s streams) its time a sweep by ``_k5_timed`` — one
+    trace (MTBF 24 h, and 2 h), 6 lanes, each mitigation, and the batched
+    launch of the four schedules x 6 lanes — beside K1 on the same streams
+    (FAIL and RECOVER no-ops there: the failure model's cost) and the
+    bound; the plain version on a cut; registers and spills from the build
+    log."""
+    from repro_torch.core import sweep_core
+    from repro_torch.core.replay_engine import CompiledReplay
+    from repro_torch.core.replay_engine import CompiledReplayBatch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.event_sweep import ops as k1_ops
+    from repro_torch.kernels.fail_sweep import kernel as K5
+    from repro_torch.kernels.fail_sweep import ops
+    checked, max_err = _k5_checks(dev)
+
+    inp = _avail_inputs()
+    cfg = inp["cfg"]
+    engines = [CompiledReplay(inp["vms"], inp["dec"], cfg,
+                              failure_schedule=s, device=dev)
+               for s in inp["scheds"]]
+    n_cand = len(inp["server"])
+    pool = np.full(n_cand, np.ceil(engines[0].peak_pool_demand()))
+    sgb_i, pgb_i = sweep_core.quantize_capacities(inp["server"], pool)
+    dt = engines[0]._pick_state_dtype(sgb_i, pgb_i)
+    np_dt = sweep_core.state_np_dtype(dt)
+    item = np.dtype(np_dt).itemsize
+    n_srv, n_grp = cfg.n_servers, cfg.n_groups
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock_mhz = float(_smi("clocks.max.sm"))
+    int32_rate = sms * INT32_LANES_PER_SM * clock_mhz * 1e6
+
+    def fresh(width, n_slots, k=1):
+        st = sweep_core.init_state(width, n_srv, cfg.cores_per_server,
+                                   n_srv, n_grp, n_slots, np_dt)[:4]
+        st += (sweep_core.init_fail_state(width, n_grp),
+               np.tile(sgb_i, k).astype(np_dt),
+               np.tile(pgb_i, k).astype(np_dt))
+        return [torch.from_numpy(a).to(dev) for a in st]
+
+    def bound(lanes, n_arrive, n_fail, n_events, n_slots, width=None):
+        # lanes a trace against the traces' summed arrivals and failures;
+        # the state of all ``width`` lanes
+        width = width or lanes
+        ops_ = (K1_OPS_PER_ARRIVE_SERVER * n_arrive * lanes * n_srv
+                + K5_OPS_PER_FAIL_SLOT_LANE * n_fail * n_slots * lanes)
+        state = ((2 * width * n_srv + width * n_grp + n_slots * width) * item
+                 + 4 * width * n_grp)
+        nbytes = (32 * n_events + 4 * n_srv + 2 * state + 2 * width * item
+                  + 20 * width + 4 * n_fail * width)
+        t_ops = ops_ / int32_rate * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        return dict(bound_ms=max(t_ops, t_bytes),
+                    bound_by="operations" if t_ops >= t_bytes else "bytes",
+                    int32_ops=ops_, bytes=nbytes)
+
+    def timed(evs, group_of, n_slots, mit, rows, counts):
+        return _k5_timed(evs, group_of, n_srv, n_grp, cfg.cores_per_server,
+                         n_slots, sgb_i, pgb_i, np_dt, mit, rows, counts,
+                         clock_mhz)
+
+    timings = {}
+    for e_i, mtbf in ((2, 24), (0, 2)):
+        eng = engines[e_i]
+        evs, group_of, n_slots = eng._device_events_fail()
+        n_ev = eng.n_events
+        n_arrive = int((evs[0] == sweep_core.ARRIVE).sum())
+        n_fail = eng.failure_schedule.n_failures
+        for mit in ("remigrate", "kill"):
+            t = timed(evs, group_of, n_slots, mit, n_fail, [n_ev])
+            timings[f"mtbf{mtbf}h_{mit}"] = dict(
+                ms=t["ms"], ns_per_event=t["ms"] * 1e6 / n_ev, events=n_ev,
+                arrivals=n_arrive, failures=n_fail, lanes=n_cand,
+                n_slots=n_slots, state_dtype=dt, plan=t["plan"],
+                **bound(n_cand, n_arrive, n_fail, n_ev, n_slots))
+        # K1 through its wrapper on the same stream's first six arrays
+        k1_states = []
+        for _ in range(6):
+            fc, um, up, slots, _, sgb, pgb = fresh(n_cand, n_slots)
+            k1_states.append((fc, um, up, slots, sgb, pgb))
+
+        def k1_run(i):
+            k1_ops.event_sweep(*evs[:6], group_of, *k1_states[i])
+        k1_run(0)
+        k1_ms = _card_ms([lambda i=i: k1_run(i) for i in range(1, 6)],
+                         clock_mhz, "event_sweep")
+        timings[f"mtbf{mtbf}h_k1"] = dict(
+            ms=k1_ms, plan=dataclasses.asdict(k1_ops.last_plan),
+            k5_over_k1=timings[f"mtbf{mtbf}h_remigrate"]["ms"] / k1_ms)
+    # the batched launch of the four schedules, as availability_full's
+    batch = CompiledReplayBatch(engines)
+    cols, group_of, n_slots_b, counts = batch._device_events_fail()
+    n_arrive = sum(int((e._device_events()[0][0] == sweep_core.ARRIVE)
+                       .sum()) for e in engines)
+    n_fail_all = sum(s.n_failures for s in inp["scheds"])
+    width = len(engines) * n_cand
+    for mit in ("remigrate", "kill"):
+        t = timed(cols, group_of, n_slots_b, mit, 0, counts)
+        timings[f"batch4x{n_cand}_{mit}"] = dict(
+            ms=t["ms"], plan=t["plan"], trace_events=counts,
+            **bound(n_cand, n_arrive, n_fail_all, sum(counts), n_slots_b,
+                    width))
+
+    # the kernel through its wrapper against its plain version, == on the
+    # counters, the per-FAIL rows and the whole final state, on 2,048-event
+    # cuts at the main path's shapes (256 servers, 32 domains, its slot
+    # columns, 6 lanes a trace): the single-trace call's stream (MTBF 24 h,
+    # with rows) and the four streams packed as the batched launch (4 x 6
+    # lanes), both mitigations, the slot column where the plan puts it and
+    # in global memory
+    cut = 2048
+    evs, group_of, n_slots = engines[2]._device_events_fail()
+    ev_c = tuple(e[:cut].contiguous() for e in evs)
+    n_fail_cut = int((ev_c[0] == sweep_core.FAIL).sum())
+    cols_c, counts_c = k1_ops.pack_traces(
+        [tuple(e[:cut].cpu().numpy() for e in eng._device_events_fail()[0])
+         for eng in engines], dev, fills=(sweep_core.PAD,) + (0,) * 6 + (-1,))
+    cut_checks, plain_cut_ms = [], None
+    for name, evs_c, n_sl, k, rows, tr in (
+            ("cut_mtbf24h", ev_c, n_slots, 1, n_fail_cut, None),
+            ("cut_batch4x6", cols_c, n_slots_b, len(engines), 0, counts_c)):
+        st = fresh(k * n_cand, n_sl, k)
+        for mit in ("remigrate", "kill"):
+            t0 = time.perf_counter()
+            want = _k5_run(False, evs_c, group_of, st, mit, rows,
+                           trace_events=tr)
+            if plain_cut_ms is None:
+                plain_cut_ms = (time.perf_counter() - t0) * 1e3
+            for column in (None, "global"):
+                got = _k5_run(True, evs_c, group_of, st, mit, rows,
+                              trace_events=tr, slot_column=column)
+                for a, b in zip(got, want):
+                    if a is not None:
+                        max_err = max(max_err,
+                                      int((a.long() - b.long()).abs().max()))
+                if not all(a is b or torch.equal(a, b)
+                           for a, b in zip(got, want)):
+                    raise SystemExit(
+                        f"fail_sweep {name} {mit} {ops.last_plan}: the "
+                        "kernel's counters, rows or final state differ from "
+                        "its plain version's")
+                cut_checks.append(dict(
+                    case=name, mitigation=mit, rows=bool(rows),
+                    plan=dataclasses.asdict(ops.last_plan), lanes=k * n_cand,
+                    trace_events=tr or [cut], failures=int(
+                        (evs_c[0] == sweep_core.FAIL).sum()),
+                    affected=int(want[5][1].sum()),
+                    killed=int(want[5][2].sum()),
+                    remigrated=int(want[5][3].sum())))
+    if not all(c["affected"] > 0 for c in cut_checks):
+        raise SystemExit("fail_sweep: a cut affected no VM, so its check "
+                         "held nothing of the blast radius")
+    cut_ms = timed(ev_c, group_of, n_slots, "remigrate", n_fail_cut,
+                   [cut])["ms"]
+    with open(f"{build.library_path(K5.NAME)}.log") as f:
+        report = K5.ptxas_report(f.read())
+    main = timings["mtbf24h_remigrate"]
+    record = dict(
+        name=K5.NAME, route="cuda", source=K5.SOURCE,
+        replaces="src/repro/core/sweep_core.py:333",
+        max_abs_err=max_err, tolerance="== (integer state, exact)",
+        cases_checked=len(checked) + len(cut_checks), cases=checked,
+        cut_checks=cut_checks,
+        design="K1's registers design (one warp a lane, K = S/32 servers "
+               "a thread in registers, redux.sync first minimum, "
+               "predicated updates, 2-stage cp.async event tiles, the "
+               "slot column in shared memory by thread 0, global past its "
+               "limit); a slot's payload through the index of its ARRIVE "
+               "in a per-lane column (no block-shared table, which would "
+               "race between unsynchronised warps); at FAIL all 32 threads "
+               "stride the slot column: int32 per-server demand by shared "
+               "atomics, the owners' fits flags, a second stride applying "
+               "kill or remigrate, the deltas folded into the owners' "
+               "registers; down flags a K-bit mask a thread",
+        ms=main["ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        timed_shape=dict(events=main["events"], failures=main["failures"],
+                         servers=n_srv, groups=n_grp,
+                         n_slots=main["n_slots"], lanes=n_cand,
+                         state_dtype=dt, per_failure_rows=True,
+                         mitigation="remigrate"),
+        timings=timings, ptxas=report,
+        no_stack_or_spills=all(r.get("stack_bytes") == 0
+                               and r.get("spill_store_bytes") == 0
+                               for r in report),
+        plain_ms=plain_cut_ms, plain_cut_events=cut,
+        plain_cut_failures=n_fail_cut, ms_at_plain_cut=cut_ms,
+        plain_note="the plain version (a Python loop of tensor ops an "
+                   "event) at a 2,048-event cut of the MTBF 24 h stream, 6 "
+                   "lanes, remigrate, with rows, one run by the host clock; "
+                   "ms_at_plain_cut is the kernel on the same cut",
+        timing_note=f"CUDA events around 5 launches of the kernel function "
+                    f"(no wrapper checks) on fresh state, enqueued behind a "
+                    f"{CARD_WAIT_MS} ms wait on the card; K1 through its "
+                    f"wrapper on the same streams' first six arrays, the "
+                    f"same way",
+        int32_rate_ops_per_s=int32_rate, sm_clock_max_mhz=clock_mhz,
+        library_ms=None,
+        library_note="no PyTorch call computes a sequential per-lane "
+                     "allocator with a blast radius")
+    emit("kernels_fail", kernels=[record])
+    return record
+
+
+def _avail_fields(res):
+    """An AvailabilityResult's counters as lists."""
+    return {f: np.asarray(getattr(res, f)).tolist() for f in
+            ("affected", "killed", "remigrated", "lost_vm_minutes")}
+
+
+def phase_availability_parity_small(dev):
+    """tests/test_failures.py's world (8 servers, 4 GB a core, 1 day,
+    static 0.25, MTBF 4 h) on the card (K5) and on the CPU (its plain
+    version): seeds 3, 4, 5 single-trace with per-failure rows, and the
+    batch of seeds 3, 4, both mitigations, equal results."""
+    from repro_torch.core import cluster_sim, replay_engine, traces
+    from repro_torch.kernels.fail_sweep import ops
+    from repro_torch.runtime.fault import FailureSchedule
+    cfg = cluster_sim.ClusterConfig(n_servers=8, pool_sockets=8,
+                                    gb_per_core=4.0)
+    horizon = 86400
+    server = np.array([768.0, 200.0, 96.0])
+    pool = np.array([512.0, 300.0, 64.0])
+    n = cluster_sim.arrivals_for_util(cfg, 0.8, horizon)
+    worlds = []
+    for seed in (3, 4, 5):
+        vms = traces.Population(seed=0).sample_vms(n, horizon, seed=seed,
+                                                   start_id=10 ** 6)
+        dec, _ = cluster_sim.policy_decisions(vms, "static",
+                                              static_pool_frac=0.25)
+        worlds.append((vms, dec, FailureSchedule.generate(
+            horizon, cfg.n_groups, 4 * 3600.0, 1800.0, seed=seed)))
+    out = {}
+    for d in (dev, "cpu"):
+        before = ops.launches
+        got = []
+        for mit in ("remigrate", "kill"):
+            engines = [replay_engine.CompiledReplay(v, dc, cfg,
+                                                    failure_schedule=s,
+                                                    device=d)
+                       for v, dc, s in worlds]
+            for e in engines:
+                r = e.availability(server, pool, mit)
+                got.append(dict(rates=r.reject_rate.tolist(),
+                                rows=r.affected_per_failure.tolist(),
+                                **_avail_fields(r)))
+            r = replay_engine.CompiledReplayBatch(engines[:2]).availability(
+                server, pool, mit)
+            got.append(dict(rates=r.reject_rate.tolist(),
+                            **_avail_fields(r)))
+        out[str(d)] = (got, ops.launches - before)
+    (g, g_n), (c, c_n) = out[str(dev)], out["cpu"]
+    checks = {"results_equal": g == c, "launches_on_card": g_n == 8,
+              "none_on_cpu": c_n == 0,
+              "failures_bite": sum(int(np.sum(x["affected"]))
+                                   for x in g) > 0}
+    emit("availability_parity_small", ok=all(checks.values()),
+         checks=checks, servers=8, vms=n, kernel_launches=g_n,
+         results=g[:4])
+    if not all(checks.values()):
+        raise SystemExit(f"availability_parity_small failed: {checks}")
+
+
+def _availability_path(inp, device):
+    """The failure layer as a user calls it: four engines (one schedule
+    each), the batch priced for each mitigation, and one single-trace
+    call with per-failure rows (MTBF 24 h, remigrate).  Returns
+    ({mitigation: batch result}, the single result, the engines)."""
+    from repro_torch.core.replay_engine import (CompiledReplay,
+                                                CompiledReplayBatch)
+    engines = [CompiledReplay(inp["vms"], inp["dec"], inp["cfg"],
+                              failure_schedule=s, device=device)
+               for s in inp["scheds"]]
+    pool = np.full_like(inp["server"],
+                        np.ceil(engines[0].peak_pool_demand()))
+    batch = CompiledReplayBatch(engines)
+    res = {mit: batch.availability(inp["server"], pool, mit)
+           for mit in ("remigrate", "kill")}
+    single = engines[AVAIL_FULL["mtbf_h"].index(AVAIL_FULL[
+        "single_mtbf_h"])].availability(inp["server"], pool, "remigrate",
+                                        per_failure=True)
+    return res, single, engines, pool
+
+
+def phase_availability_full(dev):
+    """Pond's failure layer at full width (``AVAIL_FULL``, Fig
+    availability's frontier on the PROV_FULL row): the 4 x 6 frontier in
+    one ``CompiledReplayBatch.availability`` per mitigation and one
+    single-trace ``availability`` with per-failure rows, 3 K5 launches;
+    every counter held to the reference's (hard-coded), the 0.5 fraction
+    at MTBF 2 h against the port's scalar oracle, fig_availability's four
+    claims."""
+    import hashlib
+
+    from repro_torch.core import cluster_sim, replay_engine
+    from repro_torch.kernels.fail_sweep import ops
+    inp = _avail_inputs()
+    cfg, n_vms = inp["cfg"], len(inp["vms"])
+    replay_engine.stats_reset()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()    # by the phases before this one
+    ops.launches = 0                        # just before the main path ...
+    t0 = time.perf_counter()
+    res, single, engines, pool = _availability_path(inp, None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launches                 # ... and read just after it
+    peak = torch.cuda.max_memory_allocated()
+    stats = replay_engine.stats_snapshot()
+    times = replay_engine.stage_times()
+    # the 0.5 fraction at MTBF 2 h, both mitigations, by the port's scalar
+    # oracle on the host
+    t1 = time.perf_counter()
+    oracle = {mit: cluster_sim.replay_with_failures(
+        inp["vms"], inp["dec"].as_vmdecisions(), cfg,
+        float(inp["server"][-1]), float(pool[-1]), inp["scheds"][0], mit)
+        for mit in ("remigrate", "kill")}
+    oracle_s = time.perf_counter() - t1
+    # the same path again under the tracer, for the device's busy time
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _availability_path(inp, None)
+        torch.cuda.synchronize()
+    kernels = sorted(((e.key, e.count, e.self_device_time_total)
+                      for e in prof.key_averages()
+                      if e.self_device_time_total > 0),
+                     key=lambda r: -r[2])
+    busy_s = sum(r[2] for r in kernels) / 1e6
+    got = {mit: dict(rejects=np.rint(r.reject_rate * n_vms).astype(int)
+                     .tolist(), **_avail_fields(r))
+           for mit, r in res.items()}
+    rates_exact = all(
+        np.array_equal(r.reject_rate,
+                       np.asarray(AVAIL_FULL_WANT[mit]["rejects"]) / n_vms)
+        for mit, r in res.items())
+    rows = single.affected_per_failure.astype(np.int32)
+    single_got = dict(shape=list(rows.shape),
+                      sha1=hashlib.sha1(rows.tobytes()).hexdigest(),
+                      affected=single.affected.tolist(),
+                      max=int(rows.max()))
+    o_rem, o_kill = oracle["remigrate"], oracle["kill"]
+    lane = [(o.rejects, o.affected, o.killed, o.remigrated,
+             o.lost_vm_minutes) for o in (o_rem, o_kill)]
+    card = [(got[m]["rejects"][0][-1], got[m]["affected"][0][-1],
+             got[m]["killed"][0][-1], got[m]["remigrated"][0][-1],
+             got[m]["lost_vm_minutes"][0][-1]) for m in ("remigrate",
+                                                          "kill")]
+    rem, kill = res["remigrate"], res["kill"]
+    success = rem.remigration_success_rate
+    claims = {
+        "failure sweep bit-exact vs scalar oracle": card == lane,
+        "more frequent failures affect more VMs (kill)":
+            bool(kill.affected[0, 0] >= kill.affected[-1, 0]),
+        "remigration recovers VM-minutes vs kill at full DRAM":
+            bool((rem.lost_vm_minutes[:, 0]
+                  <= kill.lost_vm_minutes[:, 0]).all()),
+        "DRAM savings erode remigration headroom":
+            bool((success[:, -1] <= success[:, 0] + 1e-9).all()),
+    }
+    checks = {
+        "remigrate_equals_reference": got["remigrate"]
+        == AVAIL_FULL_WANT["remigrate"],
+        "kill_equals_reference": got["kill"] == AVAIL_FULL_WANT["kill"],
+        "reject_rates_exact": rates_exact,
+        "per_failure_rows_equal_reference": single_got
+        == AVAIL_FULL_WANT_SINGLE,
+        "single_trace_equals_its_batch_row": all(
+            np.array_equal(getattr(single, f), getattr(rem, f)[2])
+            for f in replay_engine.AVAILABILITY_FIELDS),
+        "three_k5_launches": launches == 3,
+        "on_card": engines[0].device.type == "cuda",
+        **{f"claim: {k}": v for k, v in claims.items()},
+    }
+    other = wall - times.compile_s - times.sweep_s
+    emit("availability_full", ok=all(checks.values()), checks=checks,
+         config=dict(AVAIL_FULL, n_servers=cfg.n_servers,
+                     days=PROV_FULL["days"], trace_seed=PROV_FULL["seed"],
+                     cores_per_server=cfg.cores_per_server,
+                     pool_sockets=cfg.pool_sockets,
+                     gb_per_core=cfg.gb_per_core, groups=cfg.n_groups,
+                     server_gb=inp["server"].tolist(), pool_gb=pool.tolist()),
+         vms=n_vms, events=[e.n_events for e in engines],
+         failures=[s.n_failures for s in inp["scheds"]],
+         results=got, per_failure_rows=single_got,
+         remigration_success_rate=success.tolist(),
+         oracle_lanes=dict(remigrate=lane[0], kill=lane[1]),
+         claims=claims, kernel_launches=launches,
+         sweeps=len(times.sweeps), sweep_lanes=[n for n, _ in times.sweeps],
+         sweep_state_dtypes=[d for _, d in times.sweeps],
+         engine_stats=stats,
+         host_seconds=dict(compile_and_upload=times.compile_s,
+                           device_sweeps=times.sweep_s, other=other,
+                           oracle_two_lanes=oracle_s),
+         wall_seconds=wall,
+         device_busy_seconds=busy_s if kernels else None,
+         device_idle_share_of_untraced_wall=(1 - busy_s / wall) if kernels
+         else None,
+         device_kernels=[dict(name=k[:60], count=c, seconds=us / 1e6)
+                         for k, c, us in kernels[:5]],
+         peak_memory_bytes=peak, held_before_bytes=held,
+         peak_memory_of_the_path_bytes=peak - held)
+    if not all(checks.values()):
+        raise SystemExit("availability_full failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script runs on "
@@ -2519,7 +3237,12 @@ def main() -> int:
     spill["launches_by_path"] = {"fig_grids_full": spill["launches"]}
     sweep["launches"] = sum(by_path.values())
     sweep["launches_by_path"] = by_path
-    print(json.dumps({"kernels": [paged, flash, sweep, spill]}), flush=True)
+    fail = phase_kernels_fail(dev)
+    phase_availability_parity_small(dev)
+    fail["launches"] = phase_availability_full(dev)
+    fail["launches_by_path"] = {"availability_full": fail["launches"]}
+    print(json.dumps({"kernels": [paged, flash, sweep, spill, fail]}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""K1 (the event sweep) or K6 (the zNUMA spill sweep) of checkouts of
-this repo, timed on one card in turns.
+"""K1 (the event sweep), K6 (the zNUMA spill sweep), K5 (the failure
+sweep) or the failure layer's path of checkouts of this repo, timed on one
+card in turns.
 
-    python3 scripts/torch_k1_ab.py --other DIR [DIR ...] [--kernel k1|k6]
-                                   [--lanes 16] [--reps 5]
+    python3 scripts/torch_k1_ab.py --other DIR [DIR ...]
+                                   [--kernel k1|k6|k5|avail] [--lanes 16]
+                                   [--reps 5]
 
 Makes the kernel's inputs once with this checkout's port and saves them
 under ``build/k1_ab/``.  Then each checkout, in a process of its own and
@@ -35,6 +37,24 @@ enqueues after its checks: for a checkout with the linked kernel
 for the first kernel (no such function) its one launch.  The results
 compared are the counters and the tier map's SHA-1.  ``--lanes`` is not
 used.
+
+``--kernel k5``: ``chip_smoke.py``'s ``AVAIL_FULL`` streams, made by its
+``_avail_inputs`` (the provisioning trace above with static 0.25
+decisions and the failure schedules of MTBF 2, 8, 24 and 96 h, seeds 0-3,
+merged), and its six candidates; each checkout's kernel function timed by
+this checkout's ``chip_smoke._k5_timed`` (no wrapper checks, fresh state,
+runs enqueued behind a wait on the card): one trace (MTBF 24 h with
+per-failure rows, and 2 h) for each mitigation, and the four traces as
+one batch of 4 x 6 lanes.  The results compared are the counters and the
+per-failure rows' SHA-1.  ``--lanes`` is not used.
+
+``--kernel avail``: not one kernel but the failure layer's main path,
+``chip_smoke.py``'s ``_availability_path`` at ``AVAIL_FULL`` (engines
+built, the batch priced for each mitigation, one single-trace call with
+per-failure rows) by the host clock, each checkout its own
+``chip_smoke.py`` and port: after a warm-up, the best of ``--reps`` runs
+of the wall and of its compile-and-upload and device-sweep stages.  The
+results compared are the counters' and per-failure rows' SHA-1.
 """
 import argparse
 import json
@@ -47,6 +67,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(ROOT, "build", "k1_ab", "events.npz")
 STREAMS = os.path.join(ROOT, "build", "k1_ab", "streams.npz")
+FAIL_STREAMS = os.path.join(ROOT, "build", "k1_ab", "fail_streams.npz")
 SEEDS, N_REQUESTS, PEAK_PAGES, NUM_POOL = (3, 4, 5, 6), 16384, 1280, 1024
 
 # run in each checkout: argv = (checkout, data, lanes, reps)
@@ -163,6 +184,91 @@ print(json.dumps(dict(checkout=root, linked=linked, reps=reps, **out)))
 """
 
 
+# run in each checkout: argv = (checkout, data, lanes, reps, chip_smoke.py);
+# the timing itself is this checkout's ``chip_smoke._k5_timed``, the kernel
+# the checkout's
+_K5_TIMER = r"""
+import importlib.util, json, sys
+import numpy as np, torch
+root, data, reps, smoke = sys.argv[1], sys.argv[2], int(sys.argv[4]), \
+    sys.argv[5]
+sys.path.insert(0, root + "/src")
+from repro_torch.core import sweep_core
+from repro_torch.kernels.event_sweep.ops import pack_traces
+from repro_torch.kernels.fail_sweep import kernel as K
+assert K.__file__.startswith(root), K.__file__
+spec = importlib.util.spec_from_file_location("chip_smoke", smoke)
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+d = np.load(data)
+dev = torch.device("cuda")
+keys = ("kind", "slot", "cores", "local", "pool", "mem", "x", "dmn")
+streams = [tuple(d[f"t{i}_{k}"] for k in keys)
+           for i in range(len(d["slots"]))]
+group_of = torch.from_numpy(d["group_of"]).to(dev)
+n_srv, n_grp, cores = (int(d[k]) for k in ("servers", "groups", "cores"))
+np_dt = sweep_core.state_np_dtype(str(d["state_dtype"]))
+clock_mhz = float(cs._smi("clocks.max.sm"))
+
+
+def time_it(evs, n_slots, mit, rows, counts):
+    res = cs._k5_timed(evs, group_of, n_srv, n_grp, cores, n_slots,
+                       d["sgb"], d["pgb"], np_dt, mit, rows, counts,
+                       clock_mhz, reps)
+    res.pop("plan")
+    return res
+
+
+out = {}
+for i, name in ((2, "mtbf24h"), (0, "mtbf2h")):
+    evs = tuple(torch.from_numpy(a).to(dev) for a in streams[i])
+    rows = int((streams[i][0] == sweep_core.FAIL).sum()) if i == 2 else 0
+    for mit in ("remigrate", "kill"):
+        out[f"{name}_{mit}"] = time_it(evs, int(d["slots"][i]), mit, rows,
+                                       [len(streams[i][0])])
+cols, counts = pack_traces(streams, dev,
+                           fills=(sweep_core.PAD,) + (0,) * 6 + (-1,))
+for mit in ("remigrate", "kill"):
+    out[f"batch{len(streams)}x{len(d['sgb'])}_{mit}"] = time_it(
+        cols, int(d["slots"].max()), mit, 0, counts)
+print(json.dumps(dict(checkout=root, reps=reps, **out)))
+"""
+
+
+# run in each checkout: argv = (checkout, data, lanes, reps)
+_AVAIL_TIMER = r"""
+import hashlib, json, sys, time
+import numpy as np, torch
+root, reps = sys.argv[1], int(sys.argv[4])
+sys.path[:0] = [root + "/src", root]
+import chip_smoke as cs
+from repro_torch.core import replay_engine
+from repro_torch.kernels.fail_sweep import kernel as K
+assert K.__file__.startswith(root) and cs.__file__.startswith(root)
+K.build()
+inp = cs._avail_inputs()
+cs._availability_path(inp, None)      # warm-up
+best = {}
+for _ in range(reps):
+    replay_engine.stats_reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, single, _, _ = cs._availability_path(inp, None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    times = replay_engine.stage_times()
+    for key, s in (("wall", wall), ("compile_and_upload", times.compile_s),
+                   ("device_sweeps", times.sweep_s)):
+        best[key] = min(best.get(key, s), s)
+digest = hashlib.sha1(json.dumps(
+    [cs._avail_fields(r) for r in (*res.values(), single)]
+    + [single.affected_per_failure.tolist()]).encode()).hexdigest()
+out = {k: dict(ms=v * 1e3) for k, v in best.items()}
+out["wall"]["results_sha1"] = digest
+print(json.dumps(dict(checkout=root, reps=reps, **out)))
+"""
+
+
 def _save_events():
     """The trace's K1 event arrays, from this checkout's port."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -186,6 +292,38 @@ def _save_events():
     return len(host[0])
 
 
+def _save_fail_streams():
+    """``chip_smoke.py``'s ``AVAIL_FULL`` streams (its ``_avail_inputs``):
+    each trace's eight event arrays (the failure schedule merged), from
+    this checkout's port, and the six candidates quantised."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from repro_torch.core import replay_engine, sweep_core
+    inp = chip_smoke._avail_inputs()
+    cfg = inp["cfg"]
+    engines = [replay_engine.CompiledReplay(inp["vms"], inp["dec"], cfg,
+                                            failure_schedule=sched,
+                                            device="cpu")
+               for sched in inp["scheds"]]
+    arrays, slots = {}, []
+    for i, eng in enumerate(engines):
+        host, n_slots = eng._host_events()
+        for k, a in zip(("kind", "slot", "cores", "local", "pool", "mem",
+                         "x", "dmn"), host + eng._fail_streams()):
+            arrays[f"t{i}_{k}"] = a
+        slots.append(n_slots)
+    pool = np.full(len(inp["server"]), np.ceil(engines[0].peak_pool_demand()))
+    sgb, pgb = sweep_core.quantize_capacities(inp["server"], pool)
+    os.makedirs(os.path.dirname(FAIL_STREAMS), exist_ok=True)
+    np.savez(FAIL_STREAMS, **arrays, slots=np.asarray(slots),
+             group_of=engines[0].group_of.astype(np.int32),
+             servers=cfg.n_servers, groups=cfg.n_groups,
+             cores=cfg.cores_per_server, sgb=sgb, pgb=pgb,
+             state_dtype=engines[0]._pick_state_dtype(sgb, pgb))
+    return [eng.n_events for eng in engines]
+
+
 def _save_streams():
     """Fig 16's full-width streams, padded with PAD to a multiple of 4
     events (the first kernel's staging; the linked one pads the same)."""
@@ -205,7 +343,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--other", required=True, nargs="+",
                     help="other checkouts of this repo")
-    ap.add_argument("--kernel", choices=("k1", "k6"), default="k1")
+    ap.add_argument("--kernel", choices=("k1", "k6", "k5", "avail"),
+                    default="k1")
     ap.add_argument("--lanes", type=int, default=16)
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args(argv)
@@ -214,15 +353,22 @@ def main(argv=None) -> int:
         timer, data = _K1_TIMER, DATA
         summary = {"kernel": "k1", "events": _save_events(),
                    "lanes": args.lanes}
-    else:
+    elif args.kernel == "k6":
         timer, data = _K6_TIMER, STREAMS
         n_streams, n_events = _save_streams()
         summary = {"kernel": "k6", "streams": n_streams, "events": n_events}
+    elif args.kernel == "k5":
+        timer, data = _K5_TIMER, FAIL_STREAMS
+        summary = {"kernel": "k5", "events": _save_fail_streams()}
+    else:
+        timer, data = _AVAIL_TIMER, ""
+        summary = {"kernel": "avail"}
     runs = []
     for root in (*others, ROOT, ROOT, *others[::-1]):
         proc = subprocess.run(
             [sys.executable, "-c", timer, root, data, str(args.lanes),
-             str(args.reps)], capture_output=True, text=True, timeout=900)
+             str(args.reps), os.path.join(ROOT, "chip_smoke.py")],
+            capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             print(proc.stderr[-4000:], file=sys.stderr)
             proc.check_returncode()

@@ -259,6 +259,166 @@ def replay_reject_rate(vms, decisions, cfg: ClusterConfig,
     return rejects / max(len(vms), 1)
 
 
+@dataclasses.dataclass
+class FailureReplayResult:
+    """Scalar-oracle availability outcome for one candidate point."""
+
+    n_vms: int
+    rejects: int
+    n_failures: int
+    affected_per_failure: list      # VMs affected, one entry per FAIL
+    killed: int
+    remigrated: int
+    lost_vm_minutes: int
+
+    @property
+    def reject_rate(self) -> float:
+        return self.rejects / max(self.n_vms, 1)
+
+    @property
+    def affected(self) -> int:
+        return int(sum(self.affected_per_failure))
+
+    @property
+    def remigration_success_rate(self) -> float:
+        return self.remigrated / self.affected if self.affected else 1.0
+
+
+def replay_with_failures(vms, decisions, cfg: ClusterConfig,
+                         server_gb: float, pool_gb: float,
+                         schedule, mitigation: str = "remigrate"
+                         ) -> FailureReplayResult:
+    """Scalar blast-radius oracle: :func:`replay_reject_rate` plus the
+    Pond §4.2 failure model over a ``runtime.fault.FailureSchedule``.
+
+    The semantics the failure sweep (kernel K5, ``kernels/fail_sweep``)
+    reproduces bit for bit on integral-GB traces:
+
+    * FAIL/RECOVER events merge into the replay's event order sorted by
+      (time, kind) — failures sort AFTER same-time VM events.
+    * While a domain (EMC group) is down, arrivals that need pool slices
+      there skip its servers in the pooled admission test (the all-local
+      fallback still applies, §4.3).
+    * ``FAIL(d)`` affects every live VM holding pool slices in domain
+      ``d``.  ``mitigation="kill"`` terminates them;
+      ``mitigation="remigrate"`` moves each server's affected pool into
+      host-local DRAM iff the server's free local memory covers its TOTAL
+      affected demand (all-or-nothing per server, demand snapshot taken
+      before any mutation), killing the rest.  A remigrated VM thereafter
+      departs as all-local (same bookkeeping as a QoS migration).  The
+      domain's slices are lost either way: its pool comes back EMPTY
+      (free capacity resets to ``pool_gb``).
+    * VM-minutes lost counts ``floor(departure/60) - floor(t_fail/60)``
+      per killed VM.
+    """
+    if mitigation not in ("remigrate", "kill"):
+        raise ValueError(f"unknown mitigation {mitigation!r}")
+    events = []
+    for vm, dec in zip(vms, decisions):
+        events.append((vm.arrival, 0, vm, dec))
+        if dec.t_migrate is not None:
+            events.append((dec.t_migrate, 2, vm, dec))
+        events.append((vm.departure, 1, vm, dec))
+    for t, d, rec in zip(schedule.times, schedule.domains,
+                         schedule.recovers):
+        events.append((float(t), 5 if rec else 4, int(d), None))
+    events.sort(key=lambda e: (e[0], e[1]))
+    free_cores = np.full(cfg.n_servers, float(cfg.cores_per_server))
+    free_mem = np.full(cfg.n_servers, float(server_gb))
+    free_pool = np.full(cfg.n_groups, float(pool_gb))
+    dom_down = np.zeros(cfg.n_groups, bool)
+    group_of = np.arange(cfg.n_servers) // cfg.servers_per_group
+    placed: dict[int, int] = {}
+    live: dict[int, tuple] = {}          # vm_id -> (vm, dec)
+    migrated: set[int] = set()
+    rejects = killed = remigrated = lost_min = 0
+    affected_per_failure: list[int] = []
+    for t, kind, vm, dec in events:
+        if kind == 4:                                # FAIL(domain)
+            d = vm
+            fail_min = math.floor(t / 60.0)
+            affected = [(vid, s) for vid, s in placed.items()
+                        if vid not in migrated
+                        and live[vid][1].pool_gb > 0
+                        and group_of[s] == d]
+            demand = np.zeros(cfg.n_servers)
+            for vid, s in affected:
+                demand[s] += live[vid][1].pool_gb
+            fits = free_mem >= demand                # pre-event snapshot
+            for vid, s in affected:
+                avm, adec = live[vid]
+                if mitigation == "remigrate" and fits[s]:
+                    free_mem[s] -= adec.pool_gb
+                    migrated.add(vid)
+                    remigrated += 1
+                else:
+                    free_cores[s] += avm.cores
+                    free_mem[s] += adec.local_gb
+                    placed.pop(vid)
+                    live.pop(vid)
+                    killed += 1
+                    lost_min += max(
+                        math.floor(avm.departure / 60.0) - fail_min, 0)
+            free_pool[d] = pool_gb                   # slices lost; pool
+            dom_down[d] = True                       # returns EMPTY
+            affected_per_failure.append(len(affected))
+            continue
+        if kind == 5:                                # RECOVER(domain)
+            dom_down[vm] = False
+            continue
+        if kind == 1:                                # departure
+            s = placed.pop(vm.vm_id, None)
+            live.pop(vm.vm_id, None)
+            if s is None:
+                continue
+            free_cores[s] += vm.cores
+            if vm.vm_id in migrated:
+                free_mem[s] += vm.mem_gb
+                migrated.discard(vm.vm_id)
+            else:
+                free_mem[s] += dec.local_gb
+                free_pool[group_of[s]] += dec.pool_gb
+            continue
+        if kind == 2:                                # QoS migration
+            s = placed.get(vm.vm_id)
+            if s is None:
+                continue
+            if free_mem[s] >= dec.pool_gb:           # host has local room
+                free_mem[s] -= dec.pool_gb
+                free_pool[group_of[s]] += dec.pool_gb
+                migrated.add(vm.vm_id)
+            continue
+        ok = (free_cores >= vm.cores) & (free_mem >= dec.local_gb) & \
+            (free_pool[group_of] >= dec.pool_gb)
+        if dec.pool_gb > 0:
+            ok &= ~dom_down[group_of]
+        cand = np.flatnonzero(ok)
+        if len(cand):
+            s = int(cand[np.argmin(free_cores[cand])])
+            free_cores[s] -= vm.cores
+            free_mem[s] -= dec.local_gb
+            free_pool[group_of[s]] -= dec.pool_gb
+            placed[vm.vm_id] = s
+            live[vm.vm_id] = (vm, dec)
+            continue
+        ok = (free_cores >= vm.cores) & (free_mem >= vm.mem_gb)
+        cand = np.flatnonzero(ok)
+        if len(cand):
+            s = int(cand[np.argmin(free_cores[cand])])
+            free_cores[s] -= vm.cores
+            free_mem[s] -= vm.mem_gb
+            placed[vm.vm_id] = s
+            live[vm.vm_id] = (vm, dec)
+            migrated.add(vm.vm_id)       # departs as all-local
+            continue
+        rejects += 1
+    return FailureReplayResult(
+        n_vms=len(vms), rejects=rejects,
+        n_failures=int(np.count_nonzero(~schedule.recovers)),
+        affected_per_failure=affected_per_failure, killed=killed,
+        remigrated=remigrated, lost_vm_minutes=lost_min)
+
+
 def _n_events(vms, dec) -> int:
     """Compiled event count: 2 per VM + 1 per QoS migration."""
     return 2 * len(vms) + (

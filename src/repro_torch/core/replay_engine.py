@@ -26,9 +26,15 @@ lie one after another in one set of device arrays and one launch of K1
 over such a batch (the pool search bracketed by each trace's
 ``peak_pool_demand``, no trajectories).
 
+The failure layer (Pond §4.2): an engine built with a
+``runtime.fault.FailureSchedule`` merges its FAIL/RECOVER events into the
+stream (no-ops for ``reject_rates``), and ``availability()`` prices the
+blast radius with one launch of the failure sweep (kernel K5,
+``kernels/fail_sweep``), on one trace or, for a batch, on K1's trace axis.
+
 Not ported yet (ROADMAP): the numpy divergence-window backend (M1b) and
-with it non-integral decisions, failure schedules (M10), streaming engines
-(M5), ``devices=`` (M13), fleets (M9) and the ``obs`` spans (M12).
+with it non-integral decisions, streaming engines (M5), ``devices=``
+(M13), fleets (M9) and the ``obs`` spans (M12).
 """
 from __future__ import annotations
 
@@ -42,9 +48,11 @@ from repro_torch.core import sweep_core
 from repro_torch.device import resolve_device
 from repro_torch.kernels.event_sweep import kernel as K1
 from repro_torch.kernels.event_sweep.ops import pack_traces, trace_starts
+from repro_torch.kernels.fail_sweep import ops as fail_ops
 
 ARRIVE, DEPART, MIGRATE = (sweep_core.ARRIVE, sweep_core.DEPART,
                            sweep_core.MIGRATE)
+FAIL, RECOVER, PAD = sweep_core.FAIL, sweep_core.RECOVER, sweep_core.PAD
 SNAP = 64             # snapshot stride (events) in trajectories
 _INF = np.inf
 
@@ -174,16 +182,69 @@ class _Trajectory:
     mig_idx: np.ndarray           # (V,) event index the flag was set
 
 
+@dataclasses.dataclass
+class AvailabilityResult:
+    """Failure-priced sweep outcome, per candidate (and per trace for the
+    batched engine: every array gains a leading K axis).
+
+    ``reject_rate`` includes the failure model (down domains grant no pool
+    slices); the counters are totals over the schedule's FAIL events.
+    ``affected_per_failure`` is the per-failure distribution ``(n_failures,
+    n_cand)``, None when not requested (and for batches).
+    """
+
+    reject_rate: np.ndarray
+    affected: np.ndarray
+    killed: np.ndarray
+    remigrated: np.ndarray
+    lost_vm_minutes: np.ndarray
+    n_failures: "int | np.ndarray"
+    affected_per_failure: "np.ndarray | None"
+    mitigation: str
+
+    @property
+    def remigration_success_rate(self) -> np.ndarray:
+        """remigrated / affected, defined as 1.0 where nothing was affected
+        (no failure touched a pooled VM)."""
+        aff = np.asarray(self.affected, float)
+        rem = np.asarray(self.remigrated, float)
+        return np.where(aff > 0, rem / np.maximum(aff, 1), 1.0)
+
+
+#: the per-candidate arrays of an :class:`AvailabilityResult`
+AVAILABILITY_FIELDS = ("reject_rate", "affected", "killed", "remigrated",
+                       "lost_vm_minutes")
+
+
+def _counters_result(counts: np.ndarray, n_vms, n_failures, dist,
+                     mitigation: str) -> AvailabilityResult:
+    """An :class:`AvailabilityResult` from K5's int32 counters ``(5, ...)``
+    (rejects, affected, killed, remigrated, lost minutes)."""
+    c = counts.astype(np.int64)
+    n_vms = np.maximum(n_vms, 1)
+    if c.ndim == 3:                       # (5, K, n_cand)
+        n_vms = n_vms[:, None]
+    return AvailabilityResult(
+        reject_rate=c[0] / n_vms, affected=c[1], killed=c[2],
+        remigrated=c[3], lost_vm_minutes=c[4], n_failures=n_failures,
+        affected_per_failure=dist, mitigation=mitigation)
+
+
+def _check_mitigation(mitigation: str) -> None:
+    if mitigation not in sweep_core.MITIGATIONS:
+        raise ValueError(f"mitigation must be one of "
+                         f"{sweep_core.MITIGATIONS}")
+
+
 class CompiledReplay:
     """One ``(vms, decisions)`` pair compiled for batched replay sweeps on
     ``device`` (default: the CUDA card; ``"cpu"`` runs the sweep's plain
-    version on the CPU)."""
+    version on the CPU).  With ``failure_schedule`` (a
+    ``runtime.fault.FailureSchedule``) its FAIL/RECOVER events join the
+    stream, for :meth:`availability`."""
 
     def __init__(self, vms, decisions, cfg, failure_schedule=None,
                  device=None):
-        if failure_schedule is not None:
-            raise NotImplementedError("failure schedules come with the "
-                                      "failure layer (ROADMAP M10)")
         t0 = time.perf_counter()
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -238,13 +299,36 @@ class CompiledReplay:
         vmidx = np.repeat(np.arange(n, dtype=np.int64), 3)
         keep = ~np.isnan(times)
         times, kinds, vmidx = times[keep], kinds[keep], vmidx[keep]
+        # failure-domain events (Pond §4.2) merge into the same sorted
+        # stream: FAIL/RECOVER sort AFTER same-time VM events, carry VM 0
+        # and are no-ops in the plain sweep (reject_rates stays happy-path);
+        # the failure sweep (availability()) resolves the blast radius
+        doms = np.full(len(times), -1, np.int64)
+        self.failure_schedule = failure_schedule
+        if failure_schedule is not None and len(failure_schedule):
+            if failure_schedule.max_domain() >= self.n_groups:
+                raise ValueError(
+                    f"failure domain {failure_schedule.max_domain()} out "
+                    f"of range for {self.n_groups} pool groups")
+            fk = np.where(failure_schedule.recovers, RECOVER, FAIL)
+            times = np.concatenate([times, failure_schedule.times])
+            kinds = np.concatenate([kinds, fk])
+            vmidx = np.concatenate(
+                [vmidx, np.zeros(len(failure_schedule), np.int64)])
+            doms = np.concatenate([doms, failure_schedule.domains])
         order = np.lexsort((kinds, times))
         self.ev_time = times[order]
         self._ev_kind = kinds[order].tolist()
         self._ev_vm = vmidx[order].tolist()
+        self._ev_dom = doms[order]
+        #: per-VM departure minute (int32): the VM-minutes-lost clock,
+        #: quantised exactly like the oracle's
+        self._dep_min = np.floor(dep_a / 60.0).astype(np.int32)
         self.n_events = len(self._ev_kind)
         self._trajs: dict[float | None, _Trajectory] = {}
+        self._slot_map = None
         self._dev_ev = None
+        self._dev_ev_fail = None
         self._peak_pool = None
         _TIMES.compile_s += time.perf_counter() - t0
 
@@ -265,17 +349,31 @@ class CompiledReplay:
         """``(events, n_slots)``: the slot-mapped int32 event arrays
         ``(kind, slot, cores, local, pool, mem)`` as host numpy.  VMs are
         assigned reusable slots (freed on departure), so the per-candidate
-        placement state is sized by PEAK CONCURRENCY."""
-        ev_slot, n_slots = sweep_core.assign_slots(
-            self._ev_kind, self._ev_vm, self.n_vms)
+        placement state is sized by PEAK CONCURRENCY.  The assignment (a
+        Python loop over the events) runs once an engine."""
+        if self._slot_map is None:
+            self._slot_map = sweep_core.assign_slots(
+                self._ev_kind, self._ev_vm, self.n_vms)
+        ev_slot, n_slots = self._slot_map
         vmx = np.asarray(self._ev_vm, np.int64)
-        host = (np.asarray(self._ev_kind, np.int32),
-                ev_slot.astype(np.int32),
+        host = (np.asarray(self._ev_kind, np.int32), ev_slot.astype(np.int32),
                 np.asarray(self._cores, np.int32)[vmx],
                 np.asarray(self._local, np.int32)[vmx],
                 np.asarray(self._pool, np.int32)[vmx],
                 np.asarray(self._mem, np.int32)[vmx])
         return host, n_slots
+
+    def _fail_streams(self):
+        """The failure sweep's two extra int32 streams as host numpy:
+        ``x`` (the VM's departure minute at ARRIVE, the failure minute at
+        FAIL: the VM-minutes-lost clock) and ``dmn`` (the domain at
+        FAIL/RECOVER, -1 otherwise).  Neither depends on the slots."""
+        kind = np.asarray(self._ev_kind, np.int32)
+        x = np.zeros(len(kind), np.int32)
+        arr, fail = kind == ARRIVE, kind == FAIL
+        x[arr] = self._dep_min[np.asarray(self._ev_vm, np.int64)[arr]]
+        x[fail] = np.floor(self.ev_time[fail] / 60.0)
+        return x, self._ev_dom.astype(np.int32)
 
     def _device_events(self):
         """``(events, group_of, n_slots)``: :meth:`_host_events` and
@@ -292,6 +390,20 @@ class CompiledReplay:
         self._dev_ev = (evs, group, n_slots)
         _TIMES.compile_s += time.perf_counter() - t0
         return self._dev_ev
+
+    def _device_events_fail(self):
+        """``(events, group_of, n_slots)`` for the failure sweep: the six
+        arrays of :meth:`_device_events` (shared with it), then ``x`` and
+        ``dmn``; uploaded once and cached."""
+        if self._dev_ev_fail is not None:
+            return self._dev_ev_fail
+        evs, group, n_slots = self._device_events()
+        t0 = time.perf_counter()
+        extra = tuple(torch.from_numpy(a).to(self.device)
+                      for a in self._fail_streams())
+        self._dev_ev_fail = (evs + extra, group, n_slots)
+        _TIMES.compile_s += time.perf_counter() - t0
+        return self._dev_ev_fail
 
     def _pick_state_dtype(self, sgb_i: np.ndarray,
                           pgb_i: np.ndarray) -> str:
@@ -495,6 +607,111 @@ class CompiledReplay:
         _TIMES.sweep_s += time.perf_counter() - t0
         return rates
 
+    # ------------------------------------------------------- availability --
+    def availability(self, server_gb, pool_gb, mitigation: str = "remigrate",
+                     backend: str = "auto", state_dtype: str | None = None,
+                     per_failure: bool = True) -> AvailabilityResult:
+        """Price the merged failure schedule: reject rates WITH the §4.2
+        failure model, plus availability metrics, per candidate.
+
+        Requires the engine to have been built with ``failure_schedule=``.
+        Broadcasting matches :meth:`reject_rates`.  ``mitigation`` picks
+        the blast-radius policy (``"remigrate"`` pulls affected pool into
+        host-local DRAM where the server's free memory allows, all or
+        nothing per server; ``"kill"`` terminates every affected VM).
+        ``backend="auto"`` runs one launch of the failure sweep (K5) on
+        the engine's device, its plain version on a CPU engine;
+        ``backend="oracle"`` loops the scalar blast-radius oracle
+        ``cluster_sim.replay_with_failures``, bit for bit the same.
+        Non-integral decisions raise on ``"auto"`` (ROADMAP M1b).
+
+        Returns an :class:`AvailabilityResult`; with ``per_failure=True``
+        it includes the ``(n_failures, n_cand)`` VMs-affected-per-failure
+        distribution.
+        """
+        if self.failure_schedule is None:
+            raise ValueError(
+                "availability() needs a failure_schedule= at compile time "
+                "(see runtime.fault.FailureSchedule)")
+        _check_mitigation(mitigation)
+        server_gb = np.atleast_1d(np.asarray(server_gb, float))
+        pool_gb = np.atleast_1d(np.asarray(pool_gb, float))
+        server_gb, pool_gb = np.broadcast_arrays(server_gb, pool_gb)
+        if backend == "auto":
+            if not self._exact:
+                raise NotImplementedError(
+                    "non-integral decisions need the numpy divergence-"
+                    "window backend (ROADMAP M1b); backend='oracle' prices "
+                    "them with the scalar oracle")
+            self._device_events_fail()  # compile + upload: its own stage
+        elif backend != "oracle":
+            raise ValueError(f"backend must be 'auto' or 'oracle', got "
+                             f"{backend!r}")
+        t0 = time.perf_counter()
+        if backend == "auto":
+            res = self._availability_device(server_gb, pool_gb, mitigation,
+                                            state_dtype, per_failure)
+        else:
+            res = self._availability_oracle(server_gb, pool_gb, mitigation,
+                                            per_failure)
+        _STATS.sweeps += 1
+        _STATS.events += self.n_events
+        _STATS.candidate_events += self.n_events * len(server_gb)
+        _STATS.wall_s += time.perf_counter() - t0
+        _TIMES.sweep_s += time.perf_counter() - t0
+        return res
+
+    def _availability_device(self, server_gb, pool_gb, mitigation,
+                             state_dtype, per_failure):
+        """One K5 launch over the whole batch, every candidate a lane."""
+        evs, group_of, n_slots = self._device_events_fail()
+        n0 = len(server_gb)
+        n_fail = self.failure_schedule.n_failures
+        sgb_i, pgb_i = sweep_core.quantize_capacities(server_gb, pool_gb)
+        dt_name = state_dtype or self._pick_state_dtype(sgb_i, pgb_i)
+        np_dt = sweep_core.state_np_dtype(dt_name)
+        state = sweep_core.init_state(
+            n0, self.n_servers, self.cores_per_server, self.n_servers,
+            self.n_groups, max(n_slots, 1), np_dt)[:4]
+        state += (sweep_core.init_fail_state(n0, self.n_groups),)
+        fc, um, up, slots, down = (torch.from_numpy(a).to(self.device)
+                                   for a in state)
+        sgb, pgb = (torch.from_numpy(a.astype(np_dt)).to(self.device)
+                    for a in (sgb_i, pgb_i))
+        dist = (torch.zeros((n_fail, n0), dtype=torch.int32,
+                            device=self.device)
+                if per_failure and n_fail else None)
+        out = fail_ops.fail_sweep(*evs, group_of, fc, um, up, slots, down,
+                                  sgb, pgb, mitigation=mitigation, dist=dist)
+        if per_failure:
+            dist = (dist.cpu().numpy().astype(np.int64) if n_fail
+                    else np.zeros((0, n0), np.int64))
+        _TIMES.sweeps.append((n0, dt_name))
+        return _counters_result(out.cpu().numpy(), self.n_vms, n_fail, dist,
+                                mitigation)
+
+    def _availability_oracle(self, server_gb, pool_gb, mitigation,
+                             per_failure):
+        """One ``cluster_sim.replay_with_failures`` call per candidate."""
+        from repro_torch.core import cluster_sim  # cyclic at import time
+        decisions = (self._decisions_src.as_vmdecisions()
+                     if hasattr(self._decisions_src, "as_vmdecisions")
+                     else self._decisions_src)
+        n0 = len(server_gb)
+        n_fail = self.failure_schedule.n_failures
+        counts = np.zeros((5, n0), np.int64)
+        dist = np.empty((n_fail, n0), np.int64) if per_failure else None
+        for i in range(n0):
+            r = cluster_sim.replay_with_failures(
+                self._vms, decisions, self.cfg, float(server_gb[i]),
+                float(pool_gb[i]), self.failure_schedule, mitigation)
+            counts[:, i] = (r.rejects, r.affected, r.killed, r.remigrated,
+                            r.lost_vm_minutes)
+            if per_failure:
+                dist[:, i] = r.affected_per_failure
+        return _counters_result(counts, self.n_vms, n_fail, dist,
+                                mitigation)
+
 
 # ----------------------------------------------------------- trace batch ---
 def _validate_cluster_shape(engines, what: str):
@@ -581,6 +798,7 @@ class CompiledReplayBatch:
         self.n_events = np.array([e.n_events for e in engines], np.int64)
         self._exact = all(e._exact for e in engines)
         self._dev_ev = None
+        self._dev_ev_fail = None
 
     def _device_events(self):
         """``(events, group_of, n_slots, trace_events)``: every trace's
@@ -659,6 +877,100 @@ class CompiledReplayBatch:
         _STATS.wall_s += time.perf_counter() - t0
         _TIMES.sweep_s += time.perf_counter() - t0
         return rates
+
+    def _device_events_fail(self):
+        """``(events, group_of, n_slots, trace_events)`` for the failure
+        sweep: every trace's eight arrays (its own merged schedule) one
+        after another, the gaps PAD events with domain -1; uploaded once."""
+        if self._dev_ev_fail is not None:
+            return self._dev_ev_fail
+        t0 = time.perf_counter()
+        per = [e._host_events() for e in self.engines]
+        cols, counts = pack_traces([host + e._fail_streams() for e, (host, _)
+                                    in zip(self.engines, per)], self.device,
+                                   fills=(PAD, 0, 0, 0, 0, 0, 0, -1))
+        group = torch.from_numpy(
+            self.engines[0].group_of.astype(np.int32)).to(self.device)
+        self._dev_ev_fail = (cols, group, max(n for _, n in per), counts)
+        _TIMES.compile_s += time.perf_counter() - t0
+        return self._dev_ev_fail
+
+    def availability(self, server_gb, pool_gb, mitigation: str = "remigrate",
+                     backend: str = "auto",
+                     state_dtype: str | None = None) -> AvailabilityResult:
+        """Failure-priced sweep over all K (trace, schedule) rows at once:
+        one launch of K5's trace axis (one a ``kernel.MAX_TRACES`` traces),
+        each trace's lanes over its own events and schedule.
+
+        Every engine must carry its own ``failure_schedule`` (rows may
+        differ, e.g. one failure rate per row, the
+        ``benchmarks/fig_availability.py`` frontier axis).  Returns an
+        :class:`AvailabilityResult` whose arrays are ``(K, n_cand)``;
+        ``n_failures`` is the per-trace ``(K,)`` count and the per-failure
+        distribution is not materialised (use the single-trace
+        :meth:`CompiledReplay.availability` for it).  Row ``k`` is bit for
+        bit ``engines[k].availability(...)``.  ``backend="oracle"`` loops
+        the engines' scalar oracle.
+        """
+        for i, e in enumerate(self.engines):
+            if e.failure_schedule is None:
+                raise ValueError(
+                    f"engine {i} has no failure_schedule; the batched "
+                    "availability sweep needs one per trace")
+        _check_mitigation(mitigation)
+        server_gb, pool_gb = _broadcast_candidates(self.k, server_gb,
+                                                   pool_gb)
+        n0 = server_gb.shape[1]
+        n_fail = np.array([e.failure_schedule.n_failures
+                           for e in self.engines])
+        if backend == "oracle":
+            per = [eng.availability(server_gb[i], pool_gb[i], mitigation,
+                                    backend=backend, per_failure=False)
+                   for i, eng in enumerate(self.engines)]
+            return AvailabilityResult(
+                **{f: np.stack([getattr(r, f) for r in per])
+                   for f in AVAILABILITY_FIELDS},
+                n_failures=n_fail, affected_per_failure=None,
+                mitigation=mitigation)
+        if backend != "auto":
+            raise ValueError(f"backend must be 'auto' or 'oracle', got "
+                             f"{backend!r}")
+        if not self._exact:
+            raise NotImplementedError(
+                "non-integral decisions need the numpy divergence-window "
+                "backend (ROADMAP M1b); backend='oracle' prices them with "
+                "the scalar oracle")
+        # compile + upload (its own stage), then the sweep
+        evs, group_of, n_slots, counts = self._device_events_fail()
+        t0 = time.perf_counter()
+        starts = trace_starts(counts)
+        sgb_i, pgb_i = sweep_core.quantize_capacities(server_gb, pool_gb)
+        dt_name = state_dtype or self._pick_state_dtype(sgb_i, pgb_i)
+        np_dt = sweep_core.state_np_dtype(dt_name)
+        out = np.empty((5, self.k, n0), np.int64)
+        for lo in range(0, self.k, K1.MAX_TRACES):
+            hi = min(self.k, lo + K1.MAX_TRACES)
+            width = (hi - lo) * n0
+            state = sweep_core.init_state(
+                width, self.n_servers, self.cores_per_server,
+                self.n_servers, self.n_groups, max(n_slots, 1), np_dt)[:4]
+            state += (sweep_core.init_fail_state(width, self.n_groups),)
+            fc, um, up, slots, down = (torch.from_numpy(a).to(self.device)
+                                       for a in state)
+            sgb, pgb = (torch.from_numpy(a[lo:hi].reshape(-1).astype(np_dt))
+                        .to(self.device) for a in (sgb_i, pgb_i))
+            res = fail_ops.fail_sweep(
+                *(e[starts[lo]:] for e in evs), group_of, fc, um, up, slots,
+                down, sgb, pgb, mitigation=mitigation,
+                trace_events=counts[lo:hi])
+            out[:, lo:hi] = res.cpu().numpy().reshape(5, hi - lo, n0)
+            _TIMES.sweeps.append((width, dt_name))
+        _STATS.sweeps += 1
+        _STATS.events += int(self.n_events.max(initial=0))
+        _STATS.candidate_events += int(self.n_events.sum()) * n0
+        _STATS.wall_s += time.perf_counter() - t0
+        _TIMES.sweep_s += time.perf_counter() - t0
+        return _counters_result(out, self.n_vms, n_fail, None, mitigation)
 
 
 # ---------------------------------------------------------------- search ---

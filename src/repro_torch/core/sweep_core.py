@@ -12,7 +12,9 @@ surrounds the sweep on the host — numpy, copied from the reference's
   packs to int16 exactly when no intermediate can overflow;
 * :func:`quantize_capacities`, :func:`init_state`, :func:`assign_slots`;
 * :func:`get_sweep`, which hands out K1's launcher for a state dtype,
-  one trace or a batch of traces (K1's trace axis).
+  one trace or a batch of traces (K1's trace axis);
+* the failure layer's :data:`MITIGATIONS` and :func:`init_fail_state`
+  (the failure sweep itself is kernel K5, ``kernels/fail_sweep``).
 
 The reference pads candidates to buckets, events to multiples of 256 and
 servers, groups and slots to multiples of 16/16/32, so that XLA compiles
@@ -66,6 +68,19 @@ def get_sweep(state_dtype: str = "int32", *, with_carry: bool = False,
         return ops.event_sweep(*events, group_of, fc, um, up, slots, sgb,
                                pgb)
     return sweep
+
+
+# ------------------------------------------------------------ failure sweep --
+MITIGATIONS = ("remigrate", "kill")
+
+
+def init_fail_state(width: int, n_groups: int) -> np.ndarray:
+    """The failure sweep's extra state, all up: the (width, n_groups) int32
+    down flags, a row a lane.  (The reference's also holds each slot's
+    payload, shared across lanes; K5 finds a slot's payload through the
+    index of its ARRIVE, kept in a per-lane scratch column that the wrapper
+    allocates, so the slots must start empty.)"""
+    return np.zeros((width, n_groups), np.int32)
 
 
 # ------------------------------------------------------------- state rules --

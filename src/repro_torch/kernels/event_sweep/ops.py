@@ -74,17 +74,21 @@ def trace_starts(trace_events) -> list[int]:
     return starts
 
 
-def pack_traces(streams, device=None):
+def pack_traces(streams, device=None, fills=None):
     """Event streams (each six 1-D int arrays or tensors: kind, slot,
     cores, local, pool, mem) one after another as the trace axis of
     :func:`event_sweep` takes them: six int32 tensors on ``device`` (the
     CPU when None), each trace from its :func:`trace_starts` offset and PAD
-    events (a no-op) in the gaps, and the streams' event counts."""
+    events (a no-op) in the gaps, and the streams' event counts.  Streams
+    of more arrays (the failure sweep's eight) take the value of each
+    array's gaps from ``fills`` (default: PAD for the kind, else 0)."""
     counts = [len(ev[0]) for ev in streams]
     starts = trace_starts(counts + [0])
+    n_cols = len(streams[0])
+    fills = fills or (PAD,) + (0,) * (n_cols - 1)
     cols = []
-    for j in range(6):
-        col = torch.full((starts[-1],), PAD if j == 0 else 0,
+    for j in range(n_cols):
+        col = torch.full((starts[-1],), fills[j],
                          dtype=torch.int32, device=device)
         for ev, e0 in zip(streams, starts):
             col[e0:e0 + len(ev[j])] = torch.as_tensor(ev[j]).to(col.device)
@@ -92,22 +96,23 @@ def pack_traces(streams, device=None):
     return tuple(cols), counts
 
 
-def _trace_layout(trace_events, n_events: int, n_lanes: int):
+def trace_layout(trace_events, n_events: int, n_lanes: int,
+                 what: str = "event_sweep"):
     """(starts, counts) of the trace axis, checked against the event
-    arrays' length and the lanes."""
+    arrays' length and the lanes (``what`` names the caller in errors)."""
     if trace_events is None:
         return [0], [n_events]
     counts = [int(n) for n in trace_events]
     n_traces = len(counts)
     if not 1 <= n_traces <= K.MAX_TRACES or min(counts) < 0:
-        raise ValueError(f"event_sweep: 1 to {K.MAX_TRACES} traces of >= 0 "
+        raise ValueError(f"{what}: 1 to {K.MAX_TRACES} traces of >= 0 "
                          f"events, got {counts[:8]}")
     if n_lanes % n_traces:
-        raise ValueError(f"event_sweep: {n_lanes} lanes do not split into "
+        raise ValueError(f"{what}: {n_lanes} lanes do not split into "
                          f"{n_traces} traces")
     starts = trace_starts(counts)
     if starts[-1] + counts[-1] > n_events:
-        raise ValueError(f"event_sweep: the traces need "
+        raise ValueError(f"{what}: the traces need "
                          f"{starts[-1] + counts[-1]} events, the arrays "
                          f"hold {n_events}")
     return starts, counts
@@ -140,7 +145,7 @@ def event_sweep(kind, slot, cores, local, pool, mem, group_of, fc, um, up,
         rejects = torch.zeros(fc.shape[0], dtype=torch.int32,
                               device=fc.device)
     _check(events, group_of, fc, um, up, slots, sgb, pgb, rejects)
-    starts, counts = _trace_layout(trace_events, kind.shape[0], fc.shape[0])
+    starts, counts = trace_layout(trace_events, kind.shape[0], fc.shape[0])
     if variant is not None and variant not in K.VARIANTS:
         raise ValueError(f"event_sweep: variant {variant!r} is not one of "
                          f"{sorted(K.VARIANTS)}")

@@ -20,6 +20,7 @@ def _port_files():
              os.path.join(REPO, "examples", "torch_cluster_savings.py"),
              os.path.join(REPO, "examples", "torch_fig21_savings.py"),
              os.path.join(REPO, "examples", "torch_fig16_spill.py"),
+             os.path.join(REPO, "examples", "torch_fig_availability.py"),
              os.path.join(REPO, "scripts", "torch_profile_decode.py"),
              os.path.join(REPO, "scripts", "torch_k1_ab.py")]
     for root, _, names in os.walk(PORT):
@@ -71,11 +72,11 @@ def test_port_mirrors_the_reference_layout():
         assert os.path.isfile(os.path.join(PORT, rel)), rel
         assert os.path.isfile(os.path.join(REPO, "src", "repro", rel)), rel
     for name in ("paged_attention.cu", "flash_attention.cu",
-                 "event_sweep.cu", "spill_sweep.cu"):
+                 "event_sweep.cu", "spill_sweep.cu", "fail_sweep.cu"):
         assert os.path.isfile(os.path.join(PORT, "csrc", name)), name
-    # K1 and K6 replace lax.scans, not Pallas kernels: their modules have
-    # no counterpart path in the reference
-    for kernel in ("event_sweep", "spill_sweep"):
+    # K1, K5 and K6 replace lax.scans, not Pallas kernels: their modules
+    # have no counterpart path in the reference
+    for kernel in ("event_sweep", "spill_sweep", "fail_sweep"):
         for name in ("kernel.py", "ops.py", "ref.py", "cases.py"):
             assert os.path.isfile(os.path.join(PORT, "kernels", kernel,
                                                name)), (kernel, name)
@@ -139,6 +140,14 @@ def test_entry_points_refuse_to_run_without_a_card():
         os.path.join(REPO, "examples", "torch_fig16_spill.py"))
     fig16 = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(fig16)
+    spec = importlib.util.spec_from_file_location(
+        "torch_fig_availability",
+        os.path.join(REPO, "examples", "torch_fig_availability.py"))
+    fig_avail = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fig_avail)
+    from repro_torch.runtime.fault import FailureSchedule
+    schedule = FailureSchedule(np.zeros(0), np.zeros(0, np.int64),
+                               np.zeros(0, bool))
     leaf = Tree(np.array([-1], np.int32), np.zeros(1, np.float32),
                 np.zeros(1, np.int32), np.zeros(1, np.int32),
                 np.zeros(1, np.float32), 0)
@@ -147,6 +156,9 @@ def test_entry_points_refuse_to_run_without_a_card():
     cluster = cluster_sim.ClusterConfig(n_servers=8)
     for call in (lambda: resolve_device(None),
                  lambda: CompiledReplay([], empty, cluster),
+                 lambda: CompiledReplay([], empty, cluster,
+                                        failure_schedule=schedule),
+                 lambda: fig_avail.main(["--servers", "2"]),
                  lambda: cluster_sim.savings_analysis([], cluster, "local"),
                  lambda: cluster_sim.savings_analysis_batched([[]], cluster,
                                                               "local"),
@@ -185,7 +197,9 @@ def test_cuda_tensor_path_never_falls_back_in_source():
                 "kernels/event_sweep/ops.py",
                 "kernels/event_sweep/kernel.py",
                 "kernels/spill_sweep/ops.py",
-                "kernels/spill_sweep/kernel.py"):
+                "kernels/spill_sweep/kernel.py",
+                "kernels/fail_sweep/ops.py",
+                "kernels/fail_sweep/kernel.py"):
         with open(os.path.join(PORT, rel)) as f:
             tree = ast.parse(f.read())
         assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], rel

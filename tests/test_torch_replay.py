@@ -14,6 +14,7 @@ from repro_torch.core import cluster_sim as cs
 from repro_torch.core import replay_engine as re
 from repro_torch.core import traces
 from repro_torch.core.policy_engine import PolicyDecisions
+from repro_torch.runtime.fault import FailureSchedule
 from tests._torch_port_util import (PORT_WORLD_CFG, POOL, SERVER, WORLD_CFG,
                                     port_world)
 
@@ -172,9 +173,17 @@ def test_non_integral_decisions_and_failure_schedules_raise():
     assert not eng._exact
     with pytest.raises(NotImplementedError, match="M1b"):
         eng.reject_rates(SERVER, POOL)
-    with pytest.raises(NotImplementedError, match="M10"):
-        re.CompiledReplay(pvms, pdec, PORT_WORLD_CFG, failure_schedule=[1],
-                          device="cpu")
+    # failure schedules (M10) are ported: on non-integral decisions their
+    # device sweep refuses as reject_rates does; the scalar oracle prices
+    # them
+    sched = FailureSchedule.generate(4 * 86400, PORT_WORLD_CFG.n_groups,
+                                     4 * 3600.0, 1800.0, seed=0)
+    eng_f = re.CompiledReplay(pvms, half, PORT_WORLD_CFG,
+                              failure_schedule=sched, device="cpu")
+    with pytest.raises(NotImplementedError, match="M1b"):
+        eng_f.availability(SERVER, POOL)
+    res = eng_f.availability(SERVER[:1], POOL[:1], backend="oracle")
+    assert res.affected.shape == (1,) and res.n_failures == sched.n_failures
     with pytest.raises(ValueError, match="align"):
         re.CompiledReplay(pvms, pdec.slice(0, 5), PORT_WORLD_CFG,
                           device="cpu")
