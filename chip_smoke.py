@@ -35,6 +35,12 @@ PyTorch version on the card, and drives the port's three paths:
   cluster row and trace: ``benchmarks/fig_availability.py``'s
   savings-vs-availability frontier (four failure rates x six DRAM sizes,
   both mitigations) and one trace's per-failure distribution, held to the
+  reference's results;
+* Pond's fleet topologies (``CompiledReplay.reject_rates_fleet`` and
+  ``CompiledReplayBatch.reject_rates_fleet``, the pod sweep K4) on the same
+  cluster row and trace: ``benchmarks/fig_topology.py``'s full frontier
+  (six DRAM sizes x four pool budgets x eight pod topologies at equal pool
+  hardware) in one launch, and over three traces in one more, held to the
   reference's results.
 
 Each path is driven with the kernels' launch counts set to 0 just before
@@ -342,6 +348,114 @@ AVAIL_FULL_WANT_SINGLE = dict(
 # (FAIL, slot, lane) — reading each slot of the lane's column once, the
 # least a FAIL pass does to find the affected VMs
 K5_OPS_PER_FAIL_SLOT_LANE = 1
+# Pond's fleet topologies at full width (``TOPO_FULL``):
+# benchmarks/fig_topology.py --full widened to PROV_FULL's row and trace (256
+# servers, 16-socket pools, 4.75 GB a core, 7 days, trace seed 2) with its
+# static 0.25 decisions; its eight topologies at 256 servers (partitioned
+# pods of 4 and 8, one pool, overlapping rows of 2 and 3, sparse rows of 2
+# over 4 and 6 pods, sparse rows of 3 with orphan servers: up to 64 pods,
+# rows of up to 3), six server sizes (1.0 ... 0.5 of 304 GB) and four pool
+# totals (ceil(f x 15,057) GB, f = 0.125, 0.25, 0.5, 1.0; 15,057 GB the peak
+# pool demand), split over each topology's pods: 6 x 4 x 8 = 192 lanes in
+# one K4 launch; the same grid over trace seeds 2, 3, 4 (POND_BATCH_FULL's)
+# in one CompiledReplayBatch launch.  The scalar oracle prices the tightest
+# corner (0.5 of the DRAM, the 1,883 GB pool) of every topology.
+TOPO_FULL = dict(seeds=(2, 3, 4), static_pool_frac=0.25,
+                 oracle_corner=(0.5, 1883.0))
+# The reference's reject counts for it (rate x VMs; 44,862, 44,862 and
+# 44,862 VMs), from the JAX package on a CPU:
+#   PYTHONPATH=src:. JAX_PLATFORMS=cpu python -c "
+#   import numpy as np
+#   from benchmarks.fig_topology import _topologies, _grid
+#   from repro.core import cluster_sim as cs, traces, replay_engine as re
+#   cfg = cs.ClusterConfig(n_servers=256, pool_sockets=16, gb_per_core=4.75)
+#   h = 7 * 86400; n = cs.arrivals_for_util(cfg, 0.8, h)
+#   pop = traces.Population(seed=0)
+#   vl = [pop.sample_vms(n, h, seed=s, start_id=10**6) for s in (2, 3, 4)]
+#   e = [re.CompiledReplay(v, cs.policy_decisions(
+#            v, 'static', static_pool_frac=0.25)[0], cfg) for v in vl]
+#   peak = float(np.ceil(e[0].peak_pool_demand()))
+#   sgb, caps, topos, _ = _grid(_topologies(256, False),
+#                               [1.0, .9, .8, .7, .6, .5],
+#                               [np.ceil(f * peak)
+#                                for f in (.125, .25, .5, 1.)], 304.0)
+#   r = e[0].reject_rates_fleet(sgb, caps, topos, backend='jax')
+#   print(np.rint(r * n).astype(int).tolist())
+#   r = re.CompiledReplayBatch(e).reject_rates_fleet(sgb, caps, topos,
+#                                                    backend='jax')
+#   print(np.rint(r * n).astype(int).tolist())"
+#   (lane = DRAM size x 32 + pool total x 8 + topology, in those orders)
+TOPO_FULL_WANT = dict(
+    single=[
+        254, 254, 253, 254, 253, 254, 253, 253, 254, 252, 252, 254,
+        252, 254, 252, 252, 246, 244, 215, 246, 241, 246, 238, 241,
+        49, 19, 0, 40, 1, 44, 3, 129, 254, 254, 254, 254,
+        254, 254, 254, 254, 254, 254, 254, 254, 254, 254, 254, 254,
+        254, 254, 254, 254, 254, 254, 254, 254, 254, 254, 254, 254,
+        254, 254, 254, 254, 929, 929, 925, 929, 925, 929, 925, 925,
+        929, 922, 919, 929, 921, 929, 922, 922, 894, 887, 765, 895,
+        837, 894, 865, 840, 259, 254, 254, 254, 254, 254, 254, 373,
+        929, 935, 945, 932, 944, 933, 934, 935, 929, 922, 919, 929,
+        922, 931, 922, 922, 895, 891, 765, 893, 843, 894, 858, 847,
+        258, 254, 254, 255, 254, 260, 254, 572, 1656, 1667, 1704, 1697,
+        1744, 1693, 1710, 1732, 1555, 1561, 1554, 1562, 1605, 1573, 1599, 1635,
+        1483, 1472, 1306, 1485, 1378, 1477, 1398, 1390, 929, 929, 929, 929,
+        929, 929, 929, 1176, 2346, 2354, 2475, 2369, 2407, 2369, 2374, 2446,
+        1971, 1981, 2038, 1930, 2068, 1970, 2031, 2108, 1689, 1615, 1474, 1667,
+        1544, 1643, 1566, 1583, 1017, 1017, 1017, 1017, 1017, 1017, 1017, 1455,
+    ],
+    batch=[[
+        254, 254, 253, 254, 253, 254, 253, 253, 254, 252, 252, 254,
+        252, 254, 252, 252, 246, 244, 215, 246, 241, 246, 238, 241,
+        49, 19, 0, 40, 1, 44, 3, 129, 254, 254, 254, 254,
+        254, 254, 254, 254, 254, 254, 254, 254, 254, 254, 254, 254,
+        254, 254, 254, 254, 254, 254, 254, 254, 254, 254, 254, 254,
+        254, 254, 254, 254, 929, 929, 925, 929, 925, 929, 925, 925,
+        929, 922, 919, 929, 921, 929, 922, 922, 894, 887, 765, 895,
+        837, 894, 865, 840, 259, 254, 254, 254, 254, 254, 254, 373,
+        929, 935, 945, 932, 944, 933, 934, 935, 929, 922, 919, 929,
+        922, 931, 922, 922, 895, 891, 765, 893, 843, 894, 858, 847,
+        258, 254, 254, 255, 254, 260, 254, 572, 1656, 1667, 1704, 1697,
+        1744, 1693, 1710, 1732, 1555, 1561, 1554, 1562, 1605, 1573, 1599, 1635,
+        1483, 1472, 1306, 1485, 1378, 1477, 1398, 1390, 929, 929, 929, 929,
+        929, 929, 929, 1176, 2346, 2354, 2475, 2369, 2407, 2369, 2374, 2446,
+        1971, 1981, 2038, 1930, 2068, 1970, 2031, 2108, 1689, 1615, 1474, 1667,
+        1544, 1643, 1566, 1583, 1017, 1017, 1017, 1017, 1017, 1017, 1017, 1455,
+    ], [
+        248, 248, 245, 248, 245, 248, 245, 245, 248, 245, 245, 248,
+        245, 248, 245, 245, 240, 239, 213, 240, 233, 239, 236, 236,
+        8, 0, 0, 6, 0, 7, 0, 124, 248, 248, 248, 248,
+        248, 248, 248, 248, 248, 248, 248, 248, 248, 248, 248, 248,
+        248, 248, 248, 248, 248, 248, 248, 248, 248, 248, 248, 248,
+        248, 248, 248, 248, 866, 866, 862, 866, 863, 866, 863, 863,
+        866, 859, 851, 866, 859, 866, 858, 858, 830, 825, 714, 830,
+        782, 831, 796, 784, 248, 248, 248, 248, 248, 248, 248, 379,
+        866, 866, 870, 868, 866, 866, 869, 866, 866, 859, 851, 866,
+        859, 866, 858, 859, 830, 825, 714, 830, 779, 830, 788, 780,
+        248, 248, 248, 248, 248, 248, 248, 557, 1598, 1644, 1719, 1613,
+        1714, 1633, 1672, 1719, 1512, 1511, 1527, 1523, 1561, 1530, 1564, 1559,
+        1467, 1449, 1265, 1463, 1354, 1465, 1377, 1349, 866, 866, 866, 866,
+        866, 866, 866, 1139, 2432, 2479, 2556, 2532, 2594, 2525, 2578, 2563,
+        2035, 2034, 2144, 2053, 2144, 2044, 2136, 2191, 1670, 1625, 1450, 1635,
+        1479, 1631, 1529, 1545, 921, 921, 921, 921, 921, 921, 921, 1390,
+    ], [
+        303, 303, 301, 303, 301, 303, 301, 301, 303, 298, 297, 303,
+        298, 303, 298, 298, 297, 297, 262, 297, 290, 297, 292, 291,
+        34, 3, 0, 28, 0, 20, 0, 158, 303, 303, 303, 303,
+        303, 303, 303, 303, 303, 303, 303, 303, 303, 303, 303, 303,
+        303, 303, 303, 303, 303, 303, 303, 303, 303, 303, 303, 303,
+        303, 303, 303, 303, 921, 921, 918, 921, 919, 921, 919, 919,
+        921, 916, 907, 921, 913, 921, 913, 913, 890, 889, 773, 889,
+        856, 892, 850, 848, 303, 303, 303, 303, 303, 303, 303, 435,
+        921, 921, 923, 922, 920, 921, 923, 922, 921, 916, 907, 921,
+        913, 921, 914, 915, 891, 885, 773, 890, 852, 890, 860, 850,
+        303, 303, 303, 303, 303, 303, 303, 650, 1669, 1682, 1792, 1702,
+        1807, 1736, 1821, 1830, 1534, 1540, 1579, 1535, 1608, 1561, 1588, 1635,
+        1487, 1475, 1281, 1481, 1384, 1479, 1406, 1364, 921, 921, 921, 921,
+        921, 921, 921, 1191, 2525, 2598, 2696, 2582, 2663, 2561, 2656, 2627,
+        2195, 2197, 2234, 2175, 2276, 2154, 2302, 2326, 1756, 1715, 1575, 1703,
+        1586, 1689, 1612, 1586, 1004, 1004, 1004, 1004, 1004, 1004, 1004, 1430,
+    ]])
 SERVE_ARGS = ["--arch", "qwen2-1.5b", "--full", "--dtype", "bfloat16",
               "--requests", "16", "--max-batch", "8", "--page-size", "16",
               "--local-pages", "256", "--pool-pages", "1024",
@@ -360,11 +474,13 @@ def phase_build():
     from repro_torch.kernels.fail_sweep import kernel as K5
     from repro_torch.kernels.flash_attention import kernel as K3
     from repro_torch.kernels.paged_attention import kernel as K2
+    from repro_torch.kernels.pod_sweep import kernel as K4
     from repro_torch.kernels.spill_sweep import kernel as K6
     t0 = time.perf_counter()
-    build.build_libraries([K2.NAME, K3.NAME, K1.NAME, K6.NAME, K5.NAME])
+    build.build_libraries([K2.NAME, K3.NAME, K1.NAME, K6.NAME, K5.NAME,
+                           K4.NAME])
     seconds = time.perf_counter() - t0
-    for K in (K2, K3, K1, K6, K5):
+    for K in (K2, K3, K1, K6, K5, K4):
         K.build()                                   # load and bind
         with open(f"{build.library_path(K.NAME)}.log") as f:
             log = f.read()
@@ -376,8 +492,9 @@ def phase_build():
              flags=" ".join(build.NVCC_FLAGS), instantiations=len(regs),
              registers=regs, max_registers=max(regs), spill_stores=spills,
              spill_store_bytes=sum(spills))
-        if K in (K1, K5):
-            # registers, stack frame and spills of every K1 or K5 variant
+        if K in (K1, K5, K4):
+            # registers, stack frame and spills of every K1, K5 or K4
+            # variant
             report = K.ptxas_report(log)
             emit("build_variants", kernel=K.NAME, variants=report,
                  registers_variants_without_stack_or_spills=all(
@@ -3197,6 +3314,634 @@ def phase_availability_full(dev):
     return launches
 
 
+# ------------------------------------------- the fleet topologies (K4, M9) --
+_TOPO = {}
+
+
+def _fig_topology():
+    """``examples/torch_fig_topology.py`` of this checkout (the grid, the
+    axes and the benchmark's claims), loaded once."""
+    if "example" not in _TOPO:
+        import importlib.util
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "examples", "torch_fig_topology.py")
+        spec = importlib.util.spec_from_file_location("torch_fig_topology",
+                                                      path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _TOPO["example"] = mod
+    return _TOPO["example"]
+
+
+def _topo_inputs():
+    """``TOPO_FULL``'s cluster, traces (``PROV_FULL``'s row, trace seeds 2,
+    3, 4: ``POND_BATCH_FULL``'s, sampled once) and static decisions, made
+    once."""
+    if "vms_list" not in _TOPO:
+        from repro_torch.core import cluster_sim, traces
+        cfg, vms2, _ = _full_trace()
+        horizon = PROV_FULL["days"] * 86400
+        n = cluster_sim.arrivals_for_util(cfg, 0.8, horizon)
+        pop = traces.Population(seed=0)
+        have = dict(zip(POND_BATCH_FULL["seeds"], _POND["vms_list"])) \
+            if _POND else {PROV_FULL["seed"]: vms2}
+        vms_list = [have[s] if s in have else
+                    pop.sample_vms(n, horizon, seed=s, start_id=10 ** 6)
+                    for s in TOPO_FULL["seeds"]]
+        decs = [cluster_sim.policy_decisions(
+            v, "static", static_pool_frac=TOPO_FULL["static_pool_frac"],
+            as_arrays=True)[0] for v in vms_list]
+        _TOPO.update(cfg=cfg, vms_list=vms_list, decs=decs)
+    return _TOPO
+
+
+def _topo_grid(peak_pool, n_servers, full_gb):
+    """``TOPO_FULL``'s lanes: fig_topology's full axes and topologies on
+    the row; (sgb, caps, lane topologies, meta, DRAM fractions, pool
+    totals, topologies)."""
+    ex = _fig_topology()
+    dram_fracs, pool_totals = ex.axes(peak_pool, quick=False)
+    topos = ex.topologies(n_servers, quick=False)
+    sgb, caps, lane_topos, meta = ex.grid(topos, dram_fracs, pool_totals,
+                                          full_gb)
+    return sgb, caps, lane_topos, meta, dram_fracs, pool_totals, topos
+
+
+def _k4_state(n_slots, n_servers, cores, lanes, state_dtype, dev):
+    """K4's incidence and all-free state on ``dev`` for lanes (sgb, pgb,
+    inc)."""
+    from repro_torch.core import sweep_core
+    sgb, pgb, inc = lanes
+    np_dt = sweep_core.state_np_dtype(state_dtype)
+    st = sweep_core.init_pod_state(len(sgb), n_servers, cores, n_servers,
+                                   pgb.shape[1], n_slots, np_dt)[:5]
+    st += (np.asarray(sgb).astype(np_dt), np.asarray(pgb).astype(np_dt))
+    return (torch.from_numpy(np.ascontiguousarray(inc, np.int32)).to(dev),
+            tuple(torch.from_numpy(a).to(dev) for a in st))
+
+
+def _k4_inputs(ev, n_slots, n_servers, cores, lanes, state_dtype, dev):
+    """K4's arguments on ``dev``: the six event arrays, the incidence and
+    the all-free state for lanes (sgb, pgb, inc)."""
+    from repro_torch.kernels.pod_sweep.cases import EVENT_KEYS
+    events = tuple(torch.from_numpy(np.ascontiguousarray(ev[k], np.int32))
+                   .to(dev) for k in EVENT_KEYS)
+    return (events,) + _k4_state(n_slots, n_servers, cores, lanes,
+                                 state_dtype, dev)
+
+
+def _k4_run(kernel, events, inc, state, trace_events=None,
+            slot_column=None):
+    """K4 (``kernel``, through its wrapper) or its plain version on a copy
+    of ``state``: [fc, um, up, slots, pods, rejects]."""
+    from repro_torch.kernels.event_sweep.ops import trace_layout
+    from repro_torch.kernels.pod_sweep import ops
+    from repro_torch.kernels.pod_sweep.ref import pod_sweep_ref
+    st = [t.clone() for t in state]
+    rej = torch.zeros(st[0].shape[0], dtype=torch.int32, device=st[0].device)
+    if kernel:
+        ops.pod_sweep(*events, inc, *st, rej, trace_events=trace_events,
+                      slot_column=slot_column)
+    else:
+        starts, counts = trace_layout(trace_events, events[0].shape[0],
+                                      st[0].shape[0])
+        pod_sweep_ref(*events, inc, *st, rej, starts, counts)
+    torch.cuda.synchronize()
+    return st[:5] + [rej]
+
+
+def _k4_compare(name, got, want):
+    """Max |got - want| over the final state; exits unless all equal."""
+    from repro_torch.kernels.pod_sweep import ops
+    err = max(int((a.long() - b.long()).abs().max()) for a, b in
+              zip(got, want))
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise SystemExit(f"pod_sweep {name} {ops.last_plan}: the kernel's "
+                         "final state differs from its plain version's")
+    return err
+
+
+def _k4_checks(dev):
+    """K4 against its plain version on the card, ``==`` on the whole final
+    state and the rejects: the edge stream's lanes (a double MIGRATE,
+    fallback MIGRATEs to the first pod, negative used pool, orphan servers,
+    a pod without members), int16 state at its bounds, pod ids at the
+    int16 bound, seeded streams over 4-500 servers, 1-300 lanes and rows of
+    1-3 pods (each lane its own topology), in both state types, the slot and
+    pod columns where the plan puts them and in global memory; then the
+    trace axis (three streams of other lengths, 5 lanes a trace).  Returns
+    (checked, max_abs_err)."""
+    from repro_torch.kernels.event_sweep.ops import pack_traces
+    from repro_torch.kernels.pod_sweep import cases, ops
+    from repro_torch.kernels.pod_sweep.cases import EVENT_KEYS
+    rng = np.random.default_rng(20)
+    runs = [("edges", *cases.edge_stream(), cases.EDGE_SHAPE,
+             cases.edge_lanes(), ("int16", "int32")),
+            ("int16_bounds", *cases.bounds_stream(), cases.BOUNDS_SHAPE,
+             cases.bounds_lanes(), ("int16", "int32"))]
+    ev, n_slots = cases.random_stream(rng, 200)
+    runs.append(("pod_id_bound", ev, n_slots, dict(n_servers=8, cores=64),
+                 cases.pod_bound_lanes(rng, 3, 8, 64), ("int16",)))
+    # fewer servers than a warp, 33 (two a thread), one lane, 300 lanes
+    # (three a block), 256 (the row's K 8) and 500 servers (K 16)
+    for s, n_lanes, fanout, n_vms in ((4, 5, 2, 200), (8, 12, 3, 200),
+                                      (33, 9, 3, 300), (7, 1, 1, 200),
+                                      (64, 300, 3, 300), (256, 16, 3, 900),
+                                      (256, 24, 1, 900), (500, 16, 3, 900)):
+        ev, n_slots = cases.random_stream(rng, n_vms)
+        runs.append((f"S{s}_lanes{n_lanes}_F{fanout}", ev, n_slots,
+                     dict(n_servers=s, cores=64),
+                     cases.random_lanes(rng, n_lanes, s, 64, fanout),
+                     ("int16", "int32")))
+    checked, max_err = [], 0
+    for name, ev, n_slots, shape, lanes, dts in runs:
+        for dt in dts:
+            events, inc, state = _k4_inputs(ev, n_slots, shape["n_servers"],
+                                            shape["cores"], lanes, dt, dev)
+            want = _k4_run(False, events, inc, state)
+            for column in (None, "global"):
+                got = _k4_run(True, events, inc, state, slot_column=column)
+                max_err = max(max_err, _k4_compare(f"{name} {dt}", got,
+                                                   want))
+                checked.append(dict(
+                    case=name, state_dtype=dt,
+                    plan=dataclasses.asdict(ops.last_plan),
+                    servers=shape["n_servers"], lanes=len(lanes[0]),
+                    pods=lanes[1].shape[1], fanout=lanes[2].shape[2],
+                    events=len(ev["kind"]), rejects=int(want[5].sum()),
+                    min_used_pool=int(want[2].min())))
+    # the trace axis: three streams, 5 lanes a trace, the grid's incidence
+    # a copy a trace
+    streams = [cases.random_stream(rng, n) for n in (220, 150, 260)]
+    cols, counts = pack_traces([tuple(ev[k] for k in EVENT_KEYS)
+                                for ev, _ in streams], dev)
+    n_slots = max(n for _, n in streams)
+    sgb, pgb, inc = cases.random_lanes(rng, 5, 8, 64)
+    tiled = (np.tile(sgb, 3), np.tile(pgb, (3, 1)), np.tile(inc, (3, 1, 1)))
+    for dt in ("int16", "int32"):
+        _, inc_t, state = _k4_inputs(streams[0][0], n_slots, 8, 64, tiled,
+                                     dt, dev)
+        want = _k4_run(False, cols, inc_t, state, trace_events=counts)
+        for column in (None, "global"):
+            got = _k4_run(True, cols, inc_t, state, trace_events=counts,
+                          slot_column=column)
+            max_err = max(max_err, _k4_compare(f"trace axis {dt}", got,
+                                               want))
+            checked.append(dict(case="trace_axis_3", state_dtype=dt,
+                                plan=dataclasses.asdict(ops.last_plan),
+                                trace_events=counts,
+                                rejects=int(want[5].sum())))
+    return checked, max_err
+
+
+def _k4_timed(evs, inc, n_servers, cores, n_slots, sgb_i, pgb_i, np_dt,
+              counts, clock_mhz, reps=5):
+    """K4's kernel function itself (no wrapper checks) over ``evs``: one
+    trace, or the trace axis as ``ops.pack_traces`` lays it out, with
+    ``counts`` the traces' event counts and ``inc`` (the lanes' incidence,
+    every trace's) on the card; the lanes (sgb_i, pgb_i) in each trace.
+    One warm-up, then ``reps`` runs on fresh state timed by ``_card_ms``.
+    Returns dict(ms, plan, the warm-up's rejects)."""
+    from repro_torch.core import sweep_core
+    from repro_torch.kernels.event_sweep.ops import trace_starts
+    from repro_torch.kernels.pod_sweep import kernel as K4
+    dev = inc.device
+    k, width = len(counts), len(counts) * len(sgb_i)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = K4.plan(len(sgb_i), n_servers, inc.shape[2], n_slots,
+                   np.dtype(np_dt).itemsize, sms, k)
+    st = sweep_core.init_pod_state(width, n_servers, cores, n_servers,
+                                   pgb_i.shape[1], n_slots, np_dt)[:5]
+    st += (np.tile(sgb_i, k).astype(np_dt),
+           np.tile(pgb_i, (k, 1)).astype(np_dt))
+    states = [[torch.from_numpy(a.copy()).to(dev) for a in st]
+              for _ in range(reps + 1)]
+    rejs = [torch.zeros(width, dtype=torch.int32, device=dev)
+            for _ in range(reps + 1)]
+    starts = trace_starts(counts)
+
+    def run(i):
+        K4.pod_sweep_kernel(evs, inc, *states[i], rejs[i], plan=plan,
+                            trace_starts=starts, trace_counts=counts)
+    run(0)
+    torch.cuda.synchronize()
+    res = dict(rejects=rejs[0].cpu().numpy(), plan=dataclasses.asdict(plan))
+    res["ms"] = _card_ms([lambda i=i: run(i) for i in range(1, reps + 1)],
+                         clock_mhz, "pod_sweep")
+    return res
+
+
+def _k1_timed(evs, group_of, n_servers, n_groups, cores, n_slots, sgb_i,
+              pgb_i, np_dt, clock_mhz, reps=5):
+    """K1 through its wrapper on fresh state a run, timed as
+    ``_k4_timed``: dict(ms, plan, the warm-up's rejects)."""
+    from repro_torch.core import sweep_core
+    from repro_torch.kernels.event_sweep import ops
+    st = sweep_core.init_state(len(sgb_i), n_servers, cores, n_servers,
+                               n_groups, n_slots, np_dt)[:4]
+    st += (sgb_i.astype(np_dt), pgb_i.astype(np_dt))
+    states = [[torch.from_numpy(a.copy()).to(group_of.device) for a in st]
+              for _ in range(reps + 1)]
+
+    def run(i):
+        return ops.event_sweep(*evs, group_of, *states[i])
+    rej = run(0).cpu().numpy()
+    ms = _card_ms([lambda i=i: run(i) for i in range(1, reps + 1)],
+                  clock_mhz, "event_sweep")
+    return dict(ms=ms, plan=dataclasses.asdict(ops.last_plan), rejects=rej)
+
+
+def phase_kernels_pod(dev):
+    """K4 against its plain version on the card (``_k4_checks``, and
+    2,048-event cuts of ``TOPO_FULL`` through the wrapper, one trace x 192
+    lanes and the seed batch's 3 x 192); at full width its time a sweep by
+    ``_k4_timed`` — the 192 lanes of ``TOPO_FULL``, 16 lanes of
+    partitioned(256, 8) and of single_pool(256), the batched 3 x 192 — each
+    beside K1 on the same stream and lanes (the partitioned and 1-pod lanes
+    at capacities K1 prices too, where both must give equal rejects), ns an
+    event, the bound; the plain version on a cut; registers and spills."""
+    from repro_torch.core import sweep_core, topology
+    from repro_torch.core.replay_engine import (CompiledReplay,
+                                                CompiledReplayBatch,
+                                                _fleet_candidates,
+                                                _fleet_capacities,
+                                                _fleet_incidence)
+    from repro_torch.kernels import build
+    from repro_torch.kernels.event_sweep import ops as k1_ops
+    from repro_torch.kernels.pod_sweep import kernel as K4
+    from repro_torch.kernels.pod_sweep import ops
+    checked, max_err = _k4_checks(dev)
+
+    inp = _topo_inputs()
+    cfg = inp["cfg"]
+    n_srv, n_grp, cores = cfg.n_servers, cfg.n_groups, cfg.cores_per_server
+    engines = [CompiledReplay(v, d, cfg, device=dev)
+               for v, d in zip(inp["vms_list"], inp["decs"])]
+    eng = engines[0]
+    evs, group_of, n_slots = eng._device_events()
+    peak = float(np.ceil(eng.peak_pool_demand()))
+    full_gb = cfg.gb_per_core * cores
+    sgb, caps, lane_topos, _, dram_fracs, pool_totals, _ = _topo_grid(
+        peak, n_srv, full_gb)
+    inc_np, p_max = _fleet_incidence(lane_topos, n_srv)
+    sgb_i, caps_i = _fleet_capacities(
+        *_fleet_candidates(sgb, caps, lane_topos)[:2])
+    dt = eng._pick_pod_state_dtype(sgb_i, caps_i, p_max)
+    np_dt = sweep_core.state_np_dtype(dt)
+    item = np.dtype(np_dt).itemsize
+    n_ev = eng.n_events
+    n_arrive = int((evs[0] == sweep_core.ARRIVE).sum())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock_mhz = float(_smi("clocks.max.sm"))
+    int32_rate = sms * INT32_LANES_PER_SM * clock_mhz * 1e6
+
+    def bound(arrivals, fanouts, n_events, n_slots, n_traces=1):
+        # ``arrivals``: each trace's ARRIVE events; ``fanouts``: each lane's
+        # pods a row (its topology's), the lanes of one trace
+        width = n_traces * len(fanouts)
+        ops_ = (sum(arrivals) * n_srv
+                * sum(K1_OPS_PER_ARRIVE_SERVER + f for f in fanouts))
+        state = (2 * width * n_srv + width * p_max
+                 + 2 * n_slots * width) * item
+        nbytes = (24 * n_events + 4 * width * n_srv * inc_np.shape[2]
+                  + 2 * state + (width + width * p_max) * item + 8 * width)
+        t_ops = ops_ / int32_rate * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        return dict(bound_ms=max(t_ops, t_bytes),
+                    bound_by="operations" if t_ops >= t_bytes else "bytes",
+                    int32_ops=ops_, bytes=nbytes)
+
+    def share(t):
+        return dict(t, share_of_bound=t["bound_ms"] / t["ms"])
+
+    def k4(evs_, inc_, n_slots_, sgb_, pgb_, counts):
+        return _k4_timed(evs_, inc_, n_srv, cores, n_slots_, sgb_, pgb_,
+                         np_dt, counts, clock_mhz)
+
+    def k1(groups, sgb_, pgb_):
+        grp = torch.from_numpy((np.arange(n_srv) * groups // n_srv)
+                               .astype(np.int32)).to(dev)
+        return _k1_timed(evs, grp, n_srv, groups, cores, n_slots, sgb_,
+                         pgb_, np_dt, clock_mhz)
+
+    timings = {}
+    fanouts = [t.fanout for t in lane_topos]
+    inc = torch.from_numpy(inc_np).to(dev)
+    # TOPO_FULL's 192 lanes (rows of up to 3 pods), and K1 on the same
+    # stream and lanes: its 32 groups at each lane's pool total / 32
+    t4 = k4(evs, inc, n_slots, sgb_i, caps_i, [n_ev])
+    t1 = k1(n_grp, sgb_i, np.floor(caps_i.sum(1) / n_grp))
+    timings["topo_full_192"] = dict(
+        ms=t4["ms"], ns_per_event=t4["ms"] * 1e6 / n_ev, events=n_ev,
+        arrivals=n_arrive, lanes=len(sgb_i), n_slots=n_slots, pods=p_max,
+        fanout=int(inc_np.shape[2]), state_dtype=dt, plan=t4["plan"],
+        k1_ms=t1["ms"], k1_plan=t1["plan"], k4_over_k1=t4["ms"] / t1["ms"],
+        **bound([n_arrive], fanouts, n_ev, n_slots))
+    # 16 lanes of partitioned(256, 8) at uniform pod capacities (= K1's 32
+    # groups) and 16 of single_pool(256) (= K1 with one group): equal rejects
+    srv16 = np.repeat(np.round(full_gb * np.array([1.0, 0.8, 0.6, 0.45])), 4)
+    tot16 = np.tile(np.asarray(pool_totals, float), 4)
+    for name, topo, groups in (
+            ("partitioned_256_8", topology.partitioned(n_srv, 8), n_grp),
+            ("single_pool_256", topology.single_pool(n_srv), 1)):
+        per_pod = np.floor(tot16 / topo.n_pods)
+        inc16 = torch.from_numpy(_fleet_incidence([topo] * 16, n_srv)[0]) \
+            .to(dev)
+        pgb16 = np.repeat(per_pod[:, None], topo.n_pods, 1)
+        a = k4(evs, inc16, n_slots, srv16, pgb16, [n_ev])
+        b = k1(groups, srv16, per_pod)
+        if a["rejects"].tolist() != b["rejects"].tolist():
+            raise SystemExit(f"pod_sweep {name}: K4's rejects differ from "
+                             f"K1's at the same capacities: "
+                             f"{a['rejects'].tolist()} vs "
+                             f"{b['rejects'].tolist()}")
+        timings[name] = dict(
+            ms=a["ms"], ns_per_event=a["ms"] * 1e6 / n_ev, lanes=16,
+            plan=a["plan"], k1_ms=b["ms"], k1_plan=b["plan"],
+            k4_over_k1=a["ms"] / b["ms"], rejects_equal_k1=True,
+            rejects=a["rejects"].tolist(),
+            **bound([n_arrive], [1] * 16, n_ev, n_slots))
+    # the seed batch's launch: 3 traces x the 192 lanes
+    batch = CompiledReplayBatch(engines)
+    cols, _, n_slots_b, counts = batch._device_events()
+    inc3 = torch.from_numpy(np.tile(inc_np, (len(engines), 1, 1))).to(dev)
+    tb = k4(cols, inc3, n_slots_b, sgb_i, caps_i, counts)
+    arrivals = [int((e._device_events()[0][0] == sweep_core.ARRIVE).sum())
+                for e in engines]
+    timings[f"batch{len(engines)}x{len(sgb_i)}"] = dict(
+        ms=tb["ms"], plan=tb["plan"], trace_events=counts,
+        n_slots=n_slots_b, over_single=tb["ms"] / t4["ms"],
+        **bound(arrivals, fanouts, sum(counts), n_slots_b, len(engines)))
+
+    # the kernel through its wrapper against its plain version, == on the
+    # whole final state, on 2,048-event cuts at the main path's shapes: one
+    # trace x 192 lanes, and the three traces' cuts packed as the seed
+    # batch's launch (3 x 192 lanes), the columns where the plan puts them
+    # and in global memory
+    from repro_torch.kernels.event_sweep.ops import pack_traces
+    cut = 2048
+    ev_c = tuple(e[:cut].contiguous() for e in evs)
+    cols_c, counts_c = pack_traces(
+        [tuple(e[:cut].cpu().numpy() for e in x._device_events()[0])
+         for x in engines], dev)
+    cut_checks, plain_cut_ms = [], None
+    for name, evs_c, n_sl, k, tr in (
+            ("cut_topo_full", ev_c, n_slots, 1, None),
+            ("cut_batch3x192", cols_c, n_slots_b, len(engines), counts_c)):
+        lanes = (np.tile(sgb_i, k), np.tile(caps_i, (k, 1)),
+                 np.tile(inc_np, (k, 1, 1)))
+        inc_c, st = _k4_state(n_sl, n_srv, cores, lanes, dt, dev)
+        t0 = time.perf_counter()
+        want = _k4_run(False, evs_c, inc_c, st, trace_events=tr)
+        if plain_cut_ms is None:
+            plain_cut_ms = (time.perf_counter() - t0) * 1e3
+        for column in (None, "global"):
+            got = _k4_run(True, evs_c, inc_c, st, trace_events=tr,
+                          slot_column=column)
+            max_err = max(max_err, _k4_compare(name, got, want))
+            cut_checks.append(dict(
+                case=name, plan=dataclasses.asdict(ops.last_plan),
+                lanes=k * len(sgb_i), trace_events=tr or [cut],
+                rejects=int(want[5].sum()),
+                pooled_grants_held=int((want[4] >= 0).sum())))
+    cut_ms = k4(ev_c, inc, n_slots, sgb_i, caps_i, [cut])["ms"]
+    with open(f"{build.library_path(K4.NAME)}.log") as f:
+        report = K4.ptxas_report(f.read())
+    timings = {k: share(t) for k, t in timings.items()}
+    main = timings["topo_full_192"]
+    record = dict(
+        name=K4.NAME, route="cuda", source=K4.SOURCE,
+        replaces="src/repro/core/sweep_core.py:566",
+        max_abs_err=max_err, tolerance="== (integer state, exact)",
+        cases_checked=len(checked) + len(cut_checks), cases=checked,
+        cut_checks=cut_checks,
+        design="K1's registers design (one warp a lane, K = S/32 servers "
+               "a thread in registers, redux.sync first minimum, "
+               "predicated updates, 2-stage cp.async event tiles); per "
+               "(server, fanout entry) the pod id and the pod's free pool "
+               "in int32 registers (a fit is one compare, an update adds "
+               "to every copy of the target pod); the chosen server's "
+               "owner finds the granting or the first pod and broadcasts "
+               "it by one __shfl_sync; each slot's pod in a second per-lane "
+               "column beside the slot column (thread 0; shared memory, "
+               "global past its limit)",
+        ms=main["ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        timed_shape=dict(events=n_ev, arrivals=n_arrive, servers=n_srv,
+                         pods=p_max, fanout=main["fanout"],
+                         n_slots=n_slots, lanes=len(sgb_i),
+                         state_dtype=dt),
+        timings=timings, ptxas=report,
+        no_stack_or_spills=all(r.get("stack_bytes") == 0
+                               and r.get("spill_store_bytes") == 0
+                               for r in report),
+        plain_ms=plain_cut_ms, plain_cut_events=cut, ms_at_plain_cut=cut_ms,
+        plain_note="the plain version (a Python loop of tensor ops an "
+                   "event) at a 2,048-event cut of TOPO_FULL's stream, 192 "
+                   "lanes, one run by the host clock; ms_at_plain_cut is "
+                   "the kernel on the same cut",
+        timing_note=f"CUDA events around 5 launches of the kernel function "
+                    f"(no wrapper checks) on fresh state, enqueued behind a "
+                    f"{CARD_WAIT_MS} ms wait on the card; K1 through its "
+                    f"wrapper on the same stream, the same way",
+        int32_rate_ops_per_s=int32_rate, sm_clock_max_mhz=clock_mhz,
+        library_ms=None,
+        library_note="no PyTorch call computes a sequential per-lane "
+                     "best-fit allocator over a pod incidence")
+    emit("kernels_pod", kernels=[record])
+    return record
+
+
+def phase_topology_parity_small(dev):
+    """tests/test_topology_engine.py's world (8 servers, 4.75 GB a core, 2
+    days, static 0.25; seeds 3, 4, 5, and seed 3 with QoS migrations grafted
+    onto a third of the pooled VMs) and its 16-lane grid of four topologies
+    on the card (K4) and on the CPU (its plain version): each trace in both
+    state types, and the batch of seeds 3, 4; equal results."""
+    from repro_torch.core import cluster_sim, replay_engine, topology, traces
+    from repro_torch.kernels.pod_sweep import ops
+    cfg = cluster_sim.ClusterConfig(n_servers=8, pool_sockets=8,
+                                    gb_per_core=4.75)
+    horizon = 2 * 86400
+    n = cluster_sim.arrivals_for_util(cfg, 0.8, horizon)
+    topos = [topology.partitioned(8, 4), topology.overlapping(8, 4, 2),
+             topology.sparse(8, 4, 2, seed=1),
+             topology.sparse(8, 3, 2, seed=2, allow_orphans=True)]
+    sgb, caps, lane_topos = [], [], []
+    for server, total in ((200.0, 150.0), (200.0, 40.0), (140.0, 300.0),
+                          (60.0, 6144.0)):
+        for t in topos:
+            sgb.append(server)
+            caps.append(topology.split_pool(total, t.n_pods))
+            lane_topos.append(t)
+    sgb = np.asarray(sgb)
+    worlds = []
+    for seed, migrate in ((3, False), (4, False), (5, False), (3, True)):
+        vms = traces.Population(seed=0).sample_vms(n, horizon, seed=seed,
+                                                   start_id=10 ** 6)
+        dec, _ = cluster_sim.policy_decisions(vms, "static",
+                                              static_pool_frac=0.25,
+                                              as_arrays=True)
+        if migrate:
+            pick = (dec.pool_gb > 0) & (np.arange(n) % 3 == 0)
+            life = np.array([vm.arrival + 0.5 * vm.lifetime for vm in vms])
+            dec.t_migrate = np.where(pick, life, dec.t_migrate)
+        worlds.append((vms, dec))
+    out = {}
+    for d in (dev, "cpu"):
+        before = ops.launches
+        engines = [replay_engine.CompiledReplay(v, dc, cfg, device=d)
+                   for v, dc in worlds]
+        got = [e.reject_rates_fleet(sgb, caps, lane_topos,
+                                    state_dtype=dt).tolist()
+               for e in engines for dt in ("int16", "int32")]
+        got.append(replay_engine.CompiledReplayBatch(engines[:2])
+                   .reject_rates_fleet(sgb, caps, lane_topos).tolist())
+        out[str(d)] = (got, ops.launches - before)
+    (g, g_n), (c, c_n) = out[str(dev)], out["cpu"]
+    checks = {"results_equal": g == c, "launches_on_card": g_n == 9,
+              "none_on_cpu": c_n == 0,
+              "grid_discriminates": min(g[0]) < max(g[0]),
+              "dtypes_agree": all(g[i] == g[i + 1] for i in range(0, 8, 2))}
+    emit("topology_parity_small", ok=all(checks.values()), checks=checks,
+         servers=8, vms=n, lanes=len(sgb), kernel_launches=g_n,
+         rejects=[np.rint(np.asarray(r) * n).astype(int).tolist()
+                  for r in g[::2]])
+    if not all(checks.values()):
+        raise SystemExit(f"topology_parity_small failed: {checks}")
+
+
+def _topology_path(inp, device):
+    """The fleet study as a user runs it: three engines (trace seeds 2, 3,
+    4), fig_topology's full grid on the first priced in one
+    ``reject_rates_fleet``, then the seed batch in one
+    ``CompiledReplayBatch.reject_rates_fleet``.  Returns (rates, batch
+    rates, engines, grid)."""
+    from repro_torch.core.replay_engine import (CompiledReplay,
+                                                CompiledReplayBatch)
+    cfg = inp["cfg"]
+    engines = [CompiledReplay(v, d, cfg, device=device)
+               for v, d in zip(inp["vms_list"], inp["decs"])]
+    grid = _topo_grid(float(np.ceil(engines[0].peak_pool_demand())),
+                      cfg.n_servers, cfg.gb_per_core * cfg.cores_per_server)
+    sgb, caps, lane_topos = grid[:3]
+    rates = engines[0].reject_rates_fleet(sgb, caps, lane_topos)
+    batch = CompiledReplayBatch(engines).reject_rates_fleet(sgb, caps,
+                                                            lane_topos)
+    return rates, batch, engines, grid
+
+
+def phase_topology_full(dev):
+    """Pond's fleet topologies at full width (``TOPO_FULL``,
+    fig_topology's full grid on the PROV_FULL row): 192 lanes in one
+    ``reject_rates_fleet`` and the seed batch (3 x 192) in one
+    ``CompiledReplayBatch.reject_rates_fleet``, 2 K4 launches; every reject
+    count held to the reference's (hard-coded), batch row 0 to the single
+    engine, the named lanes to the port's scalar oracle, the 1-pod lanes to
+    the single-pool engine (K1, one group), fig_topology's four claims."""
+    from repro_torch.core import cluster_sim, replay_engine, topology
+    from repro_torch.kernels.pod_sweep import ops
+    inp = _topo_inputs()
+    cfg = inp["cfg"]
+    replay_engine.stats_reset()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()    # by the phases before this one
+    ops.launches = 0                        # just before the main path ...
+    t0 = time.perf_counter()
+    rates, batch, engines, grid = _topology_path(inp, None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launches                 # ... and read just after it
+    peak = torch.cuda.max_memory_allocated()
+    stats = replay_engine.stats_snapshot()
+    times = replay_engine.stage_times()
+    sgb, caps, lane_topos, meta, dram_fracs, pool_totals, topos = grid
+    n_vms = [e.n_vms for e in engines]
+    single = np.rint(rates * n_vms[0]).astype(int).tolist()
+    rows = np.rint(batch * np.asarray(n_vms)[:, None]).astype(int).tolist()
+    # the steady-state cost of the grid (the trace compiled and uploaded):
+    # a second call, the speed claim's numerator
+    t1 = time.perf_counter()
+    again = engines[0].reject_rates_fleet(sgb, caps, lane_topos)
+    compiled_s = time.perf_counter() - t1
+    # the named lanes by the port's scalar oracle on the host
+    lanes = [i for i, (f, t, _) in enumerate(meta)
+             if (f, t) == TOPO_FULL["oracle_corner"]]
+    ex = _fig_topology()
+    oracle, oracle_s = ex.oracle_rates(
+        inp["vms_list"][0], inp["decs"][0].as_vmdecisions(), cfg, sgb, caps,
+        lane_topos, lanes)
+    # the 1-pod lanes against the single-pool engine (K1, one group): every
+    # single_pool(256) lane of the grid at its pool total
+    cfg1 = cluster_sim.ClusterConfig(n_servers=cfg.n_servers,
+                                     pool_sockets=2 * cfg.n_servers,
+                                     gb_per_core=cfg.gb_per_core)
+    eng1 = replay_engine.CompiledReplay(inp["vms_list"][0], inp["decs"][0],
+                                        cfg1, device=dev)
+    one_pod = topology.single_pool(cfg.n_servers).describe()
+    ones = [i for i, m in enumerate(meta) if m[2] == one_pod]
+    base = eng1.reject_rates(sgb[ones], np.asarray([m[1] for m in meta])[ones])
+    claims = ex.claims(rates, meta, dram_fracs, pool_totals, oracle=oracle,
+                       oracle_lanes=lanes, oracle_s=oracle_s,
+                       compiled_s=compiled_s, base=base, one=rates[ones],
+                       n_events=engines[0].n_events)
+    # the same path again under the tracer, for the device's busy time
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _topology_path(inp, None)
+        torch.cuda.synchronize()
+    kernels = sorted(((e.key, e.count, e.self_device_time_total)
+                      for e in prof.key_averages()
+                      if e.self_device_time_total > 0),
+                     key=lambda r: -r[2])
+    busy_s = sum(r[2] for r in kernels) / 1e6
+    checks = {
+        "single_equals_reference": single == TOPO_FULL_WANT["single"],
+        "batch_equals_reference": rows == TOPO_FULL_WANT["batch"],
+        "batch_row0_equals_single": batch[0].tolist() == rates.tolist(),
+        "steady_call_equals_first": again.tolist() == rates.tolist(),
+        "two_k4_launches": launches == 2,
+        "on_card": engines[0].device.type == "cuda",
+        **{f"claim: {name}": ok for name, ok, _ in claims},
+    }
+    other = wall - times.compile_s - times.sweep_s
+    emit("topology_full", ok=all(checks.values()), checks=checks,
+         config=dict(TOPO_FULL, n_servers=cfg.n_servers,
+                     days=PROV_FULL["days"],
+                     cores_per_server=cfg.cores_per_server,
+                     pool_sockets=cfg.pool_sockets,
+                     gb_per_core=cfg.gb_per_core,
+                     dram_fracs=dram_fracs,
+                     pool_totals_gb=[float(t) for t in pool_totals],
+                     topologies=[t.describe() for t in topos]),
+         vms=n_vms, events=[e.n_events for e in engines], lanes=len(sgb),
+         rejects=single, batch_rejects=rows,
+         oracle_lanes=[dict(lane=i, meta=meta[i], rate=float(r),
+                            kernel=float(rates[i]))
+                       for i, r in zip(lanes, oracle)],
+         claims=[dict(claim=n, ok=ok, detail=d) for n, ok, d in claims],
+         kernel_launches=launches, sweeps=len(times.sweeps),
+         sweep_lanes=[n for n, _ in times.sweeps],
+         sweep_state_dtypes=[d for _, d in times.sweeps],
+         engine_stats=stats,
+         host_seconds=dict(compile_and_upload=times.compile_s,
+                           device_sweeps=times.sweep_s, other=other,
+                           steady_grid_call=compiled_s,
+                           oracle_lanes=oracle_s),
+         wall_seconds=wall,
+         device_busy_seconds=busy_s if kernels else None,
+         device_idle_share_of_untraced_wall=(1 - busy_s / wall) if kernels
+         else None,
+         device_kernels=[dict(name=k[:60], count=c, seconds=us / 1e6)
+                         for k, c, us in kernels[:5]],
+         peak_memory_bytes=peak, held_before_bytes=held,
+         peak_memory_of_the_path_bytes=peak - held)
+    if not all(checks.values()):
+        raise SystemExit("topology_full failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script runs on "
@@ -3241,7 +3986,11 @@ def main() -> int:
     phase_availability_parity_small(dev)
     fail["launches"] = phase_availability_full(dev)
     fail["launches_by_path"] = {"availability_full": fail["launches"]}
-    print(json.dumps({"kernels": [paged, flash, sweep, spill, fail]}),
+    pod = phase_kernels_pod(dev)
+    phase_topology_parity_small(dev)
+    pod["launches"] = phase_topology_full(dev)
+    pod["launches_by_path"] = {"topology_full": pod["launches"]}
+    print(json.dumps({"kernels": [paged, flash, sweep, spill, fail, pod]}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

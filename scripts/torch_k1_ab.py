@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """K1 (the event sweep), K6 (the zNUMA spill sweep), K5 (the failure
-sweep) or the failure layer's path of checkouts of this repo, timed on one
-card in turns.
+sweep), K4 (the pod sweep) or the failure layer's path of checkouts of this
+repo, timed on one card in turns.
 
     python3 scripts/torch_k1_ab.py --other DIR [DIR ...]
-                                   [--kernel k1|k6|k5|avail] [--lanes 16]
+                                   [--kernel k1|k6|k5|k4|avail] [--lanes 16]
                                    [--reps 5]
 
 Makes the kernel's inputs once with this checkout's port and saves them
@@ -48,6 +48,18 @@ per-failure rows, and 2 h) for each mitigation, and the four traces as
 one batch of 4 x 6 lanes.  The results compared are the counters and the
 per-failure rows' SHA-1.  ``--lanes`` is not used.
 
+``--kernel k4``: ``chip_smoke.py``'s ``TOPO_FULL`` streams, made by its
+``_topo_inputs`` (the provisioning trace above and trace seeds 3 and 4
+with static 0.25 decisions) and its 192-lane fleet grid (fig_topology's
+eight topologies, six server sizes, four pool totals); each checkout's
+kernel function timed by this checkout's ``chip_smoke._k4_timed`` (no
+wrapper checks, fresh state, runs enqueued behind a wait on the card): the
+192 lanes on seed 2's stream, 16 lanes of partitioned(256, 8) (rows of one
+pod), the same 192 lanes on a copy of the stream with every event but
+ARRIVE made a PAD (``arrive_only``), and the three streams as one batch of
+3 x 192 lanes.  The results compared are the reject counts.  ``--lanes``
+is not used.
+
 ``--kernel avail``: not one kernel but the failure layer's main path,
 ``chip_smoke.py``'s ``_availability_path`` at ``AVAIL_FULL`` (engines
 built, the batch priced for each mitigation, one single-trace call with
@@ -68,6 +80,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(ROOT, "build", "k1_ab", "events.npz")
 STREAMS = os.path.join(ROOT, "build", "k1_ab", "streams.npz")
 FAIL_STREAMS = os.path.join(ROOT, "build", "k1_ab", "fail_streams.npz")
+POD_STREAMS = os.path.join(ROOT, "build", "k1_ab", "pod_streams.npz")
 SEEDS, N_REQUESTS, PEAK_PAGES, NUM_POOL = (3, 4, 5, 6), 16384, 1280, 1024
 
 # run in each checkout: argv = (checkout, data, lanes, reps)
@@ -235,6 +248,58 @@ print(json.dumps(dict(checkout=root, reps=reps, **out)))
 """
 
 
+# run in each checkout: argv = (checkout, data, lanes, reps, chip_smoke)
+_K4_TIMER = r"""
+import importlib.util, json, sys
+import numpy as np, torch
+root, data, reps, smoke = sys.argv[1], sys.argv[2], int(sys.argv[4]), \
+    sys.argv[5]
+sys.path.insert(0, root + "/src")
+from repro_torch.core import sweep_core
+from repro_torch.kernels.event_sweep.ops import pack_traces
+from repro_torch.kernels.pod_sweep import kernel as K
+assert K.__file__.startswith(root), K.__file__
+spec = importlib.util.spec_from_file_location("chip_smoke", smoke)
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+d = np.load(data)
+dev = torch.device("cuda")
+keys = ("kind", "slot", "cores", "local", "pool", "mem")
+streams = [tuple(d[f"t{i}_{k}"] for k in keys)
+           for i in range(len(d["slots"]))]
+n_srv, cores = int(d["servers"]), int(d["cores"])
+np_dt = sweep_core.state_np_dtype(str(d["state_dtype"]))
+clock_mhz = float(cs._smi("clocks.max.sm"))
+
+
+def time_it(evs, inc, n_slots, sgb, pgb, counts):
+    res = cs._k4_timed(evs, torch.from_numpy(inc).to(dev), n_srv, cores,
+                       n_slots, sgb, pgb, np_dt, counts, clock_mhz, reps)
+    res.pop("plan")
+    res["rejects"] = res["rejects"].tolist()
+    return res
+
+
+ev0 = tuple(torch.from_numpy(a).to(dev) for a in streams[0])
+n0 = [len(streams[0][0])]
+slots0 = int(d["slots"][0])
+out = dict(topo_full_192=time_it(ev0, d["inc"], slots0, d["sgb"], d["pgb"],
+                                 n0),
+           partitioned_256_8_x16=time_it(ev0, d["inc16"], slots0,
+                                         d["sgb16"], d["pgb16"], n0))
+kind = streams[0][0].copy()
+kind[kind != sweep_core.ARRIVE] = sweep_core.PAD
+arrive = (torch.from_numpy(kind).to(dev),) + ev0[1:]
+out["arrive_only_192"] = time_it(arrive, d["inc"], slots0, d["sgb"],
+                                 d["pgb"], n0)
+cols, counts = pack_traces(streams, dev)
+k = len(streams)
+out[f"batch{k}x{len(d['sgb'])}"] = time_it(
+    cols, np.tile(d["inc"], (k, 1, 1)), int(d["slots"].max()), d["sgb"],
+    d["pgb"], counts)
+print(json.dumps(dict(checkout=root, reps=reps, **out)))
+"""
+
 # run in each checkout: argv = (checkout, data, lanes, reps)
 _AVAIL_TIMER = r"""
 import hashlib, json, sys, time
@@ -324,6 +389,51 @@ def _save_fail_streams():
     return [eng.n_events for eng in engines]
 
 
+def _save_pod_streams():
+    """``chip_smoke.py``'s ``TOPO_FULL`` streams (its ``_topo_inputs``):
+    each trace's six event arrays, from this checkout's port; the 192-lane
+    grid's incidence and quantised capacities, and 16 lanes of
+    partitioned(256, 8) (four server sizes x the four pool totals, the
+    pods at total / 32)."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from repro_torch.core import replay_engine, topology
+    inp = chip_smoke._topo_inputs()
+    cfg = inp["cfg"]
+    engines = [replay_engine.CompiledReplay(v, dc, cfg, device="cpu")
+               for v, dc in zip(inp["vms_list"], inp["decs"])]
+    arrays, slots = {}, []
+    for i, eng in enumerate(engines):
+        host, n_slots = eng._host_events()
+        for k, a in zip(("kind", "slot", "cores", "local", "pool", "mem"),
+                        host):
+            arrays[f"t{i}_{k}"] = a
+        slots.append(n_slots)
+    full_gb = cfg.gb_per_core * cfg.cores_per_server
+    sgb, caps, lane_topos = chip_smoke._topo_grid(
+        float(np.ceil(engines[0].peak_pool_demand())), cfg.n_servers,
+        full_gb)[:3]
+    inc, p_max = replay_engine._fleet_incidence(lane_topos, cfg.n_servers)
+    sgb_i, caps_i = replay_engine._fleet_capacities(
+        *replay_engine._fleet_candidates(sgb, caps, lane_topos)[:2])
+    part = topology.partitioned(cfg.n_servers, 8)
+    totals = np.unique(caps_i.sum(1))[-4:]
+    sgb16 = np.repeat(np.round(full_gb * np.array([1.0, 0.8, 0.6, 0.45])), 4)
+    pgb16 = np.repeat(np.floor(np.tile(totals, 4) / part.n_pods)[:, None],
+                      part.n_pods, 1)
+    os.makedirs(os.path.dirname(POD_STREAMS), exist_ok=True)
+    np.savez(POD_STREAMS, **arrays, slots=np.asarray(slots), inc=inc,
+             sgb=sgb_i, pgb=caps_i, servers=cfg.n_servers,
+             cores=cfg.cores_per_server,
+             inc16=replay_engine._fleet_incidence([part] * 16,
+                                                  cfg.n_servers)[0],
+             sgb16=sgb16, pgb16=pgb16,
+             state_dtype=engines[0]._pick_pod_state_dtype(sgb_i, caps_i,
+                                                          p_max))
+    return [eng.n_events for eng in engines]
+
+
 def _save_streams():
     """Fig 16's full-width streams, padded with PAD to a multiple of 4
     events (the first kernel's staging; the linked one pads the same)."""
@@ -343,7 +453,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--other", required=True, nargs="+",
                     help="other checkouts of this repo")
-    ap.add_argument("--kernel", choices=("k1", "k6", "k5", "avail"),
+    ap.add_argument("--kernel", choices=("k1", "k6", "k5", "k4", "avail"),
                     default="k1")
     ap.add_argument("--lanes", type=int, default=16)
     ap.add_argument("--reps", type=int, default=5)
@@ -360,6 +470,9 @@ def main(argv=None) -> int:
     elif args.kernel == "k5":
         timer, data = _K5_TIMER, FAIL_STREAMS
         summary = {"kernel": "k5", "events": _save_fail_streams()}
+    elif args.kernel == "k4":
+        timer, data = _K4_TIMER, POD_STREAMS
+        summary = {"kernel": "k4", "events": _save_pod_streams()}
     else:
         timer, data = _AVAIL_TIMER, ""
         summary = {"kernel": "avail"}

@@ -22,7 +22,9 @@ sweep), and the 7 per-server-size pool searches run as one lockstep
 bracketing search.  The batched entry point prices every trace of a
 batch in one launch of K1's trace axis a round
 (``replay_engine.CompiledReplayBatch``).  ``replay_reject_rate`` is the
-port's own copy of the scalar per-event oracle the engine is held to.
+port's own copy of the scalar per-event oracle the engine is held to;
+``replay_multi_pool`` the multi-pod one the fleet sweeps are held to
+(``CompiledReplay.reject_rates_fleet``, kernel K4).
 
 Not ported yet (ROADMAP): the scalar-oracle search (``use_engine=False``,
 M3b) and the streaming engines past a shard budget (M5).
@@ -242,6 +244,133 @@ def replay_reject_rate(vms, decisions, cfg: ClusterConfig,
             free_cores[s] -= vm.cores
             free_mem[s] -= dec.local_gb
             free_pool[group_of[s]] -= dec.pool_gb
+            placed[vm.vm_id] = s
+            continue
+        # pool short -> control-plane fallback: start the VM all-local
+        # (§4.3: VM starts never block on the pool)
+        ok = (free_cores >= vm.cores) & (free_mem >= vm.mem_gb)
+        cand = np.flatnonzero(ok)
+        if len(cand):
+            s = int(cand[np.argmin(free_cores[cand])])
+            free_cores[s] -= vm.cores
+            free_mem[s] -= vm.mem_gb
+            placed[vm.vm_id] = s
+            migrated.add(vm.vm_id)       # departs as all-local
+            continue
+        rejects += 1
+    return rejects / max(len(vms), 1)
+
+
+def replay_multi_pool(vms, decisions, cfg: ClusterConfig,
+                      server_gb: float, topology, pod_gb) -> float:
+    """Scalar multi-pod replay oracle: :func:`replay_reject_rate`
+    generalized from one pool scalar per group to a per-pod pool
+    vector over a ``core/topology.py`` incidence structure.
+
+    Reference semantics the pod sweep (kernel K4, ``kernels/pod_sweep``)
+    reproduces bit for bit on integral-GB traces:
+
+    * ARRIVE: a server is pool-admissible when its cores and free
+      local memory fit AND (the VM needs no pool, or SOME pod the
+      server reaches has room for the WHOLE pool demand).  Best fit
+      by cores, first min; the grant comes from the FIRST pod listed
+      in the server's incidence row with room (whole-demand,
+      single-pod grants — the pod analog of the one-group grant).
+      Pool-free VMs record no grant.  No admissible server -> the
+      §4.3 all-local fallback, else reject.
+    * DEPART: migrated VMs return ``mem_gb`` locally; pooled VMs
+      return ``local_gb`` locally and ``pool_gb`` to their RECORDED
+      granting pod.
+    * MIGRATE keeps the single-pool oracle's quirk verbatim (placed +
+      local room, no migrated-set check): the pool share returns to
+      the granting pod, or — for fallback-placed VMs with no grant —
+      to the server's FIRST listed pod; on a server reaching no pod
+      the local move still happens but no pool is returned.  Per-pod
+      free pool can thus exceed its capacity (used pool goes
+      negative), bounded by the total migrate-event pool exactly as
+      in the single-pool engines.
+
+    ``pod_gb`` is a scalar (every pod) or a length-``n_pods`` array
+    of per-pod capacities (``topology.split_pool`` keeps them
+    integral at equal total hardware).  The reference's copy walks each
+    server's pods in a Python generator for the pooled test; here one
+    numpy expression over the incidence makes the same comparisons.
+    """
+    pod_gb = np.atleast_1d(np.asarray(pod_gb, float))
+    if len(pod_gb) == 1:
+        pod_gb = np.repeat(pod_gb, topology.n_pods)
+    if len(pod_gb) != topology.n_pods:
+        raise ValueError(
+            f"{len(pod_gb)} pod capacities for {topology.n_pods} pods")
+    if topology.n_servers != cfg.n_servers:
+        raise ValueError(
+            f"topology has {topology.n_servers} servers, cluster "
+            f"{cfg.n_servers}")
+    events = []
+    for vm, dec in zip(vms, decisions):
+        events.append((vm.arrival, 0, vm, dec))
+        if dec.t_migrate is not None:
+            events.append((dec.t_migrate, 2, vm, dec))
+        events.append((vm.departure, 1, vm, dec))
+    events.sort(key=lambda e: (e[0], e[1]))
+    n_srv = cfg.n_servers
+    free_cores = np.full(n_srv, float(cfg.cores_per_server))
+    free_mem = np.full(n_srv, float(server_gb))
+    free_pool = pod_gb.astype(float).copy()
+    pods_of = [topology.pods_of(s) for s in range(n_srv)]
+    reach = np.asarray(topology.inc) >= 0           # (S, F)
+    pod_idx = np.maximum(np.asarray(topology.inc), 0)
+    placed: dict[int, int] = {}
+    granted: dict[int, int] = {}
+    migrated: set[int] = set()
+    rejects = 0
+    for t, kind, vm, dec in events:
+        if kind == 1:                                  # departure
+            s = placed.pop(vm.vm_id, None)
+            if s is None:
+                continue
+            free_cores[s] += vm.cores
+            if vm.vm_id in migrated:
+                free_mem[s] += vm.mem_gb
+                migrated.discard(vm.vm_id)
+            else:
+                free_mem[s] += dec.local_gb
+                q = granted.get(vm.vm_id)
+                if q is not None:
+                    free_pool[q] += dec.pool_gb
+            granted.pop(vm.vm_id, None)
+            continue
+        if kind == 2:                                  # QoS migration
+            s = placed.get(vm.vm_id)
+            if s is None:
+                continue
+            if free_mem[s] >= dec.pool_gb:             # host has local room
+                free_mem[s] -= dec.pool_gb
+                q = granted.get(vm.vm_id)
+                if q is None and pods_of[s]:
+                    q = pods_of[s][0]
+                if q is not None:
+                    free_pool[q] += dec.pool_gb
+                migrated.add(vm.vm_id)
+            continue
+        p = dec.pool_gb
+        if p == 0:
+            pool_ok = np.ones(n_srv, bool)
+        else:
+            pool_ok = (reach & (free_pool[pod_idx] >= p)).any(1)
+        ok = (free_cores >= vm.cores) & (free_mem >= dec.local_gb) & \
+            pool_ok
+        cand = np.flatnonzero(ok)
+        if len(cand):
+            s = int(cand[np.argmin(free_cores[cand])])
+            free_cores[s] -= vm.cores
+            free_mem[s] -= dec.local_gb
+            if p > 0:
+                for q in pods_of[s]:
+                    if free_pool[q] >= p:
+                        free_pool[q] -= p
+                        granted[vm.vm_id] = q
+                        break
             placed[vm.vm_id] = s
             continue
         # pool short -> control-plane fallback: start the VM all-local

@@ -11,12 +11,13 @@ management bus.  Responsibilities:
     that EMC; PM failure blocks reassignment but never the datapath.
 
 A copy of the reference's ``core/pool_manager.py`` over the port's
-``slices.SlicePool``; ``FleetPoolManager`` waits for the fleet
-topologies (ROADMAP M9).
+``slices.SlicePool``, with ``FleetPoolManager``, one Pool Manager a pod of
+a ``core/topology.py`` incidence (the fleet engines' control-plane twin).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 
@@ -151,3 +152,71 @@ class PoolManager:
         grants live on the EMCs and the datapath never stopped serving
         them while the PM was down (Pond §4.2)."""
         self.alive = True
+
+
+class FleetPoolManager:
+    """One Pool Manager per pod over a ``core/topology.py`` incidence.
+
+    The control-plane twin of the fleet replay engines: each pod is an
+    independent :class:`PoolManager` (its own EMCs, buffer, stats, and
+    failure domain), and a host draws capacity from the pods its
+    topology row lists — the WHOLE demand from the FIRST reachable pod
+    that can grant it, mirroring the engines' admission rule.  Pods a
+    host cannot reach never see its grants, so a pod failure's blast
+    radius is bounded by that pod's members (asserted in
+    ``tests/test_failures.py``: failing one pod must not touch sibling
+    pods' grants).
+    """
+
+    def __init__(self, topology, pod_gb, num_emcs: int = 1,
+                 slice_gb: float = 1.0, buffer_gb: float = 16.0,
+                 seed: int = 0):
+        caps = np.atleast_1d(np.asarray(pod_gb, float))
+        if len(caps) == 1:
+            caps = np.repeat(caps, topology.n_pods)
+        if len(caps) != topology.n_pods:
+            raise ValueError(
+                f"{len(caps)} pod capacities for {topology.n_pods} pods")
+        self.topology = topology
+        self.pods = [PoolManager(int(caps[q]), num_emcs=num_emcs,
+                                 slice_gb=slice_gb, buffer_gb=buffer_gb,
+                                 seed=seed + 1000 * q)
+                     for q in range(topology.n_pods)]
+
+    # ------------------------------------------------------------- flows --
+    def add_capacity(self, host: int, gb: float,
+                     now: float = 0.0) -> Optional[int]:
+        """Online ``gb`` to ``host`` from its first reachable pod with
+        room.  Returns the granting pod index, or None when every
+        reachable pod is short (the caller's all-local fallback)."""
+        for q in self.topology.pods_of(host):
+            if self.pods[q].add_capacity(host, gb, now):
+                return q
+        return None
+
+    def release_capacity(self, host: int, now: float = 0.0) -> None:
+        """Drain every reachable pod's grants for ``host``."""
+        for q in self.topology.pods_of(host):
+            if self.pods[q].host_pool_gb(host) > 0:
+                self.pods[q].release_capacity(host, now)
+
+    def host_pool_gb(self, host: int) -> float:
+        return sum(self.pods[q].host_pool_gb(host)
+                   for q in self.topology.pods_of(host))
+
+    def pod_free_gb(self, now: float = 0.0) -> np.ndarray:
+        return np.array([pm.total_free_gb(now) for pm in self.pods])
+
+    def assigned_gb(self) -> float:
+        return sum(pm.assigned_gb() for pm in self.pods)
+
+    # ---------------------------------------------------------- failures --
+    def fail_pod(self, pod: int) -> list[int]:
+        """Whole-pod failure: every EMC of ``pod`` fails; sibling pods'
+        grants and stats are untouched (per-pod blast radius).  Returns
+        the affected hosts (members of ``pod`` holding slices on it)."""
+        pm = self.pods[pod]
+        affected: set[int] = set()
+        for ei in range(len(pm.emcs)):
+            affected.update(pm.fail_emc(ei))
+        return sorted(affected)

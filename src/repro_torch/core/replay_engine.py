@@ -32,9 +32,16 @@ stream (no-ops for ``reject_rates``), and ``availability()`` prices the
 blast radius with one launch of the failure sweep (kernel K5,
 ``kernels/fail_sweep``), on one trace or, for a batch, on K1's trace axis.
 
+Fleet topologies (Pond §3 with Octopus-style layouts): ``reject_rates_fleet``
+prices ``(server_gb, per-pod pool_gb, topology)`` lanes over
+``core/topology.py`` incidence structures with one launch of the pod sweep
+(kernel K4, ``kernels/pod_sweep``), on one trace or, for a batch, on K1's
+trace axis; its ``"numpy"`` backend (a float64 host sweep, exact for
+non-integral decisions too) is the reference's, copied.
+
 Not ported yet (ROADMAP): the numpy divergence-window backend (M1b) and
-with it non-integral decisions, streaming engines (M5), ``devices=``
-(M13), fleets (M9) and the ``obs`` spans (M12).
+with it non-integral decisions outside the fleet path, streaming engines
+(M5), ``devices=`` (M13) and the ``obs`` spans (M12).
 """
 from __future__ import annotations
 
@@ -45,6 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import sweep_core
+from repro_torch.core import topology as topology_mod
 from repro_torch.device import resolve_device
 from repro_torch.kernels.event_sweep import kernel as K1
 from repro_torch.kernels.event_sweep.ops import pack_traces, trace_starts
@@ -329,6 +337,7 @@ class CompiledReplay:
         self._slot_map = None
         self._dev_ev = None
         self._dev_ev_fail = None
+        self._fleet_ev_np = None
         self._peak_pool = None
         _TIMES.compile_s += time.perf_counter() - t0
 
@@ -351,10 +360,7 @@ class CompiledReplay:
         assigned reusable slots (freed on departure), so the per-candidate
         placement state is sized by PEAK CONCURRENCY.  The assignment (a
         Python loop over the events) runs once an engine."""
-        if self._slot_map is None:
-            self._slot_map = sweep_core.assign_slots(
-                self._ev_kind, self._ev_vm, self.n_vms)
-        ev_slot, n_slots = self._slot_map
+        ev_slot, n_slots = self._slots()
         vmx = np.asarray(self._ev_vm, np.int64)
         host = (np.asarray(self._ev_kind, np.int32), ev_slot.astype(np.int32),
                 np.asarray(self._cores, np.int32)[vmx],
@@ -362,6 +368,13 @@ class CompiledReplay:
                 np.asarray(self._pool, np.int32)[vmx],
                 np.asarray(self._mem, np.int32)[vmx])
         return host, n_slots
+
+    def _slots(self):
+        """``(per-event slot, slot count)``, assigned once an engine."""
+        if self._slot_map is None:
+            self._slot_map = sweep_core.assign_slots(
+                self._ev_kind, self._ev_vm, self.n_vms)
+        return self._slot_map
 
     def _fail_streams(self):
         """The failure sweep's two extra int32 streams as host numpy:
@@ -712,6 +725,319 @@ class CompiledReplay:
         return _counters_result(counts, self.n_vms, n_fail, dist,
                                 mitigation)
 
+    # ------------------------------------------------------------- fleet --
+    def _fleet_events_np(self):
+        """Slot-mapped numpy event arrays for the fleet sweep (cached):
+        one shard dict shaped like a streaming shard, spanning the whole
+        trace, float payloads (the numpy fleet backend carries float64
+        state, so non-integral decisions replay exactly too)."""
+        if self._fleet_ev_np is None:
+            ev_slot, next_slot = self._slots()
+            vmx = np.asarray(self._ev_vm)
+            self._fleet_ev_np = {
+                "kind": np.asarray(self._ev_kind, np.int32),
+                "slot": np.asarray(ev_slot, np.int32),
+                "c": np.asarray(self._cores)[vmx],
+                "l": np.asarray(self._local)[vmx],
+                "p": np.asarray(self._pool)[vmx],
+                "m": np.asarray(self._mem)[vmx],
+                "n_slots": int(next_slot),
+            }
+        return self._fleet_ev_np
+
+    def reject_rates_fleet(self, server_gb, pod_gb, topology,
+                           backend: str = "auto",
+                           state_dtype: str | None = None) -> np.ndarray:
+        """Reject fraction per ``(server_gb, pod capacities, topology)``
+        fleet candidate — the multi-pod analog of :meth:`reject_rates`.
+
+        ``topology`` is one ``core/topology.py`` Topology (shared) or a
+        sequence of per-lane topologies (all at this engine's
+        ``n_servers``); ``pod_gb`` broadcasts per
+        :func:`_fleet_candidates` (scalar, shared per-pod array, or
+        per-lane entries).  ``backend="torch"`` prices the whole grid with
+        one launch of the pod sweep (K4) on the engine's device (its plain
+        version on a CPU engine), ``"numpy"`` with the float64 host sweep;
+        ``"auto"`` takes ``"torch"`` for integral decisions and
+        ``"numpy"`` otherwise.  Both are bit-exact against the scalar
+        oracle ``cluster_sim.replay_multi_pool`` (the torch path on
+        integral-GB traces, the numpy path unconditionally).
+        ``state_dtype`` ("int16"/"int32") forces the torch path's packing
+        (testing hook).
+
+        Usage (price a topology frontier at equal hardware)::
+
+            caps = [topology.split_pool(960.0, t.n_pods) for t in topos]
+            rates = eng.reject_rates_fleet(320.0, caps, topos)
+        """
+        sgb, caps, topos = _fleet_candidates(server_gb, pod_gb, topology)
+        if topos[0].n_servers != self.n_servers:
+            raise ValueError(
+                f"topology covers {topos[0].n_servers} servers; engine "
+                f"has {self.n_servers}")
+        n0 = len(sgb)
+        if not self.n_events:
+            return np.zeros(n0)
+        if backend == "auto":
+            backend = "torch" if self._exact else "numpy"
+        if backend == "torch":
+            if not self._exact:
+                raise NotImplementedError(
+                    "the pod sweep takes integral decisions; "
+                    "backend='numpy' prices non-integral ones")
+            self._device_events()   # compile + upload: its own stage
+        elif backend != "numpy":
+            raise ValueError(f"backend must be 'auto', 'torch' or 'numpy', "
+                             f"got {backend!r}")
+        t0 = time.perf_counter()
+        if backend == "torch":
+            rates = self._fleet_rates_device(sgb, caps, topos, state_dtype)
+        else:
+            ev = self._fleet_events_np()
+            state = _np_fleet_state(n0, self.n_servers,
+                                    self.cores_per_server, sgb, caps,
+                                    ev["n_slots"])
+            inc, _ = _fleet_incidence(topos, self.n_servers)
+            _np_fleet_sweep(ev, inc, *state)
+            rates = state[-1] / max(self.n_vms, 1)
+        _STATS.sweeps += 1
+        _STATS.events += self.n_events
+        _STATS.candidate_events += self.n_events * n0
+        _STATS.wall_s += time.perf_counter() - t0
+        _TIMES.sweep_s += time.perf_counter() - t0
+        return rates
+
+    def _pick_pod_state_dtype(self, sgb_i, caps_i, n_pods: int) -> str:
+        return sweep_core.pick_pod_state_dtype(
+            self.cores_per_server, self.n_servers, sgb_i, caps_i,
+            self._pay_mem_max, self._pay_pool_max, self._mig_pool_sum,
+            n_pods)
+
+    def _fleet_rates_device(self, sgb, caps, topos,
+                            state_dtype: str | None = None) -> np.ndarray:
+        """One K4 launch over the whole fleet grid, every candidate a
+        lane (the reference's 96-lane chunks do not carry over)."""
+        evs, _group_of, n_slots = self._device_events()
+        n0 = len(sgb)
+        inc, p_max = _fleet_incidence(topos, self.n_servers)
+        sgb_i, caps_i = _fleet_capacities(sgb, caps)
+        dt_name = state_dtype or self._pick_pod_state_dtype(sgb_i, caps_i,
+                                                            p_max)
+        np_dt = sweep_core.state_np_dtype(dt_name)
+        state = sweep_core.init_pod_state(
+            n0, self.n_servers, self.cores_per_server, self.n_servers,
+            p_max, max(n_slots, 1), np_dt)[:5]
+        fc, um, up, slots, pods = (torch.from_numpy(a).to(self.device)
+                                   for a in state)
+        sgb_t, pgb_t = (torch.from_numpy(a.astype(np_dt)).to(self.device)
+                        for a in (sgb_i, caps_i))
+        sweep = sweep_core.get_pod_sweep(dt_name)
+        rejects = sweep(evs, torch.from_numpy(inc).to(self.device), fc, um,
+                        up, slots, pods, sgb_t, pgb_t)
+        _TIMES.sweeps.append((n0, dt_name))
+        return rejects.cpu().numpy().astype(np.int64) / max(self.n_vms, 1)
+
+
+# ----------------------------------------------------------- fleet sweeps --
+def _fleet_candidates(server_gb, pod_gb, topology):
+    """Normalize a fleet candidate grid to per-lane arrays.
+
+    A fleet candidate is a ``(server_gb, per-pod pool_gb, topology)``
+    triple; all three broadcast to one lane axis:
+
+    * ``server_gb`` — scalar or ``(n_cand,)``.
+    * ``topology`` — one ``core/topology.py`` Topology (shared) or a
+      sequence of ``n_cand`` (the topology-frontier axis).
+    * ``pod_gb`` — a scalar (every pod of every lane), a 1-D array of
+      SHARED per-pod capacities (length must equal every lane
+      topology's pod count), or a sequence/2-D array of ``n_cand``
+      per-lane entries (each a scalar or a per-pod array).
+
+    Returns ``(sgb (n_cand,), pod_caps (n_cand, P_max), topos)``;
+    capacity columns past a lane's pod count are 0 and inert (no
+    incidence row points at them).
+    """
+    topos = list(topology) if isinstance(topology, (list, tuple)) \
+        else [topology]
+    sgb = np.atleast_1d(np.asarray(server_gb, float))
+    if isinstance(pod_gb, np.ndarray) and pod_gb.ndim == 2:
+        pod_gb = list(pod_gb)
+    rows = len(pod_gb) if isinstance(pod_gb, (list, tuple)) else 1
+    n0 = max(len(sgb), len(topos), rows)
+    if len(sgb) == 1:
+        sgb = np.repeat(sgb, n0)
+    if len(topos) == 1:
+        topos = topos * n0
+    if isinstance(pod_gb, np.ndarray) and pod_gb.ndim == 1:
+        for t in topos:
+            if t.n_pods != len(pod_gb):
+                raise ValueError(
+                    "1-D pod_gb gives SHARED per-pod capacities; lane "
+                    f"topology {t.describe()} has {t.n_pods} pods for "
+                    f"{len(pod_gb)} capacities (pass a per-lane "
+                    "sequence instead)")
+        pod_gb = [pod_gb] * n0
+    elif not isinstance(pod_gb, (list, tuple)):
+        pod_gb = float(pod_gb)
+    elif rows == 1 and n0 > 1:
+        pod_gb = list(pod_gb) * n0
+    if len(sgb) != n0 or len(topos) != n0 or (
+            isinstance(pod_gb, list) and len(pod_gb) != n0):
+        raise ValueError(
+            "fleet candidates must broadcast to one lane count; got "
+            f"{len(sgb)} server sizes, {len(topos)} topologies, "
+            f"{rows} pod-capacity rows")
+    n_srv = topos[0].n_servers
+    for t in topos:
+        if t.n_servers != n_srv:
+            raise ValueError(
+                "all lane topologies must share n_servers; got "
+                f"{t.n_servers} vs {n_srv}")
+    caps = topology_mod.pod_caps_matrix(pod_gb, topos)
+    return sgb.astype(float), caps, topos
+
+
+def _fleet_incidence(topos, n_servers: int):
+    """Stack per-lane incidence rows to one ``(n_cand, n_servers, F_max)``
+    int32 array, ``-1`` filled (narrower lanes reach no further pod).
+    Returns ``(inc, p_max)``.  (The reference pads the server axis for
+    XLA; K4 takes the true count.)"""
+    f_max = max((t.inc.shape[1] for t in topos), default=1)
+    p_max = max((t.n_pods for t in topos), default=1)
+    inc = np.full((len(topos), n_servers, f_max), -1, np.int32)
+    for i, t in enumerate(topos):
+        inc[i, :, :t.inc.shape[1]] = t.inc
+    return inc, p_max
+
+
+def _fleet_capacities(sgb, caps):
+    """Floor + clip the fleet grid's server and per-pod capacities to the
+    integer sweep's domain (``sweep_core.quantize_capacities``)."""
+    sgb_i, _ = sweep_core.quantize_capacities(sgb, np.zeros(len(sgb)))
+    caps_i = np.clip(np.floor(caps), -sweep_core.I32_BIG,
+                     sweep_core.I32_BIG)
+    return sgb_i, caps_i
+
+
+def _np_fleet_sweep(shard, inc, free, pool_free, placed, pod_of,
+                    migrated, rejects):
+    """Numpy fleet shard sweep over carried state (float64,
+    oracle-ordered ops) — the reference's, copied.
+
+    ``inc`` is the ``(C, S, F)`` per-lane incidence (``-1`` padded),
+    ``free`` the ``(C, S, 2)`` free cores / free local GB, ``pool_free``
+    the ``(C, P)`` per-pod free pool, ``placed``/``pod_of``/``migrated``
+    the ``(C, n_slots)`` placement, granting-pod and migrated state —
+    all mutated in place so consecutive shards continue one replay.
+    Tracking FREE capacities keeps every float add/subtract in the
+    scalar ``cluster_sim.replay_multi_pool`` order, so non-integral
+    decisions stay bit-exact too.
+    """
+    kind, slot = shard["kind"], shard["slot"]
+    cs, ls, ps, ms = shard["c"], shard["l"], shard["p"], shard["m"]
+    cidx = np.arange(free.shape[0])
+    valid = inc >= 0
+    gidx = np.maximum(inc, 0)
+    first_pod = inc[:, :, 0]                          # (C, S)
+    for e in range(len(kind)):
+        k = kind[e]
+        if k >= PAD:                 # PAD and FAIL/RECOVER: no-ops here
+            continue
+        sl = slot[e]
+        if k == DEPART:
+            s = placed[:, sl]
+            rows = cidx[s >= 0]
+            if rows.size:
+                sv = s[rows]
+                mg = migrated[rows, sl]
+                free[rows, sv, 0] += cs[e]
+                free[rows, sv, 1] += np.where(mg, ms[e], ls[e])
+                q = pod_of[rows, sl]
+                back = ~mg & (q >= 0)
+                if back.any():
+                    pool_free[rows[back], q[back]] += ps[e]
+                migrated[rows, sl] = False
+            placed[:, sl] = -1
+            pod_of[:, sl] = -1
+            continue
+        if k == MIGRATE:
+            p = ps[e]
+            s = placed[:, sl]
+            rows = cidx[s >= 0]
+            if rows.size:
+                sv = s[rows]
+                room = free[rows, sv, 1] >= p
+                rows, sv = rows[room], sv[room]
+                if rows.size:
+                    free[rows, sv, 1] -= p
+                    # pool returns to the granting pod; fallback VMs
+                    # (no grant) pay their server's first listed pod,
+                    # or skip the pool update on a pod-less server
+                    q = pod_of[rows, sl]
+                    tgt = np.where(q >= 0, q, first_pod[rows, sv])
+                    back = tgt >= 0
+                    if back.any():
+                        pool_free[rows[back], tgt[back]] += p
+                    migrated[rows, sl] = True
+            continue
+        # ARRIVE: best fit by cores among servers whose free local
+        # memory fits and SOME reachable pod fits the whole pool demand
+        c, l, p, m = cs[e], ls[e], ps[e], ms[e]
+        okcm = (free[:, :, 0] >= c) & (free[:, :, 1] >= l)
+        if p > 0.0:
+            pf = pool_free[cidx[:, None, None], gidx]
+            fits = valid & (pf >= p)
+            ok = okcm & fits.any(-1)
+        else:
+            fits = None
+            ok = okcm
+        score = np.where(ok, free[:, :, 0], _INF)
+        s = score.argmin(1)
+        feas = ~np.isinf(score[cidx, s])
+        rows = cidx[feas]
+        if rows.size:
+            sv = s[rows]
+            free[rows, sv, 0] -= c
+            free[rows, sv, 1] -= l
+            if p > 0.0:
+                f = fits[rows, sv].argmax(-1)   # first listed fitting pod
+                q = inc[rows, sv, f]
+                pool_free[rows, q] -= p
+                pod_of[rows, sl] = q
+            placed[rows, sl] = sv
+        bad = cidx[~feas]
+        if bad.size:
+            # pool short -> control-plane fallback: start the VM all-local
+            sub = free[bad]
+            ok2 = (sub[:, :, 0] >= c) & (sub[:, :, 1] >= m)
+            score2 = np.where(ok2, sub[:, :, 0], _INF)
+            s2 = score2.argmin(1)
+            inf2 = np.isinf(score2[np.arange(len(bad)), s2])
+            rows2 = bad[~inf2]
+            if rows2.size:
+                sv2 = s2[~inf2]
+                free[rows2, sv2, 0] -= c
+                free[rows2, sv2, 1] -= m
+                placed[rows2, sl] = sv2
+                migrated[rows2, sl] = True       # departs as all-local
+            rejects[bad[inf2]] += 1
+
+
+def _np_fleet_state(n_cand: int, n_servers: int, cores_per_server,
+                    sgb: np.ndarray, pod_caps: np.ndarray,
+                    n_slots: int) -> tuple:
+    """All-free numpy fleet carry: ``(free, pool_free, placed, pod_of,
+    migrated, rejects)`` for :func:`_np_fleet_sweep`."""
+    free = np.empty((n_cand, n_servers, 2))
+    free[:, :, 0] = cores_per_server
+    free[:, :, 1] = sgb[:, None]
+    pool_free = pod_caps.astype(float).copy()
+    placed = np.full((n_cand, n_slots), -1, np.int64)
+    pod_of = np.full((n_cand, n_slots), -1, np.int64)
+    migrated = np.zeros((n_cand, n_slots), bool)
+    rejects = np.zeros(n_cand, np.int64)
+    return free, pool_free, placed, pod_of, migrated, rejects
+
 
 # ----------------------------------------------------------- trace batch ---
 def _validate_cluster_shape(engines, what: str):
@@ -971,6 +1297,92 @@ class CompiledReplayBatch:
         _STATS.wall_s += time.perf_counter() - t0
         _TIMES.sweep_s += time.perf_counter() - t0
         return _counters_result(out, self.n_vms, n_fail, None, mitigation)
+
+    # ------------------------------------------------------------- fleet --
+    def reject_rates_fleet(self, server_gb, pod_gb, topology,
+                           backend: str = "auto",
+                           state_dtype: str | None = None,
+                           devices=None) -> np.ndarray:
+        """Fleet reject rates per (trace, candidate): ``(K, n_cand)``.
+
+        The candidate grid — ``(server_gb, pod capacities, topology)``
+        lanes per :func:`_fleet_candidates` — is SHARED across traces
+        (one topology frontier, K traces).  ``backend="torch"`` prices
+        every (trace, candidate) lane with one launch of K4's trace axis
+        (one a ``kernel.MAX_TRACES`` traces; each trace's lanes carry the
+        grid's incidence rows); ``"auto"`` takes it when every trace's
+        decisions are integral, and otherwise, like ``"numpy"``, asks each
+        engine in turn.  The state packs to int16 only when every trace
+        allows it; ``state_dtype`` forces one packing (testing hook).  Row
+        ``k`` equals ``engines[k].reject_rates_fleet(...)`` bit for bit.
+        ``devices`` (a device mesh) is ROADMAP M13.
+        """
+        if devices is not None:
+            raise NotImplementedError("device meshes come with devices= "
+                                      "(ROADMAP M13)")
+        sgb, caps, topos = _fleet_candidates(server_gb, pod_gb, topology)
+        if topos[0].n_servers != self.n_servers:
+            raise ValueError(
+                f"topology covers {topos[0].n_servers} servers; batch "
+                f"has {self.n_servers}")
+        n0 = len(sgb)
+        if backend == "auto" and self._exact:
+            backend = "torch"
+        if backend != "torch":
+            # trim the dense capacity rows back to each lane's pod count
+            per_lane = [caps[i, :t.n_pods] for i, t in enumerate(topos)]
+            return np.stack([
+                eng.reject_rates_fleet(sgb, per_lane, topos,
+                                       backend=backend)
+                for eng in self.engines])
+        if not self._exact:
+            raise NotImplementedError(
+                "the pod sweep takes integral decisions; backend='numpy' "
+                "prices non-integral ones")
+        if not self.n_events.any():
+            return np.zeros((self.k, n0))
+        # compile + upload (its own stage), then the sweep
+        evs, _group_of, n_slots, counts = self._device_events()
+        t0 = time.perf_counter()
+        starts = trace_starts(counts)
+        inc, p_max = _fleet_incidence(topos, self.n_servers)
+        sgb_i, caps_i = _fleet_capacities(sgb, caps)
+        if state_dtype is not None:
+            dt_name = state_dtype
+        elif all(e._pick_pod_state_dtype(sgb_i, caps_i, p_max) == "int16"
+                 for e in self.engines):
+            dt_name = "int16"
+        else:
+            dt_name = "int32"
+        np_dt = sweep_core.state_np_dtype(dt_name)
+        sweep = sweep_core.get_pod_sweep(dt_name, batched=True)
+        rejects = np.empty((self.k, n0), np.int64)
+        for lo in range(0, self.k, K1.MAX_TRACES):
+            hi = min(self.k, lo + K1.MAX_TRACES)
+            width = (hi - lo) * n0
+            state = sweep_core.init_pod_state(
+                width, self.n_servers, self.cores_per_server,
+                self.n_servers, p_max, max(n_slots, 1), np_dt)[:5]
+            fc, um, up, slots, pods = (torch.from_numpy(a).to(self.device)
+                                       for a in state)
+            # the shared grid, a copy a trace (trace-major lanes)
+            inc_t = torch.from_numpy(np.tile(inc, (hi - lo, 1, 1))).to(
+                self.device)
+            sgb_t = torch.from_numpy(np.tile(sgb_i, hi - lo).astype(np_dt)
+                                     ).to(self.device)
+            pgb_t = torch.from_numpy(np.tile(caps_i, (hi - lo, 1))
+                                     .astype(np_dt)).to(self.device)
+            out = sweep(tuple(e[starts[lo]:] for e in evs), inc_t, fc, um,
+                        up, slots, pods, sgb_t, pgb_t, counts[lo:hi])
+            rejects[lo:hi] = out.cpu().numpy().reshape(hi - lo, n0)
+            _TIMES.sweeps.append((width, dt_name))
+        rates = rejects / np.maximum(self.n_vms, 1)[:, None]
+        _STATS.sweeps += 1
+        _STATS.events += int(self.n_events.max(initial=0))
+        _STATS.candidate_events += int(self.n_events.sum()) * n0
+        _STATS.wall_s += time.perf_counter() - t0
+        _TIMES.sweep_s += time.perf_counter() - t0
+        return rates
 
 
 # ---------------------------------------------------------------- search ---

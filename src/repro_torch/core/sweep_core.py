@@ -14,11 +14,16 @@ surrounds the sweep on the host — numpy, copied from the reference's
 * :func:`get_sweep`, which hands out K1's launcher for a state dtype,
   one trace or a batch of traces (K1's trace axis);
 * the failure layer's :data:`MITIGATIONS` and :func:`init_fail_state`
-  (the failure sweep itself is kernel K5, ``kernels/fail_sweep``).
+  (the failure sweep itself is kernel K5, ``kernels/fail_sweep``);
+* the fleet topologies' :func:`get_pod_sweep`, :func:`pick_pod_state_dtype`
+  and :func:`init_pod_state` (the pod sweep is kernel K4,
+  ``kernels/pod_sweep``).
 
 The reference pads candidates to buckets, events to multiples of 256 and
-servers, groups and slots to multiples of 16/16/32, so that XLA compiles
-rarely.  K1 takes the true counts, so none of that is carried over.
+servers, groups, pods and slots to multiples of 16/16/16/32, so that XLA
+compiles rarely.  K1, K4 and K5 take the true counts, so none of that is
+carried over (nor the reference's ``candidate_chunks`` and
+``pod_lane_arrays``).
 """
 from __future__ import annotations
 
@@ -68,6 +73,78 @@ def get_sweep(state_dtype: str = "int32", *, with_carry: bool = False,
         return ops.event_sweep(*events, group_of, fc, um, up, slots, sgb,
                                pgb)
     return sweep
+
+
+def get_pod_sweep(state_dtype: str = "int32", *, with_carry: bool = False,
+                  batched: bool = False, mesh=None):
+    """K4's launcher for ``state_dtype``: a function of ``(events, inc, fc,
+    um, up, slots, pods, sgb, pgb)`` returning the (C,) int32 reject counts
+    and leaving the final state in its state arguments
+    (``kernels/pod_sweep/ops.py::pod_sweep``: K4 for CUDA tensors, its
+    plain version for CPU ones).  With ``batched`` it takes one more
+    argument, ``trace_events``: K1's trace axis, the lanes trace-major, each
+    with its own incidence row (a shared grid is tiled by the caller).
+
+    The reference's other keys (a returned carry, a device mesh) are not
+    ported yet: they raise.
+    """
+    if with_carry:
+        raise NotImplementedError("carried-state sweeps come with the "
+                                  "streaming engines (ROADMAP M5)")
+    if mesh is not None:
+        raise NotImplementedError("device meshes come with devices= "
+                                  "(ROADMAP M13)")
+    if state_dtype not in ("int16", "int32"):
+        raise ValueError(f"state_dtype must be 'int16' or 'int32', got "
+                         f"{state_dtype!r}")
+    from repro_torch.kernels.pod_sweep import ops
+
+    if batched:
+        def sweep_batch(events, inc, fc, um, up, slots, pods, sgb, pgb,
+                        trace_events):
+            return ops.pod_sweep(*events, inc, fc, um, up, slots, pods, sgb,
+                                 pgb, trace_events=trace_events)
+        return sweep_batch
+
+    def sweep(events, inc, fc, um, up, slots, pods, sgb, pgb):
+        return ops.pod_sweep(*events, inc, fc, um, up, slots, pods, sgb, pgb)
+    return sweep
+
+
+def pick_pod_state_dtype(cores_per_server: float, n_servers: int,
+                         sgb_i: np.ndarray, pod_caps_i: np.ndarray,
+                         pay_mem_max: float, pay_pool_max: float,
+                         mig_pool_sum: float, n_pods: int) -> str:
+    """int16/int32 packing rule for the pod sweep.
+
+    The single-pool rules (:func:`pick_state_dtype`) applied with the
+    per-pod capacity maxima standing in for the pool column — the
+    fallback-migrate deficit bound holds per pod since every deficit
+    subtraction lands on exactly one pod — plus one pod-axis bound:
+    the granting-pod slot array stores pod ids, so ``n_pods`` must
+    stay below the int16 sentinel.
+    """
+    if n_pods >= I16_BIG:
+        return "int32"
+    return pick_state_dtype(cores_per_server, n_servers, sgb_i,
+                            np.asarray(pod_caps_i).ravel(),
+                            pay_mem_max, pay_pool_max, mig_pool_sum)
+
+
+def init_pod_state(width: int, n_servers: int, cores_per_server: float,
+                   s_pad: int, p_pad: int, n_slots: int, np_dt) -> tuple:
+    """Packed all-free initial pod-sweep state: the plain
+    :func:`init_state` arrays with the used-pool row widened to the pod
+    axis plus the granting-pod slot array (``-1`` = no grant).  Returns
+    ``(fc0, um0, up0, slots0, pods0, rej0)``.  K4 takes the true counts
+    (``s_pad = n_servers``, ``p_pad`` the lanes' largest pod count); a
+    trace batch stacks its traces' lanes trace-major (``width`` = traces x
+    candidates), where the reference adds a leading trace axis."""
+    fc0, um0, _, slots0, rej0 = init_state(
+        width, n_servers, cores_per_server, s_pad, 1, n_slots, np_dt)
+    up0 = np.zeros((width, p_pad), np_dt)
+    pods0 = np.full((n_slots, width), -1, np_dt)
+    return fc0, um0, up0, slots0, pods0, rej0
 
 
 # ------------------------------------------------------------ failure sweep --

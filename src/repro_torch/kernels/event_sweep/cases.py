@@ -20,14 +20,16 @@ EVENT_KEYS = ("kind", "slot", "cores", "local", "pool", "mem")
 
 def compile_stream(vms, noops=()):
     """``vms``: rows ``(arrival, departure, cores, local, pool, t_migrate
-    or None)``, mem = local + pool; ``noops``: ``(time, kind)`` pairs.
-    Returns ``(events, n_slots)``: six int32 arrays keyed by
-    :data:`EVENT_KEYS` and the slot count."""
+    or None)``, mem = local + pool (``t_migrate`` may also be a tuple of
+    times: a VM migrated more than once, which the pod sweep's quirk
+    tests); ``noops``: ``(time, kind)`` pairs.  Returns ``(events,
+    n_slots)``: six int32 arrays keyed by :data:`EVENT_KEYS` and the slot
+    count."""
     times, kinds, vmx = [], [], []
     for v, (arr, dep, _, _, _, t_mig) in enumerate(vms):
         times.append(arr), kinds.append(ARRIVE), vmx.append(v)
-        if t_mig is not None:
-            times.append(t_mig), kinds.append(MIGRATE), vmx.append(v)
+        for t in () if t_mig is None else np.atleast_1d(t_mig):
+            times.append(t), kinds.append(MIGRATE), vmx.append(v)
         times.append(dep), kinds.append(DEPART), vmx.append(v)
     for t, k in noops:
         times.append(t), kinds.append(k), vmx.append(0)

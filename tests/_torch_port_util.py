@@ -108,3 +108,13 @@ def port_world(seed: int, policy: str):
     """(reference vms, reference decisions, port vms, port decisions)."""
     vms, dec = reference_world(seed, policy)
     return vms, dec, port_vms(vms), port_decisions(dec)
+
+
+def port_topology(t):
+    """A reference ``core/topology.py`` Topology carried into the port's
+    (the same kind, extents and incidence), so both packages price the
+    same layout."""
+    from repro_torch.core import topology as port_topology_mod
+    return port_topology_mod.Topology(t.kind, int(t.n_servers),
+                                      int(t.n_pods), int(t.fanout),
+                                      np.array(t.inc, np.int32))

@@ -21,6 +21,7 @@ def _port_files():
              os.path.join(REPO, "examples", "torch_fig21_savings.py"),
              os.path.join(REPO, "examples", "torch_fig16_spill.py"),
              os.path.join(REPO, "examples", "torch_fig_availability.py"),
+             os.path.join(REPO, "examples", "torch_fig_topology.py"),
              os.path.join(REPO, "scripts", "torch_profile_decode.py"),
              os.path.join(REPO, "scripts", "torch_k1_ab.py")]
     for root, _, names in os.walk(PORT):
@@ -68,15 +69,17 @@ def test_port_mirrors_the_reference_layout():
                 "core/control_plane.py", "core/pool_manager.py",
                 "core/predictors/trees.py", "core/predictors/forest.py",
                 "core/predictors/gbm.py", "core/predictors/models.py",
-                "core/latency_engine.py", "core/eqn1.py"):
+                "core/latency_engine.py", "core/eqn1.py",
+                "core/topology.py"):
         assert os.path.isfile(os.path.join(PORT, rel)), rel
         assert os.path.isfile(os.path.join(REPO, "src", "repro", rel)), rel
     for name in ("paged_attention.cu", "flash_attention.cu",
-                 "event_sweep.cu", "spill_sweep.cu", "fail_sweep.cu"):
+                 "event_sweep.cu", "spill_sweep.cu", "fail_sweep.cu",
+                 "pod_sweep.cu"):
         assert os.path.isfile(os.path.join(PORT, "csrc", name)), name
-    # K1, K5 and K6 replace lax.scans, not Pallas kernels: their modules
-    # have no counterpart path in the reference
-    for kernel in ("event_sweep", "spill_sweep", "fail_sweep"):
+    # K1, K4, K5 and K6 replace lax.scans, not Pallas kernels: their
+    # modules have no counterpart path in the reference
+    for kernel in ("event_sweep", "spill_sweep", "fail_sweep", "pod_sweep"):
         for name in ("kernel.py", "ops.py", "ref.py", "cases.py"):
             assert os.path.isfile(os.path.join(PORT, "kernels", kernel,
                                                name)), (kernel, name)
@@ -145,6 +148,11 @@ def test_entry_points_refuse_to_run_without_a_card():
         os.path.join(REPO, "examples", "torch_fig_availability.py"))
     fig_avail = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(fig_avail)
+    spec = importlib.util.spec_from_file_location(
+        "torch_fig_topology",
+        os.path.join(REPO, "examples", "torch_fig_topology.py"))
+    fig_topo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fig_topo)
     from repro_torch.runtime.fault import FailureSchedule
     schedule = FailureSchedule(np.zeros(0), np.zeros(0, np.int64),
                                np.zeros(0, bool))
@@ -159,6 +167,7 @@ def test_entry_points_refuse_to_run_without_a_card():
                  lambda: CompiledReplay([], empty, cluster,
                                         failure_schedule=schedule),
                  lambda: fig_avail.main(["--servers", "2"]),
+                 lambda: fig_topo.run(quick=True),
                  lambda: cluster_sim.savings_analysis([], cluster, "local"),
                  lambda: cluster_sim.savings_analysis_batched([[]], cluster,
                                                               "local"),
@@ -199,7 +208,9 @@ def test_cuda_tensor_path_never_falls_back_in_source():
                 "kernels/spill_sweep/ops.py",
                 "kernels/spill_sweep/kernel.py",
                 "kernels/fail_sweep/ops.py",
-                "kernels/fail_sweep/kernel.py"):
+                "kernels/fail_sweep/kernel.py",
+                "kernels/pod_sweep/ops.py",
+                "kernels/pod_sweep/kernel.py"):
         with open(os.path.join(PORT, rel)) as f:
             tree = ast.parse(f.read())
         assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], rel
