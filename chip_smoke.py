@@ -2731,9 +2731,11 @@ def _k5_inputs(ev, n_slots, n_servers, spg, cores, sgb, pgb, state_dtype,
 
 
 def _k5_run(kernel, events, group_of, state, mitigation, n_dist=0,
-            trace_events=None, slot_column=None):
-    """K5 (``kernel``) or its plain version on a copy of ``state``:
-    [fc, um, up, slots, down, counters, per-FAIL rows or None]."""
+            trace_events=None, slot_column=None, **plan_kw):
+    """K5 (``kernel``, its plan's choices forced by ``slot_column`` and
+    ``plan_kw``: ``warps``) or its plain version on a
+    copy of ``state``: [fc, um, up, slots, down, counters, per-FAIL rows or
+    None]."""
     from repro_torch.kernels.event_sweep.ops import trace_layout
     from repro_torch.kernels.fail_sweep import ops
     from repro_torch.kernels.fail_sweep.ref import fail_sweep_ref
@@ -2745,7 +2747,7 @@ def _k5_run(kernel, events, group_of, state, mitigation, n_dist=0,
     if kernel:
         ops.fail_sweep(*events, group_of, *st, out, mitigation=mitigation,
                        dist=dist, trace_events=trace_events,
-                       slot_column=slot_column)
+                       slot_column=slot_column, **plan_kw)
     else:
         starts, counts = trace_layout(trace_events, events[0].shape[0],
                                       st[0].shape[0])
@@ -2766,7 +2768,11 @@ def _k5_cases():
             ("edges", cases.edge_stream(), cases.EDGE_SHAPE,
              cases.EDGE_LANES, ("int16", "int32")),
             ("demand_past_int16", cases.demand_stream(), cases.DEMAND_SHAPE,
-             cases.DEMAND_LANES, ("int16",))):
+             cases.DEMAND_LANES, ("int16",)),
+            ("refail", cases.refail_stream(), cases.EDGE_SHAPE,
+             cases.REFAIL_LANES, ("int16", "int32")),
+            ("late_minutes", cases.late_stream(), cases.DEMAND_SHAPE,
+             cases.LATE_LANES, ("int16", "int32"))):
         lanes = np.asarray(lanes)
         runs.append((name, ev, n_slots, shape["n_servers"], shape["spg"],
                      shape["cores"], lanes[:, 0], lanes[:, 1], dts))
@@ -2784,13 +2790,28 @@ def _k5_cases():
     return runs
 
 
+def _k5_forced(n_lanes, n_servers, n_slots, state_dtype, dev, n_traces=1):
+    """The plan's choices a K5 check runs with: its own, then each forced —
+    the columns in global memory, one warp a lane, the most warps a lane
+    its block takes."""
+    from repro_torch.kernels.fail_sweep import kernel as K5
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    item = 2 if state_dtype == "int16" else 4
+    lanes = K5.plan(n_lanes, n_servers, n_slots, item, sms,
+                    n_traces).lanes_per_block
+    return [{}, dict(slot_column="global"), dict(warps=1),
+            dict(warps=K5.MAX_WARPS_PER_BLOCK // lanes)]
+
+
 def _k5_checks(dev):
     """K5 against its plain version on the card, ``==`` on the counters,
     the per-FAIL rows and the whole final state: every case of
     ``_k5_cases`` in its state types, both mitigations, with per-FAIL rows
-    and without, the slot column where the plan puts it and in global
-    memory; then the trace axis (three streams whose schedules differ in
-    length, 5 lanes a trace).  Returns (checked, max_abs_err)."""
+    and without, the plan's own choices and each forced (``_k5_forced``:
+    the slot and payload columns in global memory, one warp a lane, the
+    most warps a lane); then the
+    trace axis (three streams whose schedules differ in length, 5 lanes a
+    trace).  Returns (checked, max_abs_err)."""
     from repro_torch.core import sweep_core
     from repro_torch.kernels.event_sweep.ops import pack_traces
     from repro_torch.kernels.fail_sweep import cases, ops
@@ -2815,10 +2836,11 @@ def _k5_checks(dev):
                                                  sgb, pgb, dt, dev)
             for mit in ("remigrate", "kill"):
                 want = _k5_run(False, events, group_of, state, mit, n_fail)
-                for n_dist, column in ((n_fail, None), (0, None),
-                                       (n_fail, "global")):
+                for n_dist, kw in ((0, {}),) + tuple(
+                        (n_fail, kw) for kw in _k5_forced(
+                            len(sgb), s, n_slots, dt, dev)):
                     got = _k5_run(True, events, group_of, state, mit, n_dist,
-                                  slot_column=column)
+                                  **kw)
                     ref = want if n_dist else want[:6] + [None]
                     tag = f"{name} {dt} {mit} {ops.last_plan}"
                     compare(tag, got, ref)
@@ -2845,10 +2867,10 @@ def _k5_checks(dev):
         for mit in ("remigrate", "kill"):
             want = _k5_run(False, cols, group_of, state, mit,
                            trace_events=counts)
-            for column in (None, "global"):
+            for kw in _k5_forced(5, 8, n_slots, dt, dev, 3):
                 got = _k5_run(True, cols, group_of, state, mit,
-                              trace_events=counts, slot_column=column)
-                compare(f"trace axis {dt} {mit} {column}", got, want)
+                              trace_events=counts, **kw)
+                compare(f"trace axis {dt} {mit} {kw}", got, want)
                 checked.append(dict(case="trace_axis_3", state_dtype=dt,
                                     mitigation=mit, plan=dataclasses.asdict(
                                         ops.last_plan), trace_events=counts,
@@ -2857,14 +2879,15 @@ def _k5_checks(dev):
 
 
 def _k5_timed(evs, group_of, n_servers, n_groups, cores, n_slots, sgb_i,
-              pgb_i, np_dt, mitigation, rows, counts, clock_mhz, reps=5):
+              pgb_i, np_dt, mitigation, rows, counts, clock_mhz, reps=5,
+              **plan_kw):
     """K5's kernel function itself (no wrapper checks) over ``evs``: one
     trace, or the trace axis as ``ops.pack_traces`` lays it out, with
     ``counts`` the traces' event counts, and the lanes (sgb_i, pgb_i) in
-    each trace; ``rows`` per-FAIL rows (one trace).  One warm-up, then
-    ``reps`` runs on fresh state timed by ``_card_ms``.  Returns dict(ms,
-    plan, the warm-up's counters summed over the lanes, the rows' SHA-1
-    where there are rows)."""
+    each trace; ``rows`` per-FAIL rows (one trace); ``plan_kw`` forces the
+    plan's warps a lane.  One warm-up, then ``reps`` runs on fresh state
+    timed by ``_card_ms``.  Returns dict(ms, plan, the warm-up's counters
+    summed over the lanes, the rows' SHA-1 where there are rows)."""
     import hashlib
 
     from repro_torch.core import sweep_core
@@ -2873,8 +2896,8 @@ def _k5_timed(evs, group_of, n_servers, n_groups, cores, n_slots, sgb_i,
     dev = group_of.device
     k, width = len(counts), len(counts) * len(sgb_i)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = K5.plan(len(sgb_i), n_servers, n_slots, np.dtype(np_dt).itemsize,
-                   sms, k)
+    plan = K5.plan(len(sgb_i), n_servers, n_slots,
+                   np.dtype(np_dt).itemsize, sms, k, **plan_kw)
     st = sweep_core.init_state(width, n_servers, cores, n_servers, n_groups,
                                n_slots, np_dt)[:4]
     st += (sweep_core.init_fail_state(width, n_groups),
@@ -2883,14 +2906,13 @@ def _k5_timed(evs, group_of, n_servers, n_groups, cores, n_slots, sgb_i,
               for _ in range(reps + 1)]
     outs = [torch.zeros((5, width), dtype=torch.int32, device=dev)
             for _ in range(reps + 1)]
-    arrivals = torch.empty((width, n_slots), dtype=torch.int32, device=dev)
     dist = (torch.zeros((rows, width), dtype=torch.int32, device=dev)
             if rows else None)
     starts = trace_starts(counts)
 
     def run(i):
-        K5.fail_sweep_kernel(evs, group_of, *states[i], arrivals, outs[i],
-                             dist, remigrate=mitigation == "remigrate",
+        K5.fail_sweep_kernel(evs, group_of, *states[i], outs[i], dist,
+                             remigrate=mitigation == "remigrate",
                              plan=plan, trace_starts=starts,
                              trace_counts=counts)
     run(0)
@@ -2903,6 +2925,41 @@ def _k5_timed(evs, group_of, n_servers, n_groups, cores, n_slots, sgb_i,
     res["ms"] = _card_ms([lambda i=i: run(i) for i in range(1, reps + 1)],
                          clock_mhz, "fail_sweep")
     return res
+
+
+def _no_failures(evs):
+    """The eight event arrays with every FAIL and RECOVER made a PAD."""
+    from repro_torch.core import sweep_core
+    kind = evs[0].clone()
+    kind[(kind == sweep_core.FAIL) | (kind == sweep_core.RECOVER)] = \
+        sweep_core.PAD
+    return (kind, *evs[1:])
+
+
+def _sass_counts(libs):
+    """SASS instructions of each built kernel whose mangled name matches,
+    from ``cuobjdump -sass`` of its library: ``libs`` is (library,
+    pattern) pairs; returns {function: dict(instructions, by opcode)}."""
+    import subprocess
+
+    from repro_torch.kernels.build import find_nvcc
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    out = {}
+    for lib, pattern in libs:
+        text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        for block in re.split(r"\n\s*Function : ", text)[1:]:
+            name = block.split("\n", 1)[0].strip()
+            if not re.search(pattern, name):
+                continue
+            ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                             r"([A-Z][A-Z0-9]*)", block)
+            by = {}
+            for op in ops:
+                by[op] = by.get(op, 0) + 1
+            out[name] = dict(instructions=len(ops), by_opcode=dict(
+                sorted(by.items(), key=lambda kv: -kv[1])))
+    return out
 
 
 def phase_kernels_fail(dev):
@@ -2963,12 +3020,12 @@ def phase_kernels_fail(dev):
                     bound_by="operations" if t_ops >= t_bytes else "bytes",
                     int32_ops=ops_, bytes=nbytes)
 
-    def timed(evs, group_of, n_slots, mit, rows, counts):
+    def timed(evs, group_of, n_slots, mit, rows, counts, **plan_kw):
         return _k5_timed(evs, group_of, n_srv, n_grp, cfg.cores_per_server,
                          n_slots, sgb_i, pgb_i, np_dt, mit, rows, counts,
-                         clock_mhz)
+                         clock_mhz, **plan_kw)
 
-    timings = {}
+    timings, split = {}, {}
     for e_i, mtbf in ((2, 24), (0, 2)):
         eng = engines[e_i]
         evs, group_of, n_slots = eng._device_events_fail()
@@ -2982,6 +3039,17 @@ def phase_kernels_fail(dev):
                 arrivals=n_arrive, failures=n_fail, lanes=n_cand,
                 n_slots=n_slots, state_dtype=dt, plan=t["plan"],
                 **bound(n_cand, n_arrive, n_fail, n_ev, n_slots))
+        # the split: K5 on a copy of the stream with FAIL and RECOVER made
+        # PAD (its walk of the other events) against K1 on the same stream,
+        # and what a FAIL then costs a lane
+        nofail = timed(_no_failures(evs), group_of, n_slots, "remigrate", 0,
+                       [n_ev])["ms"]
+        timings[f"mtbf{mtbf}h_no_failures"] = dict(ms=nofail)
+        split[f"mtbf{mtbf}h"] = dict(
+            no_failures_ms=nofail, failures=n_fail, **{
+                f"us_a_fail_{mit}": (timings[f"mtbf{mtbf}h_{mit}"]["ms"]
+                                     - nofail) * 1e3 / n_fail
+                for mit in ("remigrate", "kill")})
         # K1 through its wrapper on the same stream's first six arrays
         k1_states = []
         for _ in range(6):
@@ -2996,6 +3064,8 @@ def phase_kernels_fail(dev):
         timings[f"mtbf{mtbf}h_k1"] = dict(
             ms=k1_ms, plan=dataclasses.asdict(k1_ops.last_plan),
             k5_over_k1=timings[f"mtbf{mtbf}h_remigrate"]["ms"] / k1_ms)
+        split[f"mtbf{mtbf}h"].update(
+            k1_ms=k1_ms, no_failures_over_k1=nofail / k1_ms)
     # the batched launch of the four schedules, as availability_full's
     batch = CompiledReplayBatch(engines)
     cols, group_of, n_slots_b, counts = batch._device_events_fail()
@@ -3009,14 +3079,37 @@ def phase_kernels_fail(dev):
             ms=t["ms"], plan=t["plan"], trace_events=counts,
             **bound(n_cand, n_arrive, n_fail_all, sum(counts), n_slots_b,
                     width))
+    nofail = timed(_no_failures(cols), group_of, n_slots_b, "remigrate", 0,
+                   counts)["ms"]
+    timings[f"batch4x{n_cand}_no_failures"] = dict(ms=nofail)
+    split[f"batch4x{n_cand}"] = dict(no_failures_ms=nofail, **{
+        f"us_a_fail_of_the_longest_{mit}":
+            (timings[f"batch4x{n_cand}_{mit}"]["ms"] - nofail) * 1e3
+            / max(s.n_failures for s in inp["scheds"])
+        for mit in ("remigrate", "kill")})
+    # the main path's three launches (availability_full) and their bounds
+    main_path = [dict(launch=key, ms=timings[key]["ms"],
+                      bound_ms=timings[key]["bound_ms"],
+                      bound_by=timings[key]["bound_by"],
+                      share_of_bound=timings[key]["bound_ms"]
+                      / timings[key]["ms"])
+                 for key in (f"batch4x{n_cand}_remigrate",
+                             f"batch4x{n_cand}_kill", "mtbf24h_remigrate")]
+    emit("kernels_fail_split", split=split, main_path=main_path,
+         sass=_sass_counts(
+             [(build.library_path(K5.NAME),
+               r"fail_sweep_kernelIsLi8ELb0ELb0E"),
+              (build.library_path(k1_ops.K.NAME),
+               r"sweep_regs_kernelIsLi8ELb0ELb0E")]))
 
     # the kernel through its wrapper against its plain version, == on the
     # counters, the per-FAIL rows and the whole final state, on 2,048-event
     # cuts at the main path's shapes (256 servers, 32 domains, its slot
     # columns, 6 lanes a trace): the single-trace call's stream (MTBF 24 h,
     # with rows) and the four streams packed as the batched launch (4 x 6
-    # lanes), both mitigations, the slot column where the plan puts it and
-    # in global memory
+    # lanes), both mitigations, the plan's choices (at these shapes: the
+    # columns in shared memory, several warps a lane) and each forced: the
+    # columns in global memory, one warp a lane
     cut = 2048
     evs, group_of, n_slots = engines[2]._device_events_fail()
     ev_c = tuple(e[:cut].contiguous() for e in evs)
@@ -3035,9 +3128,9 @@ def phase_kernels_fail(dev):
                            trace_events=tr)
             if plain_cut_ms is None:
                 plain_cut_ms = (time.perf_counter() - t0) * 1e3
-            for column in (None, "global"):
+            for kw in ({}, dict(slot_column="global"), dict(warps=1)):
                 got = _k5_run(True, evs_c, group_of, st, mit, rows,
-                              trace_events=tr, slot_column=column)
+                              trace_events=tr, **kw)
                 for a, b in zip(got, want):
                     if a is not None:
                         max_err = max(max_err,
@@ -3063,6 +3156,14 @@ def phase_kernels_fail(dev):
                    [cut])["ms"]
     with open(f"{build.library_path(K5.NAME)}.log") as f:
         report = K5.ptxas_report(f.read())
+    # registers, stack and spills of every instantiation, one row each
+    emit("kernels_fail_codegen", columns=[
+        "state", "K", "batched", "columns", "registers", "stack_bytes",
+        "spill_store_bytes", "spill_load_bytes"], rows=[
+        [r.get("state_dtype"), r.get("servers_per_thread"), r.get("batched"), r.get("slot_column"),
+         r.get("registers"), r.get("stack_bytes"),
+         r.get("spill_store_bytes"), r.get("spill_load_bytes")]
+        for r in report])
     main = timings["mtbf24h_remigrate"]
     record = dict(
         name=K5.NAME, route="cuda", source=K5.SOURCE,
@@ -3072,15 +3173,18 @@ def phase_kernels_fail(dev):
         cut_checks=cut_checks,
         design="K1's registers design (one warp a lane, K = S/32 servers "
                "a thread in registers, redux.sync first minimum, "
-               "predicated updates, 2-stage cp.async event tiles, the "
-               "slot column in shared memory by thread 0, global past its "
-               "limit); a slot's payload through the index of its ARRIVE "
-               "in a per-lane column (no block-shared table, which would "
-               "race between unsynchronised warps); at FAIL all 32 threads "
-               "stride the slot column: int32 per-server demand by shared "
-               "atomics, the owners' fits flags, a second stride applying "
-               "kill or remigrate, the deltas folded into the owners' "
-               "registers; down flags a K-bit mask a thread",
+               "predicated updates, 2-stage cp.async tiles of all eight "
+               "event arrays, the slot column in shared memory by thread "
+               "0, global past its limit); a payload column a lane (cores, "
+               "local, pool, departure minute a slot, int32, one int4 store "
+               "by thread 0 at ARRIVE); at FAIL "
+               "two strides over the slot column reading the payload from "
+               "shared memory (int32 per-server demand by shared atomics, "
+               "the owners' fits flags, the second stride applying kill or "
+               "remigrate), shared by W warps of the lane's block where "
+               "every lane has a block (named barriers); down flags a "
+               "K-bit mask a thread",
+        split=split, main_path=main_path,
         ms=main["ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
         timed_shape=dict(events=main["events"], failures=main["failures"],
                          servers=n_srv, groups=n_grp,

@@ -44,9 +44,15 @@ decisions and the failure schedules of MTBF 2, 8, 24 and 96 h, seeds 0-3,
 merged), and its six candidates; each checkout's kernel function timed by
 this checkout's ``chip_smoke._k5_timed`` (no wrapper checks, fresh state,
 runs enqueued behind a wait on the card): one trace (MTBF 24 h with
-per-failure rows, and 2 h) for each mitigation, and the four traces as
-one batch of 4 x 6 lanes.  The results compared are the counters and the
-per-failure rows' SHA-1.  ``--lanes`` is not used.
+per-failure rows, and 2 h) for each mitigation, a copy of it with every
+FAIL and RECOVER made a PAD (``_no_failures``: the walk of the other
+events), one warp a lane (also on that copy), at MTBF 2 h with
+remigrate the warps a lane forced to 1, 2, 4 and 8, K1 (the checkout's,
+through its wrapper) on the same stream, and the four traces as one
+batch of 4 x 6 lanes.  Every checkout's ``kernel.plan`` takes ``warps``
+and its ``fail_sweep_kernel`` makes its own payload scratch (the design
+with a payload column a lane).  The results compared are the counters,
+the per-failure rows' SHA-1 and K1's rejects.  ``--lanes`` is not used.
 
 ``--kernel k4``: ``chip_smoke.py``'s ``TOPO_FULL`` streams, made by its
 ``_topo_inputs`` (the provisioning trace above and trace seeds 3 and 4
@@ -224,10 +230,10 @@ np_dt = sweep_core.state_np_dtype(str(d["state_dtype"]))
 clock_mhz = float(cs._smi("clocks.max.sm"))
 
 
-def time_it(evs, n_slots, mit, rows, counts):
+def time_it(evs, n_slots, mit, rows, counts, **plan_kw):
     res = cs._k5_timed(evs, group_of, n_srv, n_grp, cores, n_slots,
                        d["sgb"], d["pgb"], np_dt, mit, rows, counts,
-                       clock_mhz, reps)
+                       clock_mhz, reps, **plan_kw)
     res.pop("plan")
     return res
 
@@ -235,10 +241,23 @@ def time_it(evs, n_slots, mit, rows, counts):
 out = {}
 for i, name in ((2, "mtbf24h"), (0, "mtbf2h")):
     evs = tuple(torch.from_numpy(a).to(dev) for a in streams[i])
+    n_slots = int(d["slots"][i])
     rows = int((streams[i][0] == sweep_core.FAIL).sum()) if i == 2 else 0
     for mit in ("remigrate", "kill"):
-        out[f"{name}_{mit}"] = time_it(evs, int(d["slots"][i]), mit, rows,
+        out[f"{name}_{mit}"] = time_it(evs, n_slots, mit, rows,
                                        [len(streams[i][0])])
+    out[f"{name}_no_failures"] = time_it(cs._no_failures(evs), n_slots,
+                                         "remigrate", 0,
+                                         [len(streams[i][0])])
+    for w in (1, 2, 4, 8) if name == "mtbf2h" else (1,):
+        out[f"{name}_remigrate_w{w}"] = time_it(
+            evs, n_slots, "remigrate", rows, [len(streams[i][0])], warps=w)
+    out[f"{name}_no_failures_w1"] = time_it(
+        cs._no_failures(evs), n_slots, "remigrate", 0, [len(streams[i][0])],
+        warps=1)
+    k1 = cs._k1_timed(evs[:6], group_of, n_srv, n_grp, cores, n_slots,
+                      d["sgb"], d["pgb"], np_dt, clock_mhz, reps)
+    out[f"{name}_k1"] = dict(ms=k1["ms"], rejects=k1["rejects"].tolist())
 cols, counts = pack_traces(streams, dev,
                            fills=(sweep_core.PAD,) + (0,) * 6 + (-1,))
 for mit in ("remigrate", "kill"):

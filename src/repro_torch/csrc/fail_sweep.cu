@@ -33,50 +33,56 @@
 //   slots     (n_slots, C) packed placement            T, in/out
 //   down      (C, G) int32 down flags                  in/out
 //   sgb, pgb  (C,) capacities                          T
-//   arrivals  (C, n_slots) int32 scratch: the event that placed each slot
+//   payload   (C, n_slots) the lanes' payload columns where they lie in
+//             global memory (kGlobalSlots), else unused
 //   out       (5, C) int32 rejects, affected, killed, remigrated, lost;
 //             added to
 //   dist      (n_dist, C) int32 per-FAIL affected rows, or none
 //
 // Trace axis, state types, the in-place final state and clamped indices are
-// K1's (see its header); the batched build writes no per-FAIL rows.
+// K1's (see its header); the batched build writes no per-FAIL rows.  The
+// slots start empty (the wrapper checks), so every payload read comes from
+// this sweep's ARRIVEs.
 //
 // Design: K1's registers variant (PR 15), one warp a candidate lane, thread
 // t owning the K = S / 32 servers [t K, t K + K) in registers (free cores,
 // or with int16 state the packed key (f + 2^15) << 9 | server; used local;
 // group; a copy of up[group]), the first minimum by redux.sync with ties to
 // the lowest server, predicated updates, events staged by 2-stage cp.async
-// tiles, the slot column in shared memory by thread 0 (in its column of
-// `slots` in global memory past shared memory's limit, kGlobalSlots).  What
-// K5 adds, and why:
+// tiles (all eight arrays), the slot column in shared memory by thread 0
+// (in its column of `slots` in global memory past shared memory's limit,
+// kGlobalSlots).  What K5 adds, and why:
 //
-//  * The per-slot payload.  The reference carries each slot's cores, local,
-//    pool and departure minute, shared by the lanes and written at every
-//    ARRIVE.  Here the warps of a block walk their events independently,
-//    with no barrier an event, so a block-shared payload table written
-//    during the walk would race: one warp may still need a slot's earlier
-//    VM while a faster one has overwritten it.  Instead thread 0 writes, at
-//    ARRIVE, the arriving event's index into the lane's own column of
-//    `arrivals` (a store, off the event's dependent chain), and a FAIL pass
-//    reads cores, local, pool and x from the event arrays at that index.
-//    A lane's live slot always holds the VM of the slot's last ARRIVE (a
-//    DEPART empties the slot in every lane), so the index is the payload's.
-//  * The FAIL pass reads the lane's whole slot column, so all 32 threads
-//    stride over it (FAIL is warp-uniform; the pass runs at FAIL events
-//    only, not at every event as in the scan), kScan slots a thread at a
-//    time with all their loads issued before any test.  On the H100 (256
-//    servers, 1,517 slots, 6 lanes) that took a FAIL from ~12 to ~7.5 us
-//    with remigrate (two strides) and from ~7 to ~5 us with kill (one);
-//    also gathering the affected slots' payload loads a batch at a time
-//    was slower (scripts/torch_k1_ab.py --kernel k5, against copies).
-//    Remigrate sums each server's affected pool into a per-lane int32
-//    array in shared memory by atomicAdd (integer sums: the order does not
-//    matter); each server's
-//    owner decides "fits" from its own um (before any change) and writes the
-//    flag back; a second stride applies kill or remigrate to the slots and
-//    sums the cores and local-memory deltas per server the same way; the
-//    owners fold them into their registers.  __syncwarp orders the stages
-//    and makes thread 0's slot and arrival writes visible to the warp.
+//  * A payload column for each lane.  The reference carries each slot's
+//    cores, local, pool and departure minute, written at every ARRIVE and
+//    read at FAIL.  The warps of a block walk their events with no barrier
+//    an event, so one table shared by the block would race; a column
+//    private to each lane does not.  At ARRIVE thread 0 writes the slot's
+//    (cores, local, pool, departure minute) from the staged tile in one
+//    int4 store, off the event's dependent chain, and a FAIL reads them
+//    from shared memory: no gather from the event arrays.  Cores and local
+//    are stored as the state arithmetic uses them (cast to T); pool and the
+//    minute in int32, as the reference keeps them: a week-long trace has
+//    departure minutes past int16's range.
+//  * A FAIL is two strides over the lane's slot column, kScan slots a
+//    thread at a time with every load of a batch issued before any test:
+//    remigrate sums each server's affected pool into an int32 array in
+//    shared memory by atomicAdd (integer sums: the order does not matter),
+//    each server's owner decides "fits" from its own um (before any change)
+//    and writes the flag back; the second stride kills or remigrates each
+//    affected slot and sums the cores and local deltas per server the same
+//    way; the owners fold them into their registers.  Per-server sums kept
+//    at every ARRIVE, DEPART and MIGRATE would make a FAIL one stride, but
+//    every event would pay thread 0's bookkeeping for FAILs that are a few
+//    per cent of the events.
+//  * W warps a lane.  Where the plan gives every lane a block of its own
+//    (no more lanes than SMs), W - 1 helper warps of the block share both
+//    strides: they skip the staged tile's other events by ballot and meet
+//    the lane's warp at a named barrier (bar.sync 1 + lane, 32 W) around
+//    each stage of a FAIL; W = 1 uses __syncwarp.
+//  * The walk: the down-domain test is one bit test of an immediate mask
+//    a server, and the departure minute is read from the tile at ARRIVE
+//    only.
 //  * Down flags are the same in every lane but, again, the warps are not in
 //    step, so each thread keeps them as one bit a server of its own (a
 //    K-bit mask), set at FAIL and cleared at RECOVER for the servers of the
@@ -84,14 +90,15 @@
 //    row of `down`, which thread 0 keeps up to date at FAIL and RECOVER (so
 //    a group without servers ends as the plain version leaves it).
 //  * The counters are per-thread partial sums, reduced by __reduce_add_sync
-//    once at the end (and once a FAIL for a per-FAIL row).
+//    (the affected count a FAIL, for its row; the rest once at the end,
+//    the helpers' through shared memory).
 //
 // Bound.  As K1: a sweep takes E dependent steps (each best fit reads every
 // earlier placement), and the card's rates give a far lower floor: K1's 18
-// int32 operations a (ARRIVE, lane, server) plus, a FAIL, the two passes
-// over the slot column (a few operations a (slot, lane)); bytes: the events
-// and the state once.  So the time is the per-event dependency chain's,
-// plus n_FAIL passes of n_slots / 32 slots a thread.
+// int32 operations a (ARRIVE, lane, server) plus, a FAIL, one read of each
+// slot of the lane's column; bytes: the events and the state once.  So the
+// time is the per-event dependency chain's, plus n_FAIL passes of
+// n_slots / (32 W) slots a thread.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -102,13 +109,14 @@ namespace {
 constexpr int kArrive = 0, kDepart = 1, kMigrate = 2, kFail = 4, kRecover = 5;
 constexpr int kTile = 1024;        // events a stage
 constexpr int kStages = 2;
-constexpr int kStaged = 6;         // arrays staged: kind .. mem (not x, dmn)
-constexpr int kMaxLanesPerBlock = 8;
+constexpr int kStaged = 8;         // arrays staged: all eight
+constexpr int kMaxWarpsPerBlock = 8;  // lanes a block x warps a lane
 constexpr int kMaxTraces = 256;     // traces a launch (the table below)
 constexpr int kMaxShared = 232448;  // bytes a block may use on sm_90
 constexpr int kMaxK = 16;           // servers a thread
 constexpr int kIndexBits = 9;       // packed key: server index bits
 constexpr int kScoreOffset = 1 << 15;
+constexpr int kLaneWords = 64;      // a lane's words beside its arrays
 constexpr unsigned kFull = 0xffffffffu;
 
 __host__ __device__ constexpr size_t round16(size_t n) {
@@ -116,13 +124,16 @@ __host__ __device__ constexpr size_t round16(size_t n) {
 }
 
 // Shared memory of a block: the event stages, group_of, then one region a
-// lane: its slot column in T (none when it lies in global memory), then
-// three int32 arrays of S for the FAIL pass.  kernel.py::shared_bytes
-// computes the same.
+// lane: its slot column in T and its payload column of int4 (x cores, y
+// local, z pool, w departure minute a slot; neither column where they lie
+// in global memory), three int32 arrays of S for the FAIL pass and
+// kLaneWords words (a FAIL's affected count; at the end the helper warps'
+// counters).  kernel.py::shared_bytes computes the same.
 __host__ __device__ size_t lane_bytes(int S, int n_slots, int item,
                                       bool global_slots) {
-  return round16(static_cast<size_t>(global_slots ? 0 : n_slots) * item) +
-         round16(static_cast<size_t>(3) * S * 4);
+  const size_t cols = global_slots ? 0 : static_cast<size_t>(n_slots);
+  return round16(cols * item) + round16(cols * sizeof(int4)) +
+         round16(static_cast<size_t>(3) * S * 4) + kLaneWords * 4;
 }
 __host__ __device__ size_t shared_bytes(int S, int n_slots, int item,
                                         int lanes, bool global_slots) {
@@ -159,7 +170,7 @@ struct Traces {
   int count[kMaxTraces];
 };
 
-// Stage events [e0, e0 + n) of the first six arrays into dst[6][kTile]; e0
+// Stage events [e0, e0 + n) of the eight arrays into dst[8][kTile]; e0
 // is a multiple of 4 and every array 16-byte aligned (the wrapper checks).
 __device__ __forceinline__ void load_tile(const Events& ev, int* dst, int e0,
                                           int n) {
@@ -224,8 +235,9 @@ __device__ __forceinline__ void add_where(int& x, int a, int b, int dx) {
       : "r"(a), "r"(b), "r"(dx));
 }
 
-// A FAIL pass reads a lane's slot column kScan slots a thread at a time
-// (slots j, j + 32, ..., j + 32 (kScan - 1)): every slot's value and then
+// A FAIL stride reads a lane's slot column kScan slots a thread at a time
+// (slots j, j + step, ..., j + step (kScan - 1), step the lane's threads,
+// 32 W): every slot's value and then
 // its server's group are loaded before any is tested, so the loads of a
 // batch are in flight together instead of one dependent pair a slot.
 // Returns the batch's slots that hold a live, non-migrated VM on a server
@@ -235,12 +247,12 @@ template <typename T>
 __device__ __forceinline__ unsigned scan_batch(const T* sl_col,
                                                size_t stride,
                                                const int* grp_s, int S,
-                                               int n_slots, int j, int d,
-                                               int (&v)[kScan],
+                                               int n_slots, int j, int step,
+                                               int d, int (&v)[kScan],
                                                int (&srv)[kScan]) {
 #pragma unroll
   for (int b = 0; b < kScan; ++b) {
-    const int jb = j + 32 * b;
+    const int jb = j + step * b;
     v[b] = jb < n_slots ? static_cast<int>(sl_col[jb * stride]) : -1;
   }
   unsigned hit = 0;
@@ -251,6 +263,74 @@ __device__ __forceinline__ unsigned scan_batch(const T* sl_col,
     hit |= (v[b] >= 0 && !(v[b] & 1) && gb == d ? 1u : 0u) << b;
   }
   return hit;
+}
+
+__device__ __forceinline__ void lane_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+// the lane's warps meet: a named barrier, or the warp alone
+__device__ __forceinline__ void lane_barrier(int warps, int id, int nthr) {
+  if (warps > 1)
+    lane_sync(id, nthr);
+  else
+    __syncwarp();
+}
+
+// stride 1 of a FAIL (remigrate): each server's affected pool into dem
+template <typename T>
+__device__ __forceinline__ void fail_demand(const T* sl_col, size_t stride,
+                                            const int4* pay_col,
+                                            const int* grp_s, int* dem, int S,
+                                            int n_slots, int first, int step,
+                                            int d) {
+  for (int j0 = first; j0 < n_slots; j0 += step * kScan) {
+    int v[kScan], srv[kScan];
+    const unsigned hit = scan_batch(sl_col, stride, grp_s, S, n_slots, j0,
+                                    step, d, v, srv);
+#pragma unroll
+    for (int b = 0; b < kScan; ++b) {
+      if (!((hit >> b) & 1u)) continue;
+      const int pp = pay_col[j0 + step * b].z;
+      if (pp > 0) atomicAdd(&dem[srv[b]], pp);
+    }
+  }
+}
+
+// stride 2 of a FAIL: kill or remigrate each affected slot, the deltas into
+// dcs and dls, this thread's counts; returns its affected count
+template <typename T>
+__device__ __forceinline__ unsigned fail_apply(
+    T* sl_col, size_t stride, const int4* pay_col,
+    const int* grp_s, const int* dem, int* dcs, int* dls, int S, int n_slots,
+    int first, int step, int d, int xf, int remigrate, unsigned& n_kill,
+    unsigned& n_rem, unsigned& lost) {
+  unsigned aff = 0;
+  for (int j0 = first; j0 < n_slots; j0 += step * kScan) {
+    int v[kScan], srv[kScan];
+    const unsigned hit = scan_batch(sl_col, stride, grp_s, S, n_slots, j0,
+                                    step, d, v, srv);
+#pragma unroll
+    for (int b = 0; b < kScan; ++b) {
+      if (!((hit >> b) & 1u)) continue;
+      const int j = j0 + step * b, s = srv[b];
+      const int4 pv = pay_col[j];
+      const int pp = pv.z;
+      if (pp <= 0) continue;
+      ++aff;
+      if (remigrate && dem[s]) {
+        sl_col[j * stride] = static_cast<T>(v[b] | 1);
+        atomicAdd(&dls[s], pp);
+        ++n_rem;
+      } else {
+        sl_col[j * stride] = static_cast<T>(-1);
+        atomicAdd(&dcs[s], pv.x);
+        atomicAdd(&dls[s], -pv.y);
+        ++n_kill;
+        lost += static_cast<unsigned>(max(pv.w - xf, 0));
+      }
+    }
+  }
+  return aff;
 }
 
 __device__ __forceinline__ void read_event(const int* tk, int i, int& kind,
@@ -265,52 +345,58 @@ __device__ __forceinline__ void read_event(const int* tk, int i, int& kind,
 }
 
 template <typename T, int K, bool kBatched, bool kGlobalSlots>
-__global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
+__global__ void __launch_bounds__(32 * kMaxWarpsPerBlock)
     fail_sweep_kernel(Events ev, const int* __restrict__ group_of,
                       T* __restrict__ fc, T* __restrict__ um,
                       T* __restrict__ up, T* __restrict__ slots,
                       int* __restrict__ down, const T* __restrict__ sgb,
-                      const T* __restrict__ pgb, int* __restrict__ arrivals,
+                      const T* __restrict__ pgb,
+                      int4* __restrict__ payload,
                       int* __restrict__ out, int* __restrict__ dist,
                       int n_dist, int remigrate, int E_one, int C, int S,
-                      int G, int n_slots, int lanes_per_block, int n_cand,
-                      const __grid_constant__ Traces tr) {
+                      int G, int n_slots, int lanes_per_block, int warps,
+                      int n_cand, const __grid_constant__ Traces tr) {
   extern __shared__ __align__(16) unsigned char smem[];
   int* stage = reinterpret_cast<int*>(smem);
   int* grp_s = stage + kStages * kStaged * kTile;
   const int warp = threadIdx.x >> 5, tid = threadIdx.x & 31;
+  const int lw = warp / warps;      // the block's lane this warp serves
+  const int w = warp - lw * warps;  // 0 walks the events; others help at FAIL
+  const int lt = w * 32 + tid, nthr = 32 * warps;
+  const int bar_id = 1 + lw;
   unsigned char* mine = reinterpret_cast<unsigned char*>(grp_s) +
                         round16(static_cast<size_t>(S) * 4) +
-                        warp * lane_bytes(S, n_slots, sizeof(T), kGlobalSlots);
+                        lw * lane_bytes(S, n_slots, sizeof(T), kGlobalSlots);
   T* s_sl = reinterpret_cast<T*>(mine);
+  const size_t cols = kGlobalSlots ? 0 : static_cast<size_t>(n_slots);
+  int4* s_pay = reinterpret_cast<int4*>(mine + round16(cols * sizeof(T)));
   // the FAIL pass's per-server int32 sums: pool demand (then the "fits"
   // flag), cores and local memory returned
   int* dem = reinterpret_cast<int*>(
-      mine + round16(static_cast<size_t>(kGlobalSlots ? 0 : n_slots) *
-                     sizeof(T)));
+      mine + round16(cols * sizeof(T)) + round16(cols * sizeof(int4)));
   int* dcs = dem + S;
   int* dls = dcs + S;
+  // word 0: a FAIL's affected count; at the end, 4 + 4 w ..: warp w's
+  // counters
+  int* lane_w = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(dem) +
+                                       round16(static_cast<size_t>(3) * S * 4));
   const int trace = kBatched ? blockIdx.y : 0;
   const int e_base = kBatched ? tr.start[trace] : 0;
   const int E = kBatched ? tr.count[trace] : E_one;
-  const int cand = blockIdx.x * lanes_per_block + warp;
+  const int cand = blockIdx.x * lanes_per_block + lw;
   const bool active = cand < (kBatched ? n_cand : C);
   const int lane = kBatched ? trace * n_cand + cand : cand;
   T* const sl_col = kGlobalSlots ? slots + (active ? lane : 0) : s_sl;
   const size_t sl_stride = kGlobalSlots ? static_cast<size_t>(C) : 1;
-  int* const arr_col =
-      arrivals + static_cast<size_t>(active ? lane : 0) * n_slots;
+  int4* const pay_col =
+      kGlobalSlots ? payload + static_cast<size_t>(active ? lane : 0) * n_slots
+                   : s_pay;
   constexpr int big = sizeof(T) == 2 ? (1 << 14) : (1 << 30);
   constexpr bool kPacked = sizeof(T) == 2;
   static_assert(32 * kMaxK <= (1 << kIndexBits), "packed key's index bits");
   static_assert(kMaxK <= 32, "a thread's down flags are one 32-bit mask");
   constexpr unsigned kNone = packed_key(big, 0);
   const int base = tid * K;
-  const int* const cores_ev = ev.a[2];
-  const int* const local_ev = ev.a[3];
-  const int* const pool_ev = ev.a[4];
-  const int* const x_ev = ev.a[6];
-  const int* const dmn_ev = ev.a[7];
 
   if (E > 0) load_tile(ev, stage, e_base, min(kTile, E));
   cp_async_commit();
@@ -323,7 +409,8 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
   int fk[K], u[K], g[K], q[K];
   unsigned dn = 0;
   int sg = 0, pg = 0, rej = 0;
-  // partial counters of this thread: affected, killed, remigrated, lost
+  // counters: affected (each FAIL's warp total), and this thread's
+  // killed, remigrated and lost minutes
   unsigned n_aff = 0, n_kill = 0, n_rem = 0, lost = 0;
   int n_fail = 0;  // FAIL events so far (warp-uniform): the dist row
   const size_t row = static_cast<size_t>(lane);
@@ -334,7 +421,7 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
     u[j] = 0;
     g[j] = -1;
     q[j] = 0;
-    if (active && s < S) {
+    if (active && w == 0 && s < S) {
       f = fc[row * S + s];
       u[j] = um[row * S + s];
       g[j] = clampi(group_of[s], G);
@@ -345,7 +432,7 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
   }
   if (active) {
     if (!kGlobalSlots)
-      for (int j = tid; j < n_slots; j += 32)
+      for (int j = lt; j < n_slots; j += nthr)
         s_sl[j] = slots[static_cast<size_t>(j) * C + lane];
     sg = sgb[lane];
     pg = pgb[lane];
@@ -355,22 +442,52 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
   for (int t = 0; t * kTile < E; ++t) {
     const int* tk = next_tile(ev, stage, e_base, E, t);
     const int n = active ? min(kTile, E - t * kTile) : 0;
+    if (w != 0) {
+      // a helper: each FAIL of the tile, in order, is a share of its strides
+      for (int i0 = 0; i0 < n; i0 += 32) {
+        unsigned f =
+            __ballot_sync(kFull, i0 + tid < n && tk[i0 + tid] == kFail);
+        while (f) {
+          const int fi = i0 + __ffs(f) - 1;
+          f &= f - 1;
+          const int d = tk[7 * kTile + fi], xf = tk[6 * kTile + fi];
+          lane_sync(bar_id, nthr);  // warp 0 is at the FAIL
+          for (int s = lt; s < 3 * S; s += nthr) dem[s] = 0;
+          if (lt == 0) lane_w[0] = 0;
+          lane_sync(bar_id, nthr);
+          if (remigrate) {
+            fail_demand<T>(sl_col, sl_stride, pay_col, grp_s, dem, S,
+                           n_slots, lt, nthr, d);
+            lane_sync(bar_id, nthr);
+            lane_sync(bar_id, nthr);  // warp 0's fits flags
+          }
+          const unsigned aff = __reduce_add_sync(kFull, fail_apply<T>(
+              sl_col, sl_stride, pay_col, grp_s, dem, dcs, dls, S, n_slots,
+              lt, nthr, d, xf, remigrate, n_kill, n_rem, lost));
+          n_aff += aff;
+          if (tid == 0 && aff) atomicAdd(&lane_w[0], static_cast<int>(aff));
+          lane_sync(bar_id, nthr);
+        }
+      }
+      __syncthreads();  // every warp is done with this stage
+      continue;
+    }
     int kind, sl, ec, el, ep, em;
     read_event(tk, 0, kind, sl, ec, el, ep, em);
     for (int i = 0; i < n; ++i) {
       const int cur_kind = kind, slot = clampi(sl, n_slots);
-      const int pi = ep;  // the int32 pool: the down-domain test's
+      const int pi = ep;  // the int32 pool
       const int c = static_cast<T>(ec), l = static_cast<T>(el),
                 p = static_cast<T>(ep), m = static_cast<T>(em);
       const int nx = min(i + 1, n - 1);
       const int dk = kPacked ? c * (1 << kIndexBits) : c;
-      const int e = e_base + t * kTile + i;  // this event's index
       if (cur_kind == kArrive) {
+        const int xa = tk[6 * kTile + i];  // the departure minute
         const int need = kPacked ? static_cast<int>(packed_key(c, 0)) : c;
         const int room_l = bound<T>(sg, l), room_m = bound<T>(sg, m),
                   room_p = bound<T>(pg, p);
-        // servers a pool-bearing arrival may take: those whose domain is up
-        const unsigned up_ok = pi == 0 ? 0xffffffffu : ~dn;
+        // servers a pool-bearing arrival may not take: a down domain's
+        const unsigned blocked = pi == 0 ? 0u : dn;
         read_event(tk, nx, kind, sl, ec, el, ep, em);
         int sel, feas1, place;
         if constexpr (kPacked) {
@@ -380,7 +497,7 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
             const bool fits = fk[j] >= need;
             const unsigned key = static_cast<unsigned>(fk[j]);
             k1[j] = fits & (u[j] <= room_l) & (q[j] <= room_p) &
-                            ((up_ok >> j) & 1u)
+                            ((blocked & (1u << j)) == 0u)
                         ? key
                         : UINT_MAX;
             k2[j] = fits & (u[j] <= room_m) ? key : UINT_MAX;
@@ -405,7 +522,7 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
           for (int j = 0; j < K; ++j) {
             const bool fits = fk[j] >= need;
             b1[j] = fits & (u[j] <= room_l) & (q[j] <= room_p) &
-                            ((up_ok >> j) & 1u)
+                            ((blocked & (1u << j)) == 0u)
                         ? fk[j]
                         : big;
             b2[j] = fits & (u[j] <= room_m) ? fk[j] : big;
@@ -444,7 +561,7 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
         if (tid == 0) {
           sl_col[slot * sl_stride] =
               static_cast<T>(place ? sel * 2 + (feas1 ? 0 : 1) : -1);
-          arr_col[slot] = e;  // the slot's payload lies at event e
+          pay_col[slot] = make_int4(c, l, pi, xa);
         }
       } else if (cur_kind == kDepart || cur_kind == kMigrate) {
         int val = 0;
@@ -481,25 +598,16 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
             sl_col[slot * sl_stride] = static_cast<T>(val | 1);
         }
       } else if (cur_kind == kFail) {
-        const int d = dmn_ev[e], xf = x_ev[e];
+        const int d = tk[7 * kTile + i], xf = tk[6 * kTile + i];
         read_event(tk, nx, kind, sl, ec, el, ep, em);
-        for (int s = tid; s < S; s += 32) dem[s] = dcs[s] = dls[s] = 0;
-        __syncwarp();  // thread 0's slot and arrival writes, the zeros
-        // the affected slots: live, not migrated, pool > 0, on group d
-        unsigned aff = 0;
+        lane_barrier(warps, bar_id, nthr);  // thread 0's slot and payloads
+        for (int s = lt; s < 3 * S; s += nthr) dem[s] = 0;
+        if (lt == 0) lane_w[0] = 0;
+        lane_barrier(warps, bar_id, nthr);
         if (remigrate) {
-          for (int j0 = 0; j0 < n_slots; j0 += 32 * kScan) {
-            int v[kScan], srv[kScan];
-            const unsigned hit = scan_batch(sl_col, sl_stride, grp_s, S,
-                                            n_slots, j0 + tid, d, v, srv);
-#pragma unroll
-            for (int b = 0; b < kScan; ++b) {
-              if (!((hit >> b) & 1u)) continue;
-              const int pp = pool_ev[arr_col[j0 + 32 * b + tid]];
-              if (pp > 0) atomicAdd(&dem[srv[b]], pp);
-            }
-          }
-          __syncwarp();
+          fail_demand<T>(sl_col, sl_stride, pay_col, grp_s, dem, S,
+                         n_slots, lt, nthr, d);
+          lane_barrier(warps, bar_id, nthr);
           // each owner: does the server's free local memory (um before
           // this FAIL) take its whole affected pool?  int32, as the
           // reference sums it
@@ -510,34 +618,14 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
               dem[s] = static_cast<int>(static_cast<unsigned>(u[j]) +
                                         static_cast<unsigned>(dem[s])) <= sg;
           }
-          __syncwarp();
+          lane_barrier(warps, bar_id, nthr);
         }
-        for (int j0 = 0; j0 < n_slots; j0 += 32 * kScan) {
-          int v[kScan], srv[kScan];
-          const unsigned hit = scan_batch(sl_col, sl_stride, grp_s, S,
-                                          n_slots, j0 + tid, d, v, srv);
-#pragma unroll
-          for (int b = 0; b < kScan; ++b) {
-            if (!((hit >> b) & 1u)) continue;
-            const int j = j0 + 32 * b + tid, s = srv[b];
-            const int a = arr_col[j];
-            const int pp = pool_ev[a];
-            if (pp <= 0) continue;
-            ++aff;
-            if (remigrate && dem[s]) {
-              sl_col[j * sl_stride] = static_cast<T>(v[b] | 1);
-              atomicAdd(&dls[s], pp);
-              ++n_rem;
-            } else {
-              sl_col[j * sl_stride] = static_cast<T>(-1);
-              atomicAdd(&dcs[s], cores_ev[a]);
-              atomicAdd(&dls[s], -local_ev[a]);
-              ++n_kill;
-              lost += static_cast<unsigned>(max(x_ev[a] - xf, 0));
-            }
-          }
-        }
-        __syncwarp();
+        const unsigned aff = __reduce_add_sync(kFull, fail_apply<T>(
+            sl_col, sl_stride, pay_col, grp_s, dem, dcs, dls, S, n_slots, lt,
+            nthr, d, xf, remigrate, n_kill, n_rem, lost));
+        n_aff += aff;
+        if (tid == 0 && aff) atomicAdd(&lane_w[0], static_cast<int>(aff));
+        lane_barrier(warps, bar_id, nthr);
         if (tid == 0 && d >= 0 && d < G) down[row * G + d] = 1;
         // the owners fold the deltas in; the domain's pool comes back
         // empty and the domain is down
@@ -553,17 +641,11 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
             dn |= 1u << j;
           }
         }
-        n_aff += aff;
-        if (n_dist > 0) {
-          const unsigned tot = __reduce_add_sync(kFull, aff);
-          if (tid == 0 && n_fail < n_dist)
-            dist[static_cast<size_t>(n_fail) * C + lane] =
-                static_cast<int>(tot);
-        }
+        if (n_dist > 0 && tid == 0 && n_fail < n_dist)
+          dist[static_cast<size_t>(n_fail) * C + lane] = lane_w[0];
         ++n_fail;
-        __syncwarp();  // every read of the scratch before the next FAIL
       } else if (cur_kind == kRecover) {
-        const int d = dmn_ev[e];
+        const int d = tk[7 * kTile + i];
         read_event(tk, nx, kind, sl, ec, el, ep, em);
 #pragma unroll
         for (int j = 0; j < K; ++j)
@@ -576,11 +658,28 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
     __syncthreads();  // every warp is done with this stage
   }
 
-  const unsigned aff_all = __reduce_add_sync(kFull, n_aff);
-  const unsigned kill_all = __reduce_add_sync(kFull, n_kill);
-  const unsigned rem_all = __reduce_add_sync(kFull, n_rem);
-  const unsigned lost_all = __reduce_add_sync(kFull, lost);
-  if (active) {
+  // n_aff is already warp-reduced a FAIL
+  unsigned aff_all = n_aff;
+  unsigned kill_all = __reduce_add_sync(kFull, n_kill);
+  unsigned rem_all = __reduce_add_sync(kFull, n_rem);
+  unsigned lost_all = __reduce_add_sync(kFull, lost);
+  if (warps > 1) {
+    if (w > 0 && tid == 0) {
+      lane_w[4 * w] = static_cast<int>(aff_all);
+      lane_w[4 * w + 1] = static_cast<int>(kill_all);
+      lane_w[4 * w + 2] = static_cast<int>(rem_all);
+      lane_w[4 * w + 3] = static_cast<int>(lost_all);
+    }
+    __syncthreads();
+    if (w == 0)
+      for (int h = 1; h < warps; ++h) {
+        aff_all += lane_w[4 * h];
+        kill_all += lane_w[4 * h + 1];
+        rem_all += lane_w[4 * h + 2];
+        lost_all += lane_w[4 * h + 3];
+      }
+  }
+  if (active && w == 0) {
 #pragma unroll
     for (int j = 0; j < K; ++j) {
       const int s = base + j;
@@ -592,9 +691,6 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
         up[row * G + g[j]] = static_cast<T>(q[j]);
       }
     }
-    if (!kGlobalSlots)
-      for (int j = tid; j < n_slots; j += 32)
-        slots[static_cast<size_t>(j) * C + lane] = s_sl[j];
     if (tid == 0) {
       out[lane] = rej;
       out[C + lane] += static_cast<int>(aff_all);
@@ -604,6 +700,9 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
           static_cast<unsigned>(out[4 * C + lane]) + lost_all);
     }
   }
+  if (active && !kGlobalSlots)
+    for (int j = lt; j < n_slots; j += nthr)
+      slots[static_cast<size_t>(j) * C + lane] = s_sl[j];
 }
 
 // ----------------------------------------------------------------- launch --
@@ -612,9 +711,9 @@ struct Args {
   Traces tr;
   int n_traces;
   const void *group_of, *sgb, *pgb;
-  void *fc, *um, *up, *slots, *down, *arrivals, *out, *dist;
+  void *fc, *um, *up, *slots, *down, *payload, *out, *dist;
   int n_dist, remigrate;
-  int C, n_cand, S, G, n_slots, lanes_per_block;
+  int C, n_cand, S, G, n_slots, lanes_per_block, warps;
   bool global_slots;
   cudaStream_t stream;
 };
@@ -630,14 +729,15 @@ int launch(Kernel kern, const Args& a) {
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.n_cand + a.lanes_per_block - 1) / a.lanes_per_block,
                   a.n_traces);
-  kern<<<grid, 32 * a.lanes_per_block, smem, a.stream>>>(
+  kern<<<grid, 32 * a.lanes_per_block * a.warps, smem, a.stream>>>(
       a.ev, static_cast<const int*>(a.group_of), static_cast<T*>(a.fc),
       static_cast<T*>(a.um), static_cast<T*>(a.up), static_cast<T*>(a.slots),
       static_cast<int*>(a.down), static_cast<const T*>(a.sgb),
-      static_cast<const T*>(a.pgb), static_cast<int*>(a.arrivals),
+      static_cast<const T*>(a.pgb),
+      static_cast<int4*>(a.payload),
       static_cast<int*>(a.out), static_cast<int*>(a.dist), a.n_dist,
       a.remigrate, a.tr.count[0], a.C, a.S, a.G, a.n_slots,
-      a.lanes_per_block, a.n_cand, a.tr);
+      a.lanes_per_block, a.warps, a.n_cand, a.tr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -655,15 +755,13 @@ int dispatch(int k, const Args& a) {
 }
 
 // the single-trace build when one trace starts at event 0, else the
-// batched one; the slot column in shared or in global memory
+// batched one; the columns in shared or in global memory
 template <typename T>
 int dispatch_traces(int k, const Args& a) {
   const bool one = a.n_traces == 1 && a.tr.start[0] == 0;
   if (a.global_slots)
-    return one ? dispatch<T, false, true>(k, a)
-               : dispatch<T, true, true>(k, a);
-  return one ? dispatch<T, false, false>(k, a)
-             : dispatch<T, true, false>(k, a);
+    return one ? dispatch<T, false, true>(k, a) : dispatch<T, true, true>(k, a);
+  return one ? dispatch<T, false, false>(k, a) : dispatch<T, true, false>(k, a);
 }
 
 }  // namespace
@@ -676,14 +774,15 @@ extern "C" int fail_sweep_launch(
     const void* pool, const void* mem, const void* x, const void* dmn,
     const int* trace_start, const int* trace_count, int T,
     const void* group_of, void* fc, void* um, void* up, void* slots,
-    void* down, const void* sgb, const void* pgb, void* arrivals, void* out,
+    void* down, const void* sgb, const void* pgb, void* payload, void* out,
     void* dist, int n_dist, int remigrate, int E, int C, int S, int G,
-    int n_slots, int state_bytes, int k, int lanes_per_block,
-    int global_slots, void* stream) {
+    int n_slots, int state_bytes, int k,
+    int lanes_per_block, int warps, int global_cols, void* stream) {
   if (E < 0 || T <= 0 || T > kMaxTraces || C <= 0 || C % T != 0 || S <= 0 ||
-      G <= 0 || n_slots <= 0 || lanes_per_block <= 0 ||
-      lanes_per_block > kMaxLanesPerBlock || k > kMaxK ||
-      (global_slots != 0 && global_slots != 1) ||
+      G <= 0 || n_slots <= 0 || lanes_per_block <= 0 || warps <= 0 ||
+      lanes_per_block * warps > kMaxWarpsPerBlock || k > kMaxK ||
+      (global_cols != 0 && global_cols != 1) ||
+      (global_cols == 1 && payload == nullptr) ||
       (remigrate != 0 && remigrate != 1) || n_dist < 0 ||
       (n_dist > 0 && (dist == nullptr || T != 1)))
     return -1;
@@ -691,20 +790,18 @@ extern "C" int fail_sweep_launch(
            static_cast<const int*>(cores), static_cast<const int*>(local),
            static_cast<const int*>(pool), static_cast<const int*>(mem),
            static_cast<const int*>(x), static_cast<const int*>(dmn)}},
-         {}, T, group_of, sgb, pgb, fc, um, up, slots, down, arrivals, out,
+         {}, T, group_of, sgb, pgb, fc, um, up, slots, down, payload, out,
          dist, n_dist, remigrate, C, C / T, S, G, n_slots, lanes_per_block,
-         global_slots == 1, static_cast<cudaStream_t>(stream)};
+         warps, global_cols == 1, static_cast<cudaStream_t>(stream)};
   for (int t = 0; t < T; ++t) {
     const int s = trace_start[t], n = trace_count[t];
     if (s < 0 || s % 4 != 0 || n < 0 || s > E - n) return -3;
     a.tr.start[t] = s;
     a.tr.count[t] = n;
   }
-  switch (state_bytes) {
-    case 2: return dispatch_traces<int16_t>(k, a);
-    case 4: return dispatch_traces<int32_t>(k, a);
-    default: return -1;
-  }
+  if (state_bytes == 2) return dispatch_traces<int16_t>(k, a);
+  if (state_bytes == 4) return dispatch_traces<int32_t>(k, a);
+  return -1;
 }
 
 extern "C" const char* fail_sweep_error_string(int code) {

@@ -119,6 +119,55 @@ DEMAND_LANES = ((30000, 25000), (30000, 25000))
 DEMAND_SHAPE = dict(n_servers=2, spg=2, cores=64)
 
 
+def refail_stream():
+    """Hand-built stream over :data:`EDGE_SHAPE` (4 servers of 16 cores,
+    domains 0-1 and 2-3) for a domain that fails twice: FAIL(0) at 100 s
+    hits v0 and v2 on server 0 and v3 on server 1; v1 on server 0 holds no
+    pool, so it is never affected.  v2 and v3 depart right after the FAIL
+    (killed or remigrated); v4, with no pool, arrives while domain 0 is
+    down and takes server 0 by the pooled test; after RECOVER(0) v5 takes
+    pool on server 0 between the two FAILs of domain 0, and departs right
+    after the second; v0's QoS MIGRATE at 300 s comes after it was
+    remigrated (the reference's quirk: local grows again and used pool
+    goes negative), and the second FAIL(0) leaves it alone.  See
+    :data:`REFAIL_LANES`."""
+    vms = [(0.0, 1000.0, 4, 2, 4, 300.0),     # v0: remigrated, MIGRATE later
+           (10.0, 1000.0, 4, 2, 0, None),     # v1: no pool, server 0
+           (20.0, 101.0, 4, 3, 5, None),      # v2: departs after the FAIL
+           (30.0, 102.0, 8, 2, 6, None),      # v3: server 1, the same
+           (150.0, 1000.0, 2, 1, 0, None),    # v4: no pool, domain 0 down
+           (250.0, 401.0, 2, 1, 3, None)]     # v5: between the two FAILs
+    failures = [(100.0, 0, False), (200.0, 0, True), (400.0, 0, False)]
+    return compile_fail_stream(vms, failures)
+
+
+#: (sgb, pgb) lanes for :func:`refail_stream`: both servers remigrate;
+#: server 0 (7 GB local and 9 GB affected) kills while server 1 remigrates;
+#: every server kills; ample room; v0 short of pool (its fallback is
+#: migrated from the start).
+REFAIL_LANES = ((16, 32), (12, 32), (7, 32), (64, 64), (16, 3))
+
+
+def late_stream():
+    """Two servers of 64 cores in one domain, for int16 state: three pooled
+    VMs on server 0 leave in minutes 40,000, 33,000 and 70,000 (past
+    int16's range, the last past 2^16, as in a trace of several weeks);
+    FAIL(0) in minute 10 remigrates them (12 GB free: 6 GB local used and
+    9 GB affected fit 16 GB) or kills them (14 GB), and then the kill's
+    lost VM-minutes, 142,970, need the departure minutes in int32.  See
+    :data:`LATE_LANES`."""
+    vms = [(0.0, 2_400_000.0, 4, 2, 4, None),
+           (1.0, 1_980_000.0, 4, 2, 2, None),
+           (2.0, 4_200_000.0, 4, 2, 3, None)]
+    failures = [(600.0, 0, False), (1200.0, 0, True)]
+    return compile_fail_stream(vms, failures)
+
+
+#: (sgb, pgb) lanes for :func:`late_stream`: remigrate fits; it does not
+#: (all three killed); no pool (all fall back, none affected).
+LATE_LANES = ((16, 32), (14, 32), (16, 0))
+
+
 def random_schedule(rng, horizon: float, n_domains: int, mtbf: float,
                     repair: float):
     """``(time, domain, recover)`` rows of a ``FailureSchedule.generate``

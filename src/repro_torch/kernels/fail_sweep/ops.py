@@ -68,7 +68,7 @@ def _check(events, group_of, fc, um, up, slots, down, sgb, pgb, out, dist):
 
 def fail_sweep(kind, slot, cores, local, pool, mem, x, dmn, group_of, fc, um,
                up, slots, down, sgb, pgb, out=None, *, mitigation: str,
-               dist=None, trace_events=None, slot_column=None):
+               dist=None, trace_events=None, slot_column=None, warps=None):
     """Replay every event, failures included, for every candidate lane.
 
     Events: eight int32 (E,) arrays; ``group_of`` (S,) int32; state fc, um
@@ -80,8 +80,9 @@ def fail_sweep(kind, slot, cores, local, pool, mem, x, dmn, group_of, fc, um,
     "remigrate" or "kill".  ``dist`` (n_dist,C) int32 takes the f-th
     FAIL's affected count in row f (one trace only).  The final state is
     written into fc, um, up, slots and down in place; returns ``out``.
-    ``trace_events`` is K1's trace axis; ``slot_column`` forces where the
-    kernel keeps a lane's slot column (tests and measurements).
+    ``trace_events`` is K1's trace axis.  For tests and measurements,
+    ``slot_column`` forces where the kernel keeps a lane's slot and payload
+    columns and ``warps`` the warps a lane.
     """
     global launches, last_plan
     events = (kind, slot, cores, local, pool, mem, x, dmn)
@@ -108,16 +109,14 @@ def fail_sweep(kind, slot, cores, local, pool, mem, x, dmn, group_of, fc, um,
                                 trace_starts=starts, trace_counts=counts)
     if fc.device.type != "cuda":
         raise ValueError(f"fail_sweep: no kernel for {fc.device}")
-    if any(e.data_ptr() % 16 for e in events[:6]):
+    if any(e.data_ptr() % 16 for e in events):
         raise ValueError("fail_sweep: the event arrays must be 16-byte "
                          "aligned (the kernel stages them 16 bytes a copy)")
     c, s = fc.shape
     plan = K.plan(c // len(starts), s, slots.shape[0], fc.element_size(),
-                  _sm_count(fc.device), len(starts), slot_column)
-    arrivals = torch.empty((c, slots.shape[0]), dtype=torch.int32,
-                           device=fc.device)
+                  _sm_count(fc.device), len(starts), slot_column, warps)
     K.fail_sweep_kernel(events, group_of, fc, um, up, slots, down, sgb, pgb,
-                        arrivals, out, dist, remigrate=remigrate, plan=plan,
+                        out, dist, remigrate=remigrate, plan=plan,
                         trace_starts=starts, trace_counts=counts)
     launches += 1
     last_plan = plan

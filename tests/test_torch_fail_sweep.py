@@ -7,7 +7,10 @@ both state types and both mitigations; its trace axis against single
 sweeps and the reference's vmapped scan; and the wrapper's checks and the
 launch plan.  The CUDA kernel itself is held to the plain version on the
 card by ``chip_smoke.py``."""
+import dataclasses
 import functools
+import os
+import re
 
 import jax
 import numpy as np
@@ -179,6 +182,52 @@ def test_int16_demand_sum_past_2_15_is_summed_in_int32(mitigation):
         assert dist[:, 0].tolist() == [2, 5] and kill.tolist() == [7, 7]
 
 
+@pytest.mark.parametrize("mitigation", MITIGATIONS)
+@pytest.mark.parametrize("state_dtype", DTYPES)
+def test_plain_sweep_matches_reference_on_refail_stream(state_dtype,
+                                                        mitigation):
+    events, n_slots = cases.refail_stream()
+    (rej, aff, kill, rem, lost), dist, state = _both(
+        events, n_slots, cases.EDGE_SHAPE, cases.REFAIL_LANES, state_dtype,
+        mitigation)
+    # FAIL(0) at 100 s hits v0, v2, v3 (not v1, no pool) but in the last
+    # lane, short of pool, where all three fell back; FAIL(0) at 400 s hits
+    # v5 alone (v0 migrated, v1 and v4 without pool)
+    assert dist.tolist() == [[3, 3, 3, 3, 0], [1, 1, 1, 1, 1]]
+    assert (rej == 0).all() and aff.tolist() == [4, 4, 4, 4, 1]
+    if mitigation == "remigrate":
+        # lane 0 remigrates the first three, then v0's late MIGRATE leaves
+        # no room for v5; lane 1 kills v0 and v2 on server 0 and
+        # remigrates v3 on server 1; lane 2 kills all three; in the last
+        # lane v0's fallback MIGRATE (the quirk) leaves no room for v5
+        assert rem.tolist() == [3, 2, 1, 4, 0]
+        assert kill.tolist() == [1, 2, 3, 0, 1]
+    else:
+        assert (kill == aff).all() and (rem == 0).all()
+        # v0 killed at minute 1, gone at 16; v2 leaves in minute 1 (0)
+        assert lost.tolist() == [15, 15, 15, 15, 0]
+    fc, um, up, slots, down = state
+    assert (down[:, 0] == 1).all() and (up[:, 0] == 0).all()
+
+
+@pytest.mark.parametrize("mitigation", MITIGATIONS)
+@pytest.mark.parametrize("state_dtype", DTYPES)
+def test_departure_minutes_past_int16_are_kept_in_int32(state_dtype,
+                                                        mitigation):
+    events, n_slots = cases.late_stream()
+    assert events["x"].max() > 2 ** 16
+    (rej, aff, kill, rem, lost), dist, _ = _both(
+        events, n_slots, cases.DEMAND_SHAPE, cases.LATE_LANES, state_dtype,
+        mitigation)
+    assert dist.tolist() == [[3, 3, 0]] and (rej == 0).all()
+    if mitigation == "remigrate":
+        assert rem.tolist() == [3, 0, 0] and kill.tolist() == [0, 3, 0]
+        assert lost.tolist() == [0, 142_970, 0]
+    else:
+        assert kill.tolist() == [3, 3, 0]
+        assert lost.tolist() == [142_970, 142_970, 0]
+
+
 # (servers, servers a group, lanes): 4 and 8 servers (not a multiple of
 # 32), 33 (two servers a thread), 1 lane, 300 lanes (many blocks)
 SHAPES = [(4, 2, 5), (8, 4, 12), (33, 8, 9), (7, 4, 1), (64, 8, 300)]
@@ -319,42 +368,104 @@ def test_init_fail_state_is_all_up():
     assert not jax_sc.init_fail_state(8, 5)[4].any()
 
 
+def _tail(plan):
+    """A plan's fields after the servers a thread."""
+    return dataclasses.astuple(plan)[1:]
+
+
 def test_kernel_plan_takes_the_full_config_and_refuses_past_512_servers():
-    # the full-width configuration: 256 servers, 1,517 slots, 6 lanes
+    # the full-width configuration: 256 servers, 1,517 slots, 6 lanes (one
+    # a block, 6 warps each: one batch of 8 slots a thread at a FAIL)
     for item in (2, 4):
         plan = K.plan(6, 256, 1517, item, 132)
-        assert plan == K.Plan(8, 1, "shared")
+        assert plan == K.Plan(8, 1, "shared", 6)
         need = K.shared_bytes(256, 1517, item, plan.lanes_per_block)
         assert need <= K.MAX_SHARED
-    # 4 traces x 6 lanes; 300 lanes of one trace: three a block
-    assert K.plan(6, 256, 1517, 2, 132, n_traces=4).lanes_per_block == 1
-    assert K.plan(300, 64, 90, 2, 132).lanes_per_block == 3
-    assert K.plan(1, 4, 10, 4, 132) == K.Plan(1, 1, "shared")
-    # a slot column past shared memory's limit stays in global memory
+    # 4 traces x 6 lanes: a block and 6 warps each; 300 lanes of one
+    # trace: three a block, one warp each
+    assert _tail(K.plan(6, 256, 1517, 2, 132, n_traces=4)) == (
+        1, "shared", 6)
+    assert _tail(K.plan(300, 64, 90, 2, 132)) == (3, "shared", 1)
+    assert K.plan(1, 4, 10, 4, 132) == K.Plan(1, 1, "shared", 1)
+    # columns past shared memory's limit stay in global memory: a lane's
+    # slot and payload columns take 18 (int16) or 20 bytes a slot
     assert K.choose_slot_column(256, 100_000, 4) == "global"
     assert K.plan(16, 256, 100_000, 4, 132).slot_column == "global"
+    assert K.choose_slot_column(256, 9_000, 2) == "shared"
+    assert K.choose_slot_column(256, 9_100, 2) == "global"
+    assert K.choose_slot_column(256, 8_100, 4) == "shared"
+    assert K.choose_slot_column(256, 8_200, 4) == "global"
+    # forced: the columns in global memory, one warp a lane
+    assert _tail(K.plan(6, 256, 1517, 2, 132, slot_column="global",
+                        warps=1)) == (1, "global", 1)
     with pytest.raises(ValueError, match="ROADMAP"):
         K.plan(16, 513, 100, 2, 132)
     with pytest.raises(ValueError, match="slot_column"):
         K.plan(16, 256, 100, 2, 132, slot_column="nowhere")
+    with pytest.raises(ValueError, match="warps"):
+        K.plan(300, 64, 90, 2, 132, warps=4)
+
+
+@pytest.mark.parametrize("n_lanes,n_traces,n_slots,want",
+                         [(6, 1, 1517, 6), (6, 4, 1517, 6), (1, 1, 10, 1),
+                          (1, 1, 256, 1), (1, 1, 257, 2), (16, 1, 5000, 8),
+                          (133, 1, 1517, 1), (34, 4, 1517, 1)])
+def test_warps_a_lane_share_the_fail_stride_only_on_idle_sms(
+        n_lanes, n_traces, n_slots, want):
+    """W: one batch of SCAN slots a thread at a FAIL, at most 8 warps,
+    while every lane has a block of its own on the 132 SMs; 1 beyond."""
+    lanes = K.lanes_per_block(n_lanes, 256, n_slots, 2, 132, n_traces)
+    assert K.warps_per_lane(n_lanes, n_slots, 132, n_traces, lanes) == want
+    plan = K.plan(n_lanes, 256, n_slots, 2, 132, n_traces)
+    assert plan.warps == want
+    assert plan.warps * plan.lanes_per_block <= K.MAX_WARPS_PER_BLOCK
+
+
+def _cu_constant(name):
+    """An ``int`` constant of the kernel's source."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, K.SOURCE)) as f:
+        return int(re.search(rf"constexpr int {name} = (\d+);",
+                             f.read())[1])
 
 
 def test_shared_bytes_match_the_sources_layout():
-    """kernel.py's shared-memory sum is the one the .cu computes: stages,
-    group_of, then a lane's slot column and three int32 arrays of S, each
-    rounded to 16 bytes."""
-    stages = 2 * 6 * 1024 * 4
-    assert K.shared_bytes(4, 10, 2, 1) == stages + 16 + 32 + 48
-    assert K.shared_bytes(4, 10, 2, 3, "global") == stages + 16 + 3 * 48
+    """kernel.py's shared-memory sum is the one the .cu computes: stages
+    of the eight event arrays, group_of, then a lane's slot column, its
+    payload column (four values a slot), the FAIL pass's three int32 arrays
+    of S and 64 words, the columns and the arrays rounded to 16 bytes."""
+    for name, value in (("kTile", K.TILE), ("kStages", K.STAGES),
+                        ("kStaged", K.STAGED), ("kLaneWords", K.LANE_WORDS),
+                        ("kScan", K.SCAN),
+                        ("kMaxWarpsPerBlock", K.MAX_WARPS_PER_BLOCK),
+                        ("kMaxShared", K.MAX_SHARED)):
+        assert _cu_constant(name) == value, name
+    stages = 2 * 8 * 1024 * 4
+    assert K.shared_bytes(4, 10, 2, 1) == stages + 16 + 32 + 160 + 48 + 256
+    assert K.shared_bytes(4, 10, 4, 1) == stages + 16 + 48 + 160 + 48 + 256
+    assert K.shared_bytes(4, 10, 2, 3, "global") == (
+        stages + 16 + 3 * (48 + 256))
     assert K.shared_bytes(256, 1517, 4, 2) == (
-        stages + 1024 + 2 * (6080 + 3072))
+        stages + 1024 + 2 * (6080 + 24272 + 3072 + 256))
+
+
+def test_payload_check_and_scratch():
+    """The payload is int32 in either state type: the global columns get
+    an int32 scratch of four values a slot, shared columns none."""
+    for item in (2, 4):
+        plan = K.plan(6, 256, 1517, item, 132, slot_column="global")
+        scratch = K.payload_scratch(plan, 6, 1517, "cpu")
+        assert scratch.shape == (6, 1517, 4) and scratch.dtype == torch.int32
+        assert K.payload_scratch(K.plan(6, 256, 1517, item, 132), 6, 1517,
+                                 "cpu") is None
+    assert 4 * torch.int32.itemsize == K.PAYLOAD_BYTES
 
 
 def test_ptxas_report_reads_each_instantiation():
     log = (
         "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117"
-        "fail_sweep_kernelIsLi8ELb0ELb1EEEvNS_6EventsEPKiPT_S6_S6_S6_PiPKS5_"
-        "S9_S7_S7_S7_iiiiiiiiiiiNS_6TracesE' for 'sm_90a'\n"
+        "fail_sweep_kernelIsLi8ELb0ELb1EEEvNS_6EventsEPKiPT_S5_S5_S5_PiPKS4_"
+        "S8_P4int4S6_S6_iiiiiiiiiiiiNS_6TracesE' for 'sm_90a'\n"
         "ptxas info    : Function properties for _ZN12_GLOBAL__N_117fail\n"
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
         "ptxas info    : Used 96 registers, used 0 barriers\n")
