@@ -3495,9 +3495,10 @@ def _k4_inputs(ev, n_slots, n_servers, cores, lanes, state_dtype, dev):
 
 
 def _k4_run(kernel, events, inc, state, trace_events=None,
-            slot_column=None):
-    """K4 (``kernel``, through its wrapper) or its plain version on a copy
-    of ``state``: [fc, um, up, slots, pods, rejects]."""
+            slot_column=None, distinct=None):
+    """K4 (``kernel``, through its wrapper; ``distinct`` forces a table
+    build) or its plain version on a copy of ``state``: [fc, um, up,
+    slots, pods, rejects]."""
     from repro_torch.kernels.event_sweep.ops import trace_layout
     from repro_torch.kernels.pod_sweep import ops
     from repro_torch.kernels.pod_sweep.ref import pod_sweep_ref
@@ -3505,7 +3506,7 @@ def _k4_run(kernel, events, inc, state, trace_events=None,
     rej = torch.zeros(st[0].shape[0], dtype=torch.int32, device=st[0].device)
     if kernel:
         ops.pod_sweep(*events, inc, *st, rej, trace_events=trace_events,
-                      slot_column=slot_column)
+                      slot_column=slot_column, distinct=distinct)
     else:
         starts, counts = trace_layout(trace_events, events[0].shape[0],
                                       st[0].shape[0])
@@ -3530,50 +3531,84 @@ def _k4_checks(dev):
     state and the rejects: the edge stream's lanes (a double MIGRATE,
     fallback MIGRATEs to the first pod, negative used pool, orphan servers,
     a pod without members), int16 state at its bounds, pod ids at the
-    int16 bound, seeded streams over 4-500 servers, 1-300 lanes and rows of
-    1-3 pods (each lane its own topology), in both state types, the slot and
-    pod columns where the plan puts them and in global memory; then the
-    trace axis (three streams of other lengths, 5 lanes a trace).  Returns
-    (checked, max_abs_err)."""
+    int16 bound, the table's edges (``cases.table_stream``: two servers of
+    a thread listing two pods in opposite order, a pod in two threads'
+    tables, a fallback MIGRATE paying a first pod that is not the table's
+    first entry), seeded streams over 4-500 servers, 1-300 lanes and rows
+    of 1-3 pods (each lane its own topology), threads of exactly 3 K
+    distinct pods or more than the next smaller build holds
+    (``cases.wide_lanes``) and of one pod (``cases.aligned_lanes``), in
+    both state types, the slot and pod columns where the plan puts them
+    and in global memory, and every table build that holds the launch's
+    widest thread forced (``distinct=``), so that every build of
+    ``kernel.distinct_builds`` at K 1-16 runs in both state types; then
+    the trace axis (three streams of other lengths, 5 lanes a trace).
+    Returns (checked, max_abs_err)."""
     from repro_torch.kernels.event_sweep.ops import pack_traces
     from repro_torch.kernels.pod_sweep import cases, ops
+    from repro_torch.kernels.pod_sweep import kernel as K4
     from repro_torch.kernels.pod_sweep.cases import EVENT_KEYS
     rng = np.random.default_rng(20)
+    both = ("int16", "int32")
     runs = [("edges", *cases.edge_stream(), cases.EDGE_SHAPE,
-             cases.edge_lanes(), ("int16", "int32")),
+             cases.edge_lanes(), both),
             ("int16_bounds", *cases.bounds_stream(), cases.BOUNDS_SHAPE,
-             cases.bounds_lanes(), ("int16", "int32"))]
+             cases.bounds_lanes(), both),
+            ("table_edges", *cases.table_stream(), cases.TABLE_SHAPE,
+             cases.table_lanes(), both)]
     ev, n_slots = cases.random_stream(rng, 200)
     runs.append(("pod_id_bound", ev, n_slots, dict(n_servers=8, cores=64),
                  cases.pod_bound_lanes(rng, 3, 8, 64), ("int16",)))
     # fewer servers than a warp, 33 (two a thread), one lane, 300 lanes
-    # (three a block), 256 (the row's K 8) and 500 servers (K 16)
+    # (three a block), 100 (K 4), 256 (the row's K 8) and 500 servers (K 16)
     for s, n_lanes, fanout, n_vms in ((4, 5, 2, 200), (8, 12, 3, 200),
                                       (33, 9, 3, 300), (7, 1, 1, 200),
-                                      (64, 300, 3, 300), (256, 16, 3, 900),
-                                      (256, 24, 1, 900), (500, 16, 3, 900)):
+                                      (64, 300, 3, 300), (100, 12, 3, 300),
+                                      (256, 16, 3, 900), (256, 24, 1, 900),
+                                      (500, 16, 3, 900)):
         ev, n_slots = cases.random_stream(rng, n_vms)
         runs.append((f"S{s}_lanes{n_lanes}_F{fanout}", ev, n_slots,
                      dict(n_servers=s, cores=64),
-                     cases.random_lanes(rng, n_lanes, s, 64, fanout),
-                     ("int16", "int32")))
-    checked, max_err = [], 0
+                     cases.random_lanes(rng, n_lanes, s, 64, fanout), both))
+    for s, n_distinct in ((8, 3), (33, 6), (100, 12), (256, 9), (256, 24),
+                          (500, 9), (500, 48)):
+        ev, n_slots = cases.random_stream(rng, 300)
+        runs.append((f"S{s}_wide{n_distinct}", ev, n_slots,
+                     dict(n_servers=s, cores=64),
+                     cases.wide_lanes(rng, 6, s, 64, n_distinct), both))
+    for s in (8, 33, 100, 256, 500):
+        ev, n_slots = cases.random_stream(rng, 300)
+        runs.append((f"S{s}_one_pod_a_thread", ev, n_slots,
+                     dict(n_servers=s, cores=64),
+                     cases.aligned_lanes(rng, 6, s, 64), both))
+    checked, max_err, covered = [], 0, set()
     for name, ev, n_slots, shape, lanes, dts in runs:
+        k = K4.servers_per_thread(shape["n_servers"])
         for dt in dts:
             events, inc, state = _k4_inputs(ev, n_slots, shape["n_servers"],
                                             shape["cores"], lanes, dt, dev)
+            widest = int(K4.widest_distinct(inc, k))
             want = _k4_run(False, events, inc, state)
-            for column in (None, "global"):
-                got = _k4_run(True, events, inc, state, slot_column=column)
+            forced = [d for d in K4.distinct_builds(k) if d >= widest]
+            for column, distinct in ([(None, None), ("global", None)]
+                                     + [(None, d) for d in forced]):
+                got = _k4_run(True, events, inc, state, slot_column=column,
+                              distinct=distinct)
                 max_err = max(max_err, _k4_compare(f"{name} {dt}", got,
                                                    want))
+                covered.add((dt, k, ops.last_plan.distinct))
                 checked.append(dict(
                     case=name, state_dtype=dt,
                     plan=dataclasses.asdict(ops.last_plan),
+                    forced_distinct=distinct, widest_thread=widest,
                     servers=shape["n_servers"], lanes=len(lanes[0]),
                     pods=lanes[1].shape[1], fanout=lanes[2].shape[2],
                     events=len(ev["kind"]), rejects=int(want[5].sum()),
                     min_used_pool=int(want[2].min())))
+    missing = [(dt, k, d) for dt in both for k in (1, 2, 4, 8, 16)
+               for d in K4.distinct_builds(k) if (dt, k, d) not in covered]
+    if missing:
+        raise SystemExit(f"pod_sweep: table builds never checked: {missing}")
     # the trace axis: three streams, 5 lanes a trace, the grid's incidence
     # a copy a trace
     streams = [cases.random_stream(rng, n) for n in (220, 150, 260)]
@@ -3612,8 +3647,14 @@ def _k4_timed(evs, inc, n_servers, cores, n_slots, sgb_i, pgb_i, np_dt,
     dev = inc.device
     k, width = len(counts), len(counts) * len(sgb_i)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # the table build the wrapper would choose (checkouts before the
+    # distinct-pod table have none)
+    kw = {}
+    if hasattr(K4, "widest_distinct"):
+        kw["distinct"] = int(K4.widest_distinct(
+            inc, K4.servers_per_thread(n_servers)))
     plan = K4.plan(len(sgb_i), n_servers, inc.shape[2], n_slots,
-                   np.dtype(np_dt).itemsize, sms, k)
+                   np.dtype(np_dt).itemsize, sms, k, **kw)
     st = sweep_core.init_pod_state(width, n_servers, cores, n_servers,
                                    pgb_i.shape[1], n_slots, np_dt)[:5]
     st += (np.tile(sgb_i, k).astype(np_dt),
@@ -3811,6 +3852,26 @@ def phase_kernels_pod(dev):
     cut_ms = k4(ev_c, inc, n_slots, sgb_i, caps_i, [cut])["ms"]
     with open(f"{build.library_path(K4.NAME)}.log") as f:
         report = K4.ptxas_report(f.read())
+    # SASS instructions of the builds the timings above ran (int16, K 8:
+    # the 8-entry table single-trace and batched, the one-entry table) and
+    # of K1's matching builds
+    def short(name):            # the kernel's name and template arguments
+        m = re.search(r"([a-z_]+kernelI\w*?)EEv", name)
+        return m.group(1) if m else name
+
+    emit("kernels_pod_codegen", sass={
+        short(name): dict(instructions=v["instructions"],
+                          top_opcodes=dict(list(v["by_opcode"].items())[:12]))
+        for name, v in _sass_counts(
+            [(build.library_path(K4.NAME),
+              r"pod_sweep_kernelIsLi8ELi(1|8)ELb[01]ELb0E"),
+             (build.library_path(k1_ops.K.NAME),
+              r"sweep_regs_kernelIsLi8ELb[01]ELb0E")]).items()},
+        ptxas=[dict(r, function=short(r["function"])) for r in report],
+        instantiations=len(report),
+        with_stack_or_spills=[short(r["function"]) for r in report
+                              if r.get("stack_bytes")
+                              or r.get("spill_store_bytes")])
     timings = {k: share(t) for k, t in timings.items()}
     main = timings["topo_full_192"]
     record = dict(
@@ -3821,14 +3882,21 @@ def phase_kernels_pod(dev):
         cut_checks=cut_checks,
         design="K1's registers design (one warp a lane, K = S/32 servers "
                "a thread in registers, redux.sync first minimum, "
-               "predicated updates, 2-stage cp.async event tiles); per "
-               "(server, fanout entry) the pod id and the pod's free pool "
-               "in int32 registers (a fit is one compare, an update adds "
-               "to every copy of the target pod); the chosen server's "
-               "owner finds the granting or the first pod and broadcasts "
-               "it by one __shfl_sync; each slot's pod in a second per-lane "
-               "column beside the slot column (thread 0; shared memory, "
-               "global past its limit)",
+               "predicated updates, 2-stage cp.async event tiles); a "
+               "table of the distinct pods a thread's servers list (D "
+               "entries: id and free pool in int32; D 1, 8 or 3 K, the "
+               "least that holds the launch's widest thread, which the "
+               "wrapper counts; the kernel traps past D), for each server "
+               "its row as entries in list order, one word (one-hot "
+               "fields, the first listed on top, or 8-bit indices); a fit "
+               "mask an ARRIVE, one logical op a server for "
+               "admissibility; the chosen server's owner decodes the "
+               "first listed entry with room (one FLO, a select tree over "
+               "the table) and broadcasts its pod by one __shfl_sync; D "
+               "predicated adds an update; "
+               "each slot's pod in a second per-lane column beside the "
+               "slot column (thread 0; shared memory, global past its "
+               "limit)",
         ms=main["ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
         timed_shape=dict(events=n_ev, arrivals=n_arrive, servers=n_srv,
                          pods=p_max, fanout=main["fanout"],
@@ -3955,6 +4023,7 @@ def phase_topology_full(dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launches                 # ... and read just after it
+    last_plan = dataclasses.asdict(ops.last_plan)   # the batch's launch
     peak = torch.cuda.max_memory_allocated()
     stats = replay_engine.stats_snapshot()
     times = replay_engine.stage_times()
@@ -4027,6 +4096,7 @@ def phase_topology_full(dev):
          kernel_launches=launches, sweeps=len(times.sweeps),
          sweep_lanes=[n for n, _ in times.sweeps],
          sweep_state_dtypes=[d for _, d in times.sweeps],
+         last_launch_plan=last_plan,
          engine_stats=stats,
          host_seconds=dict(compile_and_upload=times.compile_s,
                            device_sweeps=times.sweep_s, other=other,

@@ -63,8 +63,10 @@ wrapper checks, fresh state, runs enqueued behind a wait on the card): the
 192 lanes on seed 2's stream, 16 lanes of partitioned(256, 8) (rows of one
 pod), the same 192 lanes on a copy of the stream with every event but
 ARRIVE made a PAD (``arrive_only``), and the three streams as one batch of
-3 x 192 lanes.  The results compared are the reject counts.  ``--lanes``
-is not used.
+3 x 192 lanes; a checkout whose kernel keeps a table of each thread's
+distinct pods (``kernel.widest_distinct``) takes the table build its
+wrapper would choose.  The results compared are the reject counts.
+``--lanes`` is not used.
 
 ``--kernel avail``: not one kernel but the failure layer's main path,
 ``chip_smoke.py``'s ``_availability_path`` at ``AVAIL_FULL`` (engines

@@ -48,24 +48,35 @@
 // server, warp-uniform predicated updates, events staged by 2-stage
 // cp.async tiles.  What K4 adds, and why:
 //
-//  * Per-pod state in registers.  For each owned server and fanout entry a
-//    thread keeps the pod's id and the pod's FREE pool, pgb - up, in int32:
-//    K x F of each (template F, the largest fanout the launch needs, 1 or
-//    3; entries past a row's pods hold id -1 and a free pool of INT_MIN,
-//    which no demand fits).  A pod fit is then one compare, and an update
-//    adds to every copy whose id is the target pod (a warp-uniform target,
-//    so every copy of a pod stays equal).  In int32 the free pool is exact
-//    while |pgb|, |up| <= 2^30 (the host clips capacities there).
-//  * The granting pod and the first pod.  Before the best fit is known,
-//    each thread finds, for each of its servers, the first listed pod with
-//    room (F selects, the servers independent of each other); the chosen
-//    server's owner picks its server's by a tree of log2 K selects on the
-//    index and broadcasts it with one __shfl_sync (MIGRATE: the first
-//    listed pod and the local-room test, the same way).  Updates are
-//    predicated adds over every entry, with no branch around them.  A
-//    first design found the grant after the best fit by a chain of K x F
-//    selects and guarded the updates by warp-uniform branches: 41.1 ms at
-//    TOPO_FULL against 29.2 (scripts/torch_k1_ab.py --kernel k4, H100).
+//  * A table of the thread's distinct pods.  A thread's K servers
+//    list few distinct pods (at most 6 at 256 servers in fig_topology's
+//    eight topologies, against K x F = 24 entries), so each thread keeps
+//    one entry a distinct pod: its id (-1 empty) and its FREE pool, pgb -
+//    up, in int32, D entries (template D: 1, 8 or the catch-all kMaxF x K,
+//    the least that holds the launch's widest thread; the wrapper counts it
+//    and the kernel traps past D, never writing a wrong result).  For each
+//    server it keeps its row as table entries in list order, packed in one
+//    word (Row): with 3 D <= 30 a D-bit one-hot field a listed pod, the
+//    first listed in the top field, and bit 31 set; else an 8-bit index a
+//    listed pod, beside a mask of the row's entries.  In int32 the free
+//    pool is exact while |pgb|, |up| <= 2^30 (the host clips capacities
+//    there).
+//  * ARRIVE builds the fit mask (free >= p; one-hot rows: copied into
+//    each field), and a server is pool-admissible when its row meets it
+//    (bit 31 meets a pool-free VM's all-ones mask): one logical op a
+//    server before the best fit.  After the redux.sync only the chosen
+//    server's row is decoded, by its owner: the first listed entry with
+//    room is the highest set bit of row & fit (one FLO), its id a tree of
+//    selects over the table, broadcast by one __shfl_sync.  MIGRATE
+//    decodes the row's first entry the same way.  A grant, a DEPART's
+//    return and a MIGRATE's return add to the D entries whose id is the
+//    warp-uniform target pod, so every copy of a pod in the warp stays
+//    equal.  The design before it kept the id and the free pool of
+//    every (server, fanout entry), K x F of each, tested them all at an
+//    ARRIVE and updated them all at every event; finding each server's
+//    grant before the best fit, as it did, costs more instructions than
+//    the decode after it saves (scripts/torch_k1_ab.py --kernel k4 on an
+//    H100; PERF.md section 6).
 //  * DEPART and MIGRATE read the slot and its pod (thread 0) and broadcast
 //    both in one __shfl_sync with int16 state (two halves of a word).
 //  * The recorded pod.  Per-slot data that a lane reads later cannot sit in
@@ -79,11 +90,13 @@
 // earlier placement); the card's rates give a far lower floor, K1's 18
 // int32 operations a (ARRIVE, lane, server) plus the F pod fits, and the
 // events and the state once in bytes.  So the time is the per-event
-// dependency chain's, which the F pod entries a server lengthen.
+// dependency chain's and the instructions it issues.
 
 #include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -96,6 +109,7 @@ constexpr int kMaxTraces = 256;     // traces a launch (the table below)
 constexpr int kMaxShared = 232448;  // bytes a block may use on sm_90
 constexpr int kMaxK = 16;           // servers a thread
 constexpr int kMaxF = 3;            // pods a server's row lists
+constexpr int kMidD = 8;            // the table build between 1 and kMaxF K
 constexpr int kIndexBits = 9;       // packed key: server index bits
 constexpr int kScoreOffset = 1 << 15;
 constexpr int kNoPod = INT_MIN;     // a target that no entry's id equals
@@ -212,19 +226,92 @@ __device__ __forceinline__ void add_where(int& x, int a, int b, int dx) {
       : "r"(a), "r"(b), "r"(dx));
 }
 
-// v[j] for 0 <= j < K by a tree of selects on j's bits (depth log2 K, not
-// a chain of K): registers cannot be indexed by a value the warp computes
-template <int K>
-__device__ __forceinline__ int pick(const int (&v)[K], int j) {
-  int t[K];
+// v[j] for 0 <= j < N by a tree of selects on j's bits (depth log2 N, not
+// a chain of N): registers cannot be indexed by a value the warp computes
+template <typename V, int N>
+__device__ __forceinline__ V pick(const V (&v)[N], int j) {
+  V t[N];
 #pragma unroll
-  for (int i = 0; i < K; ++i) t[i] = v[i];
+  for (int i = 0; i < N; ++i) t[i] = v[i];
 #pragma unroll
-  for (int w = 1; w < K; w *= 2)
+  for (int w = 1; w < N; w *= 2)
 #pragma unroll
-    for (int i = 0; i < K; i += 2 * w) t[i] = (j & w) ? t[i + w] : t[i];
+    for (int i = 0; i + w < N; i += 2 * w) t[i] = (j & w) ? t[i + w] : t[i];
   return t[0];
 }
+
+// v[0] | ... | v[N - 1] by a tree (depth log2 N, not a chain of N)
+template <typename V, int N>
+__device__ __forceinline__ V or_all(const V (&v)[N]) {
+  V t[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) t[i] = v[i];
+#pragma unroll
+  for (int w = 1; w < N; w *= 2)
+#pragma unroll
+    for (int i = 0; i + w < N; i += 2 * w) t[i] |= t[i + w];
+  return t[0];
+}
+
+// A server's row as table entries in list order (see the design note).
+// With kOneHot a D-bit one-hot field a listed pod, the first listed in the
+// top field (field q at bit (kMaxF - 1 - q) D), so the first listed field
+// with room holds the highest set bit of row & fit; bit 31 is set in every
+// row (it admits a pool-free VM on any server).  Else an 8-bit entry index
+// a listed pod, field q at bit 8 q, 0xff none.
+template <int D>
+struct Row {
+  static constexpr bool kOneHot = kMaxF * D <= 30;
+  static constexpr unsigned kAny = 1u << 31;
+  static constexpr unsigned kEmpty = kOneHot ? kAny : 0xffffffu;
+  // the fit mask copied into each field (no carries: fit < 2^D)
+  static constexpr unsigned kRepeat = kOneHot
+      ? (1u | 1u << D % 32 | 1u << (2 * D) % 32) : 0u;
+
+  __device__ static unsigned with(unsigned row, int q, int at) {
+    if constexpr (kOneHot)
+      return row | (1u << at) << ((kMaxF - 1 - q) * D);
+    else
+      return (row & ~(0xffu << (8 * q))) | static_cast<unsigned>(at)
+                                               << (8 * q);
+  }
+  // The first listed entry with room (`fits`: with kOneHot the fit mask
+  // copied into each field, else the mask itself); `found` says whether
+  // there is one.  The index is in [0, D) either way, so the caller
+  // selects after the table lookup instead of branching around it.
+  template <typename Mask>
+  __device__ static int first_fit(unsigned row, Mask fits, bool& found) {
+    if constexpr (kOneHot) {
+      const unsigned hits = row & static_cast<unsigned>(fits);
+      found = hits != 0;
+      // the highest set bit's place within its field is the entry
+      // (31 - __clz(0) wraps to an index in range)
+      return static_cast<unsigned>(31 - __clz(hits)) % D;
+    } else {
+      int g = -1;
+#pragma unroll
+      for (int q = kMaxF - 1; q >= 0; --q) {
+        const int at = (row >> (8 * q)) & 0xff;
+        const bool ok = at < D && ((fits >> (at < D ? at : 0)) & 1);
+        g = ok ? at : g;
+      }
+      found = g >= 0;
+      return max(g, 0);
+    }
+  }
+  // the row's first listed entry, as first_fit
+  __device__ static int first(unsigned row, bool& found) {
+    if constexpr (kOneHot) {
+      const unsigned f0 = (row >> ((kMaxF - 1) * D)) & ((1u << D) - 1);
+      found = f0 != 0;
+      return static_cast<unsigned>(31 - __clz(f0)) % D;
+    } else {
+      const int at = row & 0xff;
+      found = at < D;
+      return found ? at : 0;
+    }
+  }
+};
 
 __device__ __forceinline__ void read_event(const int* tk, int i, int& kind,
                                            int& slot, int& c, int& l,
@@ -237,8 +324,10 @@ __device__ __forceinline__ void read_event(const int* tk, int i, int& kind,
   m = tk[5 * kTile + i];
 }
 
-template <typename T, int K, int F, bool kBatched, bool kGlobalSlots>
-__global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
+// (a minimum of one block an SM: ptxas may then give a thread all 255
+// registers, where it otherwise holds some builds to 128 with spills)
+template <typename T, int K, int D, bool kBatched, bool kGlobalSlots>
+__global__ void __launch_bounds__(32 * kMaxLanesPerBlock, 1)
     pod_sweep_kernel(Events ev, const int* __restrict__ inc,
                      T* __restrict__ fc, T* __restrict__ um,
                      T* __restrict__ up, T* __restrict__ slots,
@@ -247,6 +336,8 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
                      int E_one, int C, int S, int P, int F_in, int n_slots,
                      int lanes_per_block, int n_cand,
                      const __grid_constant__ Traces tr) {
+  using Mask = std::conditional_t<(D < 32), unsigned, unsigned long long>;
+  using R = Row<D>;
   extern __shared__ __align__(16) unsigned char smem[];
   int* stage = reinterpret_cast<int*>(smem);
   const int warp = threadIdx.x >> 5, tid = threadIdx.x & 31;
@@ -268,41 +359,63 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
   constexpr int big = sizeof(T) == 2 ? (1 << 14) : (1 << 30);
   constexpr bool kPacked = sizeof(T) == 2;
   static_assert(32 * kMaxK <= (1 << kIndexBits), "packed key's index bits");
-  static_assert(F >= 1 && F <= kMaxF, "fanout");
+  static_assert(D >= 1 && D <= kMaxF * kMaxK && D < 64, "table entries");
   constexpr unsigned kNone = packed_key(big, 0);
   const int base = tid * K;
 
   if (E > 0) load_tile(ev, stage, e_base, min(kTile, E));
   cp_async_commit();
 
-  // Thread tid's servers base .. base + K - 1 (see K1), and for each the
-  // pods its row lists: id (-1: none) and free pool.  A pad server past S
-  // never fits and lists no pod.
-  int fk[K], u[K], pid[K][F], pf[K][F];
-  int sg = 0, rej = 0;
-  const size_t row = static_cast<size_t>(lane);
+  // Thread tid's servers base .. base + K - 1 (see K1), the table of the
+  // distinct pods their rows list (id, free pool) and, for each server,
+  // its row in list order (Row) and, for rows of 8-bit indices, a mask of
+  // the entries it lists (bit D admits a pool-free VM anywhere).  A pad
+  // server past S never fits and lists no pod.
+  int fk[K], u[K], did[D], dfree[D];
+  Mask pm[K];
+  unsigned row[K];
+  int sg = 0, rej = 0, n_distinct = 0;
+  const size_t lrow = static_cast<size_t>(lane);
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    did[d] = -1;
+    dfree[d] = 0;
+  }
 #pragma unroll
   for (int j = 0; j < K; ++j) {
     const int s = base + j;
     int f = big;
     u[j] = 0;
-#pragma unroll
-    for (int q = 0; q < F; ++q) {
-      pid[j][q] = -1;
-      pf[j][q] = INT_MIN;
-    }
+    pm[j] = Mask(1) << D;
+    row[j] = R::kEmpty;
     if (active && s < S) {
-      f = fc[row * S + s];
-      u[j] = um[row * S + s];
+      f = fc[lrow * S + s];
+      u[j] = um[lrow * S + s];
 #pragma unroll
-      for (int q = 0; q < F; ++q) {
+      for (int q = 0; q < kMaxF; ++q) {
         const int id =
-            q < F_in ? inc[(row * S + s) * static_cast<size_t>(F_in) + q]
+            q < F_in ? inc[(lrow * S + s) * static_cast<size_t>(F_in) + q]
                      : -1;
         if (id >= 0 && id < P) {
-          pid[j][q] = id;
-          pf[j][q] = static_cast<int>(pgb[row * P + id]) -
-                     static_cast<int>(up[row * P + id]);
+          int at = -1;
+#pragma unroll
+          for (int d = 0; d < D; ++d) at = did[d] == id ? d : at;
+          if (at < 0) {
+            // more distinct pods than the build holds: stop rather than
+            // drop one (the wrapper picks D from the incidence)
+            if (n_distinct >= D) __trap();
+            const int free = static_cast<int>(pgb[lrow * P + id]) -
+                             static_cast<int>(up[lrow * P + id]);
+#pragma unroll
+            for (int d = 0; d < D; ++d) {
+              const bool here = d == n_distinct;
+              did[d] = here ? id : did[d];
+              dfree[d] = here ? free : dfree[d];
+            }
+            at = n_distinct++;
+          }
+          pm[j] |= Mask(1) << at;
+          row[j] = R::with(row[j], q, at);
         }
       }
     }
@@ -334,20 +447,30 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
         const int need = kPacked ? static_cast<int>(packed_key(c, 0)) : c;
         const int room_l = bound<T>(sg, l), room_m = bound<T>(sg, m);
         read_event(tk, nx, kind, sl, ec, el, ep, em);
-        // pool-admissible: a pool-free VM anywhere, else some listed pod
-        // with room for the whole demand; and each server's first listed
-        // pod with room (its grant, were it chosen), both before the best
-        // fit is known, off the event's dependent chain
-        bool pok[K];
-        int gj[K];
+        // the table entries with room for the whole demand; a server is
+        // pool-admissible when its row lists one (any server for a
+        // pool-free VM): one logical op a server, before the best fit
+        // (kOneHot: copied into each of a row's fields)
+        Mask fit;
+        if constexpr (R::kOneHot) {
+          unsigned b[D];
 #pragma unroll
-        for (int j = 0; j < K; ++j) {
-          int g = kNoPod;
+          for (int d = 0; d < D; ++d)
+            b[d] = dfree[d] >= p ? R::kRepeat << d : 0u;
+          fit = or_all(b);
+        } else {
+          Mask b[D];
 #pragma unroll
-          for (int q = F - 1; q >= 0; --q) g = pf[j][q] >= p ? pid[j][q] : g;
-          pok[j] = pi == 0 || g != kNoPod;
-          gj[j] = g;
+          for (int d = 0; d < D; ++d)
+            b[d] = dfree[d] >= p ? Mask(1) << d : Mask(0);
+          fit = or_all(b);
         }
+        const Mask admit = pi == 0 ? ~Mask(0) : fit;
+        bool pok[K];
+#pragma unroll
+        for (int j = 0; j < K; ++j)
+          pok[j] = R::kOneHot ? (row[j] & static_cast<unsigned>(admit)) != 0
+                              : (pm[j] & admit) != 0;
         int sel, feas1, place;
         if constexpr (kPacked) {
           unsigned k1[K], k2[K];
@@ -403,16 +526,22 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
           sel = feas1 ? x1 : x2;
         }
         const int hit = place ? sel - base : -1;
-        // the granting pod: the chosen server's, from its owner
-        int grant = __shfl_sync(kFull, pick(gj, hit), sel / K);
+        // the granting pod: the chosen server's first listed entry with
+        // room, decoded by its owner alone and broadcast (a pooled
+        // admission's server lists one, so `found` needs no test; with
+        // one entry a thread it is the table's)
+        int pod = did[0];
+        if constexpr (D > 1) {
+          bool found;
+          pod = pick(did, R::first_fit(pick(row, hit), fit, found));
+        }
+        int grant = __shfl_sync(kFull, pod, sel / K);
         grant = feas1 && pi > 0 ? grant : kNoPod;
         const int dl = feas1 ? l : m;
 #pragma unroll
-        for (int j = 0; j < K; ++j) {
-          add2_where(fk[j], u[j], hit, j, -dk, dl);
+        for (int j = 0; j < K; ++j) add2_where(fk[j], u[j], hit, j, -dk, dl);
 #pragma unroll
-          for (int q = 0; q < F; ++q) add_where(pf[j][q], pid[j][q], grant, -p);
-        }
+        for (int d = 0; d < D; ++d) add_where(dfree[d], did[d], grant, -p);
         rej += place ? 0 : 1;
         if (tid == 0) {
           sl_col[slot * stride] =
@@ -447,11 +576,9 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
           const int dm = mg ? m : l;
           const int tgt = val >= 0 && !mg && pv >= 0 ? pv : kNoPod;
 #pragma unroll
-          for (int j = 0; j < K; ++j) {
-            add2_where(fk[j], u[j], hit, j, dk, -dm);
+          for (int j = 0; j < K; ++j) add2_where(fk[j], u[j], hit, j, dk, -dm);
 #pragma unroll
-            for (int q = 0; q < F; ++q) add_where(pf[j][q], pid[j][q], tgt, p);
-          }
+          for (int d = 0; d < D; ++d) add_where(dfree[d], did[d], tgt, p);
           if (tid == 0) {
             sl_col[slot * stride] = static_cast<T>(-1);
             pod_col[slot * stride] = static_cast<T>(-1);
@@ -459,11 +586,12 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
         } else {  // MIGRATE: pool -> local when the local memory takes it
           const int room = bound<T>(sg, p);
           // the owner's (first listed pod << 1) | local room, broadcast
-          int info[K];
-#pragma unroll
-          for (int j = 0; j < K; ++j)
-            info[j] = pid[j][0] * 2 + (u[j] <= room ? 1 : 0);
-          const int got = __shfl_sync(kFull, pick(info, hit), s / K);
+          bool found;
+          const int at = R::first(pick(row, hit), found);
+          const int pod = pick(did, at);
+          const int info = (found ? pod : -1) * 2 +
+                           (pick(u, hit) <= room ? 1 : 0);
+          const int got = __shfl_sync(kFull, info, s / K);
           const bool act = val >= 0 && (got & 1);
           const int first = got >> 1;  // arithmetic: -1 stays -1
           const int tgt = !act ? kNoPod
@@ -471,11 +599,9 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
                           : first >= 0 ? first
                                        : kNoPod;
 #pragma unroll
-          for (int j = 0; j < K; ++j) {
-            add_where(u[j], act ? hit : -1, j, p);
+          for (int j = 0; j < K; ++j) add_where(u[j], act ? hit : -1, j, p);
 #pragma unroll
-            for (int q = 0; q < F; ++q) add_where(pf[j][q], pid[j][q], tgt, p);
-          }
+          for (int d = 0; d < D; ++d) add_where(dfree[d], did[d], tgt, p);
           if (tid == 0 && act)
             sl_col[slot * stride] = static_cast<T>(val | 1);
         }
@@ -492,16 +618,16 @@ __global__ void __launch_bounds__(32 * kMaxLanesPerBlock)
       const int s = base + j;
       if (s < S) {
         const int f = kPacked ? (fk[j] >> kIndexBits) - kScoreOffset : fk[j];
-        fc[row * S + s] = static_cast<T>(f);
-        um[row * S + s] = static_cast<T>(u[j]);
-        // every entry listing a pod holds the same copy of its free pool
-#pragma unroll
-        for (int q = 0; q < F; ++q)
-          if (pid[j][q] >= 0)
-            up[row * P + pid[j][q]] = static_cast<T>(
-                static_cast<int>(pgb[row * P + pid[j][q]]) - pf[j][q]);
+        fc[lrow * S + s] = static_cast<T>(f);
+        um[lrow * S + s] = static_cast<T>(u[j]);
       }
     }
+    // every thread listing a pod holds the same copy of its free pool
+#pragma unroll
+    for (int d = 0; d < D; ++d)
+      if (did[d] >= 0)
+        up[lrow * P + did[d]] = static_cast<T>(
+            static_cast<int>(pgb[lrow * P + did[d]]) - dfree[d]);
     if (!kGlobalSlots)
       for (int j = tid; j < n_slots; j += 32) {
         slots[static_cast<size_t>(j) * C + lane] = s_sl[j];
@@ -544,27 +670,30 @@ int launch(Kernel kern, const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// the fanouts built: 1 (partitioned, single-pool), 3 (the reference's
-// widest); a launch whose widest row lists 2 pods takes the build of 3
+// the table builds: 1 entry (a pod a thread: partitioned rows of 8 or
+// more servers, one pool), kMidD (fig_topology's mixed grid) and the
+// catch-all kMaxF x K, which holds any thread
 template <typename T, int K, bool kBatched, bool kG>
-int by_fanout(int kf, const Args& a) {
-  if (a.F > kf) return -1;
-  switch (kf) {
-    case 1: return launch<T>(pod_sweep_kernel<T, K, 1, kBatched, kG>, a);
-    case 3: return launch<T>(pod_sweep_kernel<T, K, 3, kBatched, kG>, a);
-    default: return -1;
-  }
+int by_distinct(int kd, const Args& a) {
+  constexpr int kAll = kMaxF * K;
+  if (kd == 1) return launch<T>(pod_sweep_kernel<T, K, 1, kBatched, kG>, a);
+  if constexpr (kMidD < kAll)
+    if (kd == kMidD)
+      return launch<T>(pod_sweep_kernel<T, K, kMidD, kBatched, kG>, a);
+  if (kd == kAll)
+    return launch<T>(pod_sweep_kernel<T, K, kAll, kBatched, kG>, a);
+  return -1;
 }
 
 template <typename T, bool kBatched, bool kG>
-int dispatch(int k, int kf, const Args& a) {
+int dispatch(int k, int kd, const Args& a) {
   if (32 * k < a.S) return -1;
   switch (k) {
-    case 1: return by_fanout<T, 1, kBatched, kG>(kf, a);
-    case 2: return by_fanout<T, 2, kBatched, kG>(kf, a);
-    case 4: return by_fanout<T, 4, kBatched, kG>(kf, a);
-    case 8: return by_fanout<T, 8, kBatched, kG>(kf, a);
-    case 16: return by_fanout<T, 16, kBatched, kG>(kf, a);
+    case 1: return by_distinct<T, 1, kBatched, kG>(kd, a);
+    case 2: return by_distinct<T, 2, kBatched, kG>(kd, a);
+    case 4: return by_distinct<T, 4, kBatched, kG>(kd, a);
+    case 8: return by_distinct<T, 8, kBatched, kG>(kd, a);
+    case 16: return by_distinct<T, 16, kBatched, kG>(kd, a);
     default: return -1;
   }
 }
@@ -572,26 +701,27 @@ int dispatch(int k, int kf, const Args& a) {
 // the single-trace build when one trace starts at event 0, else the
 // batched one; the slot and pod columns in shared or in global memory
 template <typename T>
-int dispatch_traces(int k, int kf, const Args& a) {
+int dispatch_traces(int k, int kd, const Args& a) {
   const bool one = a.n_traces == 1 && a.tr.start[0] == 0;
   if (a.global_slots)
-    return one ? dispatch<T, false, true>(k, kf, a)
-               : dispatch<T, true, true>(k, kf, a);
-  return one ? dispatch<T, false, false>(k, kf, a)
-             : dispatch<T, true, false>(k, kf, a);
+    return one ? dispatch<T, false, true>(k, kd, a)
+               : dispatch<T, true, true>(k, kd, a);
+  return one ? dispatch<T, false, false>(k, kd, a)
+             : dispatch<T, true, false>(k, kd, a);
 }
 
 }  // namespace
 
 // events: six (E,) int32 arrays; trace_start, trace_count: T host ints;
-// C lanes, C / T a trace; inc (C, S, F) int32.
+// C lanes, C / T a trace; inc (C, S, F) int32; kd the table build (entries
+// a thread).
 extern "C" int pod_sweep_launch(
     const void* kind, const void* slot, const void* cores, const void* local,
     const void* pool, const void* mem, const int* trace_start,
     const int* trace_count, int T, const void* inc, void* fc, void* um,
     void* up, void* slots, void* pods, const void* sgb, const void* pgb,
     void* rejects, int E, int C, int S, int P, int F, int n_slots,
-    int state_bytes, int k, int kf, int lanes_per_block, int global_slots,
+    int state_bytes, int k, int kd, int lanes_per_block, int global_slots,
     void* stream) {
   if (E < 0 || T <= 0 || T > kMaxTraces || C <= 0 || C % T != 0 || S <= 0 ||
       P <= 0 || F <= 0 || F > kMaxF || n_slots <= 0 ||
@@ -611,8 +741,8 @@ extern "C" int pod_sweep_launch(
     a.tr.count[t] = n;
   }
   switch (state_bytes) {
-    case 2: return dispatch_traces<int16_t>(k, kf, a);
-    case 4: return dispatch_traces<int32_t>(k, kf, a);
+    case 2: return dispatch_traces<int16_t>(k, kd, a);
+    case 4: return dispatch_traces<int32_t>(k, kd, a);
     default: return -1;
   }
 }
@@ -620,7 +750,7 @@ extern "C" int pod_sweep_launch(
 extern "C" const char* pod_sweep_error_string(int code) {
   if (code == -1)
     return "unsupported extent, trace count, lanes per block, servers a "
-           "thread, fanout or state type";
+           "thread, fanout, table build or state type";
   if (code == -2)
     return "the slot and pod columns too large for a block's shared memory";
   if (code == -3)

@@ -167,3 +167,92 @@ def random_lanes(rng, n_lanes: int, n_servers: int, cores: int,
         pgb[i, :t.n_pods] = topology.split_pool(float(pool[i]), t.n_pods)
         inc[i, :, :t.inc.shape[1]] = t.inc
     return sgb, pgb, inc
+
+
+def table_stream():
+    """Hand-built stream over 64 servers of 8 cores (two a thread, K 2) for
+    the kernel's table of a thread's distinct pods.  v0-v3 each fill a
+    whole server (best fit takes servers 0, 1, 2, 3 in turn); each is
+    migrated later, and v0 and v2 leave early, returning their pool.  See
+    :func:`table_lanes` for the rows and capacities."""
+    vms = [(0.0, 50.0, 8, 1, 2, (30.0,)),
+           (1.0, 90.0, 8, 1, 2, (35.0,)),
+           (2.0, 40.0, 8, 1, 2, (36.0,)),
+           (3.0, 95.0, 8, 1, 2, (37.0,)),
+           (4.0, 80.0, 4, 1, 3, None),
+           (60.0, 85.0, 8, 1, 2, None),
+           (61.0, 86.0, 8, 1, 2, (70.0,))]
+    return compile_stream(vms, [(10.0, PAD), (20.0, FAIL), (21.0, RECOVER)])
+
+
+#: the table stream's cluster: 64 servers of 8 cores, 8 pods, rows of 2
+TABLE_SHAPE = dict(n_servers=64, cores=8, n_pods=8, fanout=2)
+
+
+def table_lanes():
+    """``(sgb (C,), pgb (C, 8), inc (C, 64, 2))`` for :func:`table_stream`.
+    Thread 0 owns servers 0 and 1, which list pods 0 and 1 in opposite
+    order (its table: 0, then 1), so with both pods roomy v0 is granted pod
+    0 and v1 pod 1; thread 1's servers 2 and 3 list pods 1, 2 and 2, 1, so
+    pod 1 has a copy in two threads' tables, granted by v1 and v2 and
+    returned by v2's DEPART.  Servers 4-63 list pods 3-7 (one or two).
+    Lanes: every pod roomy; pod 1 with room for one VM (v2 then takes pod
+    2); no pool anywhere, so every pooled VM is placed by the fallback and
+    each MIGRATE pays its server's FIRST listed pod (v1 on server 1: pod
+    1, the second entry of thread 0's table); pod 0 alone empty (v0 takes
+    pod 1 on server 0, its second listed); local memory too small to
+    migrate."""
+    inc = np.full((TABLE_SHAPE["n_servers"], 2), -1, np.int32)
+    inc[:4] = [[0, 1], [1, 0], [1, 2], [2, 1]]
+    rest = np.arange(4, TABLE_SHAPE["n_servers"])
+    inc[4:, 0] = 3 + rest % 5
+    inc[4::2, 1] = 3 + (rest[::2] + 2) % 5
+    lanes = [(64, (64,) * 8),
+             (64, (64, 2, 64, 64, 64, 64, 64, 64)),
+             (64, (0,) * 8),
+             (64, (0, 64, 64, 64, 64, 64, 64, 64)),
+             (2, (64,) * 8)]
+    sgb = np.array([x[0] for x in lanes], np.int64)
+    pgb = np.array([x[1] for x in lanes], np.int64)
+    return sgb, pgb, np.repeat(inc[None], len(lanes), 0)
+
+
+def wide_lanes(rng, n_lanes: int, n_servers: int, cores: int,
+               n_distinct: int):
+    """``(sgb, pgb, inc)`` over ``n_distinct + 32`` pods whose every
+    thread (``k`` servers, K1's ``servers_per_thread``) lists exactly
+    ``n_distinct <= 3 k`` distinct pods: thread t's servers list, in rows
+    of three, pods t, t + 1, ..., t + n_distinct - 1 cyclically, so
+    neighbouring threads share pods; a random total pool split over the
+    pods."""
+    from repro_torch.kernels.event_sweep.kernel import servers_per_thread
+    k = servers_per_thread(n_servers)
+    srv = np.arange(n_servers)
+    t, j = srv // k, srv % k
+    q = np.arange(3)
+    # thread t's entries run over n_distinct pods of its own window
+    local = (j[:, None] * 3 + q[None, :]) % n_distinct
+    n_pods = n_distinct + 32
+    inc = ((t[:, None] + local) % n_pods).astype(np.int32)
+    inc = np.repeat(inc[None], n_lanes, 0)
+    sgb, pool = random_capacities(rng, n_lanes, cores)
+    pgb = np.stack([topology.split_pool(float(x), n_pods) for x in pool])
+    return sgb, pgb.astype(np.int64), inc
+
+
+def aligned_lanes(rng, n_lanes: int, n_servers: int, cores: int):
+    """``(sgb, pgb, inc)`` whose every thread lists one pod: partitioned
+    pods of a whole thread's servers (or more) and one pool, so a launch
+    takes the one-entry table build."""
+    from repro_torch.kernels.event_sweep.kernel import servers_per_thread
+    k = servers_per_thread(n_servers)
+    topos = [topology.partitioned(n_servers, k * 2 ** (i % 3))
+             if i % 4 else topology.single_pool(n_servers)
+             for i in range(n_lanes)]
+    sgb, pool = random_capacities(rng, n_lanes, cores)
+    n_pods = max(x.n_pods for x in topos)
+    pgb = np.zeros((n_lanes, n_pods), np.int64)
+    inc = np.stack([x.inc for x in topos]).astype(np.int32)
+    for i, x in enumerate(topos):
+        pgb[i, :x.n_pods] = topology.split_pool(float(pool[i]), x.n_pods)
+    return sgb, pgb, inc

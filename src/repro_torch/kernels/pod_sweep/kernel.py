@@ -3,12 +3,14 @@
 The kernel is ``csrc/pod_sweep.cu``; it replaces the reference's
 ``src/repro/core/sweep_core.py::build_pod_sweep`` (a ``lax.scan``; the
 design note is at the top of the source).  This module builds it at first
-use, plans a launch (servers a thread, the fanout build, lanes a block,
+use, plans a launch (servers a thread, the table build, lanes a block,
 where the slot and pod columns live) and hands raw pointers and the traces'
 places in the event arrays to its C entry point; shapes, dtypes and
 contiguity are the wrapper's business (``ops.py``).  The launch plan is
-K1's (``kernels/event_sweep/kernel.py``) with K4's shared memory: a lane's
-slot column and pod column.
+K1's (``kernels/event_sweep/kernel.py``) with K4's shared memory (a lane's
+slot column and pod column) and K4's table build: the entries a thread
+keeps for the distinct pods its servers' rows list, the least build that
+holds the launch's widest thread (:func:`widest_distinct`).
 """
 from __future__ import annotations
 
@@ -31,10 +33,11 @@ MAX_TRACES = K1.MAX_TRACES
 MAX_SHARED = K1.MAX_SHARED
 # the registers design only: K = S / 32 servers a thread, at most 16
 MAX_SERVERS = K1.MAX_REGISTER_SERVERS
-# the fanouts (pods a server's row lists) the build instantiates; a launch
-# takes the least that covers its widest row
-FANOUTS = (1, 3)
-MAX_FANOUT = FANOUTS[-1]
+# pods a server's row lists, at most
+MAX_FANOUT = 3
+# the table builds (entries a thread) between one pod a thread and the
+# catch-all MAX_FANOUT * K, which holds any thread
+MID_DISTINCT = 8
 SLOT_COLUMNS = K1.SLOT_COLUMNS
 
 _fns = None
@@ -42,13 +45,15 @@ _fns = None
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """How one sweep launches: servers a thread, the fanout build, lanes
-    (warps) a block and where a lane's slot and pod columns live (one of
-    :data:`SLOT_COLUMNS`)."""
+    """How one sweep launches: servers a thread, the widest row's pods,
+    lanes (warps) a block, where a lane's slot and pod columns live (one of
+    :data:`SLOT_COLUMNS`) and the table build (entries a thread, one of
+    :func:`distinct_builds`)."""
     servers_per_thread: int
     fanout: int
     lanes_per_block: int
-    slot_column: str = "shared"
+    slot_column: str
+    distinct: int
 
 
 def _round16(n: int) -> int:
@@ -66,14 +71,38 @@ def servers_per_thread(n_servers: int) -> int:
     return K1.servers_per_thread(n_servers)
 
 
-def fanout_build(fanout: int) -> int:
-    """The least of :data:`FANOUTS` that holds ``fanout`` pods a row;
-    raises beyond :data:`MAX_FANOUT`."""
-    for f in FANOUTS:
-        if f >= fanout:
-            return f
-    raise ValueError(f"pod_sweep: at most {MAX_FANOUT} pods a server's row "
-                     f"(the build's widest fanout), got {fanout}")
+def distinct_builds(k: int) -> tuple[int, ...]:
+    """The table builds at ``k`` servers a thread: 1, :data:`MID_DISTINCT`
+    where it is below the catch-all, and the catch-all ``MAX_FANOUT * k``
+    (a thread's servers list no more pods than that)."""
+    top = MAX_FANOUT * k
+    return tuple(d for d in (1, MID_DISTINCT) if d < top) + (top,)
+
+
+def distinct_build(widest: int, k: int) -> int:
+    """The least table build at ``k`` servers a thread that holds a thread
+    whose servers list ``widest`` distinct pods; raises beyond the
+    catch-all."""
+    for d in distinct_builds(k):
+        if d >= widest:
+            return d
+    raise ValueError(
+        f"pod_sweep: a thread's servers list {widest} distinct pods; the "
+        f"table holds at most {MAX_FANOUT * k} at {k} servers a thread")
+
+
+def widest_distinct(inc: torch.Tensor, k: int) -> torch.Tensor:
+    """The most distinct pods that the rows of one thread's ``k`` servers
+    list, over every lane of ``inc`` (C, S, F) (thread t owns servers
+    [t k, t k + k)): a 0-d int64 tensor on ``inc``'s device, so that the
+    wrapper reads it in the sync it already makes."""
+    c, s, f = inc.shape
+    x = torch.nn.functional.pad(inc, (0, 0, 0, 32 * k - s), value=-1) \
+        if 32 * k > s else inc
+    x = x.reshape(c, 32, k * f).sort(-1).values
+    new = x >= 0
+    new[..., 1:] &= x[..., 1:] != x[..., :-1]
+    return new.sum(-1, dtype=torch.int64).max()
 
 
 def shared_bytes(n_slots: int, item: int, lanes: int,
@@ -116,19 +145,25 @@ def lanes_per_block(n_lanes: int, n_slots: int, item: int, sm_count: int,
 
 def plan(n_lanes: int, n_servers: int, fanout: int, n_slots: int,
          item: int, sm_count: int, n_traces: int = 1,
-         slot_column: str | None = None) -> Plan:
+         slot_column: str | None = None, distinct: int | None = None
+         ) -> Plan:
     """The launch plan of one sweep of ``n_traces`` traces, ``n_lanes``
     lanes a trace, rows of ``fanout`` pods; ``slot_column`` forces one of
-    :data:`SLOT_COLUMNS` (None: :func:`choose_slot_column`)."""
+    :data:`SLOT_COLUMNS` (None: :func:`choose_slot_column`); ``distinct``
+    is the widest thread's distinct pods (:func:`widest_distinct`; None:
+    the catch-all build, which holds any thread)."""
     k = servers_per_thread(n_servers)
-    f = fanout_build(fanout)
+    if fanout > MAX_FANOUT:
+        raise ValueError(f"pod_sweep: at most {MAX_FANOUT} pods a server's "
+                         f"row, got {fanout}")
+    d = distinct_build(MAX_FANOUT * k if distinct is None else distinct, k)
     slot_column = slot_column or choose_slot_column(n_slots, item)
     if slot_column not in SLOT_COLUMNS:
         raise ValueError(f"pod_sweep: slot_column {slot_column!r} is not "
                          f"one of {SLOT_COLUMNS}")
     lanes = lanes_per_block(n_lanes, n_slots, item, sm_count, n_traces,
                             slot_column)
-    return Plan(k, f, lanes, slot_column)
+    return Plan(k, fanout, lanes, slot_column, d)
 
 
 _NAME = re.compile(
@@ -138,7 +173,7 @@ _NAME = re.compile(
 def ptxas_report(log: str) -> list[dict]:
     """Registers, stack frame and spills of each instantiation, from the
     ``nvcc -Xptxas -v`` log (``build.ptxas_entries``), with the state type,
-    servers a thread, the fanout build, the batched build and the columns'
+    servers a thread, the table build, the batched build and the columns'
     place read from the mangled name."""
     out = ptxas_entries(log)
     for cur in out:
@@ -146,7 +181,7 @@ def ptxas_report(log: str) -> list[dict]:
             cur.update(variant="registers",
                        state_dtype="int16" if n.group(1) == "s" else "int32",
                        servers_per_thread=int(n.group(2)),
-                       fanout=int(n.group(3)),
+                       distinct=int(n.group(3)),
                        batched=n.group(4) == "1",
                        slot_column="global" if n.group(5) == "1"
                        else "shared")
@@ -190,7 +225,7 @@ def pod_sweep_kernel(events, inc, fc, um, up, slots, pods, sgb, pgb,
                     sgb.data_ptr(), pgb.data_ptr(), rejects.data_ptr(),
                     events[0].shape[0], n_lanes, n_servers, up.shape[1],
                     inc.shape[2], slots.shape[0], fc.element_size(),
-                    plan.servers_per_thread, plan.fanout,
+                    plan.servers_per_thread, plan.distinct,
                     plan.lanes_per_block, int(plan.slot_column == "global"),
                     stream)
     if rc != 0:

@@ -20,7 +20,12 @@ launches = 0
 last_plan = None
 
 
-def _check(events, inc, fc, um, up, slots, pods, sgb, pgb, rejects):
+def _check(events, inc, fc, um, up, slots, pods, sgb, pgb, rejects,
+           widest=False):
+    """Raises on arguments the sweep does not take.  With ``widest``,
+    returns the widest thread's distinct pods (``K.widest_distinct`` at
+    the plan's servers a thread, read in the same sync as the incidence
+    check), else None."""
     if len(events) != 6 or any(e.dim() != 1 for e in events):
         raise ValueError("pod_sweep: six (E,) event arrays: kind, slot, "
                          "cores, local, pool, mem")
@@ -60,14 +65,22 @@ def _check(events, inc, fc, um, up, slots, pods, sgb, pgb, rejects):
         raise ValueError("pod_sweep: tensors lie on different devices")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("pod_sweep: tensors must be contiguous")
-    if bool(((inc < -1) | (inc >= up.shape[1])).any()):
+    bad = ((inc < -1) | (inc >= up.shape[1])).any()
+    if widest:
+        k = K.servers_per_thread(s)
+        bad, widest = torch.stack([bad.long(), K.widest_distinct(inc, k)]) \
+            .tolist()
+    else:
+        bad, widest = bool(bad), None
+    if bad:
         raise ValueError(f"pod_sweep: incidence entries must lie in [-1, "
                          f"{up.shape[1]})")
+    return widest
 
 
 def pod_sweep(kind, slot, cores, local, pool, mem, inc, fc, um, up, slots,
               pods, sgb, pgb, rejects=None, *, trace_events=None,
-              slot_column=None):
+              slot_column=None, distinct=None):
     """Replay every event for every candidate lane of a fleet grid.
 
     Events: six int32 (E,) arrays; ``inc`` (C,S,F) int32, row (c, s) the
@@ -78,19 +91,27 @@ def pod_sweep(kind, slot, cores, local, pool, mem, inc, fc, um, up, slots,
     is written into fc, um, up, slots and pods in place; returns the
     rejects.  ``trace_events`` is K1's trace axis (the lanes trace-major,
     each with its own incidence row); ``slot_column`` forces where the
-    kernel keeps a lane's slot and pod columns (tests and measurements).
+    kernel keeps a lane's slot and pod columns, ``distinct`` a table build
+    of at least that many entries a thread, no fewer than the widest
+    thread's distinct pods (tests and measurements; checked on the CPU
+    too).
     """
     global launches, last_plan
     events = (kind, slot, cores, local, pool, mem)
     if rejects is None:
         rejects = torch.zeros(fc.shape[0], dtype=torch.int32,
                               device=fc.device)
-    _check(events, inc, fc, um, up, slots, pods, sgb, pgb, rejects)
+    widest = _check(events, inc, fc, um, up, slots, pods, sgb, pgb, rejects,
+                    fc.device.type == "cuda" or distinct is not None)
     starts, counts = trace_layout(trace_events, kind.shape[0], fc.shape[0],
                                   "pod_sweep")
     if slot_column is not None and slot_column not in K.SLOT_COLUMNS:
         raise ValueError(f"pod_sweep: slot_column {slot_column!r} is not "
                          f"one of {K.SLOT_COLUMNS}")
+    if distinct is not None and distinct < widest:
+        raise ValueError(f"pod_sweep: a table of {distinct} entries a "
+                         f"thread is smaller than the widest thread's "
+                         f"{widest} distinct pods")
     if fc.device.type == "cpu":
         return R.pod_sweep_ref(*events, inc, fc, um, up, slots, pods, sgb,
                                pgb, rejects, starts, counts)
@@ -102,7 +123,7 @@ def pod_sweep(kind, slot, cores, local, pool, mem, inc, fc, um, up, slots,
     c, s = fc.shape
     plan = K.plan(c // len(starts), s, inc.shape[2], slots.shape[0],
                   fc.element_size(), _sm_count(fc.device), len(starts),
-                  slot_column)
+                  slot_column, widest if distinct is None else distinct)
     K.pod_sweep_kernel(events, inc, fc, um, up, slots, pods, sgb, pgb,
                        rejects, plan=plan, trace_starts=starts,
                        trace_counts=counts)

@@ -4,13 +4,18 @@ with its engine's padded shapes, ROADMAP F7) on the same numpy inputs, the
 whole final state compared with ``==``: the hand-built edges of
 ``kernels/pod_sweep/cases.py`` (a double MIGRATE, fallback MIGRATEs paying
 the first pod, orphan servers, a pod without members, negative used pool,
-int16 state at its bounds, pod ids at the int16 bound) and seeded streams
-over mixed topologies, in both state types; its trace axis against T single
+int16 state at its bounds, pod ids at the int16 bound; the kernel table's
+edges: rows listing two pods in opposite order, a pod in two threads'
+tables, a fallback MIGRATE whose first pod is not the table's first
+entry) and seeded streams over mixed topologies and over threads of many
+or one distinct pods, in both state types; its trace axis against T single
 sweeps and the reference's vmapped scan; the host helpers against the
-reference's; the wrapper's checks and the launch plan, with the kernel
-source's bounds.  The CUDA kernel itself is held to the plain version on
-the card by ``chip_smoke.py``."""
+reference's; the wrapper's checks and the launch plan (the table build
+from an incidence's widest thread), with the kernel source's bounds.  The
+CUDA kernel itself is held to the plain version on the card by
+``chip_smoke.py``."""
 import functools
+import importlib.util
 import os
 import re
 
@@ -182,6 +187,72 @@ def test_pod_ids_at_the_int16_bound():
         assert mod.pick_pod_state_dtype(*args, sc.I16_BIG) == "int32"
 
 
+@pytest.mark.parametrize("state_dtype", DTYPES)
+def test_plain_sweep_matches_reference_on_table_edges(state_dtype):
+    events, n_slots = cases.table_stream()
+    lanes = cases.table_lanes()
+    _, _, up, _, _, rej = _both(events, n_slots, cases.TABLE_SHAPE, lanes,
+                                state_dtype)
+    assert rej.tolist() == [0] * 5
+    # no pool: every MIGRATE pays its server's first pod, pod 1 (first on
+    # servers 1 and 2) most; local memory too small: nobody pays
+    assert up[2].max() <= 0 and up[2, 1] < up[2, 0] < 0
+    assert (up[4] == 0).all()
+    # the first five events are v0-v4's ARRIVEs: the grants
+    head = {k: a[:5].copy() for k, a in events.items()}
+    assert (head["kind"] == sc.ARRIVE).all()
+    _, _, _, slots, pods, _ = _both(head, n_slots, cases.TABLE_SHAPE, lanes,
+                                    state_dtype)
+    grants = pods[head["slot"][:4]].T.tolist()
+    assert (slots[head["slot"][:4], 0] >> 1).tolist() == [0, 1, 2, 3]
+    # roomy: each server's first pod, 0 and 1 on the two opposite rows of
+    # thread 0, 1 and 2 on thread 1's; pod 1 with room for one VM: v2
+    # takes its second, pod 2; no pool: no grant; pod 0 empty: v0 its
+    # second, pod 1
+    assert grants[0] == [0, 1, 1, 2]
+    assert grants[1] == [0, 1, 2, 2]
+    assert grants[2] == [-1] * 4
+    assert grants[3][0] == 1
+
+
+# (servers, widest thread's distinct pods): at each K the catch-all 3 K
+# and, at K 8 and 16, just past the 8-entry build
+WIDE = [(8, 3), (33, 6), (100, 12), (256, 9), (256, 24), (500, 48)]
+
+
+@pytest.mark.parametrize("state_dtype", DTYPES)
+@pytest.mark.parametrize("n_servers,n_distinct", WIDE)
+def test_plain_sweep_matches_reference_on_wide_threads(
+        n_servers, n_distinct, state_dtype):
+    rng = np.random.default_rng(n_servers + 3 * n_distinct)
+    events, n_slots = cases.random_stream(rng, 90)
+    lanes = cases.wide_lanes(rng, 4, n_servers, 64, n_distinct)
+    k = K.servers_per_thread(n_servers)
+    assert int(K.widest_distinct(torch.from_numpy(lanes[2]), k)) \
+        == n_distinct
+    assert K.distinct_build(n_distinct, k) == \
+        min(d for d in (8, 3 * k) if d >= n_distinct)
+    got = _both(events, n_slots, dict(n_servers=n_servers, cores=64), lanes,
+                state_dtype)
+    head = {k: a[:len(a) // 2].copy() for k, a in events.items()}
+    part = _both(head, n_slots, dict(n_servers=n_servers, cores=64), lanes,
+                 state_dtype)
+    assert (part[4] >= 0).any() and got[5].sum() >= part[5].sum()
+
+
+@pytest.mark.parametrize("n_servers", [8, 33, 100, 256, 500])
+def test_plain_sweep_matches_reference_on_one_pod_a_thread(n_servers):
+    rng = np.random.default_rng(n_servers)
+    events, n_slots = cases.random_stream(rng, 90)
+    lanes = cases.aligned_lanes(rng, 5, n_servers, 64)
+    k = K.servers_per_thread(n_servers)
+    assert int(K.widest_distinct(torch.from_numpy(lanes[2]), k)) == 1
+    assert K.plan(5, n_servers, 1, n_slots, 2, 132,
+                  distinct=1).distinct == 1
+    _both(events, n_slots, dict(n_servers=n_servers, cores=64), lanes,
+          "int16")
+
+
 # (servers, lanes, widest fanout): fewer servers than a warp, 33 (two a
 # thread), one lane, 300 lanes (many blocks), rows of 1 to 3 pods
 SHAPES = [(4, 5, 2), (8, 12, 3), (33, 9, 3), (7, 1, 1), (64, 300, 3)]
@@ -339,18 +410,27 @@ def test_wrapper_checks_its_arguments():
         ops.pod_sweep(*evs, inc_t, *state(), slot_column="nowhere")
     with pytest.raises(ValueError, match="pod_sweep: 8 lanes"):
         ops.pod_sweep(*evs, inc_t, *state(), trace_events=[10, 10, 10])
+    # a forced table build smaller than the widest thread (K 1: one
+    # server's row, 2 pods in the overlapping lanes)
+    with pytest.raises(ValueError, match="smaller than the widest"):
+        ops.pod_sweep(*evs, inc_t, *state(), distinct=1)
+    ops.pod_sweep(*evs, inc_t, *state(), distinct=2)
 
 
 def test_kernel_plan_takes_the_full_config_and_refuses_its_limits():
     # TOPO_FULL: 256 servers, rows of up to 3 pods, 1,517 slots, 192 lanes
     # (two a block on 132 SMs), and the seed batch's 3 x 192
+    # (the widest thread of TOPO_FULL's grid lists 6 pods: the 8-entry
+    # table; partitioned(256, 8) and one pool: one entry)
     for item in (2, 4):
-        plan = K.plan(192, 256, 3, 1517, item, 132)
-        assert plan == K.Plan(8, 3, 2, "shared")
+        plan = K.plan(192, 256, 3, 1517, item, 132, distinct=6)
+        assert plan == K.Plan(8, 3, 2, "shared", 8)
         assert K.shared_bytes(1517, item, 2) <= K.MAX_SHARED
     assert K.plan(192, 256, 3, 1517, 2, 132, n_traces=3).lanes_per_block == 5
-    assert K.plan(16, 256, 1, 1517, 2, 132) == K.Plan(8, 1, 1, "shared")
-    assert K.plan(3, 33, 2, 10, 4, 132) == K.Plan(2, 3, 1, "shared")
+    assert K.plan(16, 256, 1, 1517, 2, 132, distinct=1) == \
+        K.Plan(8, 1, 1, "shared", 1)
+    # no count given: the catch-all, which holds any thread
+    assert K.plan(3, 33, 2, 10, 4, 132) == K.Plan(2, 2, 1, "shared", 6)
     assert K.plan(300, 64, 3, 90, 2, 132).lanes_per_block == 3
     # two columns past shared memory's limit stay in global memory
     assert K.choose_slot_column(60_000, 2) == "global"
@@ -362,6 +442,54 @@ def test_kernel_plan_takes_the_full_config_and_refuses_its_limits():
         K.plan(16, 256, 4, 100, 2, 132)
     with pytest.raises(ValueError, match="slot_column"):
         K.plan(16, 256, 1, 100, 2, 132, slot_column="nowhere")
+
+
+def test_the_plan_refuses_a_thread_wider_than_every_build():
+    # the catch-all at K 8 holds 3 x 8 = 24 pods, at K 1 three
+    assert K.distinct_builds(8) == (1, 8, 24)
+    assert K.distinct_builds(1) == (1, 3)
+    assert K.plan(16, 256, 3, 100, 2, 132, distinct=24).distinct == 24
+    with pytest.raises(ValueError, match="at most 24 at 8 servers"):
+        K.plan(16, 256, 3, 100, 2, 132, distinct=25)
+    with pytest.raises(ValueError, match="at most 3 at 1 servers"):
+        K.distinct_build(4, 1)
+
+
+def _fig_topology_topologies(n_servers):
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "torch_fig_topology", os.path.join(root, "examples",
+                                           "torch_fig_topology.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.topologies(n_servers, quick=False)
+
+
+# fig_topology's eight topologies at 256 servers, in its order: the most
+# distinct pods that one thread's 8 servers list
+FIG_TOPOLOGY_WIDEST = [2, 1, 1, 3, 4, 4, 6, 4]
+
+
+@pytest.mark.parametrize("index", range(8))
+def test_the_table_build_of_each_fig_topology_topology(index):
+    from repro_torch.core.replay_engine import _fleet_incidence
+    topo = _fig_topology_topologies(256)[index]
+    inc = torch.from_numpy(_fleet_incidence([topo], 256)[0])
+    widest = int(K.widest_distinct(inc, 8))
+    assert widest == FIG_TOPOLOGY_WIDEST[index]
+    assert K.plan(1, 256, topo.fanout, 1517, 2, 132,
+                  distinct=widest).distinct == (1 if widest == 1 else 8)
+
+
+def test_a_mixed_grid_takes_its_widest_thread():
+    """TOPO_FULL's launch mixes the eight topologies: the widest thread is
+    the widest of any lane (sparse(256, 6, 2): 6), so the 8-entry build."""
+    from repro_torch.core.replay_engine import _fleet_incidence
+    topos = _fig_topology_topologies(256)
+    inc = torch.from_numpy(_fleet_incidence(topos * 3, 256)[0])
+    assert int(K.widest_distinct(inc, 8)) == max(FIG_TOPOLOGY_WIDEST)
+    one = torch.from_numpy(_fleet_incidence(topos[1:3] * 8, 256)[0])
+    assert int(K.widest_distinct(one, 8)) == 1
 
 
 def _cu_constant(name):
@@ -383,6 +511,7 @@ def test_kernel_py_and_the_source_share_their_bounds():
     assert _cu_constant("kMaxTraces") == K.MAX_TRACES
     assert _cu_constant("kMaxShared") == K.MAX_SHARED
     assert _cu_constant("kMaxF") == K.MAX_FANOUT
+    assert _cu_constant("kMidD") == K.MID_DISTINCT
     assert 32 * _cu_constant("kMaxK") == K.MAX_SERVERS
     assert K.MAX_SERVERS <= 1 << _cu_constant("kIndexBits")
     stages = 2 * 6 * 1024 * 4
@@ -392,24 +521,43 @@ def test_kernel_py_and_the_source_share_their_bounds():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     with open(os.path.join(root, K.SOURCE)) as f:
         src = f.read()
-    built = sorted(int(f) for f in re.findall(
-        r"case (\d+): return launch<T>\(pod_sweep_kernel", src))
-    assert tuple(built) == K.FANOUTS
+    # the table builds: 1, kMidD below the catch-all, the catch-all
+    # kMaxF x K, at each servers-a-thread the dispatch instantiates
+    assert re.search(r"if \(kd == 1\) return launch<T>\(pod_sweep_kernel<"
+                     r"T, K, 1,", src)
+    assert re.search(r"if constexpr \(kMidD < kAll\)\s+if \(kd == kMidD\)",
+                     src)
+    assert "constexpr int kAll = kMaxF * K;" in src
+    built_k = sorted(int(k) for k in re.findall(
+        r"case (\d+): return by_distinct<T, \1,", src))
+    assert built_k == [1, 2, 4, 8, 16]
+    assert [K.distinct_builds(k) for k in built_k] == [
+        (1, 3), (1, 6), (1, 8, 12), (1, 8, 24), (1, 8, 48)]
 
 
 def test_ptxas_report_reads_each_instantiation():
-    log = (
-        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116"
-        "pod_sweep_kernelIsLi8ELi3ELb1ELb0EEEvNS_6EventsEPKiPT_S6_S6_S6_S6_"
-        "PKS5_S8_PiiiiiiiiiNS_6TracesE' for 'sm_90a'\n"
-        "ptxas info    : Function properties for _ZN12_GLOBAL__N_116pod\n"
-        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
-        "ptxas info    : Used 88 registers, used 1 barriers\n")
-    (entry,) = K.ptxas_report(log)
-    assert entry["registers"] == 88 and entry["spill_store_bytes"] == 0
-    assert entry["state_dtype"] == "int16" and entry["fanout"] == 3
-    assert entry["servers_per_thread"] == 8
-    assert entry["batched"] and entry["slot_column"] == "shared"
+    def entry(args, regs, stack):
+        return (
+            "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116"
+            f"pod_sweep_kernel{args}EEvNS_6EventsEPKiPT_S6_S6_S6_S6_"
+            "PKS5_S8_PiiiiiiiiiNS_6TracesE' for 'sm_90a'\n"
+            "ptxas info    : Function properties for _ZN12_GLOBAL__N_116pod\n"
+            f"    {stack} bytes stack frame, {stack} bytes spill stores, "
+            f"{stack} bytes spill loads\n"
+            f"ptxas info    : Used {regs} registers, used 1 barriers\n")
+    # the main path's build (int16, K 8, the 8-entry table, batched) and
+    # the catch-all at K 16 (int32, columns in global memory)
+    log = entry("IsLi8ELi8ELb1ELb0E", 88, 0) + \
+        entry("IiLi16ELi48ELb0ELb1E", 255, 8)
+    first, second = K.ptxas_report(log)
+    assert first["registers"] == 88 and first["spill_store_bytes"] == 0
+    assert first["state_dtype"] == "int16" and first["distinct"] == 8
+    assert first["servers_per_thread"] == 8
+    assert first["batched"] and first["slot_column"] == "shared"
+    assert second["state_dtype"] == "int32" and second["distinct"] == 48
+    assert second["servers_per_thread"] == 16 and not second["batched"]
+    assert second["slot_column"] == "global"
+    assert second["stack_bytes"] == 8 and second["registers"] == 255
 
 
 def test_cpu_tensors_never_reach_the_kernel():
