@@ -41,7 +41,13 @@ PyTorch version on the card, and drives the port's three paths:
   cluster row and trace: ``benchmarks/fig_topology.py``'s full frontier
   (six DRAM sizes x four pool budgets x eight pod topologies at equal pool
   hardware) in one launch, and over three traces in one more, held to the
-  reference's results.
+  reference's results;
+* Pond's streaming engines (``CompiledReplayStream``,
+  ``CompiledReplayStreamBatch``: shards with the state carried on the card,
+  one K1 or K4 launch a shard, shard i + 1 uploading while shard i runs):
+  the reference's 100,000-VM acceptance trace, the provisioning loop, Fig
+  21's seed batch and the topology frontier past a shard budget, held to
+  the monolithic engine and the reference's results.
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after, which shows that it went through its kernel.
@@ -57,6 +63,7 @@ name and power limit as ``nvidia-smi`` prints them, and ``{"ok": true,
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -456,6 +463,31 @@ TOPO_FULL_WANT = dict(
         2195, 2197, 2234, 2175, 2276, 2154, 2302, 2326, 1756, 1715, 1575, 1703,
         1586, 1689, 1612, 1586, 1004, 1004, 1004, 1004, 1004, 1004, 1004, 1430,
     ]])
+# Pond's streaming engines (``CompiledReplayStream``,
+# ``CompiledReplayStreamBatch``: shards with the state carried on the card,
+# K1 and K4 a shard) at full width, four configurations:
+# (a) the reference's own 100,000-VM acceptance trace
+#     (tests/test_replay_stream.py::test_stream_100k_vm_trace_bit_exact_and_
+#     memory_bounded: 112 servers, 16-socket pools, 30 days, numpy seed 11,
+#     a static floor of 0.25 a VM) at 32,768 events a shard, its four
+#     candidates held to the monolithic engine's K1;
+# (b) PROV_FULL's trace through savings_analysis at 16,384 events a shard,
+#     held to the reference's streamed contract (the baseline is
+#     PROV_FULL_WANT's, the optimum feasible and within peak_pool_demand);
+# (c) POND_BATCH_FULL's three traces through savings_analysis_batched at
+#     16,384 events a shard: the nine PolicyResults are POND_BATCH_WANT's
+#     (the reference's streamed batch is bit-exact);
+# (d) TOPO_FULL's 192 lanes and its 3 x 192 batch through
+#     reject_rates_fleet on streams at 16,384: TOPO_FULL_WANT's counts.
+STREAM_FULL = dict(
+    acceptance=dict(n_vms=100_000, days=30, seed=11, n_servers=112,
+                    pool_sockets=16, gb_per_core=4.75, floor=0.25,
+                    budget=32_768, server=[768.0, 44.0, 30.0, 36.0],
+                    pool=[6144.0, 512.0, 6144.0, 0.0]),
+    budget=16_384,
+    # the sweep timed beside its monolithic twin in (b) and (c): 16 lanes
+    # from the static optimum to the baseline, pools 0 ... 800 GB
+    timed_server=(270.0, 384.0), timed_pool=(0.0, 800.0), timed_lanes=16)
 SERVE_ARGS = ["--arch", "qwen2-1.5b", "--full", "--dtype", "bfloat16",
               "--requests", "16", "--max-batch", "8", "--page-size", "16",
               "--local-pages", "256", "--pool-pages", "1024",
@@ -1876,11 +1908,12 @@ def phase_provision_full(dev):
     return launches
 
 
-def _pond_loop(vms_list, cfg, models, frac, device):
+def _pond_loop(vms_list, cfg, models, frac, device,
+               max_events_per_shard=None):
     """Fig 21's loop as a user calls it: ``savings_analysis_batched`` for
     local, static and pond (a fresh control plane a trace) on one shared
-    cache.  Returns ({policy: [PolicyResult a trace]}, the pond planes,
-    the all-local batch)."""
+    cache, streamed past ``max_events_per_shard``.  Returns ({policy:
+    [PolicyResult a trace]}, the pond planes, the all-local batch)."""
     from repro_torch.core.cluster_sim import savings_analysis_batched
     cache, out = {}, {}
     planes = [_pond_plane(*models) for _ in vms_list]
@@ -1888,7 +1921,7 @@ def _pond_loop(vms_list, cfg, models, frac, device):
         out[policy] = savings_analysis_batched(
             vms_list, cfg, policy, static_pool_frac=frac, cache=cache,
             control_planes=planes if policy == "pond" else None,
-            device=device)
+            device=device, max_events_per_shard=max_events_per_shard)
     return out, planes, cache["local_batch"]
 
 
@@ -4116,6 +4149,555 @@ def phase_topology_full(dev):
     return launches
 
 
+# ------------------------------------- the streaming engines (M5) --
+def _stream_ops():
+    """K1's and K4's wrappers, whose launch counts the stream phases read."""
+    from repro_torch.kernels.event_sweep import ops as k1
+    from repro_torch.kernels.pod_sweep import ops as k4
+    return k1, k4
+
+
+def phase_stream_parity_small(dev):
+    """phase_provision_parity_small's 8-server world (4 days, static 0.25;
+    trace seeds 3 and 4) streamed at 256 events a shard, on the card (K1
+    and K4 a shard, the state carried on the card) and on the CPU (their
+    plain versions): seed 3's reject_rates with and without the
+    divergence-window skip and under a reject_cap, its reject_rates_fleet
+    over two topologies, and the two traces as a stream batch (both
+    methods); equal results both ways, the card's equal to the monolithic
+    engine's."""
+    from repro_torch.core import cluster_sim, topology, traces
+    from repro_torch.core.replay_engine import (CompiledReplay,
+                                                CompiledReplayStream,
+                                                CompiledReplayStreamBatch)
+    k1, k4 = _stream_ops()
+    cfg = cluster_sim.ClusterConfig(n_servers=8, pool_sockets=8,
+                                    gb_per_core=4.75)
+    horizon = 4 * 86400
+    n = cluster_sim.arrivals_for_util(cfg, 0.8, horizon)
+    pop = traces.Population(seed=0)
+    worlds = []
+    for seed in (3, 4):
+        vms = pop.sample_vms(n, horizon, seed=seed, start_id=10 ** 6)
+        worlds.append((vms, cluster_sim.policy_decisions(
+            vms, "static", static_pool_frac=0.25, as_arrays=True)[0]))
+    server = np.array([768.0, 200.0, 140.0, 250.0, 180.0, 60.0, 219.7, 0.0])
+    pool = np.array([6144.0, 300.0, 150.0, 0.0, 40.0, 6144.0, 83.3, 100.0])
+    topos = [topology.partitioned(8, 4), topology.overlapping(8, 4, 2)]
+    sgb, caps, lane_topos = [], [], []
+    for srv, total in ((200.0, 150.0), (200.0, 40.0), (140.0, 300.0),
+                       (60.0, 6144.0)):
+        for t in topos:
+            sgb.append(srv)
+            caps.append(topology.split_pool(total, t.n_pods))
+            lane_topos.append(t)
+    sgb = np.asarray(sgb)
+    cap = int(0.02 * n)
+    out = {}
+    for d in (dev, "cpu"):
+        k1.launches = k4.launches = 0
+        streams = [CompiledReplayStream(v, dc, cfg, max_events_per_shard=256,
+                                        device=d) for v, dc in worlds]
+        s0, batch = streams[0], CompiledReplayStreamBatch(streams)
+        got = dict(
+            rates=s0.reject_rates(server, pool).tolist(),
+            rates_unskipped=s0.reject_rates(server, pool,
+                                            skip_windows=False).tolist(),
+            rates_capped=s0.reject_rates(server, pool,
+                                         reject_cap=cap).tolist(),
+            fleet=s0.reject_rates_fleet(sgb, caps, lane_topos).tolist(),
+            batch=batch.reject_rates(server, pool).tolist(),
+            batch_fleet=batch.reject_rates_fleet(sgb, caps,
+                                                 lane_topos).tolist())
+        out[str(d)] = (got, k1.launches, k4.launches, s0.n_shards)
+    (g, g1, g4, shards), (c, c1, c4, _) = out[str(dev)], out["cpu"]
+    mono = CompiledReplay(*worlds[0], cfg, device=dev)
+    checks = {
+        "results_equal": g == c,
+        "skip_changes_nothing": g["rates"] == g["rates_unskipped"],
+        "rates_equal_monolithic":
+            g["rates"] == mono.reject_rates(server, pool).tolist(),
+        "fleet_equals_monolithic": g["fleet"] == mono.reject_rates_fleet(
+            sgb, caps, lane_topos).tolist(),
+        "batch_row0_equals_single": g["batch"][0] == g["rates"],
+        "several_shards": shards > 1,
+        "k1_launches_on_card": g1 > 0, "k4_launches_on_card": g4 > 0,
+        "none_on_cpu": c1 == 0 and c4 == 0}
+    emit("stream_parity_small", ok=all(checks.values()), checks=checks,
+         servers=8, vms=n, shards=shards, lanes=len(server),
+         fleet_lanes=len(sgb), reject_cap=cap, results=g,
+         k1_launches=g1, k4_launches=g4)
+    if not all(checks.values()):
+        raise SystemExit(f"stream_parity_small failed: {checks}")
+
+
+def _acceptance_trace():
+    """``STREAM_FULL``'s (a): the reference's 100,000-VM acceptance trace
+    with its static-floor decisions, drawn as
+    tests/test_replay_stream.py draws them; (cfg, vms, decisions)."""
+    from repro_torch.core import cluster_sim, traces
+    from repro_torch.core.policy_engine import PolicyDecisions
+    a = STREAM_FULL["acceptance"]
+    n = a["n_vms"]
+    rng = np.random.default_rng(a["seed"])
+    arrival = np.sort(rng.uniform(0, a["days"] * 86400, n)).round(3)
+    life = rng.integers(1800, 86400, n).astype(float)
+    cores = rng.choice([2, 4, 8], n, p=[.5, .3, .2])
+    mem = (cores * rng.choice([2, 4], n)).astype(float)
+    pmu = np.zeros(traces.N_PMU_FEATURES, np.float32)
+    vms = [traces.VM(i, 0, 0, 0, 0, int(cores[i]), float(mem[i]),
+                     float(arrival[i]), float(life[i]), 0.5, 0.0, 0.0, pmu)
+           for i in range(n)]
+    pool = np.floor(mem * a["floor"])
+    dec = PolicyDecisions(mem - pool, pool, np.zeros(n, bool),
+                          np.full(n, np.nan), 0, 0)
+    cfg = cluster_sim.ClusterConfig(n_servers=a["n_servers"],
+                                    pool_sockets=a["pool_sockets"],
+                                    gb_per_core=a["gb_per_core"])
+    return cfg, vms, dec
+
+
+def _blocks(*nbytes):
+    """Bytes the caching allocator holds for these requests (512-byte
+    blocks)."""
+    return sum(max(512, -(-int(b) // 512) * 512) for b in nbytes)
+
+
+def _k1_fixed_bytes(lanes, n_servers, n_groups, n_slots, item):
+    """What a streamed K1 sweep holds on the card beside its two event
+    buffers: fc, um, up, slots, the reject counters, the capacities and
+    group_of."""
+    return _blocks(lanes * n_servers * item, lanes * n_servers * item,
+                   lanes * n_groups * item, n_slots * lanes * item,
+                   lanes * 4, lanes * item, lanes * item, n_servers * 4)
+
+
+def _k4_fixed_bytes(lanes, n_servers, n_pods, fanout, n_slots, item):
+    """The same for a streamed K4 sweep: fc, um, up, slots, pods, the
+    counters, the capacities and the incidence."""
+    return _blocks(lanes * n_servers * item, lanes * n_servers * item,
+                   lanes * n_pods * item, n_slots * lanes * item,
+                   n_slots * lanes * item, lanes * 4, lanes * item,
+                   lanes * n_pods * item, lanes * n_servers * fanout * 4)
+
+
+def _stream_memory(run, fixed_bytes, peak_shard_bytes):
+    """``torch.cuda.max_memory_allocated`` over one streamed sweep (``run``,
+    which ends on the host), less what was held before and the sweep's
+    state and capacities: the event memory, held to ``2 *
+    peak_shard_bytes``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    run()
+    torch.cuda.synchronize()
+    event_bytes = torch.cuda.max_memory_allocated() - held - fixed_bytes
+    return dict(event_bytes=event_bytes, bound_bytes=2 * peak_shard_bytes,
+                fixed_bytes=fixed_bytes), event_bytes <= 2 * peak_shard_bytes
+
+
+def _stream_card_ms(run, clock_mhz, reps=3):
+    """Mean device ms of a streamed sweep: ``run`` enqueues its uploads and
+    launches (the host packing shard i + 1 while shard i runs, waiting only
+    to reuse a pinned buffer) and returns without reading anything back.
+    Each run gets its own window: CUDA events around it behind a
+    ``CARD_WAIT_MS`` wait on the card (a run's host set-up is not hidden by
+    the wait: its pageable uploads of the state wait for it)."""
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(CARD_WAIT_MS * clock_mhz * 1e3))
+        start.record()
+        run()
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    return statistics.mean(ms)
+
+
+def _upload_host_ms(engine):
+    """Host ms a shard of packing it into a pinned buffer and issuing its
+    copy (``_ShardFeed.stage``), every shard staged and taken in turn with
+    no launch."""
+    feed = engine._feed()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for si in range(engine.n_shards):
+        feed.stage(si)
+        feed.take(si)
+        feed.release(si)
+    ms = (time.perf_counter() - t0) * 1e3 / engine.n_shards
+    feed.close()
+    torch.cuda.synchronize()
+    return ms
+
+
+class _ShardsOnCard:
+    """A stand-in for a stream's ``_ShardFeed`` with every shard on the
+    card already, packed as the feed packs them: the engine's own shard
+    loop with no upload, to split the streamed sweep's time into its
+    launches and its uploads."""
+
+    def __init__(self, engine, dev):
+        rows = getattr(engine, "k", 1) * (engine.shard_pad_events + 4)
+        self.shards = []
+        for si in range(engine.n_shards):
+            buf = np.empty((6, rows), np.int32)
+            length, counts = engine._pack(si, buf)
+            t = torch.from_numpy(buf).to(dev)
+            self.shards.append((tuple(t[j, :length] for j in range(6)),
+                                counts))
+
+    def stage(self, si):
+        pass
+
+    def take(self, si):
+        return self.shards[si]
+
+    def release(self, si):
+        pass
+
+    def close(self):
+        pass
+
+
+def _compute_ms(engine, run, clock_mhz):
+    """``_stream_card_ms`` of ``run`` with ``engine``'s shards on the card
+    before the window (``_ShardsOnCard``): the streamed sweep without its
+    uploads."""
+    on_card = _ShardsOnCard(engine, torch.device("cuda"))
+    engine._feed = lambda: on_card
+    try:
+        return _stream_card_ms(run, clock_mhz)
+    finally:
+        del engine._feed
+
+
+def _k1_batch_timed(batch, sgb_i, pgb_i, np_dt, clock_mhz, reps=3):
+    """K1's trace axis over a monolithic ``CompiledReplayBatch`` (every
+    trace's whole stream uploaded) on fresh state a run, timed by
+    ``_card_ms``; (ms, rejects)."""
+    from repro_torch.core import sweep_core
+    evs, group, n_slots, counts = batch._device_events()
+    width = sgb_i.size
+    st = sweep_core.init_state(width, batch.n_servers, batch.cores_per_server,
+                               batch.n_servers, batch.n_groups, n_slots,
+                               np_dt)[:4]
+    st += (sgb_i.reshape(-1).astype(np_dt), pgb_i.reshape(-1).astype(np_dt))
+    states = [[torch.from_numpy(a.copy()).to(group.device) for a in st]
+              for _ in range(reps + 1)]
+    sweep = sweep_core.get_sweep(
+        "int16" if np_dt == np.int16 else "int32", batched=True)
+
+    def run(i):
+        return sweep(evs, group, *states[i], counts)
+    rej = run(0).cpu().numpy()
+    return _card_ms([lambda i=i: run(i) for i in range(1, reps + 1)],
+                    clock_mhz, "event_sweep batched"), rej
+
+
+def _stream_record(name, engine, wall, stream_ms, compute_ms, mono_ms,
+                   reference_s, memory, **extra):
+    """One configuration's numbers, printed as soon as they are taken:
+    shards, wall, the streamed sweep's device ms beside the same sweep
+    with its shards on the card (``_compute_ms``) and its monolithic
+    twin's, so that ``stream - on card`` is what the uploads and the
+    host's staging add and ``on card - monolithic`` what cutting the sweep
+    into launches adds; the host ms a shard of staging an upload; the
+    host's reference replay; the event memory."""
+    rec = dict(config=name, shards=engine.n_shards,
+               shard_pad_events=engine.shard_pad_events,
+               peak_shard_bytes=engine.peak_shard_bytes,
+               wall_seconds=wall, stream_sweep_ms=stream_ms,
+               stream_sweep_on_card_ms=compute_ms,
+               monolithic_sweep_ms=mono_ms,
+               stream_over_monolithic=stream_ms / mono_ms,
+               uploads_add_ms=stream_ms - compute_ms,
+               launches_add_ms=compute_ms - mono_ms,
+               upload_host_ms_a_shard=_upload_host_ms(engine),
+               stream_reference_host_s=reference_s, memory=memory, **extra)
+    emit("stream_full_config", **rec)
+    return rec
+
+
+def _reference_s(streams):
+    """Host seconds of ``_stream_reference`` (the divergence-window skip's
+    reference replay) of each stream, its cache cleared first."""
+    from repro_torch.core import replay_engine
+    out = []
+    for s in streams:
+        s._ref = None
+        t0 = time.perf_counter()
+        replay_engine._stream_reference(s)
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def phase_stream_full(dev):
+    """Pond's streaming engines at full width (``STREAM_FULL``): (a) the
+    reference's 100,000-VM acceptance trace at 32,768 events a shard, ==
+    the monolithic engine's K1; (b) PROV_FULL's savings_analysis past a
+    16,384-event budget, the reference's streamed contract; (c)
+    POND_BATCH_FULL's savings_analysis_batched past the budget, the nine
+    PolicyResults the reference's; (d) TOPO_FULL's fleet grid and its seed
+    batch on streams, the reference's reject counts.  Each main path runs
+    with K1's and K4's launch counts set to 0 just before it and read just
+    after; then each configuration's streamed sweep is timed beside its
+    monolithic twin, its uploads alone, its reference replay and its event
+    memory (``_stream_record``).  Returns (K1 launches, K4 launches)."""
+    from repro_torch.core import cluster_sim, replay_engine, sweep_core
+    from repro_torch.core.replay_engine import (CompiledReplay,
+                                                CompiledReplayBatch,
+                                                CompiledReplayStream,
+                                                CompiledReplayStreamBatch)
+    k1, k4 = _stream_ops()
+    clock_mhz = float(_smi("clocks.max.sm"))
+    budget = STREAM_FULL["budget"]
+    launches = {"k1": 0, "k4": 0}
+    checks, records = {}, []
+
+    def main_path(fn):
+        k1.launches = k4.launches = 0       # just before a main path ...
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches["k1"] += k1.launches       # ... and read just after it
+        launches["k4"] += k4.launches
+        return out, wall
+
+    # (a) the acceptance trace
+    a = STREAM_FULL["acceptance"]
+    cfg_a, vms_a, dec_a = _acceptance_trace()
+    server, pool = np.array(a["server"]), np.array(a["pool"])
+
+    def path_a():
+        st = CompiledReplayStream(vms_a, dec_a, cfg_a,
+                                  max_events_per_shard=a["budget"])
+        return st, st.reject_rates(server, pool)
+    (st_a, rates_a), wall_a = main_path(path_a)
+    mono_a = CompiledReplay(vms_a, dec_a, cfg_a)
+    want_a = mono_a.reject_rates(server, pool)
+    checks |= {
+        "a_rates_equal_monolithic": rates_a.tolist() == want_a.tolist(),
+        "a_memory_binds": len(set(rates_a.tolist())) > 1,
+        "a_at_least_6_shards": st_a.n_shards >= 6,
+        "a_shard_within_budget": st_a.shard_pad_events <= a["budget"],
+        "a_peak_shard_bytes":
+            st_a.peak_shard_bytes == 6 * 4 * st_a.shard_pad_events}
+    sgb_i, pgb_i = sweep_core.quantize_capacities(server, pool)
+    dt = st_a._pick_state_dtype(sgb_i, pgb_i)
+    np_dt = sweep_core.state_np_dtype(dt)
+    item = np.dtype(np_dt).itemsize
+    evs, group, n_slots = mono_a._device_events()
+    mono_ms = _k1_timed(evs, group, cfg_a.n_servers, cfg_a.n_groups,
+                        cfg_a.cores_per_server, n_slots, sgb_i, pgb_i, np_dt,
+                        clock_mhz, reps=3)["ms"]
+    run = functools.partial(st_a._sweep_device, server, pool, None, dt,
+                            None, False)
+    stream_ms = _stream_card_ms(run, clock_mhz)
+    compute_ms = _compute_ms(st_a, run, clock_mhz)
+    mem, ok = _stream_memory(
+        lambda: st_a.reject_rates(server, pool, skip_windows=False),
+        _k1_fixed_bytes(len(server), cfg_a.n_servers, cfg_a.n_groups,
+                        st_a._n_slots, item), st_a.peak_shard_bytes)
+    checks["a_event_memory_within_2_shards"] = ok
+    records.append(_stream_record(
+        "a_acceptance_100k", st_a, wall_a, stream_ms, compute_ms, mono_ms,
+        _reference_s([st_a]), mem, vms=st_a.n_vms,
+        events=st_a.n_events, servers=cfg_a.n_servers, lanes=len(server),
+        state_dtype=dt, rates=rates_a.tolist()))
+    del vms_a, dec_a, mono_a, st_a, evs, group
+
+    # (b) PROV_FULL's provisioning loop past the budget
+    cfg, vms, _ = _full_trace()
+    frac = PROV_FULL["static_pool_frac"]
+
+    def path_b():
+        cache = {}
+        local = cluster_sim.savings_analysis(
+            vms, cfg, "local", cache=cache, max_events_per_shard=budget)
+        static = cluster_sim.savings_analysis(
+            vms, cfg, "static", cache=cache, static_pool_frac=frac,
+            max_events_per_shard=budget)
+        return local, static, cache["local_engine"]
+    replay_engine.stats_reset()
+    (local, static, eng_local), wall_b = main_path(path_b)
+    times_b = replay_engine.stage_times()
+    dec_s, _ = cluster_sim.policy_decisions(vms, "static",
+                                            static_pool_frac=frac,
+                                            as_arrays=True)
+    st_b = CompiledReplayStream(vms, dec_s, cfg, max_events_per_shard=budget)
+    mono_b = CompiledReplay(vms, dec_s, cfg)
+    hi_server = cfg.cores_per_server * 12.0
+    tol_b = float(mono_b.reject_rates(hi_server,
+                                      hi_server * cfg.n_servers)[0]) + 0.005
+    at_opt = float(mono_b.reject_rates(static.server_gb,
+                                       static.pool_group_gb)[0])
+    checks |= {
+        "b_local_equals_reference":
+            dataclasses.asdict(local) == PROV_FULL_WANT["local"],
+        "b_baseline_equals_reference": static.baseline_server_gb
+            == PROV_FULL_WANT["static"]["baseline_server_gb"],
+        "b_optimum_feasible_on_monolithic_k1": at_opt <= tol_b,
+        "b_pool_within_peak_pool_demand":
+            static.pool_group_gb <= st_b.peak_pool_demand() + 1e-9,
+        "b_server_within_baseline":
+            static.server_gb <= static.baseline_server_gb + 1e-9,
+        "b_engine_is_a_stream": isinstance(eng_local, CompiledReplayStream)}
+    lo, hi = STREAM_FULL["timed_server"]
+    server = np.linspace(lo, hi, STREAM_FULL["timed_lanes"])
+    pool = np.linspace(*STREAM_FULL["timed_pool"], STREAM_FULL["timed_lanes"])
+    sgb_i, pgb_i = sweep_core.quantize_capacities(server, pool)
+    dt = st_b._pick_state_dtype(sgb_i, pgb_i)
+    np_dt = sweep_core.state_np_dtype(dt)
+    item = np.dtype(np_dt).itemsize
+    evs, group, n_slots = mono_b._device_events()
+    timed = _k1_timed(evs, group, cfg.n_servers, cfg.n_groups,
+                      cfg.cores_per_server, n_slots, sgb_i, pgb_i, np_dt,
+                      clock_mhz, reps=3)
+    run = functools.partial(st_b._sweep_device, server, pool, None, dt,
+                            None, False)
+    stream_ms = _stream_card_ms(run, clock_mhz)
+    compute_ms = _compute_ms(st_b, run, clock_mhz)
+    checks["b_timed_sweep_equals_monolithic"] = st_b.reject_rates(
+        server, pool).tolist() == (timed["rejects"] / len(vms)).tolist()
+    mem, ok = _stream_memory(
+        lambda: st_b.reject_rates(server, pool, skip_windows=False),
+        _k1_fixed_bytes(len(server), cfg.n_servers, cfg.n_groups,
+                        st_b._n_slots, item), st_b.peak_shard_bytes)
+    checks["b_event_memory_within_2_shards"] = ok
+    records.append(_stream_record(
+        "b_prov_full_savings", st_b, wall_b, stream_ms, compute_ms,
+        timed["ms"], _reference_s([st_b]), mem, vms=len(vms),
+        events=st_b.n_events, lanes=len(server), state_dtype=dt,
+        results=[dataclasses.asdict(r) for r in (local, static)],
+        at_optimum=dict(monolithic_rate=at_opt, tol=tol_b),
+        sweeps=len(times_b.sweeps),
+        host_seconds=dict(compile=times_b.compile_s,
+                          sweeps=times_b.sweep_s)))
+    del st_b, mono_b, evs, group
+
+    # (c) Fig 21's seed batch past the budget
+    inp = _pond_inputs()
+    models = (inp["li"], inp["um"], inp["hist"])
+    replay_engine.stats_reset()
+    (res_c, _, local_batch), wall_c = main_path(lambda: _pond_loop(
+        inp["vms_list"], inp["cfg"], models,
+        POND_BATCH_FULL["static_pool_frac"], None,
+        max_events_per_shard=budget))
+    times_c = replay_engine.stage_times()
+    got_c = {p: [dataclasses.asdict(r) for r in rs] for p, rs in res_c.items()}
+    checks |= {f"c_{p}_equals_reference": got_c[p] == POND_BATCH_WANT[p]
+               for p in POND_BATCH_WANT}
+    checks["c_batch_is_a_stream_batch"] = isinstance(
+        local_batch, CompiledReplayStreamBatch)
+    k = local_batch.k
+    server2, pool2 = (np.broadcast_to(server, (k, len(server))),
+                      np.broadcast_to(pool, (k, len(pool))))
+    sgb_i, pgb_i = sweep_core.quantize_capacities(server2, pool2)
+    dt = local_batch._pick_state_dtype(sgb_i, pgb_i)
+    np_dt = sweep_core.state_np_dtype(dt)
+    item = np.dtype(np_dt).itemsize
+    mono_c = CompiledReplayBatch([
+        CompiledReplay(v, cluster_sim._all_local_decisions(v), inp["cfg"])
+        for v in inp["vms_list"]])
+    mono_ms, mono_rej = _k1_batch_timed(mono_c, sgb_i, pgb_i, np_dt,
+                                        clock_mhz)
+    run = functools.partial(local_batch._sweep_device, server2, pool2,
+                            None, dt, None, False)
+    stream_ms = _stream_card_ms(run, clock_mhz)
+    compute_ms = _compute_ms(local_batch, run, clock_mhz)
+    checks["c_timed_sweep_equals_monolithic"] = (
+        local_batch.reject_rates(server, pool)
+        * local_batch.n_vms[:, None]).round().astype(int).ravel().tolist() \
+        == mono_rej.tolist()
+    mem, ok = _stream_memory(
+        lambda: local_batch.reject_rates(server, pool, skip_windows=False),
+        _k1_fixed_bytes(k * len(server), cfg.n_servers, cfg.n_groups,
+                        local_batch._n_slots, item),
+        local_batch.peak_shard_bytes)
+    checks["c_event_memory_within_2_shards"] = ok
+    records.append(_stream_record(
+        "c_pond_batch_savings", local_batch, wall_c, stream_ms, compute_ms,
+        mono_ms, _reference_s(local_batch.engines), mem,
+        vms=local_batch.n_vms.tolist(), events=local_batch.n_events.tolist(),
+        lanes=[k, len(server)], state_dtype=dt, results=got_c,
+        sweeps=len(times_c.sweeps),
+        host_seconds=dict(decisions=times_c.decisions_s,
+                          compile=times_c.compile_s,
+                          sweeps=times_c.sweep_s)))
+    del mono_c
+
+    # (d) the fleet grid and its seed batch on streams
+    tin = _topo_inputs()
+    cfg_d = tin["cfg"]
+
+    def path_d():
+        streams = [CompiledReplayStream(v, dc, cfg_d,
+                                        max_events_per_shard=budget)
+                   for v, dc in zip(tin["vms_list"], tin["decs"])]
+        grid = _topo_grid(float(np.ceil(streams[0].peak_pool_demand())),
+                          cfg_d.n_servers,
+                          cfg_d.gb_per_core * cfg_d.cores_per_server)
+        rates = streams[0].reject_rates_fleet(*grid[:3])
+        batch = CompiledReplayStreamBatch(streams).reject_rates_fleet(
+            *grid[:3])
+        return streams, grid, rates, batch
+    (streams_d, grid, rates_d, batch_d), wall_d = main_path(path_d)
+    n_vms = np.array([s.n_vms for s in streams_d])
+    checks |= {
+        "d_single_equals_reference": np.rint(rates_d * n_vms[0]).astype(
+            int).tolist() == TOPO_FULL_WANT["single"],
+        "d_batch_equals_reference": np.rint(batch_d * n_vms[:, None]).astype(
+            int).tolist() == TOPO_FULL_WANT["batch"]}
+    sgb, caps, lane_topos = grid[:3]
+    st_d = streams_d[0]
+    mono_d = CompiledReplay(tin["vms_list"][0], tin["decs"][0], cfg_d)
+    from repro_torch.core.replay_engine import (_fleet_candidates,
+                                                _fleet_capacities,
+                                                _fleet_incidence)
+    lanes_d = _fleet_candidates(sgb, caps, lane_topos)
+    inc, p_max = _fleet_incidence(lane_topos, cfg_d.n_servers)
+    sgb_i, caps_i = _fleet_capacities(*lanes_d[:2])
+    dt = st_d._pick_pod_state_dtype(sgb_i, caps_i, p_max)
+    np_dt = sweep_core.state_np_dtype(dt)
+    item = np.dtype(np_dt).itemsize
+    evs, _, n_slots = mono_d._device_events()
+    timed = _k4_timed(evs, torch.from_numpy(inc).to(dev), cfg_d.n_servers,
+                      cfg_d.cores_per_server, n_slots, sgb_i, caps_i, np_dt,
+                      [mono_d.n_events], clock_mhz, reps=3)
+    checks["d_timed_sweep_equals_monolithic"] = \
+        timed["rejects"].tolist() == np.rint(
+            rates_d * n_vms[0]).astype(int).tolist()
+    run = functools.partial(st_d._fleet_sweep_device, *lanes_d, None, dt)
+    stream_ms = _stream_card_ms(run, clock_mhz)
+    compute_ms = _compute_ms(st_d, run, clock_mhz)
+    mem, ok = _stream_memory(
+        lambda: st_d.reject_rates_fleet(sgb, caps, lane_topos),
+        _k4_fixed_bytes(len(sgb), cfg_d.n_servers, p_max, inc.shape[2],
+                        st_d._n_slots, item), st_d.peak_shard_bytes)
+    checks["d_event_memory_within_2_shards"] = ok
+    records.append(_stream_record(
+        "d_topo_full_fleet", st_d, wall_d, stream_ms, compute_ms, timed["ms"],
+        None, mem, vms=n_vms.tolist(),
+        events=[s.n_events for s in streams_d], lanes=len(sgb),
+        batch_lanes=[len(streams_d), len(sgb)], state_dtype=dt,
+        reference_replay="not on the path: the fleet sweeps skip no "
+                         "window"))
+    checks["k1_launched"] = launches["k1"] > 0
+    checks["k4_launched"] = launches["k4"] > 0
+    emit("stream_full", ok=all(checks.values()), checks=checks,
+         budget=budget, configs=[r["config"] for r in records],
+         k1_launches=launches["k1"], k4_launches=launches["k4"])
+    if not all(checks.values()):
+        raise SystemExit("stream_full failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return launches["k1"], launches["k4"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script runs on "
@@ -4154,16 +4736,21 @@ def main() -> int:
     by_path["fig_grids_full"], (spill["launches"], spill["link_launches"]) \
         = phase_fig_grids_full(dev)
     spill["launches_by_path"] = {"fig_grids_full": spill["launches"]}
-    sweep["launches"] = sum(by_path.values())
-    sweep["launches_by_path"] = by_path
     fail = phase_kernels_fail(dev)
     phase_availability_parity_small(dev)
     fail["launches"] = phase_availability_full(dev)
     fail["launches_by_path"] = {"availability_full": fail["launches"]}
     pod = phase_kernels_pod(dev)
     phase_topology_parity_small(dev)
-    pod["launches"] = phase_topology_full(dev)
-    pod["launches_by_path"] = {"topology_full": pod["launches"]}
+    pod_by_path = {"topology_full": phase_topology_full(dev)}
+    torch.cuda.empty_cache()
+    phase_stream_parity_small(dev)
+    by_path["stream_full"], pod_by_path["stream_full"] = \
+        phase_stream_full(dev)
+    sweep["launches"] = sum(by_path.values())
+    sweep["launches_by_path"] = by_path
+    pod["launches"] = sum(pod_by_path.values())
+    pod["launches_by_path"] = pod_by_path
     print(json.dumps({"kernels": [paged, flash, sweep, spill, fail, pod]}),
           flush=True)
     print(smi, flush=True)

@@ -24,10 +24,14 @@ batch in one launch of K1's trace axis a round
 (``replay_engine.CompiledReplayBatch``).  ``replay_reject_rate`` is the
 port's own copy of the scalar per-event oracle the engine is held to;
 ``replay_multi_pool`` the multi-pod one the fleet sweeps are held to
-(``CompiledReplay.reject_rates_fleet``, kernel K4).
+(``CompiledReplay.reject_rates_fleet``, kernel K4).  Past a
+``max_events_per_shard`` budget both entry points run the same searches on
+the streaming engines (``replay_engine.CompiledReplayStream``,
+``CompiledReplayStreamBatch``): shards with the state carried on the
+device, bit-exact probes.
 
 Not ported yet (ROADMAP): the scalar-oracle search (``use_engine=False``,
-M3b) and the streaming engines past a shard budget (M5).
+M3b).
 """
 from __future__ import annotations
 
@@ -555,16 +559,6 @@ def _n_events(vms, dec) -> int:
         else sum(1 for d in dec if d.t_migrate is not None))
 
 
-def _refuse_past_shard_budget(vms, dec, max_events_per_shard) -> None:
-    n_events = _n_events(vms, dec)
-    if max_events_per_shard is not None and \
-            n_events > max_events_per_shard:
-        raise NotImplementedError(
-            f"{n_events} events exceed max_events_per_shard="
-            f"{max_events_per_shard}: streaming engines come with "
-            "ROADMAP M5")
-
-
 def _search_min(f, lo: float, hi: float, tol_frac: float = 0.02) -> float:
     """Least x in [lo, hi] with f(x) True (f monotone)."""
     if not f(hi):
@@ -619,6 +613,13 @@ def savings_analysis(vms, cfg: ClusterConfig, policy: str,
     decisions over ``far_fracs`` (on ``device``); DRAM totals and savings
     are unchanged.
 
+    ``max_events_per_shard``: when the trace's event count (2 per VM + 1
+    per QoS migration) passes it, every search runs on a
+    ``replay_engine.CompiledReplayStream`` (shards of at most that many
+    events, the state carried on the device), its reject rates bit-exact
+    against the monolithic engine; the pool searches then bracket with
+    ``peak_pool_demand`` instead of per-size trajectories.
+
     Usage::
 
         cache = {}
@@ -651,17 +652,23 @@ def savings_analysis(vms, cfg: ClusterConfig, policy: str,
         return res
 
     def _compile(vms_, dec_):
-        _refuse_past_shard_budget(vms_, dec_, max_events_per_shard)
+        # past the shard budget, stream instead of holding one event tensor
+        if max_events_per_shard is not None and \
+                _n_events(vms_, dec_) > max_events_per_shard:
+            return replay_engine.CompiledReplayStream(
+                vms_, dec_, cfg, max_events_per_shard=max_events_per_shard,
+                device=device)
         return replay_engine.CompiledReplay(vms_, dec_, cfg, device=device)
 
     eng = _compile(vms, dec_in)
     # cores-bound reject floor: memory tolerance is measured on top of it
     r0 = float(eng.reject_rates(hi_server, big_pool)[0])
     tol = r0 + reject_tol
+    cap = int(math.floor(tol * len(vms)))   # a stream's early-exit budget
 
     if policy == "local":                   # decisions ARE all-local
         base_gb = replay_engine.search_min_batched(
-            lambda g: eng.reject_rates(g, 0.0) <= tol,
+            lambda g: eng.reject_rates(g, 0.0, cap) <= tol,
             0.0, hi_server)
         if cache is not None:
             cache["local_engine"] = eng
@@ -670,7 +677,7 @@ def savings_analysis(vms, cfg: ClusterConfig, policy: str,
                                     cfg.n_servers, cfg.n_groups, mispred, 0,
                                     r0))
     min_server = replay_engine.search_min_batched(
-        lambda g: eng.reject_rates(g, big_pool) <= tol,
+        lambda g: eng.reject_rates(g, big_pool, cap) <= tol,
         0.0, hi_server)
     # the all-local baseline ignores the pool entirely: share its engine
     # and search result across policies of one trace
@@ -683,7 +690,7 @@ def savings_analysis(vms, cfg: ClusterConfig, policy: str,
     base_gb = cache.get(("base_gb", tol)) if cache is not None else None
     if base_gb is None:
         base_gb = replay_engine.search_min_batched(
-            lambda g: eng_local.reject_rates(g, 0.0) <= tol,
+            lambda g: eng_local.reject_rates(g, 0.0, cap) <= tol,
             0.0, hi_server)
         if cache is not None:
             cache[("base_gb", tol)] = base_gb
@@ -692,7 +699,7 @@ def savings_analysis(vms, cfg: ClusterConfig, policy: str,
     # sizes and pick the least total DRAM (one lockstep bracketing search)
     server_grid = np.linspace(min_server, base_gb, n_pts)
     pool_grid = replay_engine.pool_search_batched(
-        eng, server_grid, big_pool, tol)
+        eng, server_grid, big_pool, tol, reject_cap=cap)
     totals = cfg.n_servers * server_grid + cfg.n_groups * pool_grid
     rates = eng.reject_rates(server_grid, pool_grid)
     b = int(np.argmin(totals))
@@ -730,8 +737,11 @@ def savings_analysis_batched(vms_list, cfg: ClusterConfig, policy: str,
     across policies of the SAME trace list (like ``savings_analysis``).
     ``decisions``: precomputed per-trace ``policy_engine.PolicyDecisions``
     aligned with ``vms_list``; ``policy`` is then just the result label.
-    ``max_events_per_shard``: a trace past the budget raises (the
-    streaming batch is ROADMAP M5).
+    ``max_events_per_shard``: once any trace's event count passes it, the
+    whole batch compiles to ``replay_engine.CompiledReplayStream`` engines
+    in a ``CompiledReplayStreamBatch``: the same lockstep searches, one
+    launch a shard, the K traces' states carried on the device, every
+    probe (and so every result) bit-exact against the monolithic batch.
 
     Usage (Fig 21's rows over three seeds)::
 
@@ -766,15 +776,33 @@ def savings_analysis_batched(vms_list, cfg: ClusterConfig, policy: str,
     big_pool = hi_server * cfg.n_servers
     hi_vec = np.full(k, hi_server)
 
+    # past the budget the WHOLE batch compiles to streams stacked in a
+    # CompiledReplayStreamBatch: the lockstep searches below run on it
+    # unchanged, one launch a shard (every probe bit-exact)
+    streaming = max_events_per_shard is not None and any(
+        _n_events(v, d) > max_events_per_shard
+        for v, d in zip(vms_list, dec_list))
+
     def _compile_engine(vms_, dec_):
-        _refuse_past_shard_budget(vms_, dec_, max_events_per_shard)
+        if streaming:
+            return replay_engine.CompiledReplayStream(
+                vms_, dec_, cfg, max_events_per_shard=max_events_per_shard,
+                device=device)
         return replay_engine.CompiledReplay(vms_, dec_, cfg, device=device)
 
-    batch = replay_engine.CompiledReplayBatch(
-        [_compile_engine(v, d) for v, d in zip(vms_list, dec_list)])
+    def _wrap_batch(engines):
+        return (replay_engine.CompiledReplayStreamBatch(engines)
+                if streaming else replay_engine.CompiledReplayBatch(engines))
+
+    batch = _wrap_batch([_compile_engine(v, d)
+                         for v, d in zip(vms_list, dec_list)])
     # cores-bound reject floor per trace; tolerance is on top of it
     r0 = batch.reject_rates(hi_server, big_pool)[:, 0]
     tol = r0 + reject_tol
+    # shared early-exit budget of the streaming sweeps: a lane past
+    # max_i floor(tol_i * n_i) is infeasible for EVERY trace, so capped
+    # lower bounds still answer each row's feasibility test
+    cap = int(np.floor(tol * np.maximum(batch.n_vms, 1)).max(initial=0))
 
     def results(server_gb, pool_gb, base_gb, rates):
         return [PolicyResult(policy, float(server_gb[i]),
@@ -785,7 +813,8 @@ def savings_analysis_batched(vms_list, cfg: ClusterConfig, policy: str,
 
     if policy == "local":
         base_gb = replay_engine.search_min_multi(
-            lambda g: batch.reject_rates(g, np.zeros_like(g))
+            lambda g: batch.reject_rates(g, np.zeros_like(g),
+                                         reject_cap=cap)
             <= tol[:, None], np.zeros(k), hi_vec)
         if cache is not None:
             cache["local_batch"] = batch
@@ -793,7 +822,8 @@ def savings_analysis_batched(vms_list, cfg: ClusterConfig, policy: str,
         return results(base_gb, np.zeros(k), base_gb, r0)
 
     min_server = replay_engine.search_min_multi(
-        lambda g: batch.reject_rates(g, np.full_like(g, big_pool))
+        lambda g: batch.reject_rates(g, np.full_like(g, big_pool),
+                                     reject_cap=cap)
         <= tol[:, None], np.zeros(k), hi_vec)
     # the all-local baseline ignores the pool: share its batch + search
     # across policies of one trace list, and compile each UNIQUE trace
@@ -809,14 +839,15 @@ def savings_analysis_batched(vms_list, cfg: ClusterConfig, policy: str,
                 e = _compile_engine(vms, _all_local_decisions(vms))
                 uniq_local[id(vms)] = e
             engines.append(e)
-        local_batch = replay_engine.CompiledReplayBatch(engines)
+        local_batch = _wrap_batch(engines)
         if cache is not None:
             cache["local_batch"] = local_batch
     base_gb = cache.get(("base_gb_multi", tuple(tol))) \
         if cache is not None else None
     if base_gb is None:
         base_gb = replay_engine.search_min_multi(
-            lambda g: local_batch.reject_rates(g, np.zeros_like(g))
+            lambda g: local_batch.reject_rates(g, np.zeros_like(g),
+                                               reject_cap=cap)
             <= tol[:, None], np.zeros(k), hi_vec)
         if cache is not None:
             cache[("base_gb_multi", tuple(tol))] = base_gb
@@ -826,7 +857,7 @@ def savings_analysis_batched(vms_list, cfg: ClusterConfig, policy: str,
     n_pts = 7
     server_grids = np.linspace(min_server, base_gb, n_pts, axis=1)
     pool_grids = replay_engine.pool_search_multi(
-        batch, server_grids, big_pool, tol)
+        batch, server_grids, big_pool, tol, reject_cap=cap)
     totals = cfg.n_servers * server_grids + cfg.n_groups * pool_grids
     b = totals.argmin(axis=1)
     rows = np.arange(k)

@@ -39,13 +39,26 @@ prices ``(server_gb, per-pod pool_gb, topology)`` lanes over
 trace axis; its ``"numpy"`` backend (a float64 host sweep, exact for
 non-integral decisions too) is the reference's, copied.
 
-Not ported yet (ROADMAP): the numpy divergence-window backend (M1b) and
-with it non-integral decisions outside the fleet path, streaming engines
-(M5), ``devices=`` (M13) and the ``obs`` spans (M12).
+Streaming (traces past one event tensor): ``CompiledReplayStream`` cuts
+the compiled events into time-windowed shards of at most
+``max_events_per_shard`` (the reference's cuts, event for event) and keeps
+the state on the device from shard to shard, one K1 (for
+``reject_rates_fleet``, K4) launch a shard, shard i + 1 uploading through
+pinned host buffers on a side CUDA stream while shard i computes; it skips
+leading shards inside the candidates' divergence window, stops early under
+``reject_cap`` and checkpoints (``CheckpointSpec``).  Its ``"numpy"``
+backend carries float64 host state, exact for non-integral decisions too.
+``CompiledReplayStreamBatch`` streams K traces through K1's trace axis.
+
+Not ported yet (ROADMAP): the numpy divergence-window backend of the
+monolithic engine (M1b) and with it its non-integral decisions outside the
+fleet path, ``devices=`` (M13) and the ``obs`` spans (M12).
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import os
 import time
 
 import numpy as np
@@ -57,6 +70,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.event_sweep import kernel as K1
 from repro_torch.kernels.event_sweep.ops import pack_traces, trace_starts
 from repro_torch.kernels.fail_sweep import ops as fail_ops
+from repro_torch.kernels.pod_sweep import ops as pod_ops
 
 ARRIVE, DEPART, MIGRATE = (sweep_core.ARRIVE, sweep_core.DEPART,
                            sweep_core.MIGRATE)
@@ -1039,6 +1053,1040 @@ def _np_fleet_state(n_cand: int, n_servers: int, cores_per_server,
     return free, pool_free, placed, pod_of, migrated, rejects
 
 
+# ------------------------------------------------------------- streaming ---
+_EVENT_KEYS = ("kind", "slot", "c", "l", "p", "m")
+
+
+def _np_stream_sweep(shard, gcols, free, placed, migrated, rejects):
+    """Numpy shard sweep over carried state (float64, oracle-ordered ops) —
+    the reference's, copied.
+
+    Vectorized over candidates, slot-indexed and carry-threaded: ``free``
+    is the packed ``(C, n_servers + 1, 3)`` free-capacity array (cores /
+    local GB / mirrored group pool GB; the +1 dummy column absorbs ragged
+    pool groups), ``placed``/``migrated`` are ``(C, n_slots)`` placement
+    state, ``rejects`` the per-candidate counters — all mutated in place so
+    consecutive shards continue one replay.  Tracking FREE capacities (not
+    usage) keeps the float adds/subtracts in the scalar oracle's exact
+    order, so non-integral decisions stay bit-exact too.
+    """
+    kind, slot = shard["kind"], shard["slot"]
+    cs, ls, ps, ms = shard["c"], shard["l"], shard["p"], shard["m"]
+    cidx = np.arange(free.shape[0])
+    for e in range(len(kind)):
+        k = kind[e]
+        if k >= PAD:                 # PAD and FAIL/RECOVER: no-ops here
+            continue
+        sl = slot[e]
+        if k == DEPART:
+            s = placed[:, sl]
+            rows = cidx[s >= 0]
+            if rows.size:
+                sv = s[rows]
+                mg = migrated[rows, sl]
+                free[rows, sv, 0] += cs[e]
+                free[rows, sv, 1] += np.where(mg, ms[e], ls[e])
+                free[rows[:, None], gcols[sv], 2] += \
+                    np.where(mg, 0.0, ps[e])[:, None]
+                migrated[rows, sl] = False
+            placed[:, sl] = -1
+            continue
+        if k == MIGRATE:
+            p = ps[e]
+            s = placed[:, sl]
+            rows = cidx[s >= 0]
+            if rows.size:
+                sv = s[rows]
+                room = free[rows, sv, 1] >= p
+                rows, sv = rows[room], sv[room]
+                if rows.size:
+                    free[rows, sv, 1] -= p
+                    free[rows[:, None], gcols[sv], 2] += p
+                    migrated[rows, sl] = True
+            continue
+        # ARRIVE: best fit by cores among servers whose free local memory
+        # and group pool fit
+        vec3 = np.array([cs[e], ls[e], ps[e]])
+        ok = (free >= vec3).all(-1)
+        score = np.where(ok, free[:, :, 0], _INF)
+        s = score.argmin(1)
+        best = score[cidx, s]
+        p = ps[e]
+        feas = ~np.isinf(best)
+        rows = cidx[feas]
+        if rows.size:
+            sv = s[rows]
+            free[rows, sv, 0] -= cs[e]
+            free[rows, sv, 1] -= ls[e]
+            if p > 0.0:
+                free[rows[:, None], gcols[sv], 2] -= p
+            placed[rows, sl] = sv
+        bad = cidx[~feas]
+        if bad.size:
+            # pool short -> control-plane fallback: start the VM all-local
+            c, m = cs[e], ms[e]
+            sub = free[bad]
+            ok2 = (sub[:, :, 0] >= c) & (sub[:, :, 1] >= m)
+            score2 = np.where(ok2, sub[:, :, 0], _INF)
+            s2 = score2.argmin(1)
+            inf2 = np.isinf(score2[np.arange(len(bad)), s2])
+            rows2 = bad[~inf2]
+            if rows2.size:
+                sv2 = s2[~inf2]
+                free[rows2, sv2, 0] -= c
+                free[rows2, sv2, 1] -= m
+                placed[rows2, sl] = sv2
+                migrated[rows2, sl] = True       # departs as all-local
+            rejects[bad[inf2]] += 1
+
+
+# ------------------------------------------------- checkpoint / resume ----
+class SweepInterrupted(RuntimeError):
+    """A streaming sweep was killed by the chaos hook
+    (``CheckpointSpec.kill_after_shards``) after writing its checkpoint.
+    Carries the checkpoint path and the number of shard sweeps completed
+    before the kill."""
+
+    def __init__(self, path: str, shards_done: int):
+        self.path, self.shards_done = path, shards_done
+        super().__init__(
+            f"sweep interrupted after {shards_done} shard sweeps "
+            f"(checkpoint at {path})")
+
+
+@dataclasses.dataclass(frozen=True)
+class CheckpointSpec:
+    """Checkpoint/resume policy for the streaming sweeps.
+
+    Passed as ``checkpoint=`` to :meth:`CompiledReplayStream.reject_rates`
+    and :meth:`CompiledReplayStreamBatch.reject_rates`: every
+    ``every_shards`` shard sweeps the engine writes the state and the shard
+    cursor to ``path`` (one ``.npz``, written atomically: a tmp file and
+    ``os.replace``, so a kill mid-write never corrupts the previous
+    snapshot).  With ``resume=True`` an existing checkpoint whose
+    fingerprint matches the sweep (backend, state dtype, event and shard
+    counts, candidate grid bytes, reject cap) is loaded first and the sweep
+    goes on from its shard with its state.  Resumed results are identical
+    to an uninterrupted sweep; a fingerprint mismatch raises
+    ``ValueError``.  The file is the port's own (every candidate is one
+    launch, so there is no candidate-chunk cursor in it).
+
+    ``kill_after_shards`` is the chaos hook: after that many shard sweeps
+    the engine writes a snapshot and raises :class:`SweepInterrupted`.
+    """
+
+    path: str
+    every_shards: int = 8
+    resume: bool = False
+    kill_after_shards: int | None = None
+
+
+def _sweep_fingerprint(backend: str, dt_name: str, n_events, n_shards,
+                       n_vms, reject_cap, server_gb, pool_gb) -> str:
+    """Identity of one streaming sweep: resuming under any other
+    configuration would silently produce wrong counts, so the checkpoint
+    refuses to load when this differs."""
+    h = hashlib.sha256()
+    h.update(repr((backend, dt_name, np.asarray(n_events).tolist(),
+                   np.asarray(n_shards).tolist(),
+                   np.asarray(n_vms).tolist(), reject_cap)).encode())
+    h.update(np.ascontiguousarray(np.asarray(server_gb, float)).tobytes())
+    h.update(np.ascontiguousarray(np.asarray(pool_gb, float)).tobytes())
+    return h.hexdigest()
+
+
+class _CheckpointIO:
+    """Snapshot cadence, atomic npz IO and the chaos kill hook for one
+    streaming sweep (shared by the device and numpy shard loops)."""
+
+    def __init__(self, spec: CheckpointSpec, fingerprint: str):
+        self.spec = spec
+        self.fp = fingerprint
+        self.shards_done = 0
+
+    def load(self) -> dict | None:
+        if not (self.spec.resume and os.path.exists(self.spec.path)):
+            return None
+        with np.load(self.spec.path, allow_pickle=False) as z:
+            state = {key: z[key] for key in z.files}
+        got = str(state.pop("fingerprint"))
+        if got != self.fp:
+            raise ValueError(
+                f"checkpoint {self.spec.path} belongs to a different "
+                "sweep (backend/state dtype/trace/candidates/reject cap "
+                "changed); delete it or rerun the original sweep")
+        return state
+
+    def save(self, state: dict) -> None:
+        tmp = self.spec.path + ".tmp.npz"
+        np.savez(tmp, fingerprint=self.fp, **state)
+        os.replace(tmp, self.spec.path)
+
+    def tick(self, state_fn) -> None:
+        """After each shard sweep: snapshot on cadence; then, if the chaos
+        hook fires, force a snapshot and raise."""
+        self.shards_done += 1
+        kill = (self.spec.kill_after_shards is not None
+                and self.shards_done >= self.spec.kill_after_shards)
+        due = (self.spec.every_shards > 0
+               and self.shards_done % self.spec.every_shards == 0)
+        if due or kill:
+            self.save(state_fn())
+        if kill:
+            raise SweepInterrupted(self.spec.path, self.shards_done)
+
+    def done(self) -> None:
+        """Completed sweeps delete their checkpoint: a later resume of a
+        finished run recomputes from scratch instead of loading a stale
+        cursor."""
+        if os.path.exists(self.spec.path):
+            os.remove(self.spec.path)
+
+
+def _checkpoint_io(spec, fingerprint):
+    """``(io, loaded state)`` for a sweep: ``(None, None)`` without a
+    spec."""
+    if spec is None:
+        return None, None
+    io = _CheckpointIO(spec, fingerprint)
+    return io, io.load()
+
+
+# ------------------------------------------- double-buffered uploads --
+class _ShardFeed:
+    """Double-buffered upload of a stream's shards to the sweep's device.
+
+    Two host buffers of six int32 rows (kind, slot, cores, local, pool,
+    mem) of ``rows`` events each, pinned when the device is the card, and
+    two device buffers of the same shape.  :meth:`stage` packs shard ``si``
+    into host buffer ``si % 2`` (``pack(si, buffer)`` returns the events
+    the launch takes and the trace axis's counts) and,
+    on the card, copies the buffer into device buffer ``si % 2`` with a
+    ``non_blocking`` copy on a side CUDA stream, ordered after the launch
+    that last read that buffer (shard ``si - 2``).  :meth:`take` orders the
+    current stream after that copy and returns the six rows (each 16-byte
+    aligned: ``rows`` is a multiple of 4); :meth:`release` marks the launch
+    that read them.  The caller stages shard ``si + 1`` after launching
+    shard ``si``, so the copy runs while the kernel sweeps shard ``si``:
+    at most two shards' event tensors are on the card.  Refilling a host
+    buffer waits for its previous copy.  On the CPU the host buffers are
+    the sweep's own.
+    """
+
+    def __init__(self, pack, rows: int, device: torch.device):
+        self.pack = pack
+        self.card = device.type == "cuda"
+        self.host = [torch.empty((6, rows), dtype=torch.int32,
+                                 pin_memory=self.card) for _ in range(2)]
+        self.dev = self.host
+        if self.card:
+            self.dev = [torch.empty((6, rows), dtype=torch.int32,
+                                    device=device) for _ in range(2)]
+            self.side = torch.cuda.Stream(device)
+            self.copied = [None, None]    # the copy into buffer b
+            self.read = [None, None]      # the launch that read buffer b
+        self.staged = {}
+
+    def stage(self, si: int) -> None:
+        b = si % 2
+        if self.card and self.copied[b] is not None:
+            self.copied[b].synchronize()  # host buffer b is free again
+        length, counts = self.pack(si, self.host[b].numpy())
+        if self.card:
+            with torch.cuda.stream(self.side):
+                if self.read[b] is not None:
+                    self.side.wait_event(self.read[b])
+                # one copy of the whole buffer (a shorter shard's tail is
+                # stale and never read): one call instead of six
+                self.dev[b].copy_(self.host[b], non_blocking=True)
+                self.copied[b] = torch.cuda.Event()
+                self.copied[b].record(self.side)
+        self.staged[si] = (length, counts)
+
+    def take(self, si: int):
+        """``(six event rows, trace counts)`` of a staged shard."""
+        length, counts = self.staged.pop(si)
+        buf = self.dev[si % 2]
+        if self.card:
+            torch.cuda.current_stream(buf.device).wait_event(
+                self.copied[si % 2])
+        return tuple(buf[j, :length] for j in range(6)), counts
+
+    def release(self, si: int) -> None:
+        if self.card:
+            self.read[si % 2] = torch.cuda.Event()
+            self.read[si % 2].record()
+
+    def close(self) -> None:
+        """Orders the current stream after every copy (one staged ahead
+        may be left unread by an early exit), so the buffers may be
+        freed."""
+        if self.card:
+            torch.cuda.current_stream(self.dev[0].device).wait_stream(
+                self.side)
+
+
+def _pack_rows(buf, at: int, shard: dict, n: int) -> int:
+    """Shard ``shard``'s first ``n`` events into ``buf`` (6, rows) from
+    row ``at``, PAD events (a no-op) up to the next multiple of 4; returns
+    the row after them."""
+    end = at + sweep_core.pad_up(n, 4)
+    for j, key in enumerate(_EVENT_KEYS):
+        buf[j, at:at + n] = shard[key][:n]
+    buf[0, at + n:end] = PAD
+    buf[1:, at + n:end] = 0
+    return end
+
+
+def _stream_shards(feed, shard_from: int, n_shards: int, launch, rejects,
+                   reject_cap, after=None) -> int:
+    """The device sweeps' shard loop: stage the first shard, then for each
+    shard launch it, stage the next (its copy overlaps the launch), run
+    ``after(si)`` (invariants, checkpoints) and, with ``reject_cap``, read
+    the reject counters (the loop's only sync) and stop once every lane
+    exceeds the cap.  Returns the shards swept."""
+    swept = 0
+    try:
+        if shard_from < n_shards:
+            feed.stage(shard_from)
+        for si in range(shard_from, n_shards):
+            evs, counts = feed.take(si)
+            launch(evs, counts)
+            feed.release(si)
+            swept += 1
+            if si + 1 < n_shards:
+                feed.stage(si + 1)
+            if after is not None:
+                after(si)
+            if reject_cap is not None and bool(
+                    (rejects > reject_cap).all()):
+                break                    # every lane decided
+    finally:
+        feed.close()
+    return swept
+
+
+# --------------------------------------------- divergence windows --
+def _stream_reference(stream):
+    """Infinite-capacity reference replay over a stream's shards — the
+    reference's, copied.
+
+    Replays the shards once with unbounded server/pool capacities —
+    exactly the sweep's semantics at ``sgb = pgb = inf`` (best fit by free
+    cores, first index on ties; cores-only rejects).  Produces, per shard,
+    the maximum server/pool demand any admission or migration test could
+    require (``max_srv`` / ``max_pool``) plus the full state at every shard
+    boundary.
+
+    A candidate lane whose capacities dominate a prefix of these maxima
+    provably takes the identical action at every event of that prefix, so
+    the sweep may start from the boundary snapshot instead — the
+    divergence-window skip.  Cached on the stream; returns ``None`` when
+    the stream cannot support exact skipping (non-integral decisions or
+    cores).
+    """
+    ref = getattr(stream, "_ref", None)
+    if ref is not None:
+        return ref if ref != "unusable" else None
+    cps = float(stream.cores_per_server)
+    if not (stream._exact and cps.is_integer()):
+        stream._ref = "unusable"
+        return None
+    big = 1 << 60
+    n_srv = stream.n_servers
+    group_of = np.asarray(stream.group_of, np.int64)
+    fc = np.full(n_srv, int(cps), np.int64)
+    um = np.zeros(n_srv, np.int64)
+    up = np.zeros(stream.n_groups, np.int64)
+    slots = np.full(stream._n_slots, -1, np.int64)
+    rej = 0
+    n = stream.n_shards
+    max_srv = np.empty(n, np.int64)
+    max_pool = np.empty(n, np.int64)
+    snaps = [(fc.copy(), um.copy(), up.copy(), slots.copy(), rej)]
+    for si, shard in enumerate(stream._shards):
+        kinds = shard["kind"].tolist()
+        sls = shard["slot"].tolist()
+        cs = shard["c"].tolist()
+        ls = shard["l"].tolist()
+        ps = shard["p"].tolist()
+        ms_ = shard["m"].tolist()
+        ms = mp = -big                # event-free shards always skip
+        for e, kind in enumerate(kinds):
+            if kind == ARRIVE:
+                c = int(cs[e])
+                feas = fc >= c
+                if feas.any():
+                    b = int(np.argmin(np.where(feas, fc, big)))
+                    g = group_of[b]
+                    fc[b] -= c
+                    um[b] += int(ls[e])
+                    up[g] += int(ps[e])
+                    slots[sls[e]] = b * 2
+                    if um[b] > ms:
+                        ms = int(um[b])
+                    if up[g] > mp:
+                        mp = int(up[g])
+                else:
+                    rej += 1
+            elif kind == DEPART:
+                val = int(slots[sls[e]])
+                if val >= 0:
+                    b = val >> 1
+                    fc[b] += int(cs[e])
+                    if val & 1:
+                        um[b] -= int(ms_[e])
+                    else:
+                        um[b] -= int(ls[e])
+                        up[group_of[b]] -= int(ps[e])
+                    slots[sls[e]] = -1
+            elif kind == MIGRATE:
+                val = int(slots[sls[e]])
+                if val >= 0:
+                    b = val >> 1
+                    p = int(ps[e])
+                    um[b] += p
+                    up[group_of[b]] -= p
+                    slots[sls[e]] = val | 1
+                    if um[b] > ms:
+                        ms = int(um[b])
+            # PAD (and FAIL/RECOVER, which the plain sweep ignores) leave
+            # the state untouched
+        max_srv[si] = ms
+        max_pool[si] = mp
+        snaps.append((fc.copy(), um.copy(), up.copy(), slots.copy(), rej))
+    stream._ref = {"max_srv": max_srv, "max_pool": max_pool,
+                   "snaps": snaps}
+    return stream._ref
+
+
+def _skip_count(ref, min_sgb, min_pgb, n_shards):
+    """Leading shards a sweep may skip: the longest prefix whose reference
+    demand maxima every lane capacity covers.  A stream whose entire trace
+    is skippable extends to ``n_shards`` (a batch's trailing shards of a
+    shorter stream hold no events)."""
+    viol = (ref["max_srv"] > min_sgb) | (ref["max_pool"] > min_pgb)
+    nz = np.flatnonzero(viol)
+    return int(nz[0]) if nz.size else n_shards
+
+
+def _carry_from_snap(snap, width, n_servers, n_groups, n_slots, np_dt):
+    """State seeded from a reference boundary snapshot, broadcast across
+    ``width`` candidate lanes (every non-diverged lane holds exactly the
+    reference state): ``(fc, um, up, slots, rejects)`` as
+    ``sweep_core.init_state`` lays them out (the reference's server and
+    group padding is not carried over; slots past the snapshot's are
+    empty)."""
+    fc_r, um_r, up_r, slots_r, rej = snap
+    fc0 = np.empty((width, n_servers), np_dt)
+    fc0[:] = fc_r
+    um0 = np.empty((width, n_servers), np_dt)
+    um0[:] = um_r
+    up0 = np.empty((width, n_groups), np_dt)
+    up0[:] = up_r
+    slots0 = np.full((n_slots, width), -1, np_dt)
+    slots0[:len(slots_r), :] = slots_r[:, None]
+    rej0 = np.full(width, rej, np.int32)
+    return fc0, um0, up0, slots0, rej0
+
+
+def _to_device(arrays, device):
+    """Host numpy arrays as contiguous tensors on ``device``; to the card
+    through pinned memory without a host wait (a pageable copy would wait
+    for the work queued before it)."""
+    ts = (torch.from_numpy(np.ascontiguousarray(a)) for a in arrays)
+    if device.type != "cuda":
+        return tuple(t.to(device) for t in ts)
+    return tuple(t.pin_memory().to(device, non_blocking=True) for t in ts)
+
+
+class CompiledReplayStream:
+    """Out-of-core replay: time-windowed event shards, carried state.
+
+    Prices arbitrarily long traces with the event memory on ``device``
+    (default: the CUDA card; ``"cpu"`` runs the sweeps' plain versions) set
+    by ``max_events_per_shard``: events compile into shards of at most that
+    many events (floored to a multiple of 256; the reference's cuts, event
+    for event) and the state — free cores, used local/pool GB, the slot
+    array, the reject counters — stays on the device from shard to shard,
+    one launch of the event sweep (K1) a shard for the whole candidate
+    batch, so N shards replay EXACTLY like one monolithic sweep: reject
+    rates are bit-exact against :class:`CompiledReplay`.  The state packs
+    to int16 when the capacities permit (same rules as the monolithic
+    sweep); with non-integral GB decisions (or ``backend="numpy"``) a
+    numpy shard sweep carries the same state in float64.
+
+    Two construction modes:
+
+    * **in-memory** — drop-in for :class:`CompiledReplay` when only the
+      event tensor (not the VM list) outgrows memory::
+
+          stream = CompiledReplayStream(vms, decisions, cfg,
+                                        max_events_per_shard=100_000)
+          rates = stream.reject_rates([300.0, 350.0], [512.0, 256.0])
+
+    * **chunked** — bounded-memory ingestion from an iterator of VM
+      chunks; chunk arrivals must be non-decreasing across chunk
+      boundaries, and ``decide`` maps each chunk to its per-VM decisions
+      (default: all-local; a ``PolicyDecisions.slice`` works)::
+
+          stream = CompiledReplayStream(
+              iter(chunks), None, cfg, max_events_per_shard=250_000,
+              decide=lambda chunk: cluster_sim.policy_decisions(
+                  chunk, "static", static_pool_frac=0.15)[0])
+
+    Chunk ingestion keeps compact per-event arrays, per-VM payload scalars
+    and the pending-departure buffer; a sweep has at most TWO shards'
+    event tensors on the device (the one computing and the one uploading:
+    ``2 * peak_shard_bytes``), which is what ``max_events_per_shard``
+    bounds.
+    """
+
+    def __init__(self, vms, decisions=None, cfg=None, *,
+                 max_events_per_shard: int = 262_144, decide=None,
+                 device=None):
+        if cfg is None:
+            raise TypeError("CompiledReplayStream(vms, decisions, cfg): "
+                            "cfg is required")
+        if max_events_per_shard < sweep_core.EVENT_PAD:
+            raise ValueError("max_events_per_shard must be >= 256")
+        t0 = time.perf_counter()
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        # floored to a multiple of 256 (the shard length granularity) so
+        # that a shard NEVER exceeds the stated budget
+        self.max_events_per_shard = (int(max_events_per_shard)
+                                     // sweep_core.EVENT_PAD
+                                     * sweep_core.EVENT_PAD)
+        self.n_servers = n_srv = cfg.n_servers
+        self.n_groups = cfg.n_groups
+        self.group_of = np.arange(n_srv) // cfg.servers_per_group
+        self.cores_per_server = float(cfg.cores_per_server)
+        spg_max = int(np.bincount(self.group_of).max())
+        self._gcols = np.full((n_srv, spg_max), n_srv, np.int64)
+        for s in range(n_srv):
+            members = np.flatnonzero(self.group_of == self.group_of[s])
+            self._gcols[s, :len(members)] = members
+
+        # ingest state
+        self.n_vms = 0
+        self._cores: list[float] = []
+        self._local: list[float] = []
+        self._pool: list[float] = []
+        self._mem: list[float] = []
+        self._exact = True
+        self._pend_t: list[float] = []
+        self._pend_k: list[int] = []
+        self._pend_v: list[int] = []
+        self._t_seen = -_INF          # latest arrival ingested
+        self._t_flushed = -_INF       # events < this are already compiled
+        self._slot_of: list[int] = []
+        self._free_slots: list[int] = []
+        self._next_slot = 0
+        self._buf: dict[str, list] = {k: [] for k in _EVENT_KEYS}
+        self._shards: list[dict] = []
+        self.n_events = 0
+        self._pool_cum = 0.0
+        self._peak_pool = 0.0
+        self._pay_mem_max = 0.0
+        self._pay_pool_max = 0.0
+        self._has_migrate = False
+        self._mig_pool_sum = 0.0      # compiled MIGRATE-event pool total
+        self._ref = None              # _stream_reference's cache
+
+        it = iter(vms)
+        first = next(it, None)
+        if first is None:
+            pass                                    # empty trace
+        elif hasattr(first, "arrival"):             # flat VM list
+            allvms = [first, *it]
+            if decisions is not None and len(decisions) != len(allvms):
+                raise ValueError("decisions must align with vms")
+            self._ingest_chunk(allvms, decisions)
+        else:                                       # iterator of chunks
+            if decisions is not None:
+                raise ValueError(
+                    "pass decisions=None with a chunk iterator; supply a "
+                    "decide(chunk) callback instead")
+            for chunk in ([first] if first else []):
+                self._ingest_chunk(chunk,
+                                   decide(chunk) if decide else None)
+            for chunk in it:
+                if chunk:
+                    self._ingest_chunk(chunk,
+                                       decide(chunk) if decide else None)
+        self._finish()
+        _TIMES.compile_s += time.perf_counter() - t0
+
+    # ------------------------------------------------------------ ingest --
+    def _ingest_chunk(self, chunk, decisions) -> None:
+        if decisions is not None:
+            # list of VMDecision or a PolicyDecisions SoA, normalized to
+            # arrays either way (NaN t_migrate = none)
+            local_a, pool_a, tmig_a = _decision_arrays(decisions,
+                                                       len(chunk))
+        t_min = _INF
+        for i, vm in enumerate(chunk):
+            v = self.n_vms
+            self.n_vms += 1
+            c = float(vm.cores)
+            m = float(vm.mem_gb)
+            l = m if decisions is None else float(local_a[i])
+            p = 0.0 if decisions is None else float(pool_a[i])
+            t_mig = None
+            if decisions is not None and not np.isnan(tmig_a[i]):
+                t_mig = float(tmig_a[i])
+            arrival = float(vm.arrival)
+            dep = arrival + float(vm.lifetime)
+            self._cores.append(c)
+            self._local.append(l)
+            self._pool.append(p)
+            self._mem.append(m)
+            self._slot_of.append(-1)
+            self._exact = self._exact and c.is_integer() \
+                and m.is_integer() and l.is_integer() and p.is_integer()
+            self._pay_mem_max = max(self._pay_mem_max, m, l)
+            self._pay_pool_max = max(self._pay_pool_max, p)
+            t_min = min(t_min, arrival)
+            self._t_seen = max(self._t_seen, arrival)
+            self._pend_t.append(arrival)
+            self._pend_k.append(ARRIVE)
+            self._pend_v.append(v)
+            # MIGRATE events outside [arrival, departure) are no-ops in
+            # the oracle and are dropped, like the monolithic compile
+            if t_mig is not None and arrival <= t_mig < dep:
+                self._has_migrate = True
+                self._pend_t.append(float(t_mig))
+                self._pend_k.append(MIGRATE)
+                self._pend_v.append(v)
+            self._pend_t.append(dep)
+            self._pend_k.append(DEPART)
+            self._pend_v.append(v)
+        if t_min < self._t_flushed:
+            raise ValueError(
+                f"chunk arrivals must be non-decreasing across chunks: "
+                f"got {t_min:g} after events were compiled up to "
+                f"{self._t_flushed:g} (sort the trace by arrival)")
+        self._flush(self._t_seen)
+
+    def _flush(self, t_max: float, final: bool = False) -> None:
+        """Compile every pending event strictly before ``t_max`` (all of
+        them when ``final``) in the monolithic (time, kind, vm) order."""
+        if not self._pend_t:
+            return
+        t = np.asarray(self._pend_t)
+        k = np.asarray(self._pend_k, np.int64)
+        v = np.asarray(self._pend_v, np.int64)
+        if final:
+            take = np.ones(len(t), bool)
+        else:
+            take = t < t_max
+            self._t_flushed = max(self._t_flushed, t_max)
+        if not take.any():
+            return
+        ts, ks, vs = t[take], k[take], v[take]
+        order = np.lexsort((vs, ks, ts))
+        self._emit(ks[order].tolist(), vs[order].tolist())
+        keep = ~take
+        self._pend_t = t[keep].tolist()
+        self._pend_k = k[keep].tolist()
+        self._pend_v = v[keep].tolist()
+
+    def _emit(self, kinds, vidx) -> None:
+        buf = self._buf
+        budget = self.max_events_per_shard
+        for k, v in zip(kinds, vidx):
+            if k == ARRIVE:
+                if self._free_slots:
+                    sl = self._free_slots.pop()
+                else:
+                    sl = self._next_slot
+                    self._next_slot += 1
+                self._slot_of[v] = sl
+                self._pool_cum += self._pool[v]
+                self._peak_pool = max(self._peak_pool, self._pool_cum)
+            else:
+                sl = self._slot_of[v]
+                if k == DEPART:
+                    self._free_slots.append(sl)
+                    self._pool_cum -= self._pool[v]
+                else:                         # MIGRATE (int16 pool bound)
+                    self._mig_pool_sum += self._pool[v]
+            buf["kind"].append(k)
+            buf["slot"].append(sl)
+            buf["c"].append(self._cores[v])
+            buf["l"].append(self._local[v])
+            buf["p"].append(self._pool[v])
+            buf["m"].append(self._mem[v])
+            self.n_events += 1
+            if len(buf["kind"]) == budget:
+                self._close_shard()
+
+    def _close_shard(self) -> None:
+        b = self._buf
+        if not b["kind"]:
+            return
+        self._shards.append({
+            "kind": np.asarray(b["kind"], np.int32),
+            "slot": np.asarray(b["slot"], np.int32),
+            "c": np.asarray(b["c"]), "l": np.asarray(b["l"]),
+            "p": np.asarray(b["p"]), "m": np.asarray(b["m"])})
+        for key in b:        # reset in place: _emit holds a reference
+            b[key] = []
+
+    def _finish(self) -> None:
+        self._flush(_INF, final=True)
+        self._close_shard()
+        self.n_shards = len(self._shards)
+        self._n_slots = sweep_core.pad_up(self._next_slot,
+                                          sweep_core.SLOT_PAD)
+        #: each shard's true event count: the launches take these, not
+        #: ``shard_pad_events``
+        self._shard_events = [len(s["kind"]) for s in self._shards]
+        longest = max(self._shard_events, default=0)
+        self.shard_pad_events = sweep_core.pad_up(longest,
+                                                  sweep_core.EVENT_PAD)
+        #: the reference's per-sweep footprint of one shard's event tensor
+        #: (6 int32 streams of ``shard_pad_events``) — THE quantity
+        #: max_events_per_shard bounds; a device sweep holds two shards of
+        #: at most that
+        self.peak_shard_bytes = 6 * 4 * self.shard_pad_events
+        for s in self._shards:           # pad in place, once, as the
+            n = len(s["kind"])           # reference does
+            pad = self.shard_pad_events - n
+            if pad:
+                s["kind"] = np.concatenate(
+                    [s["kind"], np.full(pad, PAD, np.int32)])
+                s["slot"] = np.concatenate(
+                    [s["slot"], np.zeros(pad, np.int32)])
+                for key in ("c", "l", "p", "m"):
+                    s[key] = np.concatenate([s[key], np.zeros(pad)])
+            if self._exact:
+                # integral payloads: int32 once, as the device takes them
+                # (the numpy backend computes the same float64 results)
+                for key in ("c", "l", "p", "m"):
+                    s[key] = s[key].astype(np.int32)
+
+    # -------------------------------------------------------------- query --
+    def peak_pool_demand(self) -> float:
+        """Naive concurrent pool demand peak over the compiled event order
+        (same bound as ``CompiledReplay.peak_pool_demand``): a feasible
+        upper bracket for any pool search."""
+        return float(self._peak_pool)
+
+    # the int16 packing rules are the monolithic engine's (they read only
+    # the cluster shape and payload maxima, which this class mirrors)
+    _pick_state_dtype = CompiledReplay._pick_state_dtype
+    _pick_pod_state_dtype = CompiledReplay._pick_pod_state_dtype
+
+    def _backend(self, backend: str) -> str:
+        if backend == "auto":
+            return "torch" if self._exact else "numpy"
+        if backend == "torch" and not self._exact:
+            raise NotImplementedError(
+                "the device sweeps take integral decisions; "
+                "backend='numpy' prices non-integral ones")
+        if backend not in ("torch", "numpy"):
+            raise ValueError(f"backend must be 'auto', 'torch' or 'numpy', "
+                             f"got {backend!r}")
+        return backend
+
+    def reject_rates(self, server_gb, pool_gb,
+                     reject_cap: int | None = None,
+                     backend: str = "auto",
+                     state_dtype: str | None = None,
+                     checkpoint: "CheckpointSpec | None" = None,
+                     devices=None,
+                     skip_windows: bool = True) -> np.ndarray:
+        """Reject fraction per candidate, streamed shard by shard.
+
+        Same contract and broadcasting as
+        :meth:`CompiledReplay.reject_rates`.  ``backend="torch"`` (``"auto"``
+        for integral decisions) keeps the state on the engine's device and
+        prices every candidate with one K1 launch a shard, shard i + 1
+        uploading (pinned host buffers, a side CUDA stream) while shard i
+        computes; ``"numpy"`` (``"auto"`` otherwise) runs the float64 host
+        shard sweep.  With ``reject_cap`` set the stream stops early once
+        EVERY candidate exceeds the cap (each reported rate is then its
+        exact count so far — a lower bound at or above ``(reject_cap + 1)
+        / n_vms``, the same feasibility-test contract as the other
+        engines); it is the only read-back a shard makes.
+        ``skip_windows`` (default on) starts the sweep at the first shard
+        where some lane's capacity can bind, from the reference
+        replay's boundary snapshot (:func:`_stream_reference`): bit-exact
+        against the unskipped sweep without ``reject_cap``.
+
+        ``checkpoint`` (a :class:`CheckpointSpec`) snapshots the state and
+        the shard cursor every N shard sweeps and, with ``resume=True``,
+        goes on from an interrupted sweep: resumed results are identical
+        to an uninterrupted run, both backends.  Under
+        ``POND_DEBUG_INVARIANTS=1`` the state is verified after every
+        shard (``sweep_core.check_invariants``).  ``devices`` (a device
+        mesh) is ROADMAP M13.
+
+        Usage::
+
+            stream = CompiledReplayStream(vms, decisions, cfg,
+                                          max_events_per_shard=65_536)
+            rates = stream.reject_rates(
+                np.linspace(200., 400., 9), np.linspace(0., 800., 9))
+        """
+        if devices is not None:
+            raise NotImplementedError("device meshes come with devices= "
+                                      "(ROADMAP M13)")
+        t0 = time.perf_counter()
+        server_gb = np.atleast_1d(np.asarray(server_gb, float))
+        pool_gb = np.atleast_1d(np.asarray(pool_gb, float))
+        server_gb, pool_gb = np.broadcast_arrays(server_gb, pool_gb)
+        n0 = len(server_gb)
+        if not self.n_events:
+            return np.zeros(n0)
+        if self._backend(backend) == "torch":
+            rej, cand_events = self._sweep_device(
+                server_gb, pool_gb, reject_cap, state_dtype, checkpoint,
+                skip_windows)
+            rejects = rej.cpu().numpy().astype(np.int64)
+        else:
+            rejects, cand_events = self._sweep_numpy(
+                server_gb, pool_gb, reject_cap, checkpoint)
+        _STATS.sweeps += 1
+        _STATS.events += self.n_events
+        _STATS.candidate_events += cand_events
+        _STATS.wall_s += time.perf_counter() - t0
+        _TIMES.sweep_s += time.perf_counter() - t0
+        return rejects / max(self.n_vms, 1)
+
+    def _fingerprint(self, backend, dt_name, reject_cap, server_gb,
+                     pool_gb) -> str:
+        return _sweep_fingerprint(backend, dt_name, self.n_events,
+                                  self.n_shards, self.n_vms, reject_cap,
+                                  server_gb, pool_gb)
+
+    def _debug_check_events(self) -> None:
+        for si, shard in enumerate(self._shards):
+            sweep_core.check_event_tensors(shard, si, self._n_slots)
+
+    def _debug_check_carry(self, fc, um, up, si: int) -> None:
+        sweep_core.check_invariants(
+            np.asarray(fc), np.asarray(um), np.asarray(up),
+            n_servers=self.n_servers,
+            cores_per_server=self.cores_per_server, shard=si,
+            up_slack=self._mig_pool_sum)
+
+    def _pack(self, si: int, buf):
+        """:class:`_ShardFeed`'s packer: shard ``si``'s true events."""
+        n = self._shard_events[si]
+        _pack_rows(buf, 0, self._shards[si], n)
+        return n, None
+
+    def _feed(self) -> _ShardFeed:
+        return _ShardFeed(self._pack, sweep_core.pad_up(
+            max(self._shard_events, default=0), 4), self.device)
+
+    def _sweep_device(self, server_gb, pool_gb, reject_cap, state_dtype,
+                      ckpt=None, skip_windows=True):
+        """K1 a shard over the whole candidate batch, the state on the
+        device from the first shard to the last.  Returns ``(the reject
+        counters on the device, candidate events)`` without a sync of its
+        own (unless ``reject_cap``, a checkpoint or the invariant guard
+        reads the state); the candidate events count the true lanes of each
+        swept shard (the reference counts its padded bucket)."""
+        n0 = len(server_gb)
+        sgb_i, pgb_i = sweep_core.quantize_capacities(server_gb, pool_gb)
+        dt_name = state_dtype or self._pick_state_dtype(sgb_i, pgb_i)
+        np_dt = sweep_core.state_np_dtype(dt_name)
+        ref = _stream_reference(self) if skip_windows else None
+        io, st = _checkpoint_io(ckpt, self._fingerprint(
+            "torch", dt_name, reject_cap, server_gb, pool_gb))
+        if st is not None:
+            shard_from = int(st["shard_idx"])
+            carry0 = tuple(st[f"carry{j}"] for j in range(5))
+            io.shards_done = int(st["shards_done"])
+        elif ref is not None:
+            # divergence window: every lane provably replays the
+            # reference through these leading shards — start from the
+            # boundary snapshot instead of sweeping them
+            shard_from = _skip_count(ref, sgb_i.min(), pgb_i.min(),
+                                     self.n_shards)
+            carry0 = _carry_from_snap(ref["snaps"][shard_from], n0,
+                                      self.n_servers, self.n_groups,
+                                      self._n_slots, np_dt)
+        else:
+            shard_from = 0
+            carry0 = sweep_core.init_state(
+                n0, self.n_servers, self.cores_per_server, self.n_servers,
+                self.n_groups, self._n_slots, np_dt)
+        fc, um, up, slots, rej = _to_device(carry0, self.device)
+        sgb, pgb = _to_device((sgb_i.astype(np_dt), pgb_i.astype(np_dt)),
+                              self.device)
+        group = _to_device((self.group_of.astype(np.int32),),
+                           self.device)[0]
+        sweep = sweep_core.get_sweep(dt_name, with_carry=True)
+        debug = sweep_core.invariants_enabled()
+        if debug:
+            self._debug_check_events()
+
+        def after(si):
+            if debug:
+                self._debug_check_carry(fc.cpu(), um.cpu(), up.cpu(), si)
+            if io is not None:
+                io.tick(lambda: {
+                    "shard_idx": si + 1, "shards_done": io.shards_done,
+                    **{f"carry{j}": t.cpu().numpy() for j, t in
+                       enumerate((fc, um, up, slots, rej))}})
+
+        swept = _stream_shards(
+            self._feed(), shard_from, self.n_shards,
+            lambda evs, _: sweep(evs, group, fc, um, up, slots, rej, sgb,
+                                 pgb), rej, reject_cap, after)
+        _TIMES.sweeps.append((n0, dt_name))
+        if io is not None:
+            io.done()
+        return rej, swept * self.shard_pad_events * n0
+
+    def _sweep_numpy(self, server_gb, pool_gb, reject_cap, ckpt=None):
+        """The reference's float64 host shard sweep, copied."""
+        n0 = len(server_gb)
+        n_srv = self.n_servers
+        free = np.empty((n0, n_srv + 1, 3))
+        free[:, :n_srv, 0] = self.cores_per_server
+        free[:, :n_srv, 1] = server_gb[:, None]
+        free[:, :n_srv, 2] = pool_gb[:, None]
+        free[:, n_srv, :] = -_INF
+        placed = np.full((n0, self._n_slots), -1, np.int32)
+        migrated = np.zeros((n0, self._n_slots), bool)
+        rejects = np.zeros(n0, np.int64)
+        cand_events = 0
+        io, st = _checkpoint_io(ckpt, self._fingerprint(
+            "numpy", "float64", reject_cap, server_gb, pool_gb))
+        start_shard = 0
+        if st is not None:
+            free, placed, migrated = (st["free"], st["placed"],
+                                      st["migrated"])
+            rejects = st["rejects"]
+            start_shard = int(st["shard_idx"])
+            io.shards_done = int(st["shards_done"])
+        debug = sweep_core.invariants_enabled()
+        if debug:
+            self._debug_check_events()
+            # representative server per group: every member mirrors the
+            # group's free pool, so column 2 of the first member IS it
+            firsts = np.unique(self.group_of, return_index=True)[1]
+        for si in range(start_shard, self.n_shards):
+            shard = self._shards[si]
+            _np_stream_sweep(shard, self._gcols, free, placed, migrated,
+                             rejects)
+            cand_events += len(shard["kind"]) * n0
+            if debug:
+                self._debug_check_carry(
+                    free[:, :n_srv, 0],
+                    server_gb[:, None] - free[:, :n_srv, 1],
+                    pool_gb[:, None] - free[:, firsts, 2], si)
+            if io is not None:
+                io.tick(lambda: {
+                    "shard_idx": si + 1, "free": free, "placed": placed,
+                    "migrated": migrated, "rejects": rejects,
+                    "shards_done": io.shards_done})
+            if reject_cap is not None and (rejects > reject_cap).all():
+                break
+        if io is not None:
+            io.done()
+        return rejects, cand_events
+
+    # ------------------------------------------------------------- fleet --
+    def reject_rates_fleet(self, server_gb, pod_gb, topology,
+                           reject_cap: int | None = None,
+                           backend: str = "auto",
+                           state_dtype: str | None = None) -> np.ndarray:
+        """Fleet reject rates, streamed shard by shard.
+
+        Same candidate contract as :meth:`CompiledReplay.reject_rates_fleet`;
+        the pod state (the per-pod used pool and the granting-pod slot
+        column included) stays on the device from shard to shard, one
+        launch of the pod sweep (K4) a shard for the whole grid, its
+        incidence checked and its widest thread counted once a call.
+        ``backend="numpy"`` (``"auto"`` for non-integral decisions) carries
+        the float64 host state instead.  With ``reject_cap`` set the stream
+        stops early once EVERY lane exceeds the cap (exact counts so far —
+        the usual feasibility-test lower bound).
+        """
+        t0 = time.perf_counter()
+        sgb, caps, topos = _fleet_candidates(server_gb, pod_gb, topology)
+        if topos[0].n_servers != self.n_servers:
+            raise ValueError(
+                f"topology covers {topos[0].n_servers} servers; stream "
+                f"has {self.n_servers}")
+        n0 = len(sgb)
+        if not self.n_events:
+            return np.zeros(n0)
+        if self._backend(backend) == "torch":
+            rej, cand_events = self._fleet_sweep_device(
+                sgb, caps, topos, reject_cap, state_dtype)
+            rejects = rej.cpu().numpy().astype(np.int64)
+        else:
+            rejects, cand_events = self._fleet_sweep_numpy(
+                sgb, caps, topos, reject_cap)
+        _STATS.sweeps += 1
+        _STATS.events += self.n_events
+        _STATS.candidate_events += cand_events
+        _STATS.wall_s += time.perf_counter() - t0
+        _TIMES.sweep_s += time.perf_counter() - t0
+        return rejects / max(self.n_vms, 1)
+
+    def _fleet_sweep_device(self, sgb, caps, topos, reject_cap,
+                            state_dtype):
+        """K4 a shard over the whole fleet grid; returns ``(the reject
+        counters on the device, candidate events)`` as
+        :meth:`_sweep_device` does."""
+        n0 = len(sgb)
+        inc, p_max = _fleet_incidence(topos, self.n_servers)
+        sgb_i, caps_i = _fleet_capacities(sgb, caps)
+        dt_name = state_dtype or self._pick_pod_state_dtype(sgb_i, caps_i,
+                                                            p_max)
+        np_dt = sweep_core.state_np_dtype(dt_name)
+        fc, um, up, slots, pods, rej = _to_device(
+            sweep_core.init_pod_state(n0, self.n_servers,
+                                      self.cores_per_server, self.n_servers,
+                                      p_max, self._n_slots, np_dt),
+            self.device)
+        sgb_t, pgb_t, inc_t = _to_device(
+            (sgb_i.astype(np_dt), caps_i.astype(np_dt), inc), self.device)
+        widest = _widest(inc, p_max, self.device)
+        sweep = sweep_core.get_pod_sweep(dt_name, with_carry=True)
+        swept = _stream_shards(
+            self._feed(), 0, self.n_shards,
+            lambda evs, _: sweep(evs, inc_t, fc, um, up, slots, pods, rej,
+                                 sgb_t, pgb_t, widest=widest),
+            rej, reject_cap)
+        _TIMES.sweeps.append((n0, dt_name))
+        return rej, swept * self.shard_pad_events * n0
+
+    def _fleet_sweep_numpy(self, sgb, caps, topos, reject_cap):
+        n0 = len(sgb)
+        inc, _ = _fleet_incidence(topos, self.n_servers)
+        state = _np_fleet_state(n0, self.n_servers, self.cores_per_server,
+                                sgb, caps, self._n_slots)
+        cand_events = 0
+        for si in range(self.n_shards):
+            shard = self._shards[si]
+            _np_fleet_sweep(shard, inc, *state)
+            cand_events += len(shard["kind"]) * n0
+            if reject_cap is not None and (state[-1] > reject_cap).all():
+                break
+        return state[-1], cand_events
+
+
+def _widest(inc: np.ndarray, n_pods: int, device: torch.device):
+    """A fleet stream's incidence grid checked and its widest thread
+    counted once a call, on the host (``pod_ops.check_incidence``: no sync
+    and no memory on the card), for every shard's K4 launch on ``device``;
+    None on the CPU, where the wrapper checks each launch.  A batch's
+    tiled copies of the grid have the same widest thread."""
+    if device.type != "cuda":
+        return None
+    return pod_ops.check_incidence(torch.from_numpy(inc), n_pods)
+
+
 # ----------------------------------------------------------- trace batch ---
 def _validate_cluster_shape(engines, what: str):
     """One batch requires one cluster shape (the batched sweep shares the
@@ -1385,6 +2433,322 @@ class CompiledReplayBatch:
         return rates
 
 
+class CompiledReplayStreamBatch:
+    """K streaming replays priced side by side, one launch a shard.
+
+    Composes the trace axis of :class:`CompiledReplayBatch` with the
+    bounded memory of :class:`CompiledReplayStream`: shard ``i`` of every
+    stream lies in one set of event arrays, each trace from its
+    ``ops.trace_starts`` offset with its own event count (a stream with
+    fewer shards contributes no events), and one launch of K1's trace axis
+    sweeps every (trace, candidate) lane, the lanes trace-major, the state
+    on the device from the first shard to the last.  Streams built with one
+    ``max_events_per_shard`` shard on the same event grid, so aligned
+    shards cover comparable windows.  At most two shard indices' event
+    arrays are on the device (one computing, one uploading): within ``2 *
+    peak_shard_bytes``, ``peak_shard_bytes = K * 6 * 4 *
+    shard_pad_events`` as the reference's.
+
+    Bit-exactness contract: row ``k`` of :meth:`reject_rates` equals
+    ``streams[k].reject_rates(...)`` — and hence the monolithic
+    :class:`CompiledReplay` — bit for bit.
+
+    Usage::
+
+        streams = [CompiledReplayStream(vms_k, dec_k, cfg,
+                                        max_events_per_shard=250_000)
+                   for ...]
+        batch = CompiledReplayStreamBatch(streams)
+        rates = batch.reject_rates([300., 350.], [512., 256.])  # (K, 2)
+
+    ``cluster_sim.savings_analysis_batched`` builds this once any trace of
+    a batch runs past its ``max_events_per_shard`` budget, and the
+    lockstep searches (``search_min_multi``/``pool_search_multi``) take it
+    unchanged.  A batch holds at most ``K1.MAX_TRACES`` streams (one
+    launch a shard).
+    """
+
+    def __init__(self, streams):
+        _validate_cluster_shape(streams, "CompiledReplayStreamBatch")
+        if len(streams) > K1.MAX_TRACES:
+            raise ValueError(f"a stream batch holds at most "
+                             f"{K1.MAX_TRACES} streams (one launch a "
+                             f"shard); got {len(streams)}")
+        s0 = streams[0]
+        self.engines = list(streams)           # searches read .engines
+        self.k = len(streams)
+        self.device = s0.device
+        self.n_servers = s0.n_servers
+        self.n_groups = s0.n_groups
+        self.group_of = s0.group_of
+        self.cores_per_server = s0.cores_per_server
+        self.n_vms = np.array([s.n_vms for s in streams], np.int64)
+        self.n_events = np.array([s.n_events for s in streams], np.int64)
+        self._exact = all(s._exact for s in streams)
+        self.n_shards = max((s.n_shards for s in streams), default=0)
+        self.shard_pad_events = max(
+            (s.shard_pad_events for s in streams if s.n_shards), default=0)
+        #: the reference's footprint of ONE stacked shard batch (6 int32
+        #: streams x K traces) — THE quantity the batch bounds
+        self.peak_shard_bytes = self.k * 6 * 4 * self.shard_pad_events
+        self._n_slots = max(s._n_slots for s in streams)
+
+    def peak_pool_demand(self) -> np.ndarray:
+        """Per-trace naive concurrent pool-demand peak (feasible upper
+        bracket for the lockstep pool searches)."""
+        return np.array([s.peak_pool_demand() for s in self.engines])
+
+    def _pick_state_dtype(self, sgb_i: np.ndarray,
+                          pgb_i: np.ndarray) -> str:
+        return _batch_pick_state_dtype(self.engines, sgb_i, pgb_i)
+
+    def _counts(self, si: int) -> list[int]:
+        """Each trace's true events in shard ``si`` (0 past its last)."""
+        return [s._shard_events[si] if si < s.n_shards else 0
+                for s in self.engines]
+
+    def _pack(self, si: int, buf):
+        """:class:`_ShardFeed`'s packer: shard ``si`` of every stream, one
+        after another (``ops.trace_starts``)."""
+        counts = self._counts(si)
+        at = 0
+        for s, n in zip(self.engines, counts):
+            if n:
+                at = _pack_rows(buf, at, s._shards[si], n)
+        return at, counts
+
+    def _feed(self) -> _ShardFeed:
+        rows = max((trace_starts(self._counts(si) + [0])[-1]
+                    for si in range(self.n_shards)), default=0)
+        return _ShardFeed(self._pack, rows, self.device)
+
+    def _carry_from_snaps(self, refs, boundary, width, np_dt):
+        """Per-trace state at a shard boundary, the lanes trace-major: each
+        trace's lanes hold its stream's reference snapshot (clamped to the
+        stream's own shard count — a shorter stream's trailing shards hold
+        no events)."""
+        rows = [_carry_from_snap(
+            refs[i]["snaps"][min(boundary, s.n_shards)], width,
+            self.n_servers, self.n_groups, self._n_slots, np_dt)
+            for i, s in enumerate(self.engines)]
+        return tuple(np.concatenate([r[j] for r in rows],
+                                    axis=1 if j == 3 else 0)
+                     for j in range(5))
+
+    def reject_rates(self, server_gb, pool_gb,
+                     reject_cap: int | None = None,
+                     backend: str = "auto",
+                     state_dtype: str | None = None,
+                     checkpoint: "CheckpointSpec | None" = None,
+                     devices=None,
+                     skip_windows: bool = True) -> np.ndarray:
+        """Reject fraction per (trace, candidate): shape ``(K, n_cand)``.
+
+        Candidates broadcast like :meth:`CompiledReplayBatch.reject_rates`
+        (1-D shared or ``(K, n_cand)`` per-trace grids).  One launch a
+        shard prices every trace's candidates.  With ``reject_cap`` set the
+        stream stops early once EVERY (trace, candidate) lane exceeds the
+        cap — each reported rate is then its exact count so far, a lower
+        bound satisfying the usual feasibility-test contract (callers pass
+        a cap covering every trace's tolerance, ``max_i floor(tol_i *
+        n_vms_i)``).  ``backend="numpy"`` (or non-integral decisions) asks
+        each stream's float64 host sweep in turn: the same rates.
+        ``skip_windows`` skips leading shards on which no (trace,
+        candidate) lane can diverge from its stream's reference replay.
+        ``checkpoint`` snapshots the batched state and cursor like the
+        single stream (the numpy backend derives one spec a row,
+        ``<path>.k<i>``); ``POND_DEBUG_INVARIANTS=1`` verifies the
+        per-trace state after every shard.  ``devices`` is ROADMAP M13.
+        """
+        if devices is not None:
+            raise NotImplementedError("device meshes come with devices= "
+                                      "(ROADMAP M13)")
+        t0 = time.perf_counter()
+        server_gb, pool_gb = _broadcast_candidates(self.k, server_gb,
+                                                   pool_gb)
+        n0 = server_gb.shape[1]
+        if not self.n_shards:
+            return np.zeros((self.k, n0))
+        if backend == "auto":
+            backend = "torch" if self._exact else "numpy"
+        if backend != "torch":
+            return np.stack([
+                s.reject_rates(server_gb[i], pool_gb[i],
+                               reject_cap=reject_cap, backend=backend,
+                               checkpoint=None if checkpoint is None
+                               else dataclasses.replace(
+                                   checkpoint,
+                                   path=f"{checkpoint.path}.k{i}"))
+                for i, s in enumerate(self.engines)])
+        if not self._exact:
+            raise NotImplementedError(
+                "the device sweeps take integral decisions; "
+                "backend='numpy' prices non-integral ones")
+        rej, cand_events = self._sweep_device(
+            server_gb, pool_gb, reject_cap, state_dtype, checkpoint,
+            skip_windows)
+        rejects = rej.cpu().numpy().astype(np.int64).reshape(self.k, n0)
+        rates = rejects / np.maximum(self.n_vms, 1)[:, None]
+        _STATS.sweeps += 1
+        _STATS.events += int(self.n_events.max(initial=0))
+        _STATS.candidate_events += cand_events
+        _STATS.wall_s += time.perf_counter() - t0
+        _TIMES.sweep_s += time.perf_counter() - t0
+        return rates
+
+    def _sweep_device(self, server_gb, pool_gb, reject_cap, state_dtype,
+                      checkpoint=None, skip_windows=True):
+        """One launch of K1's trace axis a shard over every (trace,
+        candidate) lane; returns ``(the reject counters on the device,
+        trace-major, candidate events)`` as the single stream's does."""
+        n0 = server_gb.shape[1]
+        sgb_i, pgb_i = sweep_core.quantize_capacities(server_gb, pool_gb)
+        dt_name = state_dtype or self._pick_state_dtype(sgb_i, pgb_i)
+        np_dt = sweep_core.state_np_dtype(dt_name)
+        refs = None
+        if skip_windows:
+            refs = [_stream_reference(s) for s in self.engines]
+            if not all(r is not None for r in refs):
+                refs = None
+        width = self.k * n0
+        io, st = _checkpoint_io(checkpoint, _sweep_fingerprint(
+            "torch-batch", dt_name, self.n_events, self.n_shards,
+            self.n_vms, reject_cap, server_gb, pool_gb))
+        if st is not None:
+            shard_from = int(st["shard_idx"])
+            carry0 = tuple(st[f"carry{j}"] for j in range(5))
+            io.shards_done = int(st["shards_done"])
+        elif refs is not None:
+            shard_from = min(
+                _skip_count(r, sgb_i[i].min(), pgb_i[i].min(),
+                            self.n_shards)
+                for i, r in enumerate(refs))
+            carry0 = self._carry_from_snaps(refs, shard_from, n0, np_dt)
+        else:
+            shard_from = 0
+            carry0 = sweep_core.init_state(
+                width, self.n_servers, self.cores_per_server,
+                self.n_servers, self.n_groups, self._n_slots, np_dt)
+        fc, um, up, slots, rej = _to_device(carry0, self.device)
+        sgb, pgb = _to_device((sgb_i.reshape(-1).astype(np_dt),
+                               pgb_i.reshape(-1).astype(np_dt)), self.device)
+        group = _to_device((self.group_of.astype(np.int32),),
+                           self.device)[0]
+        sweep = sweep_core.get_sweep(dt_name, with_carry=True, batched=True)
+        debug = sweep_core.invariants_enabled()
+        if debug:
+            for s in self.engines:
+                s._debug_check_events()
+
+        def after(si):
+            if debug:
+                sweep_core.check_invariants(
+                    *(t.cpu().numpy().reshape(self.k, n0, -1)
+                      for t in (fc, um, up)),
+                    n_servers=self.n_servers,
+                    cores_per_server=self.cores_per_server, shard=si,
+                    up_slack=max(s._mig_pool_sum for s in self.engines))
+            if io is not None:
+                io.tick(lambda: {
+                    "shard_idx": si + 1, "shards_done": io.shards_done,
+                    **{f"carry{j}": t.cpu().numpy() for j, t in
+                       enumerate((fc, um, up, slots, rej))}})
+
+        swept = _stream_shards(
+            self._feed(), shard_from, self.n_shards,
+            lambda evs, counts: sweep(evs, group, fc, um, up, slots, rej,
+                                      sgb, pgb, counts),
+            rej, reject_cap, after)
+        _TIMES.sweeps.append((width, dt_name))
+        if io is not None:
+            io.done()
+        return rej, swept * self.shard_pad_events * width
+
+    # ------------------------------------------------------------- fleet --
+    def reject_rates_fleet(self, server_gb, pod_gb, topology,
+                           reject_cap: int | None = None,
+                           backend: str = "auto",
+                           state_dtype: str | None = None,
+                           devices=None) -> np.ndarray:
+        """Fleet reject rates per (trace, candidate): ``(K, n_cand)``, one
+        launch of K4's trace axis a shard.
+
+        The fleet candidate grid is SHARED across traces (like
+        :meth:`CompiledReplayBatch.reject_rates_fleet`; each trace's lanes
+        carry the grid's incidence rows, checked once a call); the
+        per-trace pod state stays on the device from shard to shard.  Row
+        ``k`` equals ``streams[k].reject_rates_fleet(...)`` bit for bit;
+        with ``reject_cap`` the stream stops once every (trace, candidate)
+        lane exceeds the cap.  ``backend="numpy"`` (or non-integral
+        decisions) asks each stream in turn.  ``devices`` is ROADMAP M13.
+        """
+        if devices is not None:
+            raise NotImplementedError("device meshes come with devices= "
+                                      "(ROADMAP M13)")
+        t0 = time.perf_counter()
+        sgb, caps, topos = _fleet_candidates(server_gb, pod_gb, topology)
+        if topos[0].n_servers != self.n_servers:
+            raise ValueError(
+                f"topology covers {topos[0].n_servers} servers; batch "
+                f"has {self.n_servers}")
+        n0 = len(sgb)
+        if not self.n_shards:
+            return np.zeros((self.k, n0))
+        if backend == "auto":
+            backend = "torch" if self._exact else "numpy"
+        if backend != "torch":
+            # trim the dense capacity rows back to each lane's pod count
+            per_lane = [caps[i, :t.n_pods] for i, t in enumerate(topos)]
+            return np.stack([
+                s.reject_rates_fleet(sgb, per_lane, topos,
+                                     reject_cap=reject_cap,
+                                     backend=backend)
+                for s in self.engines])
+        if not self._exact:
+            raise NotImplementedError(
+                "the pod sweep takes integral decisions; backend='numpy' "
+                "prices non-integral ones")
+        inc, p_max = _fleet_incidence(topos, self.n_servers)
+        sgb_i, caps_i = _fleet_capacities(sgb, caps)
+        if state_dtype is not None:
+            dt_name = state_dtype
+        elif all(s._pick_pod_state_dtype(sgb_i, caps_i, p_max) == "int16"
+                 for s in self.engines):
+            dt_name = "int16"
+        else:
+            dt_name = "int32"
+        np_dt = sweep_core.state_np_dtype(dt_name)
+        width = self.k * n0
+        fc, um, up, slots, pods, rej = _to_device(
+            sweep_core.init_pod_state(width, self.n_servers,
+                                      self.cores_per_server, self.n_servers,
+                                      p_max, self._n_slots, np_dt),
+            self.device)
+        # the shared grid, a copy a trace (trace-major lanes)
+        sgb_t, pgb_t, inc_t = _to_device(
+            (np.tile(sgb_i, self.k).astype(np_dt),
+             np.tile(caps_i, (self.k, 1)).astype(np_dt),
+             np.tile(inc, (self.k, 1, 1))), self.device)
+        widest = _widest(inc, p_max, self.device)
+        sweep = sweep_core.get_pod_sweep(dt_name, with_carry=True,
+                                         batched=True)
+        swept = _stream_shards(
+            self._feed(), 0, self.n_shards,
+            lambda evs, counts: sweep(evs, inc_t, fc, um, up, slots, pods,
+                                      rej, sgb_t, pgb_t, counts,
+                                      widest=widest),
+            rej, reject_cap)
+        rejects = rej.cpu().numpy().astype(np.int64).reshape(self.k, n0)
+        _TIMES.sweeps.append((width, dt_name))
+        rates = rejects / np.maximum(self.n_vms, 1)[:, None]
+        _STATS.sweeps += 1
+        _STATS.events += int(self.n_events.max(initial=0))
+        _STATS.candidate_events += swept * self.shard_pad_events * width
+        _STATS.wall_s += time.perf_counter() - t0
+        _TIMES.sweep_s += time.perf_counter() - t0
+        return rates
+
+
 # ---------------------------------------------------------------- search ---
 def _dyadic_nodes(lo: float, hi: float, depth: int, nodes: list) -> None:
     """Append the depth-k tree of bisection midpoints of ``[lo, hi]``,
@@ -1450,28 +2814,35 @@ def pool_search_batched(engine, server_grid: np.ndarray,
     every unconverged point in ONE sweep.  The required pool is monotone
     (non-increasing) in server_gb, so every round warm-starts each point's
     bracket from its neighbours.  Points infeasible even at ``big_pool``
-    return ``big_pool``.  ``engine`` is a :class:`CompiledReplay` (the
-    streaming engine's branch comes with ROADMAP M5).
+    return ``big_pool``.
+
+    ``engine`` may also be a :class:`CompiledReplayStream` (the path
+    ``savings_analysis`` takes past the shard budget): streams keep no
+    trajectories, so the upper bracket is ``peak_pool_demand`` and one
+    extra sweep decides which grid points are infeasible outright, like
+    the multi-trace search.
 
     Usage (pool frontier over a server-size grid)::
 
         grid = np.linspace(min_server, base_gb, 7)
         pool = pool_search_batched(eng, grid, big_pool=12288.0, tol=0.01)
     """
-    if not isinstance(engine, CompiledReplay):
-        raise NotImplementedError("pool searches on a streaming engine "
-                                  "come with ROADMAP M5")
     server_grid = np.asarray(server_grid, float)
     n_pts = len(server_grid)
     denom = max(engine.n_vms, 1)
     lo = np.zeros(n_pts)
     hi = np.empty(n_pts)
-    infeasible = np.zeros(n_pts, bool)
-    for i, sgb in enumerate(server_grid):
-        traj = engine._trajectory(float(sgb))
-        hi[i] = min(float(big_pool),
-                    float(traj.need_pool.max(initial=0.0)))
-        infeasible[i] = traj.total_rejects / denom > tol
+    if isinstance(engine, CompiledReplayStream):
+        hi[:] = min(float(big_pool), engine.peak_pool_demand())
+        infeasible = engine.reject_rates(
+            server_grid, hi, reject_cap=reject_cap) > tol
+    else:
+        infeasible = np.zeros(n_pts, bool)
+        for i, sgb in enumerate(server_grid):
+            traj = engine._trajectory(float(sgb))
+            hi[i] = min(float(big_pool),
+                        float(traj.need_pool.max(initial=0.0)))
+            infeasible[i] = traj.total_rejects / denom > tol
     fracs = np.arange(1, width + 1) / (width + 1.0)
     while True:
         # neighbour warm start between FEASIBLE points only: an infeasible
@@ -1578,11 +2949,13 @@ def pool_search_multi(batch, server_grids,
     server_gb).  Points infeasible even at the upper bracket return
     ``big_pool``.
 
-    ``batch`` is a :class:`CompiledReplayBatch` (the search needs only
-    ``reject_rates`` and each engine's ``peak_pool_demand``; the streaming
-    batch is ROADMAP M5).  ``reject_cap`` is passed on and ignored: the
-    batch returns exact rates, so the probe sequence — and the result —
-    is the reference's.
+    ``batch`` may be a :class:`CompiledReplayBatch` or a
+    :class:`CompiledReplayStreamBatch` — the search only needs
+    ``reject_rates`` and each engine's ``peak_pool_demand``.
+    ``reject_cap`` (cover every trace's tolerance: ``max_i floor(tol_i *
+    n_i)``) lets the streaming batch stop a round's sweep early once every
+    lane is decided; the monolithic batch returns exact rates regardless,
+    so the probe sequence — and the result — is the same either way.
     """
     sg = np.asarray(server_grids, float)
     if sg.ndim != 2 or sg.shape[0] != batch.k:

@@ -12,20 +12,29 @@ surrounds the sweep on the host — numpy, copied from the reference's
   packs to int16 exactly when no intermediate can overflow;
 * :func:`quantize_capacities`, :func:`init_state`, :func:`assign_slots`;
 * :func:`get_sweep`, which hands out K1's launcher for a state dtype,
-  one trace or a batch of traces (K1's trace axis);
+  one trace or a batch of traces (K1's trace axis), with or without the
+  reject counters as carried state (the streaming engines' shards);
 * the failure layer's :data:`MITIGATIONS` and :func:`init_fail_state`
   (the failure sweep itself is kernel K5, ``kernels/fail_sweep``);
 * the fleet topologies' :func:`get_pod_sweep`, :func:`pick_pod_state_dtype`
   and :func:`init_pod_state` (the pod sweep is kernel K4,
-  ``kernels/pod_sweep``).
+  ``kernels/pod_sweep``);
+* the debug invariant guard (:func:`invariants_enabled`,
+  :func:`check_invariants`, :func:`check_event_tensors`) that the
+  streaming engines run after every shard under
+  ``POND_DEBUG_INVARIANTS=1``.
 
 The reference pads candidates to buckets, events to multiples of 256 and
 servers, groups, pods and slots to multiples of 16/16/16/32, so that XLA
 compiles rarely.  K1, K4 and K5 take the true counts, so none of that is
 carried over (nor the reference's ``candidate_chunks`` and
-``pod_lane_arrays``).
+``pod_lane_arrays``), except where a streaming engine's bookkeeping must
+be the reference's (its shard cuts and slot count: :func:`pad_up`,
+:data:`EVENT_PAD`, :data:`SLOT_PAD`).
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -35,6 +44,13 @@ FAIL, RECOVER = 4, 5  # failure-domain events: no-ops in the plain sweep
 I32_BIG = 1 << 30     # "infinite" capacity in the int32 sweep
 I16_BIG = 1 << 14     # best-fit score sentinel in the int16 sweep
 I16_SAFE = 30000      # int16 headroom bound: capacity + payload must fit
+EVENT_PAD = 256       # a stream's shard budget and shard length granularity
+SLOT_PAD = 32         # a stream's slot count granularity
+
+
+def pad_up(n: int, m: int) -> int:
+    """``n`` rounded up to a multiple of ``m``."""
+    return -(-int(n) // m) * m
 
 
 def get_sweep(state_dtype: str = "int32", *, with_carry: bool = False,
@@ -48,12 +64,14 @@ def get_sweep(state_dtype: str = "int32", *, with_carry: bool = False,
     ``ops.trace_starts``), the lanes trace-major, C / T a trace — the
     reference's vmapped sweep over a trace batch, as one launch.
 
-    The reference's other keys (a returned carry, a device mesh) are not
-    ported yet: they raise.
+    With ``with_carry`` the reject counters are carried state too, in the
+    reference's carry position: ``(events, group_of, fc, um, up, slots,
+    rejects, sgb, pgb)``; the launch adds its rejects into ``rejects`` and
+    returns it, so consecutive shards continue one replay (the same
+    kernel: K1 always leaves its state in its arguments).
+
+    A device mesh (the reference's ``mesh=``) is not ported yet: it raises.
     """
-    if with_carry:
-        raise NotImplementedError("carried-state sweeps come with the "
-                                  "streaming engines (ROADMAP M5)")
     if mesh is not None:
         raise NotImplementedError("device meshes come with devices= "
                                   "(ROADMAP M13)")
@@ -62,6 +80,18 @@ def get_sweep(state_dtype: str = "int32", *, with_carry: bool = False,
                          f"{state_dtype!r}")
     from repro_torch.kernels.event_sweep import ops
 
+    if with_carry and batched:
+        def sweep_carry_batch(events, group_of, fc, um, up, slots, rejects,
+                              sgb, pgb, trace_events):
+            return ops.event_sweep(*events, group_of, fc, um, up, slots, sgb,
+                                   pgb, rejects, trace_events=trace_events)
+        return sweep_carry_batch
+    if with_carry:
+        def sweep_carry(events, group_of, fc, um, up, slots, rejects, sgb,
+                        pgb):
+            return ops.event_sweep(*events, group_of, fc, um, up, slots, sgb,
+                                   pgb, rejects)
+        return sweep_carry
     if batched:
         def sweep_batch(events, group_of, fc, um, up, slots, sgb, pgb,
                         trace_events):
@@ -85,12 +115,16 @@ def get_pod_sweep(state_dtype: str = "int32", *, with_carry: bool = False,
     argument, ``trace_events``: K1's trace axis, the lanes trace-major, each
     with its own incidence row (a shared grid is tiled by the caller).
 
-    The reference's other keys (a returned carry, a device mesh) are not
-    ported yet: they raise.
+    With ``with_carry`` the reject counters are carried state too, in the
+    reference's carry position: ``(events, inc, fc, um, up, slots, pods,
+    rejects, sgb, pgb)``; the launch adds into ``rejects`` and returns it.
+    The carry launchers take the keyword ``widest``: the widest thread's
+    distinct pods of an incidence already checked
+    (``ops.check_incidence``), so that a stream checks its incidence once a
+    call and not once a shard.
+
+    A device mesh (the reference's ``mesh=``) is not ported yet: it raises.
     """
-    if with_carry:
-        raise NotImplementedError("carried-state sweeps come with the "
-                                  "streaming engines (ROADMAP M5)")
     if mesh is not None:
         raise NotImplementedError("device meshes come with devices= "
                                   "(ROADMAP M13)")
@@ -99,6 +133,19 @@ def get_pod_sweep(state_dtype: str = "int32", *, with_carry: bool = False,
                          f"{state_dtype!r}")
     from repro_torch.kernels.pod_sweep import ops
 
+    if with_carry and batched:
+        def sweep_carry_batch(events, inc, fc, um, up, slots, pods, rejects,
+                              sgb, pgb, trace_events, *, widest=None):
+            return ops.pod_sweep(*events, inc, fc, um, up, slots, pods, sgb,
+                                 pgb, rejects, trace_events=trace_events,
+                                 widest=widest)
+        return sweep_carry_batch
+    if with_carry:
+        def sweep_carry(events, inc, fc, um, up, slots, pods, rejects, sgb,
+                        pgb, *, widest=None):
+            return ops.pod_sweep(*events, inc, fc, um, up, slots, pods, sgb,
+                                 pgb, rejects, widest=widest)
+        return sweep_carry
     if batched:
         def sweep_batch(events, inc, fc, um, up, slots, pods, sgb, pgb,
                         trace_events):
@@ -158,6 +205,103 @@ def init_fail_state(width: int, n_groups: int) -> np.ndarray:
     index of its ARRIVE, kept in a per-lane scratch column that the wrapper
     allocates, so the slots must start empty.)"""
     return np.zeros((width, n_groups), np.int32)
+
+
+# --------------------------------------------------------- invariant guard --
+class SweepInvariantError(RuntimeError):
+    """A sweep invariant failed under ``POND_DEBUG_INVARIANTS=1``.
+
+    Structured: ``what`` names the violated invariant, ``shard``/
+    ``lane`` (and ``trace`` for batched sweeps) locate the first
+    offending state entry.
+    """
+
+    def __init__(self, what: str, *, shard: int, lane: int,
+                 trace: int | None = None, detail: str = ""):
+        self.what, self.shard, self.lane, self.trace = \
+            what, shard, lane, trace
+        loc = f"shard {shard}, lane {lane}"
+        if trace is not None:
+            loc = f"shard {shard}, trace {trace}, lane {lane}"
+        msg = f"sweep invariant violated: {what} at {loc}"
+        super().__init__(msg + (f" ({detail})" if detail else ""))
+
+
+def invariants_enabled() -> bool:
+    """Opt-in debug mode: ``POND_DEBUG_INVARIANTS=1`` in the environment
+    makes the streaming engines verify the state and the event tensors
+    after every shard (a read-back a shard: a debug cost, never on by
+    default)."""
+    return os.environ.get("POND_DEBUG_INVARIANTS", "") == "1"
+
+
+def check_invariants(fc, um, up, *, n_servers: int,
+                     cores_per_server: float, shard: int,
+                     up_slack: float = 0.0) -> None:
+    """Verify the state after a shard: ``(C, S)``/``(C, G)`` arrays, or
+    ``(K, C, S)``/``(K, C, G)`` for a batch of K traces.
+
+    Checks, on the real server columns: free cores within ``[0,
+    cores_per_server]``, used local memory non-negative, used pool above
+    ``-up_slack`` (the fallback-migrate deficit bound) and every entry
+    finite.  Raises :class:`SweepInvariantError` naming the shard and the
+    first offending (trace,) lane.
+    """
+    fc = np.asarray(fc, np.float64)[..., :n_servers]
+    um = np.asarray(um, np.float64)[..., :n_servers]
+    up = np.asarray(up, np.float64)
+
+    def _raise(what, lane_mask, detail=""):
+        first = np.argwhere(lane_mask)[0]
+        trace = int(first[0]) if lane_mask.ndim == 2 else None
+        lane = int(first[-1])
+        raise SweepInvariantError(what, shard=shard, lane=lane,
+                                  trace=trace, detail=detail)
+
+    for name, a in (("free-cores", fc), ("used-local-GB", um),
+                    ("used-pool-GB", up)):
+        bad = ~np.isfinite(a)
+        if bad.any():
+            _raise(f"non-finite {name}", bad.any(-1))
+    bad = (fc < 0) | (fc > cores_per_server)
+    if bad.any():
+        _raise("free cores outside [0, cores_per_server]", bad.any(-1),
+               f"range [{fc.min()}, {fc.max()}]")
+    if (um < 0).any():
+        _raise("negative used local memory", (um < 0).any(-1),
+               f"min {um.min()}")
+    if (up < -up_slack - 1e-9).any():
+        _raise("used pool below the migrate-deficit bound",
+               (up < -up_slack - 1e-9).any(-1),
+               f"min {up.min()} < -{up_slack}")
+
+
+def check_event_tensors(shard: dict, shard_idx: int,
+                        n_slots: int) -> None:
+    """Verify one shard's event arrays (finite, kinds/slots/payloads in
+    domain) under the invariant guard; ``lane`` in the raised error is the
+    offending EVENT index within the shard."""
+    def _raise(what, mask):
+        raise SweepInvariantError(what, shard=shard_idx,
+                                  lane=int(np.argwhere(mask)[0][-1]))
+
+    kind = np.asarray(shard["kind"])
+    bad = (kind < ARRIVE) | (kind > RECOVER)
+    if bad.any():
+        _raise("event kind out of range", bad)
+    slot = np.asarray(shard["slot"])
+    bad = (slot < 0) | (slot >= n_slots)
+    if bad.any():
+        _raise("event slot out of range", bad)
+    for key in ("c", "l", "p", "m"):
+        if key not in shard:
+            continue
+        a = np.asarray(shard[key], np.float64)
+        if not np.isfinite(a).all():
+            _raise(f"non-finite event payload {key!r}", ~np.isfinite(a))
+        vm_ev = (kind == ARRIVE) | (kind == DEPART) | (kind == MIGRATE)
+        if (vm_ev & (a < 0)).any():
+            _raise(f"negative event payload {key!r}", vm_ev & (a < 0))
 
 
 # ------------------------------------------------------------- state rules --

@@ -20,12 +20,9 @@ launches = 0
 last_plan = None
 
 
-def _check(events, inc, fc, um, up, slots, pods, sgb, pgb, rejects,
-           widest=False):
-    """Raises on arguments the sweep does not take.  With ``widest``,
-    returns the widest thread's distinct pods (``K.widest_distinct`` at
-    the plan's servers a thread, read in the same sync as the incidence
-    check), else None."""
+def _check(events, inc, fc, um, up, slots, pods, sgb, pgb, rejects):
+    """Raises on shapes, types and devices the sweep does not take (no
+    sync; the incidence's entries are :func:`check_incidence`'s)."""
     if len(events) != 6 or any(e.dim() != 1 for e in events):
         raise ValueError("pod_sweep: six (E,) event arrays: kind, slot, "
                          "cores, local, pool, mem")
@@ -65,22 +62,30 @@ def _check(events, inc, fc, um, up, slots, pods, sgb, pgb, rejects,
         raise ValueError("pod_sweep: tensors lie on different devices")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("pod_sweep: tensors must be contiguous")
-    bad = ((inc < -1) | (inc >= up.shape[1])).any()
-    if widest:
-        k = K.servers_per_thread(s)
+
+
+def check_incidence(inc: torch.Tensor, n_pods: int, count: bool = True):
+    """Raises unless every entry of ``inc`` (C, S, F) lies in [-1,
+    ``n_pods``).  With ``count``, returns the widest thread's distinct pods
+    (``K.widest_distinct`` at the plan's servers a thread), read in the
+    same sync as the check, else None.  A caller that launches the sweep
+    on one incidence again and again (a stream's shards) checks it once
+    and passes the count as :func:`pod_sweep`'s ``widest``."""
+    bad = ((inc < -1) | (inc >= n_pods)).any()
+    widest = None
+    if count:
+        k = K.servers_per_thread(inc.shape[1])
         bad, widest = torch.stack([bad.long(), K.widest_distinct(inc, k)]) \
             .tolist()
-    else:
-        bad, widest = bool(bad), None
     if bad:
         raise ValueError(f"pod_sweep: incidence entries must lie in [-1, "
-                         f"{up.shape[1]})")
+                         f"{n_pods})")
     return widest
 
 
 def pod_sweep(kind, slot, cores, local, pool, mem, inc, fc, um, up, slots,
               pods, sgb, pgb, rejects=None, *, trace_events=None,
-              slot_column=None, distinct=None):
+              slot_column=None, distinct=None, widest=None):
     """Replay every event for every candidate lane of a fleet grid.
 
     Events: six int32 (E,) arrays; ``inc`` (C,S,F) int32, row (c, s) the
@@ -95,14 +100,22 @@ def pod_sweep(kind, slot, cores, local, pool, mem, inc, fc, um, up, slots,
     of at least that many entries a thread, no fewer than the widest
     thread's distinct pods (tests and measurements; checked on the CPU
     too).
+
+    ``widest``: :func:`check_incidence`'s count for this ``inc``, already
+    checked, so that a launch on the card makes no sync of its own (a
+    stream's shards); on the CPU the incidence is checked all the same.
     """
     global launches, last_plan
     events = (kind, slot, cores, local, pool, mem)
     if rejects is None:
         rejects = torch.zeros(fc.shape[0], dtype=torch.int32,
                               device=fc.device)
-    widest = _check(events, inc, fc, um, up, slots, pods, sgb, pgb, rejects,
-                    fc.device.type == "cuda" or distinct is not None)
+    _check(events, inc, fc, um, up, slots, pods, sgb, pgb, rejects)
+    on_card = fc.device.type == "cuda"
+    if widest is None or not on_card:
+        found = check_incidence(inc, up.shape[1],
+                                on_card or distinct is not None)
+        widest = found if widest is None else widest
     starts, counts = trace_layout(trace_events, kind.shape[0], fc.shape[0],
                                   "pod_sweep")
     if slot_column is not None and slot_column not in K.SLOT_COLUMNS:
@@ -112,11 +125,11 @@ def pod_sweep(kind, slot, cores, local, pool, mem, inc, fc, um, up, slots,
         raise ValueError(f"pod_sweep: a table of {distinct} entries a "
                          f"thread is smaller than the widest thread's "
                          f"{widest} distinct pods")
-    if fc.device.type == "cpu":
+    if not on_card:
+        if fc.device.type != "cpu":
+            raise ValueError(f"pod_sweep: no kernel for {fc.device}")
         return R.pod_sweep_ref(*events, inc, fc, um, up, slots, pods, sgb,
                                pgb, rejects, starts, counts)
-    if fc.device.type != "cuda":
-        raise ValueError(f"pod_sweep: no kernel for {fc.device}")
     if any(e.data_ptr() % 16 for e in events):
         raise ValueError("pod_sweep: the event arrays must be 16-byte "
                          "aligned (the kernel stages them 16 bytes a copy)")

@@ -231,11 +231,30 @@ def test_get_sweep_is_k1_and_refuses_the_unported_keys():
         *(torch.from_numpy(a.astype(np.int16)) for a in (sgb, pgb)),
         [len(events["kind"])])
     assert rej.tolist() == want[4].tolist()
-    for kw, what in ((dict(with_carry=True), "M5"),
-                     (dict(with_carry=True, batched=True), "M5"),
-                     (dict(mesh=object()), "M13")):
-        with pytest.raises(NotImplementedError, match=what):
-            sc.get_sweep("int32", **kw)
+    # the carry launchers (the streaming engines'): the stream cut in two
+    # shards, the state and the reject counters carried, is one sweep;
+    # batched, a trace with no events in a shard leaves its lanes alone
+    group = torch.from_numpy((np.arange(4) // 2).astype(np.int32))
+    caps = tuple(torch.from_numpy(a.astype(np.int16)) for a in (sgb, pgb))
+    cut = (0, 17, len(events["kind"]))
+    for batched in (False, True):
+        st = [torch.from_numpy(a) for a in sc.init_state(
+            3, 4, 64, 4, 2, n_slots, np.int16)]
+        carry = sc.get_sweep("int16", with_carry=True, batched=batched)
+        for lo, hi in zip(cut, cut[1:]):
+            evs = tuple(torch.from_numpy(events[k][lo:hi].copy())
+                        for k in EVENT_KEYS)
+            extra = ([hi - lo],) if batched else ()
+            out = carry(evs, group, *st[:4], st[4], *caps, *extra)
+            assert out is st[4]
+        if batched:
+            carry(tuple(torch.from_numpy(events[k][:0].copy())
+                        for k in EVENT_KEYS), group, *st[:4], st[4], *caps,
+                  [0])
+        for got, w in zip(st, want):
+            assert got.tolist() == w.tolist(), batched
+    with pytest.raises(NotImplementedError, match="M13"):
+        sc.get_sweep("int32", mesh=object())
     with pytest.raises(ValueError):
         sc.get_sweep("int8")
 

@@ -370,8 +370,20 @@ def test_get_pod_sweep_is_k4_and_refuses_the_unported_keys():
         torch.from_numpy(inc), *state)
     want = _port(events, n_slots, 8, 64, sgb, pgb, inc, "int16")
     assert rej.tolist() == want[5].tolist()
-    with pytest.raises(NotImplementedError, match="M5"):
-        sc.get_pod_sweep("int32", with_carry=True)
+    # the carry launcher (the streaming engines'): the stream cut in two
+    # shards, the state and the reject counters carried, is one sweep
+    state = _port_state(n_slots, 8, 64, sgb, pgb, "int16")
+    rej = torch.zeros(len(sgb), dtype=torch.int32)
+    carry = sc.get_pod_sweep("int16", with_carry=True)
+    inc_t = torch.from_numpy(inc)
+    widest = ops.check_incidence(inc_t, pgb.shape[1])
+    for lo, hi in ((0, 24), (24, len(events["kind"]))):
+        out = carry(tuple(torch.from_numpy(events[k][lo:hi].copy())
+                          for k in EVENT_KEYS), inc_t, *state[:5], rej,
+                    *state[5:], widest=widest)
+        assert out is rej
+    _assert_equal([t.numpy() for t in state[:5]] + [rej.numpy()], want,
+                  "carry")
     with pytest.raises(NotImplementedError, match="M13"):
         sc.get_pod_sweep("int32", batched=True, mesh=object())
     with pytest.raises(ValueError, match="state_dtype"):

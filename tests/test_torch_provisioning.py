@@ -128,8 +128,17 @@ def test_pool_search_batched_equals_reference(policy):
     got = re.pool_search_batched(eng, grid, big_pool, tol, reject_cap=cap)
     assert got.tolist() == want.tolist()
     assert (got < big_pool).any()
-    with pytest.raises(NotImplementedError, match="M5"):
-        re.pool_search_batched(object(), grid, big_pool, tol)
+    # a streaming engine takes the search's other branch (no
+    # trajectories): the reference's streamed search, probe for probe
+    vms, dec, pvms, pdec = port_world(3, policy)
+    stream = re.CompiledReplayStream(pvms, pdec, PORT_WORLD_CFG,
+                                     device="cpu", max_events_per_shard=1024)
+    want = jax_re.pool_search_batched(
+        jax_re.CompiledReplayStream(vms, dec, WORLD_CFG,
+                                    max_events_per_shard=1024),
+        grid, big_pool, tol, reject_cap=cap)
+    assert re.pool_search_batched(stream, grid, big_pool, tol,
+                                  reject_cap=cap).tolist() == want.tolist()
 
 
 @pytest.mark.parametrize("policy", ["local", "static", "pond"])
@@ -173,11 +182,14 @@ def test_savings_analysis_shares_the_all_local_search_through_its_cache():
 
 def test_savings_analysis_refuses_what_is_not_ported():
     _, _, pvms, _ = port_world(3, "static")
-    for kw, what in ((dict(use_engine=False), "M3"),
-                     (dict(max_events_per_shard=100), "M5")):
-        with pytest.raises(NotImplementedError, match=what):
-            cs.savings_analysis(pvms, PORT_WORLD_CFG, "static",
-                                device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="M3"):
+        cs.savings_analysis(pvms, PORT_WORLD_CFG, "static", device="cpu",
+                            use_engine=False)
+    # streaming is ported (M5): a shard budget below 256 events is refused
+    # as the reference's stream refuses it
+    with pytest.raises(ValueError, match=">= 256"):
+        cs.savings_analysis(pvms, PORT_WORLD_CFG, "static", device="cpu",
+                            max_events_per_shard=100)
     # tier pricing is ported (M11): a hierarchy that is not local/CXL/far
     # is refused, as the reference's tiered_pricing refuses it
     from repro_torch.core.latency_model import TierHierarchy

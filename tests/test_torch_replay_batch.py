@@ -261,7 +261,9 @@ def test_savings_analysis_batched_with_decisions_equals_reference():
 def test_savings_analysis_batched_refuses_what_is_not_ported():
     pvms = [port_world(s, "static")[2] for s in SEEDS[:2]]
     assert cs.savings_analysis_batched([], PORT_WORLD_CFG, "local") == []
-    with pytest.raises(NotImplementedError, match="M5"):
+    # streaming is ported (M5): a shard budget below 256 events is refused
+    # as the reference's stream refuses it
+    with pytest.raises(ValueError, match=">= 256"):
         cs.savings_analysis_batched(pvms, PORT_WORLD_CFG, "static",
                                     device="cpu", max_events_per_shard=100)
     with pytest.raises(ValueError, match="align"):
