@@ -47,7 +47,14 @@ PyTorch version on the card, and drives the port's three paths:
   one K1 or K4 launch a shard, shard i + 1 uploading while shard i runs):
   the reference's 100,000-VM acceptance trace, the provisioning loop, Fig
   21's seed batch and the topology frontier past a shard budget, held to
-  the monolithic engine and the reference's results.
+  the monolithic engine and the reference's results;
+* Pond's provisioning surface on trace files (``traces.iter_trace_chunks``,
+  ``load_trace_file``, the numpy divergence-window backend of
+  ``CompiledReplay.reject_rates``): a 250,000-VM Azure-format dump on the
+  same cluster row streamed from its file through K1, a shard a launch,
+  held to the monolithic engine and the reference's rates; the fixture and
+  a fractional copy of it through ``savings_analysis`` (the fractional one
+  with no K1 launch), and the numpy backend beside K1 at full width.
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after, which shows that it went through its kernel.
@@ -488,6 +495,78 @@ STREAM_FULL = dict(
     # the sweep timed beside its monolithic twin in (b) and (c): 16 lanes
     # from the static optimum to the baseline, pools 0 ... 800 GB
     timed_server=(270.0, 384.0), timed_pool=(0.0, 800.0), timed_lanes=16)
+# Pond's provisioning surface on a trace file at full width (phase
+# ingest_full): benchmarks/azure_e2e.py --full's stand-in dump (synth_dump:
+# 250,000 VMs over 30 days, numpy seed 7, the fetch script's schema,
+# arrival-sorted CSV.gz) on PROV_FULL's cluster row (256 servers x 64
+# cores, 16-socket pools, 4.75 GB a core; the benchmark's 16 servers would
+# reject nearly every VM), read 8,192 VMs a chunk, static 0.30, streamed at
+# the benchmark's --full budget of 65,536 events a shard (500,000 events: 8
+# shards), priced at its 8 probes (linspace(0.4 hi, hi, 8) servers x
+# linspace(0, 2 hi, 8) pools, hi = 64 x 6 GB).
+AZURE_FULL = dict(n_vms=250_000, days=30, seed=7, n_servers=256,
+                  pool_sockets=16, gb_per_core=4.75, chunk_vms=8192,
+                  budget=65_536, static_pool_frac=0.30, n_cand=8,
+                  numpy_limit_s=120.0)
+# The reference's rates for it, from the JAX package on a CPU (20,466,
+# 1,755, 1,024, 987, 962, 952, 952, 952 rejects of 250,000):
+#   PYTHONPATH=src:. JAX_PLATFORMS=cpu python -c "
+#   import numpy as np
+#   from benchmarks.azure_e2e import synth_dump
+#   from repro.core import cluster_sim as cs, replay_engine as re, traces
+#   synth_dump('d.csv.gz', n_vms=250_000)
+#   cfg = cs.ClusterConfig(n_servers=256, pool_sockets=16, gb_per_core=4.75)
+#   vms = [v for c in traces.iter_trace_chunks('d.csv.gz', chunk_vms=8192)
+#          for v in c]
+#   dec, _ = cs.policy_decisions(vms, 'static', static_pool_frac=0.30,
+#                                as_arrays=True)
+#   off = [0]
+#   def decide(ch):
+#       off[0] += len(ch); return dec.slice(off[0] - len(ch), off[0])
+#   st = re.CompiledReplayStream(traces.iter_trace_chunks(
+#       'd.csv.gz', chunk_vms=8192), None, cfg, max_events_per_shard=65_536,
+#       decide=decide)
+#   hi = 64 * 6.0
+#   print(st.reject_rates(np.linspace(0.4 * hi, hi, 8),
+#                         np.linspace(0, 2 * hi, 8)).tolist())"
+# (the reference's monolithic CompiledReplay of load_trace_file gives the
+# same rates).
+AZURE_FULL_WANT = dict(
+    rates=[0.081864, 0.00702, 0.004096, 0.003948, 0.003848, 0.003808,
+           0.003808, 0.003808], n_events=500_000, n_shards=8)
+# Phase ingest_parity_small: the bundled fixture (48 VMs over two days) on
+# 4 servers of 64 cores, 2 pool groups, 4 GB a core, static 0.25, as
+# tests/test_traces_ingest.py::test_fixture_exists_and_replays_through_engine
+# prices it.  The reference's values, from the JAX package on a CPU:
+# load_trace_file(fixture_trace_path()) hashed as float64 rows of (arrival,
+# lifetime, cores, mem_gb, vm_id, customer), its synthesised (untouched,
+# slow182, slow222) rows and its float32 PMU rows (hashlib.sha1 of the
+# arrays' bytes), and savings_analysis for local and static (one cache);
+# then the same file with 0.25 GB added to every VM's mem_gb, written by
+# save_trace_csv and read back, through savings_analysis (engine and
+# use_engine=False).
+FIXTURE_WANT = dict(
+    n_vms=48, schema_sha1="d9b6b129c53f8585195306e02b33bc3735c7bffb",
+    synth_sha1="36d203f2529beeaa5c3637c74a87d42d8431495f",
+    pmu_sha1="9d7219b10bf23d08b021992fb0909abf8b802d23")
+_FIX_COMMON = dict(baseline_server_gb=258.0, n_servers=4, n_groups=2,
+                   mitigations=0, reject_rate=0.0, tier_pricing=None)
+FIXTURE_RESULTS_WANT = {
+    "local": dict(name="local", server_gb=258.0, pool_group_gb=0.0,
+                  mispredictions=0.0, **_FIX_COMMON),
+    "static": dict(name="static", server_gb=192.0,
+                   pool_group_gb=64.23668639053254,
+                   mispredictions=0.026041666666666668, **_FIX_COMMON)}
+FRACTION_RESULTS_WANT = {
+    "local": FIXTURE_RESULTS_WANT["local"],
+    "static": dict(FIXTURE_RESULTS_WANT["static"], server_gb=195.0)}
+# the reference's scalar search (use_engine=False) on the fractional copy:
+# its server searches equal the engine's bit for bit; its pool search
+# probes other points (tests/test_replay_engine.py::
+# test_savings_analysis_matches_scalar_search: within 0.15 x pool + 32 GB)
+FRACTION_SCALAR_WANT = {
+    "local": FIXTURE_RESULTS_WANT["local"],
+    "static": dict(FRACTION_RESULTS_WANT["static"], pool_group_gb=64.5)}
 SERVE_ARGS = ["--arch", "qwen2-1.5b", "--full", "--dtype", "bfloat16",
               "--requests", "16", "--max-batch", "8", "--page-size", "16",
               "--local-pages", "256", "--pool-pages", "1024",
@@ -4698,6 +4777,282 @@ def phase_stream_full(dev):
     return launches["k1"], launches["k4"]
 
 
+# ----------------------- the provisioning surface on trace files (M3b, M1b) --
+def _example(name):
+    """``examples/<name>.py`` of this checkout, loaded as a module."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _sha1(rows, dtype):
+    import hashlib
+    return hashlib.sha1(np.asarray(rows, dtype).tobytes()).hexdigest()
+
+
+# tests/test_traces_ingest.py's dirty file and the reference's IngestReport
+# summary of it (max_bad_rows=3, two rows a chunk)
+_DIRTY = ("vmid,arrival,lifetime,cores,mem_gb\n1,0,100,2,4\n2,5,abc,2,4\n"
+          "3,10,100,2,4\n4,12,100,0,4\n5,15,100,2,4\n6,20,100,2,-8\n"
+          "7,25,100,2,4\n")
+_DIRTY_SUMMARY = {"n_quarantined": 3, "io_retries": 0, "bad_rows": [
+    {"row": 2, "column": "lifetime", "value": "abc",
+     "reason": "is not a finite number"},
+    {"row": 4, "column": "cores", "value": "0", "reason": "must be >= 1"},
+    {"row": 6, "column": "mem_gb", "value": "-8", "reason": "must be > 0"}]}
+
+
+def phase_ingest_parity_small(dev):
+    """The bundled fixture through ``load_trace_file`` (its schema and
+    synthesised columns held to the reference's hashes) and
+    ``savings_analysis`` on the card (K1), the ``PolicyResult``s the
+    reference's; a copy with 0.25 GB added to every VM, written by
+    ``save_trace_csv`` and read back, through ``savings_analysis`` on the
+    card with no K1 launch (``"auto"`` takes the numpy backend because the
+    decisions are fractional), its results the reference's and its server
+    sizes ``use_engine=False``'s; a dirty file quarantined under
+    ``max_bad_rows``, its ``IngestReport`` the reference's."""
+    import tempfile
+    from repro_torch.core import cluster_sim, traces
+    from repro_torch.kernels.event_sweep import ops
+    cfg = cluster_sim.ClusterConfig(n_servers=4, pool_sockets=4,
+                                    gb_per_core=4.0)
+    vms = traces.load_trace_file(traces.fixture_trace_path())
+    got_hashes = dict(
+        n_vms=len(vms),
+        schema_sha1=_sha1([[v.arrival, v.lifetime, v.cores, v.mem_gb,
+                            v.vm_id, v.customer] for v in vms], np.float64),
+        synth_sha1=_sha1([[v.untouched, v.slow182, v.slow222] for v in vms],
+                         np.float64),
+        pmu_sha1=_sha1(np.stack([v.pmu for v in vms]), np.float32))
+
+    def priced(vms_):
+        cache, out = {}, {}
+        before = ops.launches
+        for policy in ("local", "static"):
+            out[policy] = dataclasses.asdict(cluster_sim.savings_analysis(
+                vms_, cfg, policy, cache=cache, static_pool_frac=0.25,
+                device=dev))
+        return out, ops.launches - before, cache["local_engine"]
+
+    res, n_int, _ = priced(vms)
+    with tempfile.TemporaryDirectory() as tmp:
+        for v in vms:
+            v.mem_gb += 0.25
+        path = os.path.join(tmp, "fixture_frac.csv")
+        traces.save_trace_csv(vms, path)
+        frac = traces.load_trace_file(path)
+        res_f, n_frac, eng_f = priced(frac)
+        scalar = {p: dataclasses.asdict(cluster_sim.savings_analysis(
+            frac, cfg, p, static_pool_frac=0.25, use_engine=False))
+            for p in ("local", "static")}
+        dirty = os.path.join(tmp, "dirty.csv")
+        with open(dirty, "w") as f:
+            f.write(_DIRTY)
+        report = traces.IngestReport(max_bad_rows=3)
+        kept = [v.vm_id for ch in traces.iter_trace_chunks(
+            dirty, chunk_vms=2, report=report) for v in ch]
+    checks = {
+        "fixture_columns_equal_reference": got_hashes == FIXTURE_WANT,
+        "fixture_results_equal_reference": res == FIXTURE_RESULTS_WANT,
+        "k1_launches_on_the_fixture": n_int > 0,
+        "fraction_read_back": [v.mem_gb for v in frac]
+            == [v.mem_gb for v in vms],
+        "fraction_results_equal_reference": res_f == FRACTION_RESULTS_WANT,
+        "fraction_scalar_search_equals_reference":
+            scalar == FRACTION_SCALAR_WANT,
+        "fraction_servers_equal_scalar_search": all(
+            res_f[p][k] == scalar[p][k] for p in res_f
+            for k in ("server_gb", "baseline_server_gb", "reject_rate")),
+        "fraction_no_k1_launch": n_frac == 0,
+        "fraction_engine_on_card": eng_f.device.type == "cuda"
+            and not eng_f._exact,
+        "quarantine_summary_equals_reference":
+            report.summary() == _DIRTY_SUMMARY,
+        "quarantine_kept_rows": kept == [1, 3, 5, 7]}
+    emit("ingest_parity_small", ok=all(checks.values()), checks=checks,
+         fixture=got_hashes, results=res, fraction_results=res_f,
+         fraction_scalar_results=scalar, k1_launches_fixture=n_int,
+         k1_launches_fraction=n_frac, ingest_report=report.summary())
+    if not all(checks.values()):
+        raise SystemExit("ingest_parity_small failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+
+
+def _numpy_beside_k1(eng, server, pool, clock_mhz):
+    """One ``reject_rates(backend="numpy")`` call on ``eng`` (host seconds)
+    beside K1 on the same candidates (its rates, and its device ms by
+    ``_k1_timed``)."""
+    from repro_torch.core import sweep_core
+    t0 = time.perf_counter()
+    host = eng.reject_rates(server, pool, backend="numpy")
+    host_s = time.perf_counter() - t0
+    card = eng.reject_rates(server, pool)
+    sgb_i, pgb_i = sweep_core.quantize_capacities(server, pool)
+    dt = eng._pick_state_dtype(sgb_i, pgb_i)
+    evs, group, n_slots = eng._device_events()
+    timed = _k1_timed(evs, group, eng.n_servers, eng.n_groups,
+                      eng.cores_per_server, n_slots, sgb_i, pgb_i,
+                      sweep_core.state_np_dtype(dt), clock_mhz, reps=3)
+    return host, host_s, card, timed["ms"], dt
+
+
+def phase_ingest_full(dev):
+    """Pond's provisioning surface on a trace file at full width
+    (``AZURE_FULL``): the stand-in dump written, read back by
+    ``iter_trace_chunks`` (VMs/s), decided (static 0.30), streamed from
+    its file through ``CompiledReplayStream(decide=)`` (one K1 launch a
+    shard, the rates the reference's), the same file loaded whole by
+    ``load_trace_file`` into a monolithic engine (one K1 launch, the same
+    rates), the streamed sweep's device ms beside the monolithic one's and
+    its event memory; then ``PROV_FULL``'s static engine priced at 16
+    candidates by the numpy divergence-window backend (host seconds)
+    beside K1 (device ms), the same rates.  The stream and the monolithic
+    engine run with K1's launch count set to 0 just before and read just
+    after.  Returns K1's launches."""
+    import shutil
+    import tempfile
+    from repro_torch.core import cluster_sim, sweep_core, traces
+    from repro_torch.core.replay_engine import (CompiledReplay,
+                                                CompiledReplayStream)
+    from repro_torch.kernels.event_sweep import ops
+    a = AZURE_FULL
+    clock_mhz = float(_smi("clocks.max.sm"))
+    cfg = cluster_sim.ClusterConfig(n_servers=a["n_servers"],
+                                    pool_sockets=a["pool_sockets"],
+                                    gb_per_core=a["gb_per_core"])
+    hi = cfg.cores_per_server * 6.0
+    server = np.linspace(0.4 * hi, hi, a["n_cand"])
+    pool = np.linspace(0.0, 2.0 * hi, a["n_cand"])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ingest_")
+    try:
+        path = os.path.join(tmp, "azure_standin.csv.gz")
+        t0 = time.perf_counter()
+        _example("torch_azure_e2e").synth_dump(path, n_vms=a["n_vms"],
+                                               horizon_days=a["days"],
+                                               seed=a["seed"])
+        dump_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        vms = [v for ch in traces.iter_trace_chunks(
+            path, chunk_vms=a["chunk_vms"]) for v in ch]
+        ingest_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dec, _ = cluster_sim.policy_decisions(
+            vms, "static", static_pool_frac=a["static_pool_frac"],
+            as_arrays=True)
+        decisions_s = time.perf_counter() - t0
+        n_vms = len(vms)
+        del vms
+        off = [0]
+
+        def decide(chunk):
+            off[0] += len(chunk)
+            return dec.slice(off[0] - len(chunk), off[0])
+
+        # the main path: the file-fed stream, then the whole file
+        ops.launches = 0
+        t0 = time.perf_counter()
+        st = CompiledReplayStream(
+            traces.iter_trace_chunks(path, chunk_vms=a["chunk_vms"]), None,
+            cfg, max_events_per_shard=a["budget"], decide=decide)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rates = st.reject_rates(server, pool)
+        stream_sweep_s = time.perf_counter() - t0
+        stream_launches = ops.launches
+        plan = dataclasses.asdict(ops.last_plan)
+        ops.launches = 0
+        t0 = time.perf_counter()
+        mono_vms = traces.load_trace_file(path)
+        load_s = time.perf_counter() - t0
+        mono_dec, _ = cluster_sim.policy_decisions(
+            mono_vms, "static", static_pool_frac=a["static_pool_frac"],
+            as_arrays=True)
+        mono = CompiledReplay(mono_vms, mono_dec, cfg)
+        mono_rates = mono.reject_rates(server, pool)
+        torch.cuda.synchronize()
+        mono_launches = ops.launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    sgb_i, pgb_i = sweep_core.quantize_capacities(server, pool)
+    dt = st._pick_state_dtype(sgb_i, pgb_i)
+    np_dt = sweep_core.state_np_dtype(dt)
+    evs, group, n_slots = mono._device_events()
+    mono_ms = _k1_timed(evs, group, cfg.n_servers, cfg.n_groups,
+                        cfg.cores_per_server, n_slots, sgb_i, pgb_i, np_dt,
+                        clock_mhz, reps=3)["ms"]
+    run = functools.partial(st._sweep_device, server, pool, None, dt, None,
+                            False)
+    stream_ms = _stream_card_ms(run, clock_mhz)
+    mem, mem_ok = _stream_memory(
+        lambda: st.reject_rates(server, pool, skip_windows=False),
+        _k1_fixed_bytes(len(server), cfg.n_servers, cfg.n_groups,
+                        st._n_slots, np.dtype(np_dt).itemsize),
+        st.peak_shard_bytes)
+    del mono, mono_vms, evs, group
+
+    # the non-integral host path at full width: PROV_FULL's static engine,
+    # 16 candidates, the numpy backend beside K1 (cut the days until the
+    # host call takes at most numpy_limit_s)
+    pcfg, pvms, _ = _full_trace()
+    lo, hi_s = STREAM_FULL["timed_server"]
+    n16 = STREAM_FULL["timed_lanes"]
+    server16 = np.linspace(lo, hi_s, n16)
+    pool16 = np.linspace(*STREAM_FULL["timed_pool"], n16)
+    days = PROV_FULL["days"]
+    while True:
+        cut = [v for v in pvms if v.arrival < days * 86400]
+        pdec, _ = cluster_sim.policy_decisions(
+            cut, "static", static_pool_frac=PROV_FULL["static_pool_frac"],
+            as_arrays=True)
+        peng = CompiledReplay(cut, pdec, pcfg)
+        host, host_s, card, k1_ms, np_dtn = _numpy_beside_k1(
+            peng, server16, pool16, clock_mhz)
+        if host_s <= a["numpy_limit_s"] or days == 1:
+            break
+        days -= 1
+    checks = {
+        "stream_rates_equal_reference":
+            rates.tolist() == AZURE_FULL_WANT["rates"],
+        "stream_equals_monolithic": rates.tolist() == mono_rates.tolist(),
+        "events_and_shards": (st.n_events, st.n_shards) == (
+            AZURE_FULL_WANT["n_events"], AZURE_FULL_WANT["n_shards"]),
+        "all_vms_ingested": st.n_vms == n_vms == a["n_vms"],
+        "event_memory_within_2_shards": mem_ok,
+        "k1_launches_one_a_shard": stream_launches == st.n_shards,
+        "monolithic_one_launch": mono_launches == 1,
+        "numpy_equals_k1": host.tolist() == card.tolist(),
+        "numpy_within_limit": host_s <= a["numpy_limit_s"]}
+    launches = stream_launches + mono_launches
+    emit("ingest_full", ok=all(checks.values()), checks=checks,
+         config=a, vms=n_vms, events=st.n_events, shards=st.n_shards,
+         shard_pad_events=st.shard_pad_events,
+         peak_shard_bytes=st.peak_shard_bytes, slots=st._n_slots,
+         k1_plan=plan, state_dtype=dt, rates=rates.tolist(),
+         host_seconds=dict(write_dump=dump_s, ingest=ingest_s,
+                           decisions=decisions_s, stream_build=build_s,
+                           stream_sweep=stream_sweep_s,
+                           load_trace_file=load_s),
+         ingest_vms_per_s=n_vms / ingest_s,
+         stream_sweep_ms=stream_ms, monolithic_sweep_ms=mono_ms,
+         stream_over_monolithic=stream_ms / mono_ms, memory=mem,
+         k1_launches=dict(stream=stream_launches, monolithic=mono_launches),
+         numpy_backend=dict(
+             config="PROV_FULL static 0.30", days=days,
+             days_cut=PROV_FULL["days"] - days, vms=len(cut),
+             events=peng.n_events, lanes=n16, host_seconds=host_s,
+             k1_device_ms=k1_ms, k1_state_dtype=np_dtn,
+             host_over_k1=host_s * 1e3 / k1_ms, rates=host.tolist()))
+    if not all(checks.values()):
+        raise SystemExit("ingest_full failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script runs on "
@@ -4747,6 +5102,9 @@ def main() -> int:
     phase_stream_parity_small(dev)
     by_path["stream_full"], pod_by_path["stream_full"] = \
         phase_stream_full(dev)
+    torch.cuda.empty_cache()
+    phase_ingest_parity_small(dev)
+    by_path["ingest_full"] = phase_ingest_full(dev)
     sweep["launches"] = sum(by_path.values())
     sweep["launches_by_path"] = by_path
     pod["launches"] = sum(pod_by_path.values())

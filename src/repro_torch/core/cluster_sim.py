@@ -1,4 +1,4 @@
-"""Cluster pooling simulator: Pond's provisioning loop (§6.5; Figs 3, 21).
+"""Cluster stranding & pooling simulator (Pond §3.1, §6.5; Figs 2, 3, 21).
 
 ``savings_analysis`` finds the least uniform (server_gb, pool_gb) that
 schedules a trace with at most ``reject_tol`` more rejections than the
@@ -13,6 +13,12 @@ DRAM = servers x per-server local DRAM + pool groups x per-group pool
 DRAM.  Pool groups span ``pool_sockets`` sockets (2 sockets per server).
 ``tiered_pricing`` prices a decision set's QoS on a local/CXL/far tier
 hierarchy (``savings_analysis(tier_hierarchy=...)`` attaches it).
+
+``stranding_analysis`` (Fig 2a) replays a cores-only best-fit placement
+(``place_by_cores``) with fixed per-server DRAM: stranded memory is the
+free DRAM on servers whose cores are exhausted; ``stranding_by_bucket``
+buckets its snapshots by scheduled-core fraction.  Host numpy, as in the
+reference: per-server clamped cumulative sums sampled by ``searchsorted``.
 
 The searches run on ``replay_engine.CompiledReplay``: the trace is
 compiled once per decision set and uploaded to the device, the
@@ -30,8 +36,10 @@ the streaming engines (``replay_engine.CompiledReplayStream``,
 ``CompiledReplayStreamBatch``): shards with the state carried on the
 device, bit-exact probes.
 
-Not ported yet (ROADMAP): the scalar-oracle search (``use_engine=False``,
-M3b).
+The reference's equivalence paths are here too: ``policy_decisions(
+engine="scalar")`` walks the VMs one by one through the control plane, and
+``savings_analysis(use_engine=False)`` runs the bisections on the scalar
+oracle.
 """
 from __future__ import annotations
 
@@ -42,7 +50,7 @@ import time
 import numpy as np
 
 from repro_torch.core import (latency_engine, latency_model, policy_engine,
-                              replay_engine)
+                              qos, replay_engine, traces)
 
 
 @dataclasses.dataclass
@@ -69,6 +77,101 @@ def arrivals_for_util(cfg: ClusterConfig, target_util: float,
     total_cores = cfg.n_servers * cfg.cores_per_server
     return int(target_util * total_cores * horizon_s
                / (mean_cores * mean_life_s))
+
+
+def place_by_cores(vms, cfg: ClusterConfig):
+    """Best-fit-by-cores placement (memory never constrains: the paper
+    replays VM-to-server placements and varies only the memory policy).
+    Returns {vm_id: server} and the rejected list.  Events come from
+    ``replay_engine.compiled_arrive_depart``; the best-fit bin-pack itself
+    is sequential by nature."""
+    _, ev_kind, ev_vm = replay_engine.compiled_arrive_depart(vms)
+    ev_kind, ev_vm = ev_kind.tolist(), ev_vm.tolist()
+    cores = [float(vm.cores) for vm in vms]
+    free_cores = np.full(cfg.n_servers, cfg.cores_per_server, float)
+    srv = [-1] * len(vms)
+    placement, rejected = {}, []
+    for kind, v in zip(ev_kind, ev_vm):
+        if kind == replay_engine.DEPART:
+            if srv[v] >= 0:
+                free_cores[srv[v]] += cores[v]
+            continue
+        score = np.where(free_cores >= cores[v], free_cores, np.inf)
+        s = int(score.argmin())                    # best fit, first min
+        if score[s] == np.inf:
+            rejected.append(vms[v].vm_id)
+            continue
+        free_cores[s] -= cores[v]
+        srv[v] = s
+        placement[vms[v].vm_id] = s
+    return placement, rejected
+
+
+# ------------------------------------------------------------ stranding ----
+def stranding_analysis(vms, cfg: ClusterConfig, n_snapshots: int = 200):
+    """Fig 2a: (scheduled-core fraction, stranded-memory fraction) at
+    ``n_snapshots`` instants over the middle 90 % of the trace.
+
+    Per-server compiled event streams; the DRAM-capped accumulator ``mem
+    <- min(mem + dm, cap)`` (additions clamp at the server's DRAM,
+    departures subtract in full) unrolls exactly to ``cumsum +
+    running-min``; snapshots sample the per-server state via
+    ``searchsorted``.  The reference's arithmetic, in its order."""
+    placement, _ = place_by_cores(vms, cfg)
+    kept = [vm for vm in vms if vm.vm_id in placement]
+    n = len(kept)
+    t = np.empty(2 * n)
+    t[0::2] = np.fromiter((vm.arrival for vm in kept), float, n)
+    t[1::2] = np.fromiter((vm.departure for vm in kept), float, n)
+    srv = np.repeat(np.fromiter(
+        (placement[vm.vm_id] for vm in kept), np.int64, n), 2)
+    dc = np.empty(2 * n)
+    dc[0::2] = np.fromiter((vm.cores for vm in kept), float, n)
+    dc[1::2] = -dc[0::2]
+    dm = np.empty(2 * n)
+    dm[0::2] = np.fromiter((vm.mem_gb for vm in kept), float, n)
+    dm[1::2] = -dm[0::2]
+    order = np.argsort(t, kind="stable")           # ties: insertion order
+    t, srv, dc, dm = t[order], srv[order], dc[order], dm[order]
+
+    horizon = t.max()
+    snaps = np.linspace(horizon * 0.05, horizon * 0.95, n_snapshots)
+    server_gb = cfg.cores_per_server * cfg.gb_per_core
+    cores_at = np.zeros((cfg.n_servers, n_snapshots))
+    mem_at = np.zeros((cfg.n_servers, n_snapshots))
+    for s in range(cfg.n_servers):
+        m = srv == s
+        ts = t[m]
+        prefix = np.cumsum(dm[m])
+        # min-plus unroll of y_k = min(y_{k-1} + dm_k, cap if dm_k > 0):
+        # y_n = prefix_n + min(0, min_{j<=n, dm_j>0} (cap - prefix_j))
+        adj = np.where(dm[m] > 0, server_gb - prefix, np.inf)
+        y = prefix + np.minimum(np.minimum.accumulate(adj), 0.0)
+        idx = np.searchsorted(ts, snaps, side="right")
+        cores_at[s] = np.concatenate(([0.0], np.cumsum(dc[m])))[idx]
+        mem_at[s] = np.concatenate(([0.0], y))[idx]
+
+    core_frac = cores_at.sum(0) / (cfg.n_servers * cfg.cores_per_server)
+    # stranded: free memory on servers that cannot host the smallest VM
+    full = (cfg.cores_per_server - cores_at) < cfg.min_vm_cores
+    stranded = (np.maximum(server_gb - mem_at, 0.0) * full).sum(0)
+    return np.stack(
+        [core_frac, stranded / (cfg.n_servers * server_gb)], axis=1)
+
+
+def stranding_by_bucket(snapshots: np.ndarray, edges=None):
+    """``(bucket midpoint, mean, p95)`` of the stranded fraction for each
+    scheduled-core-fraction bucket that holds a snapshot."""
+    edges = edges if edges is not None else \
+        np.array([0.0, 0.55, 0.65, 0.75, 0.85, 0.95, 1.01])
+    rows = []
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        m = (snapshots[:, 0] >= lo) & (snapshots[:, 0] < hi)
+        if m.sum():
+            vals = snapshots[m, 1]
+            rows.append(((lo + hi) / 2, float(np.mean(vals)),
+                         float(np.percentile(vals, 95))))
+    return rows
 
 
 # -------------------------------------------------------------- savings ----
@@ -179,23 +282,57 @@ def policy_decisions(vms, policy: str, control_plane=None,
                      latency: int = 182, pdm: float = 0.05,
                      spill_harm_prob: float = 0.25,
                      engine: str = "auto", as_arrays: bool = False):
-    """Per-VM memory split + misprediction accounting (placement-free),
-    by the compiled pipeline (``policy_engine.policy_decisions_compiled``)
+    """Per-VM memory split + misprediction accounting (placement-free)
     for ``local``, ``static`` and ``pond`` (which needs ``control_plane``
-    and advances its state).  Returns ``(decisions, mispredictions)``: a
-    ``VMDecision`` list, or the struct-of-arrays ``PolicyDecisions`` with
-    ``as_arrays=True``.  The reference's scalar walk (``engine="scalar"``)
-    is the equivalence reference there and is not ported."""
-    if engine != "auto":
-        raise NotImplementedError("the scalar policy walk is the "
-                                  "reference's; the port has the compiled "
-                                  "pipeline only")
+    and advances its state).  ``engine="auto"`` runs the compiled pipeline
+    (``policy_engine.policy_decisions_compiled``); ``engine="scalar"``
+    walks the VMs one by one through ``control_plane.decide``, its history
+    and its QoS monitor (the equivalence reference: the same decisions,
+    mispredictions and post-run control-plane state).  Returns
+    ``(decisions, mispredictions)``: a ``VMDecision`` list, or the
+    struct-of-arrays ``PolicyDecisions`` with ``as_arrays=True``."""
     t0 = time.perf_counter()
-    dec = policy_engine.policy_decisions_compiled(
-        vms, policy, control_plane, static_pool_frac, latency, pdm,
-        spill_harm_prob)
+    if engine == "auto":
+        dec = policy_engine.policy_decisions_compiled(
+            vms, policy, control_plane, static_pool_frac, latency, pdm,
+            spill_harm_prob)
+        replay_engine.add_decisions_time(time.perf_counter() - t0)
+        return ((dec if as_arrays else dec.as_vmdecisions()),
+                dec.mispredictions)
+    decisions, mispred = [], 0.0
+    slows = traces.slowdowns(vms, latency)
+    for i, vm in enumerate(vms):
+        t_mig = None
+        if policy == "local":
+            local_gb, pool_gb, fully = vm.mem_gb, 0.0, False
+        elif policy == "static":
+            pool_gb = math.floor(vm.mem_gb * static_pool_frac)
+            local_gb, fully = vm.mem_gb - pool_gb, False
+        elif policy == "pond":
+            local_gb, pool_gb, fully, _ = control_plane.decide(vm)
+            control_plane.record_untouched(vm.customer, vm.untouched)
+            if pool_gb > 0:
+                spilled = fully or pool_gb > vm.untouched * vm.mem_gb + 1e-9
+                mit = control_plane.monitor.check(
+                    vm.vm_id, vm.pmu, spilled, pool_gb, vm.arrival + 60.0)
+                if mit is not None:
+                    t_mig = mit.at
+        else:
+            raise ValueError(policy)
+        if fully:
+            mispred += 1.0 if qos.exceeds_pdm(slows[i], pdm) else 0.0
+        elif pool_gb > vm.untouched * vm.mem_gb + 1e-9:
+            mispred += spill_harm_prob if qos.exceeds_pdm(slows[i], pdm) \
+                else 0.0
+        decisions.append(VMDecision(local_gb, pool_gb, fully, t_mig))
+    mispred /= max(len(vms), 1)
     replay_engine.add_decisions_time(time.perf_counter() - t0)
-    return (dec if as_arrays else dec.as_vmdecisions()), dec.mispredictions
+    if as_arrays:
+        dec = policy_engine.decisions_from_list(decisions)
+        dec.mispredictions = mispred
+        dec.n_mitigations = dec.n_migrations
+        return dec, mispred
+    return decisions, mispred
 
 
 def replay_reject_rate(vms, decisions, cfg: ClusterConfig,
@@ -620,6 +757,12 @@ def savings_analysis(vms, cfg: ClusterConfig, policy: str,
     against the monolithic engine; the pool searches then bracket with
     ``peak_pool_demand`` instead of per-size trajectories.
 
+    Non-integral decisions (e.g. a trace file's fractional ``mem_gb``)
+    are priced by the engines' host backends (``reject_rates(
+    backend="auto")`` takes the numpy sweep), so they launch no kernel.
+    ``use_engine=False`` runs the scalar-oracle searches instead (slow;
+    the equivalence reference).
+
     Usage::
 
         cache = {}
@@ -628,16 +771,14 @@ def savings_analysis(vms, cfg: ClusterConfig, policy: str,
                                   static_pool_frac=0.30)
         print(static.savings)
     """
-    if not use_engine:
-        raise NotImplementedError("the scalar-oracle search is the "
-                                  "reference's (ROADMAP M3b)")
     if decisions is not None:
         dec_in, mispred = decisions, decisions.mispredictions
         mitig = decisions.n_mitigations
     else:
         dec_in, mispred = policy_decisions(
             vms, policy, control_plane, static_pool_frac, latency, pdm,
-            spill_harm_prob, as_arrays=True)
+            spill_harm_prob, engine="auto" if use_engine else "scalar",
+            as_arrays=use_engine)
         mitig = len(control_plane.mitigation.log) if control_plane else 0
     hi_server = cfg.cores_per_server * 12.0
     big_pool = hi_server * cfg.n_servers
@@ -647,7 +788,9 @@ def savings_analysis(vms, cfg: ClusterConfig, policy: str,
         # price the pool split's QoS on the 3-tier hierarchy over the
         # far_fracs grid, one latency_engine pass
         if tier_hierarchy is not None:
-            res.tier_pricing = tiered_pricing(dec_in, tier_hierarchy,
+            dec_arrays = dec_in if hasattr(dec_in, "local_gb") \
+                else policy_engine.decisions_from_list(dec_in)
+            res.tier_pricing = tiered_pricing(dec_arrays, tier_hierarchy,
                                               far_fracs, pdm, device=device)
         return res
 
@@ -659,6 +802,37 @@ def savings_analysis(vms, cfg: ClusterConfig, policy: str,
                 vms_, dec_, cfg, max_events_per_shard=max_events_per_shard,
                 device=device)
         return replay_engine.CompiledReplay(vms_, dec_, cfg, device=device)
+
+    if not use_engine:                       # scalar-oracle reference path
+        decs = dec_in.as_vmdecisions() \
+            if hasattr(dec_in, "as_vmdecisions") else dec_in
+        dec_local = [VMDecision(vm.mem_gb, 0.0, False, None) for vm in vms]
+        # cores-bound reject floor: memory tolerance is on top of it
+        r0 = replay_reject_rate(vms, decs, cfg, hi_server, big_pool)
+        tol = r0 + reject_tol
+        base_gb = _search_min(
+            lambda g: replay_reject_rate(vms, dec_local, cfg, g, 0.0)
+            <= tol, 0.0, hi_server)
+        if policy == "local":
+            return _finish(PolicyResult(policy, base_gb, 0.0, base_gb,
+                                        cfg.n_servers, cfg.n_groups, mispred,
+                                        0, r0))
+        min_server = _search_min(
+            lambda g: replay_reject_rate(vms, decs, cfg, g, big_pool)
+            <= tol, 0.0, hi_server)
+        best = (np.inf, min_server, 0.0)
+        for sgb in np.linspace(min_server, base_gb, n_pts):
+            pgb = _search_min(
+                lambda g: replay_reject_rate(vms, decs, cfg, sgb, g)
+                <= tol, 0.0, big_pool)
+            total = cfg.n_servers * sgb + cfg.n_groups * pgb
+            if total < best[0]:
+                best = (total, float(sgb), float(pgb))
+        _, server_gb, pool_gb = best
+        rr = replay_reject_rate(vms, decs, cfg, server_gb, pool_gb)
+        return _finish(PolicyResult(policy, server_gb, pool_gb, base_gb,
+                                    cfg.n_servers, cfg.n_groups, mispred,
+                                    mitig, rr))
 
     eng = _compile(vms, dec_in)
     # cores-bound reject floor: memory tolerance is measured on top of it

@@ -50,9 +50,14 @@ leading shards inside the candidates' divergence window, stops early under
 backend carries float64 host state, exact for non-integral decisions too.
 ``CompiledReplayStreamBatch`` streams K traces through K1's trace axis.
 
-Not ported yet (ROADMAP): the numpy divergence-window backend of the
-monolithic engine (M1b) and with it its non-integral decisions outside the
-fleet path, ``devices=`` (M13) and the ``obs`` spans (M12).
+Non-integral decisions (fractional GB, e.g. a trace file's ``mem_gb``):
+the integer sweeps cannot price them, so ``reject_rates(backend="auto")``
+takes the numpy divergence-window sweep (the reference's, copied: float64
+host state, candidates entering in waves from the Python trajectories'
+snapshots) and ``availability`` the scalar blast-radius oracle, as the
+reference does.  The choice is made from the decisions alone.
+
+Not ported yet (ROADMAP): ``devices=`` (M13) and the ``obs`` spans (M12).
 """
 from __future__ import annotations
 
@@ -75,6 +80,8 @@ from repro_torch.kernels.pod_sweep import ops as pod_ops
 ARRIVE, DEPART, MIGRATE = (sweep_core.ARRIVE, sweep_core.DEPART,
                            sweep_core.MIGRATE)
 FAIL, RECOVER, PAD = sweep_core.FAIL, sweep_core.RECOVER, sweep_core.PAD
+MAX_WAVES = 12        # state-rebuild budget per sweep (numpy backend)
+MAX_TRAJS = 16        # per-server-size trajectories per sweep
 SNAP = 64             # snapshot stride (events) in trajectories
 _INF = np.inf
 
@@ -161,7 +168,36 @@ def stage_times() -> StageTimes:
     return dataclasses.replace(_TIMES, sweeps=list(_TIMES.sweeps))
 
 
+def _choose_backend(backend: str, exact: bool) -> str:
+    """``"torch"`` or ``"numpy"`` for a sweep: ``"auto"`` takes the device
+    sweep if and only if the decisions are integral (``exact``), never by
+    whether a card is present; the device sweeps refuse non-integral
+    decisions."""
+    if backend == "auto":
+        return "torch" if exact else "numpy"
+    if backend == "torch" and not exact:
+        raise NotImplementedError(
+            "the device sweeps take integral decisions; "
+            "backend='numpy' prices non-integral ones")
+    if backend not in ("torch", "numpy"):
+        raise ValueError(f"backend must be 'auto', 'torch' or 'numpy', "
+                         f"got {backend!r}")
+    return backend
+
+
 # --------------------------------------------------------------- compile ---
+def _group_columns(group_of: np.ndarray, n_srv: int) -> np.ndarray:
+    """``(n_srv, spg_max)`` member servers of each server's pool group,
+    padded with the dummy column ``n_srv`` when the last group is short
+    (ragged ``n_servers``): the numpy sweeps' per-group pool updates."""
+    spg_max = int(np.bincount(group_of).max())
+    gcols = np.full((n_srv, spg_max), n_srv, np.int64)
+    for s in range(n_srv):
+        members = np.flatnonzero(group_of == group_of[s])
+        gcols[s, :len(members)] = members
+    return gcols
+
+
 def compiled_arrive_depart(vms):
     """Arrival/departure events as sorted arrays ``(time, kind, vm_index)``.
 
@@ -352,6 +388,7 @@ class CompiledReplay:
         self._dev_ev = None
         self._dev_ev_fail = None
         self._fleet_ev_np = None
+        self._np_pay = None
         self._peak_pool = None
         _TIMES.compile_s += time.perf_counter() - t0
 
@@ -595,17 +632,24 @@ class CompiledReplay:
     # ------------------------------------------------------------- sweep --
     def reject_rates(self, server_gb, pool_gb,
                      reject_cap: int | None = None,
+                     backend: str = "auto",
                      state_dtype: str | None = None) -> np.ndarray:
         """Reject fraction for each (server_gb, pool_gb) candidate.
 
-        Accepts scalars or broadcastable 1-D arrays; one event sweep (one
-        K1 launch) prices the whole batch.  The state packs to int16 when
-        the candidate capacities (plus payload headroom) permit and falls
-        back to int32 automatically; ``state_dtype`` ("int16"/"int32")
-        forces one packing for tests.  ``reject_cap`` is accepted and
-        ignored: the sweep always returns exact rates, which satisfy the
-        searches' feasibility contract.  Non-integral decisions raise
-        (their backend, the numpy divergence-window sweep, is ROADMAP M1b).
+        Accepts scalars or broadcastable 1-D arrays; one event sweep prices
+        the whole batch.  ``backend="torch"`` is one K1 launch on the
+        engine's device (its plain version on a CPU engine): the state
+        packs to int16 when the candidate capacities (plus payload
+        headroom) permit and falls back to int32 automatically;
+        ``state_dtype`` ("int16"/"int32") forces one packing for tests.
+        It takes integral decisions only (bit-exact against the float64
+        oracle) and always returns exact rates, so ``reject_cap`` is
+        ignored there.  ``backend="numpy"`` is the divergence-window sweep
+        on the host (float64 state, exact for non-integral decisions too):
+        with ``reject_cap`` set it drops candidates past the cap mid-sweep
+        and reports the lower bound ``(reject_cap + 1) / n_vms``, valid
+        for feasibility tests against a tolerance below it.  ``"auto"``
+        takes ``"torch"`` if and only if the decisions are integral.
 
         Usage (price a 9-point frontier in one sweep)::
 
@@ -613,16 +657,16 @@ class CompiledReplay:
             rates = eng.reject_rates(np.linspace(200., 400., 9),
                                      np.linspace(0., 800., 9))
         """
+        t0 = time.perf_counter()
         server_gb = np.atleast_1d(np.asarray(server_gb, float))
         pool_gb = np.atleast_1d(np.asarray(pool_gb, float))
         server_gb, pool_gb = np.broadcast_arrays(server_gb, pool_gb)
         n0 = len(server_gb)
         if not self.n_events:
             return np.zeros(n0)
-        if not self._exact:
-            raise NotImplementedError(
-                "non-integral decisions need the numpy divergence-window "
-                "backend, which is not ported yet (ROADMAP M1b)")
+        if _choose_backend(backend, self._exact) == "numpy":
+            return self._reject_rates_numpy(server_gb, pool_gb, reject_cap,
+                                            t0)
         self._device_events()       # compile + upload: its own stage
         t0 = time.perf_counter()
         rates = self._reject_rates_device(server_gb, pool_gb,
@@ -632,6 +676,275 @@ class CompiledReplay:
         _STATS.candidate_events += self.n_events * n0
         _STATS.wall_s += time.perf_counter() - t0
         _TIMES.sweep_s += time.perf_counter() - t0
+        return rates
+
+    def _np_payloads(self):
+        """``(gcols, vec3s, vec2s)`` for the numpy sweep, built once an
+        engine: the group columns (:func:`_group_columns`) and each VM's
+        ``(cores, local, pool)`` vector and its ``(cores, local)`` view."""
+        if self._np_pay is None:
+            vec3 = [np.array([c, l, p]) for c, l, p in
+                    zip(self._cores, self._local, self._pool)]
+            self._np_pay = (_group_columns(self.group_of, self.n_servers),
+                            vec3, [v[:2] for v in vec3])
+        return self._np_pay
+
+    def _reject_rates_numpy(self, server_gb, pool_gb, reject_cap, t0):
+        """The divergence-window sweep (the reference's numpy backend).
+
+        Candidates that never leave a reference trajectory's path are
+        priced by it for free; the others enter the float64 sweep in at
+        most ``MAX_WAVES`` waves, each from the trajectory's snapshot just
+        before its earliest divergence.  Non-integral decisions skip the
+        shortcut (the snapshots reproduce the oracle's floats exactly only
+        for integral GB) and every candidate runs from event 0.  Host
+        seconds go to ``StageTimes.sweep_s`` (the trajectories' own to
+        ``trajectory_s``)."""
+        traj_s0 = _TIMES.trajectory_s
+        n0 = len(server_gb)
+        n_srv, n_vms, n_ev = self.n_servers, self.n_vms, self.n_events
+        denom = max(n_vms, 1)
+        rates = np.empty(n0)
+
+        def charge():
+            elapsed = time.perf_counter() - t0
+            _TIMES.sweep_s += elapsed - (_TIMES.trajectory_s - traj_s0)
+            _STATS.sweeps += 1
+            _STATS.events += n_ev
+            _STATS.wall_s += elapsed
+
+        # pick reference trajectories + first-divergence event per
+        # candidate; never-diverging candidates are priced for free
+        entries: list[tuple[int, _Trajectory | None, np.ndarray]] = []
+        if not self._exact:
+            entries.append((0, None, np.arange(n0)))
+            todo = np.arange(n0)
+        else:
+            uniq = np.unique(server_gb)
+            # per-size trajectories pay off only for pool-varying batches
+            # (fewer sizes than candidates) or when every size's
+            # trajectory is already cached; a server-varying batch uses
+            # the single cores-only reference instead
+            per_sgb = len(uniq) <= MAX_TRAJS and (
+                len(uniq) < n0
+                or all(float(s) in self._trajs for s in uniq))
+            divs = np.empty(n0, np.int64)
+            diverges = np.empty(n0, bool)
+            trajs: list[tuple[_Trajectory, np.ndarray]] = []
+            if per_sgb:       # pool-varying batch at few server sizes
+                for sgb in uniq:
+                    idx = np.flatnonzero(server_gb == sgb)
+                    traj = self._trajectory(float(sgb))
+                    viol = traj.need_pool[:, None] > pool_gb[idx][None, :]
+                    dv = viol.any(axis=0)
+                    divs[idx] = np.where(dv, viol.argmax(axis=0), n_ev)
+                    diverges[idx] = dv
+                    trajs.append((traj, idx))
+            else:             # server-varying batch: cores-only reference
+                traj = self._trajectory(None)
+                viol = (traj.need_srv[:, None] > server_gb[None, :]) | \
+                       (traj.need_pool[:, None] > pool_gb[None, :])
+                diverges = viol.any(axis=0)
+                divs = np.where(diverges, viol.argmax(axis=0), n_ev)
+                trajs.append((traj, np.arange(n0)))
+            for traj, idx in trajs:
+                rates[idx[~diverges[idx]]] = traj.total_rejects / denom
+            todo = np.flatnonzero(diverges)
+            if todo.size:
+                # entry waves, earliest divergence first; entry events are
+                # snapshot-aligned (entering early is exact)
+                order = todo[np.argsort(divs[todo], kind="stable")]
+                traj_of = np.empty(n0, np.int64)
+                for ti, (_, idx) in enumerate(trajs):
+                    traj_of[idx] = ti
+                for chunk in np.array_split(
+                        order, min(MAX_WAVES, len(order))):
+                    if not len(chunk):
+                        continue
+                    ev = int(divs[chunk[0]]) // SNAP * SNAP
+                    for ti in np.unique(traj_of[chunk]):
+                        g = chunk[traj_of[chunk] == ti]
+                        entries.append((ev, trajs[ti][0], g))
+                entries.sort(key=lambda w: w[0])
+                merged: list[tuple[int, _Trajectory | None, np.ndarray]] = []
+                for ev, traj, g in entries:   # merge same (event, traj)
+                    if merged and merged[-1][0] == ev \
+                            and merged[-1][1] is traj:
+                        merged[-1] = (ev, traj,
+                                      np.concatenate([merged[-1][2], g]))
+                    else:
+                        merged.append((ev, traj, g))
+                entries = merged
+
+        if not todo.size:
+            charge()
+            return rates
+        if reject_cap is not None:      # default for dropped candidates
+            rates[todo] = (reject_cap + 1) / denom
+
+        free = np.empty((0, n_srv + 1, 3))
+        placed = np.empty((0, n_vms), np.int32)
+        migrated = np.empty((0, n_vms), bool)
+        rejects = np.empty(0, np.int64)
+        alive = np.empty(0, np.int64)
+        cidx = np.empty(0, np.int64)
+        clean: set = set()              # vms fast-pathed on every live row
+        gcols, vec3s, vec2s = self._np_payloads()
+        cores_of, mem_of = self._cores, self._mem
+        local_of, pool_of = self._local, self._pool
+        ev_kind, ev_vm = self._ev_kind, self._ev_vm
+        cand_events = 0
+        wi = 0
+        e = entries[0][0]
+
+        while e < n_ev:
+            while wi < len(entries) and entries[wi][0] == e:
+                ev, traj, g = entries[wi]
+                wi += 1
+                k = len(g)
+                base = np.empty((k, n_srv + 1, 3))
+                if traj is None:                # virgin start at event 0
+                    base[:, :n_srv, 0] = self.cores_per_server
+                    base[:, :n_srv, 1] = server_gb[g][:, None]
+                    base[:, :n_srv, 2] = pool_gb[g][:, None]
+                    pl_t = np.full(n_vms, -1, np.int32)
+                    mg_t = np.zeros(n_vms, bool)
+                    rej0 = 0
+                else:
+                    i = ev // SNAP
+                    base[:, :n_srv, 0] = traj.snap_cores[i]
+                    base[:, :n_srv, 1] = \
+                        server_gb[g][:, None] - traj.snap_mem[i]
+                    base[:, :n_srv, 2] = \
+                        pool_gb[g][:, None] - traj.snap_pool[i][self.group_of]
+                    pl_t = np.where((traj.arr_idx < ev)
+                                    & (traj.dep_idx >= ev)
+                                    & (traj.srv >= 0), traj.srv,
+                                    -1).astype(np.int32)
+                    mg_t = (pl_t >= 0) & traj.mig & (traj.mig_idx < ev)
+                    rej0 = int(traj.snap_rejects[i])
+                base[:, n_srv, :] = -_INF
+                # the fast departure path assumes uniform placement state
+                clean -= {v for v in clean if pl_t[v] < 0 or mg_t[v]}
+                free = np.concatenate([free, base])
+                placed = np.concatenate([placed, np.tile(pl_t, (k, 1))])
+                migrated = np.concatenate([migrated, np.tile(mg_t, (k, 1))])
+                rejects = np.concatenate(
+                    [rejects, np.full(k, rej0, np.int64)])
+                alive = np.concatenate([alive, g])
+                cidx = np.arange(len(alive))
+            cand_events += len(alive)
+            v = ev_vm[e]
+            kind = ev_kind[e]
+            if kind > MIGRATE:      # FAIL/RECOVER: happy-path no-ops
+                e += 1              # (availability() prices them)
+                continue
+            if kind == DEPART:
+                if v in clean:                   # all rows placed, none
+                    s = placed[:, v]             # migrated
+                    free[cidx, s, :2] += vec2s[v]
+                    p = pool_of[v]
+                    if p > 0.0:
+                        free[cidx[:, None], gcols[s], 2] += p
+                    placed[:, v] = -1
+                    clean.discard(v)
+                    e += 1
+                    continue
+                s = placed[:, v]
+                rows = cidx[s >= 0]
+                if rows.size:
+                    sv = s[rows]
+                    mg = migrated[rows, v]
+                    free[rows, sv, 0] += cores_of[v]
+                    free[rows, sv, 1] += np.where(mg, mem_of[v],
+                                                  local_of[v])
+                    free[rows[:, None], gcols[sv], 2] += \
+                        np.where(mg, 0.0, pool_of[v])[:, None]
+                    migrated[rows, v] = False
+                placed[:, v] = -1
+                e += 1
+                continue
+            if kind == MIGRATE:
+                # QoS mitigation: copy the pooled GBs back to local if the
+                # host has room (§4.3); the VM then departs as all-local.
+                p = pool_of[v]
+                s = placed[:, v]
+                rows = cidx[s >= 0]
+                if rows.size:
+                    sv = s[rows]
+                    room = free[rows, sv, 1] >= p
+                    rows, sv = rows[room], sv[room]
+                    if rows.size:
+                        free[rows, sv, 1] -= p
+                        free[rows[:, None], gcols[sv], 2] += p
+                        migrated[rows, v] = True
+                        clean.discard(v)
+                e += 1
+                continue
+            # ---- ARRIVE: best fit by cores among servers whose free local
+            # memory fits; pool checked per group (same mask as the oracle,
+            # fused into one packed compare).
+            vec3 = vec3s[v]
+            ok = (free >= vec3).all(-1)                  # (C, S+1)
+            score = np.where(ok, free[:, :, 0], _INF)
+            s = score.argmin(1)
+            best = score[cidx, s]
+            p = pool_of[v]
+            if not np.isinf(best.max(initial=-_INF)):
+                free[cidx, s, :2] -= vec2s[v]
+                if p > 0.0:
+                    free[cidx[:, None], gcols[s], 2] -= p
+                placed[:, v] = s
+                clean.add(v)
+                e += 1
+                continue
+            infeas = np.isinf(best)
+            rows = cidx[~infeas]
+            if rows.size:
+                sv = s[rows]
+                free[rows, sv, :2] -= vec2s[v]
+                if p > 0.0:
+                    free[rows[:, None], gcols[sv], 2] -= p
+                placed[rows, v] = sv
+            # pool short -> control-plane fallback: start the VM all-local
+            # (§4.3: VM starts never block on the pool)
+            bad = cidx[infeas]
+            c, m = cores_of[v], mem_of[v]
+            sub = free[bad]                              # (B, S+1, 3)
+            ok2 = (sub[:, :, 0] >= c) & (sub[:, :, 1] >= m)
+            score2 = np.where(ok2, sub[:, :, 0], _INF)
+            s2 = score2.argmin(1)
+            inf2 = np.isinf(score2[np.arange(len(bad)), s2])
+            rows2 = bad[~inf2]
+            if rows2.size:
+                sv2 = s2[~inf2]
+                free[rows2, sv2, 0] -= c
+                free[rows2, sv2, 1] -= m
+                placed[rows2, v] = sv2
+                migrated[rows2, v] = True    # departs as all-local
+            rej = bad[inf2]
+            if rej.size:
+                rejects[rej] += 1
+                if reject_cap is not None:
+                    over = rejects > reject_cap
+                    if over.any():           # compact decided candidates
+                        keep = ~over
+                        alive = alive[keep]
+                        free = free[keep]
+                        placed = placed[keep]
+                        migrated = migrated[keep]
+                        rejects = rejects[keep]
+                        cidx = np.arange(len(alive))
+                        if not len(alive):
+                            if wi < len(entries):  # skip to next wave
+                                e = entries[wi][0]
+                                continue
+                            break
+            e += 1
+
+        rates[alive] = rejects / denom
+        _STATS.candidate_events += cand_events
+        charge()
         return rates
 
     # ------------------------------------------------------- availability --
@@ -647,10 +960,11 @@ class CompiledReplay:
         host-local DRAM where the server's free memory allows, all or
         nothing per server; ``"kill"`` terminates every affected VM).
         ``backend="auto"`` runs one launch of the failure sweep (K5) on
-        the engine's device, its plain version on a CPU engine;
-        ``backend="oracle"`` loops the scalar blast-radius oracle
-        ``cluster_sim.replay_with_failures``, bit for bit the same.
-        Non-integral decisions raise on ``"auto"`` (ROADMAP M1b).
+        the engine's device (its plain version on a CPU engine) for
+        integral decisions, and for non-integral ones, which the integer
+        sweep cannot price, loops the scalar blast-radius oracle
+        ``cluster_sim.replay_with_failures``, as ``backend="oracle"``
+        does; bit for bit the same either way.
 
         Returns an :class:`AvailabilityResult`; with ``per_failure=True``
         it includes the ``(n_failures, n_cand)`` VMs-affected-per-failure
@@ -664,16 +978,13 @@ class CompiledReplay:
         server_gb = np.atleast_1d(np.asarray(server_gb, float))
         pool_gb = np.atleast_1d(np.asarray(pool_gb, float))
         server_gb, pool_gb = np.broadcast_arrays(server_gb, pool_gb)
-        if backend == "auto":
-            if not self._exact:
-                raise NotImplementedError(
-                    "non-integral decisions need the numpy divergence-"
-                    "window backend (ROADMAP M1b); backend='oracle' prices "
-                    "them with the scalar oracle")
-            self._device_events_fail()  # compile + upload: its own stage
-        elif backend != "oracle":
+        if backend not in ("auto", "oracle"):
             raise ValueError(f"backend must be 'auto' or 'oracle', got "
                              f"{backend!r}")
+        if backend == "auto" and not self._exact:
+            backend = "oracle"
+        if backend == "auto":
+            self._device_events_fail()  # compile + upload: its own stage
         t0 = time.perf_counter()
         if backend == "auto":
             res = self._availability_device(server_gb, pool_gb, mitigation,
@@ -792,17 +1103,9 @@ class CompiledReplay:
         n0 = len(sgb)
         if not self.n_events:
             return np.zeros(n0)
-        if backend == "auto":
-            backend = "torch" if self._exact else "numpy"
+        backend = _choose_backend(backend, self._exact)
         if backend == "torch":
-            if not self._exact:
-                raise NotImplementedError(
-                    "the pod sweep takes integral decisions; "
-                    "backend='numpy' prices non-integral ones")
             self._device_events()   # compile + upload: its own stage
-        elif backend != "numpy":
-            raise ValueError(f"backend must be 'auto', 'torch' or 'numpy', "
-                             f"got {backend!r}")
         t0 = time.perf_counter()
         if backend == "torch":
             rates = self._fleet_rates_device(sgb, caps, topos, state_dtype)
@@ -1562,11 +1865,7 @@ class CompiledReplayStream:
         self.n_groups = cfg.n_groups
         self.group_of = np.arange(n_srv) // cfg.servers_per_group
         self.cores_per_server = float(cfg.cores_per_server)
-        spg_max = int(np.bincount(self.group_of).max())
-        self._gcols = np.full((n_srv, spg_max), n_srv, np.int64)
-        for s in range(n_srv):
-            members = np.flatnonzero(self.group_of == self.group_of[s])
-            self._gcols[s, :len(members)] = members
+        self._gcols = _group_columns(self.group_of, n_srv)
 
         # ingest state
         self.n_vms = 0
@@ -1779,18 +2078,6 @@ class CompiledReplayStream:
     _pick_state_dtype = CompiledReplay._pick_state_dtype
     _pick_pod_state_dtype = CompiledReplay._pick_pod_state_dtype
 
-    def _backend(self, backend: str) -> str:
-        if backend == "auto":
-            return "torch" if self._exact else "numpy"
-        if backend == "torch" and not self._exact:
-            raise NotImplementedError(
-                "the device sweeps take integral decisions; "
-                "backend='numpy' prices non-integral ones")
-        if backend not in ("torch", "numpy"):
-            raise ValueError(f"backend must be 'auto', 'torch' or 'numpy', "
-                             f"got {backend!r}")
-        return backend
-
     def reject_rates(self, server_gb, pool_gb,
                      reject_cap: int | None = None,
                      backend: str = "auto",
@@ -1841,7 +2128,7 @@ class CompiledReplayStream:
         n0 = len(server_gb)
         if not self.n_events:
             return np.zeros(n0)
-        if self._backend(backend) == "torch":
+        if _choose_backend(backend, self._exact) == "torch":
             rej, cand_events = self._sweep_device(
                 server_gb, pool_gb, reject_cap, state_dtype, checkpoint,
                 skip_windows)
@@ -2019,7 +2306,7 @@ class CompiledReplayStream:
         n0 = len(sgb)
         if not self.n_events:
             return np.zeros(n0)
-        if self._backend(backend) == "torch":
+        if _choose_backend(backend, self._exact) == "torch":
             rej, cand_events = self._fleet_sweep_device(
                 sgb, caps, topos, reject_cap, state_dtype)
             rejects = rej.cpu().numpy().astype(np.int64)
@@ -2196,18 +2483,23 @@ class CompiledReplayBatch:
 
     def reject_rates(self, server_gb, pool_gb,
                      reject_cap: int | None = None,
+                     backend: str = "auto",
                      state_dtype: str | None = None,
                      devices=None) -> np.ndarray:
         """Reject fraction per (trace, candidate): shape ``(K, n_cand)``.
 
         ``server_gb``/``pool_gb`` broadcast like the single-trace API and
-        also take ``(K, n_cand)`` per-trace candidate grids.  One launch
-        of K1 prices every trace's candidates (one a ``kernel.MAX_TRACES``
-        traces); the state packs to int16 when every trace's capacities
-        permit, and ``state_dtype`` forces one packing (testing hook).
-        ``reject_cap`` is accepted and ignored: the sweep returns exact
-        rates.  ``devices`` (a device mesh) is ROADMAP M13; non-integral
-        decisions raise as in :class:`CompiledReplay` (M1b).
+        also take ``(K, n_cand)`` per-trace candidate grids.
+        ``backend="torch"`` is one launch of K1 for every trace's
+        candidates (one a ``kernel.MAX_TRACES`` traces); the state packs
+        to int16 when every trace's capacities permit, and ``state_dtype``
+        forces one packing (testing hook); it returns exact rates, so
+        ``reject_cap`` is ignored there.  ``"auto"`` takes it when every
+        trace's decisions are integral, and otherwise asks each engine in
+        turn (its own ``"auto"``: the numpy divergence-window sweep for a
+        non-integral trace, which honours ``reject_cap``); ``"numpy"``
+        loops the engines' numpy sweep.  ``devices`` (a device mesh) is
+        ROADMAP M13.
         """
         if devices is not None:
             raise NotImplementedError("device meshes come with devices= "
@@ -2215,12 +2507,17 @@ class CompiledReplayBatch:
         server_gb, pool_gb = _broadcast_candidates(self.k, server_gb,
                                                    pool_gb)
         n0 = server_gb.shape[1]
+        if backend != "auto" or self._exact:
+            backend = _choose_backend(backend, self._exact)
+        if backend != "torch":
+            # each engine in turn: "auto" lets an integral trace of a mixed
+            # batch take its own K1 launch, as the reference's does
+            return np.stack([
+                eng.reject_rates(server_gb[i], pool_gb[i],
+                                 reject_cap=reject_cap, backend=backend)
+                for i, eng in enumerate(self.engines)])
         if not self.n_events.any():
             return np.zeros((self.k, n0))
-        if not self._exact:
-            raise NotImplementedError(
-                "non-integral decisions need the numpy divergence-window "
-                "backend, which is not ported yet (ROADMAP M1b)")
         # compile + upload (its own stage), then the sweep
         evs, group_of, n_slots, counts = self._device_events()
         t0 = time.perf_counter()
@@ -2284,7 +2581,8 @@ class CompiledReplayBatch:
         distribution is not materialised (use the single-trace
         :meth:`CompiledReplay.availability` for it).  Row ``k`` is bit for
         bit ``engines[k].availability(...)``.  ``backend="oracle"`` loops
-        the engines' scalar oracle.
+        the engines' scalar oracle, and so does ``"auto"`` when a trace's
+        decisions are non-integral.
         """
         for i, e in enumerate(self.engines):
             if e.failure_schedule is None:
@@ -2297,6 +2595,11 @@ class CompiledReplayBatch:
         n0 = server_gb.shape[1]
         n_fail = np.array([e.failure_schedule.n_failures
                            for e in self.engines])
+        if backend not in ("auto", "oracle"):
+            raise ValueError(f"backend must be 'auto' or 'oracle', got "
+                             f"{backend!r}")
+        if backend == "auto" and not self._exact:
+            backend = "oracle"
         if backend == "oracle":
             per = [eng.availability(server_gb[i], pool_gb[i], mitigation,
                                     backend=backend, per_failure=False)
@@ -2306,14 +2609,6 @@ class CompiledReplayBatch:
                    for f in AVAILABILITY_FIELDS},
                 n_failures=n_fail, affected_per_failure=None,
                 mitigation=mitigation)
-        if backend != "auto":
-            raise ValueError(f"backend must be 'auto' or 'oracle', got "
-                             f"{backend!r}")
-        if not self._exact:
-            raise NotImplementedError(
-                "non-integral decisions need the numpy divergence-window "
-                "backend (ROADMAP M1b); backend='oracle' prices them with "
-                "the scalar oracle")
         # compile + upload (its own stage), then the sweep
         evs, group_of, n_slots, counts = self._device_events_fail()
         t0 = time.perf_counter()

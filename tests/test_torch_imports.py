@@ -22,6 +22,9 @@ def _port_files():
              os.path.join(REPO, "examples", "torch_fig16_spill.py"),
              os.path.join(REPO, "examples", "torch_fig_availability.py"),
              os.path.join(REPO, "examples", "torch_fig_topology.py"),
+             os.path.join(REPO, "examples", "torch_azure_e2e.py"),
+             os.path.join(REPO, "examples", "torch_fig2_stranding.py"),
+             os.path.join(REPO, "examples", "torch_fig3_poolsize.py"),
              os.path.join(REPO, "scripts", "torch_profile_decode.py"),
              os.path.join(REPO, "scripts", "torch_k1_ab.py")]
     for root, _, names in os.walk(PORT):

@@ -182,8 +182,10 @@ def test_savings_analysis_shares_the_all_local_search_through_its_cache():
 
 def test_savings_analysis_refuses_what_is_not_ported():
     _, _, pvms, _ = port_world(3, "static")
-    with pytest.raises(NotImplementedError, match="M3"):
-        cs.savings_analysis(pvms, PORT_WORLD_CFG, "static", device="cpu",
+    # the scalar paths are ported (M3b): an unknown policy is refused by
+    # the scalar walk as the reference's refuses it
+    with pytest.raises(ValueError, match="bogus"):
+        cs.savings_analysis(pvms, PORT_WORLD_CFG, "bogus", device="cpu",
                             use_engine=False)
     # streaming is ported (M5): a shard budget below 256 events is refused
     # as the reference's stream refuses it

@@ -171,19 +171,25 @@ def test_non_integral_decisions_and_failure_schedules_raise():
                            pdec.fully_pooled, pdec.t_migrate)
     eng = re.CompiledReplay(pvms, half, PORT_WORLD_CFG, device="cpu")
     assert not eng._exact
-    with pytest.raises(NotImplementedError, match="M1b"):
-        eng.reject_rates(SERVER, POOL)
-    # failure schedules (M10) are ported: on non-integral decisions their
-    # device sweep refuses as reject_rates does; the scalar oracle prices
-    # them
+    # the integer sweep still refuses them; "auto" takes the numpy
+    # divergence-window backend (M1b), == the scalar oracle
+    with pytest.raises(NotImplementedError, match="numpy"):
+        eng.reject_rates(SERVER, POOL, backend="torch")
+    half_list = half.as_vmdecisions()
+    assert eng.reject_rates(SERVER, POOL).tolist() == [
+        cs.replay_reject_rate(pvms, half_list, PORT_WORLD_CFG, s, p)
+        for s, p in zip(SERVER, POOL)]
+    # failure schedules (M10): on non-integral decisions "auto" loops the
+    # scalar oracle, as backend="oracle" does
     sched = FailureSchedule.generate(4 * 86400, PORT_WORLD_CFG.n_groups,
                                      4 * 3600.0, 1800.0, seed=0)
     eng_f = re.CompiledReplay(pvms, half, PORT_WORLD_CFG,
                               failure_schedule=sched, device="cpu")
-    with pytest.raises(NotImplementedError, match="M1b"):
-        eng_f.availability(SERVER, POOL)
-    res = eng_f.availability(SERVER[:1], POOL[:1], backend="oracle")
-    assert res.affected.shape == (1,) and res.n_failures == sched.n_failures
+    auto = eng_f.availability(SERVER[:2], POOL[:2])
+    res = eng_f.availability(SERVER[:2], POOL[:2], backend="oracle")
+    assert res.affected.shape == (2,) and res.n_failures == sched.n_failures
+    for f in re.AVAILABILITY_FIELDS + ("affected_per_failure",):
+        assert getattr(auto, f).tolist() == getattr(res, f).tolist(), f
     with pytest.raises(ValueError, match="align"):
         re.CompiledReplay(pvms, pdec.slice(0, 5), PORT_WORLD_CFG,
                           device="cpu")

@@ -115,8 +115,14 @@ def test_batch_refuses_mismatched_shapes_and_unported_options():
         batch.reject_rates(SERVER, POOL, devices="all")
     frac = dataclasses.replace(pdec, pool_gb=pdec.pool_gb + 0.5)
     odd = re.CompiledReplay(pvms, frac, PORT_WORLD_CFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="M1b"):
-        re.CompiledReplayBatch([eng, odd]).reject_rates(SERVER, POOL)
+    # non-integral decisions: the integer sweep refuses them, "auto" asks
+    # each engine (the numpy backend for the fractional trace, M1b)
+    mixed = re.CompiledReplayBatch([eng, odd])
+    with pytest.raises(NotImplementedError, match="numpy"):
+        mixed.reject_rates(SERVER, POOL, backend="torch")
+    assert mixed.reject_rates(SERVER, POOL).tolist() == [
+        eng.reject_rates(SERVER, POOL).tolist(),
+        odd.reject_rates(SERVER, POOL, backend="numpy").tolist()]
     with pytest.raises(RuntimeError, match="CUDA"):     # no card here
         re.CompiledReplayBatch([re.CompiledReplay(pvms, pdec,
                                                   PORT_WORLD_CFG)])
