@@ -54,7 +54,12 @@ PyTorch version on the card, and drives the port's three paths:
   same cluster row streamed from its file through K1, a shard a launch,
   held to the monolithic engine and the reference's rates; the fixture and
   a fractional copy of it through ``savings_analysis`` (the fractional one
-  with no K1 launch), and the numpy backend beside K1 at full width.
+  with no K1 launch), and the numpy backend beside K1 at full width;
+* Pond's observability layer (``core/obs.py``): the provisioning sweep
+  and its stream at full width with tracing off and on (the same rates;
+  the stream's upload, wait and compute spans a shard, its overlap ratio,
+  the bytes it copied), pond's decisions split into their four stages,
+  ingestion's counters over a 50,000-VM dump, and the run's Chrome trace.
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after, which shows that it went through its kernel.
@@ -534,6 +539,15 @@ AZURE_FULL = dict(n_vms=250_000, days=30, seed=7, n_servers=256,
 AZURE_FULL_WANT = dict(
     rates=[0.081864, 0.00702, 0.004096, 0.003948, 0.003848, 0.003808,
            0.003808, 0.003808], n_events=500_000, n_shards=8)
+# Pond's observability layer on the card (phase obs_full): (a) PROV_FULL's
+# static engine pricing STREAM_FULL's 16 timed lanes, tracing off then on;
+# (b) the same trace as a CompiledReplayStream at STREAM_FULL's 16,384
+# events a shard and the same lanes, tracing on then off; (c) pond's
+# decisions for POND_BATCH_FULL's seed 2 under the recorder; (d)
+# iter_trace_chunks over AZURE_FULL's stand-in dump cut to 50,000 VMs (the
+# same generator, 30 days, seed 7, 8,192 VMs a chunk).  The Chrome trace of
+# (a)-(d) goes to chiprun_out/trace_obs_full.json.
+OBS_FULL = dict(ingest_vms=50_000, trace_file="trace_obs_full.json")
 # Phase ingest_parity_small: the bundled fixture (48 VMs over two days) on
 # 4 servers of 64 cores, 2 pool groups, 4 GB a core, static 0.25, as
 # tests/test_traces_ingest.py::test_fixture_exists_and_replays_through_engine
@@ -4418,6 +4432,7 @@ class _ShardsOnCard:
     card already, packed as the feed packs them: the engine's own shard
     loop with no upload, to split the streamed sweep's time into its
     launches and its uploads."""
+    timed = False             # the untraced shard loop
 
     def __init__(self, engine, dev):
         rows = getattr(engine, "k", 1) * (engine.shard_pad_events + 4)
@@ -5053,6 +5068,237 @@ def phase_ingest_full(dev):
     return launches
 
 
+# ------------------------------------------- the observability layer (M12) --
+def _metric_delta(rec, before):
+    """The recorder's metrics since ``before`` (an earlier ``metrics()``):
+    counters and span counts and totals as differences."""
+    now = rec.metrics()
+    return {k: v - before.get(k, 0) for k, v in now.items()
+            if isinstance(v, (int, float)) and not k.endswith("_ratio")}
+
+
+def _counting(fn, box):
+    """``fn`` counting its calls into ``box[0]``."""
+    def wrapper(*args, **kwargs):
+        box[0] += 1
+        return fn(*args, **kwargs)
+    return wrapper
+
+
+def phase_obs_full(dev):
+    """Pond's observability layer (``core/obs.py``) on the card at full
+    width (``OBS_FULL``), one recorder for (a)-(d): (a) one K1 sweep,
+    tracing off then on, the rates ``==``, one ``replay.reject_rates``
+    span, the launcher cache's misses plus hits = the ``get_sweep`` calls;
+    (b) the stream, tracing on then off, both ``==`` the monolithic sweep,
+    a ``stream.shard`` and a ``stream.compute`` span a shard swept and a
+    K1 launch each, the feed's ``device_put.bytes`` = the bytes staged,
+    ``pad.events_*`` = the stream's own, the overlap ratio in [0, 1], the
+    streamed sweep's device ms with tracing off and on; (c) pond's
+    decisions ``==`` the untraced ones, their four stage spans beside
+    ``policy.decisions``; (d) ingestion's counters = the VMs read and
+    ceil(n / chunk) chunks.  The Chrome trace is written and read back
+    (every ``ts``, ``dur`` >= 0).  K1's launch count is set to 0 just
+    before each traced main path and read just after.  Returns K1's
+    launches."""
+    import math
+    import shutil
+    import tempfile
+    from repro_torch.core import cluster_sim, obs, replay_engine, sweep_core
+    from repro_torch.core import traces
+    from repro_torch.core.replay_engine import (CompiledReplay,
+                                                CompiledReplayStream)
+    k1, _ = _stream_ops()
+    clock_mhz = float(_smi("clocks.max.sm"))
+    rec = obs.Recorder()
+    checks, out = {}, {}
+    launches = 0
+    cfg, vms, _ = _full_trace()
+    dec, _ = cluster_sim.policy_decisions(
+        vms, "static", static_pool_frac=PROV_FULL["static_pool_frac"],
+        as_arrays=True)
+    lo, hi = STREAM_FULL["timed_server"]
+    server = np.linspace(lo, hi, STREAM_FULL["timed_lanes"])
+    pool = np.linspace(*STREAM_FULL["timed_pool"], STREAM_FULL["timed_lanes"])
+    n0 = len(server)
+
+    # (a) one sweep, tracing off then on
+    eng = CompiledReplay(vms, dec, cfg)
+    off_a = eng.reject_rates(server, pool)
+    calls = [0]
+    get_sweep = sweep_core.get_sweep
+    sweep_core.get_sweep = _counting(get_sweep, calls)
+    before = rec.metrics()
+    k1.launches = 0
+    try:
+        with obs.use_recorder(rec):
+            on_a = eng.reject_rates(server, pool)
+        torch.cuda.synchronize()
+    finally:
+        sweep_core.get_sweep = get_sweep
+    launches += k1.launches
+    m = _metric_delta(rec, before)
+    jit = sum(v for k, v in m.items() if k.startswith("jit.sweep.")
+              and k.endswith((".miss", ".hit")))
+    checks |= {"a_rates_equal": on_a.tolist() == off_a.tolist(),
+               "a_one_entry_span": m.get("span.replay.reject_rates.count")
+               == 1,
+               "a_jit_lookups_equal_get_sweep_calls": jit == calls[0] >= 1,
+               "a_one_k1_launch": k1.launches == 1}
+    out["a"] = dict(get_sweep_calls=calls[0], jit_lookups=jit,
+                    entry_s=m.get("span.replay.reject_rates.total_s"))
+
+    # (b) the stream, tracing on then off
+    budget = STREAM_FULL["budget"]
+    before = rec.metrics()
+    with obs.use_recorder(rec):
+        st = CompiledReplayStream(vms, dec, cfg,
+                                  max_events_per_shard=budget)
+    staged = [0, 0]
+    stage = replay_engine._ShardFeed.stage
+
+    def counted_stage(feed, si):
+        staged[0] += 1
+        staged[1] += feed.host[si % 2].nbytes
+        return stage(feed, si)
+    replay_engine._ShardFeed.stage = counted_stage
+    k1.launches = 0
+    try:
+        with obs.use_recorder(rec):
+            on_b = st.reject_rates(server, pool)
+        torch.cuda.synchronize()
+    finally:
+        replay_engine._ShardFeed.stage = stage
+    launches += k1.launches
+    launches_b = k1.launches
+    off_b = st.reject_rates(server, pool)
+    m = _metric_delta(rec, before)
+    swept = st.n_shards - m.get("stream.shards_skipped", 0)
+    sgb_i, pgb_i = sweep_core.quantize_capacities(server, pool)
+    dt = st._pick_state_dtype(sgb_i, pgb_i)
+    item = np.dtype(sweep_core.state_np_dtype(dt)).itemsize
+    fixed = ((2 * n0 * cfg.n_servers + n0 * cfg.n_groups
+              + st._n_slots * n0 + 2 * n0) * item + 4 * n0
+             + 4 * cfg.n_servers)       # state, capacities, group map
+    feed_bytes = m.get("device_put.bytes", 0) - fixed
+    wait_s = m["span.stream.upload_wait.total_s"]
+    upload_s = m["span.stream.upload.total_s"]
+    ratio = max(0.0, 1.0 - wait_s / upload_s) if upload_s > 0 else None
+    checks |= {
+        "b_rates_on_equal_off": on_b.tolist() == off_b.tolist(),
+        "b_rates_equal_monolithic": on_b.tolist() == off_a.tolist(),
+        "b_one_entry_span": m.get("span.stream.reject_rates.count") == 1,
+        "b_shard_spans_equal_shards_swept":
+            m.get("span.stream.shard.count") == swept == launches_b,
+        "b_compute_spans_equal_k1_launches":
+            m.get("span.stream.compute.count") == launches_b,
+        "b_upload_and_wait_spans_a_shard":
+            m.get("span.stream.upload.count")
+            == m.get("span.stream.upload_wait.count") == swept,
+        "b_feed_bytes_equal_staged": feed_bytes == staged[1] > 0,
+        "b_feed_calls_equal_stages":
+            m.get("device_put.calls", 0) - 8 == staged[0] == swept,
+        "b_pad_events_used": m.get("pad.events_used") == st.n_events,
+        "b_pad_events_padded": m.get("pad.events_padded")
+            == st.n_shards * st.shard_pad_events - st.n_events,
+        "b_overlap_ratio_in_0_1": ratio is not None and 0.0 <= ratio <= 1.0}
+    run = functools.partial(st._sweep_device, server, pool, None, dt, None,
+                            False)
+    ms_off = _stream_card_ms(run, clock_mhz)
+    with obs.use_recorder(obs.Recorder()):
+        ms_on = _stream_card_ms(run, clock_mhz)
+    out["b"] = dict(
+        shards=st.n_shards, swept=swept, state_dtype=dt,
+        overlap_ratio=ratio, upload_total_s=upload_s,
+        upload_wait_total_s=wait_s,
+        compute_total_s=m["span.stream.compute.total_s"],
+        shard_total_s=m["span.stream.shard.total_s"],
+        feed_bytes=feed_bytes, staged_bytes=staged[1],
+        device_put_bytes=m.get("device_put.bytes"),
+        pad_events_used=m.get("pad.events_used"),
+        pad_events_padded=m.get("pad.events_padded"),
+        stream_sweep_ms_tracing_off=ms_off, stream_sweep_ms_tracing_on=ms_on,
+        tracing_on_over_off=ms_on / ms_off)
+    del eng, st
+
+    # (c) pond's decisions for seed 2, traced
+    inp = _pond_inputs()
+    want_c = _pond_decisions()[0]
+    before = rec.metrics()
+    with obs.use_recorder(rec):
+        t0 = time.perf_counter()
+        got_c, _ = cluster_sim.policy_decisions(
+            inp["vms_list"][0], "pond",
+            _pond_plane(inp["li"], inp["um"], inp["hist"]), as_arrays=True)
+        wall_c = time.perf_counter() - t0
+    m = _metric_delta(rec, before)
+    checks["c_decisions_equal"] = all(
+        np.array_equal(getattr(got_c, f), getattr(want_c, f), equal_nan=True)
+        for f in ("local_gb", "pool_gb", "fully_pooled", "t_migrate")) \
+        and (got_c.mispredictions, got_c.n_mitigations) \
+        == (want_c.mispredictions, want_c.n_mitigations)
+    stages = {s: m.get(f"span.policy.{s}.total_s") for s in
+              ("decisions", "decide", "place", "monitor", "mitigate")}
+    checks["c_stage_spans_once"] = all(
+        m.get(f"span.policy.{s}.count") == 1 for s in stages)
+    out["c"] = dict(vms=len(inp["vms_list"][0]), wall_s=wall_c,
+                    stage_s=stages,
+                    stages_over_decisions=sum(
+                        v for k, v in stages.items() if k != "decisions")
+                    / stages["decisions"])
+
+    # (d) ingestion of a 50,000-VM cut of AZURE_FULL's dump
+    a = AZURE_FULL
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    try:
+        path = os.path.join(tmp, "azure_standin.csv.gz")
+        _example("torch_azure_e2e").synth_dump(
+            path, n_vms=OBS_FULL["ingest_vms"], horizon_days=a["days"],
+            seed=a["seed"])
+        before = rec.metrics()
+        t0 = time.perf_counter()
+        with obs.use_recorder(rec):
+            n = sum(len(ch) for ch in traces.iter_trace_chunks(
+                path, chunk_vms=a["chunk_vms"]))
+        ingest_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    m = _metric_delta(rec, before)
+    chunks = math.ceil(n / a["chunk_vms"])
+    checks |= {"d_vms_read": n == OBS_FULL["ingest_vms"],
+               "d_ingest_vms": m.get("ingest.vms") == n,
+               "d_ingest_rows": m.get("ingest.rows") == n,
+               "d_ingest_chunks": m.get("ingest.chunks") == chunks,
+               "d_chunk_spans": m.get("span.ingest.chunk.count")
+               == chunks + 1}
+    out["d"] = dict(vms=n, chunks=chunks, wall_s=ingest_s,
+                    vms_per_s=n / ingest_s,
+                    chunk_total_s=m.get("span.ingest.chunk.total_s"),
+                    chunk_mean_ms=m.get("span.ingest.chunk.total_s", 0)
+                    * 1e3 / chunks)
+
+    # the Chrome trace of (a)-(d)
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    trace_path = os.path.join(out_dir, OBS_FULL["trace_file"])
+    rec.to_chrome_trace(trace_path, manifest=obs.run_manifest())
+    with open(trace_path) as f:
+        doc = json.load(f)
+    evs = doc["traceEvents"]
+    checks["trace_parses_ts_dur_nonnegative"] = bool(evs) and all(
+        e["ts"] >= 0 and e["dur"] >= 0 for e in evs)
+    checks["k1_launched"] = launches > 0
+    emit("obs_full", ok=all(checks.values()), checks=checks, **out,
+         trace_events=len(evs), trace_file=os.path.relpath(
+             trace_path, os.path.dirname(os.path.abspath(__file__))),
+         manifest=doc["metadata"]["manifest"], k1_launches=launches)
+    if not all(checks.values()):
+        raise SystemExit("obs_full failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script runs on "
@@ -5105,6 +5351,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_ingest_parity_small(dev)
     by_path["ingest_full"] = phase_ingest_full(dev)
+    by_path["obs_full"] = phase_obs_full(dev)
     sweep["launches"] = sum(by_path.values())
     sweep["launches_by_path"] = by_path
     pod["launches"] = sum(pod_by_path.values())

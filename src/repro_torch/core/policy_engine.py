@@ -29,7 +29,10 @@ control plane a setting) or in one torch pass over the stacked tau models
 (``gbm.predict_gbms_torch``); its decision grid feeds
 ``cluster_sim.savings_analysis_batched(decisions=...)``.
 
-Not ported yet: the ``obs`` spans (M12).
+With tracing on (``core/obs.py``), ``policy_decisions_compiled`` runs in a
+``policy.decisions`` span and pond's stages in ``policy.decide``,
+``policy.place``, ``policy.monitor`` and ``policy.mitigate``, as the
+reference's do.
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ import math
 
 import numpy as np
 
-from repro_torch.core import qos, traces
+from repro_torch.core import obs, qos, traces
 
 #: quantiles of the customer history used as UM-model features
 #: (``traces.metadata_features``)
@@ -222,6 +225,7 @@ def _sequential_mispred(full: np.ndarray, spill: np.ndarray,
     return mis / max(n, 1)
 
 
+@obs.traced("policy.decisions")
 def policy_decisions_compiled(vms, policy: str, control_plane=None,
                               static_pool_frac: float = 0.15,
                               latency: int = 182, pdm: float = 0.05,
@@ -265,51 +269,55 @@ def policy_decisions_compiled(vms, policy: str, control_plane=None,
         if cp is None:
             raise ValueError("the pond policy needs a control_plane")
         cfg = cp.cfg
+        rec = obs.get_recorder()
         # decide: history percentiles + LI sensitivity + UM quantile
         # predictions -> local/pool split per VM
-        n_hist, percs = _prefix_percentiles(table.customer, table.untouched,
-                                            cp.history)
-        if cp.li_model is not None:
-            p = np.asarray(cp.li_model.p_sensitive_batch(table.pmu))
-        else:
-            p = np.ones(n)
-        has_hist = (n_hist >= cfg.min_history_vms) \
-            & (cp.li_model is not None)
-        fully = has_hist & (p < cfg.li_threshold)
-        if cp.um_model is not None:
-            feat = metadata_features_compiled(table, percs)
-            um = cp.um_model.predict(feat).astype(np.float64)
-        else:
-            um = np.zeros(n)
-        pool = np.floor(um * mem)
-        local = mem - pool
-        pool[fully] = mem[fully]
-        local[fully] = 0.0
+        with rec.span("policy.decide"):
+            n_hist, percs = _prefix_percentiles(table.customer,
+                                                table.untouched, cp.history)
+            if cp.li_model is not None:
+                p = np.asarray(cp.li_model.p_sensitive_batch(table.pmu))
+            else:
+                p = np.ones(n)
+            has_hist = (n_hist >= cfg.min_history_vms) \
+                & (cp.li_model is not None)
+            fully = has_hist & (p < cfg.li_threshold)
+            if cp.um_model is not None:
+                feat = metadata_features_compiled(table, percs)
+                um = cp.um_model.predict(feat).astype(np.float64)
+            else:
+                um = np.zeros(n)
+            pool = np.floor(um * mem)
+            local = mem - pool
+            pool[fully] = mem[fully]
+            local[fully] = 0.0
         # place: every VM's untouched observation appends, per customer in
         # trace order (the same end state as record_untouched)
-        order = np.argsort(table.customer, kind="stable")
-        bounds = np.flatnonzero(np.diff(table.customer[order])) + 1
-        for g in np.split(order, bounds):
-            cp.extend_untouched(int(table.customer[g[0]]),
-                                table.untouched[g].tolist())
+        with rec.span("policy.place"):
+            order = np.argsort(table.customer, kind="stable")
+            bounds = np.flatnonzero(np.diff(table.customer[order])) + 1
+            for g in np.split(order, bounds):
+                cp.extend_untouched(int(table.customer[g[0]]),
+                                    table.untouched[g].tolist())
         # monitor: every pool-backed VM is checked once at arrival + 60s;
         # spilled + predicted-sensitive ones migrate
-        pool_pos = pool > 0
-        spilled = fully | (pool > table.untouched * mem + 1e-9)
-        prev = cp.mitigation.migrated
-        not_prev = (~np.isin(table.vm_id,
-                             np.fromiter(prev, np.int64, len(prev)))
-                    if prev else np.ones(n, bool))
-        mitigate = pool_pos & spilled & not_prev \
-            & (p >= cp.monitor.threshold)
-        cp.monitor.checks += int(pool_pos.sum())
-        # mitigate
-        mi = np.flatnonzero(mitigate)
-        t_mig[mi] = table.arrival[mi] + _MONITOR_DELAY
-        for i in mi:
-            cp.mitigation.migrate(int(table.vm_id[i]), float(pool[i]),
-                                  float(t_mig[i]))
-        n_mitig = len(mi)
+        with rec.span("policy.monitor"):
+            pool_pos = pool > 0
+            spilled = fully | (pool > table.untouched * mem + 1e-9)
+            prev = cp.mitigation.migrated
+            not_prev = (~np.isin(table.vm_id,
+                                 np.fromiter(prev, np.int64, len(prev)))
+                        if prev else np.ones(n, bool))
+            mitigate = pool_pos & spilled & not_prev \
+                & (p >= cp.monitor.threshold)
+            cp.monitor.checks += int(pool_pos.sum())
+        with rec.span("policy.mitigate"):
+            mi = np.flatnonzero(mitigate)
+            t_mig[mi] = table.arrival[mi] + _MONITOR_DELAY
+            for i in mi:
+                cp.mitigation.migrate(int(table.vm_id[i]), float(pool[i]),
+                                      float(t_mig[i]))
+            n_mitig = len(mi)
     else:
         raise ValueError(policy)
     spill = pool > table.untouched * mem + 1e-9

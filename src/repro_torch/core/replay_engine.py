@@ -57,7 +57,16 @@ host state, candidates entering in waves from the Python trajectories'
 snapshots) and ``availability`` the scalar blast-radius oracle, as the
 reference does.  The choice is made from the decisions alone.
 
-Not ported yet (ROADMAP): ``devices=`` (M13) and the ``obs`` spans (M12).
+Tracing (``core/obs.py``, the reference's span and counter names): every
+public entry point runs in a span (``replay.reject_rates``,
+``stream.fleet``, ...); a stream's shard loop times each shard's upload,
+its wait and its launch (CUDA events on the card, only while a recorder
+is live) and counts skipped shards, early exits and the shard cuts'
+padding; the launcher caches count their hits and misses, the host-to-card
+copies their bytes.  With tracing off none of it synchronises or
+allocates.
+
+Not ported yet (ROADMAP): ``devices=`` (M13).
 """
 from __future__ import annotations
 
@@ -69,12 +78,11 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core import sweep_core
+from repro_torch.core import obs, sweep_core
 from repro_torch.core import topology as topology_mod
 from repro_torch.device import resolve_device
 from repro_torch.kernels.event_sweep import kernel as K1
 from repro_torch.kernels.event_sweep.ops import pack_traces, trace_starts
-from repro_torch.kernels.fail_sweep import ops as fail_ops
 from repro_torch.kernels.pod_sweep import ops as pod_ops
 
 ARRIVE, DEPART, MIGRATE = (sweep_core.ARRIVE, sweep_core.DEPART,
@@ -135,8 +143,9 @@ class EngineStats:
 @dataclasses.dataclass
 class StageTimes:
     """Host seconds by stage since the last reset, and the lanes and state
-    type of every sweep: what the provisioning loop spends where (the
-    reference's ``obs`` spans are ROADMAP M12)."""
+    type of every sweep: what the provisioning loop spends where.  The
+    compile and trajectory stages have no span among the reference's
+    (``core/obs.py``), so these stay beside the spans."""
     decisions_s: float = 0.0      # cluster_sim.policy_decisions
     compile_s: float = 0.0        # CompiledReplay construction + upload
     trajectory_s: float = 0.0     # Python reference trajectories
@@ -448,9 +457,9 @@ class CompiledReplay:
             return self._dev_ev
         t0 = time.perf_counter()
         host, n_slots = self._host_events()
-        evs = tuple(torch.from_numpy(a).to(self.device) for a in host)
-        group = torch.from_numpy(self.group_of.astype(np.int32)).to(
-            self.device)
+        evs = tuple(sweep_core.device_put(a, self.device) for a in host)
+        group = sweep_core.device_put(self.group_of.astype(np.int32),
+                                      self.device)
         self._dev_ev = (evs, group, n_slots)
         _TIMES.compile_s += time.perf_counter() - t0
         return self._dev_ev
@@ -463,7 +472,7 @@ class CompiledReplay:
             return self._dev_ev_fail
         evs, group, n_slots = self._device_events()
         t0 = time.perf_counter()
-        extra = tuple(torch.from_numpy(a).to(self.device)
+        extra = tuple(sweep_core.device_put(a, self.device)
                       for a in self._fail_streams())
         self._dev_ev_fail = (evs + extra, group, n_slots)
         _TIMES.compile_s += time.perf_counter() - t0
@@ -494,9 +503,9 @@ class CompiledReplay:
         state = sweep_core.init_state(
             n0, self.n_servers, self.cores_per_server, self.n_servers,
             self.n_groups, n_slots, np_dt)[:4]
-        fc, um, up, slots = (torch.from_numpy(a).to(self.device)
+        fc, um, up, slots = (sweep_core.device_put(a, self.device)
                              for a in state)
-        sgb, pgb = (torch.from_numpy(a.astype(np_dt)).to(self.device)
+        sgb, pgb = (sweep_core.device_put(a.astype(np_dt), self.device)
                     for a in (sgb_i, pgb_i))
         rejects = sweep(evs, group_of, fc, um, up, slots, sgb, pgb)
         _TIMES.sweeps.append((n0, dt_name))
@@ -630,6 +639,7 @@ class CompiledReplay:
         return traj
 
     # ------------------------------------------------------------- sweep --
+    @obs.traced("replay.reject_rates")
     def reject_rates(self, server_gb, pool_gb,
                      reject_cap: int | None = None,
                      backend: str = "auto",
@@ -948,6 +958,7 @@ class CompiledReplay:
         return rates
 
     # ------------------------------------------------------- availability --
+    @obs.traced("replay.availability")
     def availability(self, server_gb, pool_gb, mitigation: str = "remigrate",
                      backend: str = "auto", state_dtype: str | None = None,
                      per_failure: bool = True) -> AvailabilityResult:
@@ -1012,15 +1023,17 @@ class CompiledReplay:
             n0, self.n_servers, self.cores_per_server, self.n_servers,
             self.n_groups, max(n_slots, 1), np_dt)[:4]
         state += (sweep_core.init_fail_state(n0, self.n_groups),)
-        fc, um, up, slots, down = (torch.from_numpy(a).to(self.device)
+        fc, um, up, slots, down = (sweep_core.device_put(a, self.device)
                                    for a in state)
-        sgb, pgb = (torch.from_numpy(a.astype(np_dt)).to(self.device)
+        sgb, pgb = (sweep_core.device_put(a.astype(np_dt), self.device)
                     for a in (sgb_i, pgb_i))
         dist = (torch.zeros((n_fail, n0), dtype=torch.int32,
                             device=self.device)
                 if per_failure and n_fail else None)
-        out = fail_ops.fail_sweep(*evs, group_of, fc, um, up, slots, down,
-                                  sgb, pgb, mitigation=mitigation, dist=dist)
+        sweep = sweep_core.get_fail_sweep(dt_name, mitigation,
+                                          with_dist=per_failure)
+        out = sweep(evs, group_of, fc, um, up, slots, down, sgb, pgb,
+                    *((dist,) if per_failure else ()))
         if per_failure:
             dist = (dist.cpu().numpy().astype(np.int64) if n_fail
                     else np.zeros((0, n0), np.int64))
@@ -1070,6 +1083,7 @@ class CompiledReplay:
             }
         return self._fleet_ev_np
 
+    @obs.traced("replay.fleet")
     def reject_rates_fleet(self, server_gb, pod_gb, topology,
                            backend: str = "auto",
                            state_dtype: str | None = None) -> np.ndarray:
@@ -1144,12 +1158,12 @@ class CompiledReplay:
         state = sweep_core.init_pod_state(
             n0, self.n_servers, self.cores_per_server, self.n_servers,
             p_max, max(n_slots, 1), np_dt)[:5]
-        fc, um, up, slots, pods = (torch.from_numpy(a).to(self.device)
+        fc, um, up, slots, pods = (sweep_core.device_put(a, self.device)
                                    for a in state)
-        sgb_t, pgb_t = (torch.from_numpy(a.astype(np_dt)).to(self.device)
+        sgb_t, pgb_t = (sweep_core.device_put(a.astype(np_dt), self.device)
                         for a in (sgb_i, caps_i))
         sweep = sweep_core.get_pod_sweep(dt_name)
-        rejects = sweep(evs, torch.from_numpy(inc).to(self.device), fc, um,
+        rejects = sweep(evs, sweep_core.device_put(inc, self.device), fc, um,
                         up, slots, pods, sgb_t, pgb_t)
         _TIMES.sweeps.append((n0, dt_name))
         return rejects.cpu().numpy().astype(np.int64) / max(self.n_vms, 1)
@@ -1510,8 +1524,9 @@ class _CheckpointIO:
     def load(self) -> dict | None:
         if not (self.spec.resume and os.path.exists(self.spec.path)):
             return None
-        with np.load(self.spec.path, allow_pickle=False) as z:
-            state = {key: z[key] for key in z.files}
+        with obs.get_recorder().span("checkpoint.load"):
+            with np.load(self.spec.path, allow_pickle=False) as z:
+                state = {key: z[key] for key in z.files}
         got = str(state.pop("fingerprint"))
         if got != self.fp:
             raise ValueError(
@@ -1521,9 +1536,10 @@ class _CheckpointIO:
         return state
 
     def save(self, state: dict) -> None:
-        tmp = self.spec.path + ".tmp.npz"
-        np.savez(tmp, fingerprint=self.fp, **state)
-        os.replace(tmp, self.spec.path)
+        with obs.get_recorder().span("checkpoint.save"):
+            tmp = self.spec.path + ".tmp.npz"
+            np.savez(tmp, fingerprint=self.fp, **state)
+            os.replace(tmp, self.spec.path)
 
     def tick(self, state_fn) -> None:
         """After each shard sweep: snapshot on cadence; then, if the chaos
@@ -1574,11 +1590,34 @@ class _ShardFeed:
     at most two shards' event tensors are on the card.  Refilling a host
     buffer waits for its previous copy.  On the CPU the host buffers are
     the sweep's own.
+
+    Tracing (``timed``: a recorder was live when the feed was made): the
+    copy is a ``non_blocking`` copy on the side stream and :meth:`take`
+    makes the compute stream wait for it on the card, not on the host, so
+    a host clock around either reads ~0 and says nothing.  (The reference
+    blocks instead: it waits for its upload worker and for the sweep's
+    result.)  So the copy events take timing, and :func:`_traced_shards`
+    places them on the recorder's clock through a CUDA event recorded at
+    a known host time after one synchronisation: ``stream.upload`` lasts
+    the host's packing plus the copy on the card (from an event pair
+    around it: not the copy's wait for its buffer to be read) and ends
+    where the copy ends; ``stream.compute`` is a CUDA event pair around the
+    launch; ``stream.upload_wait`` is how long shard i's copy outlasts
+    shard i - 1's launch (for the first shard swept, its whole upload),
+    which is what the compute stream waited.  Shard i's events are
+    resolved (one host wait on the end of its launch) only after shard
+    i + 1 is launched and shard i + 2 staged, so tracing never makes an
+    upload or a launch wait behind the compute, and
+    ``stream.overlap_ratio`` (1 - wait / upload) is the reference's
+    quantity: the share of upload time hidden behind the sweep.  Every stage counts ``device_put.calls`` (one copy of the
+    buffer) and ``device_put.bytes`` (the whole buffer, which is what is
+    copied).
     """
 
     def __init__(self, pack, rows: int, device: torch.device):
         self.pack = pack
         self.card = device.type == "cuda"
+        self.timed = obs.enabled()
         self.host = [torch.empty((6, rows), dtype=torch.int32,
                                  pin_memory=self.card) for _ in range(2)]
         self.dev = self.host
@@ -1588,6 +1627,7 @@ class _ShardFeed:
             self.side = torch.cuda.Stream(device)
             self.copied = [None, None]    # the copy into buffer b
             self.read = [None, None]      # the launch that read buffer b
+            self.started = [None, None]   # the copy's start (timed)
         self.staged = {}
 
     def stage(self, si: int) -> None:
@@ -1595,15 +1635,24 @@ class _ShardFeed:
         if self.card and self.copied[b] is not None:
             self.copied[b].synchronize()  # host buffer b is free again
         length, counts = self.pack(si, self.host[b].numpy())
+        if self.timed:
+            self.packed_at = time.perf_counter_ns()
         if self.card:
             with torch.cuda.stream(self.side):
                 if self.read[b] is not None:
                     self.side.wait_event(self.read[b])
+                if self.timed:
+                    self.started[b] = torch.cuda.Event(enable_timing=True)
+                    self.started[b].record(self.side)
                 # one copy of the whole buffer (a shorter shard's tail is
                 # stale and never read): one call instead of six
                 self.dev[b].copy_(self.host[b], non_blocking=True)
-                self.copied[b] = torch.cuda.Event()
+                self.copied[b] = torch.cuda.Event(enable_timing=self.timed)
                 self.copied[b].record(self.side)
+        if self.timed:
+            rec = obs.get_recorder()
+            rec.count("device_put.calls")
+            rec.count("device_put.bytes", self.host[b].nbytes)
         self.staged[si] = (length, counts)
 
     def take(self, si: int):
@@ -1642,12 +1691,17 @@ def _pack_rows(buf, at: int, shard: dict, n: int) -> int:
 
 
 def _stream_shards(feed, shard_from: int, n_shards: int, launch, rejects,
-                   reject_cap, after=None) -> int:
+                   reject_cap, after=None, span: str = "stream.shard") -> int:
     """The device sweeps' shard loop: stage the first shard, then for each
     shard launch it, stage the next (its copy overlaps the launch), run
     ``after(si)`` (invariants, checkpoints) and, with ``reject_cap``, read
     the reject counters (the loop's only sync) and stop once every lane
-    exceeds the cap.  Returns the shards swept."""
+    exceeds the cap.  Returns the shards swept.  A feed made while tracing
+    is on is ``timed``: :func:`_traced_shards` runs the loop instead, each
+    shard in a ``span`` span."""
+    if feed.timed:
+        return _traced_shards(feed, shard_from, n_shards, launch, rejects,
+                              reject_cap, after, span)
     swept = 0
     try:
         if shard_from < n_shards:
@@ -1665,6 +1719,93 @@ def _stream_shards(feed, shard_from: int, n_shards: int, launch, rejects,
                     (rejects > reject_cap).all()):
                 break                    # every lane decided
     finally:
+        feed.close()
+    return swept
+
+
+def _traced_shards(feed, shard_from: int, n_shards: int, launch, rejects,
+                   reject_cap, after, span: str) -> int:
+    """:func:`_stream_shards` under a live recorder: the same shards in the
+    same order, each in a ``span`` span, with ``stream.upload``,
+    ``stream.upload_wait`` and ``stream.compute`` spans a shard, timed as
+    :class:`_ShardFeed` describes (CUDA events on the card, the host clock
+    on the CPU, where the launch is synchronous); an early exit counts
+    ``stream.reject_cap_exits``.  Shard i's events are resolved in shard
+    i + 1's span, after its launch and the next stage are queued, so the
+    card is never idle for the tracing's sake; the last shard, and every
+    shard under ``reject_cap`` (whose check reads the counters anyway), in
+    its own span (a shard left by an exception out of ``after``, such as
+    the checkpoint's kill hook, on the way out)."""
+    rec = obs.get_recorder()
+    now = time.perf_counter_ns
+    if feed.card:
+        # one sync: the anchor event then completes at its host time
+        torch.cuda.synchronize(feed.dev[0].device)
+        anchor = torch.cuda.Event(enable_timing=True)
+        t_anchor = now()
+        anchor.record()
+
+        def mark():
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+
+        def on_clock(ev):
+            return t_anchor + int(anchor.elapsed_time(ev) * 1e6)
+    else:
+        mark = now
+    staged = {}      # shard -> (stage start, packed, copy start, copy end)
+    pending = []     # launched shards not resolved yet: (shard, k0, k1)
+    prev_end = None  # the previous launch's end, recorder clock
+
+    def stage(si):
+        t0 = now()
+        feed.stage(si)
+        b = si % 2
+        staged[si] = ((t0, feed.packed_at, feed.started[b], feed.copied[b])
+                      if feed.card else (t0, now(), None, None))
+
+    def resolve(si, k0, k1):
+        nonlocal prev_end
+        up0, up1, started, copied = staged.pop(si)
+        if feed.card:
+            k1.synchronize()
+            work = up1 - up0 + int(started.elapsed_time(copied) * 1e6)
+            up1 = on_clock(copied)
+            up0, k0, k1 = up1 - work, on_clock(k0), on_clock(k1)
+        w0 = up0 if prev_end is None else prev_end
+        rec.add_span("stream.upload", up0, up1, shard=si)
+        rec.add_span("stream.upload_wait", w0, max(w0, up1), shard=si)
+        rec.add_span("stream.compute", k0, k1, shard=si)
+        prev_end = k1
+
+    swept = 0
+    try:
+        if shard_from < n_shards:
+            stage(shard_from)
+        for si in range(shard_from, n_shards):
+            with rec.span(span, shard=si):
+                evs, counts = feed.take(si)
+                k0 = mark()
+                launch(evs, counts)
+                pending.append((si, k0, mark()))
+                feed.release(si)
+                swept += 1
+                if si + 1 < n_shards:
+                    stage(si + 1)
+                keep = 0 if si + 1 == n_shards or reject_cap is not None \
+                    else 1
+                while len(pending) > keep:
+                    resolve(*pending.pop(0))
+            if after is not None:
+                after(si)
+            if reject_cap is not None and bool(
+                    (rejects > reject_cap).all()):
+                rec.count("stream.reject_cap_exits")
+                break                    # every lane decided
+    finally:
+        while pending:                   # an exception out of after()
+            resolve(*pending.pop(0))
         feed.close()
     return swept
 
@@ -1797,10 +1938,8 @@ def _to_device(arrays, device):
     """Host numpy arrays as contiguous tensors on ``device``; to the card
     through pinned memory without a host wait (a pageable copy would wait
     for the work queued before it)."""
-    ts = (torch.from_numpy(np.ascontiguousarray(a)) for a in arrays)
-    if device.type != "cuda":
-        return tuple(t.to(device) for t in ts)
-    return tuple(t.pin_memory().to(device, non_blocking=True) for t in ts)
+    return tuple(sweep_core.device_put(a, device, non_blocking=True)
+                 for a in arrays)
 
 
 class CompiledReplayStream:
@@ -2050,6 +2189,12 @@ class CompiledReplayStream:
         #: max_events_per_shard bounds; a device sweep holds two shards of
         #: at most that
         self.peak_shard_bytes = 6 * 4 * self.shard_pad_events
+        rec = obs.get_recorder()
+        if rec.enabled and self.n_shards:
+            used = sum(self._shard_events)
+            rec.count("pad.events_used", used)
+            rec.count("pad.events_padded",
+                      self.n_shards * self.shard_pad_events - used)
         for s in self._shards:           # pad in place, once, as the
             n = len(s["kind"])           # reference does
             pad = self.shard_pad_events - n
@@ -2078,6 +2223,7 @@ class CompiledReplayStream:
     _pick_state_dtype = CompiledReplay._pick_state_dtype
     _pick_pod_state_dtype = CompiledReplay._pick_pod_state_dtype
 
+    @obs.traced("stream.reject_rates")
     def reject_rates(self, server_gb, pool_gb,
                      reject_cap: int | None = None,
                      backend: str = "auto",
@@ -2198,6 +2344,7 @@ class CompiledReplayStream:
             carry0 = _carry_from_snap(ref["snaps"][shard_from], n0,
                                       self.n_servers, self.n_groups,
                                       self._n_slots, np_dt)
+            _count_skipped(shard_from, self.shard_pad_events * n0)
         else:
             shard_from = 0
             carry0 = sweep_core.init_state(
@@ -2259,10 +2406,12 @@ class CompiledReplayStream:
             # representative server per group: every member mirrors the
             # group's free pool, so column 2 of the first member IS it
             firsts = np.unique(self.group_of, return_index=True)[1]
+        rec = obs.get_recorder()
         for si in range(start_shard, self.n_shards):
             shard = self._shards[si]
-            _np_stream_sweep(shard, self._gcols, free, placed, migrated,
-                             rejects)
+            with rec.span("stream.shard", shard=si, backend="numpy"):
+                _np_stream_sweep(shard, self._gcols, free, placed,
+                                 migrated, rejects)
             cand_events += len(shard["kind"]) * n0
             if debug:
                 self._debug_check_carry(
@@ -2275,12 +2424,14 @@ class CompiledReplayStream:
                     "migrated": migrated, "rejects": rejects,
                     "shards_done": io.shards_done})
             if reject_cap is not None and (rejects > reject_cap).all():
+                rec.count("stream.reject_cap_exits")
                 break
         if io is not None:
             io.done()
         return rejects, cand_events
 
     # ------------------------------------------------------------- fleet --
+    @obs.traced("stream.fleet")
     def reject_rates_fleet(self, server_gb, pod_gb, topology,
                            reject_cap: int | None = None,
                            backend: str = "auto",
@@ -2344,7 +2495,7 @@ class CompiledReplayStream:
             self._feed(), 0, self.n_shards,
             lambda evs, _: sweep(evs, inc_t, fc, um, up, slots, pods, rej,
                                  sgb_t, pgb_t, widest=widest),
-            rej, reject_cap)
+            rej, reject_cap, span="stream.fleet.shard")
         _TIMES.sweeps.append((n0, dt_name))
         return rej, swept * self.shard_pad_events * n0
 
@@ -2354,11 +2505,14 @@ class CompiledReplayStream:
         state = _np_fleet_state(n0, self.n_servers, self.cores_per_server,
                                 sgb, caps, self._n_slots)
         cand_events = 0
+        rec = obs.get_recorder()
         for si in range(self.n_shards):
             shard = self._shards[si]
-            _np_fleet_sweep(shard, inc, *state)
+            with rec.span("stream.fleet.shard", shard=si, backend="numpy"):
+                _np_fleet_sweep(shard, inc, *state)
             cand_events += len(shard["kind"]) * n0
             if reject_cap is not None and (state[-1] > reject_cap).all():
+                rec.count("stream.reject_cap_exits")
                 break
         return state[-1], cand_events
 
@@ -2372,6 +2526,16 @@ def _widest(inc: np.ndarray, n_pods: int, device: torch.device):
     if device.type != "cuda":
         return None
     return pod_ops.check_incidence(torch.from_numpy(inc), n_pods)
+
+
+def _count_skipped(shards: int, events_a_shard: int) -> None:
+    """The divergence-window skip's counters: ``stream.shards_skipped``
+    and ``stream.events_skipped`` (shards x padded shard length x the
+    launch's lanes; the reference counts its padded candidate bucket)."""
+    rec = obs.get_recorder()
+    if shards and rec.enabled:
+        rec.count("stream.shards_skipped", shards)
+        rec.count("stream.events_skipped", shards * events_a_shard)
 
 
 # ----------------------------------------------------------- trace batch ---
@@ -2470,9 +2634,11 @@ class CompiledReplayBatch:
             return self._dev_ev
         t0 = time.perf_counter()
         per = [e._host_events() for e in self.engines]
-        cols, counts = pack_traces([host for host, _ in per], self.device)
-        group = torch.from_numpy(
-            self.engines[0].group_of.astype(np.int32)).to(self.device)
+        cols, counts = pack_traces([host for host, _ in per])
+        cols = tuple(sweep_core.device_put(c.numpy(), self.device)
+                     for c in cols)
+        group = sweep_core.device_put(
+            self.engines[0].group_of.astype(np.int32), self.device)
         self._dev_ev = (cols, group, max(n for _, n in per), counts)
         _TIMES.compile_s += time.perf_counter() - t0
         return self._dev_ev
@@ -2481,6 +2647,7 @@ class CompiledReplayBatch:
                           pgb_i: np.ndarray) -> str:
         return _batch_pick_state_dtype(self.engines, sgb_i, pgb_i)
 
+    @obs.traced("batch.reject_rates")
     def reject_rates(self, server_gb, pool_gb,
                      reject_cap: int | None = None,
                      backend: str = "auto",
@@ -2533,10 +2700,11 @@ class CompiledReplayBatch:
             state = sweep_core.init_state(
                 width, self.n_servers, self.cores_per_server,
                 self.n_servers, self.n_groups, n_slots, np_dt)[:4]
-            fc, um, up, slots = (torch.from_numpy(a).to(self.device)
+            fc, um, up, slots = (sweep_core.device_put(a, self.device)
                                  for a in state)
-            sgb, pgb = (torch.from_numpy(a[lo:hi].reshape(-1).astype(np_dt))
-                        .to(self.device) for a in (sgb_i, pgb_i))
+            sgb, pgb = (sweep_core.device_put(
+                a[lo:hi].reshape(-1).astype(np_dt), self.device)
+                for a in (sgb_i, pgb_i))
             out = sweep(tuple(e[starts[lo]:] for e in evs), group_of, fc,
                         um, up, slots, sgb, pgb, counts[lo:hi])
             rejects[lo:hi] = out.cpu().numpy().reshape(hi - lo, n0)
@@ -2558,14 +2726,17 @@ class CompiledReplayBatch:
         t0 = time.perf_counter()
         per = [e._host_events() for e in self.engines]
         cols, counts = pack_traces([host + e._fail_streams() for e, (host, _)
-                                    in zip(self.engines, per)], self.device,
+                                    in zip(self.engines, per)],
                                    fills=(PAD, 0, 0, 0, 0, 0, 0, -1))
-        group = torch.from_numpy(
-            self.engines[0].group_of.astype(np.int32)).to(self.device)
+        cols = tuple(sweep_core.device_put(c.numpy(), self.device)
+                     for c in cols)
+        group = sweep_core.device_put(
+            self.engines[0].group_of.astype(np.int32), self.device)
         self._dev_ev_fail = (cols, group, max(n for _, n in per), counts)
         _TIMES.compile_s += time.perf_counter() - t0
         return self._dev_ev_fail
 
+    @obs.traced("batch.availability")
     def availability(self, server_gb, pool_gb, mitigation: str = "remigrate",
                      backend: str = "auto",
                      state_dtype: str | None = None) -> AvailabilityResult:
@@ -2617,6 +2788,8 @@ class CompiledReplayBatch:
         dt_name = state_dtype or self._pick_state_dtype(sgb_i, pgb_i)
         np_dt = sweep_core.state_np_dtype(dt_name)
         out = np.empty((5, self.k, n0), np.int64)
+        sweep = sweep_core.get_fail_sweep(dt_name, mitigation, batched=True,
+                                          with_dist=False)
         for lo in range(0, self.k, K1.MAX_TRACES):
             hi = min(self.k, lo + K1.MAX_TRACES)
             width = (hi - lo) * n0
@@ -2624,14 +2797,13 @@ class CompiledReplayBatch:
                 width, self.n_servers, self.cores_per_server,
                 self.n_servers, self.n_groups, max(n_slots, 1), np_dt)[:4]
             state += (sweep_core.init_fail_state(width, self.n_groups),)
-            fc, um, up, slots, down = (torch.from_numpy(a).to(self.device)
+            fc, um, up, slots, down = (sweep_core.device_put(a, self.device)
                                        for a in state)
-            sgb, pgb = (torch.from_numpy(a[lo:hi].reshape(-1).astype(np_dt))
-                        .to(self.device) for a in (sgb_i, pgb_i))
-            res = fail_ops.fail_sweep(
-                *(e[starts[lo]:] for e in evs), group_of, fc, um, up, slots,
-                down, sgb, pgb, mitigation=mitigation,
-                trace_events=counts[lo:hi])
+            sgb, pgb = (sweep_core.device_put(
+                a[lo:hi].reshape(-1).astype(np_dt), self.device)
+                for a in (sgb_i, pgb_i))
+            res = sweep(tuple(e[starts[lo]:] for e in evs), group_of, fc, um,
+                        up, slots, down, sgb, pgb, counts[lo:hi])
             out[:, lo:hi] = res.cpu().numpy().reshape(5, hi - lo, n0)
             _TIMES.sweeps.append((width, dt_name))
         _STATS.sweeps += 1
@@ -2642,6 +2814,7 @@ class CompiledReplayBatch:
         return _counters_result(out, self.n_vms, n_fail, None, mitigation)
 
     # ------------------------------------------------------------- fleet --
+    @obs.traced("batch.fleet")
     def reject_rates_fleet(self, server_gb, pod_gb, topology,
                            backend: str = "auto",
                            state_dtype: str | None = None,
@@ -2706,15 +2879,15 @@ class CompiledReplayBatch:
             state = sweep_core.init_pod_state(
                 width, self.n_servers, self.cores_per_server,
                 self.n_servers, p_max, max(n_slots, 1), np_dt)[:5]
-            fc, um, up, slots, pods = (torch.from_numpy(a).to(self.device)
+            fc, um, up, slots, pods = (sweep_core.device_put(a, self.device)
                                        for a in state)
             # the shared grid, a copy a trace (trace-major lanes)
-            inc_t = torch.from_numpy(np.tile(inc, (hi - lo, 1, 1))).to(
-                self.device)
-            sgb_t = torch.from_numpy(np.tile(sgb_i, hi - lo).astype(np_dt)
-                                     ).to(self.device)
-            pgb_t = torch.from_numpy(np.tile(caps_i, (hi - lo, 1))
-                                     .astype(np_dt)).to(self.device)
+            inc_t = sweep_core.device_put(np.tile(inc, (hi - lo, 1, 1)),
+                                          self.device)
+            sgb_t = sweep_core.device_put(
+                np.tile(sgb_i, hi - lo).astype(np_dt), self.device)
+            pgb_t = sweep_core.device_put(
+                np.tile(caps_i, (hi - lo, 1)).astype(np_dt), self.device)
             out = sweep(tuple(e[starts[lo]:] for e in evs), inc_t, fc, um,
                         up, slots, pods, sgb_t, pgb_t, counts[lo:hi])
             rejects[lo:hi] = out.cpu().numpy().reshape(hi - lo, n0)
@@ -2830,6 +3003,7 @@ class CompiledReplayStreamBatch:
                                     axis=1 if j == 3 else 0)
                      for j in range(5))
 
+    @obs.traced("stream_batch.reject_rates")
     def reject_rates(self, server_gb, pool_gb,
                      reject_cap: int | None = None,
                      backend: str = "auto",
@@ -2919,6 +3093,7 @@ class CompiledReplayStreamBatch:
                             self.n_shards)
                 for i, r in enumerate(refs))
             carry0 = self._carry_from_snaps(refs, shard_from, n0, np_dt)
+            _count_skipped(shard_from, self.shard_pad_events * width)
         else:
             shard_from = 0
             carry0 = sweep_core.init_state(
@@ -2953,13 +3128,14 @@ class CompiledReplayStreamBatch:
             self._feed(), shard_from, self.n_shards,
             lambda evs, counts: sweep(evs, group, fc, um, up, slots, rej,
                                       sgb, pgb, counts),
-            rej, reject_cap, after)
+            rej, reject_cap, after, span="stream_batch.shard")
         _TIMES.sweeps.append((width, dt_name))
         if io is not None:
             io.done()
         return rej, swept * self.shard_pad_events * width
 
     # ------------------------------------------------------------- fleet --
+    @obs.traced("stream_batch.fleet")
     def reject_rates_fleet(self, server_gb, pod_gb, topology,
                            reject_cap: int | None = None,
                            backend: str = "auto",
@@ -3032,7 +3208,7 @@ class CompiledReplayStreamBatch:
             lambda evs, counts: sweep(evs, inc_t, fc, um, up, slots, pods,
                                       rej, sgb_t, pgb_t, counts,
                                       widest=widest),
-            rej, reject_cap)
+            rej, reject_cap, span="stream_batch.fleet.shard")
         rejects = rej.cpu().numpy().astype(np.int64).reshape(self.k, n0)
         _TIMES.sweeps.append((width, dt_name))
         rates = rejects / np.maximum(self.n_vms, 1)[:, None]

@@ -13,12 +13,16 @@ surrounds the sweep on the host — numpy, copied from the reference's
 * :func:`quantize_capacities`, :func:`init_state`, :func:`assign_slots`;
 * :func:`get_sweep`, which hands out K1's launcher for a state dtype,
   one trace or a batch of traces (K1's trace axis), with or without the
-  reject counters as carried state (the streaming engines' shards);
-* the failure layer's :data:`MITIGATIONS` and :func:`init_fail_state`
-  (the failure sweep itself is kernel K5, ``kernels/fail_sweep``);
+  reject counters as carried state (the streaming engines' shards), from
+  a keyed cache that counts its hits and misses (``core/obs.py``);
+* the failure layer's :data:`MITIGATIONS`, :func:`init_fail_state` and
+  :func:`get_fail_sweep` (the failure sweep itself is kernel K5,
+  ``kernels/fail_sweep``);
 * the fleet topologies' :func:`get_pod_sweep`, :func:`pick_pod_state_dtype`
   and :func:`init_pod_state` (the pod sweep is kernel K4,
   ``kernels/pod_sweep``);
+* :func:`device_put`, the engines' host-to-card copy, which counts the
+  bytes it moves while tracing is on;
 * the debug invariant guard (:func:`invariants_enabled`,
   :func:`check_invariants`, :func:`check_event_tensors`) that the
   streaming engines run after every shard under
@@ -38,6 +42,8 @@ import os
 
 import numpy as np
 
+from repro_torch.core import obs
+
 ARRIVE, DEPART, MIGRATE = 0, 1, 2
 PAD = 3               # no-op event kind (the reference pads with it)
 FAIL, RECOVER = 4, 5  # failure-domain events: no-ops in the plain sweep
@@ -53,10 +59,81 @@ def pad_up(n: int, m: int) -> int:
     return -(-int(n) // m) * m
 
 
+# ---------------------------------------------------------- launcher caches --
+_SWEEPS: dict = {}       # (state_dtype, with_carry, batched) -> K1 launcher
+_POD_SWEEPS: dict = {}   # (state_dtype, with_carry, batched) -> K4 launcher
+_FAIL_SWEEPS: dict = {}  # (state_dtype, mitigation, batched, with_dist) -> K5
+
+
+def _jit_key_name(family: str, state_dtype: str, **flags) -> str:
+    """Counter-name stem for one launcher-cache key, e.g.
+    ``jit.sweep.int32.carry1.batched0`` — the cache accessors append
+    ``.hit``/``.miss``; the keyed build/lower spans share the stem (the
+    reference's names, so that a port run and a reference run read
+    alike)."""
+    bits = [f"{k}{int(v)}" if isinstance(v, bool) else str(v)
+            for k, v in flags.items()]
+    return ".".join(["jit", family, state_dtype] + bits)
+
+
+class _FirstCallTimer:
+    """Times the FIRST invocation of a freshly built launcher as a
+    ``jit.<family>.<key>.lower`` span, then delegates with one attribute
+    hop.  On the card that first call builds the kernel's library from
+    its source, or loads it (``kernels/build.py``: ``build_libraries``,
+    ``bind``), and binds its entry point; on the CPU it runs the plain
+    version.  Installed only while a recorder is live (cache misses with
+    tracing disabled store the bare launcher, so there is no steady-state
+    overhead)."""
+    __slots__ = ("fn", "name", "_first")
+
+    def __init__(self, fn, name):
+        self.fn = fn
+        self.name = name
+        self._first = True
+
+    def __call__(self, *args, **kwargs):
+        if self._first:
+            self._first = False
+            with obs.get_recorder().span(self.name):
+                return self.fn(*args, **kwargs)
+        return self.fn(*args, **kwargs)
+
+
+def _cached(cache: dict, key: tuple, family: str, state_dtype: str,
+            flags: dict, build):
+    """``cache[key]``, built by ``build()`` on a miss: the reference's
+    keyed-cache accessor, with its ``.miss``/``.hit`` counters, ``.build``
+    span and first-call ``.lower`` span."""
+    fn = cache.get(key)
+    rec = obs.get_recorder()
+    stem = _jit_key_name(family, state_dtype, **flags)
+    if fn is None:
+        if rec.enabled:
+            rec.count(stem + ".miss")
+        with rec.span(stem + ".build"):
+            fn = build()
+        if rec.enabled:
+            fn = _FirstCallTimer(fn, stem + ".lower")
+        cache[key] = fn
+    elif rec.enabled:
+        rec.count(stem + ".hit")
+    return fn
+
+
+def _check_state_dtype(state_dtype: str, mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError("device meshes come with devices= "
+                                  "(ROADMAP M13)")
+    if state_dtype not in ("int16", "int32"):
+        raise ValueError(f"state_dtype must be 'int16' or 'int32', got "
+                         f"{state_dtype!r}")
+
+
 def get_sweep(state_dtype: str = "int32", *, with_carry: bool = False,
               batched: bool = False, mesh=None):
-    """K1's launcher for ``state_dtype``: a function of
-    ``(events, group_of, fc, um, up, slots, sgb, pgb)`` returning the
+    """K1's launcher for ``state_dtype``, from the keyed cache: a function
+    of ``(events, group_of, fc, um, up, slots, sgb, pgb)`` returning the
     (C,) int32 reject counts and leaving the final state in its state
     arguments (``kernels/event_sweep/ops.py::event_sweep``).  With
     ``batched`` it takes one more argument, ``trace_events``: the event
@@ -70,14 +147,23 @@ def get_sweep(state_dtype: str = "int32", *, with_carry: bool = False,
     returns it, so consecutive shards continue one replay (the same
     kernel: K1 always leaves its state in its arguments).
 
+    One cache keyed ``(state_dtype, with_carry, batched)`` serves every
+    engine, as the reference's jit cache does (without its mesh part).
+    With tracing on, a lookup counts ``jit.sweep.<dtype>.carry<0|1>.
+    batched<0|1>.miss`` or ``.hit``; a miss builds the launcher in a
+    ``.build`` span and times its first call in a ``.lower`` span — on
+    the card, the call that builds or loads K1's library
+    (``kernels/build.py``).
+
     A device mesh (the reference's ``mesh=``) is not ported yet: it raises.
     """
-    if mesh is not None:
-        raise NotImplementedError("device meshes come with devices= "
-                                  "(ROADMAP M13)")
-    if state_dtype not in ("int16", "int32"):
-        raise ValueError(f"state_dtype must be 'int16' or 'int32', got "
-                         f"{state_dtype!r}")
+    _check_state_dtype(state_dtype, mesh)
+    return _cached(_SWEEPS, (state_dtype, with_carry, batched), "sweep",
+                   state_dtype, dict(carry=with_carry, batched=batched),
+                   lambda: _build_sweep(with_carry, batched))
+
+
+def _build_sweep(with_carry: bool, batched: bool):
     from repro_torch.kernels.event_sweep import ops
 
     if with_carry and batched:
@@ -105,15 +191,21 @@ def get_sweep(state_dtype: str = "int32", *, with_carry: bool = False,
     return sweep
 
 
+def jit_cache_keys() -> list:
+    """K1 launcher keys built so far (introspection for tests)."""
+    return sorted(_SWEEPS, key=repr)
+
+
 def get_pod_sweep(state_dtype: str = "int32", *, with_carry: bool = False,
                   batched: bool = False, mesh=None):
-    """K4's launcher for ``state_dtype``: a function of ``(events, inc, fc,
-    um, up, slots, pods, sgb, pgb)`` returning the (C,) int32 reject counts
-    and leaving the final state in its state arguments
-    (``kernels/pod_sweep/ops.py::pod_sweep``: K4 for CUDA tensors, its
-    plain version for CPU ones).  With ``batched`` it takes one more
-    argument, ``trace_events``: K1's trace axis, the lanes trace-major, each
-    with its own incidence row (a shared grid is tiled by the caller).
+    """K4's launcher for ``state_dtype``, from the keyed cache: a function
+    of ``(events, inc, fc, um, up, slots, pods, sgb, pgb)`` returning the
+    (C,) int32 reject counts and leaving the final state in its state
+    arguments (``kernels/pod_sweep/ops.py::pod_sweep``: K4 for CUDA
+    tensors, its plain version for CPU ones).  With ``batched`` it takes
+    one more argument, ``trace_events``: K1's trace axis, the lanes
+    trace-major, each with its own incidence row (a shared grid is tiled
+    by the caller).
 
     With ``with_carry`` the reject counters are carried state too, in the
     reference's carry position: ``(events, inc, fc, um, up, slots, pods,
@@ -123,14 +215,17 @@ def get_pod_sweep(state_dtype: str = "int32", *, with_carry: bool = False,
     (``ops.check_incidence``), so that a stream checks its incidence once a
     call and not once a shard.
 
-    A device mesh (the reference's ``mesh=``) is not ported yet: it raises.
+    Keyed ``(state_dtype, with_carry, batched)`` with the counters and
+    spans of :func:`get_sweep` under ``jit.pod``.  A device mesh (the
+    reference's ``mesh=``) is not ported yet: it raises.
     """
-    if mesh is not None:
-        raise NotImplementedError("device meshes come with devices= "
-                                  "(ROADMAP M13)")
-    if state_dtype not in ("int16", "int32"):
-        raise ValueError(f"state_dtype must be 'int16' or 'int32', got "
-                         f"{state_dtype!r}")
+    _check_state_dtype(state_dtype, mesh)
+    return _cached(_POD_SWEEPS, (state_dtype, with_carry, batched), "pod",
+                   state_dtype, dict(carry=with_carry, batched=batched),
+                   lambda: _build_pod_sweep(with_carry, batched))
+
+
+def _build_pod_sweep(with_carry: bool, batched: bool):
     from repro_torch.kernels.pod_sweep import ops
 
     if with_carry and batched:
@@ -156,6 +251,11 @@ def get_pod_sweep(state_dtype: str = "int32", *, with_carry: bool = False,
     def sweep(events, inc, fc, um, up, slots, pods, sgb, pgb):
         return ops.pod_sweep(*events, inc, fc, um, up, slots, pods, sgb, pgb)
     return sweep
+
+
+def pod_jit_cache_keys() -> list:
+    """K4 launcher keys built so far (introspection for tests)."""
+    return sorted(_POD_SWEEPS, key=repr)
 
 
 def pick_pod_state_dtype(cores_per_server: float, n_servers: int,
@@ -205,6 +305,83 @@ def init_fail_state(width: int, n_groups: int) -> np.ndarray:
     index of its ARRIVE, kept in a per-lane scratch column that the wrapper
     allocates, so the slots must start empty.)"""
     return np.zeros((width, n_groups), np.int32)
+
+
+def get_fail_sweep(state_dtype: str = "int32",
+                   mitigation: str = "remigrate", *,
+                   batched: bool = False, with_dist: bool = True):
+    """K5's launcher, from the keyed cache: a function of ``(events,
+    group_of, fc, um, up, slots, down, sgb, pgb)`` — the eight event
+    arrays, the state with the down flags (:func:`init_fail_state`) and
+    the capacities — returning the (5, C) int32 counters
+    (``kernels/fail_sweep/ops.py::fail_sweep``: K5 for CUDA tensors, its
+    plain version for CPU ones) and leaving the final state in its
+    arguments.  With ``with_dist`` it takes one more argument, ``dist``:
+    the (n_failures, C) int32 per-failure rows (one trace only; None
+    takes none).  With ``batched`` it takes ``trace_events`` instead: K1's
+    trace axis, one (trace, schedule) row a trace.
+
+    Keyed ``(state_dtype, mitigation, batched, with_dist)`` as the
+    reference's, with the counters and spans of :func:`get_sweep` under
+    ``jit.fail.<dtype>.<mitigation>.batched<0|1>.dist<0|1>``.
+    """
+    _check_state_dtype(state_dtype, None)
+    if mitigation not in MITIGATIONS:
+        raise ValueError(f"mitigation must be one of {MITIGATIONS}")
+    return _cached(_FAIL_SWEEPS, (state_dtype, mitigation, batched,
+                                  with_dist), "fail", state_dtype,
+                   dict(mitigation=mitigation, batched=batched,
+                        dist=with_dist),
+                   lambda: _build_fail_sweep(mitigation, batched,
+                                             with_dist))
+
+
+def _build_fail_sweep(mitigation: str, batched: bool, with_dist: bool):
+    from repro_torch.kernels.fail_sweep import ops
+
+    if batched:
+        def fail_sweep_batch(events, group_of, fc, um, up, slots, down, sgb,
+                             pgb, trace_events):
+            return ops.fail_sweep(*events, group_of, fc, um, up, slots, down,
+                                  sgb, pgb, mitigation=mitigation,
+                                  trace_events=trace_events)
+        return fail_sweep_batch
+    if with_dist:
+        def fail_sweep_dist(events, group_of, fc, um, up, slots, down, sgb,
+                            pgb, dist):
+            return ops.fail_sweep(*events, group_of, fc, um, up, slots, down,
+                                  sgb, pgb, mitigation=mitigation, dist=dist)
+        return fail_sweep_dist
+
+    def fail_sweep(events, group_of, fc, um, up, slots, down, sgb, pgb):
+        return ops.fail_sweep(*events, group_of, fc, um, up, slots, down,
+                              sgb, pgb, mitigation=mitigation)
+    return fail_sweep
+
+
+# -------------------------------------------------------------- placement --
+def device_put(a: np.ndarray, device, *, non_blocking: bool = False):
+    """Host array ``a`` as a tensor on ``device``: the one way the engines
+    copy host arrays to the card (compiled events, state, capacities,
+    incidence).  ``non_blocking`` copies through pinned memory without a
+    host wait (a pageable copy would wait for the work queued before it).
+
+    With tracing on, the copy counts ``device_put.calls`` and
+    ``device_put.bytes`` (the bytes copied: the port takes true extents,
+    so these are not the reference's padded bytes).  A CPU engine's
+    tensors wrap the host arrays without a copy; the counts are the same,
+    so the CPU tests read them.
+    """
+    import torch
+
+    rec = obs.get_recorder()
+    if rec.enabled:
+        rec.count("device_put.calls")
+        rec.count("device_put.bytes", int(a.nbytes))
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if non_blocking and device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 # --------------------------------------------------------- invariant guard --

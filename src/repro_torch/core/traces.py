@@ -23,8 +23,8 @@ a :class:`Population` prior with the reference's generator draws in the
 reference's order, so every field equals the reference loader's.  A
 miniature fixture trace ships with the package (``fixture_trace_path()``).
 
-Host numpy only.  The reference's ``ingest.*`` spans and counters wait for
-the port's recorder (ROADMAP M12).
+Host numpy only.  With tracing on (``core/obs.py``) ingestion records the
+reference's ``ingest.chunk`` span and ``ingest.*`` counters.
 """
 from __future__ import annotations
 
@@ -35,6 +35,8 @@ import os
 import time
 
 import numpy as np
+
+from repro_torch.core import obs
 
 N_PMU_FEATURES = 32
 
@@ -733,6 +735,13 @@ def iter_trace_chunks(path: str, chunk_vms: int = 65536,
       internally.  ``examples/torch_azure_e2e.py`` prints the summary
       in its run report.
 
+    When a recorder is live (``POND_TRACE=1`` or
+    :func:`repro_torch.core.obs.use_recorder`) each produced chunk is
+    timed as an ``ingest.chunk`` span (the consumer's time between chunks
+    is not in it) with ``ingest.rows`` / ``ingest.vms`` / ``ingest.chunks``
+    counters, and the ledger's quarantine / IO-retry totals are folded into
+    ``ingest.quarantined`` / ``ingest.io_retries`` when the stream closes.
+
     Usage (bounded-memory replay of an arbitrarily long trace)::
 
         report = traces.IngestReport(max_bad_rows=100)
@@ -746,16 +755,36 @@ def iter_trace_chunks(path: str, chunk_vms: int = 65536,
     """
     if report is None and (max_bad_rows > 0 or io_retries > 0):
         report = IngestReport(max_bad_rows=max_bad_rows)
-    yield from _iter_trace_chunks_impl(path, chunk_vms, max_vms, start_id,
-                                       seed, population, io_retries,
-                                       io_backoff_s, report)
+    inner = _iter_trace_chunks_impl(path, chunk_vms, max_vms, start_id,
+                                    seed, population, io_retries,
+                                    io_backoff_s, report)
+    rec = obs.get_recorder()
+    if not rec.enabled:
+        yield from inner
+        return
+    try:
+        while True:
+            with rec.span("ingest.chunk"):
+                try:
+                    vms = next(inner)
+                except StopIteration:
+                    break
+            rec.count("ingest.chunks")
+            rec.count("ingest.vms", len(vms))
+            yield vms
+    finally:
+        if report is not None:
+            rec.count("ingest.quarantined", report.n_quarantined)
+            rec.count("ingest.io_retries", report.io_retries)
 
 
 def _iter_trace_chunks_impl(path, chunk_vms, max_vms, start_id, seed,
                             population, io_retries, io_backoff_s,
                             report):
     """Chunk pipeline behind :func:`iter_trace_chunks` (``report``
-    already resolved)."""
+    already resolved; the public wrapper adds the ingest spans and
+    counters so the consumer's time is never charged to ingestion)."""
+    rec = obs.get_recorder()
     pop = population or Population(n_customers=64, seed=seed)
     rng = np.random.default_rng(seed)
     cust_map: dict = {}
@@ -775,6 +804,8 @@ def _iter_trace_chunks_impl(path, chunk_vms, max_vms, start_id, seed,
         if n == 0:
             continue
         any_rows = True
+        if rec.enabled:
+            rec.count("ingest.rows", n_raw)
         if report is not None:
             arrival, lifetime, cores, mem, keep = \
                 _schema_arrays_quarantine(cols, path, row_offset,
