@@ -59,7 +59,18 @@ PyTorch version on the card, and drives the port's three paths:
   and its stream at full width with tracing off and on (the same rates;
   the stream's upload, wait and compute spans a shard, its overlap ratio,
   the bytes it copied), pond's decisions split into their four stages,
-  ingestion's counters over a 50,000-VM dump, and the run's Chrome trace.
+  ingestion's counters over a 50,000-VM dump, and the run's Chrome trace;
+* ``devices=`` on every Pond engine (each call again with ``devices="all"``
+  and ``devices=1``, ``==`` and the same launches; on two or more cards
+  the split, timed beside one card);
+* the training path (``launch/train.py``'s loop: ``LM.forward``, the
+  blocked attention's hand-written backward, chunked cross-entropy, AdamW)
+  card vs CPU on qwen2-1.5b's smoke config, then qwen2-1.5b at full width
+  and depth: fused steps with the AdamW state on the card, Pond's
+  two-phase steps with the state pinned in host memory (fp32 and int8
+  moments), a checkpoint round trip and a traced step.  No kernel of this
+  path is a TPU kernel's counterpart: the reference trains through its
+  plain blocked attention, and so does the port.
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after, which shows that it went through its kernel.
@@ -548,6 +559,34 @@ AZURE_FULL_WANT = dict(
 # same generator, 30 days, seed 7, 8,192 VMs a chunk).  The Chrome trace of
 # (a)-(d) goes to chiprun_out/trace_obs_full.json.
 OBS_FULL = dict(ingest_vms=50_000, trace_file="trace_obs_full.json")
+# Phase devices_full (M13): devices= on every Pond engine at full width:
+# PROV_FULL's static engine (trace seed 2) and TOPO_FULL's three-trace
+# batch, and their streams at STREAM_FULL's 16,384-event budget;
+# reject_rates at STREAM_FULL's 16 timed lanes, reject_rates_fleet at
+# TOPO_FULL's 192-lane grid.
+DEVICES_FULL = dict(budget=16_384, lanes=16, server=(270.0, 384.0),
+                    pool=(0.0, 800.0))
+# Phase train_parity_small: qwen2-1.5b's smoke config, seeded init (CPU
+# generator, seed 0), ShardedBatches step 0 at 8 x 32 tokens, 2
+# microbatches; tolerances (rtol, atol): fp32 parameters, bf16 weights
+# (the reference's bf16 grads tolerance), and the AdamW arithmetic fed the
+# same gradients on both sides.
+TRAIN_SMALL = dict(seed=0, seq_len=32, global_batch=8, microbatches=2,
+                   lr=1e-2, fp32=(1e-4, 1e-5), bf16=(0.05, 0.02),
+                   adamw=(1e-5, 1e-7))
+# Phase train_full: qwen2-1.5b at full width and depth (configs/
+# qwen2_1_5b.py: 28 layers, d_model 1536, 12 / 2 heads of 128, d_ff 8960,
+# the padded 151,936 vocabulary, tied embeddings), bf16 parameters from a
+# seeded init on the card, the reference trainer's defaults otherwise
+# (remat off, lr 3e-3 with 20 warmup steps); ShardedBatches at 8 x 2,048
+# tokens, 2 microbatches, xent chunk 512.  (a) 3 fused steps, (b) 3
+# two-phase steps with fp32 moments pinned beside the card, (c) 2
+# two-phase steps with int8 moments.  host_link_gbps: the H100 SXM's PCIe
+# Gen5 x16 host link, 64 GB/s a direction (the data sheet's 128 GB/s both
+# ways), the opt step's floor.
+TRAIN_FULL = dict(arch="qwen2-1.5b", seed=0, global_batch=8, seq_len=2048,
+                  microbatches=2, xent_chunk=512, lr=3e-3, steps_fused=3,
+                  steps_two_phase=3, steps_int8=2, host_link_gbps=64.0)
 # Phase ingest_parity_small: the bundled fixture (48 VMs over two days) on
 # 4 servers of 64 cores, 2 pool groups, 4 GB a core, static 0.25, as
 # tests/test_traces_ingest.py::test_fixture_exists_and_replays_through_engine
@@ -4462,7 +4501,7 @@ def _compute_ms(engine, run, clock_mhz):
     before the window (``_ShardsOnCard``): the streamed sweep without its
     uploads."""
     on_card = _ShardsOnCard(engine, torch.device("cuda"))
-    engine._feed = lambda: on_card
+    engine._feed = lambda device=None: on_card
     try:
         return _stream_card_ms(run, clock_mhz)
     finally:
@@ -5299,6 +5338,495 @@ def phase_obs_full(dev):
     return launches
 
 
+# ---------------------------------------------- devices= on the engines --
+def _devices_calls(dev):
+    """``DEVICES_FULL``'s eight engine calls, each a function of
+    ``devices``: ``CompiledReplay`` (PROV_FULL's static engine on trace
+    seed 2) and ``CompiledReplayBatch`` (TOPO_FULL's three traces), their
+    streams at the stream budget; ``reject_rates`` at 16 lanes on the row,
+    ``reject_rates_fleet`` at TOPO_FULL's 192-lane grid.  Returns (calls,
+    engines)."""
+    from repro_torch.core import cluster_sim
+    from repro_torch.core.replay_engine import (CompiledReplay,
+                                                CompiledReplayBatch,
+                                                CompiledReplayStream,
+                                                CompiledReplayStreamBatch)
+    inp = _topo_inputs()
+    cfg, vms2, _ = _full_trace()
+    dec2 = cluster_sim.policy_decisions(
+        vms2, "static", static_pool_frac=PROV_FULL["static_pool_frac"],
+        as_arrays=True)[0]
+    budget = DEVICES_FULL["budget"]
+    eng = CompiledReplay(vms2, dec2, cfg, device=dev)
+    stream = CompiledReplayStream(vms2, dec2, cfg, device=dev,
+                                  max_events_per_shard=budget)
+    batch = CompiledReplayBatch([
+        CompiledReplay(v, d, cfg, device=dev)
+        for v, d in zip(inp["vms_list"], inp["decs"])])
+    sbatch = CompiledReplayStreamBatch([
+        CompiledReplayStream(v, d, cfg, device=dev,
+                             max_events_per_shard=budget)
+        for v, d in zip(inp["vms_list"], inp["decs"])])
+    sgb = np.linspace(*DEVICES_FULL["server"], DEVICES_FULL["lanes"])
+    pgb = np.linspace(*DEVICES_FULL["pool"], DEVICES_FULL["lanes"])
+    grid = _topo_grid(float(np.ceil(batch.engines[0].peak_pool_demand())),
+                      cfg.n_servers, cfg.gb_per_core * cfg.cores_per_server)
+    fsgb, fcaps, ftopos = grid[:3]
+    calls = {
+        "replay.reject_rates": lambda d: eng.reject_rates(
+            sgb, pgb, devices=d),
+        "replay.fleet": lambda d: eng.reject_rates_fleet(
+            fsgb, fcaps, ftopos, devices=d),
+        "batch.reject_rates": lambda d: batch.reject_rates(
+            sgb, pgb, devices=d),
+        "batch.fleet": lambda d: batch.reject_rates_fleet(
+            fsgb, fcaps, ftopos, devices=d),
+        "stream.reject_rates": lambda d: stream.reject_rates(
+            sgb, pgb, devices=d),
+        "stream.fleet": lambda d: stream.reject_rates_fleet(
+            fsgb, fcaps, ftopos, devices=d),
+        "stream_batch.reject_rates": lambda d: sbatch.reject_rates(
+            sgb, pgb, devices=d),
+        "stream_batch.fleet": lambda d: sbatch.reject_rates_fleet(
+            fsgb, fcaps, ftopos, devices=d),
+    }
+    return calls, (eng, batch, stream, sbatch)
+
+
+def phase_devices_full(dev):
+    """``devices=`` on every Pond engine (M13) at full width
+    (``DEVICES_FULL``): each of the eight calls of :func:`_devices_calls`
+    without ``devices``, then with ``devices="all"`` and ``devices=1``,
+    K1's and K4's launch counts set to 0 before each call and read after;
+    every result ``==`` the call without ``devices`` and, where ``"all"``
+    resolves to one card, the launch counts equal; then with
+    ``devices=[card, card]``, the split path on this one card (two pieces,
+    each its own launches): ``==`` too.  With two or more cards
+    the split also runs and is timed beside one card (best of 3, host clock
+    around the call and its read-back).  Returns (K1 launches, K4
+    launches) of the calls without ``devices``."""
+    from repro_torch.core import sweep_core
+    k1, k4 = _stream_ops()
+    t0 = time.perf_counter()
+    calls, engines = _devices_calls(dev)
+    build_s = time.perf_counter() - t0
+    n_cards = torch.cuda.device_count()
+    split = sweep_core.resolve_devices("all", dev)
+    checks, rows = {}, []
+    totals = {"k1": 0, "k4": 0}
+
+    def counted(fn, devices):
+        k1.launches = k4.launches = 0       # just before the path ...
+        t = time.perf_counter()
+        out = fn(devices)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        return out, (k1.launches, k4.launches), wall   # ... read after it
+
+    for name, fn in calls.items():
+        base, n_base, wall = counted(fn, None)
+        totals["k1"] += n_base[0]
+        totals["k4"] += n_base[1]
+        row = dict(call=name, lanes=int(np.asarray(base).shape[-1]),
+                   launches_k1_k4=list(n_base), wall_s=wall)
+        for devices in ("all", 1):
+            got, n_got, w = counted(fn, devices)
+            key = f"{name} devices={devices!r}"
+            checks[f"{key} =="] = np.array_equal(got, base)
+            if devices == 1 or split is None:
+                checks[f"{key} launches"] = n_got == n_base
+            row[f"devices={devices}"] = dict(launches_k1_k4=list(n_got),
+                                             wall_s=w)
+        # the split path itself on this card: a list that repeats it
+        # counts as two devices, each piece one launch of its own
+        got, n_got, w = counted(fn, [dev, dev])
+        checks[f"{name} devices=[card, card] =="] = np.array_equal(got, base)
+        checks[f"{name} devices=[card, card] launches"] = \
+            n_got[0] + n_got[1] > n_base[0] + n_base[1]
+        row["devices=[card, card]"] = dict(launches_k1_k4=list(n_got),
+                                           wall_s=w)
+        if split is not None:
+            one = min(counted(fn, None)[2] for _ in range(3))
+            many = min(counted(fn, "all")[2] for _ in range(3))
+            row["split"] = dict(cards=len(split), one_card_s=one,
+                                split_s=many, speedup=one / many)
+        rows.append(row)
+    checks["some_k1_and_k4_launches"] = totals["k1"] > 0 and totals["k4"] > 0
+    emit("devices_full", ok=all(checks.values()), checks=checks,
+         config=dict(DEVICES_FULL, n_servers=PROV_FULL["n_servers"],
+                     days=PROV_FULL["days"], traces=TOPO_FULL["seeds"]),
+         cards=n_cards,
+         all_resolves_to=("the single-device path" if split is None
+                          else [str(d) for d in split]),
+         engines_build_s=build_s, calls=rows, launches_k1=totals["k1"],
+         launches_k4=totals["k4"])
+    if not all(checks.values()):
+        raise SystemExit("devices_full failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    del calls, engines
+    return totals["k1"], totals["k4"]
+
+
+# -------------------------------------------------- the training path --
+def _train_parity_model(cfg, device, dtype, init):
+    """The port's model for ``cfg`` on ``device`` holding ``init`` (a
+    name -> CPU tensor dict, cast to ``dtype`` or the declared dtypes)."""
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.runtime import train as rt
+    model = build_model(cfg, device=device, dtype=dtype)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(init[n])
+    return model, rt.train_params(model)
+
+
+def phase_train_parity_small(dev):
+    """The training path card vs CPU on qwen2-1.5b's smoke config
+    (``TRAIN_SMALL``), from the same seeded parameters and batch: the loss
+    and every gradient (2 microbatches) at fp32 tolerances with fp32
+    parameters and at bf16 tolerances with the declared bf16 weights; one
+    AdamW step on each side fed the same (the CPU's) gradients, parameters,
+    master and moments at ``TRAIN_SMALL["adamw"]`` (bf16 weights at the
+    bf16 tolerance); then on the card the two-phase step (pool tier
+    pinned) ``torch.equal`` the fused step's parameters and loss."""
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.data.pipeline import DataConfig, ShardedBatches
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train as rt
+    from repro_torch.sharding.rules import ShardCtx
+    cfg = get_smoke("qwen2-1.5b")
+    src = build_model(cfg, device="cpu", dtype=torch.float32)
+    src.init_params(torch.Generator().manual_seed(TRAIN_SMALL["seed"]))
+    init = {n: p.detach().clone() for n, p in src.named_parameters()}
+    toks = torch.from_numpy(ShardedBatches(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SMALL["seq_len"],
+        global_batch=TRAIN_SMALL["global_batch"])).batch_at(0)["tokens"])
+    ocfg = adamw.AdamWConfig(lr=TRAIN_SMALL["lr"], warmup_steps=1)
+    mb = TRAIN_SMALL["microbatches"]
+    checks, errs = {}, {}
+
+    def compare(label, got, want, rtol, atol):
+        worst, ok = 0.0, True
+        for n, w in want.items():
+            g = got[n].detach().float().cpu()
+            w = w.detach().float().cpu()
+            ok &= bool(torch.allclose(g, w, rtol=rtol, atol=atol))
+            worst = max(worst, float((g - w).abs().max()))
+        checks[label] = ok
+        errs[label] = worst
+
+    for label, dtype, tol in (("fp32", torch.float32, TRAIN_SMALL["fp32"]),
+                              ("bf16", None, TRAIN_SMALL["bf16"])):
+        out = []
+        for where in (torch.device("cpu"), dev):
+            model, params = _train_parity_model(cfg, where, dtype, init)
+            grads, m = rt.grads_fn(model, params,
+                                   {"tokens": toks.to(where)}, ShardCtx(),
+                                   mb)
+            out.append((params, grads, float(m["loss"])))
+        (p_cpu, g_cpu, l_cpu), (p_card, g_card, l_card) = out
+        checks[f"{label} loss"] = bool(np.isclose(l_card, l_cpu,
+                                                  rtol=tol[0], atol=tol[1]))
+        errs[f"{label} loss card, cpu"] = [l_card, l_cpu]
+        compare(f"{label} grads", g_card, g_cpu, *tol)
+        opts = []
+        for params in (p_cpu, p_card):
+            opts.append(adamw.init_state(params, ocfg))
+            adamw.apply_updates(params, opts[-1],
+                                {n: g.to(params[n].device)
+                                 for n, g in g_cpu.items()}, ocfg)
+        ptol = TRAIN_SMALL["adamw"] if dtype is not None else tol
+        compare(f"{label} adamw params", p_card, p_cpu, *ptol)
+        for g in ("master", "m", "v"):
+            compare(f"{label} adamw {g}", opts[1][g], opts[0][g],
+                    *TRAIN_SMALL["adamw"])
+    # the two steps on the card, the pool tier pinned: the same parameters
+    model, params = _train_parity_model(cfg, dev, None, init)
+    after = {}
+    for two_phase in (False, True):
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(init[n])
+        opt = launch_train.init_opt_state(params, ocfg, two_phase, dev)
+        step = launch_train.make_step(model, ocfg, ShardCtx(),
+                                      two_phase=two_phase, microbatches=mb)
+        _, opt, m = step(params, opt, {"tokens": toks.to(dev)})
+        after[two_phase] = ({n: p.detach().clone() for n, p in
+                             params.items()}, float(m["loss"]))
+        if two_phase:
+            checks["two_phase pool tier pinned"] = all(
+                t.device.type == "cpu" and t.is_pinned()
+                for t in _pool_tensors(opt))
+    checks["two_phase loss == fused"] = after[True][1] == after[False][1]
+    checks["two_phase params == fused"] = all(
+        torch.equal(after[True][0][n], after[False][0][n]) for n in params)
+    emit("train_parity_small", ok=all(checks.values()), checks=checks,
+         config=dict(TRAIN_SMALL, arch=cfg.name), max_abs_err=errs)
+    if not all(checks.values()):
+        raise SystemExit("train_parity_small failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+
+
+def _pool_tensors(opt):
+    from repro_torch.core.znuma import tree_tensors
+    return [t for g in ("master", "m", "v") for t in tree_tensors(opt[g])]
+
+
+def _tier_account(opt):
+    from repro_torch.core.znuma import TierAccount
+    from repro_torch.optim import adamw
+    acct = TierAccount()
+    for g, tier in adamw.state_tier(opt).items():
+        acct.add(opt[g], tier)
+    return acct
+
+
+def _train_run(model, params, init, ocfg, two_phase, steps, dev, *,
+               snapshot_after=None):
+    """One run of ``launch/train.py``'s loop from ``init`` (host tensors):
+    the state built as the trainer builds it, the peak device memory reset
+    just before the loop (the first step's record carries the state's
+    build seconds).  Returns (metrics, opt, the step, the data, peak
+    bytes, the parameters after ``snapshot_after`` steps on the host, or
+    None)."""
+    from repro_torch.data.pipeline import DataConfig, ShardedBatches
+    from repro_torch.launch import train as launch_train
+    from repro_torch.sharding.rules import ShardCtx
+    with torch.no_grad():
+        for n, p in params.items():
+            p.copy_(init[n])
+    t0 = time.perf_counter()
+    opt = launch_train.init_opt_state(params, ocfg, two_phase, dev)
+    torch.cuda.synchronize()
+    state_s = time.perf_counter() - t0
+    step = launch_train.make_step(
+        model, ocfg, ShardCtx(), two_phase=two_phase,
+        microbatches=TRAIN_FULL["microbatches"],
+        xent_chunk=TRAIN_FULL["xent_chunk"])
+    data = ShardedBatches(DataConfig(
+        vocab_size=model.cfg.vocab_size, seq_len=TRAIN_FULL["seq_len"],
+        global_batch=TRAIN_FULL["global_batch"]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, snap = [], None
+    for lo, hi in ([(0, snapshot_after), (snapshot_after, steps)]
+                   if snapshot_after else [(0, steps)]):
+        metrics += launch_train.train_loop(model, params, opt, step, data,
+                                           lo, hi, log_every=1)
+        if snapshot_after and hi == snapshot_after:
+            snap = {n: p.detach().to("cpu", copy=True)
+                    for n, p in params.items()}
+    torch.cuda.synchronize()
+    metrics[0]["state_build_s"] = state_s
+    return metrics, opt, step, data, torch.cuda.max_memory_allocated(), snap
+
+
+def _train_flops(cfg, tokens, seq):
+    """FLOPs of one training step from the shapes: 6 a parameter a token
+    for the products (forward 2, backward 4) over every weight matrix and
+    the tied head, plus the attention products the blocked core computes
+    (every (query, key) pair of each block it visits: the whole square,
+    causal or not; 4 FLOPs of D a pair and head forward, 10 backward: the
+    recomputed scores, dV, dP, dQ, dK)."""
+    n_mat = cfg.num_layers * (cfg.d_model * cfg.head_dim
+                              * (cfg.num_heads * 2 + cfg.num_kv_heads * 2)
+                              + 3 * cfg.d_model * cfg.d_ff)
+    head = cfg.d_model * cfg.vocab_size
+    products = 6 * (n_mat + head) * tokens
+    pairs = tokens * seq                                # every block visited
+    attn = cfg.num_layers * pairs * cfg.num_heads * cfg.head_dim * (4 + 10)
+    return products, attn
+
+
+def phase_train_full(dev):
+    """The training path at full width (``TRAIN_FULL``: qwen2-1.5b, 28
+    layers, d_model 1536, the padded 151,936 vocabulary, bf16 parameters
+    from a seeded init) through ``launch/train.py``'s loop on
+    ``ShardedBatches`` at 8 x 2,048 tokens, 2 microbatches, xent chunk
+    512, remat off: (a) 3 fused steps, (b) 3 two-phase steps with fp32
+    moments in pinned host memory, (c) 2 two-phase steps with int8
+    moments, from the same parameters.  Hard checks: finite losses and
+    grad norms, step 1's loss ``==`` in (a) and (b), the parameters after
+    step 1 ``torch.equal``, every pool-tier tensor of (b) and (c) pinned
+    on the host, (b)'s peak device memory below (a)'s by at least the pool
+    tier less twice the largest parameter's share of it.  Then a
+    checkpoint round trip at a 2-layer cut of the same width and one
+    traced two-phase step."""
+    import shutil
+
+    from repro_torch.configs.base import LayerGroup
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import checkpoint as ckpt
+    from repro_torch.runtime import train as rt
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_FULL["arch"])
+    model = build_model(cfg, device=dev)
+    model.init_params(torch.Generator(device=dev).manual_seed(
+        TRAIN_FULL["seed"]))
+    params = rt.train_params(model)
+    init = {n: p.detach().to("cpu", copy=True) for n, p in params.items()}
+    n_params = sum(p.numel() for p in params.values())
+    ocfg = adamw.AdamWConfig(lr=TRAIN_FULL["lr"], warmup_steps=20,
+                             total_steps=TRAIN_FULL["steps_fused"])
+    icfg = dataclasses.replace(ocfg, moments_dtype="int8")
+    runs = {}
+    # (a) fused, the state on the card
+    m_a, opt_a, _, _, peak_a, snap_a = _train_run(
+        model, params, init, ocfg, False, TRAIN_FULL["steps_fused"], dev,
+        snapshot_after=1)
+    acct_a = _tier_account(opt_a)
+    del opt_a
+    torch.cuda.empty_cache()
+    # (b) two-phase, fp32 moments pinned beside the card
+    m_b, opt_b, step_b, data_b, peak_b, snap_b = _train_run(
+        model, params, init, ocfg, True, TRAIN_FULL["steps_two_phase"], dev,
+        snapshot_after=1)
+    acct_b = _tier_account(opt_b)
+    pinned_b = all(t.device.type == "cpu" and t.is_pinned()
+                   for t in _pool_tensors(opt_b))
+    largest = max(params.values(), key=lambda p: p.numel())
+    largest_pool = largest.numel() * 12          # fp32 master + m + v
+    # one more two-phase step under the tracer
+    from torch.profiler import ProfilerActivity, profile
+    batch = {"tokens": torch.from_numpy(next(data_b)["tokens"]).to(dev)}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_b(params, opt_b, batch)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    # the device's own events (kernels, copies, sets): an operator's
+    # self device time repeats its kernels'
+    from torch.autograd import DeviceType
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    ops = sorted(((k, n, us) for k, (n, us) in by_name.items()),
+                 key=lambda r: -r[2])
+    busy_s = sum(r[2] for r in ops) / 1e6
+    del opt_b, batch, prof
+    torch.cuda.empty_cache()
+    # (c) two-phase, int8 moments
+    m_c, opt_c, _, _, peak_c, _ = _train_run(
+        model, params, init, icfg, True, TRAIN_FULL["steps_int8"], dev)
+    acct_c = _tier_account(opt_c)
+    pinned_c = all(t.device.type == "cpu" and t.is_pinned()
+                   for t in _pool_tensors(opt_c))
+    del opt_c
+    torch.cuda.empty_cache()
+    for name, m in (("a_fused", m_a), ("b_two_phase", m_b),
+                    ("c_two_phase_int8", m_c)):
+        runs[name] = m
+    finite = all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+                 for m in runs.values() for r in m)
+    margin = acct_b.pool_bytes - 2 * largest_pool
+    checks = {
+        "losses_and_grad_norms_finite": finite,
+        "step1_loss_fused_eq_two_phase": m_a[0]["loss"] == m_b[0]["loss"],
+        "step1_params_fused_eq_two_phase": all(
+            torch.equal(snap_a[n], snap_b[n]) for n in params),
+        "pool_tier_pinned_b": pinned_b,
+        "pool_tier_pinned_c": pinned_c,
+        "peak_b_below_a_by_the_pool_tier": peak_a - peak_b >= margin,
+        "pool_bytes_moved_each_way": all(
+            r["opt_bytes_in"] == r["opt_bytes_out"] == acct.pool_bytes
+            for m, acct in ((m_b, acct_b), (m_c, acct_c)) for r in m),
+    }
+    del snap_a, snap_b
+    tokens = TRAIN_FULL["global_batch"] * TRAIN_FULL["seq_len"]
+    products, attn = _train_flops(cfg, tokens, TRAIN_FULL["seq_len"])
+    host_gbps = TRAIN_FULL["host_link_gbps"]
+
+    def steady(m, key):
+        vals = [r[key] for r in m[1:]] or [m[0][key]]
+        return statistics.mean(vals)
+
+    step_ms = {k: steady(m, "step_ms") for k, m in runs.items()}
+    opt_ms = {k: steady(runs[k], "opt_ms")
+              for k in ("b_two_phase", "c_two_phase_int8")}
+    # the checkpoint round trip at a 2-layer cut of the same width
+    cut = dataclasses.replace(cfg, num_layers=2, groups=(
+        LayerGroup(2, cfg.groups[0].blocks),))
+    small = build_model(cut, device=dev)
+    small.init_params(torch.Generator(device=dev).manual_seed(1))
+    sp = rt.train_params(small)
+    sopt = adamw.init_state(sp, icfg)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "train_full_ckpt")
+    shutil.rmtree(path, ignore_errors=True)
+    t0 = time.perf_counter()
+    ckpt.save(path, 1, (sp, sopt))
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = ckpt.restore(path, 1, (sp, sopt))
+    restore_s = time.perf_counter() - t0
+    checks["checkpoint_round_trip_equal"] = all(
+        a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+        for a, b in zip(ckpt._leaves((sp, sopt)), ckpt._leaves(back)))
+    ckpt.corrupt_leaf(path, 1, 0)
+    try:
+        ckpt.restore(path, 1, (sp, sopt))
+        checks["checkpoint_corruption_raises"] = False
+    except IOError:
+        checks["checkpoint_corruption_raises"] = True
+    ckpt_bytes = sum(os.path.getsize(os.path.join(path, "step_00000001", f))
+                     for f in os.listdir(os.path.join(path,
+                                                      "step_00000001")))
+    shutil.rmtree(path, ignore_errors=True)
+    del small, sp, sopt, back
+    torch.cuda.empty_cache()
+    emit("train_full", ok=all(checks.values()), checks=checks,
+         config=dict(TRAIN_FULL, layers=cfg.num_layers,
+                     d_model=cfg.d_model, heads=[cfg.num_heads,
+                                                 cfg.num_kv_heads],
+                     head_dim=cfg.head_dim, d_ff=cfg.d_ff,
+                     vocab=cfg.vocab_size, params=n_params),
+         steps=runs,
+         ms_a_step=step_ms,
+         tokens_per_s={k: tokens / (v / 1e3) for k, v in step_ms.items()},
+         opt_step_ms=opt_ms,
+         opt_bytes_each_way={"b": acct_b.pool_bytes, "c": acct_c.pool_bytes},
+         opt_gb_per_s_each_way={
+             "b": acct_b.pool_bytes / (opt_ms["b_two_phase"] / 1e3) / 1e9,
+             "c": acct_c.pool_bytes / (opt_ms["c_two_phase_int8"] / 1e3)
+             / 1e9},
+         peak_device_bytes={"a": peak_a, "b": peak_b, "c": peak_c},
+         peak_difference_a_minus_b=peak_a - peak_b,
+         peak_margin_required=margin,
+         tier_account={k: dict(local=a.local_bytes, pool=a.pool_bytes,
+                               pool_fraction=a.pool_fraction)
+                       for k, a in (("a", acct_a), ("b", acct_b),
+                                    ("c", acct_c))},
+         floors=dict(
+             step_flops_products=products, step_flops_attention=attn,
+             step_ms_at_989_tflops_bf16=(products + attn) / 989e12 * 1e3,
+             opt_ms_b_at_host_link=acct_b.pool_bytes
+             / (host_gbps * 1e9) * 1e3,
+             host_link_gb_per_s_assumed=host_gbps),
+         traced_step=dict(wall_s=traced_s, device_busy_s=busy_s,
+                          idle_share_of_untraced_step=1 - busy_s / (
+                              step_ms["b_two_phase"] / 1e3),
+                          idle_share_of_traced_wall=1 - busy_s / traced_s,
+                          top5=[dict(name=k[:60], count=c, seconds=us / 1e6)
+                                for k, c, us in ops[:5]]),
+         checkpoint=dict(cut_layers=2, bytes=ckpt_bytes, save_s=save_s,
+                         restore_s=restore_s),
+         phase_s=time.perf_counter() - t_phase)
+    del model, params, init
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise SystemExit("train_full failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script runs on "
@@ -5352,6 +5880,12 @@ def main() -> int:
     phase_ingest_parity_small(dev)
     by_path["ingest_full"] = phase_ingest_full(dev)
     by_path["obs_full"] = phase_obs_full(dev)
+    torch.cuda.empty_cache()
+    by_path["devices_full"], pod_by_path["devices_full"] = \
+        phase_devices_full(dev)
+    torch.cuda.empty_cache()
+    phase_train_parity_small(dev)
+    phase_train_full(dev)
     sweep["launches"] = sum(by_path.values())
     sweep["launches_by_path"] = by_path
     pod["launches"] = sum(pod_by_path.values())

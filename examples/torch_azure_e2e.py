@@ -25,8 +25,11 @@ The stages of ``benchmarks/azure_e2e.py``, timed end to end:
    trace seeds in one launch of K1's trace axis a shard, against looping
    the stream a seed at the same shard budget (bit for bit, and timed).
 
-The reference's fifth stage, the batch split across devices
-(``devices=``), waits for the port's device meshes (ROADMAP M13).
+5. **The device split**: the same K-seed stream batch with
+   ``reject_rates(devices="all")``: its trace rows split over every
+   visible card, each card streaming its rows with their own state,
+   ``==`` the one-card sweep and timed beside it.  On one card ``"all"``
+   resolves to the single-device path, and the stage says so.
 
 Without ``--trace-file`` a stand-in dump in the fetch script's schema
 (``scripts/fetch_azure_trace.py``: integral cores and GB, arrival-sorted
@@ -45,7 +48,7 @@ import time
 
 import numpy as np
 
-from repro_torch.core import cluster_sim, replay_engine, traces
+from repro_torch.core import cluster_sim, replay_engine, sweep_core, traces
 from repro_torch.device import resolve_device
 
 BENCH_K = 8          # seed count of the stream-batch stage
@@ -194,6 +197,45 @@ def stream_batch_bench(vms_list, cfg, budget: int = BUDGET,
     }
 
 
+def device_shard_bench(vms_list, cfg, budget: int = BUDGET,
+                       static_pool_frac: float = 0.30, n_cand: int = 2,
+                       device=None) -> dict:
+    """The K-seed stream batch split over every visible device
+    (``devices="all"``) against the same sweep on one device: ``==`` the
+    one-device rates, both timed (best of 5, host clock around the sweep
+    and its read-back).  Where ``"all"`` resolves to one device (one card,
+    or a CPU batch) the split is the single-device path: both are still
+    run and compared, and ``n_devices`` is 1."""
+    streams = [replay_engine.CompiledReplayStream(
+        v, cluster_sim.policy_decisions(
+            v, "static", static_pool_frac=static_pool_frac)[0],
+        cfg, max_events_per_shard=budget, device=device) for v in vms_list]
+    batch = replay_engine.CompiledReplayStreamBatch(streams)
+    devs = sweep_core.resolve_devices("all", batch.device)
+    probe_s = np.linspace(150.0, 700.0, n_cand)
+    probe_p = np.linspace(0.0, 2000.0, n_cand)
+    kw = dict(skip_windows=False)       # time the full scan, not skips
+    r_one = batch.reject_rates(probe_s, probe_p, **kw)     # warm both
+    r_dev = batch.reject_rates(probe_s, probe_p, devices="all", **kw)
+    t_one, t_dev = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        batch.reject_rates(probe_s, probe_p, **kw)
+        t_one.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        batch.reject_rates(probe_s, probe_p, devices="all", **kw)
+        t_dev.append(time.perf_counter() - t0)
+    return {
+        "n_devices": 1 if devs is None else len(devs),
+        "k": batch.k,
+        "n_shards": int(batch.n_shards),
+        "single_ms": min(t_one) * 1e3,
+        "device_ms": min(t_dev) * 1e3,
+        "speedup_vs_single": min(t_one) / min(t_dev),
+        "bit_exact": r_dev.tolist() == r_one.tolist(),
+    }
+
+
 def claim(name, ok, detail):
     print(f"  [{'PASS' if ok else 'FAIL'}] {name}: {detail}")
     return bool(ok)
@@ -260,9 +302,16 @@ def run(full: bool = False, trace_file: str | None = None,
           f"{sb['n_shards']} shards at the same "
           f"{sb['max_events_per_shard']}-event budget "
           f"({sb['events_per_sec']:.0f} candidate-events/s)")
-    print("  device-split stream batch (devices=): not ported yet "
-          "(ROADMAP M13)")
-    res = {"trace": label, "e2e": e2e, "stream_batch": sb}
+    ds = device_shard_bench(vms_list, cfg16, device=device)
+    where = (f"split over {ds['n_devices']} devices" if ds["n_devices"] > 1
+             else 'devices="all" resolved to the single-device path '
+                  "(one device visible)")
+    print(f"  device split K={ds['k']} ({where}): {ds['device_ms']:.2f} ms "
+          f"vs one device {ds['single_ms']:.2f} ms -> "
+          f"{ds['speedup_vs_single']:.2f}x over {ds['n_shards']} shards, "
+          f"{'==' if ds['bit_exact'] else '!='} the one-device rates")
+    res = {"trace": label, "e2e": e2e, "stream_batch": sb,
+           "device_shard": ds}
     res["claims"] = [
         claim("chunked e2e replay stays within the shard budget",
               e2e["peak_shard_bytes"] <= 6 * 4 * e2e["max_events_per_shard"],
@@ -272,7 +321,9 @@ def run(full: bool = False, trace_file: str | None = None,
               sb["bit_exact"] and sb["n_shards"] > 1,
               f"{sb['k']} seeds x {sb['n_shards']} shards"),
         claim("K-seed batched streaming >=2x vs stream loop",
-              sb["speedup"] >= 2.0, f"{sb['speedup']:.2f}x")]
+              sb["speedup"] >= 2.0, f"{sb['speedup']:.2f}x"),
+        claim("device-split stream batch bit-exact vs one device",
+              ds["bit_exact"], f"{ds['n_devices']} device(s)")]
     return res
 
 

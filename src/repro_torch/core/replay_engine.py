@@ -66,10 +66,19 @@ padding; the launcher caches count their hits and misses, the host-to-card
 copies their bytes.  With tracing off none of it synchronises or
 allocates.
 
-Not ported yet (ROADMAP): ``devices=`` (M13).
+``devices=`` (every engine's ``reject_rates`` and ``reject_rates_fleet``,
+the reference's semantics, :func:`sweep_core.resolve_devices`): below two
+devices it is the single-device path; otherwise the candidate lanes (or,
+for a batch with at least as many traces as devices, the trace rows) are
+split over the devices, one launch a device, and gathered in order —
+``==`` the single-device result, since lanes and traces replay
+independently.  A stream's pieces each carry their own state from shard
+to shard and take turns a shard at a time (:func:`_run_pieces`), so the
+devices sweep side by side.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import os
@@ -394,7 +403,7 @@ class CompiledReplay:
         self.n_events = len(self._ev_kind)
         self._trajs: dict[float | None, _Trajectory] = {}
         self._slot_map = None
-        self._dev_ev = None
+        self._dev_ev = {}             # device -> uploaded events
         self._dev_ev_fail = None
         self._fleet_ev_np = None
         self._np_pay = None
@@ -448,21 +457,22 @@ class CompiledReplay:
         x[fail] = np.floor(self.ev_time[fail] / 60.0)
         return x, self._ev_dom.astype(np.int32)
 
-    def _device_events(self):
+    def _device_events(self, device=None):
         """``(events, group_of, n_slots)``: :meth:`_host_events` and
-        ``group_of`` on the engine's device, uploaded once and cached.
-        Nothing is padded: K1 takes the true event, server, group and slot
-        counts."""
-        if self._dev_ev is not None:
-            return self._dev_ev
+        ``group_of`` on the engine's device (or on ``device``, a piece of a
+        split launch), uploaded once a device and cached.  Nothing is
+        padded: K1 takes the true event, server, group and slot counts."""
+        device = self.device if device is None else device
+        if device in self._dev_ev:
+            return self._dev_ev[device]
         t0 = time.perf_counter()
         host, n_slots = self._host_events()
-        evs = tuple(sweep_core.device_put(a, self.device) for a in host)
+        evs = tuple(sweep_core.device_put(a, device) for a in host)
         group = sweep_core.device_put(self.group_of.astype(np.int32),
-                                      self.device)
-        self._dev_ev = (evs, group, n_slots)
+                                      device)
+        self._dev_ev[device] = (evs, group, n_slots)
         _TIMES.compile_s += time.perf_counter() - t0
-        return self._dev_ev
+        return self._dev_ev[device]
 
     def _device_events_fail(self):
         """``(events, group_of, n_slots)`` for the failure sweep: the six
@@ -487,29 +497,31 @@ class CompiledReplay:
             self.cores_per_server, self.n_servers, sgb_i, pgb_i,
             self._pay_mem_max, self._pay_pool_max, self._mig_pool_sum)
 
-    def _reject_rates_device(self, server_gb, pool_gb,
-                             state_dtype: str | None = None) -> np.ndarray:
-        """One K1 launch over the whole batch, every candidate a lane.
+    def _rejects_device(self, server_gb, pool_gb,
+                        state_dtype: str | None = None, device=None):
+        """One K1 launch over the whole batch, every candidate a lane, on
+        the engine's device (or on ``device``, a piece of a split launch);
+        returns the reject counters there, without a sync.
 
         The state packs to int16 when the capacities permit and falls back
         to int32 otherwise; ``state_dtype`` forces one packing (testing
         hook)."""
-        evs, group_of, n_slots = self._device_events()
+        evs, group_of, n_slots = self._device_events(device)
+        dev = self.device if device is None else device
         n0 = len(server_gb)
         sgb_i, pgb_i = sweep_core.quantize_capacities(server_gb, pool_gb)
         dt_name = state_dtype or self._pick_state_dtype(sgb_i, pgb_i)
         np_dt = sweep_core.state_np_dtype(dt_name)
-        sweep = sweep_core.get_sweep(dt_name)
+        sweep = sweep_core.get_sweep(dt_name, device=device)
         state = sweep_core.init_state(
             n0, self.n_servers, self.cores_per_server, self.n_servers,
             self.n_groups, n_slots, np_dt)[:4]
-        fc, um, up, slots = (sweep_core.device_put(a, self.device)
-                             for a in state)
-        sgb, pgb = (sweep_core.device_put(a.astype(np_dt), self.device)
+        fc, um, up, slots = (sweep_core.device_put(a, dev) for a in state)
+        sgb, pgb = (sweep_core.device_put(a.astype(np_dt), dev)
                     for a in (sgb_i, pgb_i))
         rejects = sweep(evs, group_of, fc, um, up, slots, sgb, pgb)
         _TIMES.sweeps.append((n0, dt_name))
-        return rejects.cpu().numpy().astype(np.int64) / max(self.n_vms, 1)
+        return rejects
 
     # --------------------------------------------- reference trajectories --
     def _trajectory(self, server_gb: float | None) -> _Trajectory:
@@ -643,7 +655,8 @@ class CompiledReplay:
     def reject_rates(self, server_gb, pool_gb,
                      reject_cap: int | None = None,
                      backend: str = "auto",
-                     state_dtype: str | None = None) -> np.ndarray:
+                     state_dtype: str | None = None,
+                     devices=None) -> np.ndarray:
         """Reject fraction for each (server_gb, pool_gb) candidate.
 
         Accepts scalars or broadcastable 1-D arrays; one event sweep prices
@@ -660,6 +673,10 @@ class CompiledReplay:
         and reports the lower bound ``(reject_cap + 1) / n_vms``, valid
         for feasibility tests against a tolerance below it.  ``"auto"``
         takes ``"torch"`` if and only if the decisions are integral.
+        ``devices`` (``"all"``, a count or a device list,
+        :func:`sweep_core.resolve_devices`) splits the torch backend's
+        candidate lanes over the devices, one launch each, ``==`` the
+        single launch; the numpy backend ignores it.
 
         Usage (price a 9-point frontier in one sweep)::
 
@@ -677,10 +694,15 @@ class CompiledReplay:
         if _choose_backend(backend, self._exact) == "numpy":
             return self._reject_rates_numpy(server_gb, pool_gb, reject_cap,
                                             t0)
-        self._device_events()       # compile + upload: its own stage
+        plan = _lanes(devices, self.device, n0)
+        for dev, _, _ in plan:
+            self._device_events(dev)    # compile + upload: its own stage
         t0 = time.perf_counter()
-        rates = self._reject_rates_device(server_gb, pool_gb,
-                                          state_dtype=state_dtype)
+        dt_name = state_dtype or self._pick_state_dtype(
+            *sweep_core.quantize_capacities(server_gb, pool_gb))
+        rates = _gather([self._rejects_device(server_gb[lo:hi],
+                                              pool_gb[lo:hi], dt_name, dev)
+                         for dev, lo, hi in plan]) / max(self.n_vms, 1)
         _STATS.sweeps += 1
         _STATS.events += self.n_events
         _STATS.candidate_events += self.n_events * n0
@@ -1086,7 +1108,8 @@ class CompiledReplay:
     @obs.traced("replay.fleet")
     def reject_rates_fleet(self, server_gb, pod_gb, topology,
                            backend: str = "auto",
-                           state_dtype: str | None = None) -> np.ndarray:
+                           state_dtype: str | None = None,
+                           devices=None) -> np.ndarray:
         """Reject fraction per ``(server_gb, pod capacities, topology)``
         fleet candidate — the multi-pod analog of :meth:`reject_rates`.
 
@@ -1102,7 +1125,8 @@ class CompiledReplay:
         oracle ``cluster_sim.replay_multi_pool`` (the torch path on
         integral-GB traces, the numpy path unconditionally).
         ``state_dtype`` ("int16"/"int32") forces the torch path's packing
-        (testing hook).
+        (testing hook).  ``devices`` splits the torch path's lanes over
+        the devices as :meth:`reject_rates` does.
 
         Usage (price a topology frontier at equal hardware)::
 
@@ -1119,10 +1143,17 @@ class CompiledReplay:
             return np.zeros(n0)
         backend = _choose_backend(backend, self._exact)
         if backend == "torch":
-            self._device_events()   # compile + upload: its own stage
+            plan = _lanes(devices, self.device, n0)
+            for dev, _, _ in plan:
+                self._device_events(dev)   # compile + upload: a stage
         t0 = time.perf_counter()
         if backend == "torch":
-            rates = self._fleet_rates_device(sgb, caps, topos, state_dtype)
+            p_max = _fleet_incidence(topos, self.n_servers)[1]
+            dt_name = state_dtype or self._pick_pod_state_dtype(
+                *_fleet_capacities(sgb, caps), p_max)
+            rates = _gather([self._fleet_rejects_device(
+                sgb[lo:hi], caps[lo:hi], topos[lo:hi], dt_name, dev, p_max)
+                for dev, lo, hi in plan]) / max(self.n_vms, 1)
         else:
             ev = self._fleet_events_np()
             state = _np_fleet_state(n0, self.n_servers,
@@ -1144,13 +1175,20 @@ class CompiledReplay:
             self._pay_mem_max, self._pay_pool_max, self._mig_pool_sum,
             n_pods)
 
-    def _fleet_rates_device(self, sgb, caps, topos,
-                            state_dtype: str | None = None) -> np.ndarray:
+    def _fleet_rejects_device(self, sgb, caps, topos,
+                              state_dtype: str | None = None, device=None,
+                              p_max: int | None = None):
         """One K4 launch over the whole fleet grid, every candidate a
-        lane (the reference's 96-lane chunks do not carry over)."""
-        evs, _group_of, n_slots = self._device_events()
+        lane (the reference's 96-lane chunks do not carry over), on the
+        engine's device or on ``device``; returns the reject counters
+        there, without a sync.  A piece of a split launch passes the whole
+        grid's ``p_max`` (and its capacity columns), so that every piece
+        has the single launch's extents."""
+        evs, _group_of, n_slots = self._device_events(device)
+        dev = self.device if device is None else device
         n0 = len(sgb)
-        inc, p_max = _fleet_incidence(topos, self.n_servers)
+        inc, p_own = _fleet_incidence(topos, self.n_servers)
+        p_max = p_own if p_max is None else p_max
         sgb_i, caps_i = _fleet_capacities(sgb, caps)
         dt_name = state_dtype or self._pick_pod_state_dtype(sgb_i, caps_i,
                                                             p_max)
@@ -1158,15 +1196,15 @@ class CompiledReplay:
         state = sweep_core.init_pod_state(
             n0, self.n_servers, self.cores_per_server, self.n_servers,
             p_max, max(n_slots, 1), np_dt)[:5]
-        fc, um, up, slots, pods = (sweep_core.device_put(a, self.device)
+        fc, um, up, slots, pods = (sweep_core.device_put(a, dev)
                                    for a in state)
-        sgb_t, pgb_t = (sweep_core.device_put(a.astype(np_dt), self.device)
+        sgb_t, pgb_t = (sweep_core.device_put(a.astype(np_dt), dev)
                         for a in (sgb_i, caps_i))
-        sweep = sweep_core.get_pod_sweep(dt_name)
-        rejects = sweep(evs, sweep_core.device_put(inc, self.device), fc, um,
+        sweep = sweep_core.get_pod_sweep(dt_name, device=device)
+        rejects = sweep(evs, sweep_core.device_put(inc, dev), fc, um,
                         up, slots, pods, sgb_t, pgb_t)
         _TIMES.sweeps.append((n0, dt_name))
-        return rejects.cpu().numpy().astype(np.int64) / max(self.n_vms, 1)
+        return rejects
 
 
 # ----------------------------------------------------------- fleet sweeps --
@@ -1625,6 +1663,10 @@ class _ShardFeed:
             self.dev = [torch.empty((6, rows), dtype=torch.int32,
                                     device=device) for _ in range(2)]
             self.side = torch.cuda.Stream(device)
+            # the device buffers may be blocks that launches queued before
+            # this feed still read (an earlier feed's, freed without a
+            # sync: a split sweep's pieces): the copies wait for them
+            self.side.wait_stream(torch.cuda.current_stream(device))
             self.copied = [None, None]    # the copy into buffer b
             self.read = [None, None]      # the launch that read buffer b
             self.started = [None, None]   # the copy's start (timed)
@@ -1691,17 +1733,19 @@ def _pack_rows(buf, at: int, shard: dict, n: int) -> int:
 
 
 def _stream_shards(feed, shard_from: int, n_shards: int, launch, rejects,
-                   reject_cap, after=None, span: str = "stream.shard") -> int:
+                   reject_cap, after=None, span: str = "stream.shard"):
     """The device sweeps' shard loop: stage the first shard, then for each
     shard launch it, stage the next (its copy overlaps the launch), run
     ``after(si)`` (invariants, checkpoints) and, with ``reject_cap``, read
     the reject counters (the loop's only sync) and stop once every lane
-    exceeds the cap.  Returns the shards swept.  A feed made while tracing
-    is on is ``timed``: :func:`_traced_shards` runs the loop instead, each
-    shard in a ``span`` span."""
+    exceeds the cap.  A generator: it yields after each shard, so that
+    :func:`_run_pieces` can take a split sweep's pieces in turn, and
+    returns the shards swept.  A feed made while tracing is on is
+    ``timed``: :func:`_traced_shards` runs the loop instead, each shard in
+    a ``span`` span."""
     if feed.timed:
-        return _traced_shards(feed, shard_from, n_shards, launch, rejects,
-                              reject_cap, after, span)
+        return (yield from _traced_shards(feed, shard_from, n_shards, launch,
+                                          rejects, reject_cap, after, span))
     swept = 0
     try:
         if shard_from < n_shards:
@@ -1718,13 +1762,43 @@ def _stream_shards(feed, shard_from: int, n_shards: int, launch, rejects,
             if reject_cap is not None and bool(
                     (rejects > reject_cap).all()):
                 break                    # every lane decided
+            yield
     finally:
         feed.close()
     return swept
 
 
+def _run_pieces(pieces) -> list:
+    """Runs the shard loops of a stream sweep's pieces, ``[(device,
+    loop), ...]`` (generators over :func:`_stream_shards`), a shard at a
+    time in turn, each step with its device current (:func:`_on`).  A
+    step queues the piece's launch of shard i and stages shard i + 1,
+    where the host waits only for that piece's copy of shard i - 1; so,
+    without ``reject_cap``, a checkpoint or the invariant guard (which
+    read the state), no piece waits for another's launches and the
+    devices of a split stream sweep run side by side.  Returns each
+    loop's result, in order.  A sweep of one piece runs its loop
+    through."""
+    out = [None] * len(pieces)
+    live = dict(enumerate(pieces))
+    try:
+        while live:
+            for j, (dev, loop) in list(live.items()):
+                with _on(dev):
+                    try:
+                        next(loop)
+                    except StopIteration as stop:
+                        out[j] = stop.value
+                        del live[j]
+    finally:
+        for dev, loop in live.values():  # another piece raised
+            with _on(dev):
+                loop.close()
+    return out
+
+
 def _traced_shards(feed, shard_from: int, n_shards: int, launch, rejects,
-                   reject_cap, after, span: str) -> int:
+                   reject_cap, after, span: str):
     """:func:`_stream_shards` under a live recorder: the same shards in the
     same order, each in a ``span`` span, with ``stream.upload``,
     ``stream.upload_wait`` and ``stream.compute`` spans a shard, timed as
@@ -1803,6 +1877,7 @@ def _traced_shards(feed, shard_from: int, n_shards: int, launch, rejects,
                     (rejects > reject_cap).all()):
                 rec.count("stream.reject_cap_exits")
                 break                    # every lane decided
+            yield
     finally:
         while pending:                   # an exception out of after()
             resolve(*pending.pop(0))
@@ -1932,6 +2007,40 @@ def _carry_from_snap(snap, width, n_servers, n_groups, n_slots, np_dt):
     slots0[:len(slots_r), :] = slots_r[:, None]
     rej0 = np.full(width, rej, np.int32)
     return fc0, um0, up0, slots0, rej0
+
+
+def _gather(rejects, axis: int = -1) -> np.ndarray:
+    """The reject counters of one launch, or of a split launch's pieces in
+    order, as one int64 host array.  Every piece is queued before the
+    first is read, so the devices of a split launch run side by side."""
+    return np.concatenate([r.cpu().numpy().astype(np.int64)
+                           for r in rejects], axis=axis)
+
+
+def _on(device: torch.device):
+    """``device`` made current for a piece's shard loop (its launches, its
+    feed's side stream and events), a no-op on the CPU."""
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
+
+
+def _lanes(devices, device, width: int) -> list:
+    """The pieces of a lane split, ``[(device, lo, hi), ...]``
+    (:func:`sweep_core.lane_plan`), or the single-device path's one
+    piece, ``[(None, 0, width)]``: None keeps the engine's own device and
+    the launchers' single-device keys."""
+    return sweep_core.lane_plan(
+        width, sweep_core.resolve_devices(devices, device)) or \
+        [(None, 0, width)]
+
+
+def _piece_checkpoint(spec, j: int, n: int):
+    """Piece ``j`` of a split stream sweep of ``n`` pieces keeps its own
+    checkpoint file (``<path>.d<j>``): each piece carries its own state.
+    A sweep of one piece keeps ``spec``."""
+    if spec is None or n == 1:
+        return spec
+    return dataclasses.replace(spec, path=f"{spec.path}.d{j}")
 
 
 def _to_device(arrays, device):
@@ -2254,8 +2363,14 @@ class CompiledReplayStream:
         goes on from an interrupted sweep: resumed results are identical
         to an uninterrupted run, both backends.  Under
         ``POND_DEBUG_INVARIANTS=1`` the state is verified after every
-        shard (``sweep_core.check_invariants``).  ``devices`` (a device
-        mesh) is ROADMAP M13.
+        shard (``sweep_core.check_invariants``).  ``devices`` splits the
+        torch backend's candidate lanes over the devices
+        (:func:`sweep_core.lane_plan`), each piece streaming every shard
+        with its own state (and its own checkpoint file, ``<path>.d<j>``),
+        the pieces taking turns a shard at a time (:func:`_run_pieces`):
+        ``==`` the single-device sweep without ``reject_cap``; under a cap
+        each piece stops once its own lanes pass it (the same feasibility
+        contract).
 
         Usage::
 
@@ -2264,9 +2379,6 @@ class CompiledReplayStream:
             rates = stream.reject_rates(
                 np.linspace(200., 400., 9), np.linspace(0., 800., 9))
         """
-        if devices is not None:
-            raise NotImplementedError("device meshes come with devices= "
-                                      "(ROADMAP M13)")
         t0 = time.perf_counter()
         server_gb = np.atleast_1d(np.asarray(server_gb, float))
         pool_gb = np.atleast_1d(np.asarray(pool_gb, float))
@@ -2275,10 +2387,17 @@ class CompiledReplayStream:
         if not self.n_events:
             return np.zeros(n0)
         if _choose_backend(backend, self._exact) == "torch":
-            rej, cand_events = self._sweep_device(
-                server_gb, pool_gb, reject_cap, state_dtype, checkpoint,
-                skip_windows)
-            rejects = rej.cpu().numpy().astype(np.int64)
+            plan = _lanes(devices, self.device, n0)
+            dt_name = state_dtype or self._pick_state_dtype(
+                *sweep_core.quantize_capacities(server_gb, pool_gb))
+            pieces = _run_pieces([
+                (self._on_device(dev), self._sweep_steps(
+                    server_gb[lo:hi], pool_gb[lo:hi], reject_cap, dt_name,
+                    _piece_checkpoint(checkpoint, j, len(plan)),
+                    skip_windows, dev))
+                for j, (dev, lo, hi) in enumerate(plan)])
+            rejects = _gather([rej for rej, _ in pieces])
+            cand_events = sum(n for _, n in pieces)
         else:
             rejects, cand_events = self._sweep_numpy(
                 server_gb, pool_gb, reject_cap, checkpoint)
@@ -2312,18 +2431,32 @@ class CompiledReplayStream:
         _pack_rows(buf, 0, self._shards[si], n)
         return n, None
 
-    def _feed(self) -> _ShardFeed:
+    def _feed(self, device: torch.device | None = None) -> _ShardFeed:
         return _ShardFeed(self._pack, sweep_core.pad_up(
-            max(self._shard_events, default=0), 4), self.device)
+            max(self._shard_events, default=0), 4), device or self.device)
 
     def _sweep_device(self, server_gb, pool_gb, reject_cap, state_dtype,
-                      ckpt=None, skip_windows=True):
+                      ckpt=None, skip_windows=True, device=None):
         """K1 a shard over the whole candidate batch, the state on the
-        device from the first shard to the last.  Returns ``(the reject
-        counters on the device, candidate events)`` without a sync of its
-        own (unless ``reject_cap``, a checkpoint or the invariant guard
-        reads the state); the candidate events count the true lanes of each
-        swept shard (the reference counts its padded bucket)."""
+        engine's device (or on ``device``, a piece of a split sweep) from
+        the first shard to the last.  Returns ``(the reject counters on
+        the device, candidate events)`` without a sync of its own (unless
+        ``reject_cap``, a checkpoint or the invariant guard reads the
+        state); the candidate events count the true lanes of each swept
+        shard (the reference counts its padded bucket)."""
+        return _run_pieces([(self._on_device(device), self._sweep_steps(
+            server_gb, pool_gb, reject_cap, state_dtype, ckpt, skip_windows,
+            device))])[0]
+
+    def _on_device(self, device):
+        """The device a piece runs on: ``device``, or the stream's own."""
+        return self.device if device is None else device
+
+    def _sweep_steps(self, server_gb, pool_gb, reject_cap, state_dtype,
+                     ckpt, skip_windows, device):
+        """:meth:`_sweep_device`'s shard loop, a generator for
+        :func:`_run_pieces`."""
+        dev = self._on_device(device)
         n0 = len(server_gb)
         sgb_i, pgb_i = sweep_core.quantize_capacities(server_gb, pool_gb)
         dt_name = state_dtype or self._pick_state_dtype(sgb_i, pgb_i)
@@ -2350,12 +2483,12 @@ class CompiledReplayStream:
             carry0 = sweep_core.init_state(
                 n0, self.n_servers, self.cores_per_server, self.n_servers,
                 self.n_groups, self._n_slots, np_dt)
-        fc, um, up, slots, rej = _to_device(carry0, self.device)
+        fc, um, up, slots, rej = _to_device(carry0, dev)
         sgb, pgb = _to_device((sgb_i.astype(np_dt), pgb_i.astype(np_dt)),
-                              self.device)
-        group = _to_device((self.group_of.astype(np.int32),),
-                           self.device)[0]
-        sweep = sweep_core.get_sweep(dt_name, with_carry=True)
+                              dev)
+        group = _to_device((self.group_of.astype(np.int32),), dev)[0]
+        sweep = sweep_core.get_sweep(dt_name, with_carry=True,
+                                     device=device)
         debug = sweep_core.invariants_enabled()
         if debug:
             self._debug_check_events()
@@ -2369,8 +2502,8 @@ class CompiledReplayStream:
                     **{f"carry{j}": t.cpu().numpy() for j, t in
                        enumerate((fc, um, up, slots, rej))}})
 
-        swept = _stream_shards(
-            self._feed(), shard_from, self.n_shards,
+        swept = yield from _stream_shards(
+            self._feed(dev), shard_from, self.n_shards,
             lambda evs, _: sweep(evs, group, fc, um, up, slots, rej, sgb,
                                  pgb), rej, reject_cap, after)
         _TIMES.sweeps.append((n0, dt_name))
@@ -2435,7 +2568,8 @@ class CompiledReplayStream:
     def reject_rates_fleet(self, server_gb, pod_gb, topology,
                            reject_cap: int | None = None,
                            backend: str = "auto",
-                           state_dtype: str | None = None) -> np.ndarray:
+                           state_dtype: str | None = None,
+                           devices=None) -> np.ndarray:
         """Fleet reject rates, streamed shard by shard.
 
         Same candidate contract as :meth:`CompiledReplay.reject_rates_fleet`;
@@ -2446,7 +2580,8 @@ class CompiledReplayStream:
         ``backend="numpy"`` (``"auto"`` for non-integral decisions) carries
         the float64 host state instead.  With ``reject_cap`` set the stream
         stops early once EVERY lane exceeds the cap (exact counts so far —
-        the usual feasibility-test lower bound).
+        the usual feasibility-test lower bound).  ``devices`` splits the
+        torch backend's lanes as :meth:`reject_rates` does.
         """
         t0 = time.perf_counter()
         sgb, caps, topos = _fleet_candidates(server_gb, pod_gb, topology)
@@ -2458,9 +2593,16 @@ class CompiledReplayStream:
         if not self.n_events:
             return np.zeros(n0)
         if _choose_backend(backend, self._exact) == "torch":
-            rej, cand_events = self._fleet_sweep_device(
-                sgb, caps, topos, reject_cap, state_dtype)
-            rejects = rej.cpu().numpy().astype(np.int64)
+            p_max = _fleet_incidence(topos, self.n_servers)[1]
+            dt_name = state_dtype or self._pick_pod_state_dtype(
+                *_fleet_capacities(sgb, caps), p_max)
+            pieces = _run_pieces([
+                (self._on_device(dev), self._fleet_sweep_steps(
+                    sgb[lo:hi], caps[lo:hi], topos[lo:hi], reject_cap,
+                    dt_name, dev, p_max))
+                for dev, lo, hi in _lanes(devices, self.device, n0)])
+            rejects = _gather([rej for rej, _ in pieces])
+            cand_events = sum(n for _, n in pieces)
         else:
             rejects, cand_events = self._fleet_sweep_numpy(
                 sgb, caps, topos, reject_cap)
@@ -2472,12 +2614,22 @@ class CompiledReplayStream:
         return rejects / max(self.n_vms, 1)
 
     def _fleet_sweep_device(self, sgb, caps, topos, reject_cap,
-                            state_dtype):
+                            state_dtype, device=None, p_max=None):
         """K4 a shard over the whole fleet grid; returns ``(the reject
         counters on the device, candidate events)`` as
-        :meth:`_sweep_device` does."""
+        :meth:`_sweep_device` does (a piece of a split sweep passes its
+        ``device`` and the whole grid's ``p_max``)."""
+        return _run_pieces([(self._on_device(device), self._fleet_sweep_steps(
+            sgb, caps, topos, reject_cap, state_dtype, device, p_max))])[0]
+
+    def _fleet_sweep_steps(self, sgb, caps, topos, reject_cap, state_dtype,
+                           device, p_max):
+        """:meth:`_fleet_sweep_device`'s shard loop, a generator for
+        :func:`_run_pieces`."""
+        dev = self._on_device(device)
         n0 = len(sgb)
-        inc, p_max = _fleet_incidence(topos, self.n_servers)
+        inc, p_own = _fleet_incidence(topos, self.n_servers)
+        p_max = p_own if p_max is None else p_max
         sgb_i, caps_i = _fleet_capacities(sgb, caps)
         dt_name = state_dtype or self._pick_pod_state_dtype(sgb_i, caps_i,
                                                             p_max)
@@ -2486,13 +2638,14 @@ class CompiledReplayStream:
             sweep_core.init_pod_state(n0, self.n_servers,
                                       self.cores_per_server, self.n_servers,
                                       p_max, self._n_slots, np_dt),
-            self.device)
+            dev)
         sgb_t, pgb_t, inc_t = _to_device(
-            (sgb_i.astype(np_dt), caps_i.astype(np_dt), inc), self.device)
-        widest = _widest(inc, p_max, self.device)
-        sweep = sweep_core.get_pod_sweep(dt_name, with_carry=True)
-        swept = _stream_shards(
-            self._feed(), 0, self.n_shards,
+            (sgb_i.astype(np_dt), caps_i.astype(np_dt), inc), dev)
+        widest = _widest(inc, p_max, dev)
+        sweep = sweep_core.get_pod_sweep(dt_name, with_carry=True,
+                                         device=device)
+        swept = yield from _stream_shards(
+            self._feed(dev), 0, self.n_shards,
             lambda evs, _: sweep(evs, inc_t, fc, um, up, slots, pods, rej,
                                  sgb_t, pgb_t, widest=widest),
             rej, reject_cap, span="stream.fleet.shard")
@@ -2610,38 +2763,105 @@ class CompiledReplayBatch:
         rates = batch.reject_rates([200., 300.], [100., 100.])  # (K, 2)
     """
 
-    def __init__(self, engines):
+    def __init__(self, engines, device=None):
+        """``device``: where the batch's sweeps run (default: its
+        engines'); a split launch's rows (``devices=``) are batches of
+        their own on their devices."""
         _validate_cluster_shape(engines, "CompiledReplayBatch")
         e0 = engines[0]
         self.engines = list(engines)
         self.k = len(engines)
-        self.device = e0.device
+        self.device = e0.device if device is None else device
         self.n_servers = e0.n_servers
         self.n_groups = e0.n_groups
         self.cores_per_server = e0.cores_per_server
         self.n_vms = np.array([e.n_vms for e in engines], np.int64)
         self.n_events = np.array([e.n_events for e in engines], np.int64)
         self._exact = all(e._exact for e in engines)
-        self._dev_ev = None
+        self._dev_ev = {}             # device -> uploaded events
         self._dev_ev_fail = None
+        self._rows = {}               # (lo, hi, device) -> row batch
 
-    def _device_events(self):
+    def _device_events(self, device=None):
         """``(events, group_of, n_slots, trace_events)``: every trace's
         slot-mapped event arrays one after another (PAD events fill the
         gaps up to each multiple of 4), ``group_of``, the largest trace's
-        slot count and the traces' event counts; uploaded once."""
-        if self._dev_ev is not None:
-            return self._dev_ev
+        slot count and the traces' event counts; uploaded once a device
+        (the batch's, or ``device``: a piece of a lane split)."""
+        device = self.device if device is None else device
+        if device in self._dev_ev:
+            return self._dev_ev[device]
         t0 = time.perf_counter()
         per = [e._host_events() for e in self.engines]
         cols, counts = pack_traces([host for host, _ in per])
-        cols = tuple(sweep_core.device_put(c.numpy(), self.device)
+        cols = tuple(sweep_core.device_put(c.numpy(), device)
                      for c in cols)
         group = sweep_core.device_put(
-            self.engines[0].group_of.astype(np.int32), self.device)
-        self._dev_ev = (cols, group, max(n for _, n in per), counts)
+            self.engines[0].group_of.astype(np.int32), device)
+        self._dev_ev[device] = (cols, group, max(n for _, n in per), counts)
         _TIMES.compile_s += time.perf_counter() - t0
-        return self._dev_ev
+        return self._dev_ev[device]
+
+    def _split(self, devices, n0: int):
+        """A launch's pieces: ``("rows", [(row batch, lo, hi), ...])`` when
+        ``devices`` resolves to at least two devices and no more than the
+        traces (each piece a batch of its own over traces ``lo:hi`` on its
+        device, built once), else ``("lanes", [(device, lo, hi), ...])``
+        (:func:`_lanes`: the single-device path is one piece)."""
+        devs = sweep_core.resolve_devices(devices, self.device)
+        if devs is not None and self.k >= len(devs):
+            return "rows", [(self._row_batch(lo, hi, dev), lo, hi)
+                            for dev, lo, hi in sweep_core.row_plan(self.k,
+                                                                   devs)]
+        return "lanes", _lanes(devs, self.device, n0)
+
+    def _upload(self, split) -> None:
+        """Every piece's events on its device (the compile-and-upload
+        stage, timed apart from the sweep)."""
+        for piece, _, _ in split[1]:
+            if split[0] == "rows":
+                piece._device_events()
+            else:
+                self._device_events(piece)
+
+    def _row_batch(self, lo: int, hi: int, device):
+        key = (lo, hi, device)
+        if key not in self._rows:
+            self._rows[key] = type(self)(self.engines[lo:hi],
+                                         device=device)
+        return self._rows[key]
+
+    def _rejects_device(self, server_gb, pool_gb, dt_name: str,
+                        device=None) -> list:
+        """K1's trace axis over every (trace, candidate) lane, one launch a
+        ``kernel.MAX_TRACES`` traces, on the batch's device (or on
+        ``device``, a piece of a split launch, which keys the launcher);
+        returns each launch's reject counters there as a ``(traces,
+        n_cand)`` tensor, without a sync."""
+        evs, group_of, n_slots, counts = self._device_events(device)
+        dev = self.device if device is None else device
+        n0 = server_gb.shape[1]
+        starts = trace_starts(counts)
+        sgb_i, pgb_i = sweep_core.quantize_capacities(server_gb, pool_gb)
+        np_dt = sweep_core.state_np_dtype(dt_name)
+        sweep = sweep_core.get_sweep(dt_name, batched=True, device=device)
+        out = []
+        for lo in range(0, self.k, K1.MAX_TRACES):
+            hi = min(self.k, lo + K1.MAX_TRACES)
+            width = (hi - lo) * n0
+            state = sweep_core.init_state(
+                width, self.n_servers, self.cores_per_server,
+                self.n_servers, self.n_groups, n_slots, np_dt)[:4]
+            fc, um, up, slots = (sweep_core.device_put(a, dev)
+                                 for a in state)
+            sgb, pgb = (sweep_core.device_put(
+                a[lo:hi].reshape(-1).astype(np_dt), dev)
+                for a in (sgb_i, pgb_i))
+            rej = sweep(tuple(e[starts[lo]:] for e in evs), group_of, fc,
+                        um, up, slots, sgb, pgb, counts[lo:hi])
+            out.append(rej.reshape(hi - lo, n0))
+            _TIMES.sweeps.append((width, dt_name))
+        return out
 
     def _pick_state_dtype(self, sgb_i: np.ndarray,
                           pgb_i: np.ndarray) -> str:
@@ -2665,12 +2885,11 @@ class CompiledReplayBatch:
         trace's decisions are integral, and otherwise asks each engine in
         turn (its own ``"auto"``: the numpy divergence-window sweep for a
         non-integral trace, which honours ``reject_cap``); ``"numpy"``
-        loops the engines' numpy sweep.  ``devices`` (a device mesh) is
-        ROADMAP M13.
+        loops the engines' numpy sweep.  ``devices`` splits the torch
+        backend's sweep (:meth:`_split`): the trace rows over the devices
+        when there are at least as many traces, else the candidate lanes;
+        ``==`` the single-device launch.
         """
-        if devices is not None:
-            raise NotImplementedError("device meshes come with devices= "
-                                      "(ROADMAP M13)")
         server_gb, pool_gb = _broadcast_candidates(self.k, server_gb,
                                                    pool_gb)
         n0 = server_gb.shape[1]
@@ -2685,30 +2904,22 @@ class CompiledReplayBatch:
                 for i, eng in enumerate(self.engines)])
         if not self.n_events.any():
             return np.zeros((self.k, n0))
-        # compile + upload (its own stage), then the sweep
-        evs, group_of, n_slots, counts = self._device_events()
+        split = self._split(devices, n0)
+        self._upload(split)         # compile + upload: its own stage
         t0 = time.perf_counter()
-        starts = trace_starts(counts)
-        sgb_i, pgb_i = sweep_core.quantize_capacities(server_gb, pool_gb)
-        dt_name = state_dtype or self._pick_state_dtype(sgb_i, pgb_i)
-        np_dt = sweep_core.state_np_dtype(dt_name)
-        sweep = sweep_core.get_sweep(dt_name, batched=True)
-        rejects = np.empty((self.k, n0), np.int64)
-        for lo in range(0, self.k, K1.MAX_TRACES):
-            hi = min(self.k, lo + K1.MAX_TRACES)
-            width = (hi - lo) * n0
-            state = sweep_core.init_state(
-                width, self.n_servers, self.cores_per_server,
-                self.n_servers, self.n_groups, n_slots, np_dt)[:4]
-            fc, um, up, slots = (sweep_core.device_put(a, self.device)
-                                 for a in state)
-            sgb, pgb = (sweep_core.device_put(
-                a[lo:hi].reshape(-1).astype(np_dt), self.device)
-                for a in (sgb_i, pgb_i))
-            out = sweep(tuple(e[starts[lo]:] for e in evs), group_of, fc,
-                        um, up, slots, sgb, pgb, counts[lo:hi])
-            rejects[lo:hi] = out.cpu().numpy().reshape(hi - lo, n0)
-            _TIMES.sweeps.append((width, dt_name))
+        dt_name = state_dtype or self._pick_state_dtype(
+            *sweep_core.quantize_capacities(server_gb, pool_gb))
+        if split[0] == "rows":
+            rejects = _gather([r for rows, lo, hi in split[1]
+                               for r in rows._rejects_device(
+                                   server_gb[lo:hi], pool_gb[lo:hi],
+                                   dt_name, rows.device)], axis=0)
+        else:
+            pieces = [self._rejects_device(server_gb[:, lo:hi],
+                                           pool_gb[:, lo:hi], dt_name, dev)
+                      for dev, lo, hi in split[1]]
+            rejects = np.concatenate([_gather(p, axis=0) for p in pieces],
+                                     axis=1)
         rates = rejects / np.maximum(self.n_vms, 1)[:, None]
         _STATS.sweeps += 1
         _STATS.events += int(self.n_events.max(initial=0))
@@ -2831,11 +3042,8 @@ class CompiledReplayBatch:
         engine in turn.  The state packs to int16 only when every trace
         allows it; ``state_dtype`` forces one packing (testing hook).  Row
         ``k`` equals ``engines[k].reject_rates_fleet(...)`` bit for bit.
-        ``devices`` (a device mesh) is ROADMAP M13.
+        ``devices`` splits the torch sweep as :meth:`reject_rates` does.
         """
-        if devices is not None:
-            raise NotImplementedError("device meshes come with devices= "
-                                      "(ROADMAP M13)")
         sgb, caps, topos = _fleet_candidates(server_gb, pod_gb, topology)
         if topos[0].n_servers != self.n_servers:
             raise ValueError(
@@ -2857,11 +3065,10 @@ class CompiledReplayBatch:
                 "prices non-integral ones")
         if not self.n_events.any():
             return np.zeros((self.k, n0))
-        # compile + upload (its own stage), then the sweep
-        evs, _group_of, n_slots, counts = self._device_events()
+        split = self._split(devices, n0)
+        self._upload(split)         # compile + upload: its own stage
         t0 = time.perf_counter()
-        starts = trace_starts(counts)
-        inc, p_max = _fleet_incidence(topos, self.n_servers)
+        p_max = _fleet_incidence(topos, self.n_servers)[1]
         sgb_i, caps_i = _fleet_capacities(sgb, caps)
         if state_dtype is not None:
             dt_name = state_dtype
@@ -2870,28 +3077,17 @@ class CompiledReplayBatch:
             dt_name = "int16"
         else:
             dt_name = "int32"
-        np_dt = sweep_core.state_np_dtype(dt_name)
-        sweep = sweep_core.get_pod_sweep(dt_name, batched=True)
-        rejects = np.empty((self.k, n0), np.int64)
-        for lo in range(0, self.k, K1.MAX_TRACES):
-            hi = min(self.k, lo + K1.MAX_TRACES)
-            width = (hi - lo) * n0
-            state = sweep_core.init_pod_state(
-                width, self.n_servers, self.cores_per_server,
-                self.n_servers, p_max, max(n_slots, 1), np_dt)[:5]
-            fc, um, up, slots, pods = (sweep_core.device_put(a, self.device)
-                                       for a in state)
-            # the shared grid, a copy a trace (trace-major lanes)
-            inc_t = sweep_core.device_put(np.tile(inc, (hi - lo, 1, 1)),
-                                          self.device)
-            sgb_t = sweep_core.device_put(
-                np.tile(sgb_i, hi - lo).astype(np_dt), self.device)
-            pgb_t = sweep_core.device_put(
-                np.tile(caps_i, (hi - lo, 1)).astype(np_dt), self.device)
-            out = sweep(tuple(e[starts[lo]:] for e in evs), inc_t, fc, um,
-                        up, slots, pods, sgb_t, pgb_t, counts[lo:hi])
-            rejects[lo:hi] = out.cpu().numpy().reshape(hi - lo, n0)
-            _TIMES.sweeps.append((width, dt_name))
+        if split[0] == "rows":
+            rejects = _gather([r for rows, _, _ in split[1]
+                               for r in rows._fleet_rejects_device(
+                                   sgb, caps, topos, dt_name, p_max,
+                                   rows.device)], axis=0)
+        else:
+            pieces = [self._fleet_rejects_device(
+                sgb[lo:hi], caps[lo:hi], topos[lo:hi], dt_name, p_max, dev)
+                for dev, lo, hi in split[1]]
+            rejects = np.concatenate([_gather(p, axis=0) for p in pieces],
+                                     axis=1)
         rates = rejects / np.maximum(self.n_vms, 1)[:, None]
         _STATS.sweeps += 1
         _STATS.events += int(self.n_events.max(initial=0))
@@ -2899,6 +3095,43 @@ class CompiledReplayBatch:
         _STATS.wall_s += time.perf_counter() - t0
         _TIMES.sweep_s += time.perf_counter() - t0
         return rates
+
+
+    def _fleet_rejects_device(self, sgb, caps, topos, dt_name: str,
+                              p_max: int, device=None) -> list:
+        """K4's trace axis over every (trace, fleet candidate) lane, one
+        launch a ``kernel.MAX_TRACES`` traces, on the batch's device (or on
+        ``device``); returns each launch's reject counters there as a
+        ``(traces, n_cand)`` tensor, without a sync."""
+        evs, _group_of, n_slots, counts = self._device_events(device)
+        dev = self.device if device is None else device
+        n0 = len(sgb)
+        starts = trace_starts(counts)
+        inc = _fleet_incidence(topos, self.n_servers)[0]
+        sgb_i, caps_i = _fleet_capacities(sgb, caps)
+        np_dt = sweep_core.state_np_dtype(dt_name)
+        sweep = sweep_core.get_pod_sweep(dt_name, batched=True,
+                                         device=device)
+        out = []
+        for lo in range(0, self.k, K1.MAX_TRACES):
+            hi = min(self.k, lo + K1.MAX_TRACES)
+            width = (hi - lo) * n0
+            state = sweep_core.init_pod_state(
+                width, self.n_servers, self.cores_per_server,
+                self.n_servers, p_max, max(n_slots, 1), np_dt)[:5]
+            fc, um, up, slots, pods = (sweep_core.device_put(a, dev)
+                                       for a in state)
+            # the shared grid, a copy a trace (trace-major lanes)
+            inc_t = sweep_core.device_put(np.tile(inc, (hi - lo, 1, 1)), dev)
+            sgb_t = sweep_core.device_put(
+                np.tile(sgb_i, hi - lo).astype(np_dt), dev)
+            pgb_t = sweep_core.device_put(
+                np.tile(caps_i, (hi - lo, 1)).astype(np_dt), dev)
+            rej = sweep(tuple(e[starts[lo]:] for e in evs), inc_t, fc, um,
+                        up, slots, pods, sgb_t, pgb_t, counts[lo:hi])
+            out.append(rej.reshape(hi - lo, n0))
+            _TIMES.sweeps.append((width, dt_name))
+        return out
 
 
 class CompiledReplayStreamBatch:
@@ -2936,7 +3169,10 @@ class CompiledReplayStreamBatch:
     launch a shard).
     """
 
-    def __init__(self, streams):
+    def __init__(self, streams, device=None):
+        """``device``: where the batch's sweeps run (default: its
+        streams'); a split sweep's rows (``devices=``) are batches of their
+        own on their devices."""
         _validate_cluster_shape(streams, "CompiledReplayStreamBatch")
         if len(streams) > K1.MAX_TRACES:
             raise ValueError(f"a stream batch holds at most "
@@ -2945,7 +3181,7 @@ class CompiledReplayStreamBatch:
         s0 = streams[0]
         self.engines = list(streams)           # searches read .engines
         self.k = len(streams)
-        self.device = s0.device
+        self.device = s0.device if device is None else device
         self.n_servers = s0.n_servers
         self.n_groups = s0.n_groups
         self.group_of = s0.group_of
@@ -2960,6 +3196,10 @@ class CompiledReplayStreamBatch:
         #: streams x K traces) — THE quantity the batch bounds
         self.peak_shard_bytes = self.k * 6 * 4 * self.shard_pad_events
         self._n_slots = max(s._n_slots for s in streams)
+        self._rows = {}               # (lo, hi, device) -> row batch
+
+    _split = CompiledReplayBatch._split
+    _row_batch = CompiledReplayBatch._row_batch
 
     def peak_pool_demand(self) -> np.ndarray:
         """Per-trace naive concurrent pool-demand peak (feasible upper
@@ -2985,10 +3225,10 @@ class CompiledReplayStreamBatch:
                 at = _pack_rows(buf, at, s._shards[si], n)
         return at, counts
 
-    def _feed(self) -> _ShardFeed:
+    def _feed(self, device: torch.device | None = None) -> _ShardFeed:
         rows = max((trace_starts(self._counts(si) + [0])[-1]
                     for si in range(self.n_shards)), default=0)
-        return _ShardFeed(self._pack, rows, self.device)
+        return _ShardFeed(self._pack, rows, device or self.device)
 
     def _carry_from_snaps(self, refs, boundary, width, np_dt):
         """Per-trace state at a shard boundary, the lanes trace-major: each
@@ -3027,11 +3267,14 @@ class CompiledReplayStreamBatch:
         ``checkpoint`` snapshots the batched state and cursor like the
         single stream (the numpy backend derives one spec a row,
         ``<path>.k<i>``); ``POND_DEBUG_INVARIANTS=1`` verifies the
-        per-trace state after every shard.  ``devices`` is ROADMAP M13.
+        per-trace state after every shard.  ``devices`` splits the torch
+        sweep as :meth:`CompiledReplayBatch.reject_rates` does, each piece
+        streaming every shard with its own state (and its own checkpoint
+        file, ``<path>.d<j>``), the pieces taking turns a shard at a time:
+        ``==`` the single-device sweep without
+        ``reject_cap``; under a cap each piece stops once its own lanes
+        pass it (the same feasibility contract).
         """
-        if devices is not None:
-            raise NotImplementedError("device meshes come with devices= "
-                                      "(ROADMAP M13)")
         t0 = time.perf_counter()
         server_gb, pool_gb = _broadcast_candidates(self.k, server_gb,
                                                    pool_gb)
@@ -3053,10 +3296,28 @@ class CompiledReplayStreamBatch:
             raise NotImplementedError(
                 "the device sweeps take integral decisions; "
                 "backend='numpy' prices non-integral ones")
-        rej, cand_events = self._sweep_device(
-            server_gb, pool_gb, reject_cap, state_dtype, checkpoint,
-            skip_windows)
-        rejects = rej.cpu().numpy().astype(np.int64).reshape(self.k, n0)
+        split = self._split(devices, n0)
+        dt_name = state_dtype or self._pick_state_dtype(
+            *sweep_core.quantize_capacities(server_gb, pool_gb))
+        if split[0] == "rows":
+            pieces = _run_pieces([
+                (rows.device, rows._sweep_steps(
+                    server_gb[lo:hi], pool_gb[lo:hi], reject_cap, dt_name,
+                    _piece_checkpoint(checkpoint, j, len(split[1])),
+                    skip_windows, rows.device))
+                for j, (rows, lo, hi) in enumerate(split[1])])
+            rejects = _gather([rej.reshape(-1, n0) for rej, _ in pieces],
+                              axis=0)
+        else:
+            pieces = _run_pieces([
+                (self._on_device(dev), self._sweep_steps(
+                    server_gb[:, lo:hi], pool_gb[:, lo:hi], reject_cap,
+                    dt_name, _piece_checkpoint(checkpoint, j, len(split[1])),
+                    skip_windows, dev))
+                for j, (dev, lo, hi) in enumerate(split[1])])
+            rejects = _gather([rej.reshape(self.k, -1) for rej, _ in pieces],
+                              axis=1)
+        cand_events = sum(n for _, n in pieces)
         rates = rejects / np.maximum(self.n_vms, 1)[:, None]
         _STATS.sweeps += 1
         _STATS.events += int(self.n_events.max(initial=0))
@@ -3066,10 +3327,24 @@ class CompiledReplayStreamBatch:
         return rates
 
     def _sweep_device(self, server_gb, pool_gb, reject_cap, state_dtype,
-                      checkpoint=None, skip_windows=True):
+                      checkpoint=None, skip_windows=True, device=None):
         """One launch of K1's trace axis a shard over every (trace,
-        candidate) lane; returns ``(the reject counters on the device,
+        candidate) lane, on the batch's device (or on ``device``, a piece
+        of a split sweep); returns ``(the reject counters on the device,
         trace-major, candidate events)`` as the single stream's does."""
+        return _run_pieces([(self._on_device(device), self._sweep_steps(
+            server_gb, pool_gb, reject_cap, state_dtype, checkpoint,
+            skip_windows, device))])[0]
+
+    def _on_device(self, device):
+        """The device a piece runs on: ``device``, or the batch's own."""
+        return self.device if device is None else device
+
+    def _sweep_steps(self, server_gb, pool_gb, reject_cap, state_dtype,
+                     checkpoint, skip_windows, device):
+        """:meth:`_sweep_device`'s shard loop, a generator for
+        :func:`_run_pieces`."""
+        dev = self._on_device(device)
         n0 = server_gb.shape[1]
         sgb_i, pgb_i = sweep_core.quantize_capacities(server_gb, pool_gb)
         dt_name = state_dtype or self._pick_state_dtype(sgb_i, pgb_i)
@@ -3099,12 +3374,12 @@ class CompiledReplayStreamBatch:
             carry0 = sweep_core.init_state(
                 width, self.n_servers, self.cores_per_server,
                 self.n_servers, self.n_groups, self._n_slots, np_dt)
-        fc, um, up, slots, rej = _to_device(carry0, self.device)
+        fc, um, up, slots, rej = _to_device(carry0, dev)
         sgb, pgb = _to_device((sgb_i.reshape(-1).astype(np_dt),
-                               pgb_i.reshape(-1).astype(np_dt)), self.device)
-        group = _to_device((self.group_of.astype(np.int32),),
-                           self.device)[0]
-        sweep = sweep_core.get_sweep(dt_name, with_carry=True, batched=True)
+                               pgb_i.reshape(-1).astype(np_dt)), dev)
+        group = _to_device((self.group_of.astype(np.int32),), dev)[0]
+        sweep = sweep_core.get_sweep(dt_name, with_carry=True, batched=True,
+                                     device=device)
         debug = sweep_core.invariants_enabled()
         if debug:
             for s in self.engines:
@@ -3124,8 +3399,8 @@ class CompiledReplayStreamBatch:
                     **{f"carry{j}": t.cpu().numpy() for j, t in
                        enumerate((fc, um, up, slots, rej))}})
 
-        swept = _stream_shards(
-            self._feed(), shard_from, self.n_shards,
+        swept = yield from _stream_shards(
+            self._feed(dev), shard_from, self.n_shards,
             lambda evs, counts: sweep(evs, group, fc, um, up, slots, rej,
                                       sgb, pgb, counts),
             rej, reject_cap, after, span="stream_batch.shard")
@@ -3151,11 +3426,9 @@ class CompiledReplayStreamBatch:
         ``k`` equals ``streams[k].reject_rates_fleet(...)`` bit for bit;
         with ``reject_cap`` the stream stops once every (trace, candidate)
         lane exceeds the cap.  ``backend="numpy"`` (or non-integral
-        decisions) asks each stream in turn.  ``devices`` is ROADMAP M13.
+        decisions) asks each stream in turn.  ``devices`` splits the torch
+        sweep as :meth:`reject_rates` does.
         """
-        if devices is not None:
-            raise NotImplementedError("device meshes come with devices= "
-                                      "(ROADMAP M13)")
         t0 = time.perf_counter()
         sgb, caps, topos = _fleet_candidates(server_gb, pod_gb, topology)
         if topos[0].n_servers != self.n_servers:
@@ -3179,7 +3452,7 @@ class CompiledReplayStreamBatch:
             raise NotImplementedError(
                 "the pod sweep takes integral decisions; backend='numpy' "
                 "prices non-integral ones")
-        inc, p_max = _fleet_incidence(topos, self.n_servers)
+        p_max = _fleet_incidence(topos, self.n_servers)[1]
         sgb_i, caps_i = _fleet_capacities(sgb, caps)
         if state_dtype is not None:
             dt_name = state_dtype
@@ -3188,36 +3461,73 @@ class CompiledReplayStreamBatch:
             dt_name = "int16"
         else:
             dt_name = "int32"
+        split = self._split(devices, n0)
+        if split[0] == "rows":
+            pieces = _run_pieces([
+                (rows.device, rows._fleet_sweep_steps(
+                    sgb, caps, topos, reject_cap, dt_name, p_max,
+                    rows.device))
+                for rows, _, _ in split[1]])
+            rejects = _gather([rej.reshape(-1, n0) for rej, _ in pieces],
+                              axis=0)
+        else:
+            pieces = _run_pieces([
+                (self._on_device(dev), self._fleet_sweep_steps(
+                    sgb[lo:hi], caps[lo:hi], topos[lo:hi], reject_cap,
+                    dt_name, p_max, dev))
+                for dev, lo, hi in split[1]])
+            rejects = _gather([rej.reshape(self.k, -1) for rej, _ in pieces],
+                              axis=1)
+        cand_events = sum(n for _, n in pieces)
+        rates = rejects / np.maximum(self.n_vms, 1)[:, None]
+        _STATS.sweeps += 1
+        _STATS.events += int(self.n_events.max(initial=0))
+        _STATS.candidate_events += cand_events
+        _STATS.wall_s += time.perf_counter() - t0
+        _TIMES.sweep_s += time.perf_counter() - t0
+        return rates
+
+
+    def _fleet_sweep_device(self, sgb, caps, topos, reject_cap,
+                            dt_name: str, p_max: int, device=None):
+        """One launch of K4's trace axis a shard over every (trace, fleet
+        candidate) lane, on the batch's device (or on ``device``); returns
+        ``(the reject counters on the device, trace-major, candidate
+        events)``."""
+        return _run_pieces([(self._on_device(device), self._fleet_sweep_steps(
+            sgb, caps, topos, reject_cap, dt_name, p_max, device))])[0]
+
+    def _fleet_sweep_steps(self, sgb, caps, topos, reject_cap, dt_name: str,
+                           p_max: int, device):
+        """:meth:`_fleet_sweep_device`'s shard loop, a generator for
+        :func:`_run_pieces`."""
+        dev = self._on_device(device)
+        n0 = len(sgb)
+        inc = _fleet_incidence(topos, self.n_servers)[0]
+        sgb_i, caps_i = _fleet_capacities(sgb, caps)
         np_dt = sweep_core.state_np_dtype(dt_name)
         width = self.k * n0
         fc, um, up, slots, pods, rej = _to_device(
             sweep_core.init_pod_state(width, self.n_servers,
-                                      self.cores_per_server, self.n_servers,
-                                      p_max, self._n_slots, np_dt),
-            self.device)
+                                      self.cores_per_server,
+                                      self.n_servers, p_max,
+                                      self._n_slots, np_dt), dev)
         # the shared grid, a copy a trace (trace-major lanes)
         sgb_t, pgb_t, inc_t = _to_device(
             (np.tile(sgb_i, self.k).astype(np_dt),
              np.tile(caps_i, (self.k, 1)).astype(np_dt),
-             np.tile(inc, (self.k, 1, 1))), self.device)
-        widest = _widest(inc, p_max, self.device)
+             np.tile(inc, (self.k, 1, 1))), dev)
+        widest = _widest(inc, p_max, dev)
         sweep = sweep_core.get_pod_sweep(dt_name, with_carry=True,
-                                         batched=True)
-        swept = _stream_shards(
-            self._feed(), 0, self.n_shards,
-            lambda evs, counts: sweep(evs, inc_t, fc, um, up, slots, pods,
-                                      rej, sgb_t, pgb_t, counts,
+                                         batched=True, device=device)
+        swept = yield from _stream_shards(
+            self._feed(dev), 0, self.n_shards,
+            lambda evs, counts: sweep(evs, inc_t, fc, um, up, slots,
+                                      pods, rej, sgb_t, pgb_t, counts,
                                       widest=widest),
             rej, reject_cap, span="stream_batch.fleet.shard")
-        rejects = rej.cpu().numpy().astype(np.int64).reshape(self.k, n0)
         _TIMES.sweeps.append((width, dt_name))
-        rates = rejects / np.maximum(self.n_vms, 1)[:, None]
-        _STATS.sweeps += 1
-        _STATS.events += int(self.n_events.max(initial=0))
-        _STATS.candidate_events += swept * self.shard_pad_events * width
-        _STATS.wall_s += time.perf_counter() - t0
-        _TIMES.sweep_s += time.perf_counter() - t0
-        return rates
+        return rej, swept * self.shard_pad_events * width
 
 
 # ---------------------------------------------------------------- search ---

@@ -121,17 +121,37 @@ def _cached(cache: dict, key: tuple, family: str, state_dtype: str,
     return fn
 
 
-def _check_state_dtype(state_dtype: str, mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("device meshes come with devices= "
-                                  "(ROADMAP M13)")
+def _check_state_dtype(state_dtype: str) -> None:
     if state_dtype not in ("int16", "int32"):
         raise ValueError(f"state_dtype must be 'int16' or 'int32', got "
                          f"{state_dtype!r}")
 
 
+def _on_device(fn, device):
+    """``fn`` run with ``device`` current: a launch reads the current CUDA
+    stream and device, so a launch for another card must make that card
+    current first.  The CPU needs nothing."""
+    if device is None or device.type != "cuda":
+        return fn
+    import torch
+
+    def on_device(*args, **kwargs):
+        with torch.cuda.device(device):
+            return fn(*args, **kwargs)
+    return on_device
+
+
+def _cache_key(key: tuple, flags: dict, device):
+    """A launcher-cache key and its counter flags, with the device of a
+    split launch (:func:`device_plan`) appended: the single-device path
+    keeps the reference's keys and names."""
+    if device is None:
+        return key, flags
+    return key + (str(device),), {**flags, "dev": str(device)}
+
+
 def get_sweep(state_dtype: str = "int32", *, with_carry: bool = False,
-              batched: bool = False, mesh=None):
+              batched: bool = False, device=None):
     """K1's launcher for ``state_dtype``, from the keyed cache: a function
     of ``(events, group_of, fc, um, up, slots, sgb, pgb)`` returning the
     (C,) int32 reject counts and leaving the final state in its state
@@ -148,19 +168,22 @@ def get_sweep(state_dtype: str = "int32", *, with_carry: bool = False,
     kernel: K1 always leaves its state in its arguments).
 
     One cache keyed ``(state_dtype, with_carry, batched)`` serves every
-    engine, as the reference's jit cache does (without its mesh part).
+    engine, as the reference's jit cache does.  A split launch
+    (``devices=``, :func:`device_plan`) passes its ``device``: the key
+    gains it (the reference's mesh part), and the launcher makes that
+    device current around each launch.
     With tracing on, a lookup counts ``jit.sweep.<dtype>.carry<0|1>.
     batched<0|1>.miss`` or ``.hit``; a miss builds the launcher in a
     ``.build`` span and times its first call in a ``.lower`` span — on
     the card, the call that builds or loads K1's library
     (``kernels/build.py``).
-
-    A device mesh (the reference's ``mesh=``) is not ported yet: it raises.
     """
-    _check_state_dtype(state_dtype, mesh)
-    return _cached(_SWEEPS, (state_dtype, with_carry, batched), "sweep",
-                   state_dtype, dict(carry=with_carry, batched=batched),
-                   lambda: _build_sweep(with_carry, batched))
+    _check_state_dtype(state_dtype)
+    key, flags = _cache_key((state_dtype, with_carry, batched),
+                            dict(carry=with_carry, batched=batched), device)
+    return _cached(_SWEEPS, key, "sweep", state_dtype, flags,
+                   lambda: _on_device(_build_sweep(with_carry, batched),
+                                      device))
 
 
 def _build_sweep(with_carry: bool, batched: bool):
@@ -197,7 +220,7 @@ def jit_cache_keys() -> list:
 
 
 def get_pod_sweep(state_dtype: str = "int32", *, with_carry: bool = False,
-                  batched: bool = False, mesh=None):
+                  batched: bool = False, device=None):
     """K4's launcher for ``state_dtype``, from the keyed cache: a function
     of ``(events, inc, fc, um, up, slots, pods, sgb, pgb)`` returning the
     (C,) int32 reject counts and leaving the final state in its state
@@ -215,14 +238,16 @@ def get_pod_sweep(state_dtype: str = "int32", *, with_carry: bool = False,
     (``ops.check_incidence``), so that a stream checks its incidence once a
     call and not once a shard.
 
-    Keyed ``(state_dtype, with_carry, batched)`` with the counters and
-    spans of :func:`get_sweep` under ``jit.pod``.  A device mesh (the
-    reference's ``mesh=``) is not ported yet: it raises.
+    Keyed ``(state_dtype, with_carry, batched)`` (and ``device`` for a
+    split launch) with the counters and spans of :func:`get_sweep` under
+    ``jit.pod``.
     """
-    _check_state_dtype(state_dtype, mesh)
-    return _cached(_POD_SWEEPS, (state_dtype, with_carry, batched), "pod",
-                   state_dtype, dict(carry=with_carry, batched=batched),
-                   lambda: _build_pod_sweep(with_carry, batched))
+    _check_state_dtype(state_dtype)
+    key, flags = _cache_key((state_dtype, with_carry, batched),
+                            dict(carry=with_carry, batched=batched), device)
+    return _cached(_POD_SWEEPS, key, "pod", state_dtype, flags,
+                   lambda: _on_device(_build_pod_sweep(with_carry, batched),
+                                      device))
 
 
 def _build_pod_sweep(with_carry: bool, batched: bool):
@@ -325,7 +350,7 @@ def get_fail_sweep(state_dtype: str = "int32",
     reference's, with the counters and spans of :func:`get_sweep` under
     ``jit.fail.<dtype>.<mitigation>.batched<0|1>.dist<0|1>``.
     """
-    _check_state_dtype(state_dtype, None)
+    _check_state_dtype(state_dtype)
     if mitigation not in MITIGATIONS:
         raise ValueError(f"mitigation must be one of {MITIGATIONS}")
     return _cached(_FAIL_SWEEPS, (state_dtype, mitigation, batched,
@@ -357,6 +382,87 @@ def _build_fail_sweep(mitigation: str, batched: bool, with_dist: bool):
         return ops.fail_sweep(*events, group_of, fc, um, up, slots, down,
                               sgb, pgb, mitigation=mitigation)
     return fail_sweep
+
+
+# ----------------------------------------------------------- device split --
+def resolve_devices(devices, like=None):
+    """Normalise an engine's ``devices=`` argument to a device list, or
+    None for the single-device path (the reference's semantics).
+
+    ``None`` -> None; ``"all"`` -> every visible device of ``like``'s kind
+    (``like`` is the engine's device: every CUDA card, or the one CPU);
+    an int ``n`` -> the first ``n`` of those; a sequence of devices passes
+    through, so a list that repeats the CPU, ``[torch.device("cpu")] *
+    4``, counts as four devices (the CPU tests' stand-in for the
+    reference's forced host devices).  Fewer than two resolved devices
+    -> None: ``devices="all"`` on one card is the single-device path.
+    Any other string raises ``ValueError``; ``"all"`` or a count on a CUDA
+    engine, or with no ``like``, raises where no card is visible.
+    """
+    import torch
+
+    if devices is None:
+        return None
+    if isinstance(devices, str) or isinstance(devices, int):
+        if isinstance(devices, str) and devices != "all":
+            raise ValueError(
+                f"devices={devices!r}: expected 'all', an int, a device "
+                "sequence, or None")
+        if like is not None and torch.device(like).type == "cpu":
+            visible = [torch.device("cpu")]
+        else:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    f"devices={devices!r} asks for the CUDA cards and none "
+                    "is visible; pass CPU devices to split on the CPU on "
+                    "purpose")
+            visible = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())]
+        devs = visible if devices == "all" else visible[:devices]
+    else:
+        devs = [torch.device(d) for d in devices]
+    return devs if len(devs) >= 2 else None
+
+
+def lane_shard_count(width: int, n_devices: int) -> int:
+    """Largest device count <= ``n_devices`` evenly dividing a lane
+    bucket — the lane axis splits evenly across the devices."""
+    n = max(1, min(n_devices, width))
+    while width % n:
+        n -= 1
+    return n
+
+
+def lane_plan(width: int, devs) -> list | None:
+    """A split launch's pieces of a ``width``-lane axis: ``[(device, lo,
+    hi), ...]``, :func:`lane_shard_count` equal pieces on the first
+    devices of ``devs``; None (the single-device path) without
+    ``devs`` or where fewer than two pieces divide the lanes.  Lanes
+    replay independently, so each piece is one launch on its own device
+    and the results, gathered in order, equal the single launch's."""
+    if devs is None:
+        return None
+    n = lane_shard_count(width, len(devs))
+    if n < 2:
+        return None
+    per = width // n
+    return [(devs[j], j * per, (j + 1) * per) for j in range(n)]
+
+
+def row_plan(k: int, devs) -> list | None:
+    """A batch's trace rows split over ``devs``: ``[(device, lo, hi),
+    ...]`` of ``ceil(k / n)`` rows a device (the reference's row split:
+    it pads K up to a multiple of the mesh with no-op traces, because one
+    ``shard_map`` splits evenly; here each device launches on its own
+    rows, so the last device takes the remainder and no row is padded).
+    None below two pieces."""
+    if devs is None:
+        return None
+    n_use = min(len(devs), k)
+    per = -(-k // max(n_use, 1))
+    plan = [(devs[j], j * per, min(k, (j + 1) * per))
+            for j in range(n_use) if j * per < k]
+    return plan if len(plan) >= 2 else None
 
 
 # -------------------------------------------------------------- placement --

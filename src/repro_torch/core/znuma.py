@@ -7,8 +7,98 @@ and only spills into the zNUMA node when local is exhausted.
 local-first, spill to pool, and track the spill fraction — the quantity
 Figure 16 sweeps.  Host-side Python, the same behaviour as the reference's
 ``repro/core/znuma.py::ZNumaAllocator``.
+
+Every logical buffer group (parameters, gradients, optimizer state) also
+carries a tier tag, ``local`` (the card's memory) or ``pool`` (host memory
+behind it).  ``tier_place`` puts a state's groups where their tags say:
+the pool tier in **pinned** host memory, which the card reads and writes
+with DMA copies (the reference's ``memory_kind="pinned_host"``
+shardings), the local tier on the card.  ``TierAccount`` counts the bytes
+of each tier.
 """
 from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.device import resolve_device
+
+
+def _map_tensors(fn, tree):
+    """``fn`` over every tensor of a dict / list / tuple tree, a
+    ``QTensor``'s codes and scales included; None stays None."""
+    from repro_torch.optim.compress import QTensor
+
+    if tree is None:
+        return None
+    if isinstance(tree, QTensor):
+        return tree.map(fn)
+    if isinstance(tree, dict):
+        return {k: _map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_tensors(tree) -> list:
+    """Every tensor of a tree, in order (a ``QTensor`` gives two)."""
+    out: list = []
+    _map_tensors(out.append, tree)
+    return out
+
+
+def _pinned(t: torch.Tensor) -> torch.Tensor:
+    if t.device.type == "cpu" and t.is_pinned():
+        return t
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t)
+    if not out.is_pinned():
+        raise RuntimeError("the pool tier could not be pinned: pinned host "
+                           "memory is what the card's copies need")
+    return out
+
+
+def tier_place(state: dict, tiers, device=None) -> dict:
+    """``state`` (a dict of groups) with each group where its tier tag
+    says: ``"pool"`` in pinned host memory when ``device`` is the card
+    (ordinary host memory on the CPU), ``"local"`` on ``device``.
+    ``tiers`` is one tag for every group or a dict of tags by group name
+    (``optim.adamw.state_tier``).  ``device=None`` is the card, and raises
+    where there is none.  A pool tier that cannot be pinned raises;
+    nothing is left pageable."""
+    device = resolve_device(device)
+
+    def where(group):
+        tag = tiers if isinstance(tiers, str) else tiers.get(group, "local")
+        if tag not in ("local", "pool"):
+            raise ValueError(f"tier {tag!r} of {group!r}; local or pool")
+        if tag == "local":
+            return lambda t: t.to(device)
+        if device.type == "cuda":
+            return _pinned
+        return lambda t: t.to("cpu")
+    return {g: _map_tensors(where(g), sub) for g, sub in state.items()}
+
+
+@dataclasses.dataclass
+class TierAccount:
+    """Byte accounting per tier."""
+    local_bytes: int = 0
+    pool_bytes: int = 0
+
+    def add(self, tree, tier: str):
+        n = sum(t.numel() * t.element_size() for t in tree_tensors(tree))
+        if tier == "pool":
+            self.pool_bytes += n
+        else:
+            self.local_bytes += n
+        return self
+
+    @property
+    def pool_fraction(self) -> float:
+        tot = self.local_bytes + self.pool_bytes
+        return self.pool_bytes / tot if tot else 0.0
 
 
 class ZNumaAllocator:

@@ -1,4 +1,4 @@
-"""GQA attention (prefill / decode) with QKV-bias, qk-norm and
+"""GQA attention (train / prefill / decode) with QKV-bias, qk-norm and
 sliding-window variants, plus the unified ring-buffer KV cache.
 
 The KV cache is a *ring buffer* of width W:
@@ -12,8 +12,11 @@ reference returns a new cache from each update, the port writes the cache's
 tensors in place and returns the same dict: the reference's decode step
 donates its cache, so no caller holds the old one.
 
-Serving needs the forward pass only; the blocked core's hand-written
-backward arrives with the training slice.
+Training runs ``attn_forward`` through the blocked core, a
+``torch.autograd.Function`` whose backward recomputes the probabilities
+block by block from the saved log-sum-exp (the reference's custom VJP, in
+plain PyTorch: the flash kernel K3 has no backward, as the reference's
+Pallas kernel has none).
 """
 from __future__ import annotations
 
@@ -162,7 +165,9 @@ def _flash_mask(q_pos, kpos, vld, causal, window):
 
 def _flash_fwd_impl(q, k, v, q_pos, kv_pos, kv_valid, scale, window, causal,
                     block_k):
-    """Running (max, sum, acc) over KV blocks; rescale, then accumulate."""
+    """Running (max, sum, acc) over KV blocks; rescale, then accumulate.
+    Returns ``(out, lse)``: lse (B,Hkv,G,Sq) fp32, +inf where a query
+    attends to nothing."""
     b, sq, hq, dd = q.shape
     hkv = k.shape[2]
     dv = v.shape[3]
@@ -188,16 +193,75 @@ def _flash_fwd_impl(q, k, v, q_pos, kv_pos, kv_valid, scale, window, causal,
                + einsum_f32("bhgqk,bkhd->bhgqd", p.to(vblk.dtype), vblk))
         m = mnew
     out = acc / l.clamp_min(1e-30)[..., None]
+    lse = torch.where(l > 0, m + torch.log(l.clamp_min(1e-30)),
+                      torch.full_like(l, float("inf")))
     out = out.movedim(-2, 1).reshape(b, sq, hq, dv)
-    return out.to(q.dtype)
+    return out.to(q.dtype), lse
+
+
+def _flash_bwd_impl(q, k, v, q_pos, kv_pos, kv_valid, out, lse, do, scale,
+                    window, causal, block_k):
+    """Flash backward: recompute p a block at a time from the saved lse;
+    never an (Sq, Skv) matrix.  Returns (dq, dk, dv) in q/k/v's dtypes."""
+    b, sq, hq, dd = q.shape
+    hkv = k.shape[2]
+    dv = v.shape[3]
+    g = hq // hkv
+    nb = k.shape[1] // block_k
+    qg = q.reshape(b, sq, hkv, g, dd)
+    qt = qg.permute(0, 2, 3, 1, 4)                          # (B,H,G,Sq,D)
+    dog = do.reshape(b, sq, hkv, g, dv).movedim(1, -2)
+    outg = out.reshape(b, sq, hkv, g, dv).movedim(1, -2)
+    dsum = (dog.to(torch.float32) * outg.to(torch.float32)).sum(-1)
+    dq = torch.zeros((b, hkv, g, sq, dd), dtype=torch.float32,
+                     device=q.device)
+    dks, dvs = [], []
+    for i in range(nb):
+        blk = slice(i * block_k, (i + 1) * block_k)
+        kblk, vblk = k[:, blk], v[:, blk]
+        logits = einsum_f32("bqhgd,bkhd->bhgqk", qg, kblk) * scale
+        logits = torch.where(
+            _flash_mask(q_pos, kv_pos[:, blk], kv_valid[:, blk], causal,
+                        window), logits, NEG_INF)
+        p = torch.exp(logits - lse[..., None])              # (B,H,G,Sq,K)
+        dvs.append(einsum_f32("bhgqk,bhgqd->bkhd", p.to(do.dtype), dog))
+        dp = einsum_f32("bhgqd,bkhd->bhgqk", dog, vblk)
+        ds = p * (dp - dsum[..., None]) * scale
+        dq = dq + einsum_f32("bhgqk,bkhd->bhgqd", ds.to(kblk.dtype), kblk)
+        dks.append(einsum_f32("bhgqk,bhgqd->bkhd", ds.to(q.dtype), qt))
+    dq = dq.movedim(-2, 1).reshape(b, sq, hq, dd).to(q.dtype)
+    return (dq, torch.cat(dks, dim=1).to(k.dtype),
+            torch.cat(dvs, dim=1).to(v.dtype))
+
+
+class _FlashCore(torch.autograd.Function):
+    """The blocked core with the reference's custom VJP: the forward saves
+    only (inputs, out, lse), the backward recomputes block by block."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, kv_valid, scale, window,
+                causal, block_k):
+        out, lse = _flash_fwd_impl(q, k, v, q_pos, kv_pos, kv_valid, scale,
+                                   window, causal, block_k)
+        ctx.save_for_backward(q, k, v, q_pos, kv_pos, kv_valid, out, lse)
+        ctx.static = (scale, window, causal, block_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, q_pos, kv_pos, kv_valid, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd_impl(q, k, v, q_pos, kv_pos, kv_valid, out,
+                                     lse, do, *ctx.static)
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def blocked_attention(q, k, v, scale: float, q_pos, kv_pos,
                       window: int | None = None, causal: bool = True,
                       block_k: int = 512, kv_valid=None):
-    """Flash-style attention as a plain loop over KV blocks with a running
-    (max, sum, acc): memory is O(Sq * block_k), never O(Sq * Skv).  Forward
-    only.
+    """Flash attention in plain PyTorch with a hand-written backward: the
+    forward loops over KV blocks with a running (max, sum, acc) and saves
+    only (out, lse); the backward recomputes the probabilities block by
+    block.  Memory is O(Sq * block_k), never O(Sq * Skv), both ways.
 
     q: (B,Sq,Hq,D); k,v: (B,Skv,Hkv,D); q_pos: (B,Sq); kv_pos: (B,Skv)
     kv_valid: optional (B,Skv) bool (slot validity).
@@ -212,8 +276,8 @@ def blocked_attention(q, k, v, scale: float, q_pos, kv_pos,
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
         kv_pos = F.pad(kv_pos, (0, pad), value=-1)
         kv_valid = F.pad(kv_valid, (0, pad))
-    return _flash_fwd_impl(q, k, v, q_pos, kv_pos, kv_valid, float(scale),
-                           window, causal, bk)
+    return _FlashCore.apply(q, k, v, q_pos, kv_pos, kv_valid, float(scale),
+                            window, causal, bk)
 
 
 # ---------------------------------------------------------- layer logic ----
@@ -238,6 +302,11 @@ def _self_attention(q, k, v, cfg: ArchConfig, positions, causal: bool,
     s = q.shape[1]
     scale = cfg.head_dim ** -0.5
     if impl == "flash" and causal:
+        # K3 has no backward, as the reference's Pallas kernel has no VJP
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            raise ValueError("K3 has no backward; train with "
+                             "attn_impl='blocked'")
         from repro_torch.kernels.flash_attention import ops as fa_ops
         return fa_ops.flash_attention(q, k, v, causal=True,
                                       window=cfg.sliding_window, scale=scale)
@@ -274,6 +343,20 @@ class Attention(SpecModule):
         y = torch.einsum("bshe,hed->bsd", out, self.wo)
         bo = getattr(self, "bo", None)
         return y if bo is None else y + bo.to(y.dtype)
+
+
+def attn_forward(mixer: Attention, x, positions, *, causal: bool = True,
+                 impl: str = "blocked"):
+    """Full self-attention over x: (B, S, d), positions (B, S).  Used by
+    the training forward."""
+    cfg = mixer.cfg
+    q, k, v = mixer.project_qkv(x)
+    if not cfg.is_encoder_decoder or causal:  # rope for LM archs
+        cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    return mixer.project_out(_self_attention(q, k, v, cfg, positions,
+                                             causal, impl))
 
 
 def attn_prefill(mixer: Attention, x, cache: dict, positions, *,

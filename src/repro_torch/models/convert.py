@@ -15,9 +15,13 @@ reference's own, so nothing is transposed:
     final_norm/scale (d,)                               final_norm.scale
 
 The leading ``L`` ("layers") dim of a group's stacked leaves is unstacked
-into that group's ``L`` blocks.  The ring cache keeps that stacked layout
-in the port too (``models/transformer.py``), so ``cache_from_numpy`` and
-``cache_to_numpy`` carry it across leaf for leaf.
+into that group's ``L`` blocks (``params_to_numpy`` stacks them again).
+The ring cache keeps that stacked layout in the port too
+(``models/transformer.py``), so ``cache_from_numpy`` and
+``cache_to_numpy`` carry it across leaf for leaf.  An AdamW state
+(``optim/adamw.py``: ``master``, ``m``, ``v`` keyed by the port's
+parameter names) crosses in the same stacked layout
+(``opt_state_to_numpy`` / ``opt_state_from_numpy``).
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.model_zoo import build_model
 from repro_torch.models.params import map_with_path
 from repro_torch.models.transformer import LM, cache_specs
+from repro_torch.optim.compress import QTensor
 
 
 def _flatten(tree, prefix=()) -> dict[tuple, np.ndarray]:
@@ -134,3 +139,102 @@ def cache_to_numpy(cache) -> dict:
             t = t.to(torch.float32)
         return t.detach().cpu().numpy()
     return map_with_path(give, cache)
+
+
+# ------------------------------------------------- port -> reference tree --
+def _nest(flat: dict) -> dict:
+    """``{path: leaf}`` as the reference's nested tree: str keys make
+    dicts, int keys tuples (the ``groups`` and ``blocks`` sequences)."""
+    root: dict = {}
+    for path, leaf in flat.items():
+        node = root
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+
+    def seal(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(isinstance(k, int) for k in node):
+            return tuple(seal(node[i]) for i in range(len(node)))
+        return {k: seal(v) for k, v in node.items()}
+    return seal(root)
+
+
+def _to_numpy(t) -> np.ndarray:
+    if isinstance(t, QTensor):
+        t = t.dequantize()
+    t = t.detach()
+    if t.is_floating_point():
+        t = t.to(torch.float32)
+    return t.cpu().numpy()
+
+
+def stacked_to_numpy(by_name: dict, model: LM) -> dict:
+    """Tensors keyed by ``model``'s parameter names (parameters, gradients,
+    a state group) as the reference's tree of numpy arrays: each group's
+    per-layer leaves stacked on a leading layers dim, floating leaves in
+    fp32, ``QTensor`` leaves dequantized."""
+    parts: dict[tuple, dict[int, np.ndarray]] = {}
+    flat: dict[tuple, np.ndarray] = {}
+    for name, _ in model.named_parameters():
+        path, layer = _source_of(name)
+        arr = _to_numpy(by_name[name])
+        if layer is None:
+            flat[path] = arr
+        else:
+            parts.setdefault(path, {})[layer] = arr
+    for path, layers in parts.items():
+        flat[path] = np.stack([layers[i] for i in range(len(layers))])
+    return _nest(flat)
+
+
+def params_to_numpy(model: LM) -> dict:
+    """The port's parameters as the reference's tree of numpy arrays (fp32
+    for floating dtypes: numpy has no bfloat16), each group's layers
+    stacked again: the inverse of :func:`params_from_numpy`."""
+    return stacked_to_numpy(dict(model.named_parameters()), model)
+
+
+def opt_state_to_numpy(state: dict, model: LM) -> dict:
+    """An AdamW state of the port as the reference's: ``step`` an int32
+    array, ``master``/``m``/``v`` stacked trees in fp32.  int8 moments
+    cross as their dequantized values: the reference quantizes each
+    stacked leaf in blocks that run across layers, so its codes are not
+    the port's."""
+    return {"step": np.asarray(state["step"].cpu().numpy(), np.int32),
+            **{g: None if state[g] is None
+               else stacked_to_numpy(state[g], model)
+               for g in ("master", "m", "v")}}
+
+
+def opt_state_from_numpy(tree: dict, model: LM,
+                         moments_dtype: str = "float32",
+                         device=None) -> dict:
+    """The reference's AdamW state (numpy leaves: ``step``, ``master``,
+    ``m``, ``v``) as the port's, keyed by ``model``'s parameter names, on
+    ``device`` (``None`` is the card): master fp32, moments in
+    ``moments_dtype`` (int8 moments are quantized a port leaf at a
+    time)."""
+    device = resolve_device(device)
+
+    def unstack(group, kind):
+        flat = _flatten(group)
+        out = {}
+        for name, _ in model.named_parameters():
+            path, layer = _source_of(name)
+            arr = flat[path] if layer is None else flat[path][layer]
+            t = torch.tensor(arr, dtype=torch.float32, device=device)
+            if kind == "int8":
+                t = QTensor.quantize(t)
+            elif kind == "bfloat16":
+                t = t.to(torch.bfloat16)
+            out[name] = t
+        return out
+
+    return {"step": torch.tensor(int(np.asarray(tree["step"])),
+                                 dtype=torch.int32, device=device),
+            "master": (None if tree.get("master") is None
+                       else unstack(tree["master"], "float32")),
+            "m": unstack(tree["m"], moments_dtype),
+            "v": unstack(tree["v"], moments_dtype)}

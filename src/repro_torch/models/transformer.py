@@ -10,16 +10,21 @@ The ring cache keeps the reference's stacked layout,
 and a layer works on its ``[layer]`` views, so updates land in place.
 
 Entry points:
+  forward  — training (no cache), returns hidden states + aux loss
   prefill  — forward + bulk cache fill, returns hidden states + cache
   decode   — single-token step over the cache
 The paged serving path drives the blocks itself (``serving/engine.py``).
 The port has the homogeneous attention + MLP block; MLA, Mamba and MoE
-blocks and the training ``forward`` follow with their slices.
+blocks and the multi-token-prediction head follow with their slices.
+With ``ShardCtx.remat`` the training forward keeps no activations inside a
+layer: each layer runs under ``torch.utils.checkpoint`` and is recomputed
+in the backward (the reference's ``jax.checkpoint(nothing_saveable)``).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, Block
 from repro_torch.models import attention as attn
@@ -84,27 +89,39 @@ class TransformerBlock(nn.Module):
             self.norm2 = Norm(cfg.d_model, cfg.norm, cfg.norm_eps, **kw)
             self.ffn = MLP(cfg, cfg.d_ff, **kw)
 
-    def _apply_mixer(self, h, positions, cache: dict, ctx: ShardCtx,
+    def _apply_mixer(self, h, positions, cache: dict | None, ctx: ShardCtx,
                      mode: str):
-        """mode: prefill | decode.  Returns y; the cache is updated in
-        place."""
-        if mode == "prefill":
+        """mode: train | prefill | decode.  Returns y; the cache (None in
+        train mode) is updated in place."""
+        if mode == "train":
+            y = attn.attn_forward(self.mixer, h, positions,
+                                  impl=ctx.attn_impl)
+        elif mode == "prefill":
             y, _ = attn.attn_prefill(self.mixer, h, cache, positions,
                                      impl=ctx.attn_impl)
         elif mode == "decode":
             y, _ = attn.attn_decode(self.mixer, h, cache, positions)
         else:
-            raise NotImplementedError(
-                f"mode {mode!r} is not ported yet (see ROADMAP.md, M15)")
+            raise ValueError(f"mode {mode!r}; one of train, prefill, decode")
         return y
 
-    def forward(self, x, positions, cache: dict, *, ctx: ShardCtx,
+    def forward(self, x, positions, cache: dict | None, *, ctx: ShardCtx,
                 mode: str):
-        """Pre-norm residual block over ``cache``, this layer's views."""
+        """Pre-norm residual block over ``cache``, this layer's views (None
+        in train mode)."""
         x = x + self._apply_mixer(self.norm1(x), positions, cache, ctx, mode)
         if self.kind.ffn != "none":
             x = x + self.ffn(self.norm2(x))
         return x
+
+
+def apply_block(block: TransformerBlock, x, positions, ctx: ShardCtx,
+                cache: dict | None = None, mode: str = "train"):
+    """The reference's ``apply_block`` over one block module: the pre-norm
+    residual block.  Returns ``(x, aux, cache)``; aux is 0 without MoE."""
+    x = block(x, positions, cache, ctx=ctx, mode=mode)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux, cache
 
 
 # -------------------------------------------------------------- LM model ---
@@ -186,18 +203,41 @@ class LM(nn.Module):
                          getattr(self.embed, "lm_head", None))
 
     # ---- stacks ----
-    def _run_groups(self, x, positions, ctx: ShardCtx, cache: dict,
+    def _run_groups(self, x, positions, ctx: ShardCtx, cache: dict | None,
                     mode: str):
+        """Every block in order.  Train mode takes no cache; with
+        ``ctx.remat`` each layer is recomputed in the backward."""
+        remat = mode == "train" and ctx.remat
         for gi, group in enumerate(self.groups):
-            gc = cache["groups"][gi]["blocks"]
+            gc = None if cache is None else cache["groups"][gi]["blocks"]
             for li, layer in enumerate(group):
                 for bi, blk in enumerate(layer):
-                    views = {name: t[li] for name, t in gc[bi].items()}
-                    x = blk(x, positions, views, ctx=ctx, mode=mode)
+                    views = (None if gc is None else
+                             {name: t[li] for name, t in gc[bi].items()})
+                    if remat:
+                        x = checkpoint(blk, x, positions, views, ctx=ctx,
+                                       mode=mode, use_reentrant=False)
+                    else:
+                        x = blk(x, positions, views, ctx=ctx, mode=mode)
             x = ctx.constrain(x)
         return x
 
     # ---- public entry points ----
+    def forward(self, tokens, positions, ctx: ShardCtx = _NULL_CTX,
+                embeds=None) -> dict:
+        """Training forward (no cache).  tokens: (B,S); positions:
+        (B,S[+N]) covering ``embeds``' N rows, which come first.  Returns
+        ``{"hidden": (B,S[+N],d), "aux": 0}``.  The multi-token-prediction
+        head (``mtp_depth``, deepseek-v3) is not ported yet."""
+        if self.cfg.mtp_depth:
+            raise NotImplementedError(
+                "the multi-token-prediction head is not ported yet "
+                "(see ROADMAP.md, M14)")
+        x = self.embed(tokens, embeds)
+        x = self._run_groups(x, positions, ctx, None, "train")
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return {"hidden": self.final_norm(x), "aux": aux}
+
     def prefill(self, tokens, positions, cache: dict,
                 ctx: ShardCtx = _NULL_CTX, embeds=None):
         """Process the prompt, fill the cache in place.  tokens: (B,S);

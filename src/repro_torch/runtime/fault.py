@@ -1,8 +1,13 @@
-"""Failure handling: the EMC failure schedule priced by the failure layer,
-and straggler detection for replica routing (the port's share of the
-reference's ``repro/runtime/fault.py``; heartbeats and elastic meshes
-arrive with the training slice).
+"""Fault tolerance: failure detection, the EMC failure schedule priced by
+the failure layer, stragglers and failure injection (the port's share of
+the reference's ``repro/runtime/fault.py``; the elastic re-mesh,
+``elastic_mesh``, waits for the port's meshes, ROADMAP M14).
 
+* ``HeartbeatMonitor`` — declares a host dead after ``timeout`` without a
+  beat (Pond's EMC blast-radius isolation: only what lives on the failed
+  EMC is affected).
+* ``largest_mesh_shape`` — the largest (pod, data, model) grid a surviving
+  device count holds, the model axis kept whole (arithmetic only).
 * ``FailureSchedule`` — a seeded sequence of ``FAIL(domain)`` /
   ``RECOVER(domain)`` events over the pool's failure domains (Pond §4.2:
   one domain per EMC group).  ``replay_engine.CompiledReplay`` merges it
@@ -10,12 +15,64 @@ arrive with the training slice).
   radius; ``cluster_sim.replay_with_failures`` is the scalar oracle.
 * ``StragglerTracker`` — EWMA per-host step times; hosts slower than
   ``factor`` x the median are flagged.
+* ``FailureInjector`` — a deterministic step-indexed failure schedule for
+  the training drills.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
+from typing import Callable
 
 import numpy as np
+
+
+class HeartbeatMonitor:
+    def __init__(self, hosts: list[str], timeout: float = 3.0,
+                 clock: Callable[[], float] = time.monotonic):
+        self.timeout = timeout
+        self.clock = clock
+        self.last = {h: clock() for h in hosts}
+
+    def beat(self, host: str):
+        self.last[host] = self.clock()
+
+    def dead_hosts(self) -> list[str]:
+        now = self.clock()
+        return [h for h, t in self.last.items()
+                if now - t > self.timeout]
+
+    def alive_hosts(self) -> list[str]:
+        dead = set(self.dead_hosts())
+        return [h for h in self.last if h not in dead]
+
+
+def largest_mesh_shape(n_devices: int, model_parallel: int,
+                       multi_pod: bool = False) -> tuple[int, ...]:
+    """Largest (pod, data, model) grid that fits in n_devices, keeping the
+    model axis intact (TP degree is fixed by the arch's weight shards)."""
+    if n_devices < model_parallel:
+        raise ValueError(f"{n_devices} devices cannot host "
+                         f"model_parallel={model_parallel}")
+    rows = n_devices // model_parallel
+    if not multi_pod:
+        return (rows, model_parallel)
+    pods = 2 if rows >= 2 else 1
+    return (pods, rows // pods, model_parallel)
+
+
+class FailureInjector:
+    """Deterministic failure schedule for tests and drills."""
+
+    def __init__(self, fail_at: dict[int, list[str]]):
+        self.fail_at = fail_at   # step -> hosts that die at that step
+
+    def failed_by(self, step: int) -> set[str]:
+        out: set[str] = set()
+        for s, hosts in self.fail_at.items():
+            if step >= s:
+                out.update(hosts)
+        return out
 
 
 @dataclasses.dataclass(frozen=True)

@@ -15,7 +15,7 @@ from typing import Any
 class ShardCtx:
     """Threaded through the model's entry points; single device only."""
     attn_impl: str = "blocked"             # "blocked" | "dot" | "flash"
-    remat: bool = False                    # no effect: serving keeps no graph
+    remat: bool = False                    # recompute each layer in backward
     moe_decode_cf: float = 8.0             # looser capacity for tiny decode T
     mesh: Any = None
 

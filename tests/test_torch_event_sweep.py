@@ -253,8 +253,9 @@ def test_get_sweep_is_k1_and_refuses_the_unported_keys():
                   [0])
         for got, w in zip(st, want):
             assert got.tolist() == w.tolist(), batched
-    with pytest.raises(NotImplementedError, match="M13"):
-        sc.get_sweep("int32", mesh=object())
+    # a split launch's launcher is keyed by its device (devices=, M13)
+    assert sc.get_sweep("int32", device=torch.device("cpu")) is not \
+        sc.get_sweep("int32")
     with pytest.raises(ValueError):
         sc.get_sweep("int8")
 

@@ -73,7 +73,10 @@ def test_port_mirrors_the_reference_layout():
                 "core/predictors/trees.py", "core/predictors/forest.py",
                 "core/predictors/gbm.py", "core/predictors/models.py",
                 "core/latency_engine.py", "core/eqn1.py",
-                "core/topology.py", "core/obs.py"):
+                "core/topology.py", "core/obs.py", "optim/adamw.py",
+                "optim/compress.py", "runtime/train.py",
+                "runtime/checkpoint.py", "data/pipeline.py",
+                "launch/train.py"):
         assert os.path.isfile(os.path.join(PORT, rel)), rel
         assert os.path.isfile(os.path.join(REPO, "src", "repro", rel)), rel
     for name in ("paged_attention.cu", "flash_attention.cu",

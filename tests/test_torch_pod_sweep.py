@@ -384,8 +384,10 @@ def test_get_pod_sweep_is_k4_and_refuses_the_unported_keys():
         assert out is rej
     _assert_equal([t.numpy() for t in state[:5]] + [rej.numpy()], want,
                   "carry")
-    with pytest.raises(NotImplementedError, match="M13"):
-        sc.get_pod_sweep("int32", batched=True, mesh=object())
+    # a split launch's launcher is keyed by its device (devices=, M13)
+    assert sc.get_pod_sweep("int32", batched=True,
+                            device=torch.device("cpu")) is not \
+        sc.get_pod_sweep("int32", batched=True)
     with pytest.raises(ValueError, match="state_dtype"):
         sc.get_pod_sweep("int8")
 

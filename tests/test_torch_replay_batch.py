@@ -111,8 +111,9 @@ def test_batch_refuses_mismatched_shapes_and_unported_options():
     with pytest.raises(ValueError):
         re.CompiledReplayBatch([])
     batch = re.CompiledReplayBatch([eng])
-    with pytest.raises(NotImplementedError, match="M13"):
-        batch.reject_rates(SERVER, POOL, devices="all")
+    # devices="all" on a CPU batch is the single-device path (M13)
+    assert batch.reject_rates(SERVER, POOL, devices="all").tolist() == \
+        batch.reject_rates(SERVER, POOL).tolist()
     frac = dataclasses.replace(pdec, pool_gb=pdec.pool_gb + 0.5)
     odd = re.CompiledReplay(pvms, frac, PORT_WORLD_CFG, device="cpu")
     # non-integral decisions: the integer sweep refuses them, "auto" asks

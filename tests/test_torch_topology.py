@@ -290,9 +290,11 @@ def test_fleet_rejects_mismatched_topology():
     batch = replay_engine.CompiledReplayBatch([peng])
     with pytest.raises(ValueError, match="servers"):
         batch.reject_rates_fleet(200.0, 64.0, topology.partitioned(16, 4))
-    with pytest.raises(NotImplementedError, match="M13"):
-        batch.reject_rates_fleet(200.0, 64.0, topology.partitioned(8, 4),
-                                 devices=["cpu"])
+    # one device is the single-device path (devices=, M13)
+    assert batch.reject_rates_fleet(
+        200.0, 64.0, topology.partitioned(8, 4), devices=["cpu"]).tolist() \
+        == batch.reject_rates_fleet(200.0, 64.0,
+                                    topology.partitioned(8, 4)).tolist()
     with pytest.raises(ValueError, match="backend"):
         peng.reject_rates_fleet(200.0, 64.0, topology.partitioned(8, 4),
                                 backend="jax")
