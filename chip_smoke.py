@@ -13,6 +13,15 @@ PyTorch version on the card, and drives the port's three paths:
   flash attention in the prefill, K3) with h2o-danube-1.8b at full width
   and depth: two 8192-token prompts, then 32 greedy decode steps, so the
   sliding-window ring wraps;
+* the decoder-only families through the same serving steps (ring, MLA
+  latent and Mamba caches; the MoE, MLA and Mamba-2 mixers in plain
+  PyTorch, as the reference computes them outside any Pallas kernel; K3 in
+  every attention block's prefill): the six smoke configs card vs CPU,
+  then granite-moe-1b-a400m, mamba2-1.3b, qwen2-7b and qwen3-32b at full
+  width and depth and jamba-1.5-large-398b and deepseek-v3-671b at full
+  width with their depth cut to fit one card, 1,024-2,048-token prompts
+  and 16-32 greedy decode steps, granite and mamba2 also in fp32 against
+  their own forward;
 * Pond's provisioning loop (``core/cluster_sim.py::savings_analysis`` over
   ``core/replay_engine.py::CompiledReplay``, the event sweep K1) on a
   cluster row of 256 servers with 16-socket pools and a 7-day trace: the
@@ -627,8 +636,14 @@ SERVE_ARGS = ["--arch", "qwen2-1.5b", "--full", "--dtype", "bfloat16",
               "--seed", "0"]
 
 
+_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line a phase; ``t_s`` is the seconds since the script
+    started, so the lines show where the run's time goes."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": time.perf_counter() - _START}), flush=True)
 
 
 # ------------------------------------------------------------------ build --
@@ -1160,19 +1175,20 @@ def phase_serve_full(dev):
 
 
 # ------------------------------------------------------ ring_parity_small --
-def _ring_run(model, prompt, steps, *, seed):
-    """Prefill B 2 prompts through ``make_prefill_step`` with flash
+def _serve_run(model, prompt, steps, *, seed, batch, max_len=None):
+    """Prefill ``batch`` prompts through ``make_prefill_step`` with flash
     attention, then ``steps`` greedy decode steps through
-    ``make_decode_step``.  Returns (token stream, logits of every call on
-    the host, cache, host seconds of the prefill, of each decode step)."""
+    ``make_decode_step``, over a cache of ``max_len`` (prompt + steps by
+    default).  Returns a dict: the token stream, the logits of every call
+    on the host (steps + 1, B, V), the cache, the prompt tokens, host
+    seconds of the prefill and of each decode step."""
     from repro_torch.runtime.serve import make_decode_step, make_prefill_step
     from repro_torch.sharding.rules import ShardCtx
     cfg, dev = model.cfg, model.device
     rng = np.random.default_rng(seed)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (RING_BATCH,
-                                                             prompt)))
-    positions = torch.arange(prompt, device=dev).expand(RING_BATCH, prompt)
-    cache = model.init_cache(RING_BATCH, prompt + steps,
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, prompt)))
+    positions = torch.arange(prompt, device=dev).expand(batch, prompt)
+    cache = model.init_cache(batch, max_len or prompt + steps,
                              dtype=torch.float32
                              if model.embed.tok.dtype == torch.float32
                              else None)
@@ -1190,14 +1206,14 @@ def _ring_run(model, prompt, steps, *, seed):
     all_logits, step_s = [logits[:, -1].cpu()], []
     for i in range(steps):
         t0 = time.perf_counter()
-        pos = torch.full((RING_BATCH,), prompt + i, dtype=torch.int64,
-                         device=dev)
+        pos = torch.full((batch,), prompt + i, dtype=torch.int64, device=dev)
         logits, cache = decode(tok[:, None], pos, cache)
         tok = torch.argmax(logits[:, 0], dim=-1)
         stream.append(tok.tolist())              # waits for the device
         step_s.append(time.perf_counter() - t0)
         all_logits.append(logits[:, 0].cpu())
-    return stream, torch.stack(all_logits), cache, prefill_s, step_s
+    return dict(stream=stream, logits=torch.stack(all_logits), cache=cache,
+                tokens=toks, prefill_s=prefill_s, step_s=step_s)
 
 
 def phase_ring_parity_small(dev):
@@ -1214,14 +1230,14 @@ def phase_ring_parity_small(dev):
     gpu_model = build_model(cfg, device=dev, dtype=torch.float32)
     gpu_model.load_state_dict(cpu_model.state_dict())
     before = ops.launches
-    g_stream, g_logits, g_cache, _, _ = _ring_run(gpu_model, 40, 6, seed=3)
+    g = _serve_run(gpu_model, 40, 6, seed=3, batch=RING_BATCH)
     gpu_launches = ops.launches - before
-    c_stream, c_logits, c_cache, _, _ = _ring_run(cpu_model, 40, 6, seed=3)
-    g_pos = g_cache["groups"][0]["blocks"][0]["pos"].cpu()
-    c_pos = c_cache["groups"][0]["blocks"][0]["pos"]
-    logit_err = float((g_logits - c_logits).abs().max())
+    c = _serve_run(cpu_model, 40, 6, seed=3, batch=RING_BATCH)
+    g_pos = g["cache"]["groups"][0]["blocks"][0]["pos"].cpu()
+    c_pos = c["cache"]["groups"][0]["blocks"][0]["pos"]
+    logit_err = float((g["logits"] - c["logits"]).abs().max())
     checks = {
-        "streams_equal": g_stream == c_stream,
+        "streams_equal": g["stream"] == c["stream"],
         "pos_equal": torch.equal(g_pos, c_pos),
         "logits_within_1e-4": logit_err <= 1e-4,
         "launches": gpu_launches == cfg.num_layers,   # 2 layers x 1 prefill
@@ -1247,8 +1263,10 @@ def phase_ring_full(dev):
     model.init_params(torch.Generator(device=dev).manual_seed(0))
     ops.launches = 0                        # just before the main path ...
     t0 = time.perf_counter()
-    stream, logits, cache, prefill_s, step_s = _ring_run(
-        model, RING_PROMPT, RING_STEPS, seed=0)
+    run = _serve_run(model, RING_PROMPT, RING_STEPS, seed=0,
+                     batch=RING_BATCH)
+    stream, logits, cache = run["stream"], run["logits"], run["cache"]
+    prefill_s, step_s = run["prefill_s"], run["step_s"]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launches                 # ... and read just after it
@@ -1282,6 +1300,281 @@ def phase_ring_full(dev):
     if not all(checks.values()):
         raise SystemExit(f"ring_full failed: {checks}")
     return launches
+
+
+# -------------------------------------------------- the model families ----
+# The decoder-only families (MoE, MLA, Mamba-2, and the dense qwen2-7b and
+# qwen3-32b) served through the ring/latent/SSM caches of
+# ``runtime/serve.py`` with flash attention (K3) in every attention
+# block's prefill.  MLA's heads (192/128 wide) and Mamba-2 take no K3.  The
+# runs' shapes and depth cuts are ``repro_torch/configs/one_card.py``'s.
+FAMILIES_SMALL = dict(batch=2, prompt=13, steps=4)   # 13: not a whole chunk
+
+
+@torch.no_grad()
+def _forward_logits(model, run):
+    """The model's own training forward (blocked attention, no cache) over
+    the prompt and the fed-back tokens: the logits at the positions the
+    serving steps produced, (steps + 1, B, V) on the host, and the hidden
+    states of the prompt."""
+    toks = run["tokens"]
+    fed = torch.tensor(run["stream"][:-1], device=toks.device).T
+    seq = torch.cat([toks, fed], dim=1)
+    p, s = toks.shape[1], seq.shape[1]
+    positions = torch.arange(s, device=toks.device).expand(seq.shape[0], s)
+    hidden = model.forward(seq, positions)["hidden"]
+    logits = model.logits(hidden[:, p - 1:])
+    return logits.movedim(1, 0).cpu(), hidden[:, :p]
+
+
+def _cache_leaves(cache):
+    from repro_torch.models.params import map_with_path
+    out = {}
+    map_with_path(out.__setitem__, cache)
+    return out
+
+
+def _cache_checks(cache, written):
+    """What the reference leaves in the caches after ``written`` tokens a
+    row: every ring and MLA ``pos`` row holds 0..written-1 and -1 after
+    them; the Mamba states are finite and not all zero."""
+    checks = {}
+    for path, t in _cache_leaves(cache).items():
+        name = "/".join(map(str, path))
+        if path[-1] == "pos":
+            want = torch.full(t.shape[-1:], -1, dtype=t.dtype,
+                              device=t.device)
+            want[:written] = torch.arange(written, device=t.device)
+            checks[f"pos_{name}"] = bool((t == want).all())
+        elif path[-1] in ("ssm", "conv_x", "conv_B", "conv_C"):
+            checks[f"state_{name}"] = bool(torch.isfinite(t).all()
+                                           and t.abs().sum() > 0)
+    return checks
+
+
+def phase_families_parity_small(dev):
+    """Each family's smoke config in fp32, the same weights on both
+    devices: the card's serving steps (K3 where there is attention)
+    against the CPU's (plain versions) and against the card's own
+    forward, and the MoE aux loss card against CPU."""
+    from repro_torch.configs.one_card import FAMILY_ARCHS, attention_layers
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models.model_zoo import build_model
+    f = FAMILIES_SMALL
+    rows, ok = {}, True
+    for arch in FAMILY_ARCHS:
+        cfg = get_smoke(arch)
+        cpu_model = build_model(cfg, device="cpu", dtype=torch.float32)
+        cpu_model.init_params(torch.Generator().manual_seed(0))
+        gpu_model = build_model(cfg, device=dev, dtype=torch.float32)
+        gpu_model.load_state_dict(cpu_model.state_dict())
+        before = ops.launches
+        g = _serve_run(gpu_model, f["prompt"], f["steps"], seed=3,
+                       batch=f["batch"])
+        gpu_launches = ops.launches - before
+        c = _serve_run(cpu_model, f["prompt"], f["steps"], seed=3,
+                       batch=f["batch"])
+        logit_err = float((g["logits"] - c["logits"]).abs().max())
+        gl, cl = _cache_leaves(g["cache"]), _cache_leaves(c["cache"])
+        cache_err = max(float((gl[k].cpu().double() - cl[k].double())
+                              .abs().max()) for k in cl)
+        cache_ok = all(torch.equal(gl[k].cpu(), cl[k]) if k[-1] == "pos"
+                       else torch.allclose(gl[k].cpu(), cl[k], rtol=1e-5,
+                                           atol=1e-5) for k in cl)
+        fwd_logits, fwd_hidden = _forward_logits(gpu_model, g)
+        own_err = float((g["logits"] - fwd_logits).abs().max())
+        with torch.no_grad():
+            cache = gpu_model.init_cache(f["batch"], f["prompt"],
+                                         dtype=torch.float32)
+            hp, _, _ = gpu_model.prefill(
+                g["tokens"], torch.arange(f["prompt"], device=dev).expand(
+                    f["batch"], f["prompt"]), cache)
+            hidden_err = float((hp - fwd_hidden).abs().max())
+            toks = g["tokens"]
+            pos = torch.arange(toks.shape[1], device=dev).expand_as(toks)
+            g_aux = float(gpu_model.forward(toks, pos)["aux"])
+            c_aux = float(cpu_model.forward(toks.cpu(), pos.cpu())["aux"])
+        checks = {
+            "streams_equal": g["stream"] == c["stream"],
+            "logits_within_1e-4": logit_err <= 1e-4,
+            "cache_within_1e-5": cache_ok,
+            "own_forward_logits_within_2e-3": own_err <= 2e-3,
+            "own_forward_hidden_within_2e-4": hidden_err <= 2e-4,
+            "aux_card_vs_cpu": abs(g_aux - c_aux) <= 1e-5 * max(1.0,
+                                                                 abs(c_aux)),
+            "aux_nonzero_iff_moe": (g_aux > 0) == (cfg.moe is not None),
+            "launches": gpu_launches == attention_layers(cfg),
+        }
+        ok &= all(checks.values())
+        rows[arch] = dict(ok=all(checks.values()), checks=checks,
+                          kernel_launches=gpu_launches,
+                          max_logit_err=logit_err, max_cache_err=cache_err,
+                          max_err_vs_own_forward=own_err,
+                          max_hidden_err_vs_own_forward=hidden_err,
+                          aux_card=g_aux, aux_cpu=c_aux)
+    emit("families_parity_small", ok=ok, batch=f["batch"],
+         prompt=f["prompt"], decode_steps=f["steps"], archs=rows)
+    if not ok:
+        raise SystemExit("families_parity_small failed: " + json.dumps(
+            {a: r["checks"] for a, r in rows.items() if not r["ok"]}))
+
+
+def _k3_at_prefill(cfg, batch, prompt, dtype, dev):
+    """K3 at one prefill's shapes (causal, the model's heads and head dim,
+    seeded inputs): one launch held against the blocked plain version in
+    fp32 on the same inputs, bf16 elementwise within
+    ``kernels/flash_attention/ref.py::bf16_bound`` and fp32 within
+    ``TOL`` (outside it the script fails), and K3's time in the prefill:
+    one launch (CUDA events, median of 5) times the attention layers.
+    Empty where the model has no attention."""
+    from repro_torch.configs.one_card import attention_layers
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import bf16_bound
+    from repro_torch.models.attention import blocked_attention
+    n = attention_layers(cfg)
+    if not n:
+        return {}
+    g = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn(batch, prompt, cfg.num_heads, cfg.head_dim, device=dev,
+                    generator=g, dtype=dtype)
+    k, v = (torch.randn(batch, prompt, cfg.num_kv_heads, cfg.head_dim,
+                        device=dev, generator=g, dtype=dtype)
+            for _ in range(2))
+    scale, w = cfg.head_dim ** -0.5, cfg.sliding_window
+    got = ops.flash_attention(q, k, v, causal=True, window=w, scale=scale)
+    pos = torch.arange(prompt, device=dev).expand(batch, prompt)
+    want, want_abs_v = (
+        blocked_attention(q.float(), k.float(), vv, scale, pos, pos,
+                          window=w, causal=True)
+        for vv in (v.float(), v.float().abs()))
+    torch.cuda.synchronize()
+    err = (got.float() - want).abs()
+    if dtype == torch.bfloat16:
+        share = float((err / bf16_bound(want, want_abs_v)).max())
+        tol = "1e-5 + 2**-8 |plain| + 2**-8 (P |V|), ref.py::bf16_bound"
+    else:
+        share, tol = float(err.max()) / TOL[dtype], TOL[dtype]
+    shape = (f"B {batch}, S {prompt}, Hq {cfg.num_heads}, Hkv "
+             f"{cfg.num_kv_heads}, D {cfg.head_dim}, {dtype}")
+    if share > 1.0:
+        raise SystemExit(
+            f"flash_attention at {cfg.name}'s prefill ({shape}): outside its "
+            f"tolerance against the fp32 plain version (max abs err "
+            f"{float(err.max()):.3e}, {share:.3f} of {tol})")
+    del want, want_abs_v
+    one = statistics.median(_time_ms(lambda: ops.flash_attention(
+        q, k, v, causal=True, window=w, scale=scale), 3) for _ in range(5))
+    return dict(k3_shape=shape, k3_max_abs_err=float(err.max()),
+                k3_share_of_tolerance=share, k3_tolerance=tol,
+                k3_prefill_ms=one * n)
+
+
+def _family_full_run(arch, dev, fp32, batch, prompt, steps):
+    """One serving run of ``arch`` at full width on the card, bf16
+    weights or (``fp32``) fp32 ones: the model built and seeded there, the
+    path driven with K3's count set to 0 just before it and read just
+    after; then K3 checked and timed at the prefill's shapes."""
+    from repro_torch.configs.one_card import attention_layers, one_card_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models.model_zoo import build_model
+    cfg = one_card_config(arch, fp32=fp32)
+    dtype = torch.float32 if fp32 else None
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, dtype=dtype)
+    model.init_params(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    extra = 8                       # slots past the run: they stay empty
+    ops.launches = 0                        # just before the main path ...
+    t0 = time.perf_counter()
+    run = _serve_run(model, prompt, steps, seed=0, batch=batch,
+                     max_len=prompt + steps + extra)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launches                 # ... and read just after it
+    peak = torch.cuda.max_memory_allocated()
+    logits = run["logits"]
+    fwd_logits, _ = _forward_logits(model, run)
+    dev_err = float((logits - fwd_logits).abs().max())
+    agree = float((logits.argmax(-1) == fwd_logits.argmax(-1)).double()
+                  .mean())
+    checks = {
+        "launches": launches == attention_layers(cfg),
+        "logits_finite": bool(torch.isfinite(logits).all()),
+        "logits_shape": tuple(logits.shape) == (steps + 1, batch,
+                                                cfg.vocab_size),
+        "tokens_in_vocab": all(0 <= t < cfg.vocab_size
+                               for row in run["stream"] for t in row),
+        **_cache_checks(run["cache"], prompt + steps),
+        "on_card": model.device.type == "cuda" and all(
+            t.is_cuda for t in _cache_leaves(run["cache"]).values()),
+    }
+    if fp32:
+        checks["own_forward_within_2e-3"] = dev_err <= 2e-3
+    step_s = run["step_s"]
+    out = dict(
+        ok=all(checks.values()), checks=checks, arch=arch,
+        dtype="float32" if fp32 else "declared (bf16 weights)",
+        layers=cfg.num_layers, attention_layers=attention_layers(cfg),
+        params=sum(p.numel() for p in model.parameters()),
+        batch=batch, prompt=prompt, decode_steps=steps,
+        kernel_launches=launches, prefill_ms=run["prefill_s"] * 1e3,
+        decode_ms_per_step_median=statistics.median(step_s) * 1e3,
+        decode_ms_per_step_mean=statistics.fmean(step_s) * 1e3,
+        decode_tokens_per_s=batch * steps / sum(step_s),
+        wall_seconds=wall, init_seconds=init_s,
+        peak_memory_bytes=peak, init_peak_memory_bytes=init_peak,
+        max_logit_dev_vs_own_forward=dev_err,
+        max_abs_logit_own_forward=float(fwd_logits.abs().max()),
+        argmax_agreement_vs_own_forward=agree)
+    # the same prefill again, warm (the first call of a shape pays the
+    # allocator's growth and the libraries' first choices)
+    again = _serve_run(model, prompt, 0, seed=0, batch=batch,
+                       max_len=prompt + steps + extra)
+    out["prefill_ms_warm"] = again["prefill_s"] * 1e3
+    del model, run, again
+    torch.cuda.empty_cache()
+    out.update(_k3_at_prefill(cfg, batch, prompt,
+                              torch.float32 if fp32 else torch.bfloat16, dev))
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_families_full(dev):
+    """The six families at their published widths on the card (depth cut
+    only where one card forces it, ``configs/one_card.py``): bf16 serving
+    runs, and for granite, mamba2 and the fp32 cuts of jamba and deepseek
+    an fp32 run held to the model's own forward within 2e-3
+    (``tests/test_models.py``'s tolerance); K3 held to its plain version
+    at every run's prefill shapes.  Returns K3's launches by run and, by
+    run, K3's error there as a share of its tolerance."""
+    from repro_torch.configs.one_card import FAMILY_ARCHS, FP32_RUNS, RUNS
+    by_run, k3_share, ok = {}, {}, True
+    for arch in FAMILY_ARCHS:
+        f = RUNS[arch]
+        rec = _family_full_run(arch, dev, False, f["batch"], f["prompt"],
+                               f["steps"])
+        runs = {f"families_full.{arch}": rec}
+        if arch in FP32_RUNS:
+            g = FP32_RUNS[arch]
+            agr = _family_full_run(arch, dev, True, g["batch"], g["prompt"],
+                                   g["steps"])
+            rec["fp32_agreement"] = agr
+            rec["ok"] &= agr["ok"]
+            runs[f"families_full.{arch}.fp32"] = agr
+        for name, r in runs.items():
+            by_run[name] = r["kernel_launches"]
+            if "k3_share_of_tolerance" in r:
+                k3_share[name] = r["k3_share_of_tolerance"]
+        emit("families_full", **rec)
+        ok &= rec["ok"]
+    if not ok:
+        raise SystemExit("families_full failed")
+    return by_run, k3_share
 
 
 # ------------------------------------------------- provisioning loop (K1) --
@@ -5853,7 +6146,14 @@ def main() -> int:
     paged["launches"] = phase_serve_full(dev)
     torch.cuda.empty_cache()
     phase_ring_parity_small(dev)
-    flash["launches"] = phase_ring_full(dev)
+    flash_by_path = {"ring_full": phase_ring_full(dev)}
+    torch.cuda.empty_cache()
+    phase_families_parity_small(dev)
+    families_launches, flash["share_of_tolerance_at_family_prefills"] = \
+        phase_families_full(dev)
+    flash_by_path.update(families_launches)
+    flash["launches"] = sum(flash_by_path.values())
+    flash["launches_by_path"] = flash_by_path
     torch.cuda.empty_cache()
     sweep = phase_kernels_sweep(dev)
     phase_provision_parity_small(dev)

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Where a serving step of the PyTorch/CUDA port spends its time.
 
-    PYTHONPATH=src python scripts/torch_profile_decode.py
+    PYTHONPATH=src python scripts/torch_profile_decode.py [paged] [ring]
+        [families]
 
-Two paths, one JSON object each:
+Three paths (the first two when none is named), one JSON object each:
 
 * ``paged``: the engine of ``repro_torch.launch.serve`` for qwen2-1.5b at
   full width in bf16 with a full batch, traced over a window of decode
@@ -11,7 +12,11 @@ Two paths, one JSON object each:
 * ``ring``: the ring-cache steps of ``repro_torch.runtime.serve`` for
   h2o-danube-1.8b at full width in bf16, two 8192-token prompts: one
   prefill (flash attention) traced on its own, then a window of decode
-  steps past the ring's wrap.
+  steps past the ring's wrap;
+* ``families``: the same for each decoder-only family at the bf16 shapes
+  and depth cuts of ``repro_torch/configs/one_card.py`` (``RUNS``,
+  ``one_card_config``): granite-moe, mamba2, qwen2-7b, qwen3-32b, jamba's
+  and deepseek-v3's cuts.
 
 Each object holds the wall time per step with and without the tracer
 (``torch.profiler``), the device's busy time per step (sum of kernel
@@ -22,12 +27,14 @@ device; nothing moves to the CPU.
 from __future__ import annotations
 
 import json
+import sys
 import time
 
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from repro_torch.configs.one_card import FAMILY_ARCHS, RUNS, one_card_config
 from repro_torch.configs.registry import get_config
 from repro_torch.device import nvidia_smi_line
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -94,18 +101,19 @@ def _untraced(fn, steps):
     return time.perf_counter() - t0
 
 
-def profile_ring():
-    cfg = get_config("h2o-danube-1.8b")
+def profile_ring(cfg=None, batch=RING_BATCH, prompt=RING_PROMPT):
+    """One traced prefill and a traced window of decode steps of ``cfg``
+    (h2o-danube-1.8b by default) at ``batch`` x ``prompt``."""
+    cfg = cfg or get_config("h2o-danube-1.8b")
     model = build_model(cfg)                     # bf16 weights, on the card
     model.init_params(torch.Generator(device=model.device).manual_seed(0))
     dev = model.device
     rng = np.random.default_rng(0)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
-                                         (RING_BATCH, RING_PROMPT))).to(dev)
-    positions = torch.arange(RING_PROMPT, device=dev).expand(RING_BATCH,
-                                                             RING_PROMPT)
+                                         (batch, prompt))).to(dev)
+    positions = torch.arange(prompt, device=dev).expand(batch, prompt)
     n_steps = WARMUP + 2 * STEPS
-    cache = model.init_cache(RING_BATCH, RING_PROMPT + n_steps)
+    cache = model.init_cache(batch, prompt + n_steps)
     ctx = ShardCtx(attn_impl="flash")
     prefill, decode = make_prefill_step(model, ctx), make_decode_step(model,
                                                                       ctx)
@@ -120,10 +128,10 @@ def profile_ring():
     pre_prof, pre_traced = _traced(pre, 1)
     prefill_launches = fa_ops.launches
     state["tok"] = torch.argmax(state["logits"][:, -1], dim=-1)
-    state["pos"] = RING_PROMPT
+    state["pos"] = prompt
 
     def dec():
-        pos = torch.full((RING_BATCH,), state["pos"], dtype=torch.int64,
+        pos = torch.full((batch,), state["pos"], dtype=torch.int64,
                          device=dev)
         logits, _ = decode(state["tok"][:, None], pos, cache)
         state["tok"] = torch.argmax(logits[:, 0], dim=-1)
@@ -135,11 +143,11 @@ def profile_ring():
     dec_prof, dec_traced = _traced(dec, STEPS)
     return {
         "path": "ring", "card": nvidia_smi_line(), "arch": cfg.name,
-        "dtype": "bfloat16", "batch": RING_BATCH, "prompt": RING_PROMPT,
+        "dtype": "bfloat16", "batch": batch, "prompt": prompt,
         "flash_attention_launches_per_prefill": prefill_launches,
         "prefill": _breakdown(pre_prof, 1, pre_untraced, pre_traced),
-        "decode_positions": [RING_PROMPT + WARMUP + STEPS,
-                             RING_PROMPT + WARMUP + 2 * STEPS - 1],
+        "decode_positions": [prompt + WARMUP + STEPS,
+                             prompt + WARMUP + 2 * STEPS - 1],
         "decode": _breakdown(dec_prof, STEPS, dec_untraced, dec_traced),
     }
 
@@ -162,10 +170,28 @@ def profile_paged():
             **_breakdown(prof, STEPS, untraced, traced)}
 
 
-def main():
-    print(json.dumps(profile_paged(), indent=1), flush=True)
-    torch.cuda.empty_cache()
-    print(json.dumps(profile_ring(), indent=1), flush=True)
+def profile_families():
+    """``profile_ring`` of each family at its one-card bf16 run's shapes."""
+    for arch in FAMILY_ARCHS:
+        f = RUNS[arch]
+        yield profile_ring(one_card_config(arch), f["batch"], f["prompt"])
+        torch.cuda.empty_cache()
+
+
+def main(argv=None):
+    paths = (argv if argv is not None else sys.argv[1:]) or ["paged", "ring"]
+    for path in paths:
+        if path == "paged":
+            print(json.dumps(profile_paged(), indent=1), flush=True)
+        elif path == "ring":
+            print(json.dumps(profile_ring(), indent=1), flush=True)
+        elif path == "families":
+            for rec in profile_families():
+                print(json.dumps(rec, indent=1), flush=True)
+        else:
+            raise SystemExit(f"unknown path {path!r}; paged, ring or "
+                             "families")
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -5,11 +5,18 @@ import importlib
 
 from repro_torch.configs.base import ArchConfig
 
-# The port knows the architectures whose mixers it has; ROADMAP.md lists
-# the order in which the reference's other nine arrive.
+# The port knows the decoder-only architectures; the encoder-decoder and
+# frontend models (whisper-small, internvl2-26b) arrive with M14b
+# (ROADMAP.md).
 _MODULES = {
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "deepseek-v3-671b": "deepseek_v3_671b",
+    "mamba2-1.3b": "mamba2_1_3b",
     "qwen2-1.5b": "qwen2_1_5b",
+    "qwen3-32b": "qwen3_32b",
     "h2o-danube-1.8b": "h2o_danube_1_8b",
+    "qwen2-7b": "qwen2_7b",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -344,6 +344,15 @@ class Attention(SpecModule):
         bo = getattr(self, "bo", None)
         return y if bo is None else y + bo.to(y.dtype)
 
+    def forward(self, x, positions, impl: str = "blocked"):
+        return attn_forward(self, x, positions, impl=impl)
+
+    def prefill(self, x, cache: dict, positions, impl: str = "blocked"):
+        return attn_prefill(self, x, cache, positions, impl=impl)[0]
+
+    def decode(self, x, cache: dict, positions):
+        return attn_decode(self, x, cache, positions)[0]
+
 
 def attn_forward(mixer: Attention, x, positions, *, causal: bool = True,
                  impl: str = "blocked"):

@@ -12,13 +12,19 @@ reference's own, so nothing is transposed:
     .../mixer/wk, wv (L, d, hkv, hd); wo (L, h, hd, d)  ...mixer.wk, wv, wo
     .../mixer/bq (L, h, hd); bk, bv (L, hkv, hd)        ...mixer.bq, bk, bv
     .../ffn/wi_gate, wi_up (L, d, ff); wo (L, ff, d)    ...ffn.wi_gate, wi_up, wo
+    .../mixer/w_q_down, ..., wo (MLA)                   ...mixer.<same names>
+    .../mixer/w_z, ..., out_proj (Mamba-2)              ...mixer.<same names>
+    .../ffn/router, w_gate, w_up, w_down (MoE)          ...ffn.<same names>
+    .../ffn/shared/wi_gate, wi_up, wo                   ...ffn.shared.<same>
     final_norm/scale (d,)                               final_norm.scale
+    mtp/proj, mtp/block/..., mtp/norm/scale (unstacked) mtp.proj, mtp.block...
 
 The leading ``L`` ("layers") dim of a group's stacked leaves is unstacked
 into that group's ``L`` blocks (``params_to_numpy`` stacks them again).
-The ring cache keeps that stacked layout in the port too
-(``models/transformer.py``), so ``cache_from_numpy`` and
-``cache_to_numpy`` carry it across leaf for leaf.  An AdamW state
+The cache keeps that stacked layout in the port too
+(``models/transformer.py``): ring, MLA and Mamba caches in any mix, so
+``cache_from_numpy`` and ``cache_to_numpy`` carry it across leaf for
+leaf.  An AdamW state
 (``optim/adamw.py``: ``master``, ``m``, ``v`` keyed by the port's
 parameter names) crosses in the same stacked layout
 (``opt_state_to_numpy`` / ``opt_state_from_numpy``).
@@ -100,18 +106,16 @@ def _path_str(path) -> str:
 @torch.no_grad()
 def cache_from_numpy(tree, cfg: ArchConfig, *, device=None,
                      dtype: torch.dtype | None = torch.float32) -> dict:
-    """The reference's ring cache (nested dicts / tuples of numpy arrays)
-    as the port's cache of tensors on ``device`` (``None`` is the card).
-    Batch and width are read from the tree's first ``k`` leaf.  K/V are
-    cast to ``dtype`` (``None``: their declared bf16); ``pos`` stays
-    int32.  Raises ``ValueError`` on a missing or extra leaf and on a
-    shape the config does not give."""
+    """The reference's cache (nested dicts / tuples of numpy arrays: ring,
+    MLA and Mamba caches in any mix) as the port's cache of tensors on
+    ``device`` (``None`` is the card).  :func:`_cache_extents` reads batch
+    and width from the tree.  The leaves declared bf16 (K/V, ``c_kv``,
+    ``k_rope``) are cast to ``dtype`` (``None``: bf16); ``pos`` stays
+    int32 and the Mamba states fp32.  Raises ``ValueError`` on a missing
+    or extra leaf and on a shape the config does not give."""
     device = resolve_device(device)
     flat = _flatten(tree)
-    ks = [a for p, a in flat.items() if p and p[-1] == "k" and a.ndim == 5]
-    if not ks:
-        raise ValueError("cache tree has no (L,B,W,Hkv,D) 'k' leaf")
-    batch, width = ks[0].shape[1:3]
+    batch, width = _cache_extents(flat)
     want = {}
     map_with_path(want.__setitem__, cache_specs(cfg, batch, width))
     missing = sorted(_path_str(p) for p in set(want) - set(flat))
@@ -126,9 +130,24 @@ def cache_from_numpy(tree, cfg: ArchConfig, *, device=None,
             raise ValueError(f"{_path_str(path)}: tree gives shape "
                              f"{tuple(src.shape)}, model wants "
                              f"{tuple(spec.shape)}")
-        dt = spec.dtype if path[-1] == "pos" else dtype or spec.dtype
+        dt = (dtype or spec.dtype if spec.dtype == torch.bfloat16
+              else spec.dtype)
         return torch.tensor(src, dtype=dt, device=device)
     return map_with_path(take, cache_specs(cfg, batch, width))
+
+
+def _cache_extents(flat: dict) -> tuple[int, int]:
+    """(batch, width) of a stacked cache tree: the batch is every leaf's
+    dim 1 (after the layers), the width that of a ring ``k`` or an MLA
+    ``c_kv`` leaf.  A tree of Mamba states alone has no width (its leaves
+    do not depend on one): 1 stands in."""
+    leaves = [a for a in flat.values() if a.ndim >= 2]
+    if not leaves:
+        raise ValueError("cache tree has no (L, B, ...) leaf")
+    batch = leaves[0].shape[1]
+    seq = [a for p, a in flat.items() if p and a.ndim >= 3
+           and (p[-1] == "k" and a.ndim == 5 or p[-1] == "c_kv")]
+    return batch, seq[0].shape[2] if seq else 1
 
 
 def cache_to_numpy(cache) -> dict:

@@ -28,6 +28,15 @@ class SpecModule(nn.Module):
         """Seeded init of this module's parameters (not its children's)."""
         init_params_(self, self.param_specs, generator)
 
+    def param_tree(self) -> dict:
+        """This module's parameters as the reference's dict of leaves,
+        a child ``SpecModule``'s as a nested dict under its name."""
+        tree = dict(self.named_parameters(recurse=False))
+        for name, child in self.named_children():
+            if isinstance(child, SpecModule):
+                tree[name] = child.param_tree()
+        return tree
+
 
 # ---------------------------------------------------------------- norms ----
 def norm_specs(dim: int, kind: str, prefix_axes=()) -> dict:

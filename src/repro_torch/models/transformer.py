@@ -1,24 +1,31 @@
 """Decoder-only LM stack over layer groups.
 
-A *group* is a repeated sequence of blocks.  The reference stacks each
-group's parameters on a leading "layers" dim and scans them; here a group
-is an ``nn.ModuleList`` of ``repeat`` block tuples, walked by a Python
-loop.  ``LM.specs()`` still reports the reference's stacked shapes, which
-is what ``models/convert.py`` checks a foreign parameter tree against.
-The ring cache keeps the reference's stacked layout,
-``{"groups": ({"blocks": ({"k": (L,B,W,Hkv,D), "v": ..., "pos": (L,B,W)},)},)}``,
-and a layer works on its ``[layer]`` views, so updates land in place.
+A *group* is a repeated sequence of blocks (jamba's attn:mamba period of
+8 is one group of 8 blocks; homogeneous archs are one group of one
+block).  The reference stacks each group's parameters on a leading
+"layers" dim and scans them; here a group is an ``nn.ModuleList`` of
+``repeat`` block tuples, walked by a Python loop.  ``LM.specs()`` still
+reports the reference's stacked shapes, which is what
+``models/convert.py`` checks a foreign parameter tree against.  The cache
+keeps the reference's stacked layout, one entry a block of the group:
+``{"groups": ({"blocks": (cache of block 0, ...)},)}`` with a ring
+cache ``{"k": (L,B,W,Hkv,D), "v": ..., "pos": (L,B,W)}`` for attention,
+the latent cache ``{"c_kv", "k_rope", "pos"}`` for MLA and the conv and
+SSM states ``{"conv_x", "conv_B", "conv_C", "ssm"}`` for Mamba (no
+``pos``); a layer works on its ``[layer]`` views, so updates land in
+place.
 
 Entry points:
-  forward  — training (no cache), returns hidden states + aux loss
+  forward  — training (no cache), returns hidden states + aux loss (and
+             the multi-token-prediction hidden states where the config
+             has ``mtp_depth``)
   prefill  — forward + bulk cache fill, returns hidden states + cache
   decode   — single-token step over the cache
-The paged serving path drives the blocks itself (``serving/engine.py``).
-The port has the homogeneous attention + MLP block; MLA, Mamba and MoE
-blocks and the multi-token-prediction head follow with their slices.
-With ``ShardCtx.remat`` the training forward keeps no activations inside a
-layer: each layer runs under ``torch.utils.checkpoint`` and is recomputed
-in the backward (the reference's ``jax.checkpoint(nothing_saveable)``).
+The paged serving path drives attention blocks itself
+(``serving/engine.py``).  With ``ShardCtx.remat`` the training forward
+keeps no activations inside a layer: each layer runs under
+``torch.utils.checkpoint`` and is recomputed in the backward (the
+reference's ``jax.checkpoint(nothing_saveable)``).
 """
 from __future__ import annotations
 
@@ -28,10 +35,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, Block
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2, mla, moe
 from repro_torch.models.layers import (MLP, Embedding, Norm, SpecModule,
                                        embed_specs, lm_logits, mlp_specs,
                                        norm_specs)
-from repro_torch.models.params import map_with_path, stack_specs
+from repro_torch.models.params import ParamSpec, map_with_path, stack_specs
 from repro_torch.sharding.rules import ShardCtx
 
 _NULL_CTX = ShardCtx()
@@ -42,14 +50,16 @@ def block_specs(cfg: ArchConfig, blk: Block) -> dict:
     sp: dict = {"norm1": norm_specs(cfg.d_model, cfg.norm)}
     if blk.mixer == "attn":
         sp["mixer"] = attn.attention_specs(cfg)
+    elif blk.mixer == "mla":
+        sp["mixer"] = mla.mla_specs(cfg)
+    elif blk.mixer == "mamba":
+        sp["mixer"] = mamba2.mamba_specs(cfg)
     else:
-        raise NotImplementedError(
-            f"mixer {blk.mixer!r} is not ported yet (see ROADMAP.md)")
-    if blk.ffn == "moe":
-        raise NotImplementedError("MoE ffn is not ported yet (see ROADMAP.md)")
+        raise ValueError(blk.mixer)
     if blk.ffn != "none":
         sp["norm2"] = norm_specs(cfg.d_model, cfg.norm)
-        sp["ffn"] = mlp_specs(cfg, cfg.d_ff)
+        sp["ffn"] = (moe.moe_specs(cfg) if blk.ffn == "moe"
+                     else mlp_specs(cfg, cfg.d_ff))
     return sp
 
 
@@ -57,12 +67,13 @@ def block_cache_specs(cfg: ArchConfig, blk: Block, batch: int,
                       max_len: int) -> dict:
     if blk.mixer == "attn":
         return attn.kv_cache_specs(cfg, batch, max_len)
-    raise NotImplementedError(
-        f"mixer {blk.mixer!r} is not ported yet (see ROADMAP.md)")
+    if blk.mixer == "mla":
+        return mla.mla_cache_specs(cfg, batch, max_len)
+    return mamba2.mamba_cache_specs(cfg, batch)
 
 
 def cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
-    """The reference's ring-cache tree, as ParamSpecs (stacked layers)."""
+    """The reference's cache tree, as ParamSpecs (stacked layers)."""
     groups = []
     for g in cfg.groups:
         blocks = tuple(
@@ -72,56 +83,103 @@ def cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
     return {"groups": tuple(groups)}
 
 
+def lm_specs(cfg: ArchConfig) -> dict:
+    """The reference's parameter tree, as ParamSpecs (stacked layers),
+    without allocating anything."""
+    groups = []
+    for g in cfg.groups:
+        blocks = tuple(stack_specs(block_specs(cfg, b), g.repeat)
+                       for b in g.blocks)
+        groups.append({"blocks": blocks})
+    sp = {
+        "embed": embed_specs(cfg),
+        "groups": tuple(groups),
+        "final_norm": norm_specs(cfg.d_model, cfg.norm),
+    }
+    if cfg.mtp_depth:  # DeepSeek multi-token prediction head
+        sp["mtp"] = {
+            "proj": _mtp_proj_spec(cfg),
+            "block": block_specs(cfg, cfg.groups[-1].blocks[-1]),
+            "norm": norm_specs(cfg.d_model, cfg.norm),
+        }
+    return sp
+
+
+def _mtp_proj_spec(cfg: ArchConfig) -> ParamSpec:
+    return ParamSpec((2 * cfg.d_model, cfg.d_model), torch.bfloat16,
+                     ("embed", None))
+
+
+_MIXERS = {"attn": attn.Attention, "mla": mla.MLA, "mamba": mamba2.Mamba}
+
+
 class TransformerBlock(nn.Module):
-    """One pre-norm residual block: norm1 -> mixer, norm2 -> ffn.  The
-    paged serving engine walks the blocks' parts itself, because it writes
-    each layer's K/V into the paged pool between projection and
-    attention; the ring-cache entry points call the block."""
+    """One pre-norm residual block: norm1 -> mixer (attention, MLA or
+    Mamba-2), norm2 -> ffn (MLP or MoE).  The paged serving engine walks
+    an attention block's parts itself, because it writes each layer's K/V
+    into the paged pool between projection and attention; the ring-cache
+    entry points call the block."""
 
     def __init__(self, cfg: ArchConfig, blk: Block, *, device, dtype):
         super().__init__()
-        block_specs(cfg, blk)            # raises on what is not ported
+        if blk.mixer not in _MIXERS:
+            raise ValueError(blk.mixer)
         self.kind = blk
         kw = dict(device=device, dtype=dtype)
         self.norm1 = Norm(cfg.d_model, cfg.norm, cfg.norm_eps, **kw)
-        self.mixer = attn.Attention(cfg, **kw)
+        self.mixer = _MIXERS[blk.mixer](cfg, **kw)
         if blk.ffn != "none":
             self.norm2 = Norm(cfg.d_model, cfg.norm, cfg.norm_eps, **kw)
-            self.ffn = MLP(cfg, cfg.d_ff, **kw)
+            self.ffn = (moe.MoE(cfg, **kw) if blk.ffn == "moe"
+                        else MLP(cfg, cfg.d_ff, **kw))
 
     def _apply_mixer(self, h, positions, cache: dict | None, ctx: ShardCtx,
                      mode: str):
         """mode: train | prefill | decode.  Returns y; the cache (None in
         train mode) is updated in place."""
         if mode == "train":
-            y = attn.attn_forward(self.mixer, h, positions,
-                                  impl=ctx.attn_impl)
-        elif mode == "prefill":
-            y, _ = attn.attn_prefill(self.mixer, h, cache, positions,
-                                     impl=ctx.attn_impl)
-        elif mode == "decode":
-            y, _ = attn.attn_decode(self.mixer, h, cache, positions)
-        else:
-            raise ValueError(f"mode {mode!r}; one of train, prefill, decode")
-        return y
+            return self.mixer(h, positions, ctx.attn_impl)
+        if mode == "prefill":
+            return self.mixer.prefill(h, cache, positions, ctx.attn_impl)
+        if mode == "decode":
+            return self.mixer.decode(h, cache, positions)
+        raise ValueError(f"mode {mode!r}; one of train, prefill, decode")
 
     def forward(self, x, positions, cache: dict | None, *, ctx: ShardCtx,
                 mode: str):
         """Pre-norm residual block over ``cache``, this layer's views (None
-        in train mode)."""
+        in train mode).  Returns ``(x, aux)``; aux is the MoE's load-balance
+        and z loss, None without one (no zero tensor a layer a step)."""
         x = x + self._apply_mixer(self.norm1(x), positions, cache, ctx, mode)
-        if self.kind.ffn != "none":
+        aux = None
+        if self.kind.ffn == "moe":
+            y, aux = self.ffn(self.norm2(x))
+            x = x + y
+        elif self.kind.ffn != "none":
             x = x + self.ffn(self.norm2(x))
-        return x
+        return x, aux
 
 
 def apply_block(block: TransformerBlock, x, positions, ctx: ShardCtx,
                 cache: dict | None = None, mode: str = "train"):
     """The reference's ``apply_block`` over one block module: the pre-norm
     residual block.  Returns ``(x, aux, cache)``; aux is 0 without MoE."""
-    x = block(x, positions, cache, ctx=ctx, mode=mode)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = block(x, positions, cache, ctx=ctx, mode=mode)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux, cache
+
+
+class MTPHead(SpecModule):
+    """DeepSeek's multi-token-prediction head: ``proj`` maps
+    [h_i ; emb(t_{i+1})] to d, one block of the last group's last kind,
+    and a norm (the reference's unstacked ``mtp`` subtree)."""
+
+    def __init__(self, cfg: ArchConfig, *, device, dtype):
+        kw = dict(device=device, dtype=dtype)
+        super().__init__({"proj": _mtp_proj_spec(cfg)}, **kw)
+        self.block = TransformerBlock(cfg, cfg.groups[-1].blocks[-1], **kw)
+        self.norm = Norm(cfg.d_model, cfg.norm, cfg.norm_eps, **kw)
 
 
 # -------------------------------------------------------------- LM model ---
@@ -145,35 +203,29 @@ class LM(nn.Module):
                 for _ in range(g.repeat))
             for g in cfg.groups)
         self.final_norm = Norm(cfg.d_model, cfg.norm, cfg.norm_eps, **kw)
+        self.mtp = MTPHead(cfg, **kw) if cfg.mtp_depth else None
 
     # ---- parameter declarations ----
     def specs(self) -> dict:
         """The reference's parameter tree, as ParamSpecs (stacked layers)."""
-        cfg = self.cfg
-        groups = []
-        for g in cfg.groups:
-            blocks = tuple(stack_specs(block_specs(cfg, b), g.repeat)
-                           for b in g.blocks)
-            groups.append({"blocks": blocks})
-        return {
-            "embed": embed_specs(cfg),
-            "groups": tuple(groups),
-            "final_norm": norm_specs(cfg.d_model, cfg.norm),
-        }
+        return lm_specs(self.cfg)
 
     def cache_specs(self, batch: int, max_len: int) -> dict:
         return cache_specs(self.cfg, batch, max_len)
 
     def init_cache(self, batch: int, max_len: int,
                    dtype: torch.dtype | None = None) -> dict:
-        """An empty ring cache on the model's device: K/V zeros, every
-        ``pos`` -1.  ``dtype=None`` keeps the specs' bf16 K/V, a dtype
-        casts them to it; ``pos`` stays int32."""
+        """An empty cache on the model's device, as the reference's
+        ``init_cache`` makes it: every ``pos`` -1 (ring and MLA caches),
+        every other leaf zeros.  ``dtype=None`` keeps the specs' dtypes; a
+        dtype casts the bf16 leaves (K/V, ``c_kv``, ``k_rope``) to it.
+        ``pos`` stays int32 and the Mamba states fp32."""
         def make(path, spec):
             if path[-1] == "pos":
                 return torch.full(spec.shape, -1, dtype=spec.dtype,
                                   device=self.device)
-            return torch.zeros(spec.shape, dtype=dtype or spec.dtype,
+            dt = dtype if dtype and spec.dtype == torch.bfloat16 else None
+            return torch.zeros(spec.shape, dtype=dt or spec.dtype,
                                device=self.device)
         return map_with_path(make, self.cache_specs(batch, max_len))
 
@@ -205,9 +257,11 @@ class LM(nn.Module):
     # ---- stacks ----
     def _run_groups(self, x, positions, ctx: ShardCtx, cache: dict | None,
                     mode: str):
-        """Every block in order.  Train mode takes no cache; with
-        ``ctx.remat`` each layer is recomputed in the backward."""
+        """Every block in order.  Returns ``(x, aux)``, aux summed over
+        every block.  Train mode takes no cache; with ``ctx.remat`` each
+        layer is recomputed in the backward."""
         remat = mode == "train" and ctx.remat
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for gi, group in enumerate(self.groups):
             gc = None if cache is None else cache["groups"][gi]["blocks"]
             for li, layer in enumerate(group):
@@ -215,37 +269,46 @@ class LM(nn.Module):
                     views = (None if gc is None else
                              {name: t[li] for name, t in gc[bi].items()})
                     if remat:
-                        x = checkpoint(blk, x, positions, views, ctx=ctx,
-                                       mode=mode, use_reentrant=False)
+                        x, a = checkpoint(blk, x, positions, views, ctx=ctx,
+                                          mode=mode, use_reentrant=False)
                     else:
-                        x = blk(x, positions, views, ctx=ctx, mode=mode)
+                        x, a = blk(x, positions, views, ctx=ctx, mode=mode)
+                    if a is not None:
+                        aux = aux + a
             x = ctx.constrain(x)
-        return x
+        return x, aux
 
     # ---- public entry points ----
     def forward(self, tokens, positions, ctx: ShardCtx = _NULL_CTX,
                 embeds=None) -> dict:
         """Training forward (no cache).  tokens: (B,S); positions:
         (B,S[+N]) covering ``embeds``' N rows, which come first.  Returns
-        ``{"hidden": (B,S[+N],d), "aux": 0}``.  The multi-token-prediction
-        head (``mtp_depth``, deepseek-v3) is not ported yet."""
-        if self.cfg.mtp_depth:
-            raise NotImplementedError(
-                "the multi-token-prediction head is not ported yet "
-                "(see ROADMAP.md, M14)")
+        ``{"hidden": (B,S[+N],d), "aux"}`` and, where the config has
+        ``mtp_depth`` and the model its head, ``"mtp_hidden"`` (B,S-1,d):
+        h'_i = Block(proj [h_i ; emb(t_{i+1})]) predicts t_{i+2}, and the
+        head's block adds its aux."""
+        cfg = self.cfg
         x = self.embed(tokens, embeds)
-        x = self._run_groups(x, positions, ctx, None, "train")
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return {"hidden": self.final_norm(x), "aux": aux}
+        x, aux = self._run_groups(x, positions, ctx, None, "train")
+        x = self.final_norm(x)
+        out = {"hidden": x, "aux": aux}
+        if cfg.mtp_depth and self.mtp is not None:
+            emb_next = self.embed(tokens)[:, 1:]
+            hcat = torch.cat([x[:, :-1], emb_next.to(x.dtype)], dim=-1)
+            h2 = torch.einsum("bsd,dk->bsk", hcat, self.mtp.proj)
+            h2, mtp_aux, _ = apply_block(self.mtp.block, h2, positions[:, 1:],
+                                         ctx)
+            out["mtp_hidden"] = self.mtp.norm(h2)
+            out["aux"] = aux + mtp_aux
+        return out
 
     def prefill(self, tokens, positions, cache: dict,
                 ctx: ShardCtx = _NULL_CTX, embeds=None):
         """Process the prompt, fill the cache in place.  tokens: (B,S);
-        positions: (B,S).  Returns (hidden, cache, aux); aux is 0 without
-        MoE blocks."""
+        positions: (B,S).  Returns (hidden, cache, aux); aux is the MoE
+        layers' summed load-balance and z loss, 0 without them."""
         x = self.embed(tokens, embeds)
-        x = self._run_groups(x, positions, ctx, cache, "prefill")
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x, aux = self._run_groups(x, positions, ctx, cache, "prefill")
         return self.final_norm(x), cache, aux
 
     def decode(self, tokens, positions, cache: dict,
@@ -254,5 +317,5 @@ class LM(nn.Module):
         Returns (logits (B,1,V) fp32, cache); the cache is written in
         place."""
         x = self.embed(tokens)
-        x = self._run_groups(x, positions, ctx, cache, "decode")
+        x, _ = self._run_groups(x, positions, ctx, cache, "decode")
         return self.logits(self.final_norm(x)), cache

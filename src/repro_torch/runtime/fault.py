@@ -1,7 +1,7 @@
 """Fault tolerance: failure detection, the EMC failure schedule priced by
 the failure layer, stragglers and failure injection (the port's share of
 the reference's ``repro/runtime/fault.py``; the elastic re-mesh,
-``elastic_mesh``, waits for the port's meshes, ROADMAP M14).
+``elastic_mesh``, waits for the port's meshes, ROADMAP M14b).
 
 * ``HeartbeatMonitor`` — declares a host dead after ``timeout`` without a
   beat (Pond's EMC blast-radius isolation: only what lives on the failed

@@ -3,7 +3,7 @@
 The reference jits these steps and donates the cache to the decode step;
 here they run eagerly and write the cache in place.  ``serve_shardings``
 and ``jit_decode_step`` are bound to meshes and arrive with them
-(ROADMAP.md, M13/M14).
+(ROADMAP.md, M14b).
 """
 from __future__ import annotations
 

@@ -22,7 +22,7 @@ dict :func:`train_params` returns); the steps update them in place, as
 the reference's steps update their donated buffers.  Both steps share
 ``adamw.step_scalars`` and ``adamw.update_leaf``, so they give the same
 parameters bit for bit.  There is no mesh on one card, so the reference's
-``step_shardings`` waits for the port's meshes (ROADMAP M14).
+``step_shardings`` waits for the port's meshes (ROADMAP M14b).
 """
 from __future__ import annotations
 
@@ -124,8 +124,13 @@ def loss_fn(model, params, batch, ctx: ShardCtx, xent_chunk: int = 512):
         inp.shape[0], s)
     out = model.forward(inp, positions, ctx, embeds=embeds)
     hidden = out["hidden"][:, n_emb:]          # frontend tokens carry no loss
-    loss = chunked_xent(hidden, model.lm_head_weight(), labels, xent_chunk)
+    w = model.lm_head_weight()
+    loss = chunked_xent(hidden, w, labels, xent_chunk)
     total = loss + out["aux"]
+    if "mtp_hidden" in out:                     # predict t+2 (DeepSeek MTP)
+        mtp_loss = chunked_xent(out["mtp_hidden"][:, :-1], w, labels[:, 2:],
+                                xent_chunk)
+        total = total + MTP_WEIGHT * mtp_loss
     return total, {"loss": loss, "aux": out["aux"]}
 
 

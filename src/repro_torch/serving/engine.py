@@ -42,6 +42,7 @@ def _paged_blocks(model: LM):
     cfg = model.cfg
     assert len(cfg.groups) == 1 and cfg.groups[0].blocks[0].mixer == "attn"
     assert len(cfg.groups[0].blocks) == 1 and cfg.sliding_window is None
+    assert cfg.groups[0].blocks[0].ffn == "mlp"     # as the reference's MLP
     return model.blocks()
 
 

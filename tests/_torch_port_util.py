@@ -29,8 +29,9 @@ def reference_model(seed: int = 0, arch: str = "qwen2-1.5b"):
     ``arch``, as its own serving tests make them."""
     cfg = jax_get_smoke(arch)
     model = jax_build_model(cfg)
+    # jitted: the same draws as the eager call, made several times faster
     params = jax.tree.map(lambda a: a.astype(jnp.float32),
-                          model.init_params(jax.random.key(seed)))
+                          jax.jit(model.init_params)(jax.random.key(seed)))
     return cfg, model, params
 
 

@@ -163,15 +163,27 @@ def test_prefill_decode_matches_forward(models):
 
 
 def test_mtp_head_is_not_ported(models):
+    """A model built without the multi-token-prediction head (its config
+    had no ``mtp_depth``) gives no ``mtp_hidden`` when the config later
+    asks for one, as the reference's forward gives none for a parameter
+    tree without an ``mtp`` subtree; the hidden states are unchanged."""
     import dataclasses
-    _, _, _, _, model = models
+    _, cfg, jmodel, params, model = models
+    toks, pos = _tokens(cfg)
+    want = jmodel.forward(params, toks, pos)
     model.cfg = dataclasses.replace(model.cfg, mtp_depth=1)
+    jmodel.cfg = dataclasses.replace(jmodel.cfg, mtp_depth=1)
     try:
-        with pytest.raises(NotImplementedError, match="M14"):
-            model.forward(torch.zeros((1, 4), dtype=torch.int64),
-                          torch.arange(4)[None])
+        got = model.forward(_t(toks), _t(pos))
+        jgot = jmodel.forward(params, toks, pos)
     finally:
         model.cfg = dataclasses.replace(model.cfg, mtp_depth=0)
+        jmodel.cfg = dataclasses.replace(jmodel.cfg, mtp_depth=0)
+    assert model.mtp is None
+    assert set(got) == set(jgot) == {"hidden", "aux"}
+    np.testing.assert_allclose(got["hidden"].detach().numpy(),
+                               np.asarray(want["hidden"]), rtol=2e-5,
+                               atol=2e-5)
 
 
 # ------------------------------------------------------- blocked backward --

@@ -26,6 +26,7 @@ def _port_files():
              os.path.join(REPO, "examples", "torch_fig2_stranding.py"),
              os.path.join(REPO, "examples", "torch_fig3_poolsize.py"),
              os.path.join(REPO, "scripts", "torch_profile_decode.py"),
+             os.path.join(REPO, "scripts", "torch_family_drift.py"),
              os.path.join(REPO, "scripts", "torch_k1_ab.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
@@ -76,7 +77,11 @@ def test_port_mirrors_the_reference_layout():
                 "core/topology.py", "core/obs.py", "optim/adamw.py",
                 "optim/compress.py", "runtime/train.py",
                 "runtime/checkpoint.py", "data/pipeline.py",
-                "launch/train.py"):
+                "launch/train.py", "models/moe.py", "models/mla.py",
+                "models/mamba2.py", "configs/qwen2_7b.py",
+                "configs/qwen3_32b.py", "configs/granite_moe_1b_a400m.py",
+                "configs/mamba2_1_3b.py", "configs/jamba_1_5_large_398b.py",
+                "configs/deepseek_v3_671b.py"):
         assert os.path.isfile(os.path.join(PORT, rel)), rel
         assert os.path.isfile(os.path.join(REPO, "src", "repro", rel)), rel
     for name in ("paged_attention.cu", "flash_attention.cu",

@@ -35,7 +35,7 @@ def test_configs_agree_field_by_field():
         b = dataclasses.asdict(getattr(treg, getter)("qwen2-1.5b"))
         assert a == b
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_smoke("qwen2-7b")
+        get_smoke("whisper-small")
 
 
 @pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])

@@ -22,7 +22,7 @@ from repro_torch.sharding.rules import ShardCtx
 
 from _torch_port_util import numpy_tree, port_model, reference_model
 
-ARCHS = ("h2o-danube-1.8b", "qwen2-1.5b")
+ARCHS = ("h2o-danube-1.8b", "qwen2-1.5b", "qwen2-7b", "qwen3-32b")
 PROMPT, STEPS = 40, 6            # 40 > 2 x danube-smoke's window of 16
 
 
