@@ -22,6 +22,18 @@ PyTorch version on the card, and drives the port's three paths:
   width with their depth cut to fit one card, 1,024-2,048-token prompts
   and 16-32 greedy decode steps, granite and mamba2 also in fp32 against
   their own forward;
+* the encoder-decoder and vision families through the same steps
+  (``models/encdec.py``: the encoder over precomputed frames, cross K/V
+  computed once at prefill; internvl2's patch embeddings before the text;
+  K3 in every decoder layer's prefill): the two smoke configs card vs CPU,
+  then whisper-small whole at 16 clips x 1,500 frames with a 4-token
+  prompt and 124 greedy steps, and internvl2-26b whole at 2 x (1,024
+  patches + 1,024 tokens) and 32 steps, each also in fp32 (internvl2 cut
+  to 24 layers) against its own forward;
+* the model meshes (``launch/mesh.py``, ``sharding/rules.py::shard_map``
+  on a (1, 1) and a (2, 2) mesh of the one card): granite-moe-1b-a400m's
+  prefill and decode through each sharded MoE path against the dense
+  path, and its capacity drops against a plain count;
 * Pond's provisioning loop (``core/cluster_sim.py::savings_analysis`` over
   ``core/replay_engine.py::CompiledReplay``, the event sweep K1) on a
   cluster row of 256 servers with 16-socket pools and a 7-day trace: the
@@ -647,7 +659,14 @@ def emit(phase: str, **fields) -> None:
 
 
 # ------------------------------------------------------------------ build --
-def phase_build():
+_BUILDS = {}
+
+
+def phase_build(first=None):
+    """Start every kernel's build, one ``nvcc`` a source, all together;
+    wait for the kernels in ``first`` (default: all) and load them.  The
+    rest go on compiling beside the phases that need only ``first``;
+    ``phase_build_rest`` waits for them."""
     from repro_torch.kernels import build
     from repro_torch.kernels.event_sweep import kernel as K1
     from repro_torch.kernels.fail_sweep import kernel as K5
@@ -655,11 +674,32 @@ def phase_build():
     from repro_torch.kernels.paged_attention import kernel as K2
     from repro_torch.kernels.pod_sweep import kernel as K4
     from repro_torch.kernels.spill_sweep import kernel as K6
-    t0 = time.perf_counter()
-    build.build_libraries([K2.NAME, K3.NAME, K1.NAME, K6.NAME, K5.NAME,
-                           K4.NAME])
-    seconds = time.perf_counter() - t0
-    for K in (K2, K3, K1, K6, K5, K4):
+    every = (K2, K3, K1, K6, K5, K4)
+    first = every if first is None else first
+    _BUILDS["rest"] = [K for K in every if K not in first]
+    builds = build.start_builds([K.NAME for K in every])
+    _BUILDS["pending"] = [b for b in builds
+                          if b.name not in {K.NAME for K in first}]
+    _BUILDS["seconds"] = build.finish_builds(
+        [b for b in builds if b not in _BUILDS["pending"]])
+    _load_kernels(first)
+
+
+def phase_build_rest():
+    """Wait for the builds ``phase_build`` left running, and load them."""
+    from repro_torch.kernels import build
+    if _BUILDS.get("rest"):
+        _BUILDS["seconds"].update(build.finish_builds(
+            _BUILDS.pop("pending")))
+        _load_kernels(_BUILDS.pop("rest"))
+
+
+def _load_kernels(kernels):
+    from repro_torch.kernels import build
+    from repro_torch.kernels.event_sweep import kernel as K1
+    from repro_torch.kernels.fail_sweep import kernel as K5
+    from repro_torch.kernels.pod_sweep import kernel as K4
+    for K in kernels:
         K.build()                                   # load and bind
         with open(f"{build.library_path(K.NAME)}.log") as f:
             log = f.read()
@@ -667,7 +707,7 @@ def phase_build():
         spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores",
                                              log)]
         emit("build", kernel=K.NAME, source=K.SOURCE,
-             seconds_all_in_parallel=round(seconds, 2),
+             nvcc_seconds=_BUILDS["seconds"].get(K.NAME),
              flags=" ".join(build.NVCC_FLAGS), instantiations=len(regs),
              registers=regs, max_registers=max(regs), spill_stores=spills,
              spill_store_bytes=sum(spills))
@@ -892,17 +932,33 @@ def _band_pairs(sq, skv, window):
     return int((np.minimum(q + 1, skv) - lo).clip(min=0).sum())
 
 
-def _sdpa_library_call(q, k, v, mask, scale):
+def _sdpa_library_call(q, k, v, mask, scale, is_causal=False):
     """The library yardstick (``library_ms``): one PyTorch call computing
-    the same function.  The port never calls it."""
+    the same function, with a boolean ``mask`` or, for a plain causal
+    one, ``is_causal``.  The port never calls it."""
     import torch.nn.functional as F
     out = F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        attn_mask=mask, scale=scale, enable_gqa=True)
+        attn_mask=mask, is_causal=is_causal, scale=scale, enable_gqa=True)
     return out.transpose(1, 2)
 
 
-def _sdpa_backends(q, k, v, mask, scale):
+def _sdpa_choice(q, k, v, mask, scale, is_causal=False):
+    """The backend SDPA's default dispatch takes for the library call's
+    inputs, by its own choice function; None where this PyTorch has no
+    such function."""
+    from torch.nn.attention import SDPBackend
+    try:
+        i = torch._fused_sdp_choice(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, dropout_p=0.0, is_causal=is_causal, scale=scale,
+            enable_gqa=True)
+    except (AttributeError, TypeError):
+        return None
+    return {b.value: n for n, b in SDPBackend.__members__.items()}.get(i)
+
+
+def _sdpa_backends(q, k, v, mask, scale, is_causal=False):
     """Which of SDPA's backends accept the library call's inputs, each tried
     alone, and the ms a call of each that does (one layer, CUDA events);
     None where the backend refuses them or runs out of memory."""
@@ -914,7 +970,8 @@ def _sdpa_backends(q, k, v, mask, scale):
         try:
             with sdpa_kernel(backend):
                 out[backend.name] = _time_ms(
-                    lambda: _sdpa_library_call(q, k, v, mask, scale),
+                    lambda: _sdpa_library_call(q, k, v, mask, scale,
+                                               is_causal),
                     1 if backend.name == "MATH" else 5)
         except RuntimeError as e:               # refused, or out of memory
             out[backend.name] = None
@@ -1175,45 +1232,58 @@ def phase_serve_full(dev):
 
 
 # ------------------------------------------------------ ring_parity_small --
-def _serve_run(model, prompt, steps, *, seed, batch, max_len=None):
-    """Prefill ``batch`` prompts through ``make_prefill_step`` with flash
-    attention, then ``steps`` greedy decode steps through
-    ``make_decode_step``, over a cache of ``max_len`` (prompt + steps by
-    default).  Returns a dict: the token stream, the logits of every call
-    on the host (steps + 1, B, V), the cache, the prompt tokens, host
-    seconds of the prefill and of each decode step."""
+def _prompt_run(model, inp, steps, max_len, ctx=None):
+    """``make_prefill_step`` over ``inp`` (``one_card.prompt_inputs``:
+    tokens, positions, embeds, cache_kw, start), then ``steps`` greedy
+    ``make_decode_step`` steps over a cache of ``max_len``, flash
+    attention by default.  Returns a dict: the token stream, the logits of
+    every call on the host (steps + 1, B, V), the cache, the prompt
+    tokens, host seconds of the prefill and of each decode step, the
+    inputs."""
     from repro_torch.runtime.serve import make_decode_step, make_prefill_step
     from repro_torch.sharding.rules import ShardCtx
-    cfg, dev = model.cfg, model.device
-    rng = np.random.default_rng(seed)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, prompt)))
-    positions = torch.arange(prompt, device=dev).expand(batch, prompt)
-    cache = model.init_cache(batch, max_len or prompt + steps,
-                             dtype=torch.float32
+    dev = model.device
+    b = inp["tokens"].shape[0]
+    cache = model.init_cache(b, max_len, dtype=torch.float32
                              if model.embed.tok.dtype == torch.float32
-                             else None)
-    ctx = ShardCtx(attn_impl="flash")
+                             else None, **inp["cache_kw"])
+    ctx = ctx or ShardCtx(attn_impl="flash")
     prefill, decode = make_prefill_step(model, ctx), make_decode_step(model,
                                                                       ctx)
-    toks = toks.to(dev)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = prefill(toks, positions, cache)
+    logits, cache = prefill(inp["tokens"], inp["positions"], cache,
+                            embeds=inp["embeds"])
     tok = torch.argmax(logits[:, -1], dim=-1)
     stream = [tok.tolist()]                      # waits for the device
     prefill_s = time.perf_counter() - t0
     all_logits, step_s = [logits[:, -1].cpu()], []
     for i in range(steps):
         t0 = time.perf_counter()
-        pos = torch.full((batch,), prompt + i, dtype=torch.int64, device=dev)
+        pos = torch.full((b,), inp["start"] + i, dtype=torch.int64,
+                         device=dev)
         logits, cache = decode(tok[:, None], pos, cache)
         tok = torch.argmax(logits[:, 0], dim=-1)
         stream.append(tok.tolist())              # waits for the device
         step_s.append(time.perf_counter() - t0)
         all_logits.append(logits[:, 0].cpu())
     return dict(stream=stream, logits=torch.stack(all_logits), cache=cache,
-                tokens=toks, prefill_s=prefill_s, step_s=step_s)
+                tokens=inp["tokens"], prefill_s=prefill_s, step_s=step_s,
+                inputs=inp)
+
+
+def _serve_run(model, prompt, steps, *, seed, batch, max_len=None):
+    """``_prompt_run`` over ``batch`` prompts of ``prompt`` tokens drawn
+    from numpy's generator at ``seed``, a cache of ``max_len`` (prompt +
+    steps by default)."""
+    cfg, dev = model.cfg, model.device
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, prompt)))
+    inp = dict(tokens=toks.to(dev), embeds=None, cache_kw={}, start=prompt,
+               positions=torch.arange(prompt, device=dev).expand(batch,
+                                                                 prompt))
+    return _prompt_run(model, inp, steps, max_len or prompt + steps)
 
 
 def phase_ring_parity_small(dev):
@@ -1313,18 +1383,21 @@ FAMILIES_SMALL = dict(batch=2, prompt=13, steps=4)   # 13: not a whole chunk
 
 @torch.no_grad()
 def _forward_logits(model, run):
-    """The model's own training forward (blocked attention, no cache) over
-    the prompt and the fed-back tokens: the logits at the positions the
-    serving steps produced, (steps + 1, B, V) on the host, and the hidden
-    states of the prompt."""
-    toks = run["tokens"]
+    """The model's training forward (blocked attention, no cache) over the
+    prompt and the fed-back tokens, with the run's embeddings: the logits
+    at the positions the serving steps produced, (steps + 1, B, V) on the
+    host, and the hidden states of the text prompt."""
+    inp = run["inputs"]
+    toks = inp["tokens"]
     fed = torch.tensor(run["stream"][:-1], device=toks.device).T
     seq = torch.cat([toks, fed], dim=1)
-    p, s = toks.shape[1], seq.shape[1]
-    positions = torch.arange(s, device=toks.device).expand(seq.shape[0], s)
-    hidden = model.forward(seq, positions)["hidden"]
-    logits = model.logits(hidden[:, p - 1:])
-    return logits.movedim(1, 0).cpu(), hidden[:, :p]
+    p = toks.shape[1]
+    n = inp["start"] - p                         # patch rows before the text
+    positions = torch.arange(n + seq.shape[1], device=toks.device).expand(
+        seq.shape[0], n + seq.shape[1])
+    hidden = model.forward(seq, positions, embeds=inp["embeds"])["hidden"]
+    hidden = hidden[:, n:]
+    return model.logits(hidden[:, p - 1:]).movedim(1, 0).cpu(), hidden[:, :p]
 
 
 def _cache_leaves(cache):
@@ -1352,29 +1425,31 @@ def _cache_checks(cache, written):
     return checks
 
 
-def phase_families_parity_small(dev):
-    """Each family's smoke config in fp32, the same weights on both
-    devices: the card's serving steps (K3 where there is attention)
-    against the CPU's (plain versions) and against the card's own
-    forward, and the MoE aux loss card against CPU."""
-    from repro_torch.configs.one_card import FAMILY_ARCHS, attention_layers
+def _parity_small(dev, phase, archs, f, seed):
+    """Each arch's smoke config in fp32, the same weights, tokens and
+    embeddings on both devices (``one_card.prompt_inputs`` at ``f``): the
+    card's serving steps (K3 where there is attention) against the CPU's
+    (plain versions) and against the card's own forward, and the aux loss
+    card against CPU.  Emits one line, exits non-zero on a failed check."""
+    from repro_torch.configs.one_card import attention_layers, prompt_inputs
     from repro_torch.configs.registry import get_smoke
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.models.model_zoo import build_model
-    f = FAMILIES_SMALL
     rows, ok = {}, True
-    for arch in FAMILY_ARCHS:
+    for arch in archs:
         cfg = get_smoke(arch)
         cpu_model = build_model(cfg, device="cpu", dtype=torch.float32)
         cpu_model.init_params(torch.Generator().manual_seed(0))
         gpu_model = build_model(cfg, device=dev, dtype=torch.float32)
         gpu_model.load_state_dict(cpu_model.state_dict())
+        inp = prompt_inputs(cfg, f, "cpu", seed=seed)
+        if inp["embeds"] is not None:
+            inp["embeds"] = inp["embeds"].float() * 25   # of unit scale
+        max_len = inp["start"] + f["steps"]
         before = ops.launches
-        g = _serve_run(gpu_model, f["prompt"], f["steps"], seed=3,
-                       batch=f["batch"])
+        g = _prompt_run(gpu_model, _inputs_to(inp, dev), f["steps"], max_len)
         gpu_launches = ops.launches - before
-        c = _serve_run(cpu_model, f["prompt"], f["steps"], seed=3,
-                       batch=f["batch"])
+        c = _prompt_run(cpu_model, inp, f["steps"], max_len)
         logit_err = float((g["logits"] - c["logits"]).abs().max())
         gl, cl = _cache_leaves(g["cache"]), _cache_leaves(c["cache"])
         cache_err = max(float((gl[k].cpu().double() - cl[k].double())
@@ -1384,17 +1459,18 @@ def phase_families_parity_small(dev):
                                            atol=1e-5) for k in cl)
         fwd_logits, fwd_hidden = _forward_logits(gpu_model, g)
         own_err = float((g["logits"] - fwd_logits).abs().max())
+        gi = g["inputs"]
         with torch.no_grad():
-            cache = gpu_model.init_cache(f["batch"], f["prompt"],
-                                         dtype=torch.float32)
-            hp, _, _ = gpu_model.prefill(
-                g["tokens"], torch.arange(f["prompt"], device=dev).expand(
-                    f["batch"], f["prompt"]), cache)
-            hidden_err = float((hp - fwd_hidden).abs().max())
-            toks = g["tokens"]
-            pos = torch.arange(toks.shape[1], device=dev).expand_as(toks)
-            g_aux = float(gpu_model.forward(toks, pos)["aux"])
-            c_aux = float(cpu_model.forward(toks.cpu(), pos.cpu())["aux"])
+            cache = gpu_model.init_cache(f["batch"], gi["start"],
+                                         dtype=torch.float32,
+                                         **gi["cache_kw"])
+            hp, _, _ = gpu_model.prefill(gi["tokens"], gi["positions"],
+                                         cache, embeds=gi["embeds"])
+            n = gi["start"] - gi["tokens"].shape[1]
+            hidden_err = float((hp[:, n:] - fwd_hidden).abs().max())
+            g_aux, c_aux = (float(m.forward(x["tokens"], x["positions"],
+                                            embeds=x["embeds"])["aux"])
+                            for m, x in ((gpu_model, gi), (cpu_model, inp)))
         checks = {
             "streams_equal": g["stream"] == c["stream"],
             "logits_within_1e-4": logit_err <= 1e-4,
@@ -1413,11 +1489,17 @@ def phase_families_parity_small(dev):
                           max_err_vs_own_forward=own_err,
                           max_hidden_err_vs_own_forward=hidden_err,
                           aux_card=g_aux, aux_cpu=c_aux)
-    emit("families_parity_small", ok=ok, batch=f["batch"],
-         prompt=f["prompt"], decode_steps=f["steps"], archs=rows)
+    emit(phase, ok=ok, **f, archs=rows)
     if not ok:
-        raise SystemExit("families_parity_small failed: " + json.dumps(
+        raise SystemExit(f"{phase} failed: " + json.dumps(
             {a: r["checks"] for a, r in rows.items() if not r["ok"]}))
+
+
+def phase_families_parity_small(dev):
+    """The six decoder-only families (``_parity_small``)."""
+    from repro_torch.configs.one_card import FAMILY_ARCHS
+    _parity_small(dev, "families_parity_small", FAMILY_ARCHS,
+                  FAMILIES_SMALL, seed=3)
 
 
 def _k3_at_prefill(cfg, batch, prompt, dtype, dev):
@@ -1465,83 +1547,58 @@ def _k3_at_prefill(cfg, batch, prompt, dtype, dev):
     del want, want_abs_v
     one = statistics.median(_time_ms(lambda: ops.flash_attention(
         q, k, v, causal=True, window=w, scale=scale), 3) for _ in range(5))
+    # the band's work, its bound, and SDPA on the same inputs (a boolean
+    # band mask, as phase kernels_flash gives it)
+    flops = 4 * batch * cfg.num_heads * cfg.head_dim * _band_pairs(
+        prompt, prompt, w)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    bound_ms = max(flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S) * 1e3
+    # SDPA on the same inputs: with the boolean band mask (as phase
+    # kernels_flash gives it) and, where the band is plain causal, with
+    # is_causal; each under the default dispatch (the backend it takes
+    # recorded) and with each backend alone.  sdpa_ms_a_call is the least
+    # of them.
+    qi = torch.arange(prompt, device=dev)[:, None]
+    kj = torch.arange(prompt, device=dev)[None]
+    mask = (kj <= qi) & ((kj > qi - w) if w is not None else True)
+    forms = {"mask": (mask, False)}
+    if w is None:
+        forms["is_causal"] = (None, True)
+    sdpa = {form: dict(
+        default_backend=_sdpa_choice(q, k, v, m, scale, c),
+        default_ms=statistics.median(_time_ms(
+            lambda: _sdpa_library_call(q, k, v, m, scale, c), 3)
+            for _ in range(5)),
+        **_sdpa_backends(q, k, v, m, scale, c))
+        for form, (m, c) in forms.items()}
+    timed = [(ms, form, b) for form, rec in sdpa.items()
+             for b, ms in rec.items() if isinstance(ms, float)]
+    best_ms, best_form, best = min(timed)
+    if best == "default_ms":
+        best = f"default ({sdpa[best_form]['default_backend']})"
+    if "is_causal" in sdpa:
+        out = _sdpa_library_call(q, k, v, None, scale, True)
+        sdpa["is_causal"]["max_abs_err_vs_kernel"] = float(
+            (out.float() - got.float()).abs().max())
+        del out
     return dict(k3_shape=shape, k3_max_abs_err=float(err.max()),
                 k3_share_of_tolerance=share, k3_tolerance=tol,
-                k3_prefill_ms=one * n)
+                k3_prefill_ms=one * n, k3_ms_a_call=one, k3_flops=flops,
+                k3_tflops_per_s=flops / one / 1e9, k3_bound_ms=bound_ms,
+                k3_bound_by="operations" if flops / PEAK_FLOPS[dtype]
+                >= nbytes / HBM_BYTES_PER_S else "bytes",
+                k3_share_of_bound=bound_ms / one, sdpa_ms_a_call=best_ms,
+                sdpa_best=f"{best_form}, {best}", sdpa=sdpa)
 
 
-def _family_full_run(arch, dev, fp32, batch, prompt, steps):
-    """One serving run of ``arch`` at full width on the card, bf16
-    weights or (``fp32``) fp32 ones: the model built and seeded there, the
-    path driven with K3's count set to 0 just before it and read just
-    after; then K3 checked and timed at the prefill's shapes."""
-    from repro_torch.configs.one_card import attention_layers, one_card_config
-    from repro_torch.kernels.flash_attention import ops
-    from repro_torch.models.model_zoo import build_model
-    cfg = one_card_config(arch, fp32=fp32)
-    dtype = torch.float32 if fp32 else None
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    model = build_model(cfg, device=dev, dtype=dtype)
-    model.init_params(torch.Generator(device=dev).manual_seed(0))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    init_peak = torch.cuda.max_memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    extra = 8                       # slots past the run: they stay empty
-    ops.launches = 0                        # just before the main path ...
-    t0 = time.perf_counter()
-    run = _serve_run(model, prompt, steps, seed=0, batch=batch,
-                     max_len=prompt + steps + extra)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = ops.launches                 # ... and read just after it
-    peak = torch.cuda.max_memory_allocated()
-    logits = run["logits"]
-    fwd_logits, _ = _forward_logits(model, run)
-    dev_err = float((logits - fwd_logits).abs().max())
-    agree = float((logits.argmax(-1) == fwd_logits.argmax(-1)).double()
-                  .mean())
-    checks = {
-        "launches": launches == attention_layers(cfg),
-        "logits_finite": bool(torch.isfinite(logits).all()),
-        "logits_shape": tuple(logits.shape) == (steps + 1, batch,
-                                                cfg.vocab_size),
-        "tokens_in_vocab": all(0 <= t < cfg.vocab_size
-                               for row in run["stream"] for t in row),
-        **_cache_checks(run["cache"], prompt + steps),
-        "on_card": model.device.type == "cuda" and all(
-            t.is_cuda for t in _cache_leaves(run["cache"]).values()),
-    }
-    if fp32:
-        checks["own_forward_within_2e-3"] = dev_err <= 2e-3
-    step_s = run["step_s"]
-    out = dict(
-        ok=all(checks.values()), checks=checks, arch=arch,
-        dtype="float32" if fp32 else "declared (bf16 weights)",
-        layers=cfg.num_layers, attention_layers=attention_layers(cfg),
-        params=sum(p.numel() for p in model.parameters()),
-        batch=batch, prompt=prompt, decode_steps=steps,
-        kernel_launches=launches, prefill_ms=run["prefill_s"] * 1e3,
-        decode_ms_per_step_median=statistics.median(step_s) * 1e3,
-        decode_ms_per_step_mean=statistics.fmean(step_s) * 1e3,
-        decode_tokens_per_s=batch * steps / sum(step_s),
-        wall_seconds=wall, init_seconds=init_s,
-        peak_memory_bytes=peak, init_peak_memory_bytes=init_peak,
-        max_logit_dev_vs_own_forward=dev_err,
-        max_abs_logit_own_forward=float(fwd_logits.abs().max()),
-        argmax_agreement_vs_own_forward=agree)
-    # the same prefill again, warm (the first call of a shape pays the
-    # allocator's growth and the libraries' first choices)
-    again = _serve_run(model, prompt, 0, seed=0, batch=batch,
-                       max_len=prompt + steps + extra)
-    out["prefill_ms_warm"] = again["prefill_s"] * 1e3
-    del model, run, again
-    torch.cuda.empty_cache()
-    out.update(_k3_at_prefill(cfg, batch, prompt,
-                              torch.float32 if fp32 else torch.bfloat16, dev))
-    torch.cuda.empty_cache()
-    return out
+def _k3_summary(rec):
+    """K3's error as a share of its tolerance, its ms a call, and SDPA's
+    best ms a call and form at one run's prefill (``_k3_at_prefill``), for
+    K3's record in the kernels line."""
+    return dict(share_of_tolerance=rec["k3_share_of_tolerance"],
+                ms_a_call=rec["k3_ms_a_call"],
+                sdpa_ms_a_call=rec["sdpa_ms_a_call"],
+                sdpa_best=rec["sdpa_best"])
 
 
 def phase_families_full(dev):
@@ -1551,30 +1608,350 @@ def phase_families_full(dev):
     an fp32 run held to the model's own forward within 2e-3
     (``tests/test_models.py``'s tolerance); K3 held to its plain version
     at every run's prefill shapes.  Returns K3's launches by run and, by
-    run, K3's error there as a share of its tolerance."""
+    run, ``_k3_summary`` of its prefill."""
     from repro_torch.configs.one_card import FAMILY_ARCHS, FP32_RUNS, RUNS
-    by_run, k3_share, ok = {}, {}, True
+    by_run, k3_at, ok = {}, {}, True
     for arch in FAMILY_ARCHS:
         f = RUNS[arch]
-        rec = _family_full_run(arch, dev, False, f["batch"], f["prompt"],
-                               f["steps"])
+        rec = _full_run(arch, dev, False, f)
         runs = {f"families_full.{arch}": rec}
         if arch in FP32_RUNS:
             g = FP32_RUNS[arch]
-            agr = _family_full_run(arch, dev, True, g["batch"], g["prompt"],
-                                   g["steps"])
+            agr = _full_run(arch, dev, True, g)
             rec["fp32_agreement"] = agr
             rec["ok"] &= agr["ok"]
             runs[f"families_full.{arch}.fp32"] = agr
         for name, r in runs.items():
             by_run[name] = r["kernel_launches"]
             if "k3_share_of_tolerance" in r:
-                k3_share[name] = r["k3_share_of_tolerance"]
+                k3_at[name] = _k3_summary(r)
         emit("families_full", **rec)
         ok &= rec["ok"]
     if not ok:
         raise SystemExit("families_full failed")
-    return by_run, k3_share
+    return by_run, k3_at
+
+
+# ------------------------- the encoder-decoder and vision families (M14b) --
+# whisper-small (an encoder over precomputed frames, a decoder with learned
+# positions, causal self-attention and cross-attention over the K/V the
+# prefill computes once) and internvl2-26b (patch embeddings before the
+# text) through the serving steps, K3 in every decoder layer's prefill; the
+# encoder's bidirectional attention is the plain product, as the reference
+# routes it.  Shapes and the fp32 depth cut: ``configs/one_card.py``.
+ENCDEC_SMALL = dict(batch=2, frames=24, patches=8, prompt=5, steps=4)
+
+
+def _inputs_to(inp, dev):
+    return {k: (v.to(dev) if isinstance(v, torch.Tensor) else v)
+            for k, v in inp.items()}
+
+
+def phase_encdec_parity_small(dev):
+    """whisper's and internvl2's smoke configs (``_parity_small``), the
+    frames and patches with them."""
+    from repro_torch.configs.one_card import ENCDEC_ARCHS
+    _parity_small(dev, "encdec_parity_small", ENCDEC_ARCHS, ENCDEC_SMALL,
+                  seed=3)
+
+
+def _full_run(arch, dev, fp32, run):
+    """One serving run of ``arch`` at full width on the card, bf16 weights
+    or (``fp32``) fp32 ones, at ``run``'s shapes (``configs/one_card.py``:
+    batch, prompt, steps, and the frames or patches of whisper and
+    internvl2): the model built and seeded there, the path driven with
+    K3's count set to 0 just before it and read just after; an encoder's
+    share of a warm prefill timed alone; then K3 checked and timed at the
+    prefill's shapes."""
+    from repro_torch.configs.one_card import (attention_layers,
+                                              one_card_config, prompt_inputs)
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.sharding.rules import ShardCtx
+    cfg = one_card_config(arch, fp32=fp32)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev,
+                        dtype=torch.float32 if fp32 else None)
+    model.init_params(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    inp = prompt_inputs(cfg, run, dev)
+    steps = run["steps"]
+    max_len = inp["start"] + steps + 8     # slots past the run stay empty
+    torch.cuda.reset_peak_memory_stats()
+    ops.launches = 0                        # just before the main path ...
+    t0 = time.perf_counter()
+    r = _prompt_run(model, inp, steps, max_len)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launches                 # ... and read just after it
+    peak = torch.cuda.max_memory_allocated()
+    logits = r["logits"]
+    fwd_logits, _ = _forward_logits(model, r)
+    dev_err = float((logits - fwd_logits).abs().max())
+    agree = float((logits.argmax(-1) == fwd_logits.argmax(-1)).double()
+                  .mean())
+    leaves = _cache_leaves(r["cache"])
+    checks = {
+        "launches": launches == attention_layers(cfg),
+        "logits_finite": bool(torch.isfinite(logits).all()),
+        "logits_shape": tuple(logits.shape) == (steps + 1, run["batch"],
+                                                cfg.vocab_size),
+        "tokens_in_vocab": all(0 <= t < cfg.vocab_size
+                               for row in r["stream"] for t in row),
+        **_cache_checks(r["cache"], inp["start"] + steps),
+        "on_card": model.device.type == "cuda" and all(
+            t.is_cuda for t in leaves.values()),
+    }
+    cross = {}
+    if cfg.is_encoder_decoder:
+        for name in ("cross_k", "cross_v"):
+            t = r["cache"][name]
+            checks[f"{name}_written"] = bool(torch.isfinite(t).all()
+                                             and t.abs().sum() > 0)
+        cross = dict(cross_kv_bytes=2 * r["cache"]["cross_k"].numel()
+                     * r["cache"]["cross_k"].element_size(),
+                     ring_width=int(r["cache"]["self"]["k"].shape[2]))
+    if fp32:
+        checks["own_forward_within_2e-3"] = dev_err <= 2e-3
+    step_s = r["step_s"]
+    out = dict(
+        ok=all(checks.values()), checks=checks, arch=arch,
+        dtype="float32" if fp32 else "declared (bf16 weights)",
+        layers=cfg.num_layers, encoder_layers=cfg.encoder_layers,
+        attention_layers=attention_layers(cfg),
+        params=sum(p.numel() for p in model.parameters()), run=run,
+        kernel_launches=launches, prefill_ms=r["prefill_s"] * 1e3,
+        decode_ms_per_step_median=statistics.median(step_s) * 1e3,
+        decode_ms_per_step_mean=statistics.fmean(step_s) * 1e3,
+        decode_tokens_per_s=run["batch"] * steps / sum(step_s),
+        wall_seconds=wall, init_seconds=init_s,
+        peak_memory_bytes=peak, init_peak_memory_bytes=init_peak,
+        max_logit_dev_vs_own_forward=dev_err,
+        max_abs_logit_own_forward=float(fwd_logits.abs().max()),
+        argmax_agreement_vs_own_forward=agree, **cross)
+    del r
+    # the same prefill again, warm, and the encoder alone, warm
+    again = _prompt_run(model, inp, 0, max_len)
+    out["prefill_ms_warm"] = again["prefill_s"] * 1e3
+    del again
+    if cfg.is_encoder_decoder:
+        enc = []
+        with torch.no_grad():
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model.encode(inp["embeds"], ShardCtx(attn_impl="flash"))
+                torch.cuda.synchronize()
+                enc.append(time.perf_counter() - t0)
+        out["encoder_ms_warm"] = statistics.median(enc) * 1e3
+        out["decoder_ms_warm"] = (out["prefill_ms_warm"]
+                                  - out["encoder_ms_warm"])
+    del model, inp
+    torch.cuda.empty_cache()
+    b = run["batch"]
+    s = run["prompt"] + run.get("patches", 0)
+    out.update(_k3_at_prefill(cfg, b, s, torch.float32 if fp32
+                              else torch.bfloat16, dev))
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_encdec_full(dev):
+    """whisper-small and internvl2-26b whole at published widths in bf16
+    (seeded weights drawn on the card), each also in fp32 (internvl2 cut
+    in depth) held to its own forward within 2e-3; K3 held to its plain
+    version at every run's prefill shapes.  Returns K3's launches by run
+    and, by run, ``_k3_summary`` of its prefill."""
+    from repro_torch.configs.one_card import (ENCDEC_ARCHS, ENCDEC_FP32_RUNS,
+                                              ENCDEC_RUNS)
+    by_run, k3_at, ok = {}, {}, True
+    for arch in ENCDEC_ARCHS:
+        rec = _full_run(arch, dev, False, ENCDEC_RUNS[arch])
+        agr = _full_run(arch, dev, True, ENCDEC_FP32_RUNS[arch])
+        rec["fp32_agreement"] = agr
+        rec["ok"] &= agr["ok"]
+        for name, r in ((f"encdec_full.{arch}", rec),
+                        (f"encdec_full.{arch}.fp32", agr)):
+            by_run[name] = r["kernel_launches"]
+            k3_at[name] = _k3_summary(r)
+        emit("encdec_full", **rec)
+        ok &= rec["ok"]
+    if not ok:
+        raise SystemExit("encdec_full failed")
+    return by_run, k3_at
+
+
+# --------------------------------------------- the model meshes (M14b) --
+# granite-moe-1b-a400m's MoE through the three sharded paths of
+# ``models/moe.py`` on meshes of the one card (``launch/mesh.py``:
+# ``[card] * n``; ``sharding/rules.py::shard_map`` runs a thread a
+# coordinate).
+MESH_FULL = dict(arch="granite-moe-1b-a400m", batch=4, prompt=2048,
+                 steps=16, shapes=((1, 1), (2, 2)))
+
+
+def _moe_modules(model):
+    from repro_torch.models.moe import MoE
+    return [m for m in model.modules() if isinstance(m, MoE)]
+
+
+def _plain_dropped(xs, routers, cfg, impl, shape, cf):
+    """The (token, expert) pairs past capacity, counted from the routing
+    of each layer's MoE input ``xs[i]`` (router ``routers[i]``) over the
+    token set each coordinate routes (its batch rows; for sharded_a2a its
+    batch rows and sequence slice; for sharded2d every row, gathered): an
+    expert's (or for sharded_a2a an owner's) pairs beyond the capacity.
+    The routing products run at the coordinates' own shapes."""
+    from repro_torch.models.moe import router_topk
+    m = cfg.moe
+    data, model_ax = shape
+    total = 0
+    for x, router in zip(xs, routers):
+        b, s, d = x.shape
+        if impl == "sharded":
+            sets = [x[i * b // data:(i + 1) * b // data]
+                    for i in range(data)]
+            cap = max(8, int((b // data) * s * m.top_k * cf
+                             / m.num_experts))
+            owner = 1
+        elif impl == "sharded2d":
+            sets = [x]
+            cap = max(8, int(b * s * m.top_k * cf / m.num_experts))
+            owner = 1
+        else:
+            n_ep = data * model_ax
+            sets = [x[i * b // data:(i + 1) * b // data,
+                      j * s // model_ax:(j + 1) * s // model_ax]
+                    for i in range(data) for j in range(model_ax)]
+            cap = max(8, int((b // data) * (s // model_ax) * m.top_k * cf
+                             / n_ep))
+            owner = m.num_experts // n_ep
+        for xs_ in sets:
+            logits = xs_.reshape(-1, d).to(torch.float32) @ router.to(
+                torch.float32)
+            _, idx = router_topk(logits, m.top_k)
+            counts = torch.bincount(idx.reshape(-1) // owner)
+            total += int((counts - cap).clamp_min(0).sum())
+    return total
+
+
+def phase_mesh_full(dev):
+    """granite's prefill (B 4 x 2,048) and 16 decode steps with each
+    sharded ``moe_impl`` on a (1, 1) and a (2, 2) mesh of the card: in
+    fp32 at a capacity that drops nothing (cf = E / top_k) the logits held
+    to the dense path within 2e-3; in bf16 at the config's cf 1.25 the
+    dropped (token, expert) pairs of the prefill ``==`` a plain count of
+    the same routing, and each path's prefill ms beside dense.  Returns
+    K3's launches (one a layer a prefill)."""
+    from repro_torch.configs.one_card import prompt_inputs
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.sharding.rules import ShardCtx
+    t_phase = time.perf_counter()
+    f = MESH_FULL
+    cfg = get_config(f["arch"])
+    impls = ("sharded", "sharded2d", "sharded_a2a")
+    meshes = {s: make_mesh(s, ("data", "model"),
+                           devices=[dev] * (s[0] * s[1]))
+              for s in f["shapes"]}
+    run = dict(batch=f["batch"], prompt=f["prompt"])
+    max_len = f["prompt"] + f["steps"] + 8
+    checks, agreement, launches, prefills = {}, {}, 0, 0
+    # fp32, capacity for every pair: each sharded path is the dense path
+    free = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    model = build_model(free, device=dev, dtype=torch.float32)
+    model.init_params(torch.Generator(device=dev).manual_seed(0))
+    inp = prompt_inputs(cfg, run, dev)
+    ops.launches = 0                        # just before the main path ...
+    dense = _prompt_run(model, inp, f["steps"], max_len)
+    prefills += 1
+    for shape, mesh in meshes.items():
+        for impl in impls:
+            ctx = ShardCtx(mesh=mesh, pod_axis=None, moe_impl=impl,
+                           attn_impl="flash")
+            r = _prompt_run(model, inp, f["steps"], max_len, ctx=ctx)
+            prefills += 1
+            err = float((r["logits"] - dense["logits"]).abs().max())
+            key = f"{shape[0]}x{shape[1]}.{impl}"
+            agreement[key] = dict(
+                max_logit_dev_vs_dense=err,
+                streams_equal=r["stream"] == dense["stream"],
+                prefill_ms=r["prefill_s"] * 1e3,
+                decode_ms_per_step_median=statistics.median(r["step_s"])
+                * 1e3)
+            checks[f"fp32_{key}_within_2e-3_of_dense"] = err <= 2e-3
+            del r
+    fp32_dense = dict(prefill_ms=dense["prefill_s"] * 1e3,
+                      decode_ms_per_step_median=statistics.median(
+                          dense["step_s"]) * 1e3)
+    del model, dense
+    torch.cuda.empty_cache()
+    # bf16 at the config's capacity: drops, counted, and prefill times
+    model = build_model(cfg, device=dev)
+    model.init_params(torch.Generator(device=dev).manual_seed(0))
+    mods = _moe_modules(model)
+    timing, drops, xs = {}, {}, []
+    for _ in range(2):                      # dense, the second run warm
+        d = _prompt_run(model, inp, 0, max_len)
+        prefills += 1
+    timing["dense"] = d["prefill_s"] * 1e3
+    del d
+    # each MoE layer's input, for the plain count of its drops
+    hooks = [m.register_forward_pre_hook(lambda mod, args: xs.append(
+        args[0].detach())) for m in mods]
+    for shape, mesh in meshes.items():
+        for impl in impls:
+            ctx = ShardCtx(mesh=mesh, pod_axis=None, moe_impl=impl,
+                           attn_impl="flash")
+            stats = {}
+            for m in mods:
+                m.stats = stats
+            xs.clear()
+            r = _prompt_run(model, inp, 0, max_len, ctx=ctx)
+            prefills += 1
+            for m in mods:
+                m.stats = None
+            want = _plain_dropped(xs, [m.router for m in mods], cfg, impl,
+                                  shape, cfg.moe.capacity_factor)
+            key = f"{shape[0]}x{shape[1]}.{impl}"
+            drops[key] = dict(dropped=stats.get("dropped", 0),
+                              plain_count=want,
+                              pairs=len(mods) * f["batch"] * f["prompt"]
+                              * cfg.moe.top_k)
+            checks[f"bf16_{key}_drops_equal_plain_count"] = \
+                stats.get("dropped", 0) == want
+            xs.clear()
+            r = _prompt_run(model, inp, 0, max_len, ctx=ctx)   # warm
+            prefills += 1
+            timing[key] = r["prefill_s"] * 1e3
+            del r
+    launches = ops.launches                 # ... and read just after it
+    for h in hooks:
+        h.remove()
+    checks["launches"] = launches == prefills * cfg.num_layers
+    # with no devices named, a mesh takes the visible cards: here the one
+    checks["default_mesh_is_the_card"] = ShardCtx(mesh=make_mesh(
+        (1, 1), ("data", "model"))).mesh.device_at((0, 0)) == dev
+    del model, xs
+    torch.cuda.empty_cache()
+    emit("mesh_full", ok=all(checks.values()), checks=checks,
+         arch=f["arch"], batch=f["batch"], prompt=f["prompt"],
+         decode_steps=f["steps"], meshes=[list(s) for s in f["shapes"]],
+         capacity_factor_free=free.moe.capacity_factor,
+         capacity_factor=cfg.moe.capacity_factor,
+         fp32_dense=fp32_dense, fp32_agreement=agreement,
+         bf16_prefill_ms_warm=timing, bf16_drops=drops,
+         kernel_launches=launches, phase_s=time.perf_counter() - t_phase)
+    if not all(checks.values()):
+        raise SystemExit("mesh_full failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return launches
 
 
 # ------------------------------------------------- provisioning loop (K1) --
@@ -6138,7 +6515,10 @@ def main() -> int:
     emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
          torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0])
-    phase_build()
+    # K2 and K3 first; K1, K4-K6 compile beside the model phases
+    from repro_torch.kernels.flash_attention import kernel as K3
+    from repro_torch.kernels.paged_attention import kernel as K2
+    phase_build(first=(K2, K3))
     paged = phase_kernels(dev)
     flash = phase_kernels_flash(dev)
     torch.cuda.empty_cache()
@@ -6149,12 +6529,19 @@ def main() -> int:
     flash_by_path = {"ring_full": phase_ring_full(dev)}
     torch.cuda.empty_cache()
     phase_families_parity_small(dev)
-    families_launches, flash["share_of_tolerance_at_family_prefills"] = \
+    families_launches, flash["at_family_prefills"] = \
         phase_families_full(dev)
     flash_by_path.update(families_launches)
+    torch.cuda.empty_cache()
+    phase_encdec_parity_small(dev)
+    encdec_launches, flash["at_encdec_prefills"] = \
+        phase_encdec_full(dev)
+    flash_by_path.update(encdec_launches)
+    flash_by_path["mesh_full"] = phase_mesh_full(dev)
     flash["launches"] = sum(flash_by_path.values())
     flash["launches_by_path"] = flash_by_path
     torch.cuda.empty_cache()
+    phase_build_rest()
     sweep = phase_kernels_sweep(dev)
     phase_provision_parity_small(dev)
     by_path = {"provision_full": phase_provision_full(dev)}

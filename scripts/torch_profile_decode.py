@@ -2,9 +2,9 @@
 """Where a serving step of the PyTorch/CUDA port spends its time.
 
     PYTHONPATH=src python scripts/torch_profile_decode.py [paged] [ring]
-        [families]
+        [families] [encdec]
 
-Three paths (the first two when none is named), one JSON object each:
+Four paths (the first two when none is named), one JSON object each:
 
 * ``paged``: the engine of ``repro_torch.launch.serve`` for qwen2-1.5b at
   full width in bf16 with a full batch, traced over a window of decode
@@ -16,7 +16,10 @@ Three paths (the first two when none is named), one JSON object each:
 * ``families``: the same for each decoder-only family at the bf16 shapes
   and depth cuts of ``repro_torch/configs/one_card.py`` (``RUNS``,
   ``one_card_config``): granite-moe, mamba2, qwen2-7b, qwen3-32b, jamba's
-  and deepseek-v3's cuts.
+  and deepseek-v3's cuts;
+* ``encdec``: the same for whisper-small (the prefill encodes the frames,
+  stores the cross K/V and fills the decoder's prompt) and internvl2-26b
+  (patch embeddings before the text) at ``ENCDEC_RUNS``' bf16 shapes.
 
 Each object holds the wall time per step with and without the tracer
 (``torch.profiler``), the device's busy time per step (sum of kernel
@@ -34,7 +37,9 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs.one_card import FAMILY_ARCHS, RUNS, one_card_config
+from repro_torch.configs.one_card import (ENCDEC_ARCHS, ENCDEC_RUNS,
+                                          FAMILY_ARCHS, RUNS, one_card_config,
+                                          prompt_inputs)
 from repro_torch.configs.registry import get_config
 from repro_torch.device import nvidia_smi_line
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -101,26 +106,33 @@ def _untraced(fn, steps):
     return time.perf_counter() - t0
 
 
-def profile_ring(cfg=None, batch=RING_BATCH, prompt=RING_PROMPT):
+def profile_ring(cfg=None, batch=RING_BATCH, prompt=RING_PROMPT, run=None):
     """One traced prefill and a traced window of decode steps of ``cfg``
-    (h2o-danube-1.8b by default) at ``batch`` x ``prompt``."""
+    (h2o-danube-1.8b by default) at ``batch`` x ``prompt``, or with the
+    frames or patches of ``run`` (``one_card.ENCDEC_RUNS``)."""
     cfg = cfg or get_config("h2o-danube-1.8b")
     model = build_model(cfg)                     # bf16 weights, on the card
     model.init_params(torch.Generator(device=model.device).manual_seed(0))
     dev = model.device
-    rng = np.random.default_rng(0)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
-                                         (batch, prompt))).to(dev)
-    positions = torch.arange(prompt, device=dev).expand(batch, prompt)
+    if run is None:
+        rng = np.random.default_rng(0)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             (batch, prompt))).to(dev)
+        inp = dict(tokens=toks, embeds=None, cache_kw={}, start=prompt,
+                   positions=torch.arange(prompt, device=dev).expand(
+                       batch, prompt))
+    else:
+        inp = prompt_inputs(cfg, run, dev)
+    toks, positions, embeds = inp["tokens"], inp["positions"], inp["embeds"]
     n_steps = WARMUP + 2 * STEPS
-    cache = model.init_cache(batch, prompt + n_steps)
+    cache = model.init_cache(batch, inp["start"] + n_steps, **inp["cache_kw"])
     ctx = ShardCtx(attn_impl="flash")
     prefill, decode = make_prefill_step(model, ctx), make_decode_step(model,
                                                                       ctx)
     state = {}
 
     def pre():
-        state["logits"], _ = prefill(toks, positions, cache)
+        state["logits"], _ = prefill(toks, positions, cache, embeds=embeds)
 
     _untraced(pre, 1)              # warm-up: builds K3, first cuBLAS calls
     pre_untraced = _untraced(pre, 1)
@@ -128,7 +140,7 @@ def profile_ring(cfg=None, batch=RING_BATCH, prompt=RING_PROMPT):
     pre_prof, pre_traced = _traced(pre, 1)
     prefill_launches = fa_ops.launches
     state["tok"] = torch.argmax(state["logits"][:, -1], dim=-1)
-    state["pos"] = prompt
+    state["pos"] = inp["start"]
 
     def dec():
         pos = torch.full((batch,), state["pos"], dtype=torch.int64,
@@ -146,8 +158,9 @@ def profile_ring(cfg=None, batch=RING_BATCH, prompt=RING_PROMPT):
         "dtype": "bfloat16", "batch": batch, "prompt": prompt,
         "flash_attention_launches_per_prefill": prefill_launches,
         "prefill": _breakdown(pre_prof, 1, pre_untraced, pre_traced),
-        "decode_positions": [prompt + WARMUP + STEPS,
-                             prompt + WARMUP + 2 * STEPS - 1],
+        "embeds": None if embeds is None else list(embeds.shape),
+        "decode_positions": [inp["start"] + WARMUP + STEPS,
+                             inp["start"] + WARMUP + 2 * STEPS - 1],
         "decode": _breakdown(dec_prof, STEPS, dec_untraced, dec_traced),
     }
 
@@ -178,6 +191,16 @@ def profile_families():
         torch.cuda.empty_cache()
 
 
+def profile_encdec():
+    """``profile_ring`` of whisper-small and internvl2-26b at their bf16
+    runs' shapes, with their frames or patches."""
+    for arch in ENCDEC_ARCHS:
+        f = ENCDEC_RUNS[arch]
+        yield profile_ring(one_card_config(arch), f["batch"], f["prompt"],
+                           run=f)
+        torch.cuda.empty_cache()
+
+
 def main(argv=None):
     paths = (argv if argv is not None else sys.argv[1:]) or ["paged", "ring"]
     for path in paths:
@@ -185,12 +208,14 @@ def main(argv=None):
             print(json.dumps(profile_paged(), indent=1), flush=True)
         elif path == "ring":
             print(json.dumps(profile_ring(), indent=1), flush=True)
-        elif path == "families":
-            for rec in profile_families():
+        elif path in ("families", "encdec"):
+            gen = profile_families() if path == "families" else \
+                profile_encdec()
+            for rec in gen:
                 print(json.dumps(rec, indent=1), flush=True)
         else:
-            raise SystemExit(f"unknown path {path!r}; paged, ring or "
-                             "families")
+            raise SystemExit(f"unknown path {path!r}; paged, ring, "
+                             "families or encdec")
         torch.cuda.empty_cache()
 
 

@@ -1,4 +1,4 @@
-"""The decoder-only families served on one 80 GB card.
+"""The model families served on one 80 GB card.
 
 Each family runs at its published widths; only depth is cut, and only
 where one card's memory forces it (``one_card_config``: a
@@ -9,8 +9,14 @@ decode steps.  ``FP32_RUNS`` gives the fp32 runs that hold the serving
 steps to the model's own forward; fp32 weights take twice the memory, so
 jamba and deepseek are cut further there.
 
-``chip_smoke.py`` (phase ``families_full``),
-``scripts/torch_profile_decode.py families`` and
+``ENCDEC_RUNS`` and ``ENCDEC_FP32_RUNS`` do the same for the
+encoder-decoder (whisper-small: B clips of ``frames`` encoder frames, a
+decoder prompt of whisper's four start tokens) and the vision-frontend
+model (internvl2-26b: B rows of ``patches`` patch embeddings before
+``prompt`` text tokens); ``prompt_inputs`` makes a run's seeded inputs.
+
+``chip_smoke.py`` (phases ``families_full``, ``encdec_full``),
+``scripts/torch_profile_decode.py families encdec`` and
 ``scripts/torch_family_drift.py`` run these.
 """
 from __future__ import annotations
@@ -31,6 +37,22 @@ RUNS = {
     "jamba-1.5-large-398b": dict(batch=1, prompt=2048, steps=16),
     "deepseek-v3-671b": dict(batch=1, prompt=1024, steps=16),
 }
+
+ENCDEC_ARCHS = ("whisper-small", "internvl2-26b")
+
+ENCDEC_RUNS = {
+    "whisper-small": dict(batch=16, frames=1500, prompt=4, steps=124),
+    "internvl2-26b": dict(batch=2, patches=1024, prompt=1024, steps=32),
+}
+
+ENCDEC_FP32_RUNS = {
+    "whisper-small": dict(batch=2, frames=1500, prompt=4, steps=16),
+    "internvl2-26b": dict(batch=1, patches=256, prompt=256, steps=8),
+}
+
+#: whisper's decoder prompt: <|startoftranscript|> <|en|> <|transcribe|>
+#: <|notimestamps|>
+WHISPER_PROMPT = (50258, 50259, 50359, 50363)
 
 FP32_RUNS = {
     "granite-moe-1b-a400m": dict(batch=2, prompt=512, steps=16),
@@ -66,7 +88,45 @@ def one_card_config(arch: str, fp32: bool = False) -> ArchConfig:
         return dataclasses.replace(cfg, num_layers=sum(g.repeat
                                                        for g in groups),
                                    mtp_depth=0, groups=groups)
+    if arch == "internvl2-26b" and fp32:
+        # 48 layers are 79.4 GB in fp32 (19.86 G parameters): keep the
+        # first 24 (10.50 G, 42.0 GB), every layer the same kind
+        return dataclasses.replace(cfg, num_layers=24, groups=(
+            LayerGroup(24, cfg.groups[0].blocks),))
     return cfg
+
+
+def prompt_inputs(cfg: ArchConfig, run: dict, device, seed: int = 0):
+    """A serving run's seeded inputs on ``device``: ``tokens`` (B, P),
+    ``positions`` (B, P[+N]), ``embeds`` (the frames or patches, bf16, or
+    None), ``cache_kw`` for ``init_cache`` and ``start``, the first
+    decode position.  Text tokens come from a numpy generator, the
+    embeddings from a generator on ``device``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import frontend
+    b, p = run["batch"], run["prompt"]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if cfg.is_encoder_decoder:
+        ids = (WHISPER_PROMPT if p == len(WHISPER_PROMPT)
+               and cfg.vocab_size > max(WHISPER_PROMPT)
+               else np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                        p))
+        tokens = torch.tensor(ids, device=device).expand(b, p)
+        embeds = frontend.make_fake_embeds(cfg, b, run["frames"], gen,
+                                           device)
+        return dict(tokens=tokens, embeds=embeds, start=p,
+                    positions=torch.arange(p, device=device).expand(b, p),
+                    cache_kw=dict(enc_len=run["frames"]))
+    n = run.get("patches", 0)
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (b, p))).to(device)
+    embeds = (frontend.make_fake_embeds(cfg, b, n, gen, device) if n
+              else None)
+    return dict(tokens=tokens, embeds=embeds, start=n + p,
+                positions=torch.arange(n + p, device=device).expand(b, n + p),
+                cache_kw={})
 
 
 def attention_layers(cfg: ArchConfig) -> int:

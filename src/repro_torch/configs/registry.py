@@ -5,9 +5,6 @@ import importlib
 
 from repro_torch.configs.base import ArchConfig
 
-# The port knows the decoder-only architectures; the encoder-decoder and
-# frontend models (whisper-small, internvl2-26b) arrive with M14b
-# (ROADMAP.md).
 _MODULES = {
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "deepseek-v3-671b": "deepseek_v3_671b",
@@ -17,6 +14,8 @@ _MODULES = {
     "h2o-danube-1.8b": "h2o_danube_1_8b",
     "qwen2-7b": "qwen2_7b",
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "whisper-small": "whisper_small",
+    "internvl2-26b": "internvl2_26b",
 }
 
 ARCH_IDS = tuple(_MODULES)
@@ -25,8 +24,7 @@ ARCH_IDS = tuple(_MODULES)
 def _mod(arch_id: str):
     key = arch_id.replace("_", "-")
     if key not in _MODULES:
-        raise KeyError(f"arch {arch_id!r} is not ported yet (see ROADMAP.md); "
-                       f"known: {ARCH_IDS}")
+        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[key]}")
 
 

@@ -15,6 +15,8 @@ import os
 import re
 import shutil
 import subprocess
+import threading
+import time
 from pathlib import Path
 
 _PACKAGE = Path(__file__).resolve().parents[1]           # src/repro_torch
@@ -43,37 +45,66 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
+class Nvcc:
+    """One ``nvcc`` in flight.  A thread reads its output as it comes and
+    notes the wall seconds it ran (``seconds``), so a build that ends
+    while its caller is busy elsewhere still has its own time."""
+
+    def __init__(self, nvcc: str, name: str, lib: Path):
+        self.name, self.lib = name, lib
+        self.tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        self.log, self.seconds = "", None
+        t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(self.tmp),
+             str(CSRC_DIR / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+        def drain():
+            self.log = self.proc.communicate()[0]
+            self.seconds = time.perf_counter() - t0
+        self._reader = threading.Thread(target=drain, daemon=True)
+        self._reader.start()
+
+
+def start_builds(names) -> list[Nvcc]:
+    """Start one ``nvcc`` for each ``csrc/<name>.cu`` whose library is not
+    built yet, all together, and return without waiting: pass the result
+    to :func:`finish_builds`."""
+    todo = [(n, library_path(n)) for n in names]
+    todo = [(n, lib) for n, lib in todo if not lib.exists()]
+    if todo:
+        nvcc = find_nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return [Nvcc(nvcc, name, lib) for name, lib in todo]
+
+
 def build_libraries(names) -> list[Path]:
     """Compile each ``csrc/<name>.cu`` whose library is not built yet, one
     ``nvcc`` per source, all started together.  The compiler's output
     (registers, shared memory, spills per kernel) is kept beside each
     library as ``<library>.log``."""
-    libs = [library_path(n) for n in names]
-    todo = [(n, lib) for n, lib in zip(names, libs) if not lib.exists()]
-    if todo:
-        nvcc = find_nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = []
-    for name, lib in todo:
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC_DIR / f"{name}.cu")]
-        procs.append((name, lib, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
+    finish_builds(start_builds(names))
+    return [library_path(n) for n in names]
+
+
+def finish_builds(builds) -> dict[str, float]:
+    """Wait for builds :func:`start_builds` started; keep each log beside
+    its library, move each library into place, raise if any failed.
+    Returns each build's own wall seconds by source name."""
     failed = []
-    for name, lib, tmp, proc in procs:
-        log = proc.communicate()[0]
-        Path(f"{lib}.log").write_text(log)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            failed.append(f"nvcc failed on {name}.cu "
-                          f"(exit {proc.returncode}):\n{log}")
+    for b in builds:
+        b._reader.join()
+        Path(f"{b.lib}.log").write_text(b.log)
+        if b.proc.returncode != 0:
+            b.tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed on {b.name}.cu "
+                          f"(exit {b.proc.returncode}):\n{b.log}")
         else:
-            os.replace(tmp, lib)     # atomic: a reader never sees half a file
+            os.replace(b.tmp, b.lib)  # atomic: a reader never sees half a file
     if failed:
         raise RuntimeError("\n".join(failed))
-    return libs
+    return {b.name: b.seconds for b in builds}
 
 
 def build_library(name: str) -> Path:

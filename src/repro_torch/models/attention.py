@@ -395,3 +395,36 @@ def attn_decode(mixer: Attention, x, cache: dict, positions):
     out = grouped_dot_attention(q, cache["k"], cache["v"], mask,
                                 cfg.head_dim ** -0.5)
     return mixer.project_out(out), cache
+
+
+# ------------------------------------------------------- cross-attention ---
+def cross_attention_specs(cfg: ArchConfig, prefix_axes=()):
+    """The cross-attention's leaves: the self-attention's (``wk``/``wv``
+    project the encoder's states, ``wq`` the decoder's)."""
+    return attention_specs(cfg, prefix_axes)
+
+
+def cross_attn_forward(mixer: Attention, x, enc_kv):
+    """x: (B, Sq, d); enc_kv: the precomputed (k, v), each (B, Senc, Hkv,
+    D).  Every query sees every encoder position (no RoPE, no mask): the
+    reference's plain product, outside any Pallas kernel."""
+    cfg = mixer.cfg
+    q = torch.einsum("bsd,dhe->bshe", x, mixer.wq)
+    if cfg.qkv_bias:
+        q = q + mixer.bq.to(q.dtype)
+    k, v = enc_kv
+    m = torch.ones((1, 1, 1, x.shape[1], k.shape[1]), dtype=torch.bool,
+                   device=x.device)
+    out = grouped_dot_attention(q, k, v, m, cfg.head_dim ** -0.5)
+    return mixer.project_out(out)
+
+
+def encode_cross_kv(mixer: Attention, enc_out):
+    """The cross-attention's (k, v) of the encoder's states enc_out
+    (B, Senc, d): each (B, Senc, Hkv, D)."""
+    k = torch.einsum("bsd,dhe->bshe", enc_out, mixer.wk)
+    v = torch.einsum("bsd,dhe->bshe", enc_out, mixer.wv)
+    if mixer.cfg.qkv_bias:
+        k = k + mixer.bk.to(k.dtype)
+        v = v + mixer.bv.to(v.dtype)
+    return k, v

@@ -19,12 +19,21 @@ reference's own, so nothing is transposed:
     final_norm/scale (d,)                               final_norm.scale
     mtp/proj, mtp/block/..., mtp/norm/scale (unstacked) mtp.proj, mtp.block...
 
-The leading ``L`` ("layers") dim of a group's stacked leaves is unstacked
-into that group's ``L`` blocks (``params_to_numpy`` stacks them again).
-The cache keeps that stacked layout in the port too
-(``models/transformer.py``): ring, MLA and Mamba caches in any mix, so
-``cache_from_numpy`` and ``cache_to_numpy`` carry it across leaf for
-leaf.  An AdamW state
+    encoder-decoder (``EncDec``, whisper):
+    embed/tok (V, d); dec_pos (448, d)                  embed.tok; dec_pos
+    enc_blocks/{norm1,mixer,norm2,ffn}/... (Le, ...)    enc_blocks.l.<same>
+    enc_norm/scale, bias (d,)                           enc_norm.scale, bias
+    dec_blocks/{norm1,self,norm_x,cross,norm2,ffn}/...  dec_blocks.l.<same>
+      (L, ...); ffn/wi, bi, wo, bo (gelu MLP)
+    final_norm/scale, bias (d,)                         final_norm.scale, bias
+
+The leading ``L`` ("layers") dim of a group's (or an encoder or decoder
+stack's) leaves is unstacked into its ``L`` blocks (``params_to_numpy``
+stacks them again).  The cache keeps that stacked layout in the port too
+(``models/transformer.py``, ``models/encdec.py``): ring, MLA and Mamba
+caches in any mix, or the encoder-decoder's ``self`` ring with its
+``cross_k``/``cross_v``, so ``cache_from_numpy`` and ``cache_to_numpy``
+carry it across leaf for leaf.  An AdamW state
 (``optim/adamw.py``: ``master``, ``m``, ``v`` keyed by the port's
 parameter names) crosses in the same stacked layout
 (``opt_state_to_numpy`` / ``opt_state_from_numpy``).
@@ -36,6 +45,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.encdec import encdec_cache_specs
 from repro_torch.models.model_zoo import build_model
 from repro_torch.models.params import map_with_path
 from repro_torch.models.transformer import LM, cache_specs
@@ -55,13 +65,25 @@ def _flatten(tree, prefix=()) -> dict[tuple, np.ndarray]:
     return out
 
 
+_STACKS = ("enc_blocks", "dec_blocks")      # the encoder-decoder's stacks
+
+
 def _source_of(name: str) -> tuple[tuple, int | None]:
     """Port parameter name -> (path in the reference tree, layer index)."""
     parts = name.split(".")
     if parts[0] == "groups":
         gi, layer, bi = (int(p) for p in parts[1:4])
         return ("groups", gi, "blocks", bi, *parts[4:]), layer
+    if parts[0] in _STACKS:
+        return (parts[0], *parts[2:]), int(parts[1])
     return tuple(parts), None
+
+
+def _stack_len(model, path: tuple) -> int:
+    """Blocks in the stack a stacked leaf at ``path`` is unstacked into."""
+    if path[0] == "groups":
+        return len(model.groups[path[1]])
+    return len(getattr(model, path[0]))
 
 
 @torch.no_grad()
@@ -83,7 +105,7 @@ def params_from_numpy(tree, cfg: ArchConfig, *, device=None,
                              f"leaf {'/'.join(map(str, path))}")
         src = flat[path]
         if layer is not None:
-            n_layers = len(model.groups[path[1]])
+            n_layers = _stack_len(model, path)
             if src.shape[0] != n_layers:
                 raise ValueError(f"{'/'.join(map(str, path))}: {src.shape[0]} "
                                  f"stacked layers, model has {n_layers}")
@@ -107,7 +129,8 @@ def _path_str(path) -> str:
 def cache_from_numpy(tree, cfg: ArchConfig, *, device=None,
                      dtype: torch.dtype | None = torch.float32) -> dict:
     """The reference's cache (nested dicts / tuples of numpy arrays: ring,
-    MLA and Mamba caches in any mix) as the port's cache of tensors on
+    MLA and Mamba caches in any mix, or an encoder-decoder's ``self`` ring
+    and ``cross_k``/``cross_v``) as the port's cache of tensors on
     ``device`` (``None`` is the card).  :func:`_cache_extents` reads batch
     and width from the tree.  The leaves declared bf16 (K/V, ``c_kv``,
     ``k_rope``) are cast to ``dtype`` (``None``: bf16); ``pos`` stays
@@ -116,8 +139,14 @@ def cache_from_numpy(tree, cfg: ArchConfig, *, device=None,
     device = resolve_device(device)
     flat = _flatten(tree)
     batch, width = _cache_extents(flat)
+    if cfg.is_encoder_decoder:
+        cross = flat.get(("cross_k",))
+        specs = encdec_cache_specs(cfg, batch, width, enc_len=(
+            width if cross is None or cross.ndim < 3 else cross.shape[2]))
+    else:
+        specs = cache_specs(cfg, batch, width)
     want = {}
-    map_with_path(want.__setitem__, cache_specs(cfg, batch, width))
+    map_with_path(want.__setitem__, specs)
     missing = sorted(_path_str(p) for p in set(want) - set(flat))
     extra = sorted(_path_str(p) for p in set(flat) - set(want))
     if missing or extra:
@@ -133,13 +162,13 @@ def cache_from_numpy(tree, cfg: ArchConfig, *, device=None,
         dt = (dtype or spec.dtype if spec.dtype == torch.bfloat16
               else spec.dtype)
         return torch.tensor(src, dtype=dt, device=device)
-    return map_with_path(take, cache_specs(cfg, batch, width))
+    return map_with_path(take, specs)
 
 
 def _cache_extents(flat: dict) -> tuple[int, int]:
     """(batch, width) of a stacked cache tree: the batch is every leaf's
-    dim 1 (after the layers), the width that of a ring ``k`` or an MLA
-    ``c_kv`` leaf.  A tree of Mamba states alone has no width (its leaves
+    dim 1 (after the layers), the width that of a ring ``k`` (the
+    encoder-decoder's ``self/k``) or an MLA ``c_kv`` leaf.  A tree of Mamba states alone has no width (its leaves
     do not depend on one): 1 stands in."""
     leaves = [a for a in flat.values() if a.ndim >= 2]
     if not leaves:

@@ -5,15 +5,15 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.transformer import LM
 
 
 def build_model(cfg: ArchConfig, *, device=None,
-                dtype: torch.dtype | None = None) -> LM:
+                dtype: torch.dtype | None = None) -> LM | EncDec:
     """Allocate (not initialise) the model on ``device``; ``None`` is the
     card.  ``dtype=None`` keeps the specs' dtypes (bf16 weights, fp32 norm
-    scales and biases)."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            "encoder-decoder models are not ported yet (see ROADMAP.md)")
-    return LM(cfg, device=resolve_device(device), dtype=dtype)
+    scales and biases).  Encoder-decoder configs give an ``EncDec``, the
+    rest an ``LM``."""
+    cls = EncDec if cfg.is_encoder_decoder else LM
+    return cls(cfg, device=resolve_device(device), dtype=dtype)

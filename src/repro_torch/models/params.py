@@ -9,8 +9,8 @@ does.  From that declaration the port derives
   * ``stack_specs(specs, repeat)`` -> the reference's stacked-layer shapes,
     which ``models/convert.py`` checks a parameter tree against.
 
-Logical axes are carried along for the sharding slice; nothing reads them
-yet.
+Logical axes are what ``sharding/rules.py`` maps onto a mesh's axes
+(``spec_for``, ``partition_tree``).
 """
 from __future__ import annotations
 

@@ -153,7 +153,8 @@ class TransformerBlock(nn.Module):
         x = x + self._apply_mixer(self.norm1(x), positions, cache, ctx, mode)
         aux = None
         if self.kind.ffn == "moe":
-            y, aux = self.ffn(self.norm2(x))
+            cf = ctx.moe_decode_cf if mode == "decode" else None
+            y, aux = self.ffn(self.norm2(x), ctx, cf)
             x = x + y
         elif self.kind.ffn != "none":
             x = x + self.ffn(self.norm2(x))

@@ -1,13 +1,15 @@
-"""Fault tolerance: failure detection, the EMC failure schedule priced by
-the failure layer, stragglers and failure injection (the port's share of
-the reference's ``repro/runtime/fault.py``; the elastic re-mesh,
-``elastic_mesh``, waits for the port's meshes, ROADMAP M14b).
+"""Fault tolerance: failure detection, the elastic re-mesh, the EMC
+failure schedule priced by the failure layer, stragglers and failure
+injection (the reference's ``repro/runtime/fault.py``).
 
 * ``HeartbeatMonitor`` — declares a host dead after ``timeout`` without a
   beat (Pond's EMC blast-radius isolation: only what lives on the failed
   EMC is affected).
 * ``largest_mesh_shape`` — the largest (pod, data, model) grid a surviving
   device count holds, the model axis kept whole (arithmetic only).
+* ``elastic_mesh`` — that grid as a ``launch.mesh.Mesh`` over the first
+  surviving devices; training resumes from the last checkpoint restored
+  onto it (checkpoints do not depend on the mesh).
 * ``FailureSchedule`` — a seeded sequence of ``FAIL(domain)`` /
   ``RECOVER(domain)`` events over the pool's failure domains (Pond §4.2:
   one domain per EMC group).  ``replay_engine.CompiledReplay`` merges it
@@ -21,6 +23,7 @@ the reference's ``repro/runtime/fault.py``; the elastic re-mesh,
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Callable
 
@@ -59,6 +62,16 @@ def largest_mesh_shape(n_devices: int, model_parallel: int,
         return (rows, model_parallel)
     pods = 2 if rows >= 2 else 1
     return (pods, rows // pods, model_parallel)
+
+
+def elastic_mesh(devices, model_parallel: int, multi_pod: bool = False):
+    """Build the largest healthy mesh from surviving devices."""
+    from repro_torch.launch.mesh import make_mesh
+
+    shape = largest_mesh_shape(len(devices), model_parallel, multi_pod)
+    n = math.prod(shape)
+    names = ("pod", "data", "model") if len(shape) == 3 else ("data", "model")
+    return make_mesh(shape, names, devices=list(devices[:n]))
 
 
 class FailureInjector:

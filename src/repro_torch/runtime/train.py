@@ -21,8 +21,14 @@ The parameters are the model's own (``model.named_parameters()``, the
 dict :func:`train_params` returns); the steps update them in place, as
 the reference's steps update their donated buffers.  Both steps share
 ``adamw.step_scalars`` and ``adamw.update_leaf``, so they give the same
-parameters bit for bit.  There is no mesh on one card, so the reference's
-``step_shardings`` waits for the port's meshes (ROADMAP M14b).
+parameters bit for bit.
+
+With a mesh (``ShardCtx.mesh``), :func:`step_shardings` gives the
+reference's spec trees of the fused step, but nothing places the arrays
+by them: the step runs the model eagerly on the parameters' device, and
+only ``shard_map`` code splits work over the mesh (the sharded MoE paths,
+and here the tied-head loss with ``replicate_lm_head``: the chunks'
+tokens split over the model axis, the partial sums ``psum``-ed).
 """
 from __future__ import annotations
 
@@ -31,7 +37,9 @@ import torch.nn.functional as F
 
 from repro_torch.optim import adamw
 from repro_torch.optim.compress import QTensor
-from repro_torch.sharding.rules import ShardCtx
+from repro_torch.sharding import rules
+from repro_torch.sharding.rules import (P, NamedSharding, ShardCtx,
+                                        default_rules, sharding_tree)
 
 MTP_WEIGHT = 0.3
 
@@ -94,11 +102,14 @@ class _XentCore(torch.autograd.Function):
         return dhc, None, dw.to(w.dtype)
 
 
-def chunked_xent(hidden, w, labels, chunk: int = 512):
+def chunked_xent(hidden, w, labels, chunk: int = 512,
+                 ctx: ShardCtx | None = None):
     """Mean token NLL.  hidden: (B,S,d); w: (d,V); labels: (B,S) int, -1
     ignored.  Without the custom backward, autograd would keep every
     chunk's (B, chunk, V) fp32 logits: the whole logits tensor that
-    chunking exists to avoid."""
+    chunking exists to avoid.  With a mesh and ``replicate_lm_head`` (a
+    tied head, whose vocab dim does not shard) each chunk's tokens split
+    over the model axis, as in the reference."""
     b, s, d = hidden.shape
     c = min(chunk, s)
     pad = (-s) % c
@@ -108,6 +119,20 @@ def chunked_xent(hidden, w, labels, chunk: int = 512):
     n = (s + pad) // c
     hc = hidden.reshape(b, n, c, d).movedim(1, 0)
     lc = labels.reshape(b, n, c).movedim(1, 0)
+    if (ctx is not None and ctx.mesh is not None and ctx.replicate_lm_head
+            and c % ctx.mesh.shape[ctx.model_axis] == 0):
+        ma = ctx.model_axis
+
+        def local(hc_l, lc_l, w_l):
+            tot, cnt = _XentCore.apply(hc_l, lc_l, w_l)
+            return rules.psum(tot, ma), rules.psum(cnt, ma)
+
+        total, count = rules.shard_map(
+            local, mesh=ctx.mesh,
+            in_specs=(P(None, None, ma, None), P(None, None, ma),
+                      P(None, None)),
+            out_specs=(P(), P()))(hc, lc, w)
+        return total / count.clamp_min(1)
     total, count = _XentCore.apply(hc, lc, w)
     return total / count.clamp_min(1)
 
@@ -118,18 +143,20 @@ def loss_fn(model, params, batch, ctx: ShardCtx, xent_chunk: int = 512):
     tokens = batch["tokens"]
     inp, labels = tokens[:, :-1], tokens[:, 1:]
     embeds = batch.get("embeds")
-    n_emb = 0 if embeds is None else embeds.shape[1]
+    # enc-dec: embeds feed the encoder, not the decoder prefix
+    n_emb = (0 if embeds is None or model.cfg.is_encoder_decoder
+             else embeds.shape[1])
     s = inp.shape[1] + n_emb
     positions = torch.arange(s, device=tokens.device)[None].expand(
         inp.shape[0], s)
     out = model.forward(inp, positions, ctx, embeds=embeds)
     hidden = out["hidden"][:, n_emb:]          # frontend tokens carry no loss
     w = model.lm_head_weight()
-    loss = chunked_xent(hidden, w, labels, xent_chunk)
+    loss = chunked_xent(hidden, w, labels, xent_chunk, ctx)
     total = loss + out["aux"]
     if "mtp_hidden" in out:                     # predict t+2 (DeepSeek MTP)
         mtp_loss = chunked_xent(out["mtp_hidden"][:, :-1], w, labels[:, 2:],
-                                xent_chunk)
+                                xent_chunk, ctx)
         total = total + MTP_WEIGHT * mtp_loss
     return total, {"loss": loss, "aux": out["aux"]}
 
@@ -256,3 +283,20 @@ def make_two_phase_steps(model, opt_cfg: adamw.AdamWConfig, ctx: ShardCtx,
 # The reference's step builder on one card: the fused step, eager (nothing
 # is compiled; the state is updated in place, as a donated step's is).
 jit_train_step = make_train_step
+
+
+def step_shardings(model, opt_cfg: adamw.AdamWConfig, ctx: ShardCtx,
+                   mode: str = "train"):
+    """The fused step's (params, opt_state, batch) ``NamedSharding`` trees
+    on ``ctx.mesh``, in the reference's layouts (the parameters' tree is
+    ``model.specs()``'s)."""
+    rules_ = default_rules(ctx, mode=mode)
+    params_sh = sharding_tree(model.specs(), rules_, ctx.mesh)
+    opt_sh = {
+        "step": NamedSharding(ctx.mesh, P()),
+        "master": params_sh if opt_cfg.master_fp32 else None,
+        "m": params_sh,
+        "v": params_sh,
+    }
+    batch_sh = {"tokens": NamedSharding(ctx.mesh, P(ctx.batch_axes, None))}
+    return params_sh, opt_sh, batch_sh

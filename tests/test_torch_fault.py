@@ -2,8 +2,8 @@
 reference's: heartbeats, the largest mesh shape (arithmetic, ``==`` the
 reference's over a grid), stragglers, the failure injector and the EMC
 failure schedule; the elastic restore becomes a restore onto another
-device.  The re-mesh itself (``elastic_mesh``) waits for the port's
-meshes."""
+device.  The re-mesh itself (``elastic_mesh``) is held to the reference's
+in ``tests/test_torch_mesh.py``."""
 import numpy as np
 import pytest
 import torch

@@ -31,11 +31,10 @@ def test_configs_agree_field_by_field():
     for getter in ("get_smoke", "get_config"):
         from repro.configs import registry as jreg
         from repro_torch.configs import registry as treg
-        a = dataclasses.asdict(getattr(jreg, getter)("qwen2-1.5b"))
-        b = dataclasses.asdict(getattr(treg, getter)("qwen2-1.5b"))
-        assert a == b
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_smoke("whisper-small")
+        for arch in ("qwen2-1.5b", "whisper-small", "internvl2-26b"):
+            a = dataclasses.asdict(getattr(jreg, getter)(arch))
+            b = dataclasses.asdict(getattr(treg, getter)(arch))
+            assert a == b
 
 
 @pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])

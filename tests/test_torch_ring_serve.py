@@ -219,8 +219,11 @@ def test_ring_decode_matches_paged_engine(models):
 
 
 def test_shard_ctx_is_single_device_only(models):
-    with pytest.raises(NotImplementedError):
+    """A context takes no mesh but the port's own (``launch.mesh``), and
+    without one it is the single-device context."""
+    with pytest.raises(TypeError, match="Mesh"):
         ShardCtx(mesh=object())
+    assert ShardCtx().mesh is None and ShardCtx().axis_size("model") == 1
     x = torch.ones(2)
     assert ShardCtx(attn_impl="flash").constrain(x) is x
     cfg, _, _, tmodel = models["h2o-danube-1.8b"]
