@@ -91,7 +91,18 @@ PyTorch version on the card, and drives the port's three paths:
   two-phase steps with the state pinned in host memory (fp32 and int8
   moments), a checkpoint round trip and a traced step.  No kernel of this
   path is a TPU kernel's counterpart: the reference trains through its
-  plain blocked attention, and so does the port.
+  plain blocked attention, and so does the port;
+* the families training through the same steps: each family's smoke
+  config card vs CPU, then granite-moe-1b-a400m, mamba2-1.3b and
+  whisper-small whole, internvl2-26b's first 4 layers and deepseek-v3's
+  first dense MLA layer with its MTP head at published widths, fused
+  steps, and for deepseek two-phase steps from the same parameters;
+* the dry run (``launch/dryrun.py``): the reference's 10 archs x 4 shapes
+  on the single-pod mesh of meta devices, counted in a process of its own
+  beside the card's phases and never touching the card, and two real
+  training steps counted on the card (``launch/op_analysis.py``) against
+  their meta twins: FLOPs and bytes ``==``, the card's peak memory against
+  the counted live bytes.
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after, which shows that it went through its kernel.
@@ -106,6 +117,7 @@ name and power limit as ``nvidia-smi`` prints them, and ``{"ok": true,
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import functools
 import json
@@ -6253,14 +6265,41 @@ def _tier_account(opt):
     return acct
 
 
+def _counted_call(fn, args, box):
+    """``fn(*args)`` under the op counter (``launch/op_analysis.py``), the
+    card's memory read around it: ``box`` gets the counts, the bytes
+    allocated before the call and the call's peak (the peak reset just
+    before it)."""
+    from repro_torch.launch import op_analysis
+    torch.cuda.synchronize()
+    box["allocated_before"] = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with op_analysis.OpCounter() as c:
+        out = fn(*args)
+    torch.cuda.synchronize()
+    box["peak"] = torch.cuda.max_memory_allocated()
+    box["counts"] = c.counts
+    return out
+
+
+def _count_first_call(fn, box):
+    """``fn`` whose first call runs under ``_counted_call``."""
+    def wrapper(*args):
+        if "counts" not in box:
+            return _counted_call(fn, args, box)
+        return fn(*args)
+    return wrapper
+
+
 def _train_run(model, params, init, ocfg, two_phase, steps, dev, *,
-               snapshot_after=None):
+               snapshot_after=None, count_box=None):
     """One run of ``launch/train.py``'s loop from ``init`` (host tensors):
     the state built as the trainer builds it, the peak device memory reset
     just before the loop (the first step's record carries the state's
-    build seconds).  Returns (metrics, opt, the step, the data, peak
-    bytes, the parameters after ``snapshot_after`` steps on the host, or
-    None)."""
+    build seconds).  With ``count_box`` the first step runs under the op
+    counter (``_count_first_call``).  Returns (metrics, opt, the step, the
+    data, peak bytes, the parameters after ``snapshot_after`` steps on the
+    host, or None)."""
     from repro_torch.data.pipeline import DataConfig, ShardedBatches
     from repro_torch.launch import train as launch_train
     from repro_torch.sharding.rules import ShardCtx
@@ -6275,6 +6314,8 @@ def _train_run(model, params, init, ocfg, two_phase, steps, dev, *,
         model, ocfg, ShardCtx(), two_phase=two_phase,
         microbatches=TRAIN_FULL["microbatches"],
         xent_chunk=TRAIN_FULL["xent_chunk"])
+    if count_box is not None:
+        step = _count_first_call(step, count_box)
     data = ShardedBatches(DataConfig(
         vocab_size=model.cfg.vocab_size, seq_len=TRAIN_FULL["seq_len"],
         global_batch=TRAIN_FULL["global_batch"]))
@@ -6345,10 +6386,13 @@ def phase_train_full(dev):
                              total_steps=TRAIN_FULL["steps_fused"])
     icfg = dataclasses.replace(ocfg, moments_dtype="int8")
     runs = {}
-    # (a) fused, the state on the card
+    # (a) fused, the state on the card; its first step counted by the op
+    # counter for dryrun_full (the counter's host work slows that step,
+    # which the steady figures leave out)
+    counted = {}
     m_a, opt_a, _, _, peak_a, snap_a = _train_run(
         model, params, init, ocfg, False, TRAIN_FULL["steps_fused"], dev,
-        snapshot_after=1)
+        snapshot_after=1, count_box=counted)
     acct_a = _tier_account(opt_a)
     del opt_a
     torch.cuda.empty_cache()
@@ -6495,6 +6539,475 @@ def phase_train_full(dev):
     if not all(checks.values()):
         raise SystemExit("train_full failed: "
                          f"{[k for k, v in checks.items() if not v]}")
+    counted.update(
+        cfg=cfg, batch=TRAIN_FULL["global_batch"],
+        seq=TRAIN_FULL["seq_len"], microbatches=TRAIN_FULL["microbatches"],
+        xent_chunk=TRAIN_FULL["xent_chunk"], remat=False,
+        accum=torch.float32, ocfg=ocfg, tokens=tokens,
+        step_ms=[r["step_ms"] for r in m_a[1:]])
+    return counted
+
+
+# ------------------------------------------------- training the families --
+# Phase train_families_parity_small: each family's smoke config (granite's
+# MoE, mamba2's SSD, jamba's hybrid, deepseek's MLA with its MTP head,
+# whisper's encoder-decoder, internvl2's patch rows), seeded fp32
+# parameters (CPU generator), B 4 x 12 positions from a numpy seed (whisper:
+# 12 encoder frames and 12 decoder tokens; internvl2: its patch rows
+# first), 2 microbatches, lr 1e-2: one fused step on the card and on the
+# CPU.  The loss, the grad norm and the first moment (0.1 x the clipped
+# gradient) at TRAIN_SMALL's fp32 tolerance; the parameters there wherever
+# |m| > m_floor and within the update's bound (2 lr) elsewhere: the step-1
+# update is lr g / (|g| + eps), whose sign a gradient within its tolerance
+# of 0 takes from its rounding (tests/test_torch_train_families.py).  Then
+# on the card the two-phase step (pool tier pinned) torch.equal the fused.
+TRAIN_FAMILIES_SMALL = dict(seed=0, batch=4, seq=12, microbatches=2,
+                            lr=1e-2, m_floor=1e-5)
+TRAIN_FAMILY_ARCHS = ("granite-moe-1b-a400m", "mamba2-1.3b",
+                      "jamba-1.5-large-398b", "deepseek-v3-671b",
+                      "whisper-small", "internvl2-26b")
+# Phase train_families_full: configs/one_card.py's TRAIN_RUNS at published
+# widths (granite, mamba2 and whisper whole; internvl2's first 4 layers;
+# deepseek's first dense MLA layer with its MTP head), bf16 parameters from
+# a seeded init on the card, remat on, 2 microbatches, the trainer's AdamW
+# defaults (lr 3e-3, 20 warmup steps): 3 fused steps, and for deepseek (the
+# reference's plan: two_phase, bf16 accumulation) 2 two-phase steps from
+# the same parameters.  Text from ShardedBatches, frames and patch rows
+# from a seeded generator on the card (N(0, 0.02^2), bf16).
+TRAIN_FAMILIES_FULL = dict(seed=0, microbatches=2, lr=3e-3, warmup_steps=20,
+                           steps_fused=3, steps_two_phase=2)
+
+
+def _family_batch_shapes(cfg, batch, seq):
+    """The train batch's leaves as (shape, dtype): ``launch/dryrun.py``'s
+    ``train_batch`` on meta."""
+    from repro_torch.launch.dryrun import train_batch
+    return {k: (tuple(v.shape), v.dtype)
+            for k, v in train_batch(cfg, batch, seq).items()}
+
+
+def _seeded_batch(cfg, batch, seq, seed, embed_dtype):
+    """A small train batch on the host: numpy-seeded tokens and
+    embeddings (N(0, 0.05^2))."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, (shape, dt) in _family_batch_shapes(cfg, batch, seq).items():
+        if k == "tokens":
+            out[k] = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, shape, dtype=np.int32))
+        else:
+            out[k] = torch.from_numpy((rng.standard_normal(shape) * 0.05)
+                                      .astype(np.float32)).to(embed_dtype)
+    return out
+
+
+def _family_batches(cfg, batch, seq, n, dev, seed=0):
+    """``n`` full-width train batches on the card: text from
+    ShardedBatches, frames or patch rows from a seeded generator."""
+    from repro_torch.data.pipeline import DataConfig, ShardedBatches
+    shapes = _family_batch_shapes(cfg, batch, seq)
+    (b, t1), _ = shapes["tokens"]
+    data = ShardedBatches(DataConfig(vocab_size=cfg.vocab_size,
+                                     seq_len=t1 - 1, global_batch=b))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for i in range(n):
+        one = {"tokens": torch.from_numpy(data.batch_at(i)["tokens"]).to(
+            dev)}
+        if "embeds" in shapes:
+            shape, dt = shapes["embeds"]
+            one["embeds"] = (torch.randn(shape, generator=gen, device=dev)
+                             * 0.02).to(dt)
+        out.append(one)
+    return out
+
+
+def phase_train_families_parity_small(dev):
+    """Each family's training step card vs CPU on its smoke config
+    (``TRAIN_FAMILIES_SMALL``), then the two-phase step against the fused
+    one on the card."""
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.sharding.rules import ShardCtx
+    cfg_s = TRAIN_FAMILIES_SMALL
+    rtol, atol = TRAIN_SMALL["fp32"]
+    ocfg = adamw.AdamWConfig(lr=cfg_s["lr"], warmup_steps=1)
+    cpu = torch.device("cpu")
+    checks, errs = {}, {}
+    for arch in TRAIN_FAMILY_ARCHS:
+        cfg = get_smoke(arch)
+        src = build_model(cfg, device="cpu", dtype=torch.float32)
+        src.init_params(torch.Generator().manual_seed(cfg_s["seed"]))
+        init = {n: p.detach().clone() for n, p in src.named_parameters()}
+        batch = _seeded_batch(cfg, cfg_s["batch"], cfg_s["seq"],
+                              cfg_s["seed"] + 1, torch.float32)
+        out = {}
+        for label, where, two_phase in (("cpu", cpu, False),
+                                        ("card", dev, False),
+                                        ("card two_phase", dev, True)):
+            model, params = _train_parity_model(cfg, where, torch.float32,
+                                                init)
+            opt = launch_train.init_opt_state(params, ocfg, two_phase, where)
+            step = launch_train.make_step(
+                model, ocfg, ShardCtx(), two_phase=two_phase,
+                microbatches=cfg_s["microbatches"])
+            _, opt, m = step(params, opt, {k: v.to(where)
+                                           for k, v in batch.items()})
+            out[label] = dict(
+                params={n: p.detach().cpu() for n, p in params.items()},
+                m={n: t.detach().cpu() for n, t in opt["m"].items()},
+                loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                pinned=(all(t.device.type == "cpu" and t.is_pinned()
+                            for t in _pool_tensors(opt)) if two_phase
+                        else None))
+        c, g, t = out["cpu"], out["card"], out["card two_phase"]
+        checks[f"{arch} loss"] = bool(np.isclose(g["loss"], c["loss"],
+                                                 rtol=rtol, atol=atol))
+        checks[f"{arch} grad_norm"] = bool(np.isclose(
+            g["grad_norm"], c["grad_norm"], rtol=rtol, atol=atol))
+        ok_m = ok_p = True
+        worst_m = worst_p = worst_free = 0.0
+        for n in c["params"]:
+            ok_m &= bool(torch.allclose(g["m"][n], c["m"][n], rtol=rtol,
+                                        atol=atol))
+            worst_m = max(worst_m, float((g["m"][n] - c["m"][n]).abs()
+                                         .max()))
+            sure = c["m"][n].abs() > cfg_s["m_floor"]
+            d = (g["params"][n] - c["params"][n]).abs()
+            ok_p &= bool(torch.allclose(g["params"][n][sure],
+                                        c["params"][n][sure], rtol=rtol,
+                                        atol=atol))
+            ok_p &= bool(d.max() <= 2 * cfg_s["lr"])
+            worst_p = max(worst_p, float(d[sure].max()) if sure.any()
+                          else 0.0)
+            worst_free = max(worst_free, float(d.max()))
+        checks[f"{arch} first moment"] = ok_m
+        checks[f"{arch} params"] = ok_p
+        checks[f"{arch} two_phase loss == fused"] = t["loss"] == g["loss"]
+        checks[f"{arch} two_phase params == fused"] = all(
+            torch.equal(t["params"][n], g["params"][n]) for n in g["params"])
+        checks[f"{arch} two_phase pool tier pinned"] = t["pinned"]
+        errs[arch] = dict(loss_card_cpu=[g["loss"], c["loss"]],
+                          grad_norm_card_cpu=[g["grad_norm"],
+                                              c["grad_norm"]],
+                          m=worst_m, params_where_m_gt_floor=worst_p,
+                          params_anywhere=worst_free)
+    emit("train_families_parity_small", ok=all(checks.values()),
+         checks=checks, config=dict(TRAIN_FAMILIES_SMALL,
+                                    tol=TRAIN_SMALL["fp32"],
+                                    archs=TRAIN_FAMILY_ARCHS),
+         max_abs_err=errs)
+    if not all(checks.values()):
+        raise SystemExit("train_families_parity_small failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+
+
+def _train_family_full(arch, dev, count_box=None):
+    """One family's training run on the card (``TRAIN_RUNS[arch]``,
+    ``TRAIN_FAMILIES_FULL``).  Returns (record, checks)."""
+    from repro_torch.configs.one_card import TRAIN_RUNS, one_card_train_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train as rt
+    from repro_torch.sharding.rules import ShardCtx
+    t_run = time.perf_counter()
+    run, full = TRAIN_RUNS[arch], TRAIN_FAMILIES_FULL
+    cfg = one_card_train_config(arch)
+    model = build_model(cfg, device=dev)
+    model.init_params(torch.Generator(device=dev).manual_seed(full["seed"]))
+    params = rt.train_params(model)
+    n_params = sum(p.numel() for p in params.values())
+    param_bytes = sum(p.numel() * p.element_size() for p in params.values())
+    two_phase = run.get("two_phase", False)
+    accum = getattr(torch, run["accum"])
+    ocfg = adamw.AdamWConfig(lr=full["lr"], warmup_steps=full["warmup_steps"],
+                             total_steps=full["steps_fused"])
+    ctx = ShardCtx(remat=True)
+    batches = _family_batches(cfg, run["batch"], run["seq"],
+                              full["steps_fused"], dev)
+    tokens = sum(int(t.numel()) for k, t in batches[0].items()
+                 if k == "tokens") - run["batch"]      # the loss's targets
+    positions = tokens + (batches[0]["embeds"].shape[0]
+                          * batches[0]["embeds"].shape[1]
+                          if "embeds" in batches[0] else 0)
+
+    def steps(two, n, box=None):
+        opt = launch_train.init_opt_state(params, ocfg, two, dev)
+        step = launch_train.make_step(
+            model, ocfg, ctx, two_phase=two,
+            microbatches=full["microbatches"], xent_chunk=run["xent_chunk"],
+            accum_dtype=accum)
+        if box is not None:
+            step = _count_first_call(step, box)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        recs, snap = [], None
+        for i in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, opt, m = step(params, opt, batches[i])
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            rec = dict(loss=loss, grad_norm=float(m["grad_norm"]),
+                       step_ms=(time.perf_counter() - t0) * 1e3)
+            for k in ("grad_ms", "opt_ms", "opt_bytes_in", "opt_bytes_out"):
+                if k in m:
+                    rec[k] = m[k]
+            recs.append(rec)
+            if i == 0 and two_phase:
+                # on the card: the host holds the pool tier
+                snap = {k: p.detach().clone() for k, p in params.items()}
+        peak = torch.cuda.max_memory_allocated()
+        pinned = (all(t.device.type == "cpu" and t.is_pinned()
+                      for t in _pool_tensors(opt)) if two else None)
+        del opt
+        torch.cuda.empty_cache()
+        return recs, peak, snap, pinned
+
+    fused, peak_f, snap_f, _ = steps(False, full["steps_fused"], count_box)
+    rec = dict(arch=arch, layers=cfg.num_layers, params=n_params,
+               param_bytes=param_bytes, batch=run["batch"], seq=run["seq"],
+               xent_chunk=run["xent_chunk"], accum=run["accum"],
+               tokens=tokens, positions=positions,
+               fused=fused, peak_gb_fused=peak_f / 1e9)
+    checks = {f"{arch} finite": all(np.isfinite(r["loss"])
+                                    and np.isfinite(r["grad_norm"])
+                                    for r in fused)}
+    if two_phase:
+        # the same parameters again: the same seeded draws
+        model.init_params(torch.Generator(device=dev).manual_seed(
+            full["seed"]))
+        two, peak_t, snap_t, pinned = steps(True, full["steps_two_phase"])
+        rec.update(two_phase=two, peak_gb_two_phase=peak_t / 1e9)
+        checks[f"{arch} two_phase finite"] = all(
+            np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+            for r in two)
+        checks[f"{arch} step1 loss fused == two_phase"] = \
+            fused[0]["loss"] == two[0]["loss"]
+        checks[f"{arch} step1 params fused == two_phase"] = all(
+            torch.equal(snap_f[n], snap_t[n]) for n in snap_f)
+        checks[f"{arch} pool tier pinned"] = pinned
+        del snap_f, snap_t
+    steady = [r["step_ms"] for r in fused[1:]]
+    rec.update(ms_a_step=statistics.mean(steady),
+               tokens_per_s=tokens / (statistics.mean(steady) / 1e3),
+               run_s=time.perf_counter() - t_run, host_rss_gb=_rss_gb())
+    if count_box is not None:
+        count_box.update(cfg=cfg, batch=run["batch"], seq=run["seq"],
+                         microbatches=full["microbatches"],
+                         xent_chunk=run["xent_chunk"], remat=True,
+                         accum=accum, ocfg=ocfg, tokens=tokens,
+                         step_ms=steady)
+    del model, params
+    torch.cuda.empty_cache()
+    return rec, checks
+
+
+def _rss_gb():
+    """This process's resident host memory, GB."""
+    with open("/proc/self/status") as f:
+        kb = next(int(line.split()[1]) for line in f
+                  if line.startswith("VmRSS"))
+    return kb * 1024 / 1e9
+
+
+def _drop_host_caches():
+    """Free what earlier phases keep on the host (sampled traces, fitted
+    models, pinned blocks the host allocator caches): deepseek's pool tier
+    needs ~40 GB of the host's 96 GiB pinned."""
+    import gc
+    for cache in (_FULL_TRACE, _POND, _SPILL, _AVAIL, _TOPO):
+        cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    empty = getattr(getattr(torch, "accelerator", None), "empty_host_cache",
+                    None) or getattr(torch._C, "_host_emptyCache", None)
+    if empty is not None:
+        empty()
+
+
+def phase_train_families_full(dev):
+    """The families' training runs at published widths (``TRAIN_RUNS``):
+    hard checks, finite losses and grad norms, and for deepseek step 1's
+    loss ``==`` and its parameters ``torch.equal`` between the fused and
+    the two-phase step, the pool tier pinned on the host.  granite's first
+    fused step is counted by the op counter (``dryrun_full``).  Returns
+    that count's record."""
+    from repro_torch.configs.one_card import TRAIN_RUNS
+    t_phase = time.perf_counter()
+    rss_before = _rss_gb()
+    _drop_host_caches()
+    rss_after = _rss_gb()
+    runs, checks, counted = {}, {}, {}
+    for arch in TRAIN_RUNS:
+        rec, c = _train_family_full(
+            arch, dev, counted if arch == "granite-moe-1b-a400m" else None)
+        runs[arch] = rec
+        checks.update(c)
+    emit("train_families_full", ok=all(checks.values()), checks=checks,
+         config=TRAIN_FAMILIES_FULL, runs=runs,
+         host_rss_gb=dict(before=rss_before, after_drop=rss_after),
+         phase_s=time.perf_counter() - t_phase)
+    if not all(checks.values()):
+        raise SystemExit("train_families_full failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return counted
+
+
+# ------------------------------------------------------------- dry run ----
+# Phase dryrun_full: (a) launch/dryrun.py over the reference's 10 archs x 4
+# shapes on the single-pod mesh (16 x 16 meta devices), in a process of its
+# own (started at the script's start, niced, run beside the card's phases):
+# every SKIPS cell "skip", every other "ok", and that process never
+# initialises CUDA (nothing allocated on any device).  (b) The two counted
+# card steps (train_full's first fused qwen2-1.5b step, train_families_full's
+# first granite step) against their meta twins in this process: FLOPs,
+# bytes and ops ==, the card's memory_allocated unmoved by the meta counts,
+# and the step's max_memory_allocated within DRYRUN_FULL's band of the meta
+# twin's peak of live bytes plus the bytes allocated before it (the peak the
+# counter read on the card reported beside it); each step's steady time
+# against its roofline bound.  (c) StepCounters and a CounterLog from (b).
+DRYRUN_FULL = dict(outdir="chiprun_out/torch_dryrun", mesh="single",
+                   band_low=0.99, band_block_bytes=2 << 20,
+                   band_workspace_bytes=128 << 20)
+_DRYRUN = {}
+
+
+def start_dryrun_sweep():
+    """Start ``dryrun_full``'s sweep (a) in a niced process of its own."""
+    import subprocess
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = (
+        "import json, sys, time, torch\n"
+        "from repro_torch.configs.base import SHAPES\n"
+        "from repro_torch.configs.registry import ARCH_IDS\n"
+        "from repro_torch.launch import dryrun\n"
+        "t0 = time.perf_counter()\n"
+        "cells = []\n"
+        "for arch in ARCH_IDS:\n"
+        "    for shape in SHAPES:\n"
+        "        t = time.perf_counter()\n"
+        "        r = dryrun.run_cell(arch, shape, False, sys.argv[1],\n"
+        "                            skip_existing=False)\n"
+        "        cells.append(dict(arch=arch, shape=shape,\n"
+        "                          status=r['status'],\n"
+        "                          error=r.get('error'),\n"
+        "                          s=time.perf_counter() - t,\n"
+        "                          t_count_s=r.get('t_count_s')))\n"
+        "print(json.dumps(dict(cells=cells,\n"
+        "    seconds=time.perf_counter() - t0,\n"
+        "    cuda_initialized=torch.cuda.is_initialized(),\n"
+        "    memory_allocated=torch.cuda.memory_allocated())))\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(here, "src"))
+    _DRYRUN["t0"] = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", code,
+         os.path.join(here, DRYRUN_FULL["outdir"])],
+        env=env, cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, preexec_fn=lambda: os.nice(10))
+    _DRYRUN["proc"] = proc
+    # a phase that fails before dryrun_full leaves no process behind
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+
+
+def _meta_twin(counted):
+    """The meta count of a counted card step: the same config, batch
+    shapes, plan and AdamW state, on ``device="meta"``, one microbatch
+    counted and multiplied."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.runtime import train as rt
+    from repro_torch.sharding.rules import ShardCtx
+    cfg = counted["cfg"]
+    model = build_model(cfg, device="meta")
+    params = rt.train_params(model)
+    opt = dryrun.abstract_opt_state(params, counted["ocfg"])
+    batch = dryrun.train_batch(cfg, counted["batch"], counted["seq"])
+    step = rt.make_train_step(model, counted["ocfg"],
+                              ShardCtx(remat=counted["remat"]),
+                              microbatches=counted["microbatches"],
+                              xent_chunk=counted["xent_chunk"],
+                              accum_dtype=counted["accum"])
+    return dryrun.count_step(step, (params, opt, batch), repeat=True)
+
+
+def phase_dryrun_full(dev, counted_steps):
+    """``DRYRUN_FULL``'s (a), (b) and (c); ``counted_steps`` maps a name to
+    a ``_count_first_call`` box of a card step."""
+    from repro_torch.core.telemetry import CounterLog, StepCounters
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch.dryrun import SKIPS, roofline
+    checks, steps = {}, {}
+    log = CounterLog()
+    for name, box in counted_steps.items():
+        card = box["counts"]
+        before = torch.cuda.memory_allocated()
+        meta, count_s = _meta_twin(box)
+        checks[f"{name} meta count allocated nothing"] = \
+            torch.cuda.memory_allocated() == before
+        for k in ("flops", "bytes", "ops", "h2d_ops", "h2d_bytes"):
+            checks[f"{name} {k} card == meta"] = \
+                getattr(card, k) == getattr(meta, k)
+        # the allocator against the meta twin's peak of live bytes; the
+        # peak the counter read on the card beside it
+        predicted = box["allocated_before"] + meta.peak_bytes
+        low = DRYRUN_FULL["band_low"] * predicted
+        high = (predicted + DRYRUN_FULL["band_block_bytes"]
+                * meta.peak_storages + DRYRUN_FULL["band_workspace_bytes"])
+        checks[f"{name} peak within band"] = low <= box["peak"] <= high
+        step_s = statistics.mean(box["step_ms"]) / 1e3
+        rl = roofline(card.flops, card.bytes, 0.0)
+        bound = max(rl["compute_s"], rl["memory_s"])
+        for ms in box["step_ms"]:
+            log.record(name, StepCounters(card.flops, card.bytes, 0.0,
+                                          ms / 1e3, box["tokens"]))
+        sc = StepCounters(card.flops, card.bytes, 0.0, step_s, box["tokens"])
+        steps[name] = dict(
+            flops=card.flops, bytes=card.bytes, ops=card.ops,
+            h2d=[card.h2d_ops, card.h2d_bytes],
+            meta=dict(flops=meta.flops, bytes=meta.bytes, ops=meta.ops,
+                      peak_bytes=meta.peak_bytes,
+                      peak_storages=meta.peak_storages, count_s=count_s),
+            card_counted_peak_bytes=card.peak_bytes,
+            allocated_before=box["allocated_before"],
+            max_memory_allocated=box["peak"],
+            predicted=predicted, band=[low, high],
+            measured_over_predicted=box["peak"] / predicted,
+            meta_peak_over_card_peak=meta.peak_bytes / card.peak_bytes,
+            step_ms=box["step_ms"], roofline=rl, bound_s=bound,
+            bound_share_of_step=bound / step_s,
+            tma_vector=sc.tma_vector(), kernel_launches=card.kernel_launches)
+    features = {name: log.features(name) for name in counted_steps}
+    # (a): the sweep's process
+    proc = _DRYRUN.pop("proc")
+    out, err = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        raise SystemExit(f"dryrun_full's sweep failed:\n{err[-4000:]}")
+    sweep = json.loads(out.strip().splitlines()[-1])
+    wrong = [c for c in sweep["cells"]
+             if c["status"] != ("skip" if (c["arch"], c["shape"]) in SKIPS
+                                else "ok")]
+    checks["sweep every cell as the reference records it"] = not wrong
+    checks["sweep never initialised CUDA"] = \
+        not sweep["cuda_initialized"] and sweep["memory_allocated"] == 0
+    checks["sweep covers 10 archs x 4 shapes"] = len(sweep["cells"]) == 40
+    emit("dryrun_full", ok=all(checks.values()), checks=checks,
+         config=DRYRUN_FULL, steps=steps, counter_log_features=features,
+         card=dict(hbm_bytes=torch.cuda.get_device_properties(0)
+                   .total_memory, figures=dict(
+                       peak_flops_bf16=meshlib.PEAK_FLOPS_BF16,
+                       hbm_bw=meshlib.HBM_BW, nvlink_bw=meshlib.NVLINK_BW,
+                       hbm_bytes=meshlib.HBM_BYTES)),
+         sweep=dict(seconds=sweep["seconds"], wrong=wrong,
+                    wall_s_since_start=time.perf_counter() - _DRYRUN["t0"],
+                    cells=[[c["arch"], c["shape"], c["status"],
+                            round(c["s"], 2)] for c in sweep["cells"]]))
+    if not all(checks.values()):
+        raise SystemExit("dryrun_full failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
 
 
 def main() -> int:
@@ -6514,7 +7027,10 @@ def main() -> int:
     smi = nvidia_smi_line()
     emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
          torch=torch.__version__, cuda=torch.version.cuda,
-         python=sys.version.split()[0])
+         python=sys.version.split()[0],
+         total_memory=torch.cuda.get_device_properties(0).total_memory)
+    # the dry run's sweep (dryrun_full (a)) runs beside the card's phases
+    start_dryrun_sweep()
     # K2 and K3 first; K1, K4-K6 compile beside the model phases
     from repro_torch.kernels.flash_attention import kernel as K3
     from repro_torch.kernels.paged_attention import kernel as K2
@@ -6572,7 +7088,12 @@ def main() -> int:
         phase_devices_full(dev)
     torch.cuda.empty_cache()
     phase_train_parity_small(dev)
-    phase_train_full(dev)
+    counted = {"qwen2-1.5b fused step": phase_train_full(dev)}
+    torch.cuda.empty_cache()
+    phase_train_families_parity_small(dev)
+    counted["granite-moe-1b-a400m fused step"] = \
+        phase_train_families_full(dev)
+    phase_dryrun_full(dev, counted)
     sweep["launches"] = sum(by_path.values())
     sweep["launches_by_path"] = by_path
     pod["launches"] = sum(pod_by_path.values())

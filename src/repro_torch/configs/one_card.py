@@ -15,7 +15,14 @@ decoder prompt of whisper's four start tokens) and the vision-frontend
 model (internvl2-26b: B rows of ``patches`` patch embeddings before
 ``prompt`` text tokens); ``prompt_inputs`` makes a run's seeded inputs.
 
-``chip_smoke.py`` (phases ``families_full``, ``encdec_full``),
+``TRAIN_RUNS`` gives each family's training run on one card (phase
+``train_families_full``): the fused step keeps the parameters, the fp32
+master, both moments and the gradients on the card, ~16-20 bytes a
+parameter, so ``one_card_train_config`` cuts internvl2 and deepseek deeper
+than serving does.
+
+``chip_smoke.py`` (phases ``families_full``, ``encdec_full``,
+``train_families_full``),
 ``scripts/torch_profile_decode.py families encdec`` and
 ``scripts/torch_family_drift.py`` run these.
 """
@@ -134,3 +141,42 @@ def attention_layers(cfg: ArchConfig) -> int:
     one prefill with ``attn_impl="flash"``."""
     return sum(g.repeat * sum(b.mixer == "attn" for b in g.blocks)
                for g in cfg.groups)
+
+
+#: the training runs on one card: B sequences of ``seq`` tokens (whisper:
+#: ``seq`` encoder frames and ``dec`` decoder tokens; internvl2: ``seq``
+#: positions of which the first 1,024 are patch embeddings), 2 microbatches,
+#: remat on and the cross-entropy chunk as the reference's dry-run plans
+#: set them; ``accum`` the microbatches' gradient dtype
+TRAIN_RUNS = {
+    "granite-moe-1b-a400m": dict(batch=4, seq=2048, xent_chunk=512,
+                                 accum="float32"),
+    "mamba2-1.3b": dict(batch=4, seq=2048, xent_chunk=512,
+                        accum="float32"),
+    "whisper-small": dict(batch=8, seq=1500, xent_chunk=512,
+                          accum="float32"),
+    "internvl2-26b": dict(batch=2, seq=2048, xent_chunk=256,
+                          accum="float32"),
+    "deepseek-v3-671b": dict(batch=2, seq=2048, xent_chunk=256,
+                             accum="bfloat16", two_phase=True),
+}
+
+
+def one_card_train_config(arch: str) -> ArchConfig:
+    """The registry's config of ``arch``, cut in depth where one card's
+    80 GB does not hold a fused training step (``TRAIN_RUNS``)."""
+    cfg = get_config(arch)
+    if arch == "internvl2-26b":
+        # 48 layers are 19.86 G parameters (~360 GB in a fused step): keep
+        # 4 (2.70 G with the 1.14 G embedding and head, ~49 GB of state)
+        return dataclasses.replace(cfg, num_layers=4, groups=(
+            LayerGroup(4, cfg.groups[0].blocks),))
+    if arch == "deepseek-v3-671b":
+        # one dense MLA layer and the MTP head, whose block follows the
+        # last layer's kind: a dense MLA block, not the 256 experts (11.3 G
+        # parameters, ~200 GB in a fused step).  3.12 G parameters, ~50 GB
+        # of state with bf16 gradients; the 3 dense layers (4.29 G, ~69 GB
+        # of state before activations) do not leave the fused step room
+        dense = LayerGroup(1, (Block("mla", "mlp"),))
+        return dataclasses.replace(cfg, num_layers=1, groups=(dense,))
+    return cfg

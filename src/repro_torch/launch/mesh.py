@@ -92,3 +92,14 @@ def make_production_mesh(*, multi_pod: bool = False, devices=None) -> Mesh:
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return make_mesh(shape, axes, devices)
+
+
+# The H100's figures, the roofline targets of the dry run
+# (``launch/dryrun.py``) and ``core/telemetry.py``.  Card: ``NVIDIA H100
+# 80GB HBM3, 700.00 W`` (nvidia-smi's name and power limit); the first
+# three are the SXM5 data sheet's, the last what
+# ``torch.cuda.get_device_properties(0).total_memory`` reads on that card.
+PEAK_FLOPS_BF16 = 989e12        # dense bf16 tensor-core FLOP/s
+HBM_BW = 3.35e12                # bytes/s of HBM3
+NVLINK_BW = 450e9               # bytes/s each way, a card's NVLink total
+HBM_BYTES = 85_017_493_504      # 79.18 GiB: what the card reports

@@ -44,8 +44,18 @@ def init_opt_state(params: dict, ocfg: adamw.AdamWConfig, two_phase: bool,
     (``adamw.state_tier``: master, m and v pinned beside the card)."""
     if not two_phase:
         return adamw.init_state(params, ocfg)
-    state = adamw.init_state(params, ocfg, device="cpu")
-    return tier_place(state, adamw.state_tier(state), device)
+    # a parameter at a time, each leaf pinned as soon as it is made: the
+    # whole state built in pageable memory first would be held twice
+    state = {"step": None, "master": {} if ocfg.master_fp32 else None,
+             "m": {}, "v": {}}
+    for n, p in params.items():
+        one = adamw.init_state({n: p}, ocfg, device="cpu")
+        one = tier_place(one, adamw.state_tier(one), device)
+        state["step"] = one["step"]
+        for g in ("master", "m", "v"):
+            if one[g] is not None:
+                state[g][n] = one[g][n]
+    return state
 
 
 def build_state(model, ocfg: adamw.AdamWConfig, *, seed: int = 0,
@@ -59,15 +69,18 @@ def build_state(model, ocfg: adamw.AdamWConfig, *, seed: int = 0,
 
 def make_step(model, ocfg: adamw.AdamWConfig, ctx: ShardCtx, *,
               two_phase: bool, microbatches: int = 1,
-              xent_chunk: int = 512):
+              xent_chunk: int = 512, accum_dtype=torch.float32):
     """``step(params, opt, batch) -> (params, opt, metrics)``: the fused
     step, or the two-phase step with its phases timed apart
-    (``grad_ms``, ``opt_ms``; the card synchronised between them)."""
+    (``grad_ms``, ``opt_ms``; the card synchronised between them);
+    ``accum_dtype`` sums the microbatches' gradients."""
     if not two_phase:
         return rt.jit_train_step(model, ocfg, ctx, microbatches=microbatches,
-                                 xent_chunk=xent_chunk)
+                                 xent_chunk=xent_chunk,
+                                 accum_dtype=accum_dtype)
     grad_step, opt_step = rt.make_two_phase_steps(
-        model, ocfg, ctx, microbatches=microbatches, xent_chunk=xent_chunk)
+        model, ocfg, ctx, microbatches=microbatches, xent_chunk=xent_chunk,
+        accum_dtype=accum_dtype)
 
     def step(params, opt, batch):
         t0 = time.perf_counter()

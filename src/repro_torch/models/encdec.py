@@ -228,7 +228,8 @@ class EncDec(nn.Module):
         for blk in self.enc_blocks:
             if train and ctx.remat:
                 x = checkpoint(blk, x, pos, ctx.attn_impl,
-                               use_reentrant=False)
+                               use_reentrant=False,
+                               preserve_rng_state=False)
             else:
                 x = blk(x, pos, ctx.attn_impl)
         return self.enc_norm(x)
@@ -255,7 +256,8 @@ class EncDec(nn.Module):
             if remat:
                 x = checkpoint(blk, x, positions, kv, views,
                                impl=ctx.attn_impl, mode=mode,
-                               use_reentrant=False)
+                               use_reentrant=False,
+                               preserve_rng_state=False)
             else:
                 x = blk(x, positions, kv, views, impl=ctx.attn_impl,
                         mode=mode)

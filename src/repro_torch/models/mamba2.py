@@ -99,9 +99,14 @@ def ssd_chunked(xdt, a, B_, C_, chunk: int, h_init=None):
     cumh = cum.reshape(b, nc, q, g, hg)
     cb = torch.einsum("bcqgn,bckgn->bcgqk", cc, bc)     # (B,nc,G,Q,K)
     dq = cumh.permute(0, 1, 3, 4, 2)                    # (B,nc,G,Hg,Q)
-    dec = torch.exp(dq[..., :, None] - dq[..., None, :])  # (B,nc,G,Hg,Q,K)
     mask = torch.tril(torch.ones((q, q), dtype=torch.bool,
                                  device=xdt.device))
+    # k > q is masked before the exp, where the reference masks after it:
+    # there cum_q - cum_k > 0 overflows to inf over a long chunk, and the
+    # where's backward makes 0 * inf = NaN of it (mamba2-1.3b at 2,048
+    # tokens); the forward's values and every finite gradient are the same
+    dec = torch.exp(torch.where(mask, dq[..., :, None] - dq[..., None, :],
+                                -torch.inf))            # (B,nc,G,Hg,Q,K)
     w_intra = torch.where(mask, cb[:, :, :, None] * dec, 0.0)
     y_intra = torch.einsum("bcghqk,bckghp->bcqghp", w_intra, xch)
 

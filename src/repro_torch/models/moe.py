@@ -92,8 +92,14 @@ def aux_losses(logits: torch.Tensor, idx: torch.Tensor, num_experts: int,
     idx: (T,k)."""
     logits = logits.to(torch.float32)
     pe = torch.softmax(logits, dim=-1).mean(dim=0)               # (E,)
-    onehot = F.one_hot(idx, num_experts).to(torch.float32)
-    fe = onehot.sum(dim=1).mean(dim=0)                            # (E,)
+    # the reference's one_hot(idx).sum(1): each token's count of each
+    # expert, by a scatter (F.one_hot dispatches other ops on meta tensors
+    # than on the card, and the dry run counts ops)
+    hits = torch.zeros(idx.shape[0], num_experts, dtype=torch.float32,
+                       device=idx.device).scatter_add_(
+        1, idx, torch.ones(idx.shape, dtype=torch.float32,
+                           device=idx.device))
+    fe = hits.mean(dim=0)                                         # (E,)
     lb = num_experts * (pe * fe).sum()
     z = torch.logsumexp(logits, dim=-1).square().mean()
     return aux_w * lb + z_w * z
@@ -325,6 +331,11 @@ def _owned_experts_ffn(wg, wu, wd, x, le, el: int):
     every owned expert on every row, then all but one term multiplied by 0;
     the sum is the same, and here the work and memory follow the rows, not
     el times them (on a (1, 1) mesh el is every expert)."""
+    if le.device.type == "meta":
+        raise NotImplementedError(
+            "moe_sharded_a2a reads each owned expert's row count to the "
+            "host, and a meta tensor holds none: the dry run cannot count "
+            "this path")
     order = torch.argsort(le, stable=True)
     counts = torch.bincount(le, minlength=el + 1).tolist()
     y = torch.zeros_like(x)

@@ -7,7 +7,9 @@ does.  From that declaration the port derives
   * ``register_params(module, specs, ...)`` -> ``nn.Parameter``s on a module
   * ``init_tensor_(tensor, spec, generator)`` -> seeded random init
   * ``stack_specs(specs, repeat)`` -> the reference's stacked-layer shapes,
-    which ``models/convert.py`` checks a parameter tree against.
+    which ``models/convert.py`` checks a parameter tree against
+  * ``abstract(specs)`` -> a tree of meta tensors (the dry run: shapes and
+    dtypes, no allocation; the reference's ``ShapeDtypeStruct`` tree)
 
 Logical axes are what ``sharding/rules.py`` maps onto a mesh's axes
 (``spec_for``, ``partition_tree``).
@@ -71,6 +73,13 @@ def tree_leaves(specs) -> list[ParamSpec]:
     out: list[ParamSpec] = []
     tree_map_specs(out.append, specs)
     return out
+
+
+def abstract(specs):
+    """A tree of meta tensors with the specs' shapes and dtypes: the dry
+    run's arguments (``launch/dryrun.py``), which allocate nothing."""
+    return tree_map_specs(
+        lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"), specs)
 
 
 def _fan_in(spec: ParamSpec) -> int:
@@ -140,3 +149,8 @@ def stack_specs(specs, repeat: int):
 
 def param_count(specs) -> int:
     return sum(int(math.prod(s.shape)) for s in tree_leaves(specs))
+
+
+def param_bytes(specs) -> int:
+    return sum(int(math.prod(s.shape)) * s.dtype.itemsize
+               for s in tree_leaves(specs))

@@ -25,7 +25,8 @@ The paged serving path drives attention blocks itself
 (``serving/engine.py``).  With ``ShardCtx.remat`` the training forward
 keeps no activations inside a layer: each layer runs under
 ``torch.utils.checkpoint`` and is recomputed in the backward (the
-reference's ``jax.checkpoint(nothing_saveable)``).
+reference's ``jax.checkpoint(nothing_saveable)``; no block draws random
+numbers, so no RNG state is saved for the recompute).
 """
 from __future__ import annotations
 
@@ -271,7 +272,8 @@ class LM(nn.Module):
                              {name: t[li] for name, t in gc[bi].items()})
                     if remat:
                         x, a = checkpoint(blk, x, positions, views, ctx=ctx,
-                                          mode=mode, use_reentrant=False)
+                                          mode=mode, use_reentrant=False,
+                                          preserve_rng_state=False)
                     else:
                         x, a = blk(x, positions, views, ctx=ctx, mode=mode)
                     if a is not None:

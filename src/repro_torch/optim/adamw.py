@@ -124,14 +124,23 @@ def update_leaf(p, mst, m, v, g, sc: dict, cfg: AdamWConfig):
     """One parameter's AdamW update, out of place, on the device its
     inputs lie on.  Returns ``(new param, new master or None, new m, new
     v)`` in the inputs' storage types."""
+    # m = b1 m + (1 - b1) g, v = b2 v + (1 - b2) g^2 and base - lr * (mhat /
+    # (sqrt(vhat) + eps) + wd * base): the same roundings (a sum's or a
+    # product's two operands swapped at most), in place where a temporary
+    # is read no more, so a leaf holds fewer fp32 temporaries at once
+    # (3.7 GB each for deepseek's head)
     gf = g.to(torch.float32) * sc["scale"]
-    mf = cfg.b1 * _read(m) + (1 - cfg.b1) * gf
-    vf = cfg.b2 * _read(v) + (1 - cfg.b2) * gf.square()
-    mhat = mf / sc["b1c"]
-    vhat = vf / sc["b2c"]
+    mf = (1 - cfg.b1) * gf
+    mf.add_(cfg.b1 * _read(m))
+    vf = gf.square_().mul_(1 - cfg.b2)
+    del gf
+    vf.add_(cfg.b2 * _read(v))
     base = _read(mst) if mst is not None else p.to(torch.float32)
-    new = base - sc["lr"] * (mhat / (torch.sqrt(vhat) + cfg.eps)
-                             + cfg.weight_decay * base)
+    upd = mf / sc["b1c"]
+    upd.div_((vf / sc["b2c"]).sqrt_().add_(cfg.eps))
+    upd.add_(cfg.weight_decay * base)
+    new = base - upd.mul_(sc["lr"])
+    del upd
     return (new.to(p.dtype), new if mst is not None else None,
             _store(mf, m), _store(vf, v))
 
@@ -162,5 +171,6 @@ def apply_updates(params: dict, state: dict, grads: dict,
             mst.copy_(new_mst)
         write_leaf(state["m"][n], new_m)
         write_leaf(state["v"][n], new_v)
+        del new_p, new_mst, new_m, new_v     # before the next leaf's
     state["step"].copy_(sc["step"])
     return params, state, {"grad_norm": sc["grad_norm"], "lr": sc["lr"]}

@@ -35,6 +35,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import op_analysis
 from repro_torch.optim import adamw
 from repro_torch.optim.compress import QTensor
 from repro_torch.sharding import rules
@@ -187,7 +188,8 @@ def grads_fn(model, params, batch, ctx: ShardCtx, microbatches: int = 1,
              for n, p in params.items()}
     loss_sum = torch.zeros((), dtype=torch.float32,
                            device=batch["tokens"].device)
-    for i in range(microbatches):
+    # identical iterations: a dry run's counter runs one, multiplied
+    for i in op_analysis.repeats(microbatches):
         mb = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
         metrics, g = value_and_grad(mb)
         for n in names:
@@ -270,6 +272,9 @@ def make_two_phase_steps(model, opt_cfg: adamw.AdamWConfig, ctx: ShardCtx,
                 if dst is not None:
                     adamw.write_leaf(dst, src)
                     moved_out += _crossing_bytes(dst, p.device)
+            # freed before the next leaf's; the copies queued on this
+            # stream read them before any later kernel can reuse them
+            del new_p, new_mst, new_m, new_v, mst, m, v
         opt_state["step"].copy_(sc["step"])
         if next(iter(params.values())).device.type == "cuda":
             # the pinned buffers are read back by copies still queued

@@ -38,6 +38,7 @@ must be replicated there, and coordinate 0's copy is taken.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import threading
@@ -46,6 +47,7 @@ from typing import Any, Mapping
 
 import torch
 
+from repro_torch.launch import op_analysis
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.params import ParamSpec, tree_map_specs
 
@@ -214,8 +216,9 @@ class _Group:
     coroutines, so no two contend for the interpreter lock, and a
     coordinate's work reaches the device in one piece."""
 
-    def __init__(self, mesh: Mesh):
+    def __init__(self, mesh: Mesh, solo: bool = False):
         self.mesh = mesh
+        self.solo = solo                # coordinate 0 stands for all
         self.coords = mesh.coords()
         self.rank_of = {c: i for i, c in enumerate(self.coords)}
         self.slots: list = [None] * len(self.coords)
@@ -237,8 +240,8 @@ class _Group:
     def exchange(self, value):
         """Every coordinate's ``value``, by rank (a rendezvous)."""
         rank, n = _LOCAL.rank, len(self.coords)
-        if n == 1:
-            return [value]
+        if n == 1 or self.solo:
+            return [value] * n
         with self.cond:
             self.slots[rank] = value
             gen = self.generation
@@ -319,34 +322,52 @@ def _sum(vals):
     return out
 
 
+# Each collective runs its emulation (copies and sums across the
+# coordinates) uncounted and reports itself to an active counter as one
+# op with the reference's ring factor (``launch/op_analysis.py``).
 def psum(x, names):
     """Sum of ``x`` over the coordinates along ``names``, in member order."""
-    return _sum(_gathered(x, names)[0])
+    with op_analysis.uncounted():
+        vals = _gathered(x, names)[0]
+        out = _sum(vals)
+    op_analysis.report_collective("all-reduce", x, out, len(vals))
+    return out
 
 
 def all_gather(x, names, axis: int = 0):
     """The members' ``x`` concatenated on ``axis`` (JAX's
     ``all_gather(..., tiled=True)``)."""
-    return torch.cat(_gathered(x, names)[0], dim=axis)
+    with op_analysis.uncounted():
+        vals = _gathered(x, names)[0]
+        out = torch.cat(vals, dim=axis)
+    op_analysis.report_collective("all-gather", x, out, len(vals))
+    return out
 
 
 def psum_scatter(x, names, scatter_dimension: int = 0):
     """The sum over ``names``, of which each member keeps its slice of
     ``scatter_dimension`` (JAX's ``psum_scatter(..., tiled=True)``)."""
-    vals, mine = _gathered(x, names)
-    return _sum(vals).chunk(len(vals), dim=scatter_dimension)[mine]
+    with op_analysis.uncounted():
+        vals, mine = _gathered(x, names)
+        out = _sum(vals).chunk(len(vals), dim=scatter_dimension)[mine]
+    op_analysis.report_collective("reduce-scatter", x, out, len(vals))
+    return out
 
 
 def all_to_all(x, names, split_axis: int, concat_axis: int):
     """Member j's entry ``mine`` of ``split_axis`` (one entry a member)
     arrives as my entry j of a new ``concat_axis`` (JAX's
     ``all_to_all(..., tiled=False)``)."""
-    vals, mine = _gathered(x, names)
-    if x.shape[split_axis] != len(vals):
-        raise ValueError(f"all_to_all: split axis of {x.shape[split_axis]} "
-                         f"for {len(vals)} members")
-    return torch.stack([v.select(split_axis, mine) for v in vals],
-                       dim=concat_axis)
+    with op_analysis.uncounted():
+        vals, mine = _gathered(x, names)
+        if x.shape[split_axis] != len(vals):
+            raise ValueError(f"all_to_all: split axis of "
+                             f"{x.shape[split_axis]} for {len(vals)} "
+                             "members")
+        out = torch.stack([v.select(split_axis, mine) for v in vals],
+                          dim=concat_axis)
+    op_analysis.report_collective("all-to-all", x, out, len(vals))
+    return out
 
 
 def _block(x, spec, mesh: Mesh, coord):
@@ -391,25 +412,93 @@ def _assemble(blocks: dict, spec, mesh: Mesh, device):
     return build(sorted(sharded.items()), [0] * len(shape))
 
 
+class _Replicated(torch.autograd.Function):
+    """Coordinate 0's function counted for all ``n`` coordinates: its
+    forward and its backward (an inner graph, differentiated by
+    ``autograd.grad``) run under the counter's multiplier ``n``."""
+
+    @staticmethod
+    def forward(ctx, n, f, *inputs):
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_(t.requires_grad)
+                  for t in inputs]
+            with op_analysis.times(n):
+                outs = f(*xs)
+        outs = (outs,) if isinstance(outs, torch.Tensor) else tuple(outs)
+        ctx.n, ctx.xs, ctx.outs = n, xs, outs
+        ctx.mark_non_differentiable(*[o for o in outs
+                                      if not o.requires_grad])
+        return tuple(o.detach() for o in outs)
+
+    @staticmethod
+    def backward(ctx, *gouts):
+        pairs = [(o, g) for o, g in zip(ctx.outs, gouts)
+                 if o.requires_grad and g is not None]
+        wrt = [x for x in ctx.xs if x.requires_grad]
+        got = {}
+        if pairs and wrt:
+            with op_analysis.times(ctx.n):
+                gs = torch.autograd.grad([o for o, _ in pairs], wrt,
+                                         [g for _, g in pairs],
+                                         allow_unused=True)
+            got = {id(x): g for x, g in zip(wrt, gs)}
+        return (None, None) + tuple(got.get(id(x)) for x in ctx.xs)
+
+
+def _run_replicated(f, mesh: Mesh, in_specs, args):
+    """A meta mesh under a counter with ``repeat``: the coordinates are
+    identical iterations (the same shapes, no values), so coordinate 0
+    runs alone, its counts (forward and backward) multiplied by the
+    mesh's size; a collective's members are copies of its own value,
+    every coordinate's output block a copy of its own.  The FLOPs and
+    collective bytes are the full run's; the bytes differ by the copies
+    and sums that carry blocks and gradients across the coordinates'
+    boundary, which the emulation counts and a mesh would not do."""
+    group = _Group(mesh, solo=True)
+    coord = group.coords[0]
+    _LOCAL.group, _LOCAL.coord, _LOCAL.rank = group, coord, 0
+    try:
+        local = [_block(a, s, mesh, coord) for a, s in zip(args, in_specs)]
+        if torch.is_grad_enabled() and any(t.requires_grad for t in local):
+            res = _Replicated.apply(mesh.size, f, *local)
+            res = res[0] if len(res) == 1 else res
+        else:
+            with op_analysis.times(mesh.size):
+                res = f(*local)
+    finally:
+        _LOCAL.group = None
+    return {c: res for c in group.coords}
+
+
 def shard_map(f, *, mesh: Mesh, in_specs, out_specs):
     """``f`` run once a coordinate of ``mesh`` on its blocks of the inputs
     (module docstring).  ``in_specs``: one spec an input; ``out_specs``:
-    a ``P`` where ``f`` returns one tensor, else a tuple of specs."""
+    a ``P`` where ``f`` returns one tensor, else a tuple of specs.  On a
+    mesh of meta devices under a counter made with ``repeat=True`` (the
+    dry run), coordinate 0 runs alone, counted for every coordinate
+    (``_run_replicated``)."""
 
     def run(*args):
         if len(args) != len(in_specs):
             raise ValueError(f"{len(args)} inputs for {len(in_specs)} specs")
         device = args[0].device
         grad = torch.is_grad_enabled()          # grad mode is per thread
+        counter = op_analysis.current()         # dispatch modes too
+        if (counter is not None and counter.repeat and mesh.size > 1
+                and all(d.type == "meta" for d in mesh.devices.flat)):
+            results = _run_replicated(f, mesh, in_specs, args)
+            return _outputs(results, out_specs, mesh, device)
         group = _Group(mesh)
         results, errors = {}, []
 
-        def one(rank, coord):
+        def one(rank, coord, pooled):
             _LOCAL.group, _LOCAL.coord, _LOCAL.rank = group, coord, rank
             dev = mesh.device_at(coord)
             try:
                 group.start(rank)
-                with torch.set_grad_enabled(grad):
+                with torch.set_grad_enabled(grad), (
+                        counter.in_thread() if counter is not None
+                        and pooled else contextlib.nullcontext()):
                     local = [_block(a, s, mesh, coord).to(dev)
                              for a, s in zip(args, in_specs)]
                     if dev.type == "cuda":
@@ -427,19 +516,23 @@ def shard_map(f, *, mesh: Mesh, in_specs, out_specs):
                 _LOCAL.group = None
 
         if mesh.size == 1:
-            one(0, group.coords[0])
+            one(0, group.coords[0], False)
         else:
-            futures = [_pool(mesh.size).submit(one, r, c)
+            futures = [_pool(mesh.size).submit(one, r, c, True)
                        for r, c in enumerate(group.coords)]
             for fut in futures:
                 fut.result()
         if errors:
             raise errors[0]
-        single = isinstance(out_specs, P)
-        specs = [out_specs] if single else list(out_specs)
-        outs = []
-        for i, spec in enumerate(specs):
-            blocks = {c: (r if single else r[i]) for c, r in results.items()}
-            outs.append(_assemble(blocks, spec, mesh, device))
-        return outs[0] if single else tuple(outs)
+        return _outputs(results, out_specs, mesh, device)
     return run
+
+
+def _outputs(results, out_specs, mesh: Mesh, device):
+    single = isinstance(out_specs, P)
+    specs = [out_specs] if single else list(out_specs)
+    outs = []
+    for i, spec in enumerate(specs):
+        blocks = {c: (r if single else r[i]) for c, r in results.items()}
+        outs.append(_assemble(blocks, spec, mesh, device))
+    return outs[0] if single else tuple(outs)

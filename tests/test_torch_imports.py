@@ -25,6 +25,9 @@ def _port_files():
              os.path.join(REPO, "examples", "torch_azure_e2e.py"),
              os.path.join(REPO, "examples", "torch_fig2_stranding.py"),
              os.path.join(REPO, "examples", "torch_fig3_poolsize.py"),
+             os.path.join(REPO, "examples", "torch_quickstart.py"),
+             os.path.join(REPO, "examples", "torch_train_small.py"),
+             os.path.join(REPO, "examples", "torch_grad_compression.py"),
              os.path.join(REPO, "scripts", "torch_profile_decode.py"),
              os.path.join(REPO, "scripts", "torch_family_drift.py"),
              os.path.join(REPO, "scripts", "torch_k1_ab.py")]
@@ -81,7 +84,7 @@ def test_port_mirrors_the_reference_layout():
                 "models/mamba2.py", "configs/qwen2_7b.py",
                 "configs/qwen3_32b.py", "configs/granite_moe_1b_a400m.py",
                 "configs/mamba2_1_3b.py", "configs/jamba_1_5_large_398b.py",
-                "configs/deepseek_v3_671b.py"):
+                "configs/deepseek_v3_671b.py", "launch/dryrun.py"):
         assert os.path.isfile(os.path.join(PORT, rel)), rel
         assert os.path.isfile(os.path.join(REPO, "src", "repro", rel)), rel
     for name in ("paged_attention.cu", "flash_attention.cu",
@@ -164,6 +167,13 @@ def test_entry_points_refuse_to_run_without_a_card():
         os.path.join(REPO, "examples", "torch_fig_topology.py"))
     fig_topo = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(fig_topo)
+    twins = {}
+    for name in ("torch_quickstart", "torch_train_small",
+                 "torch_grad_compression"):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(REPO, "examples", f"{name}.py"))
+        twins[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(twins[name])
     from repro_torch.runtime.fault import FailureSchedule
     schedule = FailureSchedule(np.zeros(0), np.zeros(0, np.int64),
                                np.zeros(0, bool))
@@ -200,7 +210,10 @@ def test_entry_points_refuse_to_run_without_a_card():
                  lambda: params_from_numpy({}, cfg),
                  lambda: cache_from_numpy({}, cfg),
                  lambda: TieredPagedKV(KVConfig(1, 1, 8)),
-                 lambda: serve.main([])):
+                 lambda: serve.main([]),
+                 lambda: twins["torch_quickstart"].main([]),
+                 lambda: twins["torch_train_small"].main(["--steps", "1"]),
+                 lambda: twins["torch_grad_compression"].wire_bytes()):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert resolve_device("cpu").type == "cpu"
