@@ -34,6 +34,15 @@ PyTorch version on the card, and drives the port's three paths:
   on a (1, 1) and a (2, 2) mesh of the one card): granite-moe-1b-a400m's
   prefill and decode through each sharded MoE path against the dense
   path, and its capacity drops against a plain count;
+* the sharded steps (``sharding/spmd.py``: parameters, AdamW state and
+  caches placed on a 2 x 2 mesh's devices by the reference's spec trees,
+  ``runtime/train.py::jit_train_step``, ``runtime/serve.py::
+  jit_prefill_step`` and ``jit_decode_step``): qwen2-1.5b's smoke config
+  in fp32 against the unsharded steps, then qwen2-1.5b whole training at
+  ``TRAIN_FULL``'s batch and qwen2-7b whole served (K3 in every
+  coordinate's prefill), on four cards where four are visible (then
+  qwen2-7b also trains whole across them), else on the card listed four
+  times;
 * Pond's provisioning loop (``core/cluster_sim.py::savings_analysis`` over
   ``core/replay_engine.py::CompiledReplay``, the event sweep K1) on a
   cluster row of 256 servers with 16-socket pools and a 7-day trace: the
@@ -121,6 +130,7 @@ import atexit
 import dataclasses
 import functools
 import json
+import math
 import os
 import re
 import statistics
@@ -1964,6 +1974,468 @@ def phase_mesh_full(dev):
         raise SystemExit("mesh_full failed: "
                          f"{[k for k, v in checks.items() if not v]}")
     return launches
+
+
+# ------------------------------------------------ the sharded steps (M18) --
+# Phase spmd_parity_small: qwen2-1.5b's smoke config in fp32 on a 2 x 2
+# mesh of the card listed four times, against the unsharded steps on the
+# card: jit_train_step (2 microbatches; the loss, the updated parameters
+# and the first moment), then jit_prefill_step and 4 jit_decode_step steps
+# on fixed tokens (the logits of each); every block on its coordinate's
+# device with its spec's shape; every replica torch.equal after the step.
+# lr 1e-4: AdamW's first update is lr g / (|g| + eps), and a gradient
+# within a few eps of 0 moves its parameter by a share of lr that its
+# rounding decides (tests/test_torch_spmd.py).
+SPMD_SMALL = dict(arch="qwen2-1.5b", shape=(2, 2), seed=0, batch=8, seq=32,
+                  microbatches=2, lr=1e-4, serve_batch=4, prompt=13, steps=4,
+                  tol=2e-5)
+# Phase spmd_full: the mesh 2 x 2, on four distinct cards where four are
+# visible, else the card listed four times.  qwen2-1.5b whole at
+# TRAIN_FULL's batch (3 fused steps, bf16) and an fp32 cut of it (its
+# first 2 layers at full width, one step beside the unsharded step);
+# qwen2-7b whole served at configs/one_card.py's run (B 4 x 2,048 + 32
+# greedy steps, K3 in every coordinate's prefill: 28 layers x 4
+# coordinates a prefill), beside the unsharded steps on the same prompt,
+# and an fp32 cut of it (its first 2 layers at full width, the same
+# prompt and 4 decode steps fed the unsharded run's tokens) whose logits
+# are held to the unsharded step's within sqrt(d_ff) fp32 epsilons of the
+# largest logit, every greedy token agreeing;
+# with four cards also qwen2-7b training whole across them (B 8 x 2,048, 2
+# microbatches, remat: the FSDP gathers again in the backward) and
+# qwen2-1.5b's steps on the four cards beside the card listed four times.
+SPMD_FULL = dict(shape=(2, 2), train_arch="qwen2-1.5b", train_steps=3,
+                 cut_layers=2, cut_tol=2e-3, serve_arch="qwen2-7b",
+                 serve_cut_steps=4,
+                 train7b=dict(batch=8, seq=2048, microbatches=2, steps=3,
+                              remat=True, lr=3e-4))
+
+
+def _spmd_mesh(devices):
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh(SPMD_FULL["shape"], ("data", "model"), devices=devices)
+
+
+def _sync_all(mesh):
+    for d in {d for d in mesh.devices.flat}:
+        torch.cuda.synchronize(d)
+
+
+def _placement_ok(tree):
+    """Every block of every placed leaf on its coordinate's device with
+    its spec's shape."""
+    from repro_torch.sharding import spmd
+    ok = []
+
+    def one(p):
+        if p is None:
+            return
+        want = spmd.block_shape(p.shape, p.spec, p.mesh)
+        ok.append(all(b.device == spmd.coordinate_device(p.mesh, c)
+                      and tuple(b.shape) == want
+                      for c, b in zip(p.mesh.coords(), p.blocks)))
+    spmd.map_tree(one, tree)
+    return all(ok)
+
+
+def _replicas_equal(tree):
+    """Every replica of every placed leaf torch.equal to the one at index
+    0 of each axis its spec does not name."""
+    from repro_torch.sharding import spmd
+    ok = []
+
+    def one(p):
+        if p is None:
+            return
+        named = spmd.spec_axes(p.spec)
+        coords = p.mesh.coords()
+        rank = {c: r for r, c in enumerate(coords)}
+        for c, b in zip(coords, p.blocks):
+            home = tuple(i if a in named else 0
+                         for a, i in zip(p.mesh.axis_names, c))
+            ok.append(torch.equal(b, p.blocks[rank[home]].to(b.device)))
+    spmd.map_tree(one, tree)
+    return all(ok)
+
+
+def _gather_err(placed, plain):
+    from repro_torch.sharding import spmd
+    return max(float((spmd.gather(placed[n]).float() - plain[n].detach()
+                      .float()).abs().max()) for n in plain)
+
+
+def phase_spmd_parity_small(dev):
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import serve as rs
+    from repro_torch.runtime import train as rt
+    from repro_torch.sharding.rules import ShardCtx
+    f = SPMD_SMALL
+    cfg = get_smoke(f["arch"])
+    mesh = _spmd_mesh([dev] * 4)
+    ctx = ShardCtx(mesh=mesh, pod_axis=None)
+    model = build_model(cfg, device=dev, dtype=torch.float32)
+    model.init_params(torch.Generator(device=dev).manual_seed(f["seed"]))
+    ocfg = adamw.AdamWConfig(lr=f["lr"], warmup_steps=2, total_steps=10)
+    rng = np.random.default_rng(f["seed"])
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        f["batch"], f["seq"] + 1))).to(dev)
+    placed = rt.placed_params(model, ctx)
+    opt = adamw.init_state(placed, ocfg)
+    checks = {"placed_on_coordinates": _placement_ok((placed, opt))}
+    step = rt.jit_train_step(model, ocfg, ctx,
+                             microbatches=f["microbatches"])
+    placed, opt, m = step(placed, opt, {"tokens": toks})
+    _sync_all(mesh)
+    checks["replicas_equal_after_step"] = _replicas_equal((placed, opt))
+    params = rt.train_params(model)
+    o0 = adamw.init_state(params, ocfg)
+    _, o0, m0 = rt.jit_train_step(model, ocfg, ShardCtx(),
+                                  microbatches=f["microbatches"])(
+        params, o0, {"tokens": toks})
+    errs = {"loss": abs(float(m["loss"]) - float(m0["loss"])),
+            "params": _gather_err(placed, params),
+            "first_moment": _gather_err(opt["m"], o0["m"])}
+    for k in ("loss", "params", "first_moment"):
+        checks[f"train_{k}_within_tol"] = errs[k] <= f["tol"]
+    # serving: the updated model's parameters placed by serve_shardings
+    b, p, n = f["serve_batch"], f["prompt"], f["steps"]
+    max_len = p + n
+    sp = rt.placed_params(model, ctx, mode="serve")
+    cache = rs.init_cache(model, ctx, b, max_len, dtype=torch.float32)
+    checks["serve_placed_on_coordinates"] = _placement_ok((sp, cache))
+    cache0 = model.init_cache(b, max_len, dtype=torch.float32)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, p))).to(dev)
+    nxt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (n, b))).to(dev)
+    pos = torch.arange(p, device=dev).expand(b, p)
+    with torch.no_grad():
+        lg, cache = rs.jit_prefill_step(model, ctx, b, max_len)(
+            sp, prompt, pos, cache)
+        lg0, cache0 = rs.make_prefill_step(model, ShardCtx())(prompt, pos,
+                                                              cache0)
+        serr = [float((lg - lg0).abs().max())]
+        dec = rs.jit_decode_step(model, ctx, b, max_len)
+        dec0 = rs.make_decode_step(model, ShardCtx())
+        for i in range(n):
+            q = torch.full((b,), p + i, device=dev)
+            lg, cache = dec(sp, nxt[i][:, None], q, cache)
+            lg0, cache0 = dec0(nxt[i][:, None], q, cache0)
+            serr.append(float((lg - lg0).abs().max()))
+    errs["serve_logits_by_call"] = serr
+    checks["serve_logits_within_tol"] = max(serr) <= f["tol"]
+    emit("spmd_parity_small", ok=all(checks.values()), checks=checks,
+         max_abs_err=errs, config=dict(f, heads=[cfg.num_heads,
+                                                 cfg.num_kv_heads]),
+         loss=[float(m["loss"]), float(m0["loss"])])
+    del model, placed, opt, params, o0, sp, cache, cache0
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise SystemExit("spmd_parity_small failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+
+
+def _peaks(mesh):
+    return {str(d): torch.cuda.max_memory_allocated(d)
+            for d in sorted({d for d in mesh.devices.flat}, key=str)}
+
+
+def _reset_peaks(mesh):
+    for d in {d for d in mesh.devices.flat}:
+        torch.cuda.reset_peak_memory_stats(d)
+
+
+def _spmd_train(cfg, mesh, *, batch, seq, microbatches, steps, lr, remat,
+                dtype=None, seed=0, unsharded=False):
+    """``steps`` fused steps of ``jit_train_step`` on ``mesh`` from seeded
+    parameters (drawn on the mesh's first device, placed, the model's own
+    then dropped to the meta device), batches from ``ShardedBatches``.
+    With ``unsharded`` the first step is also run unsharded from the same
+    parameters, first.  Returns a record and the state."""
+    from repro_torch.data.pipeline import DataConfig, ShardedBatches
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train as rt
+    from repro_torch.sharding.rules import ShardCtx
+    dev0 = mesh.devices.flat[0]
+    model = build_model(cfg, device=dev0, dtype=dtype)
+    model.init_params(torch.Generator(device=dev0).manual_seed(seed))
+    ocfg = adamw.AdamWConfig(lr=lr, warmup_steps=20, total_steps=steps)
+    data = ShardedBatches(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                     global_batch=batch))
+    batches = [torch.from_numpy(data.batch_at(i)["tokens"]).to(dev0)
+               for i in range(steps)]
+    rec = {}
+    if unsharded:
+        params = rt.train_params(model)
+        init = {n: p.detach().clone() for n, p in params.items()}
+        o0 = adamw.init_state(params, ocfg)
+        _, _, m0 = rt.jit_train_step(model, ocfg, ShardCtx(),
+                                     microbatches=microbatches)(
+            params, o0, {"tokens": batches[0]})
+        rec["unsharded_step1_loss"] = float(m0["loss"])
+        del o0
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(init[n])
+        del init, params
+    ctx = ShardCtx(mesh=mesh, pod_axis=None, remat=remat)
+    t0 = time.perf_counter()
+    placed = rt.placed_params(model, ctx)
+    model.to("meta")                     # the placed blocks are the model
+    torch.cuda.empty_cache()
+    opt = adamw.init_state(placed, ocfg)
+    _sync_all(mesh)
+    rec["place_and_state_s"] = time.perf_counter() - t0
+    rec["placed_on_coordinates"] = _placement_ok((placed, opt))
+    step = rt.jit_train_step(model, ocfg, ctx, microbatches=microbatches)
+    _reset_peaks(mesh)
+    runs = []
+    for i in range(steps):
+        _sync_all(mesh)
+        t0 = time.perf_counter()
+        placed, opt, m = step(placed, opt, {"tokens": batches[i]})
+        _sync_all(mesh)
+        runs.append(dict(step_ms=(time.perf_counter() - t0) * 1e3,
+                         loss=float(m["loss"]),
+                         grad_norm=float(m["grad_norm"])))
+    rec.update(steps=runs, peak_bytes_by_device=_peaks(mesh),
+               replicas_equal=_replicas_equal((placed, opt)),
+               finite=all(np.isfinite(r["loss"]) and np.isfinite(
+                   r["grad_norm"]) for r in runs))
+    steady = [r["step_ms"] for r in runs[1:]] or [runs[0]["step_ms"]]
+    rec["ms_a_step"] = statistics.mean(steady)
+    rec["tokens_per_s"] = batch * seq / (rec["ms_a_step"] / 1e3)
+    rec["params"] = sum(p.numel() for p in placed.values())
+    return rec, (model, placed, opt)
+
+
+def _serve_fed(model, mesh, inp, feed, max_len):
+    """The prefill of ``inp`` (flash attention) and a decode step for each
+    row of ``feed`` (the tokens of an earlier run's stream): with a
+    ``mesh`` the sharded steps, the model's parameters placed by
+    ``serve_shardings`` and its own then dropped to the meta device;
+    without one the unsharded steps.  Returns the logits of every call
+    on the host, (len(feed) + 1, B, V)."""
+    from repro_torch.runtime import serve as rs
+    from repro_torch.runtime import train as rt
+    from repro_torch.sharding.rules import ShardCtx
+    b, p = inp["tokens"].shape
+    dev0 = inp["tokens"].device
+    dtype = model.embed.tok.dtype
+    if mesh is None:
+        ctx, sp = ShardCtx(attn_impl="flash"), None
+        cache = model.init_cache(b, max_len, dtype=dtype)
+    else:
+        ctx = ShardCtx(mesh=mesh, pod_axis=None, attn_impl="flash")
+        sp = rt.placed_params(model, ctx, mode="serve")
+        model.to("meta")
+        cache = rs.init_cache(model, ctx, b, max_len, dtype=dtype)
+    logits, cache = rs.jit_prefill_step(model, ctx, b, max_len)(
+        sp, inp["tokens"], inp["positions"], cache)
+    out = [logits[:, -1].cpu()]
+    decode = rs.jit_decode_step(model, ctx, b, max_len)
+    for i, tok in enumerate(feed):
+        pos = torch.full((b,), p + i, dtype=torch.int64, device=dev0)
+        logits, cache = decode(sp, torch.tensor(tok, device=dev0)[:, None],
+                               pos, cache)
+        out.append(logits[:, 0].cpu())
+    return torch.stack(out)
+
+
+@torch.no_grad()
+def _swap_ff_halves(model):
+    """The MLPs' ff columns (and ``wo``'s rows) in the other order, halves
+    swapped: the same function, its down product summed in another order
+    (as a 2-way model axis sums its halves)."""
+    for n, p in model.named_parameters():
+        if n.endswith(("ffn.wi_gate", "ffn.wi_up")):
+            p.copy_(torch.cat(p.chunk(2, 1)[::-1], 1))
+        elif n.endswith("ffn.wo"):
+            p.copy_(torch.cat(p.chunk(2, 0)[::-1], 0))
+
+
+def _mesh_devices(n=4):
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def phase_spmd_full(dev):
+    """Returns K3's launches in the main path (the sharded qwen2-7b
+    prefill) and K3's record at the coordinate's prefill shape."""
+    from repro_torch.configs.one_card import RUNS, prompt_inputs
+    from repro_torch.configs.base import LayerGroup
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.runtime import serve as rs
+    from repro_torch.runtime import train as rt
+    from repro_torch.sharding import spmd
+    from repro_torch.sharding.rules import ShardCtx
+    t_phase = time.perf_counter()
+    f = SPMD_FULL
+    four = torch.cuda.device_count() >= 4
+    cards = _mesh_devices() if four else [dev] * 4
+    mesh = _spmd_mesh(cards)
+    checks, out = {}, {"cards": [str(d) for d in cards],
+                       "distinct_cards": len(set(cards))}
+    # (a) qwen2-1.5b whole, TRAIN_FULL's batch
+    cfg = get_config(f["train_arch"])
+    tf = dict(batch=TRAIN_FULL["global_batch"], seq=TRAIN_FULL["seq_len"],
+              microbatches=TRAIN_FULL["microbatches"],
+              steps=f["train_steps"], lr=TRAIN_FULL["lr"], remat=False)
+    rec, state = _spmd_train(cfg, mesh, **tf)
+    del state
+    torch.cuda.empty_cache()
+    out["train_qwen2_1.5b"] = rec
+    checks["train_1.5b_finite"] = rec["finite"]
+    checks["train_1.5b_replicas_equal"] = rec["replicas_equal"]
+    checks["train_1.5b_placed"] = rec["placed_on_coordinates"]
+    # (a') the fp32 cut: step 1's loss beside the unsharded step's
+    cut = dataclasses.replace(cfg, num_layers=f["cut_layers"], groups=(
+        LayerGroup(f["cut_layers"], cfg.groups[0].blocks),))
+    crec, state = _spmd_train(cut, mesh, **dict(tf, steps=1),
+                              dtype=torch.float32, unsharded=True)
+    del state
+    torch.cuda.empty_cache()
+    crec["step1_loss_diff"] = abs(crec["steps"][0]["loss"]
+                                  - crec["unsharded_step1_loss"])
+    out["train_fp32_cut"] = crec
+    checks["fp32_cut_loss_within_2e-3"] = (crec["step1_loss_diff"]
+                                           <= f["cut_tol"])
+    checks["fp32_cut_replicas_equal"] = crec["replicas_equal"]
+    # (b) qwen2-7b whole, served at one_card.py's run
+    cfg7 = get_config(f["serve_arch"])
+    run = RUNS[f["serve_arch"]]
+    b, p, n = run["batch"], run["prompt"], run["steps"]
+    max_len = p + n
+    model = build_model(cfg7, device=cards[0])
+    model.init_params(torch.Generator(device=cards[0]).manual_seed(0))
+    inp = prompt_inputs(cfg7, run, cards[0])
+    plain = _prompt_run(model, inp, n, max_len)       # unsharded, flash
+    ctx = ShardCtx(mesh=mesh, pod_axis=None, attn_impl="flash")
+    sp = rt.placed_params(model, ctx, mode="serve")
+    model.to("meta")
+    torch.cuda.empty_cache()
+    cache = rs.init_cache(model, ctx, b, max_len)
+    prefill = rs.jit_prefill_step(model, ctx, b, max_len)
+    decode = rs.jit_decode_step(model, ctx, b, max_len)
+    _reset_peaks(mesh)
+    ops.launches = 0                        # just before the main path ...
+    _sync_all(mesh)
+    t0 = time.perf_counter()
+    logits, cache = prefill(sp, inp["tokens"], inp["positions"], cache)
+    tok = torch.argmax(logits[:, -1], dim=-1)
+    stream = [tok.tolist()]
+    prefill_s = time.perf_counter() - t0
+    k3_prefill = ops.launches
+    lg_all, step_s = [logits[:, -1].cpu()], []
+    for i in range(n):
+        t0 = time.perf_counter()
+        pos = torch.full((b,), p + i, dtype=torch.int64, device=cards[0])
+        logits, cache = decode(sp, tok[:, None], pos, cache)
+        tok = torch.argmax(logits[:, 0], dim=-1)
+        stream.append(tok.tolist())
+        step_s.append(time.perf_counter() - t0)
+        lg_all.append(logits[:, 0].cpu())
+    launches = ops.launches                 # ... and read just after
+    lg_all = torch.stack(lg_all)
+    whole = spmd.gather_tree(cache, "cpu")
+    pos_ok = all(torch.equal(
+        c["pos"], torch.arange(max_len, dtype=torch.int32).expand_as(
+            c["pos"])) for g in whole["groups"] for c in g["blocks"])
+    agree = float(np.mean([a == b_ for s1, s2 in zip(stream, plain["stream"])
+                           for a, b_ in zip(s1, s2)]))
+    serve = dict(batch=b, prompt=p, steps=n, prefill_ms=prefill_s * 1e3,
+                 decode_ms_per_step_median=statistics.median(step_s) * 1e3,
+                 decode_ms_per_step_mean=statistics.mean(step_s) * 1e3,
+                 tokens_per_s=b * n / sum(step_s),
+                 unsharded_prefill_ms=plain["prefill_s"] * 1e3,
+                 unsharded_decode_ms_per_step_median=statistics.median(
+                     plain["step_s"]) * 1e3,
+                 prefill_logits_max_abs_dev_vs_unsharded=float(
+                     (lg_all[0] - plain["logits"][0]).abs().max()),
+                 prefill_logits_max_abs=float(plain["logits"][0].abs().max()),
+                 greedy_tokens_agreeing_with_unsharded=agree,
+                 k3_launches_prefill=k3_prefill,
+                 peak_bytes_by_device=_peaks(mesh))
+    checks["serve_logits_finite"] = bool(torch.isfinite(lg_all).all())
+    checks["serve_tokens_in_vocab"] = all(0 <= t < cfg7.vocab_size
+                                          for s_ in stream for t in s_)
+    checks["serve_cache_pos_every_slot"] = pos_ok
+    checks["serve_placed_on_coordinates"] = _placement_ok((sp, cache))
+    checks["k3_launches_28_x_4_a_prefill"] = (
+        k3_prefill == cfg7.num_layers * mesh.size == launches)
+    del sp, cache, whole, plain, prefill, decode, model
+    torch.cuda.empty_cache()
+    # (b') the fp32 cut: its logits beside the unsharded step's, bounded
+    # by the typical rounding of the longest reduction the split reorders
+    # (d_ff terms) at the logits' scale; beside them the spread of the
+    # unsharded step with only that reduction's order changed
+    cut7 = dataclasses.replace(cfg7, num_layers=f["cut_layers"], groups=(
+        LayerGroup(f["cut_layers"], cfg7.groups[0].blocks),))
+    m32 = build_model(cut7, device=cards[0], dtype=torch.float32)
+    m32.init_params(torch.Generator(device=cards[0]).manual_seed(0))
+    nc = f["serve_cut_steps"]
+    with torch.no_grad():
+        ref32 = _prompt_run(m32, inp, nc, p + nc)
+        feed = ref32["stream"][:nc]
+        _swap_ff_halves(m32)
+        ctrl32 = _serve_fed(m32, None, inp, feed, p + nc)
+        _swap_ff_halves(m32)
+        got32 = _serve_fed(m32, mesh, inp, feed, p + nc)
+    dev32 = [float((g - r).abs().max())
+             for g, r in zip(got32, ref32["logits"])]
+    scale = float(ref32["logits"].abs().max())
+    bound = math.sqrt(cut7.d_ff) * torch.finfo(torch.float32).eps * scale
+    agree = [r.tolist() for r in got32.argmax(-1)] == ref32["stream"]
+    serve["fp32_cut"] = dict(
+        layers=f["cut_layers"], decode_steps=nc,
+        logits_max_abs_dev_by_call=dev32, logits_max_abs=scale,
+        bound=bound, greedy_tokens_all_agree=agree,
+        ff_order_control_max_abs_dev_by_call=[
+            float((c_ - r).abs().max())
+            for c_, r in zip(ctrl32, ref32["logits"])])
+    checks["serve_fp32_cut_logits_within_rounding_bound"] = (
+        max(dev32) <= bound)
+    checks["serve_fp32_cut_greedy_tokens_agree"] = agree
+    del m32, ref32, got32, ctrl32
+    torch.cuda.empty_cache()
+    # K3 at the coordinate's prefill shape, against its plain version
+    coord = cfg7.scaled(num_heads=cfg7.num_heads // mesh.shape["model"],
+                        num_kv_heads=cfg7.num_kv_heads // mesh.shape["model"])
+    k3 = _k3_at_prefill(coord, b // mesh.shape["data"], p, torch.bfloat16,
+                        cards[0])
+    serve.update({k: v for k, v in k3.items() if k != "sdpa"})
+    out["serve_qwen2_7b"] = serve
+    # (c) four cards: qwen2-7b trains whole across them; qwen2-1.5b's
+    # steps on the four cards beside the card listed four times
+    if four:
+        t7 = f["train7b"]
+        rec7, state = _spmd_train(cfg7, mesh, **t7)
+        del state
+        torch.cuda.empty_cache()
+        out["train_qwen2_7b_four_cards"] = rec7
+        checks["train_7b_finite"] = rec7["finite"]
+        checks["train_7b_replicas_equal"] = rec7["replicas_equal"]
+        one = _spmd_mesh([cards[0]] * 4)
+        rec1, state = _spmd_train(cfg, one, **tf)
+        del state
+        torch.cuda.empty_cache()
+        out["train_qwen2_1.5b_one_card_x4"] = rec1
+        out["four_cards_over_one_card_x4_step_ms"] = (
+            out["train_qwen2_1.5b"]["ms_a_step"] / rec1["ms_a_step"])
+        out["losses_equal_four_cards_and_one_card_x4"] = [
+            a["loss"] == b_["loss"] for a, b_ in zip(
+                out["train_qwen2_1.5b"]["steps"], rec1["steps"])]
+    else:
+        out["train_qwen2_7b_four_cards"] = (
+            f"not run: {torch.cuda.device_count()} card(s) visible")
+    emit("spmd_full", ok=all(checks.values()), checks=checks,
+         config=dict(f, train=tf, serve_run=run), **out,
+         phase_s=time.perf_counter() - t_phase)
+    if not all(checks.values()):
+        raise SystemExit("spmd_full failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return launches, _k3_summary(k3)
 
 
 # ------------------------------------------------- provisioning loop (K1) --
@@ -7054,6 +7526,10 @@ def main() -> int:
         phase_encdec_full(dev)
     flash_by_path.update(encdec_launches)
     flash_by_path["mesh_full"] = phase_mesh_full(dev)
+    torch.cuda.empty_cache()
+    phase_spmd_parity_small(dev)
+    flash_by_path["spmd_full"], flash["at_spmd_prefill"] = \
+        phase_spmd_full(dev)
     flash["launches"] = sum(flash_by_path.values())
     flash["launches_by_path"] = flash_by_path
     torch.cuda.empty_cache()

@@ -397,6 +397,67 @@ def attn_decode(mixer: Attention, x, cache: dict, positions):
     return mixer.project_out(out), cache
 
 
+# ------------------------------------------------- one mesh coordinate ---
+_QKV = ("wq", "wk", "wv", "bq", "bk", "bv", "q_norm", "k_norm")
+
+
+def kv_heads_for(k, v, q_first: int, n_q: int, hq: int):
+    """The KV heads read by query heads ``q_first .. q_first + n_q - 1``
+    of ``hq``, from ``k``/``v`` (B, S, Hkv, D) holding every KV head (a
+    KV-head count the model axis does not divide stays replicated while
+    the query heads split: with 12 / 2 heads on 4 coordinates, coordinate
+    j's heads 3j..3j+2 read KV head 3j // 6).  A run of whole groups is a
+    slice of heads, so the grouped product and K3 keep their group;
+    otherwise each query head gets its own KV head (group 1)."""
+    if n_q == hq:
+        return k, v
+    g = hq // k.shape[2]
+    idx = [(q_first + i) // g for i in range(n_q)]
+    first, n_kv = idx[0], idx[-1] - idx[0] + 1
+    if n_q % n_kv == 0 and idx == [first + i // (n_q // n_kv)
+                                   for i in range(n_q)]:
+        return k[:, :, first:first + n_kv], v[:, :, first:first + n_kv]
+    ix = torch.tensor(idx, device=k.device)
+    return k.index_select(2, ix), v.index_select(2, ix)
+
+
+def attn_local(x, w: dict, cfg: ArchConfig, positions, *, mode: str,
+               q_first: int = 0, cache: dict | None = None,
+               impl: str = "blocked"):
+    """One mesh coordinate's attention (``runtime/train.py::
+    jit_train_step``, ``runtime/serve.py::jit_decode_step``): ``w`` holds
+    its blocks of the layer's weights, gathered whole on "embed" (``wq``
+    (d, h, hd) of its ``h`` query heads from ``q_first`` on, ``wk``/``wv``
+    of its KV heads or of all, ``wo`` (h, hd, d), the biases and qk-norms
+    alike).  mode: train (``attn_forward``), prefill (``attn_prefill``:
+    ``cache`` is its block of the layer's ring, filled in place), decode
+    (``attn_decode``).  Returns ``x``'s share of the output projection,
+    (B, S, d): the partial sum over its heads, which the caller sums over
+    the model axis where the heads split."""
+    q, k, v = _project_qkv(x, cfg, **{n: w.get(n) for n in _QKV})
+    pos = positions if mode != "decode" else positions[:, None]
+    cos, sin = rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    # query heads split while every KV head is held: pick the group's
+    split_kv = k.shape[2] == cfg.num_kv_heads and q.shape[2] < cfg.num_heads
+    if mode == "decode":
+        cache = ring_cache_update(cache, k, v, positions)
+        ks, vs = cache["k"], cache["v"]
+        if split_kv:
+            ks, vs = kv_heads_for(ks, vs, q_first, q.shape[2], cfg.num_heads)
+        mask = ring_cache_mask(cache["pos"], positions, cfg.sliding_window)
+        out = grouped_dot_attention(q, ks, vs, mask, cfg.head_dim ** -0.5)
+    else:
+        ks, vs = k, v
+        if split_kv:
+            ks, vs = kv_heads_for(k, v, q_first, q.shape[2], cfg.num_heads)
+        out = _self_attention(q, ks, vs, cfg, positions, True, impl)
+        if mode == "prefill":
+            ring_cache_fill(cache, k, v, positions)
+    return torch.einsum("bshe,hed->bsd", out, w["wo"])
+
+
 # ------------------------------------------------------- cross-attention ---
 def cross_attention_specs(cfg: ArchConfig, prefix_axes=()):
     """The cross-attention's leaves: the self-attention's (``wk``/``wv``

@@ -27,10 +27,24 @@ keeps no activations inside a layer: each layer runs under
 ``torch.utils.checkpoint`` and is recomputed in the backward (the
 reference's ``jax.checkpoint(nothing_saveable)``; no block draws random
 numbers, so no RNG state is saved for the recompute).
+
+On a mesh (M18), ``forward``, ``prefill``, ``decode`` and ``logits`` take
+``params=``, the model's parameters placed by name on the mesh
+(``sharding/spmd.py``), and placed inputs; the model's own parameters are
+then never read (they may lie on the meta device).  Each coordinate runs
+its blocks: the embedding's d-slice then an all-gather over the model
+axis, attention on its query heads (``attention.attn_local``; K3 in a
+flash prefill, once a coordinate), SwiGLU on its ff columns, each
+followed by a ``psum`` over the model axis where the heads or the ff
+split, the weights' "embed" dim gathered over the data axes first (FSDP);
+norms and the residual stream are replicated over the model axis, the
+batch split over the batch axes.  Only the dense decoder
+(``mesh_family_check``) runs there.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -38,10 +52,11 @@ from repro_torch.configs.base import ArchConfig, Block
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, mla, moe
 from repro_torch.models.layers import (MLP, Embedding, Norm, SpecModule,
-                                       embed_specs, lm_logits, mlp_specs,
-                                       norm_specs)
+                                       apply_mlp, apply_norm, embed_specs,
+                                       lm_logits, mlp_specs, norm_specs)
 from repro_torch.models.params import ParamSpec, map_with_path, stack_specs
-from repro_torch.sharding.rules import ShardCtx
+from repro_torch.sharding import spmd
+from repro_torch.sharding.rules import NamedSharding, ShardCtx
 
 _NULL_CTX = ShardCtx()
 
@@ -184,6 +199,212 @@ class MTPHead(SpecModule):
         self.norm = Norm(cfg.d_model, cfg.norm, cfg.norm_eps, **kw)
 
 
+# -------------------------------------------------------- on a mesh (M18) --
+def is_dense_decoder(cfg: ArchConfig) -> bool:
+    """Every block attention + SwiGLU MLP, no encoder, frontend or MTP
+    head: the family the sharded steps place."""
+    return (cfg.family == "dense" and not cfg.is_encoder_decoder
+            and cfg.frontend is None and not cfg.mtp_depth
+            and cfg.act == "silu"
+            and all(b.mixer == "attn" and b.ffn == "mlp"
+                    for g in cfg.groups for b in g.blocks))
+
+
+def mesh_family_check(cfg: ArchConfig, what: str) -> None:
+    """Raise ``NotImplementedError`` unless ``cfg`` is the dense decoder
+    (:func:`is_dense_decoder`)."""
+    if not is_dense_decoder(cfg):
+        raise NotImplementedError(
+            f"{what}: {cfg.name} ({cfg.family}) on a mesh of more than one "
+            "coordinate; the sharded steps place the dense decoder only "
+            "(ROADMAP Queue 1, M18c: the MoE, MLA, Mamba-2, "
+            "encoder-decoder and frontend families under placement)")
+
+
+def _norm_blocks(params: dict, prefix: str, x, cfg: ArchConfig) -> list:
+    """The replicated norm of every rank's residual stream, each with its
+    own block of the scale (the replicas' partial gradients are summed
+    after the backward, ``spmd.sum_replicas``)."""
+    scale = params[prefix + "scale"].blocks
+    bias = params.get(prefix + "bias")
+    return [apply_norm(t, scale[r], None if bias is None else bias.blocks[r],
+                       cfg.norm, cfg.norm_eps) for r, t in enumerate(x)]
+
+
+def _local(params: dict, prefix: str, keep) -> dict[str, list]:
+    """A sub-module's weights by short name, each a rank list of blocks
+    gathered whole on every dim sharded outside ``keep`` (FSDP)."""
+    return {k[len(prefix):]: spmd.unshard(p, keep)
+            for k, p in params.items() if k.startswith(prefix)}
+
+
+def _mesh_block(cfg: ArchConfig, bp: dict, x: list, positions: list,
+                ctx: ShardCtx, mode: str, views):
+    """One attention + MLP block over every coordinate.  ``bp``: the
+    block's placed parameters by short name; ``views``: a rank list of
+    the layer's cache views (None in train mode)."""
+    mesh, ma = ctx.mesh, ctx.model_axis
+    n = len(x)
+    keep = (ma,)
+    h = _norm_blocks(bp, "norm1.", x, cfg)
+    w = _local(bp, "mixer.", keep)
+    heads = spmd.sharded_over(bp["mixer.wq"], ma) is not None
+    per = bp["mixer.wq"].blocks[0].shape[1]
+    first = ([j * per for j in spmd.axis_index(mesh, ma)] if heads
+             else [0] * n)
+    y = [attn.attn_local(h[r], {k: v[r] for k, v in w.items()}, cfg,
+                         positions[r], mode=mode, q_first=first[r],
+                         cache=None if views is None else views[r],
+                         impl=ctx.attn_impl) for r in range(n)]
+    if heads:
+        y = spmd.psum(y, mesh, ma)
+    x = [a + b for a, b in zip(x, y)]
+    h = _norm_blocks(bp, "norm2.", x, cfg)
+    w = _local(bp, "ffn.", keep)
+    y = [apply_mlp(h[r], **{k: v[r] for k, v in w.items()})
+         for r in range(n)]
+    if spmd.sharded_over(bp["ffn.wo"], ma) is not None:
+        y = spmd.psum(y, mesh, ma)
+    return [a + b for a, b in zip(x, y)]
+
+
+class _Remat(torch.autograd.Function):
+    """One block over every coordinate keeping nothing for the backward
+    but its inputs (``ShardCtx.remat`` on a mesh): the forward runs without
+    a graph; the backward runs the block again, its FSDP gathers too, and
+    differentiates that.  ``torch.utils.checkpoint``'s non-reentrant hooks
+    do not hold when autograd's threads, one a device, unpack one frame's
+    tensors (seen on four cards), so the recompute is this function's own.
+    ``run(xs, blocks)`` maps the rank list ``xs`` and the block's parameter
+    blocks to a rank list."""
+
+    @staticmethod
+    def forward(ctx, run, n_x, *ts):
+        ctx.run, ctx.n_x = run, n_x
+        ctx.save_for_backward(*ts)
+        with torch.no_grad():
+            return tuple(run(list(ts[:n_x]), list(ts[n_x:])))
+
+    @staticmethod
+    def backward(ctx, *gouts):
+        ts = [t.detach().requires_grad_(t.requires_grad)
+              for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            outs = ctx.run(ts[:ctx.n_x], ts[ctx.n_x:])
+        pairs = [(o, g) for o, g in zip(outs, gouts) if g is not None]
+        wrt = [t for t in ts if t.requires_grad]
+        gs = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
+                                      [g for _, g in pairs],
+                                      allow_unused=True))
+        return (None, None) + tuple(next(gs) if t.requires_grad else None
+                                    for t in ts)
+
+
+def _remat_block(cfg: ArchConfig, bp: dict, x: list, positions: list,
+                 ctx: ShardCtx, mode: str) -> list:
+    """``_mesh_block`` in train mode under :class:`_Remat`."""
+    names = list(bp)
+
+    def run(xs, blocks):
+        k, local = 0, {}
+        for n in names:
+            p = bp[n]
+            local[n] = spmd.Placed(blocks[k:k + len(p.blocks)], p.sharding,
+                                   p.shape)
+            k += len(p.blocks)
+        return _mesh_block(cfg, local, xs, positions, ctx, mode, None)
+
+    return list(_Remat.apply(run, len(x), *x,
+                             *[b for n in names for b in bp[n].blocks]))
+
+
+def _block_params(params: dict, prefix: str) -> dict:
+    return {k[len(prefix):]: v for k, v in params.items()
+            if k.startswith(prefix)}
+
+
+def _check_inputs(tokens, positions, params: dict, ctx: ShardCtx):
+    for what, t in (("tokens", tokens), ("positions", positions)):
+        if not isinstance(t, spmd.Placed):
+            raise TypeError(f"{what}: placed parameters take placed inputs "
+                            f"(got {type(t).__name__})")
+        if t.mesh is not ctx.mesh:
+            raise ValueError(f"{what}: placed on another mesh than the "
+                             "ShardCtx's")
+    for name, p in params.items():
+        if not isinstance(p, spmd.Placed) or p.mesh is not ctx.mesh:
+            raise ValueError(f"parameter {name} is not placed on the "
+                             "ShardCtx's mesh")
+
+
+def _mesh_embed(params: dict, tokens: spmd.Placed, ctx: ShardCtx) -> list:
+    """Each coordinate's rows of the table lookup, whole on d: its
+    d-slice of "embed_tbl" looked up, then gathered over the model axis."""
+    tok = params["embed.tok"]
+    ma = ctx.model_axis
+    tbl = spmd.unshard(tok, (ma,))
+    xs = [F.embedding(t, w) for t, w in zip(tokens.blocks, tbl)]
+    if spmd.sharded_over(tok, ma) == 1:
+        xs = spmd.all_gather(xs, ctx.mesh, ma, dim=2)
+    return xs
+
+
+def _mesh_run(model, params: dict, tokens, positions, ctx: ShardCtx,
+              cache, mode: str) -> spmd.Placed:
+    """The embedding, every block and the final norm on placed
+    parameters; returns the hidden states, placed by the batch spec."""
+    cfg = model.cfg
+    mesh_family_check(cfg, f"LM {mode} with placed parameters")
+    _check_inputs(tokens, positions, params, ctx)
+    x = _mesh_embed(params, tokens, ctx)
+    pos = positions.blocks
+    hs = NamedSharding(ctx.mesh, ctx.batch_spec(3))
+    remat = mode == "train" and ctx.remat
+    for gi, group in enumerate(model.groups):
+        gc = None if cache is None else cache["groups"][gi]["blocks"]
+        for li, layer in enumerate(group):
+            for bi in range(len(layer)):
+                bp = _block_params(params, f"groups.{gi}.{li}.{bi}.")
+                views = (None if gc is None else
+                         [{k: t.blocks[r][li] for k, t in gc[bi].items()}
+                          for r in range(len(x))])
+                if remat:
+                    x = _remat_block(cfg, bp, x, pos, ctx, mode)
+                else:
+                    x = _mesh_block(cfg, bp, x, pos, ctx, mode, views)
+        x = ctx.constrain(spmd.Placed(x, hs)).blocks
+    return spmd.Placed(_norm_blocks(params, "final_norm.", x, cfg), hs)
+
+
+def mesh_logits(params: dict, hidden: spmd.Placed,
+                ctx: ShardCtx) -> spmd.Placed:
+    """Logits (fp32, whole on the vocab) of placed hidden states: an
+    untied head split on "vocab" gathers its columns over the model axis;
+    the tied head with the table's d split over it sums its partial
+    products there (``psum``)."""
+    mesh, ma = ctx.mesh, ctx.model_axis
+    head = params.get("embed.lm_head")
+    n = len(hidden.blocks)
+    if head is not None:
+        w = spmd.unshard(head, (ma,))
+        ys = [(hidden.blocks[r] @ w[r]).to(torch.float32) for r in range(n)]
+        if spmd.sharded_over(head, ma) == 1:
+            ys = spmd.all_gather(ys, mesh, ma, dim=2)
+        return spmd.Placed(ys, hidden.sharding)
+    tok = params["embed.tok"]
+    w = spmd.unshard(tok, (ma,))
+    if spmd.sharded_over(tok, ma) == 1:
+        dm = w[0].shape[1]
+        idx = spmd.axis_index(mesh, ma)
+        ys = [(hidden.blocks[r][..., idx[r] * dm:(idx[r] + 1) * dm]
+               @ w[r].T).to(torch.float32) for r in range(n)]
+        ys = spmd.psum(ys, mesh, ma)
+    else:
+        ys = [(hidden.blocks[r] @ w[r].T).to(torch.float32)
+              for r in range(n)]
+    return spmd.Placed(ys, hidden.sharding)
+
+
 # -------------------------------------------------------------- LM model ---
 class LM(nn.Module):
     """Decoder-only language model."""
@@ -252,7 +473,12 @@ class LM(nn.Module):
         w = getattr(self.embed, "lm_head", None)
         return self.embed.tok.T if w is None else w
 
-    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
+    def logits(self, hidden, params: dict | None = None,
+               ctx: ShardCtx = _NULL_CTX):
+        """(B, S, V) fp32 logits; with placed ``params`` of placed hidden
+        states (``mesh_logits``), placed by the batch spec."""
+        if params is not None:
+            return mesh_logits(params, hidden, ctx)
         return lm_logits(hidden, self.embed.tok,
                          getattr(self.embed, "lm_head", None))
 
@@ -283,14 +509,20 @@ class LM(nn.Module):
 
     # ---- public entry points ----
     def forward(self, tokens, positions, ctx: ShardCtx = _NULL_CTX,
-                embeds=None) -> dict:
+                embeds=None, params: dict | None = None) -> dict:
         """Training forward (no cache).  tokens: (B,S); positions:
         (B,S[+N]) covering ``embeds``' N rows, which come first.  Returns
         ``{"hidden": (B,S[+N],d), "aux"}`` and, where the config has
         ``mtp_depth`` and the model its head, ``"mtp_hidden"`` (B,S-1,d):
         h'_i = Block(proj [h_i ; emb(t_{i+1})]) predicts t_{i+2}, and the
-        head's block adds its aux."""
+        head's block adds its aux.  With placed ``params`` (module
+        docstring) tokens and positions are placed, and ``hidden`` is."""
         cfg = self.cfg
+        if params is not None:
+            hidden = _mesh_run(self, params, tokens, positions, ctx, None,
+                               "train")
+            return {"hidden": hidden, "aux": torch.zeros(
+                (), dtype=torch.float32, device=hidden.blocks[0].device)}
         x = self.embed(tokens, embeds)
         x, aux = self._run_groups(x, positions, ctx, None, "train")
         x = self.final_norm(x)
@@ -306,19 +538,32 @@ class LM(nn.Module):
         return out
 
     def prefill(self, tokens, positions, cache: dict,
-                ctx: ShardCtx = _NULL_CTX, embeds=None):
+                ctx: ShardCtx = _NULL_CTX, embeds=None,
+                params: dict | None = None):
         """Process the prompt, fill the cache in place.  tokens: (B,S);
         positions: (B,S).  Returns (hidden, cache, aux); aux is the MoE
-        layers' summed load-balance and z loss, 0 without them."""
+        layers' summed load-balance and z loss, 0 without them.  With
+        placed ``params`` the inputs, the cache's leaves and the hidden
+        states are placed."""
+        if params is not None:
+            hidden = _mesh_run(self, params, tokens, positions, ctx, cache,
+                               "prefill")
+            return hidden, cache, torch.zeros(
+                (), dtype=torch.float32, device=hidden.blocks[0].device)
         x = self.embed(tokens, embeds)
         x, aux = self._run_groups(x, positions, ctx, cache, "prefill")
         return self.final_norm(x), cache, aux
 
     def decode(self, tokens, positions, cache: dict,
-               ctx: ShardCtx = _NULL_CTX):
+               ctx: ShardCtx = _NULL_CTX, params: dict | None = None):
         """One token per sequence. tokens: (B,1); positions: (B,).
         Returns (logits (B,1,V) fp32, cache); the cache is written in
-        place."""
+        place.  With placed ``params`` the inputs, the cache's leaves and
+        the logits are placed."""
+        if params is not None:
+            hidden = _mesh_run(self, params, tokens, positions, ctx, cache,
+                               "decode")
+            return mesh_logits(params, hidden, ctx), cache
         x = self.embed(tokens)
         x, _ = self._run_groups(x, positions, ctx, cache, "decode")
         return self.logits(self.final_norm(x)), cache

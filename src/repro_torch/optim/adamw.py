@@ -17,6 +17,12 @@ and ordered like the parameters they follow.  Where the reference returns
 a new state from a donated one, :func:`apply_updates` writes the
 parameters and the state in place.  Both steps share :func:`step_scalars`
 and :func:`update_leaf`, so they give the same parameters bit for bit.
+
+On a mesh (``runtime/train.py::jit_train_step``) the parameters, their
+gradients and the state are ``sharding/spmd.py::Placed``: the state is
+made and updated a block at a time on each block's device, the global
+gradient norm counts each distinct block once (not once a replica), and
+``step`` is a placed scalar, one copy a coordinate.
 """
 from __future__ import annotations
 
@@ -26,6 +32,8 @@ import math
 import torch
 
 from repro_torch.optim.compress import QTensor
+from repro_torch.sharding import spmd
+from repro_torch.sharding.rules import P, NamedSharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +76,8 @@ def init_state(params: dict, cfg: AdamWConfig, device=None) -> dict:
         raise ValueError(f"moments_dtype {cfg.moments_dtype!r}; one of "
                          "float32, bfloat16, int8")
     first = next(iter(params.values()))
+    if isinstance(first, spmd.Placed):
+        return _init_placed(params, cfg, device)
     device = first.device if device is None else torch.device(device)
     master = ({n: p.detach().to(device=device, dtype=torch.float32,
                                 copy=True) for n, p in params.items()}
@@ -80,6 +90,30 @@ def init_state(params: dict, cfg: AdamWConfig, device=None) -> dict:
     }
 
 
+def _init_placed(params: dict, cfg: AdamWConfig, device) -> dict:
+    """The state of placed parameters, each leaf placed like its
+    parameter, made block by block."""
+    if device is not None:
+        raise ValueError("placed parameters: the state is placed like them "
+                         "(device= is for one device)")
+    if cfg.moments_dtype == "int8":
+        raise ValueError("int8 moments are a pool-tier feature, not placed "
+                         "on a mesh")
+    mesh = next(iter(params.values())).mesh
+    step = spmd.empty((), torch.int32, NamedSharding(mesh, P()))
+    return {
+        "step": step,
+        "master": ({n: p.map(lambda b: b.detach().to(torch.float32,
+                                                      copy=True))
+                    for n, p in params.items()} if cfg.master_fp32
+                   else None),
+        "m": {n: p.map(lambda b: _zeros_moment(b, cfg, b.device))
+              for n, p in params.items()},
+        "v": {n: p.map(lambda b: _zeros_moment(b, cfg, b.device))
+              for n, p in params.items()},
+    }
+
+
 def state_tier(state) -> dict:
     """Tier tag per top-level state group (see ``core/znuma.py``)."""
     return {"step": "local", "master": "pool", "m": "pool", "v": "pool"}
@@ -87,8 +121,14 @@ def state_tier(state) -> dict:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every tensor of a dict (or list),
-    each leaf's sum in fp32."""
-    leaves = tree.values() if isinstance(tree, dict) else tree
+    each leaf's sum in fp32.  A placed leaf counts each distinct block
+    once (its replicas not again), on coordinate 0's device."""
+    leaves = list(tree.values() if isinstance(tree, dict) else tree)
+    if isinstance(leaves[0], spmd.Placed):
+        dev = leaves[0].blocks[0].device
+        return torch.sqrt(torch.stack(
+            [x.blocks[r].to(torch.float32).square().sum().to(dev)
+             for x in leaves for r in x.distinct()]).sum())
     return torch.sqrt(torch.stack(
         [x.to(torch.float32).square().sum() for x in leaves]).sum())
 
@@ -160,6 +200,8 @@ def apply_updates(params: dict, state: dict, grads: dict,
     """One AdamW step, the state on the parameters' device: the
     parameters and the state are updated in place (the reference's
     donated step).  Returns ``(params, state, metrics)``."""
+    if isinstance(state["step"], spmd.Placed):
+        return _apply_placed(params, state, grads, cfg)
     sc = step_scalars(state["step"], grads, cfg)
     masters = state["master"]
     for n, p in params.items():
@@ -173,4 +215,30 @@ def apply_updates(params: dict, state: dict, grads: dict,
         write_leaf(state["v"][n], new_v)
         del new_p, new_mst, new_m, new_v     # before the next leaf's
     state["step"].copy_(sc["step"])
+    return params, state, {"grad_norm": sc["grad_norm"], "lr": sc["lr"]}
+
+
+def _apply_placed(params: dict, state: dict, grads: dict, cfg: AdamWConfig):
+    """:func:`apply_updates` on placed leaves: the shared scalars once (the
+    norm over distinct blocks), copied to each device, then
+    :func:`update_leaf` a block at a time, in place."""
+    sc = step_scalars(state["step"].blocks[0], grads, cfg)
+    on: dict = {}
+    masters = state["master"]
+    for n, p in params.items():
+        for r, b in enumerate(p.blocks):
+            scd = on.setdefault(b.device, {k: v.to(b.device)
+                                           for k, v in sc.items()})
+            mst = None if masters is None else masters[n].blocks[r]
+            m, v = state["m"][n].blocks[r], state["v"][n].blocks[r]
+            new_p, new_mst, new_m, new_v = update_leaf(
+                b, mst, m, v, grads[n].blocks[r], scd, cfg)
+            b.copy_(new_p)
+            if mst is not None:
+                mst.copy_(new_mst)
+            m.copy_(new_m)
+            v.copy_(new_v)
+            del new_p, new_mst, new_m, new_v
+    for b in state["step"].blocks:
+        b.copy_(sc["step"].to(b.device))
     return params, state, {"grad_norm": sc["grad_norm"], "lr": sc["lr"]}

@@ -10,6 +10,12 @@ A tree is nested dicts / lists / tuples of tensors (or numpy arrays, or
 numbers); a ``QTensor`` (int8 moments) is two leaves, its codes and its
 scales, as in the reference.  bfloat16, which numpy cannot hold, is
 stored widened to float32 and cast back on restore.
+
+A placed leaf (``sharding/spmd.py::Placed``, a tensor held as blocks on
+a mesh's devices) is written whole, in the same files and format, so a
+checkpoint does not depend on the mesh: ``restore(..., shardings=)``
+places each leaf on a target mesh (the elastic re-mesh, fed by
+``fault.elastic_mesh``).
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.optim.compress import QTensor
+from repro_torch.sharding import spmd
 
 _EXEC: futures.ThreadPoolExecutor | None = None
 
@@ -75,6 +82,8 @@ def _crc(arr: np.ndarray) -> int:
 def _to_storable(x) -> tuple[np.ndarray, str]:
     """A leaf as a host numpy array numpy can save, and its logical dtype
     (bfloat16 widened to float32, losslessly)."""
+    if isinstance(x, spmd.Placed):
+        x = spmd.gather(x, "cpu")
     if isinstance(x, torch.Tensor):
         t = x.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -147,11 +156,17 @@ def _place(arr: np.ndarray, logical: str, like, device):
 
 
 def restore(ckpt_dir: str, step: int, like, device=None, *,
-            verify: bool = True):
+            shardings=None, verify: bool = True):
     """Restore into the structure of ``like``; each leaf on ``device``, or,
     with ``device=None``, where ``like``'s leaf lies (pinned pool-tier
-    buffers stay pinned).  A leaf whose CRC-32 differs from the
+    buffers stay pinned; a placed leaf of ``like`` is placed as it is).
+    ``shardings``, a tree of ``like``'s
+    structure with a ``NamedSharding`` a leaf (None where ``like`` holds
+    None), places each leaf on its mesh instead (the reference's
+    ``restore(..., shardings=)``).  A leaf whose CRC-32 differs from the
     manifest's raises ``IOError`` (``verify=False`` skips the check)."""
+    if shardings is not None and device is not None:
+        raise ValueError("restore: give device= or shardings=, not both")
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -160,13 +175,23 @@ def restore(ckpt_dir: str, step: int, like, device=None, *,
         raise ValueError(
             f"checkpoint has {len(manifest['leaves'])} leaves; target "
             f"structure expects {len(like_leaves)}")
+    sh_leaves = (_leaves(shardings) if shardings is not None
+                 else [None] * len(like_leaves))
+    if len(sh_leaves) != len(like_leaves):
+        raise ValueError(f"shardings have {len(sh_leaves)} leaves; target "
+                         f"structure has {len(like_leaves)}")
     out = []
-    for meta, lk in zip(manifest["leaves"], like_leaves):
+    for meta, lk, sh in zip(manifest["leaves"], like_leaves, sh_leaves):
         arr = np.load(os.path.join(path, f"leaf_{meta['i']:04d}.npy"))
         if verify and _crc(arr) != meta["crc32"]:
             raise IOError(f"crc mismatch on leaf {meta['i']} in {path}")
-        out.append(_place(arr, meta.get("logical_dtype", str(arr.dtype)),
-                          lk, device))
+        logical = meta.get("logical_dtype", str(arr.dtype))
+        if sh is None and isinstance(lk, spmd.Placed):
+            sh = lk.sharding
+        if sh is not None:
+            out.append(spmd.place(_place(arr, logical, lk, "cpu"), sh))
+        else:
+            out.append(_place(arr, logical, lk, device))
     return _unflatten(like, iter(out))
 
 

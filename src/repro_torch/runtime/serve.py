@@ -2,15 +2,25 @@
 encoder-decoder caches.
 
 The reference jits these steps and donates the cache to the decode step;
-here they run eagerly and write the cache in place.  ``serve_shardings``
-gives the reference's spec trees of the parameters and the cache on a
-mesh; nothing places the arrays by them (``sharding/rules.py``).
+``make_prefill_step`` and ``make_decode_step`` run them eagerly on the
+model's own parameters and write the cache in place.  With a mesh,
+:func:`jit_prefill_step` and :func:`jit_decode_step` are the reference's
+partitioned steps: the parameters placed by :func:`serve_shardings`
+(``runtime/train.py::placed_params(..., mode="serve")``), the cache made
+placed by :func:`init_cache` ("batch" over the batch axes, "kv_heads"
+over the model axis), the tokens and positions placed by the step, each
+coordinate running its rows and heads (K3 once a coordinate in a flash
+prefill).  The dense decoder only; a sequence-sharded cache (SP,
+``seq_shard_kv``) over more than one coordinate raises.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.sharding.rules import ShardCtx, default_rules, sharding_tree
+from repro_torch.models.params import map_with_path
+from repro_torch.sharding import spmd
+from repro_torch.sharding.rules import (P, NamedSharding, ShardCtx,
+                                        default_rules, sharding_tree)
 
 
 def make_prefill_step(model, ctx: ShardCtx):
@@ -44,3 +54,137 @@ def serve_shardings(model, ctx: ShardCtx, batch: int, max_len: int,
     cache_sh = sharding_tree(model.cache_specs(batch, max_len, **kw),
                              rules_, ctx.mesh)
     return params_sh, cache_sh
+
+
+# ------------------------------------------------------- on a mesh (M18) --
+def _require_serve_mesh(model, ctx: ShardCtx, what: str) -> None:
+    from repro_torch.runtime.train import _require_mesh_step
+    _require_mesh_step(model, ctx, what)
+    kv_seq = default_rules(ctx, mode="serve")["kv_seq"]
+    if kv_seq is not None and ctx.axis_size(kv_seq) > 1:
+        raise NotImplementedError(
+            f"{what}: seq_shard_kv (SP: the cache's sequence over "
+            f"{kv_seq}) is not placed yet (ROADMAP Queue 1, M18b: SP "
+            "decode, seq_shard_kv)")
+
+
+def init_cache(model, ctx: ShardCtx, batch: int, max_len: int,
+               dtype: torch.dtype | None = None) -> dict:
+    """``model.init_cache`` placed by :func:`serve_shardings`' cache tree,
+    made block by block on the coordinates' devices: every ``pos`` -1,
+    the rest zeros; ``dtype`` casts the bf16 leaves as there."""
+    _require_serve_mesh(model, ctx, "init_cache")
+    _, cache_sh = serve_shardings(model, ctx, batch, max_len)
+    specs = model.cache_specs(batch, max_len)
+    leaves = {}
+    map_with_path(lambda path, sh: leaves.__setitem__(path, sh), cache_sh)
+
+    def make(path, spec):
+        if path[-1] == "pos":
+            return spmd.empty(spec.shape, spec.dtype, leaves[path], fill=-1)
+        dt = dtype if dtype and spec.dtype == torch.bfloat16 else None
+        return spmd.empty(spec.shape, dt or spec.dtype, leaves[path])
+    return map_with_path(make, specs)
+
+
+def _mesh_step(model, ctx: ShardCtx, batch: int, max_len: int, what: str):
+    """The checks and layouts both placed serve steps share."""
+    _require_serve_mesh(model, ctx, what)
+    params_sh, cache_sh = serve_shardings(model, ctx, batch, max_len)
+    named = spmd.named_shardings(model, params_sh)
+
+    def check(params, cache):
+        for n, sh in named.items():
+            spmd.check(params.get(n), sh, n)
+        spmd.map_tree(lambda x, sh: spmd.check(x, sh, "cache leaf"), cache,
+                      cache_sh)
+    return check
+
+
+def jit_prefill_step(model, ctx: ShardCtx, batch: int, max_len: int):
+    """The prefill step (``make_prefill_step``) on placed parameters and a
+    placed cache (:func:`init_cache`): ``prefill(params, tokens (B,S),
+    positions (B,S), cache) -> (last-position logits (B,1,V) fp32, whole
+    on coordinate 0's device, cache)``, the cache filled in place.
+    Without a mesh, ``params`` must be None: the model's own are read."""
+    if _eager(model, ctx):
+        step = make_prefill_step(model, ctx)
+
+        def plain(params, tokens, positions, cache):
+            _own_params(params)
+            return step(tokens, positions, cache)
+        return plain
+    check = _mesh_step(model, ctx, batch, max_len, "jit_prefill_step")
+    tok_sh = NamedSharding(ctx.mesh, P(ctx.batch_axes, None))
+
+    @torch.no_grad()
+    def prefill(params, tokens, positions, cache):
+        check(params, cache)
+        hidden, cache, _ = model.prefill(
+            spmd.place(tokens, tok_sh), spmd.place(positions, tok_sh),
+            cache, ctx, params=params)
+        last = hidden.map(lambda h: h[:, -1:])
+        return spmd.gather(model.logits(last, params, ctx)), cache
+    return prefill
+
+
+def jit_decode_step(model, ctx: ShardCtx, batch: int, max_len: int,
+                    enc_len: int | None = None, donate: bool = True):
+    """The reference's decode-step builder: ``decode(params, tokens (B,1),
+    positions (B,), cache) -> (logits (B,1,V) fp32, cache)``.  With a
+    mesh the layouts come from :func:`serve_shardings` (a leaf placed
+    otherwise raises), the logits come back whole on coordinate 0's
+    device.  The cache is written in place; ``donate=False`` writes a copy
+    and returns it, the caller's left as it was, with a mesh or without.
+    Without a mesh, ``params`` must be None and the eager step runs on the
+    model's own parameters.  ``enc_len`` (an encoder-decoder's) raises on
+    a mesh: only the dense decoder is placed."""
+    if _eager(model, ctx):
+        step = make_decode_step(model, ctx)
+
+        def plain(params, tokens, positions, cache):
+            _own_params(params)
+            if not donate:
+                cache = _clone_tree(cache)
+            return step(tokens, positions, cache)
+        return plain
+    if enc_len is not None:
+        raise NotImplementedError(
+            "jit_decode_step: an encoder-decoder's cache (enc_len) on a "
+            "mesh (ROADMAP Queue 1, M18c: the encoder-decoder under "
+            "placement)")
+    check = _mesh_step(model, ctx, batch, max_len, "jit_decode_step")
+    tok_sh = NamedSharding(ctx.mesh, P(ctx.batch_axes, None))
+    pos_sh = NamedSharding(ctx.mesh, P(ctx.batch_axes))
+
+    @torch.no_grad()
+    def decode(params, tokens, positions, cache):
+        check(params, cache)
+        if not donate:
+            cache = _clone_tree(cache)
+        logits, cache = model.decode(
+            spmd.place(tokens, tok_sh), spmd.place(positions, pos_sh),
+            cache, ctx, params=params)
+        return spmd.gather(logits), cache
+    return decode
+
+
+def _eager(model, ctx: ShardCtx) -> bool:
+    """No mesh, or a one-coordinate mesh for a family the sharded steps do
+    not place: the eager step on the model's own parameters."""
+    from repro_torch.models.transformer import is_dense_decoder
+    return ctx.mesh is None or (ctx.mesh.size == 1
+                                and not is_dense_decoder(model.cfg))
+
+
+def _clone_tree(cache):
+    """A copy of every leaf of a cache, placed or not."""
+    return spmd.map_tree(lambda x: x.map(torch.clone) if isinstance(
+        x, spmd.Placed) else x.clone() if isinstance(x, torch.Tensor) else x,
+        cache)
+
+
+def _own_params(params) -> None:
+    if params is not None:
+        raise ValueError("without a mesh the serve steps read the model's "
+                         "own parameters; pass params=None")

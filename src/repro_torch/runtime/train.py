@@ -23,12 +23,23 @@ the reference's steps update their donated buffers.  Both steps share
 ``adamw.step_scalars`` and ``adamw.update_leaf``, so they give the same
 parameters bit for bit.
 
-With a mesh (``ShardCtx.mesh``), :func:`step_shardings` gives the
-reference's spec trees of the fused step, but nothing places the arrays
-by them: the step runs the model eagerly on the parameters' device, and
-only ``shard_map`` code splits work over the mesh (the sharded MoE paths,
-and here the tied-head loss with ``replicate_lm_head``: the chunks'
-tokens split over the model axis, the partial sums ``psum``-ed).
+With a mesh (``ShardCtx.mesh``), :func:`jit_train_step` is the
+reference's partitioned step: the parameters and the AdamW state arrive
+placed on the mesh's devices by :func:`step_shardings`' trees
+(``sharding/spmd.py``, :func:`placed_params`), the batch is placed a
+microbatch at a time over the batch axes, and the dense decoder's
+forward and backward run on those blocks (``models/transformer.py``):
+DP over ("pod", "data"), FSDP gathers of "embed" over "data", TP over
+heads, ff and vocab.  The loss is vocab-parallel for an untied head and
+reads the tied table whole (:func:`mesh_xent`);
+each leaf's gradient is summed over the mesh axes it is replicated on,
+the global norm counts each distinct block once, and AdamW updates a
+block at a time, so replicas stay equal.  The two-phase step, the other
+families and int8 moments do not run on a mesh of more than one
+coordinate (they raise); ``make_train_step`` with a mesh still runs the
+model eagerly on the parameters' device, where only ``shard_map`` code
+(the sharded MoE paths, the tied-head loss with ``replicate_lm_head``)
+splits work over the mesh.
 """
 from __future__ import annotations
 
@@ -38,7 +49,7 @@ import torch.nn.functional as F
 from repro_torch.launch import op_analysis
 from repro_torch.optim import adamw
 from repro_torch.optim.compress import QTensor
-from repro_torch.sharding import rules
+from repro_torch.sharding import rules, spmd
 from repro_torch.sharding.rules import (P, NamedSharding, ShardCtx,
                                         default_rules, sharding_tree)
 
@@ -135,6 +146,138 @@ def chunked_xent(hidden, w, labels, chunk: int = 512,
             out_specs=(P(), P()))(hc, lc, w)
         return total / count.clamp_min(1)
     total, count = _XentCore.apply(hc, lc, w)
+    return total / count.clamp_min(1)
+
+
+# ---------------------------------------------- cross-entropy on a mesh --
+class _MeshXent(torch.autograd.Function):
+    """One data group's chunked cross-entropy with an untied head split on
+    "vocab" over the model axis, the ``m``-th of its ``n`` members holding
+    ``hcs[m]`` (its copy of the (k, B, c, d) hidden chunks), ``lcs[m]``
+    (labels) and ``ws[m]``, columns ``offs[m]`` on of the (d, V) head: the
+    logsumexp combines the members' maxima and exp-sums, the target logit
+    comes from the member holding it.  Returns (nll sum, count) on member
+    0's device; the backward recomputes each chunk, as ``_XentCore``'s
+    does, and gives each member its share of the gradient."""
+
+    @staticmethod
+    def forward(ctx, offs, n, *ts):
+        hcs, lcs, ws = ts[:n], ts[n:2 * n], ts[2 * n:]
+        dev0 = hcs[0].device
+        total = torch.zeros((), dtype=torch.float32, device=dev0)
+        count = torch.zeros((), dtype=torch.int64, device=dev0)
+        lse = torch.empty(lcs[0].shape, dtype=torch.float32, device=dev0)
+        for i in range(lcs[0].shape[0]):
+            lab = lcs[0][i]
+            logits = _mesh_chunk_logits(hcs, ws, i)
+            mx = logits[0].amax(-1)
+            for lg in logits[1:]:
+                mx = torch.maximum(mx, lg.amax(-1).to(dev0))
+            se = None
+            tgt = torch.zeros(lab.shape, dtype=torch.float32, device=dev0)
+            for m, lg in enumerate(logits):
+                e = torch.exp(lg - mx.to(lg.device)[..., None]).sum(-1)
+                se = e.to(dev0) if se is None else se + e.to(dev0)
+                lm, hit = _local_label(lcs[m][i], offs[m], lg.shape[-1])
+                t = lg.gather(-1, lm[..., None])[..., 0]
+                tgt = tgt + torch.where(hit, t, 0.0).to(dev0)
+            logz = mx + torch.log(se)
+            valid = lab >= 0
+            total = total + torch.where(valid, logz - tgt, 0.0).sum()
+            count = count + valid.sum()
+            lse[i] = logz
+        ctx.offs, ctx.n = offs, n
+        ctx.save_for_backward(lse, *ts)
+        ctx.mark_non_differentiable(count)
+        return total, count
+
+    @staticmethod
+    def backward(ctx, g_sum, _g_count):
+        lse, *ts = ctx.saved_tensors
+        offs, n = ctx.offs, ctx.n
+        hcs, lcs, ws = ts[:n], ts[n:2 * n], ts[2 * n:]
+        dws = [torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+               for w in ws]
+        dhcs = [torch.empty_like(h) for h in hcs]
+        for i in range(lcs[0].shape[0]):
+            logits = _mesh_chunk_logits(hcs, ws, i)
+            for m in range(n):
+                h, w, lab, lg = hcs[m][i], ws[m], lcs[m][i], logits[m]
+                d = torch.exp(lg - lse[i].to(lg.device)[..., None])
+                lm, hit = _local_label(lab, offs[m], lg.shape[-1])
+                d.scatter_add_(-1, lm[..., None],
+                               -hit.to(torch.float32)[..., None])
+                d = d * (lab >= 0)[..., None] * g_sum.to(d.device)
+                dhcs[m][i] = torch.einsum("bcv,dv->bcd", d.to(w.dtype), w)
+                dws[m] = dws[m] + torch.einsum(
+                    "bcd,bcv->dv", h.to(torch.float32),
+                    d.to(h.dtype).to(torch.float32))
+        return ((None, None) + tuple(dhcs) + (None,) * n
+                + tuple(dw.to(w.dtype) for dw, w in zip(dws, ws)))
+
+
+def _local_label(lab, off: int, width: int):
+    """Labels as column indices of the block from ``off`` (0 where outside
+    it), and whether each falls inside."""
+    lm = lab.long() - off
+    hit = (lm >= 0) & (lm < width) & (lab >= 0)
+    return torch.where(hit, lm, 0), hit
+
+
+def _mesh_chunk_logits(hcs, ws, i: int) -> list:
+    """Chunk ``i``'s fp32 logits, each member's own vocab columns."""
+    return [torch.einsum("bcd,dv->bcv", hc[i].to(torch.float32),
+                         w.to(torch.float32)) for hc, w in zip(hcs, ws)]
+
+
+def mesh_xent(hidden: spmd.Placed, params: dict, labels: spmd.Placed,
+              ctx: ShardCtx, chunk: int = 512) -> torch.Tensor:
+    """Mean token NLL of placed hidden states (B, S, d) and labels (B, S)
+    on the placed head, on coordinate 0's device.  Vocab-parallel: an
+    untied head split on "vocab" over the model axis combines each
+    member's logsumexp (max, then a sum of exp-sums; ``_MeshXent``).  Any
+    other head (the tied table, whose d the model axis splits, or a head
+    replicated there) is gathered whole (``spmd.whole``) on each data
+    group's model-coordinate 0, which runs the unsharded loss's
+    ``_XentCore`` on it.  Each data group's sum is counted once, summed
+    over the batch axes in row-major order."""
+    mesh, ma = ctx.mesh, ctx.model_axis
+    b, s, d = hidden.blocks[0].shape
+    c = min(chunk, s)
+    pad = (-s) % c
+    n = (s + pad) // c
+
+    def chunks(h, lab):
+        if pad:
+            h = F.pad(h, (0, 0, 0, pad))
+            lab = F.pad(lab, (0, pad), value=-1)
+        return (h.reshape(b, n, c, d).movedim(1, 0),
+                lab.reshape(b, n, c).movedim(1, 0))
+
+    head = params.get("embed.lm_head")
+    vocab = head is not None and spmd.sharded_over(head, ma) == 1
+    if vocab:
+        ws = spmd.unshard(head, (ma,))
+    totals, counts = [], []
+    for members in spmd.groups(mesh, ma):
+        hl = [chunks(hidden.blocks[r], labels.blocks[r]) for r in members]
+        if vocab:
+            offs = [j * ws[r].shape[1] for j, r in enumerate(members)]
+            t, k = _MeshXent.apply(offs, len(members),
+                                   *[h for h, _ in hl], *[lab for _, lab in hl],
+                                   *[ws[r] for r in members])
+        else:
+            r = members[0]
+            w = (spmd.whole(head, r) if head is not None
+                 else spmd.whole(params["embed.tok"], r).T)
+            t, k = _XentCore.apply(hl[0][0], hl[0][1], w)
+        totals.append(t)
+        counts.append(k)
+    dev0 = totals[0].device
+    total, count = totals[0], counts[0]
+    for t, k in zip(totals[1:], counts[1:]):
+        total = total + t.to(dev0)
+        count = count + k.to(dev0)
     return total / count.clamp_min(1)
 
 
@@ -250,7 +393,14 @@ def make_two_phase_steps(model, opt_cfg: adamw.AdamWConfig, ctx: ShardCtx,
     copied from another device and back, counted copy by copy (0 where
     the state lies on the parameters' device).
     The copies of one parameter are not overlapped with the next
-    parameter's update."""
+    parameter's update.  A mesh of more than one coordinate raises: the
+    two-phase step is not placed yet."""
+    if ctx.mesh is not None and ctx.mesh.size > 1 and ctx.mesh.devices.flat[
+            0].type != "meta":
+        raise NotImplementedError(
+            "make_two_phase_steps on a mesh of more than one coordinate "
+            "(ROADMAP Queue 1, M18d: the two-phase step with a mesh)")
+
     def grad_step(params, batch):
         return grads_fn(model, params, batch, ctx, microbatches, xent_chunk,
                         accum_dtype)
@@ -285,9 +435,148 @@ def make_two_phase_steps(model, opt_cfg: adamw.AdamWConfig, ctx: ShardCtx,
     return grad_step, opt_step
 
 
-# The reference's step builder on one card: the fused step, eager (nothing
-# is compiled; the state is updated in place, as a donated step's is).
-jit_train_step = make_train_step
+# ------------------------------------------------------- on a mesh (M18) --
+def _mesh_grads(model, params: dict, tokens: torch.Tensor, ctx: ShardCtx,
+                microbatches: int, xent_chunk: int, accum_dtype):
+    """``grads_fn`` on placed parameters: each microbatch (contiguous rows
+    of ``tokens``, a global tensor) placed over the batch axes, the loss
+    and every block's gradient; the gradients summed over the axes each
+    leaf is replicated on.  Returns (grads by name, each placed like its
+    parameter, metrics)."""
+    mesh = ctx.mesh
+    names = list(params)
+    leaves = [b for n in names for b in params[n].blocks]
+    tok_sh = NamedSharding(mesh, P(ctx.batch_axes, None))
+    bsz = tokens.shape[0]
+    if bsz % microbatches:
+        raise ValueError(f"batch of {bsz} rows does not split into "
+                         f"{microbatches} microbatches")
+    rows = bsz // microbatches
+    acc = None
+    loss_sum = None
+    for i in range(microbatches):
+        mb = ctx.constrain(spmd.place(tokens[i * rows:(i + 1) * rows],
+                                      tok_sh), P(ctx.batch_axes, None))
+        inp = spmd.Placed([t[:, :-1] for t in mb.blocks], tok_sh)
+        lab = spmd.Placed([t[:, 1:] for t in mb.blocks], tok_sh)
+        s = inp.shape[1]
+        pos = inp.map(lambda t: torch.arange(s, device=t.device)[None]
+                      .expand(t.shape[0], s))
+        out = model.forward(inp, pos, ctx, params=params)
+        loss = mesh_xent(out["hidden"], params, lab, ctx, xent_chunk)
+        # a replica no coordinate read (a head replicated over the model
+        # axis is read whole from index 0 there) has no gradient
+        gs = [torch.zeros_like(b) if g is None else g for b, g in zip(
+            leaves, torch.autograd.grad(loss + out["aux"], leaves,
+                                        allow_unused=True))]
+        loss = loss.detach()
+        loss_sum = loss if loss_sum is None else loss_sum + loss
+        if microbatches == 1:
+            acc = gs
+            continue
+        if acc is None:
+            acc = [None] * len(gs)
+        for j, g in enumerate(gs):         # a leaf at a time, as grads_fn
+            gs[j] = None
+            acc[j] = (g.to(accum_dtype) if acc[j] is None
+                      else acc[j].add_(g.to(accum_dtype)))
+        del gs
+    if microbatches > 1:                   # each block its own tensor here
+        for g in acc:
+            g.div_(microbatches)
+    grads, k = {}, 0
+    for n in names:
+        p = params[n]
+        blocks = spmd.sum_replicas(acc[k:k + len(p.blocks)], mesh, p.spec)
+        k += len(p.blocks)
+        grads[n] = spmd.Placed(blocks, p.sharding, p.shape)
+    return grads, {"loss": loss_sum / microbatches,
+                   "aux": torch.zeros_like(loss_sum)}
+
+
+def _require_mesh_step(model, ctx: ShardCtx, what: str) -> None:
+    """The checks every sharded step makes before it runs."""
+    from repro_torch.models.transformer import mesh_family_check
+    mesh_family_check(model.cfg, what)
+    if ctx.fsdp_pod and ctx.axis_size(ctx.batch_axes) > ctx.axis_size(
+            ctx.data_axis):
+        raise NotImplementedError(
+            f"{what}: fsdp_pod (FSDP over pod and data) is not placed "
+            "yet (ROADMAP Queue 1, M18e: fsdp_pod under placement)")
+
+
+def placed_params(model, ctx: ShardCtx, mode: str = "train") -> dict:
+    """The model's parameters placed on ``ctx.mesh`` by name, each by
+    its leaf of :func:`step_shardings`' parameter tree (``mode``: the
+    rules' train or serve layout); every block a copy, taking gradients."""
+    sh = spmd.named_shardings(model, sharding_tree(
+        model.specs(), default_rules(ctx, mode=mode), ctx.mesh))
+    out = {}
+    for n, p in model.named_parameters():
+        out[n] = spmd.place(p, sh[n])
+        for b in out[n].blocks:
+            b.requires_grad_(mode == "train")
+    return out
+
+
+def jit_train_step(model, opt_cfg: adamw.AdamWConfig, ctx: ShardCtx, *,
+                   mode: str = "train", microbatches: int = 1,
+                   xent_chunk: int = 512, donate: bool = True,
+                   accum_dtype=torch.float32):
+    """The reference's step builder.  Without a mesh: the fused step,
+    eager, on the model's own parameters (updated in place, as a donated
+    step's are; ``donate=False`` raises, since the model reads its own
+    parameters).  With a mesh: ``(params, opt_state, batch) -> (params,
+    opt_state, metrics)`` on parameters and an AdamW state placed by
+    :func:`step_shardings` (:func:`placed_params`, ``adamw.init_state``;
+    a leaf placed otherwise raises), the batch a global tensor placed by
+    the step, a microbatch at a time.  ``donate=False`` updates copies and
+    leaves the inputs as they were.  int8 moments with a mesh raise
+    ``ValueError`` (the reference's rule: a pool-tier feature); the
+    families outside the dense decoder on a mesh of more than one
+    coordinate raise ``NotImplementedError``; on a one-coordinate mesh
+    they take the eager step."""
+    if ctx.mesh is None:
+        if not donate:
+            raise ValueError("donate=False without a mesh: the eager step "
+                             "updates the model's own parameters")
+        return make_train_step(model, opt_cfg, ctx, microbatches, xent_chunk,
+                               accum_dtype)
+    if opt_cfg.moments_dtype == "int8":
+        raise ValueError("int8 moments are a pool-tier feature: use "
+                         "make_two_phase_steps (opt state streams from the "
+                         "pool tier, shardings inferred from buffers)")
+    from repro_torch.models.transformer import is_dense_decoder
+    if ctx.mesh.size == 1 and not is_dense_decoder(model.cfg):
+        return make_train_step(model, opt_cfg, ctx, microbatches, xent_chunk,
+                               accum_dtype)
+    _require_mesh_step(model, ctx, "jit_train_step")
+    params_sh, opt_sh, _ = step_shardings(model, opt_cfg, ctx, mode)
+    named = spmd.named_shardings(model, params_sh)
+
+    def step(params, opt_state, batch):
+        for n, sh in named.items():
+            spmd.check(params.get(n), sh, n)
+            for g in ("master", "m", "v"):
+                if opt_state[g] is not None:
+                    spmd.check(opt_state[g].get(n), sh, f"{g} {n}")
+        spmd.check(opt_state["step"], opt_sh["step"], "step")
+        if not donate:
+            params = {n: p.map(lambda b: b.detach().clone()
+                               .requires_grad_(b.requires_grad))
+                      for n, p in params.items()}
+            opt_state = spmd.map_tree(
+                lambda x: None if x is None else x.map(torch.clone),
+                opt_state)
+        for p in params.values():
+            for b in p.blocks:
+                b.requires_grad_(True)
+        grads, metrics = _mesh_grads(model, params, batch["tokens"], ctx,
+                                     microbatches, xent_chunk, accum_dtype)
+        params, opt_state, om = adamw.apply_updates(params, opt_state,
+                                                    grads, opt_cfg)
+        return params, opt_state, {**metrics, **om}
+    return step
 
 
 def step_shardings(model, opt_cfg: adamw.AdamWConfig, ctx: ShardCtx,

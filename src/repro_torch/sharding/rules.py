@@ -17,12 +17,20 @@ name or a tuple of axis names (JAX's ``PartitionSpec`` is the same
 tuple).
 
 The reference hands these specs to XLA's partitioner, which places the
-arrays and the work.  The port has no such partitioner: the spec trees
-(``partition_tree``, ``train.step_shardings``, ``serve.serve_shardings``)
-say where each leaf would live, and with a mesh the model's steps still run
-eagerly on the caller's device.  Only ``shard_map`` code splits work across
-the mesh: the sharded MoE paths (``models/moe.py``) and the tied-head
-cross-entropy (``runtime/train.py::chunked_xent``).
+arrays and splits the work.  The port's counterpart is
+``sharding/spmd.py``: ``spmd.place`` puts each leaf's blocks on its
+coordinates' devices by these specs (``partition_tree``,
+``train.step_shardings``, ``serve.serve_shardings``), and the dense
+decoder's sharded steps (``runtime/train.py::jit_train_step``,
+``runtime/serve.py::jit_decode_step``) run on those blocks, one host
+thread looping over the coordinates, with ``spmd``'s differentiable
+collectives between them (DP over the batch axes, FSDP gathers of
+"embed", TP over heads, ff and vocab).  The families outside the dense
+decoder, and the eager ``LM.prefill(..., ShardCtx(mesh=...))`` route,
+keep running on the caller's device, where only ``shard_map`` code splits
+work across the mesh: the sharded MoE paths (``models/moe.py``) and the
+tied-head cross-entropy with ``replicate_lm_head``
+(``runtime/train.py::chunked_xent``).
 
 ``shard_map(f, mesh=, in_specs=, out_specs=)`` runs ``f`` once a mesh
 coordinate, each in a thread of its own (a pool kept a mesh size, so a
@@ -112,7 +120,21 @@ class ShardCtx:
         return math.prod(self.mesh.shape[a] for a in axes)
 
     def constrain(self, x, spec=None):
-        """Identity: the port places no arrays by spec (module docstring)."""
+        """The reference's sharding constraint at its call sites (the
+        residual stream after each layer group, a microbatch's rows): a
+        placed tensor (``spmd.Placed``) must already be laid out by
+        ``spec`` (default: ``batch_spec``), else ``ValueError``; it is
+        never moved.  An eager tensor on one device has no layout and is
+        returned as it is."""
+        sharding = getattr(x, "sharding", None)
+        if sharding is None:
+            return x
+        ndim = len(x.shape)
+        want = self.batch_spec(ndim) if spec is None else P(*spec)
+        pad = lambda s: tuple(s) + (None,) * (ndim - len(s))  # noqa: E731
+        if pad(sharding.spec) != pad(want):
+            raise ValueError(f"placed as {sharding.spec}; the constraint "
+                             f"wants {want}")
         return x
 
     def batch_spec(self, ndim: int, batch_dim: int = 0) -> P:

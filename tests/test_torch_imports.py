@@ -99,6 +99,18 @@ def test_port_mirrors_the_reference_layout():
                                                name)), (kernel, name)
 
 
+def test_port_only_modules():
+    """Modules of the port with no counterpart path in the reference: the
+    dry run's op counter (``hlo_analysis.py``'s stand-in) and the
+    placement and collectives of the sharded steps (the work the
+    reference hands to ``jax.jit(in_shardings=...)``).  Both are walked by
+    the import check above."""
+    for rel in ("launch/op_analysis.py", "sharding/spmd.py"):
+        assert os.path.isfile(os.path.join(PORT, rel)), rel
+        assert not os.path.isfile(os.path.join(REPO, "src", "repro", rel)), rel
+        assert os.path.join(PORT, rel) in _port_files(), rel
+
+
 def _run(code_or_args, **kw):
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     return subprocess.run([sys.executable, *code_or_args], cwd=REPO, env=env,
