@@ -40,9 +40,14 @@ PyTorch version on the card, and drives the port's three paths:
   jit_prefill_step`` and ``jit_decode_step``): qwen2-1.5b's smoke config
   in fp32 against the unsharded steps, then qwen2-1.5b whole training at
   ``TRAIN_FULL``'s batch and qwen2-7b whole served (K3 in every
-  coordinate's prefill), on four cards where four are visible (then
-  qwen2-7b also trains whole across them), else on the card listed four
-  times;
+  coordinate's prefill), also with the sequence-sharded cache (SP,
+  ``seq_shard_kv``: the ring's slots over the mesh, the decode's softmax
+  merged across them) at B 4 and B 1, fp32 cuts of qwen2-7b and of
+  danube's wrapped window gated against the unsharded steps, and
+  granite-moe-1b-a400m whole trained and served on the mesh through each
+  MoE dispatch path on placed arrays, its drops against a plain count, on
+  four cards where four are visible (then qwen2-7b also trains whole
+  across them), else on the card listed four times;
 * Pond's provisioning loop (``core/cluster_sim.py::savings_analysis`` over
   ``core/replay_engine.py::CompiledReplay``, the event sweep K1) on a
   cluster row of 256 servers with 16-socket pools and a 7-day trace: the
@@ -1811,8 +1816,10 @@ def phase_encdec_full(dev):
 # ``models/moe.py`` on meshes of the one card (``launch/mesh.py``:
 # ``[card] * n``; ``sharding/rules.py::shard_map`` runs a thread a
 # coordinate).
+# 4 decode steps (16 until PR 31: cut for the script's time limit, the
+# placed MoE steps of moe_mesh_full added beside this eager mesh route)
 MESH_FULL = dict(arch="granite-moe-1b-a400m", batch=4, prompt=2048,
-                 steps=16, shapes=((1, 1), (2, 2)))
+                 steps=4, shapes=((1, 1), (2, 2)))
 
 
 def _moe_modules(model):
@@ -1826,20 +1833,25 @@ def _plain_dropped(xs, routers, cfg, impl, shape, cf):
     token set each coordinate routes (its batch rows; for sharded_a2a its
     batch rows and sequence slice; for sharded2d every row, gathered): an
     expert's (or for sharded_a2a an owner's) pairs beyond the capacity.
-    The routing products run at the coordinates' own shapes."""
+    The routing products run at the coordinates' own shapes.  A sequence
+    the model axis does not split, or of one token, takes sharded_a2a to
+    sharded2d, as ``moe_sharded_a2a`` does."""
     from repro_torch.models.moe import router_topk
     m = cfg.moe
     data, model_ax = shape
     total = 0
     for x, router in zip(xs, routers):
         b, s, d = x.shape
-        if impl == "sharded":
+        path = impl
+        if impl == "sharded_a2a" and (s % model_ax or s == 1):
+            path = "sharded2d"
+        if path == "sharded":
             sets = [x[i * b // data:(i + 1) * b // data]
                     for i in range(data)]
             cap = max(8, int((b // data) * s * m.top_k * cf
                              / m.num_experts))
             owner = 1
-        elif impl == "sharded2d":
+        elif path == "sharded2d":
             sets = [x]
             cap = max(8, int(b * s * m.top_k * cf / m.num_experts))
             owner = 1
@@ -1861,7 +1873,7 @@ def _plain_dropped(xs, routers, cfg, impl, shape, cf):
 
 
 def phase_mesh_full(dev):
-    """granite's prefill (B 4 x 2,048) and 16 decode steps with each
+    """granite's prefill (B 4 x 2,048) and 4 decode steps with each
     sharded ``moe_impl`` on a (1, 1) and a (2, 2) mesh of the card: in
     fp32 at a capacity that drops nothing (cf = E / top_k) the logits held
     to the dense path within 2e-3; in bf16 at the config's cf 1.25 the
@@ -1996,16 +2008,24 @@ SPMD_SMALL = dict(arch="qwen2-1.5b", shape=(2, 2), seed=0, batch=8, seq=32,
 # qwen2-7b whole served at configs/one_card.py's run (B 4 x 2,048 + 32
 # greedy steps, K3 in every coordinate's prefill: 28 layers x 4
 # coordinates a prefill), beside the unsharded steps on the same prompt,
-# and an fp32 cut of it (its first 2 layers at full width, the same
-# prompt and 4 decode steps fed the unsharded run's tokens) whose logits
-# are held to the unsharded step's within sqrt(d_ff) fp32 epsilons of the
-# largest logit, every greedy token agreeing;
+# and the same with the sequence-sharded cache (SP, seq_shard_kv) over
+# "model"; at B 1 x 2,048 + 16 (the batch does not split: every
+# coordinate holds the row) placed, and with SP over ("data", "model");
+# each beside the unsharded steps on its prompt.  fp32 cuts (the first 2
+# layers at full width, the same prompt and 4 decode steps fed the
+# unsharded run's tokens), placed and with SP over "model", and a window
+# cut of danube with SP (B 2 x 6,144 + 4: the ring of 4,096 wraps across
+# its two blocks of 2,048 slots), whose logits are held to the unsharded
+# step's within _rounding_bound, every greedy token agreeing;
 # with four cards also qwen2-7b training whole across them (B 8 x 2,048, 2
 # microbatches, remat: the FSDP gathers again in the backward) and
 # qwen2-1.5b's steps on the four cards beside the card listed four times.
 SPMD_FULL = dict(shape=(2, 2), train_arch="qwen2-1.5b", train_steps=3,
                  cut_layers=2, cut_tol=2e-3, serve_arch="qwen2-7b",
                  serve_cut_steps=4,
+                 b1=dict(batch=1, prompt=2048, steps=16),
+                 window_arch="h2o-danube-1.8b",
+                 window_run=dict(batch=2, prompt=6144, steps=4),
                  train7b=dict(batch=8, seq=2048, microbatches=2, steps=3,
                               remat=True, lr=3e-4))
 
@@ -2145,12 +2165,13 @@ def _reset_peaks(mesh):
 
 
 def _spmd_train(cfg, mesh, *, batch, seq, microbatches, steps, lr, remat,
-                dtype=None, seed=0, unsharded=False):
+                dtype=None, seed=0, unsharded=False, **ctx_kw):
     """``steps`` fused steps of ``jit_train_step`` on ``mesh`` from seeded
     parameters (drawn on the mesh's first device, placed, the model's own
     then dropped to the meta device), batches from ``ShardedBatches``.
     With ``unsharded`` the first step is also run unsharded from the same
-    parameters, first.  Returns a record and the state."""
+    parameters, first.  ``ctx_kw``: more ``ShardCtx`` fields.  Returns a
+    record and the state."""
     from repro_torch.data.pipeline import DataConfig, ShardedBatches
     from repro_torch.models.model_zoo import build_model
     from repro_torch.optim import adamw
@@ -2178,7 +2199,7 @@ def _spmd_train(cfg, mesh, *, batch, seq, microbatches, steps, lr, remat,
             for n, p in params.items():
                 p.copy_(init[n])
         del init, params
-    ctx = ShardCtx(mesh=mesh, pod_axis=None, remat=remat)
+    ctx = ShardCtx(mesh=mesh, pod_axis=None, remat=remat, **ctx_kw)
     t0 = time.perf_counter()
     placed = rt.placed_params(model, ctx)
     model.to("meta")                     # the placed blocks are the model
@@ -2196,12 +2217,12 @@ def _spmd_train(cfg, mesh, *, batch, seq, microbatches, steps, lr, remat,
         placed, opt, m = step(placed, opt, {"tokens": batches[i]})
         _sync_all(mesh)
         runs.append(dict(step_ms=(time.perf_counter() - t0) * 1e3,
-                         loss=float(m["loss"]),
+                         loss=float(m["loss"]), aux=float(m["aux"]),
                          grad_norm=float(m["grad_norm"])))
     rec.update(steps=runs, peak_bytes_by_device=_peaks(mesh),
                replicas_equal=_replicas_equal((placed, opt)),
-               finite=all(np.isfinite(r["loss"]) and np.isfinite(
-                   r["grad_norm"]) for r in runs))
+               finite=all(np.isfinite([r["loss"], r["aux"], r["grad_norm"]])
+                          .all() for r in runs))
     steady = [r["step_ms"] for r in runs[1:]] or [runs[0]["step_ms"]]
     rec["ms_a_step"] = statistics.mean(steady)
     rec["tokens_per_s"] = batch * seq / (rec["ms_a_step"] / 1e3)
@@ -2209,13 +2230,15 @@ def _spmd_train(cfg, mesh, *, batch, seq, microbatches, steps, lr, remat,
     return rec, (model, placed, opt)
 
 
-def _serve_fed(model, mesh, inp, feed, max_len):
+def _serve_fed(model, mesh, inp, feed, max_len, keep_model=False,
+               **ctx_kw):
     """The prefill of ``inp`` (flash attention) and a decode step for each
     row of ``feed`` (the tokens of an earlier run's stream): with a
-    ``mesh`` the sharded steps, the model's parameters placed by
-    ``serve_shardings`` and its own then dropped to the meta device;
-    without one the unsharded steps.  Returns the logits of every call
-    on the host, (len(feed) + 1, B, V)."""
+    ``mesh`` the sharded steps (``ctx_kw``: more ``ShardCtx`` fields), the
+    model's parameters placed by ``serve_shardings`` and its own then
+    dropped to the meta device unless ``keep_model``; without one the
+    unsharded steps.  Returns the logits of every call on the host,
+    (len(feed) + 1, B, V)."""
     from repro_torch.runtime import serve as rs
     from repro_torch.runtime import train as rt
     from repro_torch.sharding.rules import ShardCtx
@@ -2226,9 +2249,11 @@ def _serve_fed(model, mesh, inp, feed, max_len):
         ctx, sp = ShardCtx(attn_impl="flash"), None
         cache = model.init_cache(b, max_len, dtype=dtype)
     else:
-        ctx = ShardCtx(mesh=mesh, pod_axis=None, attn_impl="flash")
+        ctx = ShardCtx(mesh=mesh, pod_axis=None, attn_impl="flash",
+                       **ctx_kw)
         sp = rt.placed_params(model, ctx, mode="serve")
-        model.to("meta")
+        if not keep_model:
+            model.to("meta")
         cache = rs.init_cache(model, ctx, b, max_len, dtype=dtype)
     logits, cache = rs.jit_prefill_step(model, ctx, b, max_len)(
         sp, inp["tokens"], inp["positions"], cache)
@@ -2258,17 +2283,136 @@ def _mesh_devices(n=4):
     return [torch.device("cuda", i) for i in range(n)]
 
 
+def _rounding_bound(cfg, scale):
+    """The gate of a sharded fp32 cut's logits against the unsharded
+    step's: sqrt(n) fp32 epsilons of the largest logit ``scale``, n the
+    longest reduction the split reorders (the MLP's d_ff terms or the d
+    of the head, the output projection and the expert sums)."""
+    return (math.sqrt(max(cfg.d_ff, cfg.d_model))
+            * torch.finfo(torch.float32).eps * scale)
+
+
+def _cut(cfg, layers):
+    from repro_torch.configs.base import LayerGroup
+    return dataclasses.replace(cfg, num_layers=layers, groups=(
+        LayerGroup(layers, cfg.groups[0].blocks),))
+
+
+def _fp32_gate(cfg, mesh, inp, steps, dev, seed=0, **ctx_kw):
+    """``cfg`` in fp32 on ``dev``: the unsharded steps over ``inp`` and
+    ``steps`` greedy tokens, then the sharded steps (``ctx_kw``) fed the
+    same tokens, for each ``ShardCtx`` option set in ``ctx_kw["each"]``
+    (default: one, ``ctx_kw``).  Returns a record by option set: the
+    logits' max deviation by call, the bound, whether every greedy token
+    agrees."""
+    from repro_torch.models.model_zoo import build_model
+    each = ctx_kw.pop("each", [ctx_kw])
+    p = inp["tokens"].shape[1]
+    m32 = build_model(cfg, device=dev, dtype=torch.float32)
+    m32.init_params(torch.Generator(device=dev).manual_seed(seed))
+    out = {}
+    with torch.no_grad():
+        ref32 = _prompt_run(m32, inp, steps, p + steps)
+        feed = ref32["stream"][:steps]
+        scale = float(ref32["logits"].abs().max())
+        for i, kw in enumerate(each):
+            got = _serve_fed(m32, mesh, inp, feed, p + steps,
+                             keep_model=i < len(each) - 1, **kw)
+            devs = [float((g - r).abs().max())
+                    for g, r in zip(got, ref32["logits"])]
+            out[",".join(f"{k}={v}" for k, v in kw.items()) or "default"] = \
+                dict(logits_max_abs_dev_by_call=devs, logits_max_abs=scale,
+                     bound=_rounding_bound(cfg, scale),
+                     within_bound=max(devs) <= _rounding_bound(cfg, scale),
+                     greedy_tokens_all_agree=[
+                         r.tolist() for r in got.argmax(-1)]
+                     == ref32["stream"])
+            del got
+    del m32, ref32
+    torch.cuda.empty_cache()
+    return out
+
+
+def _placed_serve(model, sp, ctx, inp, steps, mesh, plain=None):
+    """``jit_prefill_step`` over ``inp`` and ``steps`` greedy
+    ``jit_decode_step`` steps on the placed parameters ``sp`` and a fresh
+    placed cache of prompt + ``steps`` slots (host clock, every card
+    synchronised; the peak bytes a card from just before).  Beside the
+    unsharded run ``plain`` (``_prompt_run``) where given.  Returns (the
+    record with its ``checks``, the cache)."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.runtime import serve as rs
+    from repro_torch.sharding import spmd
+    b, p = inp["tokens"].shape
+    max_len = p + steps
+    dev0 = inp["tokens"].device
+    cache = rs.init_cache(model, ctx, b, max_len)
+    prefill = rs.jit_prefill_step(model, ctx, b, max_len)
+    decode = rs.jit_decode_step(model, ctx, b, max_len)
+    _reset_peaks(mesh)
+    k3_0 = ops.launches
+    _sync_all(mesh)
+    t0 = time.perf_counter()
+    logits, cache = prefill(sp, inp["tokens"], inp["positions"], cache)
+    tok = torch.argmax(logits[:, -1], dim=-1)
+    stream = [tok.tolist()]
+    prefill_s = time.perf_counter() - t0
+    k3_prefill = ops.launches - k3_0
+    lg_all, step_s = [logits[:, -1].cpu()], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        pos = torch.full((b,), p + i, dtype=torch.int64, device=dev0)
+        logits, cache = decode(sp, tok[:, None], pos, cache)
+        tok = torch.argmax(logits[:, 0], dim=-1)
+        stream.append(tok.tolist())
+        step_s.append(time.perf_counter() - t0)
+        lg_all.append(logits[:, 0].cpu())
+    lg_all = torch.stack(lg_all)
+    rec = dict(batch=b, prompt=p, steps=steps, prefill_ms=prefill_s * 1e3,
+               k3_launches_prefill=k3_prefill,
+               peak_bytes_by_device=_peaks(mesh), stream=stream)
+    if steps:
+        rec.update(decode_ms_per_step_median=statistics.median(step_s) * 1e3,
+                   decode_ms_per_step_mean=statistics.mean(step_s) * 1e3,
+                   tokens_per_s=b * steps / sum(step_s))
+    whole = spmd.gather_tree(cache, "cpu")
+    vocab = model.cfg.vocab_size
+    checks = dict(
+        logits_finite=bool(torch.isfinite(lg_all).all()),
+        tokens_in_vocab=all(0 <= t < vocab for s_ in stream for t in s_),
+        # no window and one slot a position: every slot written once
+        cache_pos_every_slot=model.cfg.sliding_window is not None or all(
+            torch.equal(c["pos"], torch.arange(max_len, dtype=torch.int32)
+                        .expand_as(c["pos"]))
+            for g in whole["groups"] for c in g["blocks"]),
+        placed_on_coordinates=_placement_ok((sp, cache)))
+    if plain is not None:
+        n_plain = len(plain["stream"])
+        rec.update(
+            unsharded_prefill_ms=plain["prefill_s"] * 1e3,
+            prefill_logits_max_abs_dev_vs_unsharded=float(
+                (lg_all[0] - plain["logits"][0]).abs().max()),
+            prefill_logits_max_abs=float(plain["logits"][0].abs().max()),
+            greedy_tokens_agreeing_with_unsharded=float(np.mean([
+                a == b_ for s1, s2 in zip(stream[:n_plain], plain["stream"])
+                for a, b_ in zip(s1, s2)])))
+        if plain["step_s"]:
+            rec["unsharded_decode_ms_per_step_median"] = statistics.median(
+                plain["step_s"]) * 1e3
+    rec["checks"] = checks
+    del whole
+    return rec, cache
+
+
 def phase_spmd_full(dev):
     """Returns K3's launches in the main path (the sharded qwen2-7b
-    prefill) and K3's record at the coordinate's prefill shape."""
+    prefills, placed and with SP, and the fp32 cuts) and K3's records at
+    the B 4 and B 1 coordinates' prefill shapes."""
     from repro_torch.configs.one_card import RUNS, prompt_inputs
-    from repro_torch.configs.base import LayerGroup
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.models.model_zoo import build_model
-    from repro_torch.runtime import serve as rs
     from repro_torch.runtime import train as rt
-    from repro_torch.sharding import spmd
     from repro_torch.sharding.rules import ShardCtx
     t_phase = time.perf_counter()
     f = SPMD_FULL
@@ -2290,9 +2434,8 @@ def phase_spmd_full(dev):
     checks["train_1.5b_replicas_equal"] = rec["replicas_equal"]
     checks["train_1.5b_placed"] = rec["placed_on_coordinates"]
     # (a') the fp32 cut: step 1's loss beside the unsharded step's
-    cut = dataclasses.replace(cfg, num_layers=f["cut_layers"], groups=(
-        LayerGroup(f["cut_layers"], cfg.groups[0].blocks),))
-    crec, state = _spmd_train(cut, mesh, **dict(tf, steps=1),
+    crec, state = _spmd_train(_cut(cfg, f["cut_layers"]), mesh,
+                              **dict(tf, steps=1),
                               dtype=torch.float32, unsharded=True)
     del state
     torch.cuda.empty_cache()
@@ -2302,109 +2445,114 @@ def phase_spmd_full(dev):
     checks["fp32_cut_loss_within_2e-3"] = (crec["step1_loss_diff"]
                                            <= f["cut_tol"])
     checks["fp32_cut_replicas_equal"] = crec["replicas_equal"]
-    # (b) qwen2-7b whole, served at one_card.py's run
+    # (b) qwen2-7b whole, served at one_card.py's run (B 4) and at B 1,
+    # placed and with SP, beside the unsharded steps
     cfg7 = get_config(f["serve_arch"])
     run = RUNS[f["serve_arch"]]
     b, p, n = run["batch"], run["prompt"], run["steps"]
-    max_len = p + n
+    run1 = f["b1"]
     model = build_model(cfg7, device=cards[0])
     model.init_params(torch.Generator(device=cards[0]).manual_seed(0))
     inp = prompt_inputs(cfg7, run, cards[0])
-    plain = _prompt_run(model, inp, n, max_len)       # unsharded, flash
+    inp1 = prompt_inputs(cfg7, run1, cards[0], seed=1)
+    plain = {4: _prompt_run(model, inp, n, p + n),           # flash
+             1: _prompt_run(model, inp1, run1["steps"],
+                            run1["prompt"] + run1["steps"])}
     ctx = ShardCtx(mesh=mesh, pod_axis=None, attn_impl="flash")
-    sp = rt.placed_params(model, ctx, mode="serve")
+    sp = rt.placed_params(model, ctx, mode="serve")    # SP or not: the same
     model.to("meta")
     torch.cuda.empty_cache()
-    cache = rs.init_cache(model, ctx, b, max_len)
-    prefill = rs.jit_prefill_step(model, ctx, b, max_len)
-    decode = rs.jit_decode_step(model, ctx, b, max_len)
-    _reset_peaks(mesh)
     ops.launches = 0                        # just before the main path ...
-    _sync_all(mesh)
-    t0 = time.perf_counter()
-    logits, cache = prefill(sp, inp["tokens"], inp["positions"], cache)
-    tok = torch.argmax(logits[:, -1], dim=-1)
-    stream = [tok.tolist()]
-    prefill_s = time.perf_counter() - t0
-    k3_prefill = ops.launches
-    lg_all, step_s = [logits[:, -1].cpu()], []
-    for i in range(n):
-        t0 = time.perf_counter()
-        pos = torch.full((b,), p + i, dtype=torch.int64, device=cards[0])
-        logits, cache = decode(sp, tok[:, None], pos, cache)
-        tok = torch.argmax(logits[:, 0], dim=-1)
-        stream.append(tok.tolist())
-        step_s.append(time.perf_counter() - t0)
-        lg_all.append(logits[:, 0].cpu())
+    serve, launches = {}, 0
+    for name, kv in (("placed_b4", False), ("sp_model_b4", "model"),
+                     ("placed_b1", False),
+                     ("sp_data_model_b1", ("data", "model"))):
+        b_ = 1 if name.endswith("b1") else 4
+        rec, cache = _placed_serve(
+            model, sp, dataclasses.replace(ctx, seq_shard_kv=kv),
+            inp if b_ == 4 else inp1, n if b_ == 4 else run1["steps"], mesh,
+            plain[b_])
+        rec["cache_k_spec"] = cache["groups"][0]["blocks"][0]["k"].spec
+        checks.update({f"serve_{name}_{k}": v for k, v in rec.pop("checks")
+                       .items()})
+        checks[f"serve_{name}_k3_launches_28_x_4_a_prefill"] = (
+            rec["k3_launches_prefill"] == cfg7.num_layers * mesh.size)
+        serve[name] = rec
+        del cache
+        torch.cuda.empty_cache()
+    for sp_name, placed_name in (("sp_model_b4", "placed_b4"),
+                                 ("sp_data_model_b1", "placed_b1")):
+        a_, c_ = serve[sp_name].pop("stream"), serve[placed_name].pop("stream")
+        serve[sp_name]["greedy_tokens_agreeing_with_placed"] = float(
+            np.mean([x == y for s1, s2 in zip(a_, c_)
+                     for x, y in zip(s1, s2)]))
+    # the slots (the cache's dim 2 after layers and batch) over the SP axes
+    checks["serve_sp_kv_seq_split"] = (
+        serve["sp_model_b4"]["cache_k_spec"][2] == "model"
+        and serve["sp_data_model_b1"]["cache_k_spec"][2]
+        == ("data", "model"))
     launches = ops.launches                 # ... and read just after
-    lg_all = torch.stack(lg_all)
-    whole = spmd.gather_tree(cache, "cpu")
-    pos_ok = all(torch.equal(
-        c["pos"], torch.arange(max_len, dtype=torch.int32).expand_as(
-            c["pos"])) for g in whole["groups"] for c in g["blocks"])
-    agree = float(np.mean([a == b_ for s1, s2 in zip(stream, plain["stream"])
-                           for a, b_ in zip(s1, s2)]))
-    serve = dict(batch=b, prompt=p, steps=n, prefill_ms=prefill_s * 1e3,
-                 decode_ms_per_step_median=statistics.median(step_s) * 1e3,
-                 decode_ms_per_step_mean=statistics.mean(step_s) * 1e3,
-                 tokens_per_s=b * n / sum(step_s),
-                 unsharded_prefill_ms=plain["prefill_s"] * 1e3,
-                 unsharded_decode_ms_per_step_median=statistics.median(
-                     plain["step_s"]) * 1e3,
-                 prefill_logits_max_abs_dev_vs_unsharded=float(
-                     (lg_all[0] - plain["logits"][0]).abs().max()),
-                 prefill_logits_max_abs=float(plain["logits"][0].abs().max()),
-                 greedy_tokens_agreeing_with_unsharded=agree,
-                 k3_launches_prefill=k3_prefill,
-                 peak_bytes_by_device=_peaks(mesh))
-    checks["serve_logits_finite"] = bool(torch.isfinite(lg_all).all())
-    checks["serve_tokens_in_vocab"] = all(0 <= t < cfg7.vocab_size
-                                          for s_ in stream for t in s_)
-    checks["serve_cache_pos_every_slot"] = pos_ok
-    checks["serve_placed_on_coordinates"] = _placement_ok((sp, cache))
-    checks["k3_launches_28_x_4_a_prefill"] = (
-        k3_prefill == cfg7.num_layers * mesh.size == launches)
-    del sp, cache, whole, plain, prefill, decode, model
+    del sp, plain, model
     torch.cuda.empty_cache()
-    # (b') the fp32 cut: its logits beside the unsharded step's, bounded
-    # by the typical rounding of the longest reduction the split reorders
-    # (d_ff terms) at the logits' scale; beside them the spread of the
-    # unsharded step with only that reduction's order changed
-    cut7 = dataclasses.replace(cfg7, num_layers=f["cut_layers"], groups=(
-        LayerGroup(f["cut_layers"], cfg7.groups[0].blocks),))
+    # (b') the fp32 cut: its logits beside the unsharded step's, placed and
+    # with SP, bounded by the typical rounding of the longest reduction the
+    # split reorders at the logits' scale (_rounding_bound); beside them
+    # the spread of the unsharded step with only the ff sum's order changed
+    cut7 = _cut(cfg7, f["cut_layers"])
     m32 = build_model(cut7, device=cards[0], dtype=torch.float32)
     m32.init_params(torch.Generator(device=cards[0]).manual_seed(0))
     nc = f["serve_cut_steps"]
+    k3_0 = ops.launches
     with torch.no_grad():
         ref32 = _prompt_run(m32, inp, nc, p + nc)
         feed = ref32["stream"][:nc]
         _swap_ff_halves(m32)
         ctrl32 = _serve_fed(m32, None, inp, feed, p + nc)
         _swap_ff_halves(m32)
-        got32 = _serve_fed(m32, mesh, inp, feed, p + nc)
-    dev32 = [float((g - r).abs().max())
-             for g, r in zip(got32, ref32["logits"])]
+        got32 = {kv: _serve_fed(m32, mesh, inp, feed, p + nc,
+                                keep_model=not kv, seq_shard_kv=kv)
+                 for kv in (False, "model")}
     scale = float(ref32["logits"].abs().max())
-    bound = math.sqrt(cut7.d_ff) * torch.finfo(torch.float32).eps * scale
-    agree = [r.tolist() for r in got32.argmax(-1)] == ref32["stream"]
-    serve["fp32_cut"] = dict(
-        layers=f["cut_layers"], decode_steps=nc,
-        logits_max_abs_dev_by_call=dev32, logits_max_abs=scale,
-        bound=bound, greedy_tokens_all_agree=agree,
-        ff_order_control_max_abs_dev_by_call=[
-            float((c_ - r).abs().max())
-            for c_, r in zip(ctrl32, ref32["logits"])])
-    checks["serve_fp32_cut_logits_within_rounding_bound"] = (
-        max(dev32) <= bound)
-    checks["serve_fp32_cut_greedy_tokens_agree"] = agree
+    bound = _rounding_bound(cut7, scale)
+    cut_rec = dict(layers=f["cut_layers"], decode_steps=nc,
+                   logits_max_abs=scale, bound=bound,
+                   ff_order_control_max_abs_dev_by_call=[
+                       float((c_ - r).abs().max())
+                       for c_, r in zip(ctrl32, ref32["logits"])])
+    for kv, got in got32.items():
+        name = "sp_model" if kv else "placed"
+        dev32 = [float((g - r).abs().max())
+                 for g, r in zip(got, ref32["logits"])]
+        agree = [r.tolist() for r in got.argmax(-1)] == ref32["stream"]
+        cut_rec[name] = dict(logits_max_abs_dev_by_call=dev32,
+                             greedy_tokens_all_agree=agree)
+        checks[f"serve_fp32_cut_{name}_logits_within_rounding_bound"] = (
+            max(dev32) <= bound)
+        checks[f"serve_fp32_cut_{name}_greedy_tokens_agree"] = agree
+    serve["fp32_cut"] = cut_rec
     del m32, ref32, got32, ctrl32
     torch.cuda.empty_cache()
+    # danube's window cut with SP: the ring wraps across the blocks
+    wcfg = get_config(f["window_arch"])
+    serve["fp32_window_cut_danube"] = gate = _fp32_gate(
+        _cut(wcfg, f["cut_layers"]), mesh,
+        prompt_inputs(wcfg, f["window_run"], cards[0]),
+        f["window_run"]["steps"], cards[0], seq_shard_kv="model")
+    for kw, r in gate.items():
+        checks[f"serve_fp32_window_cut_{kw}_within_bound"] = r["within_bound"]
+        checks[f"serve_fp32_window_cut_{kw}_tokens_agree"] = \
+            r["greedy_tokens_all_agree"]
+    launches += ops.launches - k3_0
     # K3 at the coordinate's prefill shape, against its plain version
     coord = cfg7.scaled(num_heads=cfg7.num_heads // mesh.shape["model"],
                         num_kv_heads=cfg7.num_kv_heads // mesh.shape["model"])
     k3 = _k3_at_prefill(coord, b // mesh.shape["data"], p, torch.bfloat16,
                         cards[0])
-    serve.update({k: v for k, v in k3.items() if k != "sdpa"})
+    serve["k3_at_b4_coordinate"] = {k: v for k, v in k3.items()
+                                    if k != "sdpa"}
+    k3_1 = _k3_at_prefill(coord, 1, run1["prompt"], torch.bfloat16, cards[0])
+    serve["k3_at_b1_coordinate"] = {k: v for k, v in k3_1.items()
+                                    if k != "sdpa"}
     out["serve_qwen2_7b"] = serve
     # (c) four cards: qwen2-7b trains whole across them; qwen2-1.5b's
     # steps on the four cards beside the card listed four times
@@ -2434,6 +2582,152 @@ def phase_spmd_full(dev):
          phase_s=time.perf_counter() - t_phase)
     if not all(checks.values()):
         raise SystemExit("spmd_full failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return launches, _k3_summary(k3), _k3_summary(k3_1)
+
+
+# --------------------------------------- the MoE family on the mesh (M18c) --
+# Phase moe_mesh_full: granite-moe-1b-a400m whole on the 2 x 2 mesh, its
+# parameters placed by the spec trees (experts over the model axis; the
+# expert ff over data under sharded2d's serve layout, whole experts over
+# (data, model) under sharded_a2a's).  (a) The placed train step at
+# TRAIN_RUNS' B 4 x 2,048 (2 microbatches, remat, bf16, the default
+# moe_impl): ms/step, tokens/s, peak bytes a card, finite loss, aux and
+# grad norm, replicas equal.  (b) Served at RUNS' B 4 x 2,048 + 32 with the
+# default path beside the unsharded steps on the same prompt, and each
+# path's prefill and short_steps decode steps timed; then each path again
+# with its drops counted (stats) and each MoE layer's input read, the
+# drops of every call == a plain count of that routing.  (c) A gated fp32
+# cut: 2 layers at FP32_RUNS' B 2 x 512 + 16 at a capacity that drops
+# nothing (cf = E / top_k), each path against the unsharded steps fed the
+# same tokens (_fp32_gate).
+MOE_MESH_FULL = dict(arch="granite-moe-1b-a400m", train_steps=3,
+                     short_steps=4, cut_layers=2,
+                     impls=("sharded", "sharded2d", "sharded_a2a"))
+
+
+def phase_moe_mesh_full(dev):
+    """Returns K3's launches in the main path and K3's record at the
+    coordinate's prefill shape."""
+    from repro_torch.configs.one_card import (FP32_RUNS, RUNS, TRAIN_RUNS,
+                                              prompt_inputs)
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import moe
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.runtime import train as rt
+    from repro_torch.sharding import spmd
+    from repro_torch.sharding.rules import NamedSharding, ShardCtx
+    t_phase = time.perf_counter()
+    f = MOE_MESH_FULL
+    cards = _mesh_devices() if torch.cuda.device_count() >= 4 else [dev] * 4
+    mesh = _spmd_mesh(cards)
+    shape = tuple(mesh.devices.shape)
+    checks, out = {}, {"cards": [str(d) for d in cards]}
+    cfg = get_config(f["arch"])
+    ops.launches = 0                        # just before the main path ...
+    # (a) the placed train step
+    tr = TRAIN_RUNS[f["arch"]]
+    rec, state = _spmd_train(
+        cfg, mesh, batch=tr["batch"], seq=tr["seq"],
+        microbatches=TRAIN_FAMILIES_FULL["microbatches"],
+        steps=f["train_steps"], lr=TRAIN_FAMILIES_FULL["lr"], remat=True)
+    del state
+    torch.cuda.empty_cache()
+    out["train"] = rec
+    checks["train_finite"] = rec["finite"]
+    checks["train_replicas_equal"] = rec["replicas_equal"]
+    checks["train_placed"] = rec["placed_on_coordinates"]
+    # (b) served: the unsharded steps, then each path placed
+    run = RUNS[f["arch"]]
+    model = build_model(cfg, device=cards[0])
+    model.init_params(torch.Generator(device=cards[0]).manual_seed(0))
+    inp = prompt_inputs(cfg, run, cards[0])
+    plain = _prompt_run(model, inp, run["steps"],
+                        run["prompt"] + run["steps"])
+    ctxs = {i: ShardCtx(mesh=mesh, pod_axis=None, attn_impl="flash",
+                        moe_impl=i) for i in f["impls"]}
+    placed = {i: rt.placed_params(model, c, mode="serve")
+              for i, c in ctxs.items()}
+    model.to("meta")
+    torch.cuda.empty_cache()
+    mods = _moe_modules(model)
+    seen = []                  # (x, router, cf) of every MoE layer called
+    orig = moe.moe_placed
+
+    def spy(bp, xs, x_spec, cfg_, ctx, capacity_factor=None, stats=None):
+        seen.append((spmd.gather(spmd.Placed(xs, NamedSharding(ctx.mesh,
+                                                               x_spec))),
+                     spmd.gather(bp["router"]),
+                     capacity_factor if capacity_factor is not None
+                     else cfg_.moe.capacity_factor))
+        return orig(bp, xs, x_spec, cfg_, ctx, capacity_factor, stats)
+
+    serve, drops = {}, {}
+    for impl, ctx in ctxs.items():
+        steps = run["steps"] if impl == "sharded" else f["short_steps"]
+        rec, cache = _placed_serve(model, placed[impl], ctx, inp, steps,
+                                   mesh, plain)
+        rec.pop("stream")
+        checks.update({f"serve_{impl}_{k}": v
+                       for k, v in rec.pop("checks").items()})
+        checks[f"serve_{impl}_k3_launches_24_x_4_a_prefill"] = (
+            rec["k3_launches_prefill"] == cfg.num_layers * mesh.size)
+        serve[impl] = rec
+        del cache
+        # again with the drops counted and each layer's input read
+        stats = {}
+        for m in mods:
+            m.stats = stats
+        seen.clear()
+        moe.moe_placed = spy
+        try:
+            _, cache = _placed_serve(model, placed[impl], ctx, inp,
+                                     f["short_steps"], mesh)
+        finally:
+            moe.moe_placed = orig
+            for m in mods:
+                m.stats = None
+        want = sum(_plain_dropped([x], [r], cfg, impl, shape, cf)
+                   for x, r, cf in seen)
+        drops[impl] = dict(dropped=stats.get("dropped", 0), plain_count=want,
+                           layer_calls=len(seen),
+                           calls=1 + f["short_steps"])
+        checks[f"drops_{impl}_equal_plain_count"] = \
+            stats.get("dropped", 0) == want
+        checks[f"drops_{impl}_every_layer_seen"] = (
+            len(seen) == cfg.num_layers * (1 + f["short_steps"]))
+        seen.clear()
+        del cache, placed[impl]
+        torch.cuda.empty_cache()
+    out["serve"] = serve
+    out["drops"] = drops
+    del plain, model
+    torch.cuda.empty_cache()
+    # (c) the gated fp32 cut, each path
+    cut = _cut(cfg, f["cut_layers"])
+    cut = dataclasses.replace(cut, moe=dataclasses.replace(
+        cut.moe, capacity_factor=cut.moe.num_experts / cut.moe.top_k))
+    run32 = FP32_RUNS[f["arch"]]
+    inp32 = prompt_inputs(cut, run32, cards[0])
+    gate = _fp32_gate(cut, mesh, inp32, run32["steps"], cards[0],
+                      each=[dict(moe_impl=i) for i in f["impls"]])
+    launches = ops.launches                 # ... and read just after
+    for kw, r in gate.items():
+        checks[f"fp32_{kw}_within_bound"] = r["within_bound"]
+        checks[f"fp32_{kw}_tokens_agree"] = r["greedy_tokens_all_agree"]
+    out["fp32_cut"] = gate
+    # K3 at the coordinate's prefill shape, against its plain version
+    coord = cfg.scaled(num_heads=cfg.num_heads // mesh.shape["model"],
+                       num_kv_heads=cfg.num_kv_heads // mesh.shape["model"])
+    k3 = _k3_at_prefill(coord, run["batch"] // mesh.shape["data"],
+                        run["prompt"], torch.bfloat16, cards[0])
+    out["k3_at_coordinate"] = {k: v for k, v in k3.items() if k != "sdpa"}
+    emit("moe_mesh_full", ok=all(checks.values()), checks=checks, config=f,
+         kernel_launches=launches, **out,
+         phase_s=time.perf_counter() - t_phase)
+    if not all(checks.values()):
+        raise SystemExit("moe_mesh_full failed: "
                          f"{[k for k, v in checks.items() if not v]}")
     return launches, _k3_summary(k3)
 
@@ -7528,8 +7822,11 @@ def main() -> int:
     flash_by_path["mesh_full"] = phase_mesh_full(dev)
     torch.cuda.empty_cache()
     phase_spmd_parity_small(dev)
-    flash_by_path["spmd_full"], flash["at_spmd_prefill"] = \
-        phase_spmd_full(dev)
+    (flash_by_path["spmd_full"], flash["at_spmd_prefill"],
+     flash["at_spmd_b1_prefill"]) = phase_spmd_full(dev)
+    torch.cuda.empty_cache()
+    flash_by_path["moe_mesh_full"], flash["at_moe_mesh_prefill"] = \
+        phase_moe_mesh_full(dev)
     flash["launches"] = sum(flash_by_path.values())
     flash["launches_by_path"] = flash_by_path
     torch.cuda.empty_cache()

@@ -20,6 +20,8 @@ Pallas kernel has none).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -421,6 +423,22 @@ def kv_heads_for(k, v, q_first: int, n_q: int, hq: int):
     return k.index_select(2, ix), v.index_select(2, ix)
 
 
+def _qkv_local(x, w: dict, cfg: ArchConfig, positions, mode: str):
+    """A coordinate's q, k, v (its heads of ``w``), rotated."""
+    q, k, v = _project_qkv(x, cfg, **{n: w.get(n) for n in _QKV})
+    pos = positions if mode != "decode" else positions[:, None]
+    cos, sin = rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def _kv_for_q(k, v, q, q_first: int, cfg: ArchConfig):
+    """The KV heads ``q``'s heads read where the query heads split while
+    every KV head is held (``kv_heads_for``), else ``k``, ``v``."""
+    if k.shape[2] == cfg.num_kv_heads and q.shape[2] < cfg.num_heads:
+        return kv_heads_for(k, v, q_first, q.shape[2], cfg.num_heads)
+    return k, v
+
+
 def attn_local(x, w: dict, cfg: ArchConfig, positions, *, mode: str,
                q_first: int = 0, cache: dict | None = None,
                impl: str = "blocked"):
@@ -434,28 +452,134 @@ def attn_local(x, w: dict, cfg: ArchConfig, positions, *, mode: str,
     (``attn_decode``).  Returns ``x``'s share of the output projection,
     (B, S, d): the partial sum over its heads, which the caller sums over
     the model axis where the heads split."""
-    q, k, v = _project_qkv(x, cfg, **{n: w.get(n) for n in _QKV})
-    pos = positions if mode != "decode" else positions[:, None]
-    cos, sin = rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    # query heads split while every KV head is held: pick the group's
-    split_kv = k.shape[2] == cfg.num_kv_heads and q.shape[2] < cfg.num_heads
+    q, k, v = _qkv_local(x, w, cfg, positions, mode)
     if mode == "decode":
         cache = ring_cache_update(cache, k, v, positions)
-        ks, vs = cache["k"], cache["v"]
-        if split_kv:
-            ks, vs = kv_heads_for(ks, vs, q_first, q.shape[2], cfg.num_heads)
+        ks, vs = _kv_for_q(cache["k"], cache["v"], q, q_first, cfg)
         mask = ring_cache_mask(cache["pos"], positions, cfg.sliding_window)
         out = grouped_dot_attention(q, ks, vs, mask, cfg.head_dim ** -0.5)
     else:
-        ks, vs = k, v
-        if split_kv:
-            ks, vs = kv_heads_for(k, v, q_first, q.shape[2], cfg.num_heads)
+        ks, vs = _kv_for_q(k, v, q, q_first, cfg)
         out = _self_attention(q, ks, vs, cfg, positions, True, impl)
         if mode == "prefill":
             ring_cache_fill(cache, k, v, positions)
     return torch.einsum("bshe,hed->bsd", out, w["wo"])
+
+
+# ----------------------------------- a sequence-sharded ring cache (SP) ---
+def ring_block_write(cache: dict, k, v, positions, first: int, width: int):
+    """``ring_cache_fill`` (``k``/``v`` (B, T, Hkv, D), positions (B, T))
+    into one coordinate's block of a ring of ``width`` slots, the block
+    holding slots ``first`` .. ``first + w_loc - 1``: of the last
+    ``min(T, width)`` tokens each writes its slot where the block holds
+    it, in place.  One token a row (a decode step's ``ring_cache_update``)
+    writes back what it read where its slot lies elsewhere; more go
+    through a copy of the block with a spare slot the others land in."""
+    w_loc = cache["k"].shape[1]
+    keep = min(k.shape[1], width)
+    vals = {"k": k[:, -keep:], "v": v[:, -keep:],
+            "pos": positions[:, -keep:]}
+    local = (vals["pos"] % width).long() - first
+    mine = (local >= 0) & (local < w_loc)
+    rows = torch.arange(k.shape[0], device=k.device)[:, None]
+    if keep == 1:
+        at = local.clamp(0, w_loc - 1)
+        for name, val in vals.items():
+            buf = cache[name]
+            sel = mine.reshape(mine.shape + (1,) * (val.dim() - 2))
+            buf[rows, at] = torch.where(sel, val.to(buf.dtype), buf[rows, at])
+        return cache
+    at = torch.where(mine, local, w_loc)
+    for name, val in vals.items():
+        buf = cache[name]
+        tmp = torch.cat([buf, buf[:, :1]], 1)
+        tmp[rows, at] = val.to(buf.dtype)
+        buf.copy_(tmp[:, :w_loc])
+    return cache
+
+
+def _block_partials(q, k, v, mask, scale: float):
+    """Decode attention over one block of slots, unnormalised, in fp32:
+    (o (B, 1, Hkv, G, D), the running max m and sum l (B, 1, Hkv, G)).  A
+    block with no valid slot gives m = ``NEG_INF``, l = 0 and o = 0."""
+    b, sq, hq, dd = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, sq, hkv, hq // hkv, dd)
+    logits = einsum_f32("bqhgd,bkhd->bhgqk", qg, k) * scale
+    logits = torch.where(mask, logits, NEG_INF)
+    m = logits.amax(dim=-1)
+    p = torch.where(mask, torch.exp(logits - m[..., None]), 0.0)
+    o = einsum_f32("bhgqk,bkhd->bqhgd", p, v)
+    return o, m.permute(0, 3, 1, 2), p.sum(-1).permute(0, 3, 1, 2)
+
+
+def attn_seq_sharded(hs: list, ws: list, cfg: ArchConfig, positions: list,
+                     *, mode: str, q_first: list, views: list, mesh,
+                     model_axis: str, seq_axes, impl: str = "blocked"):
+    """Prefill or decode over a ring cache whose slots ``seq_axes`` split
+    (SP, ``ShardCtx.seq_shard_kv``), on rank lists: ``hs`` each
+    coordinate's normed input, ``ws`` its weights (``attn_local``'s),
+    ``views`` its block of the layer's cache (``k``, ``v`` (B, w_loc,
+    Hc, D): every KV head where the model axis splits the slots, else its
+    own; ``pos``).  The fresh K/V are gathered over the model axis where
+    the block holds more KV heads than the coordinate projects.  A prefill
+    attends its fresh K/V as ``attn_local`` does (K3 in a flash prefill),
+    then each coordinate writes the tokens whose slots its block holds
+    (``ring_block_write``; a prompt past the ring wraps across blocks).  A
+    decode step writes the token where its slot lies, each coordinate
+    attends the heads its block serves (the query heads gathered over the
+    model axis where needed) over its slots with its own ``pos`` as mask
+    (``_block_partials``), and the partials merge over ``seq_axes``
+    (flash-decoding: m* = max m, o = sum exp(m - m*) o / sum exp(m - m*)
+    l); each coordinate keeps its own heads.  Returns each coordinate's
+    share of the output projection, as ``attn_local``."""
+    from repro_torch.sharding import spmd
+    n = len(hs)
+    qkv = [_qkv_local(hs[r], ws[r], cfg, positions[r], mode)
+           for r in range(n)]
+    hc = views[0]["k"].shape[2]
+    ks, vs = [t[1] for t in qkv], [t[2] for t in qkv]
+    if ks[0].shape[2] < hc:
+        ks = spmd.all_gather(ks, mesh, model_axis, 2)
+        vs = spmd.all_gather(vs, mesh, model_axis, 2)
+    w_loc = views[0]["k"].shape[1]
+    blk = spmd.axis_index(mesh, seq_axes)
+    width = w_loc * math.prod(mesh.shape[a] for a in spmd._axes(seq_axes))
+    pos = positions if mode != "decode" else [p[:, None] for p in positions]
+    for r in range(n):
+        ring_block_write(views[r], ks[r], vs[r], pos[r], blk[r] * w_loc,
+                         width)
+    if mode == "prefill":
+        outs = []
+        for r, (q, k, v) in enumerate(qkv):
+            k, v = _kv_for_q(k, v, q, q_first[r], cfg)
+            outs.append(_self_attention(q, k, v, cfg, positions[r], True,
+                                        impl))
+    else:
+        qs = [q for q, _, _ in qkv]
+        n_q = qs[0].shape[2]
+        if n_q < hc * (cfg.num_heads // cfg.num_kv_heads):
+            qs = spmd.all_gather(qs, mesh, model_axis, 2)
+        parts = [_block_partials(
+            qs[r], views[r]["k"], views[r]["v"],
+            ring_cache_mask(views[r]["pos"], positions[r],
+                            cfg.sliding_window), cfg.head_dim ** -0.5)
+            for r in range(n)]
+        top = spmd.pmax([m for _, m, _ in parts], mesh, seq_axes)
+        sums = []
+        for (o, m, l), mx in zip(parts, top):
+            e = torch.exp(m - mx)
+            sums.append(torch.cat([o * e[..., None], (l * e)[..., None]], -1))
+        sums = spmd.psum(sums, mesh, seq_axes)
+        outs = []
+        for r, t in enumerate(sums):
+            o = t[..., :-1] / t[..., -1:]
+            o = o.reshape(o.shape[0], 1, -1, o.shape[-1])
+            if o.shape[2] > n_q:
+                o = o[:, :, q_first[r]:q_first[r] + n_q]
+            outs.append(o.to(qkv[r][0].dtype))
+    return [torch.einsum("bshe,hed->bsd", o, w["wo"])
+            for o, w in zip(outs, ws)]
 
 
 # ------------------------------------------------------- cross-attention ---

@@ -21,9 +21,15 @@ and the reference's three sharded dispatch paths.
   with EP-divisible experts is present and ``moe_impl`` is not "dense",
   else ``moe_dense``.  The decode step passes ``ShardCtx.moe_decode_cf``
   as the capacity factor (the reference's looser capacity for few tokens).
+* ``moe_placed`` — the same dispatch on the placed steps' rank lists
+  (``sharding/spmd.py``; ``models/transformer.py::_mesh_block``): each
+  path's ``local_fn`` run coordinate by coordinate between ``spmd``'s
+  collectives, its inputs resharded from where the step placed them to
+  the ``shard_map`` form's in_specs.
 
 The aux losses (load balance + router z-loss) come from the global router
-logits outside the ``shard_map``, as in the reference.  A sharded path
+logits outside the ``shard_map`` (on rank lists: the input and router
+gathered whole on coordinate 0), as in the reference.  A sharded path
 called with ``stats={}`` adds to ``stats["dropped"]`` the (token, expert)
 pairs it dropped, each pair counted once however many coordinates hold a
 copy of its token.
@@ -35,6 +41,7 @@ The functions take the reference's parameter dict (``router``, ``w_gate``,
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 
 import torch
 import torch.nn.functional as F
@@ -42,8 +49,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import SpecModule
 from repro_torch.models.params import ParamSpec
-from repro_torch.sharding import rules
-from repro_torch.sharding.rules import P, shard_map
+from repro_torch.sharding import rules, spmd
+from repro_torch.sharding.rules import P, NamedSharding, shard_map
 
 #: ``moe_dense`` computes experts a chunk at a time: a chunk holds as many
 #: experts as keep (tokens x experts x (2 ff + 3 d)) transient elements
@@ -196,17 +203,25 @@ def _global_aux(p, x, cfg):
                       m.router_z_loss)
 
 
-def _count_dropped(stats, dropped, mesh, owner_axes):
+def _count_dropped(stats, dropped, mesh, owner_axes, rank: int):
     """Add ``dropped`` (a count on the device) to ``stats`` at one
     coordinate of each group that holds the same pairs: where every axis
-    outside ``owner_axes`` is 0.  Reads the count (a sync) only where
-    ``stats`` is given."""
+    outside ``owner_axes`` is 0 (``rank``: the coordinate's index in
+    ``mesh.coords()``).  Reads the count (a sync) only where ``stats`` is
+    given."""
     if stats is None:
         return
-    if all(rules.axis_index(a) == 0 for a in mesh.axis_names
+    if all(spmd.axis_index(mesh, a)[rank] == 0 for a in mesh.axis_names
            if a not in owner_axes):
-        # one coordinate runs at a time (shard_map's baton): no lock
+        # one coordinate runs at a time (shard_map's baton, or the rank
+        # list's loop): no lock
         stats["dropped"] = stats.get("dropped", 0) + int(dropped)
+
+
+def _shard_map_rank(mesh) -> int:
+    """The running ``shard_map`` coordinate's index in ``mesh.coords()``
+    (row-major over every axis)."""
+    return rules.axis_index(tuple(mesh.axis_names))
 
 
 def _dispatch_local(xt, wr, wg, wu, wd, cfg, el, cap, rank):
@@ -235,38 +250,86 @@ def _dispatch_local(xt, wr, wg, wu, wd, cfg, el, cap, rank):
     return y, (mine & ~keep).sum()
 
 
+_WEIGHTS = ("router", "w_gate", "w_up", "w_down")
+
+
+def _a2a_owners(cfg: ArchConfig, ctx) -> int:
+    """The a2a path's expert owners, data x model; raises unless they
+    split the experts (also where the path falls back to 2d)."""
+    n_ep = ctx.mesh.shape[ctx.data_axis] * ctx.mesh.shape[ctx.model_axis]
+    if cfg.moe.num_experts % n_ep:
+        raise ValueError(f"{cfg.moe.num_experts} experts on {n_ep} "
+                         "coordinates")
+    return n_ep
+
+
+def _plan(cfg: ArchConfig, ctx, path: str, b: int, s: int, cf: float):
+    """What both forms of a sharded ``path`` ("sharded", "sharded2d",
+    "a2a") need for a (b, s) input at capacity factor ``cf``: ``el``
+    experts a coordinate, the batch axes the tokens split over, the
+    tokens' in_spec ``x_spec``, the in_specs ``w_specs`` of ``_WEIGHTS``,
+    the capacity ``cap``, and ``owners``, the axes whose coordinates route
+    distinct pairs (a drop is counted at index 0 of every other axis)."""
+    m = cfg.moe
+    mesh, da, ma = ctx.mesh, ctx.data_axis, ctx.model_axis
+    ba = _batch_axes_for(ctx, b)
+    rows = b // math.prod(mesh.shape[a] for a in ba)     # a coordinate's
+    bat = ba if ba else None
+    if path == "a2a":
+        n_ep = _a2a_owners(cfg, ctx)
+        w = P((da, ma), None, None)
+        # tokens fully sharded: batch over (pod, data), the sequence over
+        # model; the capacity a (source, owner) pair's
+        return SimpleNamespace(
+            el=m.num_experts // n_ep, batch_axes=ba, x_spec=P(bat, ma, None),
+            w_specs=(P(None, None), w, w, w), owners=ba + (ma,),
+            cap=max(8, int(rows * (s // mesh.shape[ma]) * m.top_k * cf
+                           / n_ep)))
+    ep = mesh.shape[ma]
+    if path == "sharded":
+        if m.num_experts % ep:
+            raise ValueError(f"{m.num_experts} experts on a {ep}-way model "
+                             "axis")
+        w = P(ma, None, None)
+        return SimpleNamespace(
+            el=m.num_experts // ep, batch_axes=ba, x_spec=P(bat, None, None),
+            w_specs=(P(None, None), w, w, w), owners=ba + (ma,),
+            cap=max(8, int(rows * s * m.top_k * cf / m.num_experts)))
+    ff = m.d_ff_expert or cfg.d_ff
+    if m.num_experts % ep or ff % mesh.shape[da]:
+        raise ValueError(f"{m.num_experts} experts x ff {ff} on a "
+                         f"{mesh.shape} mesh")
+    # every data coordinate routes the data group's gathered tokens
+    pod = tuple(a for a in ba if a != da)
+    t_g = (b // math.prod(mesh.shape[a] for a in pod)) * s
+    return SimpleNamespace(
+        el=m.num_experts // ep, batch_axes=ba, x_spec=P(bat, None, None),
+        w_specs=(P(None, None), P(ma, None, da), P(ma, None, da),
+                 P(ma, da, None)), owners=pod + (ma,),
+        cap=max(8, int(t_g * m.top_k * cf / m.num_experts)))
+
+
 def moe_sharded(p: dict, x: torch.Tensor, cfg: ArchConfig, ctx,
                 capacity_factor: float | None = None, stats=None):
     """EP dispatch over the model axis.  ctx: ShardCtx with a mesh."""
     m = cfg.moe
     b, s, d = x.shape
     ma = ctx.model_axis
-    ep = ctx.mesh.shape[ma]
-    if m.num_experts % ep:
-        raise ValueError(f"{m.num_experts} experts on a {ep}-way model axis")
-    el = m.num_experts // ep
     cf = capacity_factor if capacity_factor is not None else m.capacity_factor
+    pl = _plan(cfg, ctx, "sharded", b, s, cf)
     aux = _global_aux(p, x, cfg)
-    batch_axes = _batch_axes_for(ctx, b)
-    batch_spec = P(batch_axes if batch_axes else None, None, None)
-    n_batch_shards = math.prod(ctx.mesh.shape[a] for a in batch_axes)
-    t_local = (b // n_batch_shards) * s
-    cap = max(8, int(t_local * m.top_k * cf / m.num_experts))
 
     def local_fn(xl, wr, wg, wu, wd):
         bl, sl, _ = xl.shape
         y, dropped = _dispatch_local(xl.reshape(bl * sl, d), wr, wg, wu, wd,
-                                     cfg, el, cap, rules.axis_index(ma))
-        _count_dropped(stats, dropped, ctx.mesh, batch_axes + (ma,))
+                                     cfg, pl.el, pl.cap, rules.axis_index(ma))
+        _count_dropped(stats, dropped, ctx.mesh, pl.owners,
+                       _shard_map_rank(ctx.mesh))
         y = rules.psum(y, ma)
         return y.to(xl.dtype).reshape(bl, sl, d)
 
-    w_spec = P(ma, None, None)
-    y = shard_map(local_fn, mesh=ctx.mesh,
-                  in_specs=(batch_spec, P(None, None), w_spec, w_spec,
-                            w_spec),
-                  out_specs=batch_spec)(x, p["router"], p["w_gate"],
-                                        p["w_up"], p["w_down"])
+    y = shard_map(local_fn, mesh=ctx.mesh, in_specs=(pl.x_spec,) + pl.w_specs,
+                  out_specs=pl.x_spec)(x, *(p[k] for k in _WEIGHTS))
     if m.num_shared_experts:
         y = y + _shared_ffn(p["shared"], x)
     return y, aux
@@ -282,44 +345,29 @@ def moe_sharded_2d(p: dict, x: torch.Tensor, cfg: ArchConfig, ctx,
     m = cfg.moe
     b, s, d = x.shape
     da, ma = ctx.data_axis, ctx.model_axis
-    ep = ctx.mesh.shape[ma]
-    ff = m.d_ff_expert or cfg.d_ff
-    if m.num_experts % ep or ff % ctx.mesh.shape[da]:
-        raise ValueError(f"{m.num_experts} experts x ff {ff} on a "
-                         f"{ctx.mesh.shape} mesh")
-    el = m.num_experts // ep
     cf = capacity_factor if capacity_factor is not None else m.capacity_factor
+    pl = _plan(cfg, ctx, "sharded2d", b, s, cf)
     aux = _global_aux(p, x, cfg)
-    batch_axes = _batch_axes_for(ctx, b)
-    gather_data = da in batch_axes
-    batch_spec = P(batch_axes if batch_axes else None, None, None)
-    n_pod = math.prod(ctx.mesh.shape[a] for a in batch_axes if a != da)
-    t_g = (b // n_pod) * s                       # tokens after data-gather
-    cap = max(8, int(t_g * m.top_k * cf / m.num_experts))
+    gather_data = da in pl.batch_axes
 
     def local_fn(xl, wr, wg, wu, wd):
+        bl = xl.shape[0]
         if gather_data:
             xl = rules.all_gather(xl, da, axis=0)
         y, dropped = _dispatch_local(xl.reshape(-1, d), wr, wg, wu, wd, cfg,
-                                     el, cap, rules.axis_index(ma))
-        # every data rank routes the same tokens: count them at rank 0
-        _count_dropped(stats, dropped, ctx.mesh,
-                       tuple(a for a in batch_axes if a != da) + (ma,))
+                                     pl.el, pl.cap, rules.axis_index(ma))
+        _count_dropped(stats, dropped, ctx.mesh, pl.owners,
+                       _shard_map_rank(ctx.mesh))
         if gather_data:
             # returns each data-rank its own tokens, summing ff partials
             y = rules.psum_scatter(y, da, scatter_dimension=0)
-            bl = b // (n_pod * ctx.mesh.shape[da])
         else:
             y = rules.psum(y, da)                # ff partials only
-            bl = b // n_pod
         y = rules.psum(y, ma)                    # expert groups
         return y.to(xl.dtype).reshape(bl, s, d)
 
-    y = shard_map(local_fn, mesh=ctx.mesh,
-                  in_specs=(batch_spec, P(None, None), P(ma, None, da),
-                            P(ma, None, da), P(ma, da, None)),
-                  out_specs=batch_spec)(x, p["router"], p["w_gate"],
-                                        p["w_up"], p["w_down"])
+    y = shard_map(local_fn, mesh=ctx.mesh, in_specs=(pl.x_spec,) + pl.w_specs,
+                  out_specs=pl.x_spec)(x, *(p[k] for k in _WEIGHTS))
     if m.num_shared_experts:
         y = y + _shared_ffn(p["shared"], x)
     return y, aux
@@ -349,6 +397,45 @@ def _owned_experts_ffn(wg, wu, wd, x, le, el: int):
     return y
 
 
+def _a2a_send(xt, wr, cfg: ArchConfig, el: int, n_ep: int, cap: int):
+    """One coordinate's all-to-all payload of its tokens ``xt`` (t, d):
+    ``send_x`` (n_ep, cap, d), each owner's rows (a pair past the
+    capacity ``cap`` of its (source, owner) pair is dropped), ``send_le``
+    (n_ep, cap), each row's expert at its owner (``el``, the pad id, on an
+    empty row), and ``(slot, keep, gates)`` for :func:`_a2a_combine`."""
+    m = cfg.moe
+    t, d = xt.shape
+    logits = xt.to(torch.float32) @ wr.to(torch.float32)
+    gates, idx = router_topk(logits, m.top_k)
+    e_flat = idx.reshape(-1)
+    dest = e_flat // el                                   # owner coordinate
+    pos = _positions_in_expert(dest, n_ep)                # slot at dest
+    keep = pos < cap
+    slot = torch.where(keep, dest * cap + pos, n_ep * cap)
+    tok_of = torch.arange(t, device=xt.device).repeat_interleave(m.top_k)
+    send_x = torch.zeros((n_ep * cap + 1, d), dtype=xt.dtype,
+                         device=xt.device)
+    send_x[slot] = xt[tok_of]
+    send_le = torch.full((n_ep * cap + 1,), el, dtype=torch.int64,
+                         device=xt.device)                # pad expert
+    send_le[slot] = e_flat % el
+    return (send_x[:-1].reshape(n_ep, cap, d),
+            send_le[:-1].reshape(n_ep, cap), (slot, keep, gates))
+
+
+def _a2a_combine(back, route, cfg: ArchConfig):
+    """Each token's gated sum (t, d) fp32 of its pairs' rows ``back``
+    (n_ep, cap, d) sent back by their owners (``route`` from
+    :func:`_a2a_send`)."""
+    slot, keep, gates = route
+    n = back.shape[0] * back.shape[1]
+    back = back.reshape(n, -1)
+    g_flat = gates.reshape(-1).to(torch.float32)
+    contrib = (back[slot.clamp_max(n - 1)].to(torch.float32)
+               * (g_flat * keep)[:, None])
+    return contrib.reshape(gates.shape[0], cfg.moe.top_k, -1).sum(1)
+
+
 def moe_sharded_a2a(p: dict, x: torch.Tensor, cfg: ArchConfig, ctx,
                     capacity_factor: float | None = None, stats=None):
     """Token-routed EP over the combined ("data", "model") axes: each
@@ -358,66 +445,32 @@ def moe_sharded_a2a(p: dict, x: torch.Tensor, cfg: ArchConfig, ctx,
     m = cfg.moe
     b, s, d = x.shape
     da, ma = ctx.data_axis, ctx.model_axis
-    n_ep = ctx.mesh.shape[da] * ctx.mesh.shape[ma]
-    if m.num_experts % n_ep:
-        raise ValueError(f"{m.num_experts} experts on {n_ep} coordinates")
-    el = m.num_experts // n_ep
-    cf = capacity_factor if capacity_factor is not None else m.capacity_factor
-    msize = ctx.mesh.shape[ma]
-    if s % msize or s == 1:
+    n_ep = _a2a_owners(cfg, ctx)
+    if s % ctx.mesh.shape[ma] or s == 1:
         return moe_sharded_2d(p, x, cfg, ctx, capacity_factor, stats)
+    cf = capacity_factor if capacity_factor is not None else m.capacity_factor
+    pl = _plan(cfg, ctx, "a2a", b, s, cf)
+    cap = pl.cap
     aux = _global_aux(p, x, cfg)
-    batch_axes = _batch_axes_for(ctx, b)
-    # tokens fully sharded: batch over (pod, data), the sequence over model
-    batch_spec = P(batch_axes if batch_axes else None, ma, None)
-    n_shards = math.prod(ctx.mesh.shape[a] for a in batch_axes)
-    t_loc = (b // n_shards) * (s // msize)
-    cap = max(8, int(t_loc * m.top_k * cf / n_ep))   # per (src, dst) pair
 
     def local_fn(xl, wr, wg, wu, wd):
         bl, sl, _ = xl.shape
-        t = bl * sl
-        xt = xl.reshape(t, d)
-        logits = xt.to(torch.float32) @ wr.to(torch.float32)
-        gates, idx = router_topk(logits, m.top_k)
-        e_flat = idx.reshape(-1)
-        dest = e_flat // el                               # owner coordinate
-        pos = _positions_in_expert(dest, n_ep)            # slot at dest
-        keep = pos < cap
-        _count_dropped(stats, (~keep).sum(), ctx.mesh,
-                       batch_axes + (ma,))
-        slot = torch.where(keep, dest * cap + pos, n_ep * cap)
-        tok_of = torch.arange(t, device=xt.device).repeat_interleave(
-            m.top_k)
-        send_x = torch.zeros((n_ep * cap + 1, d), dtype=xt.dtype,
-                             device=xt.device)
-        send_x[slot] = xt[tok_of]
-        send_le = torch.full((n_ep * cap + 1,), el, dtype=torch.int64,
-                             device=xt.device)            # pad expert
-        send_le[slot] = e_flat % el
+        send_x, send_le, route = _a2a_send(xl.reshape(bl * sl, d), wr, cfg,
+                                           pl.el, n_ep, cap)
+        _count_dropped(stats, (~route[1]).sum(), ctx.mesh, pl.owners,
+                       _shard_map_rank(ctx.mesh))
         # route tokens to expert owners (payload: activations + ids)
-        recv_x = rules.all_to_all(send_x[:-1].reshape(n_ep, cap, d),
-                                  (da, ma), 0, 0)
-        recv_le = rules.all_to_all(send_le[:-1].reshape(n_ep, cap),
-                                   (da, ma), 0, 0)
-        recv_x = recv_x.reshape(n_ep * cap, d)
-        recv_le = recv_le.reshape(n_ep * cap)
-        y_tok = _owned_experts_ffn(wg, wu, wd, recv_x, recv_le, el)
+        recv_x = rules.all_to_all(send_x, (da, ma), 0, 0)
+        recv_le = rules.all_to_all(send_le, (da, ma), 0, 0)
+        y_tok = _owned_experts_ffn(wg, wu, wd, recv_x.reshape(n_ep * cap, d),
+                                   recv_le.reshape(n_ep * cap), pl.el)
         # send results back to the token owners
         back = rules.all_to_all(y_tok.reshape(n_ep, cap, d), (da, ma), 0, 0)
-        back = back.reshape(n_ep * cap, d)
-        g_flat = gates.reshape(-1).to(torch.float32)
-        contrib = (back[slot.clamp_max(n_ep * cap - 1)].to(torch.float32)
-                   * (g_flat * keep)[:, None])
-        y = contrib.reshape(t, m.top_k, d).sum(1)
+        y = _a2a_combine(back, route, cfg)
         return y.to(xl.dtype).reshape(bl, sl, d)
 
-    w_spec = P((da, ma), None, None)
-    y = shard_map(local_fn, mesh=ctx.mesh,
-                  in_specs=(batch_spec, P(None, None), w_spec, w_spec,
-                            w_spec),
-                  out_specs=batch_spec)(x, p["router"], p["w_gate"],
-                                        p["w_up"], p["w_down"])
+    y = shard_map(local_fn, mesh=ctx.mesh, in_specs=(pl.x_spec,) + pl.w_specs,
+                  out_specs=pl.x_spec)(x, *(p[k] for k in _WEIGHTS))
     if m.num_shared_experts:
         y = y + _shared_ffn(p["shared"], x)
     return y, aux
@@ -437,6 +490,137 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ArchConfig, ctx=None,
             return moe_sharded_a2a(p, x, cfg, ctx, capacity_factor, stats)
         return moe_sharded(p, x, cfg, ctx, capacity_factor, stats)
     return moe_dense(p, x, cfg)
+
+
+# ------------------------------------------------- on rank lists (M18c) ---
+# The same three dispatch paths on the placed steps' rank lists
+# (``sharding/spmd.py``): one block a mesh coordinate, a loop over the
+# coordinates between collectives, each coordinate's work the shard_map
+# form's ``local_fn`` (routing, capacity, positions, drops), its inputs
+# resharded from where the step placed them to the shard_map form's
+# in_specs (the reference's partitioner does the same at the boundary).
+def _impl_of(cfg: ArchConfig, ctx, s: int) -> str:
+    """``apply_moe``'s choice on ``ctx``, the a2a path's one-token and
+    odd-sequence fallback to 2d made explicit."""
+    ma = ctx.model_axis
+    if (ctx.moe_impl == "dense"
+            or cfg.moe.num_experts % ctx.mesh.shape[ma]):
+        return "dense"
+    if ctx.moe_impl == "sharded_a2a":
+        _a2a_owners(cfg, ctx)
+        return "sharded2d" if s % ctx.mesh.shape[ma] or s == 1 else "a2a"
+    return "sharded2d" if ctx.moe_impl == "sharded2d" else "sharded"
+
+
+def _placed_weights(bp: dict, mesh, specs) -> list[dict]:
+    """Each coordinate's blocks of ``_WEIGHTS`` resharded to ``specs``, by
+    name."""
+    w = {k: spmd.reshard(bp[k].blocks, mesh, bp[k].spec, sp)
+         for k, sp in zip(_WEIGHTS, specs)}
+    return [{k: v[r] for k, v in w.items()} for r in range(mesh.size)]
+
+
+def moe_placed(bp: dict, xs: list, x_spec, cfg: ArchConfig, ctx,
+               capacity_factor: float | None = None, stats=None):
+    """The MoE layer on rank lists: ``bp`` its leaves placed by short name
+    (``router``, ``w_gate``, ``w_up``, ``w_down``, ``shared.*``), ``xs``
+    the blocks of its (B, S, d) input placed by ``x_spec``.  Returns
+    (the output's blocks, placed as ``xs``; the aux losses of the global
+    router logits, on coordinate 0's device).  Each sharded path runs as
+    its ``shard_map`` form does (``_impl_of``), and ``stats`` counts the
+    dropped pairs as there."""
+    mesh, ma = ctx.mesh, ctx.model_axis
+    m = cfg.moe
+    xp = spmd.Placed(xs, NamedSharding(mesh, x_spec))
+    b, s, d = xp.shape
+    aux = _global_aux({"router": spmd.whole(bp["router"], 0)},
+                      spmd.whole(xp, 0), cfg)
+    cf = capacity_factor if capacity_factor is not None else m.capacity_factor
+    impl = _impl_of(cfg, ctx, s)
+    if impl == "dense":
+        w = _placed_weights(bp, mesh, (P(),) * len(_WEIGHTS))
+        ys = [moe_dense(w[r], x, cfg)[0] for r, x in enumerate(xs)]
+    else:
+        pl = _plan(cfg, ctx, impl, b, s, cf)
+        xl = spmd.reshard(xs, mesh, x_spec, pl.x_spec)
+        ys = _PLACED[impl](xl, _placed_weights(bp, mesh, pl.w_specs), pl,
+                           cfg, ctx, stats)
+        ys = spmd.reshard(ys, mesh, pl.x_spec, x_spec)
+    if m.num_shared_experts:
+        sw = {k[len("shared."):]: spmd.unshard(p, (ma,))
+              for k, p in bp.items() if k.startswith("shared.")}
+        sy = [_shared_ffn({k: v[r] for k, v in sw.items()}, x)
+              for r, x in enumerate(xs)]
+        if spmd.sharded_over(bp["shared.wo"], ma) is not None:
+            sy = spmd.psum(sy, mesh, ma)
+        ys = [y + t for y, t in zip(ys, sy)]
+    return ys, aux
+
+
+def _placed_sharded(xl, w, pl, cfg, ctx, stats):
+    """``moe_sharded``'s ``local_fn`` over the coordinates' tokens ``xl``
+    and weights ``w`` (placed as ``pl``'s in_specs)."""
+    mesh, ma = ctx.mesh, ctx.model_axis
+    rank_ma = spmd.axis_index(mesh, ma)
+    ys = []
+    for r, x in enumerate(xl):
+        y, dropped = _dispatch_local(x.reshape(-1, x.shape[-1]), *(
+            w[r][k] for k in _WEIGHTS), cfg, pl.el, pl.cap, rank_ma[r])
+        _count_dropped(stats, dropped, mesh, pl.owners, r)
+        ys.append(y)
+    ys = spmd.psum(ys, mesh, ma)
+    return [y.to(x.dtype).reshape(x.shape) for y, x in zip(ys, xl)]
+
+
+def _placed_2d(xl, w, pl, cfg, ctx, stats):
+    """``moe_sharded_2d``'s ``local_fn`` over the coordinates (as
+    :func:`_placed_sharded`)."""
+    mesh, da, ma = ctx.mesh, ctx.data_axis, ctx.model_axis
+    gather_data = da in pl.batch_axes
+    xg = spmd.all_gather(xl, mesh, da, 0) if gather_data else xl
+    rank_ma = spmd.axis_index(mesh, ma)
+    ys = []
+    for r, x in enumerate(xg):
+        y, dropped = _dispatch_local(x.reshape(-1, x.shape[-1]), *(
+            w[r][k] for k in _WEIGHTS), cfg, pl.el, pl.cap, rank_ma[r])
+        _count_dropped(stats, dropped, mesh, pl.owners, r)
+        ys.append(y)
+    if gather_data:     # each data rank its own tokens, the ff partials summed
+        ys = spmd.psum_scatter(ys, mesh, da, 0)
+    else:
+        ys = spmd.psum(ys, mesh, da)                # ff partials only
+    ys = spmd.psum(ys, mesh, ma)                    # expert groups
+    return [y.to(x.dtype).reshape(x.shape) for y, x in zip(ys, xl)]
+
+
+def _placed_a2a(xl, w, pl, cfg, ctx, stats):
+    """``moe_sharded_a2a``'s ``local_fn`` over the coordinates (as
+    :func:`_placed_sharded`; a sequence the model axis splits, of more
+    than one token)."""
+    mesh, axes = ctx.mesh, (ctx.data_axis, ctx.model_axis)
+    n_ep, cap = cfg.moe.num_experts // pl.el, pl.cap
+    sends, routes = [], []
+    for r, x in enumerate(xl):
+        send_x, send_le, route = _a2a_send(x.reshape(-1, x.shape[-1]),
+                                           w[r]["router"], cfg, pl.el, n_ep,
+                                           cap)
+        _count_dropped(stats, (~route[1]).sum(), mesh, pl.owners, r)
+        sends.append((send_x, send_le))
+        routes.append(route)
+    recv_x = spmd.all_to_all([x for x, _ in sends], mesh, axes, 0, 0)
+    recv_le = spmd.all_to_all([e for _, e in sends], mesh, axes, 0, 0)
+    y_tok = [_owned_experts_ffn(w[r]["w_gate"], w[r]["w_up"],
+                                w[r]["w_down"], rx.reshape(n_ep * cap, -1),
+                                re.reshape(n_ep * cap), pl.el)
+             .reshape(n_ep, cap, -1)
+             for r, (rx, re) in enumerate(zip(recv_x, recv_le))]
+    back = spmd.all_to_all(y_tok, mesh, axes, 0, 0)
+    return [_a2a_combine(bk, route, cfg).to(x.dtype).reshape(x.shape)
+            for bk, route, x in zip(back, routes, xl)]
+
+
+_PLACED = {"sharded": _placed_sharded, "sharded2d": _placed_2d,
+           "a2a": _placed_a2a}
 
 
 class MoE(SpecModule):

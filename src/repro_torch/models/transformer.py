@@ -37,9 +37,13 @@ axis, attention on its query heads (``attention.attn_local``; K3 in a
 flash prefill, once a coordinate), SwiGLU on its ff columns, each
 followed by a ``psum`` over the model axis where the heads or the ff
 split, the weights' "embed" dim gathered over the data axes first (FSDP);
-norms and the residual stream are replicated over the model axis, the
-batch split over the batch axes.  Only the dense decoder
-(``mesh_family_check``) runs there.
+an MoE ffn by ``moe.moe_placed`` (its experts over the model axis, its aux
+losses summed as here); norms and the residual stream are replicated over
+the model axis, the batch split over the batch axes where it splits (at
+batch 1 every coordinate holds the row).  A cache whose slots split over
+mesh axes (SP, ``ShardCtx.seq_shard_kv``) goes through
+``attention.attn_seq_sharded``.  The dense decoder and the MoE family
+(``is_attention_decoder``, ``mesh_family_check``) run there.
 """
 from __future__ import annotations
 
@@ -56,7 +60,7 @@ from repro_torch.models.layers import (MLP, Embedding, Norm, SpecModule,
                                        lm_logits, mlp_specs, norm_specs)
 from repro_torch.models.params import ParamSpec, map_with_path, stack_specs
 from repro_torch.sharding import spmd
-from repro_torch.sharding.rules import NamedSharding, ShardCtx
+from repro_torch.sharding.rules import P, NamedSharding, ShardCtx
 
 _NULL_CTX = ShardCtx()
 
@@ -200,24 +204,25 @@ class MTPHead(SpecModule):
 
 
 # -------------------------------------------------------- on a mesh (M18) --
-def is_dense_decoder(cfg: ArchConfig) -> bool:
-    """Every block attention + SwiGLU MLP, no encoder, frontend or MTP
-    head: the family the sharded steps place."""
-    return (cfg.family == "dense" and not cfg.is_encoder_decoder
+def is_attention_decoder(cfg: ArchConfig) -> bool:
+    """Every block attention with a SwiGLU MLP or an MoE ffn, no encoder,
+    frontend or MTP head: the dense decoder and the MoE family, which the
+    sharded steps place."""
+    return (cfg.family in ("dense", "moe") and not cfg.is_encoder_decoder
             and cfg.frontend is None and not cfg.mtp_depth
             and cfg.act == "silu"
-            and all(b.mixer == "attn" and b.ffn == "mlp"
+            and all(b.mixer == "attn" and b.ffn in ("mlp", "moe")
                     for g in cfg.groups for b in g.blocks))
 
 
 def mesh_family_check(cfg: ArchConfig, what: str) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is the dense decoder
-    (:func:`is_dense_decoder`)."""
-    if not is_dense_decoder(cfg):
+    """Raise ``NotImplementedError`` unless the sharded steps place
+    ``cfg`` (:func:`is_attention_decoder`)."""
+    if not is_attention_decoder(cfg):
         raise NotImplementedError(
             f"{what}: {cfg.name} ({cfg.family}) on a mesh of more than one "
-            "coordinate; the sharded steps place the dense decoder only "
-            "(ROADMAP Queue 1, M18c: the MoE, MLA, Mamba-2, "
+            "coordinate; the sharded steps place the dense decoder and the "
+            "MoE family only (ROADMAP Queue 1, M18c: the MLA, Mamba-2, "
             "encoder-decoder and frontend families under placement)")
 
 
@@ -239,10 +244,14 @@ def _local(params: dict, prefix: str, keep) -> dict[str, list]:
 
 
 def _mesh_block(cfg: ArchConfig, bp: dict, x: list, positions: list,
-                ctx: ShardCtx, mode: str, views):
-    """One attention + MLP block over every coordinate.  ``bp``: the
-    block's placed parameters by short name; ``views``: a rank list of
-    the layer's cache views (None in train mode)."""
+                ctx: ShardCtx, mode: str, views, x_spec, kv_seq=None,
+                stats=None):
+    """One attention + MLP or MoE block over every coordinate.  ``bp``:
+    the block's placed parameters by short name; ``views``: a rank list
+    of the layer's cache views (None in train mode), their slots split
+    over ``kv_seq`` (SP: ``attention.attn_seq_sharded``) or whole;
+    ``x_spec``: the residual stream's placement; ``stats``: the MoE's
+    drop count.  Returns (x, the MoE's aux or None)."""
     mesh, ma = ctx.mesh, ctx.model_axis
     n = len(x)
     keep = (ma,)
@@ -252,20 +261,32 @@ def _mesh_block(cfg: ArchConfig, bp: dict, x: list, positions: list,
     per = bp["mixer.wq"].blocks[0].shape[1]
     first = ([j * per for j in spmd.axis_index(mesh, ma)] if heads
              else [0] * n)
-    y = [attn.attn_local(h[r], {k: v[r] for k, v in w.items()}, cfg,
-                         positions[r], mode=mode, q_first=first[r],
-                         cache=None if views is None else views[r],
-                         impl=ctx.attn_impl) for r in range(n)]
+    ws = [{k: v[r] for k, v in w.items()} for r in range(n)]
+    if kv_seq is not None:
+        y = attn.attn_seq_sharded(h, ws, cfg, positions, mode=mode,
+                                  q_first=first, views=views, mesh=mesh,
+                                  model_axis=ma, seq_axes=kv_seq,
+                                  impl=ctx.attn_impl)
+    else:
+        y = [attn.attn_local(h[r], ws[r], cfg, positions[r], mode=mode,
+                             q_first=first[r],
+                             cache=None if views is None else views[r],
+                             impl=ctx.attn_impl) for r in range(n)]
     if heads:
         y = spmd.psum(y, mesh, ma)
     x = [a + b for a, b in zip(x, y)]
     h = _norm_blocks(bp, "norm2.", x, cfg)
+    if "ffn.router" in bp:
+        cf = ctx.moe_decode_cf if mode == "decode" else None
+        y, aux = moe.moe_placed(_block_params(bp, "ffn."), h, x_spec, cfg,
+                                ctx, cf, stats)
+        return [a + b for a, b in zip(x, y)], aux
     w = _local(bp, "ffn.", keep)
     y = [apply_mlp(h[r], **{k: v[r] for k, v in w.items()})
          for r in range(n)]
     if spmd.sharded_over(bp["ffn.wo"], ma) is not None:
         y = spmd.psum(y, mesh, ma)
-    return [a + b for a, b in zip(x, y)]
+    return [a + b for a, b in zip(x, y)], None
 
 
 class _Remat(torch.autograd.Function):
@@ -275,22 +296,23 @@ class _Remat(torch.autograd.Function):
     differentiates that.  ``torch.utils.checkpoint``'s non-reentrant hooks
     do not hold when autograd's threads, one a device, unpack one frame's
     tensors (seen on four cards), so the recompute is this function's own.
-    ``run(xs, blocks)`` maps the rank list ``xs`` and the block's parameter
-    blocks to a rank list."""
+    ``run(xs, blocks, first)`` maps the rank list ``xs`` and the block's
+    parameter blocks to a list of tensors (``first``: the forward's run,
+    not the recompute)."""
 
     @staticmethod
     def forward(ctx, run, n_x, *ts):
         ctx.run, ctx.n_x = run, n_x
         ctx.save_for_backward(*ts)
         with torch.no_grad():
-            return tuple(run(list(ts[:n_x]), list(ts[n_x:])))
+            return tuple(run(list(ts[:n_x]), list(ts[n_x:]), True))
 
     @staticmethod
     def backward(ctx, *gouts):
         ts = [t.detach().requires_grad_(t.requires_grad)
               for t in ctx.saved_tensors]
         with torch.enable_grad():
-            outs = ctx.run(ts[:ctx.n_x], ts[ctx.n_x:])
+            outs = ctx.run(ts[:ctx.n_x], ts[ctx.n_x:], False)
         pairs = [(o, g) for o, g in zip(outs, gouts) if g is not None]
         wrt = [t for t in ts if t.requires_grad]
         gs = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
@@ -301,21 +323,25 @@ class _Remat(torch.autograd.Function):
 
 
 def _remat_block(cfg: ArchConfig, bp: dict, x: list, positions: list,
-                 ctx: ShardCtx, mode: str) -> list:
-    """``_mesh_block`` in train mode under :class:`_Remat`."""
+                 ctx: ShardCtx, mode: str, x_spec, stats=None):
+    """``_mesh_block`` in train mode under :class:`_Remat` (the drops
+    counted in the forward's run only); returns (x, aux or None)."""
     names = list(bp)
 
-    def run(xs, blocks):
+    def run(xs, blocks, first):
         k, local = 0, {}
         for n in names:
             p = bp[n]
             local[n] = spmd.Placed(blocks[k:k + len(p.blocks)], p.sharding,
                                    p.shape)
             k += len(p.blocks)
-        return _mesh_block(cfg, local, xs, positions, ctx, mode, None)
+        out, aux = _mesh_block(cfg, local, xs, positions, ctx, mode, None,
+                               x_spec, stats=stats if first else None)
+        return out if aux is None else out + [aux]
 
-    return list(_Remat.apply(run, len(x), *x,
-                             *[b for n in names for b in bp[n].blocks]))
+    out = list(_Remat.apply(run, len(x), *x,
+                            *[b for n in names for b in bp[n].blocks]))
+    return (out, None) if len(out) == len(x) else (out[:-1], out[-1])
 
 
 def _block_params(params: dict, prefix: str) -> dict:
@@ -350,30 +376,42 @@ def _mesh_embed(params: dict, tokens: spmd.Placed, ctx: ShardCtx) -> list:
 
 
 def _mesh_run(model, params: dict, tokens, positions, ctx: ShardCtx,
-              cache, mode: str) -> spmd.Placed:
+              cache, mode: str):
     """The embedding, every block and the final norm on placed
-    parameters; returns the hidden states, placed by the batch spec."""
+    parameters; returns the hidden states, placed as the tokens' rows
+    (over the batch axes, or whole where the batch does not split), and
+    the MoE layers' summed aux on coordinate 0's device."""
     cfg = model.cfg
     mesh_family_check(cfg, f"LM {mode} with placed parameters")
     _check_inputs(tokens, positions, params, ctx)
     x = _mesh_embed(params, tokens, ctx)
     pos = positions.blocks
-    hs = NamedSharding(ctx.mesh, ctx.batch_spec(3))
+    x_spec = P(tokens.spec[0], None, None)
+    hs = NamedSharding(ctx.mesh, x_spec)
     remat = mode == "train" and ctx.remat
+    aux = torch.zeros((), dtype=torch.float32, device=x[0].device)
     for gi, group in enumerate(model.groups):
         gc = None if cache is None else cache["groups"][gi]["blocks"]
         for li, layer in enumerate(group):
-            for bi in range(len(layer)):
+            for bi, blk in enumerate(layer):
                 bp = _block_params(params, f"groups.{gi}.{li}.{bi}.")
-                views = (None if gc is None else
-                         [{k: t.blocks[r][li] for k, t in gc[bi].items()}
-                          for r in range(len(x))])
+                stats = getattr(getattr(blk, "ffn", None), "stats", None)
                 if remat:
-                    x = _remat_block(cfg, bp, x, pos, ctx, mode)
+                    x, a = _remat_block(cfg, bp, x, pos, ctx, mode, x_spec,
+                                        stats)
                 else:
-                    x = _mesh_block(cfg, bp, x, pos, ctx, mode, views)
-        x = ctx.constrain(spmd.Placed(x, hs)).blocks
-    return spmd.Placed(_norm_blocks(params, "final_norm.", x, cfg), hs)
+                    views = kv_seq = None
+                    if gc is not None:
+                        views = [{k: t.blocks[r][li]
+                                  for k, t in gc[bi].items()}
+                                 for r in range(len(x))]
+                        kv_seq = gc[bi]["k"].spec[2]   # (layers, B, W, ...)
+                    x, a = _mesh_block(cfg, bp, x, pos, ctx, mode, views,
+                                       x_spec, kv_seq, stats)
+                if a is not None:
+                    aux = aux + a
+        x = ctx.constrain(spmd.Placed(x, hs), x_spec).blocks
+    return spmd.Placed(_norm_blocks(params, "final_norm.", x, cfg), hs), aux
 
 
 def mesh_logits(params: dict, hidden: spmd.Placed,
@@ -519,10 +557,9 @@ class LM(nn.Module):
         docstring) tokens and positions are placed, and ``hidden`` is."""
         cfg = self.cfg
         if params is not None:
-            hidden = _mesh_run(self, params, tokens, positions, ctx, None,
-                               "train")
-            return {"hidden": hidden, "aux": torch.zeros(
-                (), dtype=torch.float32, device=hidden.blocks[0].device)}
+            hidden, aux = _mesh_run(self, params, tokens, positions, ctx,
+                                    None, "train")
+            return {"hidden": hidden, "aux": aux}
         x = self.embed(tokens, embeds)
         x, aux = self._run_groups(x, positions, ctx, None, "train")
         x = self.final_norm(x)
@@ -546,10 +583,9 @@ class LM(nn.Module):
         placed ``params`` the inputs, the cache's leaves and the hidden
         states are placed."""
         if params is not None:
-            hidden = _mesh_run(self, params, tokens, positions, ctx, cache,
-                               "prefill")
-            return hidden, cache, torch.zeros(
-                (), dtype=torch.float32, device=hidden.blocks[0].device)
+            hidden, aux = _mesh_run(self, params, tokens, positions, ctx,
+                                    cache, "prefill")
+            return hidden, cache, aux
         x = self.embed(tokens, embeds)
         x, aux = self._run_groups(x, positions, ctx, cache, "prefill")
         return self.final_norm(x), cache, aux
@@ -561,8 +597,8 @@ class LM(nn.Module):
         place.  With placed ``params`` the inputs, the cache's leaves and
         the logits are placed."""
         if params is not None:
-            hidden = _mesh_run(self, params, tokens, positions, ctx, cache,
-                               "decode")
+            hidden, _ = _mesh_run(self, params, tokens, positions, ctx,
+                                  cache, "decode")
             return mesh_logits(params, hidden, ctx), cache
         x = self.embed(tokens)
         x, _ = self._run_groups(x, positions, ctx, cache, "decode")

@@ -8,10 +8,13 @@ model's own parameters and write the cache in place.  With a mesh,
 partitioned steps: the parameters placed by :func:`serve_shardings`
 (``runtime/train.py::placed_params(..., mode="serve")``), the cache made
 placed by :func:`init_cache` ("batch" over the batch axes, "kv_heads"
-over the model axis), the tokens and positions placed by the step, each
-coordinate running its rows and heads (K3 once a coordinate in a flash
-prefill).  The dense decoder only; a sequence-sharded cache (SP,
-``seq_shard_kv``) over more than one coordinate raises.
+over the model axis; with ``seq_shard_kv`` (SP) "kv_seq" over its axes,
+the model axis first), the tokens and positions placed by the step
+(:func:`batch_pspec`), each coordinate running its rows and heads (K3
+once a coordinate in a flash prefill) and, under SP, its block of the
+cache's slots, the decode's softmax merged across them
+(``models/attention.py::attn_seq_sharded``).  The dense decoder and the
+MoE family (``models/transformer.py::is_attention_decoder``).
 """
 from __future__ import annotations
 
@@ -60,12 +63,16 @@ def serve_shardings(model, ctx: ShardCtx, batch: int, max_len: int,
 def _require_serve_mesh(model, ctx: ShardCtx, what: str) -> None:
     from repro_torch.runtime.train import _require_mesh_step
     _require_mesh_step(model, ctx, what)
-    kv_seq = default_rules(ctx, mode="serve")["kv_seq"]
-    if kv_seq is not None and ctx.axis_size(kv_seq) > 1:
-        raise NotImplementedError(
-            f"{what}: seq_shard_kv (SP: the cache's sequence over "
-            f"{kv_seq}) is not placed yet (ROADMAP Queue 1, M18b: SP "
-            "decode, seq_shard_kv)")
+
+
+def batch_pspec(ctx: ShardCtx, batch: int, ndim: int) -> P:
+    """The tokens' (or positions') placement: rows over the batch axes
+    where ``batch`` splits over them, else whole on every coordinate (the
+    reference's ``launch/dryrun.py::batch_pspec``)."""
+    parts = [None] * ndim
+    if batch % ctx.axis_size(ctx.batch_axes) == 0:
+        parts[0] = ctx.batch_axes
+    return P(*parts)
 
 
 def init_cache(model, ctx: ShardCtx, batch: int, max_len: int,
@@ -115,7 +122,7 @@ def jit_prefill_step(model, ctx: ShardCtx, batch: int, max_len: int):
             return step(tokens, positions, cache)
         return plain
     check = _mesh_step(model, ctx, batch, max_len, "jit_prefill_step")
-    tok_sh = NamedSharding(ctx.mesh, P(ctx.batch_axes, None))
+    tok_sh = NamedSharding(ctx.mesh, batch_pspec(ctx, batch, 2))
 
     @torch.no_grad()
     def prefill(params, tokens, positions, cache):
@@ -138,7 +145,7 @@ def jit_decode_step(model, ctx: ShardCtx, batch: int, max_len: int,
     and returns it, the caller's left as it was, with a mesh or without.
     Without a mesh, ``params`` must be None and the eager step runs on the
     model's own parameters.  ``enc_len`` (an encoder-decoder's) raises on
-    a mesh: only the dense decoder is placed."""
+    a mesh (ROADMAP M18c)."""
     if _eager(model, ctx):
         step = make_decode_step(model, ctx)
 
@@ -154,8 +161,8 @@ def jit_decode_step(model, ctx: ShardCtx, batch: int, max_len: int,
             "mesh (ROADMAP Queue 1, M18c: the encoder-decoder under "
             "placement)")
     check = _mesh_step(model, ctx, batch, max_len, "jit_decode_step")
-    tok_sh = NamedSharding(ctx.mesh, P(ctx.batch_axes, None))
-    pos_sh = NamedSharding(ctx.mesh, P(ctx.batch_axes))
+    tok_sh = NamedSharding(ctx.mesh, batch_pspec(ctx, batch, 2))
+    pos_sh = NamedSharding(ctx.mesh, batch_pspec(ctx, batch, 1))
 
     @torch.no_grad()
     def decode(params, tokens, positions, cache):
@@ -172,9 +179,9 @@ def jit_decode_step(model, ctx: ShardCtx, batch: int, max_len: int,
 def _eager(model, ctx: ShardCtx) -> bool:
     """No mesh, or a one-coordinate mesh for a family the sharded steps do
     not place: the eager step on the model's own parameters."""
-    from repro_torch.models.transformer import is_dense_decoder
+    from repro_torch.models.transformer import is_attention_decoder
     return ctx.mesh is None or (ctx.mesh.size == 1
-                                and not is_dense_decoder(model.cfg))
+                                and not is_attention_decoder(model.cfg))
 
 
 def _clone_tree(cache):

@@ -27,14 +27,16 @@ With a mesh (``ShardCtx.mesh``), :func:`jit_train_step` is the
 reference's partitioned step: the parameters and the AdamW state arrive
 placed on the mesh's devices by :func:`step_shardings`' trees
 (``sharding/spmd.py``, :func:`placed_params`), the batch is placed a
-microbatch at a time over the batch axes, and the dense decoder's
-forward and backward run on those blocks (``models/transformer.py``):
-DP over ("pod", "data"), FSDP gathers of "embed" over "data", TP over
-heads, ff and vocab.  The loss is vocab-parallel for an untied head and
-reads the tied table whole (:func:`mesh_xent`);
-each leaf's gradient is summed over the mesh axes it is replicated on,
-the global norm counts each distinct block once, and AdamW updates a
-block at a time, so replicas stay equal.  The two-phase step, the other
+microbatch at a time over the batch axes, and the forward and backward
+of the dense decoder or the MoE family run on those blocks
+(``models/transformer.py``): DP over ("pod", "data"), FSDP gathers of
+"embed" over "data", TP over heads, ff and vocab, EP over "experts".  The
+loss is vocab-parallel for an untied head and reads the tied table whole
+(:func:`mesh_xent`), and adds the MoE's aux losses (from the global
+router logits); each leaf's gradient is summed over the mesh axes it is
+replicated on, the global norm counts each distinct block once, and
+AdamW updates a block at a time, so replicas stay equal.  The two-phase
+step, the other
 families and int8 moments do not run on a mesh of more than one
 coordinate (they raise); ``make_train_step`` with a mesh still runs the
 model eagerly on the parameters' device, where only ``shard_map`` code
@@ -469,7 +471,7 @@ def _mesh_grads(model, params: dict, tokens: torch.Tensor, ctx: ShardCtx,
         gs = [torch.zeros_like(b) if g is None else g for b, g in zip(
             leaves, torch.autograd.grad(loss + out["aux"], leaves,
                                         allow_unused=True))]
-        loss = loss.detach()
+        loss, aux = loss.detach(), out["aux"].detach()
         loss_sum = loss if loss_sum is None else loss_sum + loss
         if microbatches == 1:
             acc = gs
@@ -490,8 +492,10 @@ def _mesh_grads(model, params: dict, tokens: torch.Tensor, ctx: ShardCtx,
         blocks = spmd.sum_replicas(acc[k:k + len(p.blocks)], mesh, p.spec)
         k += len(p.blocks)
         grads[n] = spmd.Placed(blocks, p.sharding, p.shape)
+    # as grads_fn: the aux of one microbatch, none of an accumulation
     return grads, {"loss": loss_sum / microbatches,
-                   "aux": torch.zeros_like(loss_sum)}
+                   "aux": aux if microbatches == 1
+                   else torch.zeros_like(loss_sum)}
 
 
 def _require_mesh_step(model, ctx: ShardCtx, what: str) -> None:
@@ -533,9 +537,10 @@ def jit_train_step(model, opt_cfg: adamw.AdamWConfig, ctx: ShardCtx, *,
     the step, a microbatch at a time.  ``donate=False`` updates copies and
     leaves the inputs as they were.  int8 moments with a mesh raise
     ``ValueError`` (the reference's rule: a pool-tier feature); the
-    families outside the dense decoder on a mesh of more than one
-    coordinate raise ``NotImplementedError``; on a one-coordinate mesh
-    they take the eager step."""
+    families the steps do not place (``is_attention_decoder``) on a mesh
+    of more than one coordinate raise ``NotImplementedError``; on a
+    one-coordinate mesh they take the eager step, where ``donate=False``
+    raises ``ValueError`` as without a mesh."""
     if ctx.mesh is None:
         if not donate:
             raise ValueError("donate=False without a mesh: the eager step "
@@ -546,8 +551,12 @@ def jit_train_step(model, opt_cfg: adamw.AdamWConfig, ctx: ShardCtx, *,
         raise ValueError("int8 moments are a pool-tier feature: use "
                          "make_two_phase_steps (opt state streams from the "
                          "pool tier, shardings inferred from buffers)")
-    from repro_torch.models.transformer import is_dense_decoder
-    if ctx.mesh.size == 1 and not is_dense_decoder(model.cfg):
+    from repro_torch.models.transformer import is_attention_decoder
+    if ctx.mesh.size == 1 and not is_attention_decoder(model.cfg):
+        if not donate:
+            raise ValueError(f"donate=False for {model.cfg.name} on a "
+                             "one-coordinate mesh: the eager step updates "
+                             "the model's own parameters")
         return make_train_step(model, opt_cfg, ctx, microbatches, xent_chunk,
                                accum_dtype)
     _require_mesh_step(model, ctx, "jit_train_step")

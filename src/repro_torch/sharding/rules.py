@@ -6,7 +6,7 @@ Parallelism map (the reference's):
   * FSDP : weight "embed" dim over "data"
   * TP   : "ff"/"heads"/"vocab"/"inner" over "model"
   * EP   : "experts" over "model" (the sharded MoE's dispatch)
-  * SP   : "kv_seq" over "data" for long-context decode
+  * SP   : "kv_seq" over "data" (or the axes ``seq_shard_kv`` names)
 
 Per-leaf divisibility: a mesh axis is dropped for a dimension it does not
 divide (12 attention heads on a 16-way model axis stay replicated).
@@ -20,16 +20,18 @@ The reference hands these specs to XLA's partitioner, which places the
 arrays and splits the work.  The port's counterpart is
 ``sharding/spmd.py``: ``spmd.place`` puts each leaf's blocks on its
 coordinates' devices by these specs (``partition_tree``,
-``train.step_shardings``, ``serve.serve_shardings``), and the dense
-decoder's sharded steps (``runtime/train.py::jit_train_step``,
+``train.step_shardings``, ``serve.serve_shardings``), and the sharded
+steps of the dense decoder and the MoE family
+(``runtime/train.py::jit_train_step``,
 ``runtime/serve.py::jit_decode_step``) run on those blocks, one host
 thread looping over the coordinates, with ``spmd``'s differentiable
 collectives between them (DP over the batch axes, FSDP gathers of
-"embed", TP over heads, ff and vocab).  The families outside the dense
-decoder, and the eager ``LM.prefill(..., ShardCtx(mesh=...))`` route,
-keep running on the caller's device, where only ``shard_map`` code splits
-work across the mesh: the sharded MoE paths (``models/moe.py``) and the
-tied-head cross-entropy with ``replicate_lm_head``
+"embed", TP over heads, ff and vocab, EP over experts, SP over the
+cache's slots).  The other families, and the eager
+``LM.prefill(..., ShardCtx(mesh=...))`` route, keep running on the
+caller's device, where only ``shard_map`` code splits work across the
+mesh: the sharded MoE paths' ``shard_map`` forms (``models/moe.py``) and
+the tied-head cross-entropy with ``replicate_lm_head``
 (``runtime/train.py::chunked_xent``).
 
 ``shard_map(f, mesh=, in_specs=, out_specs=)`` runs ``f`` once a mesh
@@ -37,8 +39,9 @@ coordinate, each in a thread of its own (a pool kept a mesh size, so a
 thread's CUDA and cuBLAS state outlives a call; one thread runs at a time,
 in rank order, handing on at each collective) with that coordinate's
 device current,
-on its blocks of the inputs; ``axis_index``, ``psum``, ``all_gather``,
-``psum_scatter`` and ``all_to_all`` inside ``f`` are the collectives the
+on its blocks of the inputs; ``axis_index``, ``psum``, ``pmax``,
+``all_gather``, ``psum_scatter`` and ``all_to_all`` inside ``f`` are the
+collectives the
 reference's local functions call, made of explicit cross-device copies and
 sums in a fixed (row-major) order.  A (1, ..., 1) mesh runs ``f`` inline.  Outputs are
 assembled on the first input's device; an output axis a spec leaves out
@@ -352,6 +355,17 @@ def psum(x, names):
     with op_analysis.uncounted():
         vals = _gathered(x, names)[0]
         out = _sum(vals)
+    op_analysis.report_collective("all-reduce", x, out, len(vals))
+    return out
+
+
+def pmax(x, names):
+    """Elementwise maximum of ``x`` over the coordinates along ``names``."""
+    with op_analysis.uncounted():
+        vals = _gathered(x, names)[0]
+        out = vals[0]
+        for v in vals[1:]:
+            out = torch.maximum(out, v)
     op_analysis.report_collective("all-reduce", x, out, len(vals))
     return out
 

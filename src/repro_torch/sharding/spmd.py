@@ -22,7 +22,9 @@ on lists of blocks (a *rank list*, indexed like ``Mesh.coords()``); the
 collectives below are plain differentiable PyTorch ops across devices
 (copies with ``Tensor.to`` and sums), so one autograd graph spans every
 card: the backward of :func:`all_gather` is the reduce-scatter, that of
-:func:`psum` the sum of the copies' gradients.  A sum runs over a group's
+:func:`psum` the sum of the copies' gradients (:func:`pmax` and
+:func:`all_to_all` besides, and :func:`reshard` from one placement of a
+tensor's blocks to another).  A sum runs over a group's
 members in row-major order (``rules.shard_map``'s order), once for each
 member on its own device, so every member holds the same bits and each
 coordinate does its own work wherever the mesh puts it.  Unlike
@@ -290,6 +292,59 @@ def psum(xs: list, mesh: Mesh, axes) -> list:
                 s = s + xs[m].to(dev)
             out[r] = s
     return out
+
+
+def pmax(xs: list, mesh: Mesh, axes) -> list:
+    """Each rank's elementwise maximum of its group's blocks over
+    ``axes``, in member order, on its own device (JAX's ``pmax``)."""
+    out = [None] * len(xs)
+    for members in groups(mesh, axes):
+        for r in members:
+            dev = xs[r].device
+            s = xs[members[0]].to(dev)
+            for m in members[1:]:
+                s = torch.maximum(s, xs[m].to(dev))
+            out[r] = s
+    return out
+
+
+def all_to_all(xs: list, mesh: Mesh, axes, split_axis: int,
+               concat_axis: int) -> list:
+    """Member j's entry ``i`` of ``split_axis`` (one entry a member)
+    arrives as member i's entry j of a new ``concat_axis`` (JAX's
+    ``all_to_all(..., tiled=False)``)."""
+    out = [None] * len(xs)
+    for members in groups(mesh, axes):
+        n = len(members)
+        for m in members:
+            if xs[m].shape[split_axis] != n:
+                raise ValueError(f"all_to_all: split axis of "
+                                 f"{xs[m].shape[split_axis]} for {n} members")
+        for i, r in enumerate(members):
+            dev = xs[r].device
+            out[r] = torch.stack([xs[m].select(split_axis, i).to(dev)
+                                  for m in members], dim=concat_axis)
+    return out
+
+
+def reshard(xs: list, mesh: Mesh, src, dst) -> list:
+    """Blocks of one global tensor placed by ``src`` as the blocks ``dst``
+    places: every dimension whose entry differs is gathered over its
+    ``src`` axes first, then cut by its ``dst`` axes (differentiable; a
+    dimension both specs split alike is left as it is)."""
+    ndim = xs[0].dim()
+    src = tuple(src) + (None,) * (ndim - len(src))
+    dst = tuple(dst) + (None,) * (ndim - len(dst))
+    moved = [d for d in range(ndim) if src[d] != dst[d]]
+    for d in moved:
+        if src[d] is not None:
+            xs = all_gather(xs, mesh, src[d], d)
+    for d in moved:
+        if dst[d] is not None:
+            idx = axis_index(mesh, dst[d])
+            n = math.prod(mesh.shape[a] for a in _axes(dst[d]))
+            xs = [x.chunk(n, d)[idx[r]] for r, x in enumerate(xs)]
+    return xs
 
 
 def all_gather(xs: list, mesh: Mesh, axes, dim: int) -> list:

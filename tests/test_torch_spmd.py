@@ -654,10 +654,11 @@ def test_placement_errors():
 
 def test_step_errors():
     """int8 moments with a mesh (``ValueError``, the reference's rule);
-    the families outside the dense decoder on a mesh of more than one
-    coordinate, SP decode, FSDP over pods and the two-phase step
-    (``NotImplementedError``, naming the ROADMAP item); an unplaced
-    parameter; ``donate=False`` without a mesh."""
+    the families outside the dense decoder and the MoE family on a mesh
+    of more than one coordinate, FSDP over pods and the two-phase step
+    (``NotImplementedError``, naming the ROADMAP item); the SP steps
+    (``seq_shard_kv``) build; an unplaced parameter; ``donate=False``
+    without a mesh."""
     mesh = cpu_mesh((2, 2))
     ctx = ctx_of(mesh)
     model = port_model("qwen2-1.5b")
@@ -666,8 +667,8 @@ def test_step_errors():
     with pytest.raises(ValueError, match="int8"):
         adamw.init_state(rt.placed_params(model, ctx),
                          adamw.AdamWConfig(moments_dtype="int8"))
-    for arch in ("granite-moe-1b-a400m", "deepseek-v3-671b", "mamba2-1.3b",
-                 "whisper-small", "internvl2-26b", "jamba-1.5-large-398b"):
+    for arch in ("deepseek-v3-671b", "mamba2-1.3b", "whisper-small",
+                 "internvl2-26b", "jamba-1.5-large-398b"):
         other = build_model(get_smoke(arch), device="meta")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             rt.jit_train_step(other, adamw.AdamWConfig(), ctx)
@@ -680,10 +681,9 @@ def test_step_errors():
         assert callable(rt.jit_train_step(other, adamw.AdamWConfig(), one))
     for sp in (True, "model"):
         sp_ctx = ctx_of(mesh, seq_shard_kv=sp)
-        with pytest.raises(NotImplementedError, match="seq_shard_kv"):
-            tserve.jit_decode_step(model, sp_ctx, 4, 16)
-        with pytest.raises(NotImplementedError, match="seq_shard_kv"):
-            tserve.init_cache(model, sp_ctx, 4, 16)
+        assert callable(tserve.jit_decode_step(model, sp_ctx, 4, 16))
+        cache = tserve.init_cache(model, sp_ctx, 4, 16)
+        assert isinstance(cache["groups"][0]["blocks"][0]["k"], spmd.Placed)
     pod = ctx_of(cpu_mesh((2, 2, 2)), fsdp_pod=True)
     with pytest.raises(NotImplementedError, match="fsdp_pod"):
         rt.jit_train_step(model, adamw.AdamWConfig(), pod)
