@@ -47,7 +47,10 @@ PyTorch version on the card, and drives the port's three paths:
   granite-moe-1b-a400m whole trained and served on the mesh through each
   MoE dispatch path on placed arrays, its drops against a plain count, on
   four cards where four are visible (then qwen2-7b also trains whole
-  across them), else on the card listed four times;
+  across them), else on the card listed four times; mamba2-1.3b whole,
+  deepseek-v3's serve and train cuts (MLA, the MTP head) and jamba's
+  blocks 3-4 (Mamba-2, MoE, attention with K3 a coordinate) trained and
+  served on the mesh, fp32 cuts gated against the unsharded steps;
 * Pond's provisioning loop (``core/cluster_sim.py::savings_analysis`` over
   ``core/replay_engine.py::CompiledReplay``, the event sweep K1) on a
   cluster row of 256 servers with 16-socket pools and a 7-day trace: the
@@ -622,19 +625,21 @@ DEVICES_FULL = dict(budget=16_384, lanes=16, server=(270.0, 384.0),
 TRAIN_SMALL = dict(seed=0, seq_len=32, global_batch=8, microbatches=2,
                    lr=1e-2, fp32=(1e-4, 1e-5), bf16=(0.05, 0.02),
                    adamw=(1e-5, 1e-7))
-# Phase train_full: qwen2-1.5b at full width and depth (configs/
-# qwen2_1_5b.py: 28 layers, d_model 1536, 12 / 2 heads of 128, d_ff 8960,
-# the padded 151,936 vocabulary, tied embeddings), bf16 parameters from a
-# seeded init on the card, the reference trainer's defaults otherwise
-# (remat off, lr 3e-3 with 20 warmup steps); ShardedBatches at 8 x 2,048
-# tokens, 2 microbatches, xent chunk 512.  (a) 3 fused steps, (b) 3
-# two-phase steps with fp32 moments pinned beside the card, (c) 2
-# two-phase steps with int8 moments.  host_link_gbps: the H100 SXM's PCIe
+# Phase train_full: qwen2-1.5b at full width (configs/qwen2_1_5b.py: d_model
+# 1536, 12 / 2 heads of 128, d_ff 8960, the padded 151,936 vocabulary, tied
+# embeddings), its first 14 of 28 layers (the script's time limit: the
+# sharded steps' phases take the rest; spmd_full trains it whole), bf16
+# parameters from a seeded init on the card, the reference trainer's
+# defaults otherwise (remat off, lr 3e-3 with 20 warmup steps);
+# ShardedBatches at 8 x 2,048 tokens, 2 microbatches, xent chunk 512.
+# (a) 2 fused steps, (b) 2 two-phase steps with fp32 moments pinned beside
+# the card, (c) 2 two-phase steps with int8 moments.  host_link_gbps: the H100 SXM's PCIe
 # Gen5 x16 host link, 64 GB/s a direction (the data sheet's 128 GB/s both
 # ways), the opt step's floor.
-TRAIN_FULL = dict(arch="qwen2-1.5b", seed=0, global_batch=8, seq_len=2048,
-                  microbatches=2, xent_chunk=512, lr=3e-3, steps_fused=3,
-                  steps_two_phase=3, steps_int8=2, host_link_gbps=64.0)
+TRAIN_FULL = dict(arch="qwen2-1.5b", seed=0, layers=14, global_batch=8,
+                  seq_len=2048, microbatches=2, xent_chunk=512, lr=3e-3,
+                  steps_fused=2, steps_two_phase=2, steps_int8=2,
+                  host_link_gbps=64.0)
 # Phase ingest_parity_small: the bundled fixture (48 VMs over two days) on
 # 4 servers of 64 cores, 2 pool groups, 4 GB a core, static 0.25, as
 # tests/test_traces_ingest.py::test_fixture_exists_and_replays_through_engine
@@ -1878,8 +1883,9 @@ def phase_mesh_full(dev):
     fp32 at a capacity that drops nothing (cf = E / top_k) the logits held
     to the dense path within 2e-3; in bf16 at the config's cf 1.25 the
     dropped (token, expert) pairs of the prefill ``==`` a plain count of
-    the same routing, and each path's prefill ms beside dense.  Returns
-    K3's launches (one a layer a prefill)."""
+    the same routing, and each path's prefill ms beside dense, one prefill
+    a path (the placed paths of ``moe_mesh_full`` time the same dispatch
+    warm).  Returns K3's launches (one a layer a prefill)."""
     from repro_torch.configs.one_card import prompt_inputs
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.flash_attention import ops
@@ -1931,9 +1937,8 @@ def phase_mesh_full(dev):
     model.init_params(torch.Generator(device=dev).manual_seed(0))
     mods = _moe_modules(model)
     timing, drops, xs = {}, {}, []
-    for _ in range(2):                      # dense, the second run warm
-        d = _prompt_run(model, inp, 0, max_len)
-        prefills += 1
+    d = _prompt_run(model, inp, 0, max_len)
+    prefills += 1
     timing["dense"] = d["prefill_s"] * 1e3
     del d
     # each MoE layer's input, for the plain count of its drops
@@ -1961,8 +1966,6 @@ def phase_mesh_full(dev):
             checks[f"bf16_{key}_drops_equal_plain_count"] = \
                 stats.get("dropped", 0) == want
             xs.clear()
-            r = _prompt_run(model, inp, 0, max_len, ctx=ctx)   # warm
-            prefills += 1
             timing[key] = r["prefill_s"] * 1e3
             del r
     launches = ops.launches                 # ... and read just after it
@@ -1980,7 +1983,7 @@ def phase_mesh_full(dev):
          capacity_factor_free=free.moe.capacity_factor,
          capacity_factor=cfg.moe.capacity_factor,
          fp32_dense=fp32_dense, fp32_agreement=agreement,
-         bf16_prefill_ms_warm=timing, bf16_drops=drops,
+         bf16_prefill_ms=timing, bf16_drops=drops,
          kernel_launches=launches, phase_s=time.perf_counter() - t_phase)
     if not all(checks.values()):
         raise SystemExit("mesh_full failed: "
@@ -2003,14 +2006,14 @@ SPMD_SMALL = dict(arch="qwen2-1.5b", shape=(2, 2), seed=0, batch=8, seq=32,
                   tol=2e-5)
 # Phase spmd_full: the mesh 2 x 2, on four distinct cards where four are
 # visible, else the card listed four times.  qwen2-1.5b whole at
-# TRAIN_FULL's batch (3 fused steps, bf16) and an fp32 cut of it (its
+# TRAIN_FULL's batch (2 fused steps, bf16) and an fp32 cut of it (its
 # first 2 layers at full width, one step beside the unsharded step);
-# qwen2-7b whole served at configs/one_card.py's run (B 4 x 2,048 + 32
-# greedy steps, K3 in every coordinate's prefill: 28 layers x 4
-# coordinates a prefill), beside the unsharded steps on the same prompt,
-# and the same with the sequence-sharded cache (SP, seq_shard_kv) over
-# "model"; at B 1 x 2,048 + 16 (the batch does not split: every
-# coordinate holds the row) placed, and with SP over ("data", "model");
+# qwen2-7b whole served at configs/one_card.py's B 4 x 2,048 with 8 greedy
+# steps (the script's time limit), K3 in every
+# coordinate's prefill: 28 layers x 4 coordinates a prefill), beside the
+# unsharded steps on the same prompt, and the same with the
+# sequence-sharded cache (SP, seq_shard_kv) over "model"; at B 1 x 2,048
+# + 8 (the batch does not split: every coordinate holds the row) placed, and with SP over ("data", "model");
 # each beside the unsharded steps on its prompt.  fp32 cuts (the first 2
 # layers at full width, the same prompt and 4 decode steps fed the
 # unsharded run's tokens), placed and with SP over "model", and a window
@@ -2020,10 +2023,10 @@ SPMD_SMALL = dict(arch="qwen2-1.5b", shape=(2, 2), seed=0, batch=8, seq=32,
 # with four cards also qwen2-7b training whole across them (B 8 x 2,048, 2
 # microbatches, remat: the FSDP gathers again in the backward) and
 # qwen2-1.5b's steps on the four cards beside the card listed four times.
-SPMD_FULL = dict(shape=(2, 2), train_arch="qwen2-1.5b", train_steps=3,
+SPMD_FULL = dict(shape=(2, 2), train_arch="qwen2-1.5b", train_steps=2,
                  cut_layers=2, cut_tol=2e-3, serve_arch="qwen2-7b",
-                 serve_cut_steps=4,
-                 b1=dict(batch=1, prompt=2048, steps=16),
+                 serve_steps=8, serve_cut_steps=4,
+                 b1=dict(batch=1, prompt=2048, steps=8),
                  window_arch="h2o-danube-1.8b",
                  window_run=dict(batch=2, prompt=6144, steps=4),
                  train7b=dict(batch=8, seq=2048, microbatches=2, steps=3,
@@ -2190,15 +2193,19 @@ def _spmd_train(cfg, mesh, *, batch, seq, microbatches, steps, lr, remat,
         params = rt.train_params(model)
         init = {n: p.detach().clone() for n, p in params.items()}
         o0 = adamw.init_state(params, ocfg)
-        _, _, m0 = rt.jit_train_step(model, ocfg, ShardCtx(),
-                                     microbatches=microbatches)(
-            params, o0, {"tokens": batches[0]})
+        torch.cuda.synchronize(dev0)
+        t0 = time.perf_counter()
+        m0 = rt.jit_train_step(model, ocfg, ShardCtx(remat=remat),
+                               microbatches=microbatches)(
+            params, o0, {"tokens": batches[0]})[2]
         rec["unsharded_step1_loss"] = float(m0["loss"])
+        rec["unsharded_step1_ms"] = (time.perf_counter() - t0) * 1e3
         del o0
         with torch.no_grad():
             for n, p in params.items():
                 p.copy_(init[n])
-        del init, params
+        del init, params, m0
+        torch.cuda.empty_cache()
     ctx = ShardCtx(mesh=mesh, pod_axis=None, remat=remat, **ctx_kw)
     t0 = time.perf_counter()
     placed = rt.placed_params(model, ctx)
@@ -2380,11 +2387,12 @@ def _placed_serve(model, sp, ctx, inp, steps, mesh, plain=None):
     checks = dict(
         logits_finite=bool(torch.isfinite(lg_all).all()),
         tokens_in_vocab=all(0 <= t < vocab for s_ in stream for t in s_),
-        # no window and one slot a position: every slot written once
+        # no window and one slot a position: every slot written once (a
+        # Mamba cache has no slots)
         cache_pos_every_slot=model.cfg.sliding_window is not None or all(
             torch.equal(c["pos"], torch.arange(max_len, dtype=torch.int32)
                         .expand_as(c["pos"]))
-            for g in whole["groups"] for c in g["blocks"]),
+            for g in whole["groups"] for c in g["blocks"] if "pos" in c),
         placed_on_coordinates=_placement_ok((sp, cache)))
     if plain is not None:
         n_plain = len(plain["stream"])
@@ -2448,7 +2456,7 @@ def phase_spmd_full(dev):
     # (b) qwen2-7b whole, served at one_card.py's run (B 4) and at B 1,
     # placed and with SP, beside the unsharded steps
     cfg7 = get_config(f["serve_arch"])
-    run = RUNS[f["serve_arch"]]
+    run = dict(RUNS[f["serve_arch"]], steps=f["serve_steps"])
     b, p, n = run["batch"], run["prompt"], run["steps"]
     run1 = f["b1"]
     model = build_model(cfg7, device=cards[0])
@@ -2592,16 +2600,16 @@ def phase_spmd_full(dev):
 # expert ff over data under sharded2d's serve layout, whole experts over
 # (data, model) under sharded_a2a's).  (a) The placed train step at
 # TRAIN_RUNS' B 4 x 2,048 (2 microbatches, remat, bf16, the default
-# moe_impl): ms/step, tokens/s, peak bytes a card, finite loss, aux and
-# grad norm, replicas equal.  (b) Served at RUNS' B 4 x 2,048 + 32 with the
-# default path beside the unsharded steps on the same prompt, and each
-# path's prefill and short_steps decode steps timed; then each path again
-# with its drops counted (stats) and each MoE layer's input read, the
+# moe_impl; 2 steps): ms/step, tokens/s, peak bytes a card, finite loss,
+# aux and grad norm, replicas equal.  (b) Served at RUNS' B 4 x 2,048
+# beside the unsharded steps on the same prompt, each path's prefill and
+# short_steps decode steps timed; then each path again with its drops
+# counted (stats) and each MoE layer's input read, the
 # drops of every call == a plain count of that routing.  (c) A gated fp32
 # cut: 2 layers at FP32_RUNS' B 2 x 512 + 16 at a capacity that drops
 # nothing (cf = E / top_k), each path against the unsharded steps fed the
 # same tokens (_fp32_gate).
-MOE_MESH_FULL = dict(arch="granite-moe-1b-a400m", train_steps=3,
+MOE_MESH_FULL = dict(arch="granite-moe-1b-a400m", train_steps=2,
                      short_steps=4, cut_layers=2,
                      impls=("sharded", "sharded2d", "sharded_a2a"))
 
@@ -2643,8 +2651,8 @@ def phase_moe_mesh_full(dev):
     model = build_model(cfg, device=cards[0])
     model.init_params(torch.Generator(device=cards[0]).manual_seed(0))
     inp = prompt_inputs(cfg, run, cards[0])
-    plain = _prompt_run(model, inp, run["steps"],
-                        run["prompt"] + run["steps"])
+    plain = _prompt_run(model, inp, f["short_steps"],
+                        run["prompt"] + f["short_steps"])
     ctxs = {i: ShardCtx(mesh=mesh, pod_axis=None, attn_impl="flash",
                         moe_impl=i) for i in f["impls"]}
     placed = {i: rt.placed_params(model, c, mode="serve")
@@ -2665,9 +2673,8 @@ def phase_moe_mesh_full(dev):
 
     serve, drops = {}, {}
     for impl, ctx in ctxs.items():
-        steps = run["steps"] if impl == "sharded" else f["short_steps"]
-        rec, cache = _placed_serve(model, placed[impl], ctx, inp, steps,
-                                   mesh, plain)
+        rec, cache = _placed_serve(model, placed[impl], ctx, inp,
+                                   f["short_steps"], mesh, plain)
         rec.pop("stream")
         checks.update({f"serve_{impl}_{k}": v
                        for k, v in rec.pop("checks").items()})
@@ -2730,6 +2737,177 @@ def phase_moe_mesh_full(dev):
         raise SystemExit("moe_mesh_full failed: "
                          f"{[k for k, v in checks.items() if not v]}")
     return launches, _k3_summary(k3)
+
+
+# ------------------------- MLA with the MTP head, Mamba-2, jamba on the mesh --
+# Phase family_mesh_full: the 2 x 2 mesh (the card listed four times where
+# fewer than four are visible), published widths, bf16 unless said, the
+# reference's serve layouts (launch/dryrun.py::make_ctx: SP over "model",
+# or over ("data", "model") at batch 1; sharded2d for deepseek's and
+# jamba's experts).  Each placed run beside the unsharded one on the same
+# inputs, the card holding the two one after the other (the model's own
+# parameters go to meta once placed).
+# (a) mamba2-1.3b whole (48 layers): trained placed at TRAIN_RUNS' B 4 x
+# 2,048 (remat, 2 microbatches, 2 steps; step 1 also unsharded first);
+# served at RUNS' B 4 x 2,048 + 4 decode steps with SP "model" (it leaves a
+# Mamba cache whole); a gated fp32 cut of its first 2 layers (FP32_RUNS' B
+# 2 x 512 + 4).
+# (b) deepseek-v3: one_card_config's serve cut (3 dense MLA layers, 1 MLA +
+# MoE layer of 256 experts and the shared expert) at B 1 x 1,024 + 4 with
+# SP ("data", "model") and sharded2d; one_card_train_config's cut (1 dense
+# MLA layer and the MTP head) trained placed and fused at TRAIN_RUNS' B 2 x
+# 2,048 (remat, one microbatch: two rows do not split into two microbatches
+# over the data axis), 2 steps; a gated fp32 cut of one dense MLA layer
+# (B 1 x 256 + 4, SP ("data", "model")).
+# (c) jamba: blocks 3-4 of its period (mamba/moe, attn/mlp:
+# one_card_config(fp32=True)'s cut, here in bf16) at B 1 x 2,048 + 4 with
+# SP ("data", "model") and sharded2d, K3 in the attention block of every
+# coordinate's prefill (1 layer x 4 coordinates); a gated fp32 cut of
+# (mamba/mlp, attn/mlp) at B 1 x 256 + 4.  K3 held to its plain version
+# and timed beside SDPA at jamba's coordinate shape.
+# Gates: _rounding_bound with every greedy token agreeing (fp32 cuts);
+# the bf16 runs are reported (ROADMAP F14).
+FAMILY_MESH_FULL = dict(train_steps=2, serve_steps=4, cut_layers=2,
+                        cut_run=dict(prompt=256, steps=4),
+                        mamba_cut_run=dict(batch=2, prompt=512, steps=4))
+
+
+def _family_serve(cfg, mesh, ctx, run):
+    """``cfg`` in bf16 on the mesh's first card: the unsharded steps over
+    ``run``'s prompt and ``FAMILY_MESH_FULL``'s decode steps, then the
+    placed steps (``_placed_serve``) beside them.  Returns the record."""
+    from repro_torch.configs.one_card import attention_layers, prompt_inputs
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.runtime import train as rt
+    dev0 = mesh.devices.flat[0]
+    run = dict(run, steps=FAMILY_MESH_FULL["serve_steps"])
+    model = build_model(cfg, device=dev0)
+    model.init_params(torch.Generator(device=dev0).manual_seed(0))
+    inp = prompt_inputs(cfg, run, dev0)
+    n = run["steps"]
+    plain = _prompt_run(model, inp, n, run["prompt"] + n)
+    sp = rt.placed_params(model, ctx, mode="serve")
+    model.to("meta")
+    torch.cuda.empty_cache()
+    rec, cache = _placed_serve(model, sp, ctx, inp, n, mesh, plain)
+    rec.pop("stream")
+    rec.update(params=sum(p.numel() for p in model.parameters()),
+               placed_bytes=sum(b.numel() * b.element_size()
+                                for p in sp.values() for b in p.blocks),
+               k3_launches_prefill_want=attention_layers(cfg) * mesh.size,
+               cache_specs=sorted({f"{k}: {tuple(v.spec)}" for k, v in
+                                   cache["groups"][0]["blocks"][0].items()}))
+    del cache, sp, plain, model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_family_mesh_full(dev):
+    """Returns K3's launches in the main path and K3's record at jamba's
+    coordinate prefill shape."""
+    from repro_torch.configs.base import Block, LayerGroup
+    from repro_torch.configs.one_card import (RUNS, TRAIN_RUNS,
+                                              one_card_config,
+                                              one_card_train_config,
+                                              prompt_inputs)
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.sharding.rules import ShardCtx
+    t_phase = time.perf_counter()
+    f = FAMILY_MESH_FULL
+    cards = _mesh_devices() if torch.cuda.device_count() >= 4 else [dev] * 4
+    mesh = _spmd_mesh(cards)
+    checks, out = {}, {"cards": [str(d) for d in cards]}
+    base = ShardCtx(mesh=mesh, pod_axis=None, attn_impl="flash")
+
+    def train(name, cfg, **kw):
+        rec, state = _spmd_train(cfg, mesh, steps=f["train_steps"],
+                                 lr=TRAIN_FAMILIES_FULL["lr"], remat=True,
+                                 unsharded=True, **kw)
+        del state
+        torch.cuda.empty_cache()
+        rec["step1_loss_diff_vs_unsharded"] = abs(
+            rec["steps"][0]["loss"] - rec["unsharded_step1_loss"])
+        rec["peak_gb_by_device"] = {k: v / 1e9 for k, v in
+                                    rec.pop("peak_bytes_by_device").items()}
+        for k in ("finite", "replicas_equal", "placed_on_coordinates"):
+            checks[f"train_{name}_{k}"] = rec[k]
+        return rec
+
+    def serve(name, cfg, arch, **kw):
+        rec = _family_serve(cfg, mesh, dataclasses.replace(base, **kw),
+                            RUNS[arch])
+        for k, v in rec.pop("checks").items():
+            checks[f"serve_{name}_{k}"] = v
+        checks[f"serve_{name}_k3_launches_a_prefill"] = (
+            rec["k3_launches_prefill"] == rec["k3_launches_prefill_want"])
+        return rec
+
+    def gate(name, cfg, run, **kw):
+        inp = prompt_inputs(cfg, run, cards[0])
+        g = _fp32_gate(cfg, mesh, inp, run["steps"], cards[0], **kw)
+        for r in g.values():
+            checks[f"fp32_{name}_within_bound"] = r["within_bound"]
+            checks[f"fp32_{name}_tokens_agree"] = \
+                r["greedy_tokens_all_agree"]
+        return dict(run, layers=cfg.num_layers,
+                    params=_param_count(cfg), **g)
+
+    ops.launches = 0                        # just before the main path ...
+    # (a) mamba2-1.3b
+    mcfg = get_config("mamba2-1.3b")
+    tr = TRAIN_RUNS[mcfg.name]
+    out["mamba2"] = dict(
+        train=train("mamba2", mcfg, batch=tr["batch"], seq=tr["seq"],
+                    microbatches=TRAIN_FAMILIES_FULL["microbatches"]),
+        serve=serve("mamba2", mcfg, mcfg.name, seq_shard_kv="model"),
+        fp32_cut=gate("mamba2", _cut(mcfg, f["cut_layers"]),
+                      f["mamba_cut_run"], seq_shard_kv="model"))
+    # (b) deepseek-v3
+    dcfg = one_card_config("deepseek-v3-671b")
+    tcfg = one_card_train_config("deepseek-v3-671b")
+    tr = TRAIN_RUNS["deepseek-v3-671b"]
+    dense = LayerGroup(1, (Block("mla", "mlp"),))
+    d32 = dataclasses.replace(tcfg, mtp_depth=0, groups=(dense,))
+    out["deepseek"] = dict(
+        serve=serve("deepseek", dcfg, dcfg.name,
+                    seq_shard_kv=("data", "model"), moe_impl="sharded2d"),
+        train=train("deepseek", tcfg, batch=tr["batch"], seq=tr["seq"],
+                    microbatches=1),
+        fp32_cut=gate("deepseek", d32, dict(f["cut_run"], batch=1),
+                      seq_shard_kv=("data", "model")))
+    # (c) jamba
+    jcfg = one_card_config("jamba-1.5-large-398b", fp32=True)
+    full = get_config("jamba-1.5-large-398b")
+    j32 = dataclasses.replace(full, num_layers=2, groups=(LayerGroup(1, (
+        Block("mamba", "mlp"), Block("attn", "mlp"))),))
+    out["jamba"] = dict(
+        serve=serve("jamba", jcfg, jcfg.name,
+                    seq_shard_kv=("data", "model"), moe_impl="sharded2d"),
+        fp32_cut=gate("jamba", j32, dict(f["cut_run"], batch=1),
+                      seq_shard_kv=("data", "model")))
+    launches = ops.launches                 # ... and read just after
+    checks["jamba_k3_4_launches_a_placed_prefill"] = (
+        out["jamba"]["serve"]["k3_launches_prefill"] == 4)
+    # K3 at jamba's coordinate prefill shape, against its plain version
+    coord = full.scaled(num_heads=full.num_heads // mesh.shape["model"],
+                        num_kv_heads=full.num_kv_heads // mesh.shape["model"])
+    k3 = _k3_at_prefill(coord, 1, 2048, torch.bfloat16, cards[0])
+    out["k3_at_jamba_coordinate"] = {k: v for k, v in k3.items()
+                                     if k != "sdpa"}
+    emit("family_mesh_full", ok=all(checks.values()), checks=checks,
+         config=f, kernel_launches=launches, **out,
+         phase_s=time.perf_counter() - t_phase)
+    if not all(checks.values()):
+        raise SystemExit("family_mesh_full failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return launches, _k3_summary(k3)
+
+
+def _param_count(cfg) -> int:
+    from repro_torch.models.model_zoo import build_model
+    return sum(p.numel() for p in build_model(cfg, device="meta")
+               .parameters())
 
 
 # ------------------------------------------------- provisioning loop (K1) --
@@ -7118,11 +7296,11 @@ def _train_flops(cfg, tokens, seq):
 
 
 def phase_train_full(dev):
-    """The training path at full width (``TRAIN_FULL``: qwen2-1.5b, 28
-    layers, d_model 1536, the padded 151,936 vocabulary, bf16 parameters
+    """The training path at full width (``TRAIN_FULL``: qwen2-1.5b's first
+    14 layers, d_model 1536, the padded 151,936 vocabulary, bf16 parameters
     from a seeded init) through ``launch/train.py``'s loop on
     ``ShardedBatches`` at 8 x 2,048 tokens, 2 microbatches, xent chunk
-    512, remat off: (a) 3 fused steps, (b) 3 two-phase steps with fp32
+    512, remat off: (a) 2 fused steps, (b) 2 two-phase steps with fp32
     moments in pinned host memory, (c) 2 two-phase steps with int8
     moments, from the same parameters.  Hard checks: finite losses and
     grad norms, step 1's loss ``==`` in (a) and (b), the parameters after
@@ -7141,7 +7319,7 @@ def phase_train_full(dev):
     from repro_torch.runtime import checkpoint as ckpt
     from repro_torch.runtime import train as rt
     t_phase = time.perf_counter()
-    cfg = get_config(TRAIN_FULL["arch"])
+    cfg = _cut(get_config(TRAIN_FULL["arch"]), TRAIN_FULL["layers"])
     model = build_model(cfg, device=dev)
     model.init_params(torch.Generator(device=dev).manual_seed(
         TRAIN_FULL["seed"]))
@@ -7336,12 +7514,12 @@ TRAIN_FAMILY_ARCHS = ("granite-moe-1b-a400m", "mamba2-1.3b",
 # widths (granite, mamba2 and whisper whole; internvl2's first 4 layers;
 # deepseek's first dense MLA layer with its MTP head), bf16 parameters from
 # a seeded init on the card, remat on, 2 microbatches, the trainer's AdamW
-# defaults (lr 3e-3, 20 warmup steps): 3 fused steps, and for deepseek (the
-# reference's plan: two_phase, bf16 accumulation) 2 two-phase steps from
-# the same parameters.  Text from ShardedBatches, frames and patch rows
+# defaults (lr 3e-3, 20 warmup steps): 2 fused steps, and
+# for deepseek (the reference's plan: two_phase, bf16 accumulation) 2
+# two-phase steps from the same parameters.  Text from ShardedBatches, frames and patch rows
 # from a seeded generator on the card (N(0, 0.02^2), bf16).
 TRAIN_FAMILIES_FULL = dict(seed=0, microbatches=2, lr=3e-3, warmup_steps=20,
-                           steps_fused=3, steps_two_phase=2)
+                           steps_fused=2, steps_two_phase=2)
 
 
 def _family_batch_shapes(cfg, batch, seq):
@@ -7827,6 +8005,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     flash_by_path["moe_mesh_full"], flash["at_moe_mesh_prefill"] = \
         phase_moe_mesh_full(dev)
+    torch.cuda.empty_cache()
+    (flash_by_path["family_mesh_full"],
+     flash["at_family_mesh_jamba_prefill"]) = phase_family_mesh_full(dev)
     flash["launches"] = sum(flash_by_path.values())
     flash["launches_by_path"] = flash_by_path
     torch.cuda.empty_cache()

@@ -467,22 +467,19 @@ def attn_local(x, w: dict, cfg: ArchConfig, positions, *, mode: str,
 
 
 # ----------------------------------- a sequence-sharded ring cache (SP) ---
-def ring_block_write(cache: dict, k, v, positions, first: int, width: int):
-    """``ring_cache_fill`` (``k``/``v`` (B, T, Hkv, D), positions (B, T))
-    into one coordinate's block of a ring of ``width`` slots, the block
-    holding slots ``first`` .. ``first + w_loc - 1``: of the last
-    ``min(T, width)`` tokens each writes its slot where the block holds
-    it, in place.  One token a row (a decode step's ``ring_cache_update``)
-    writes back what it read where its slot lies elsewhere; more go
-    through a copy of the block with a spare slot the others land in."""
-    w_loc = cache["k"].shape[1]
-    keep = min(k.shape[1], width)
-    vals = {"k": k[:, -keep:], "v": v[:, -keep:],
-            "pos": positions[:, -keep:]}
-    local = (vals["pos"] % width).long() - first
+def block_write(cache: dict, vals: dict, slots, first: int):
+    """``vals[name]`` (B, T, ...) written into one coordinate's block of a
+    cache whose slots split over mesh axes, the block holding slots
+    ``first`` .. ``first + w_loc - 1``: each token at its absolute slot
+    (``slots`` (B, T)) where the block holds it, in place.  One token a
+    row (a decode step) writes back what it read where its slot lies
+    elsewhere; more go through a copy of the block with a spare slot the
+    others land in."""
+    w_loc = cache[next(iter(vals))].shape[1]
+    local = slots.long() - first
     mine = (local >= 0) & (local < w_loc)
-    rows = torch.arange(k.shape[0], device=k.device)[:, None]
-    if keep == 1:
+    rows = torch.arange(slots.shape[0], device=slots.device)[:, None]
+    if slots.shape[1] == 1:
         at = local.clamp(0, w_loc - 1)
         for name, val in vals.items():
             buf = cache[name]
@@ -498,6 +495,18 @@ def ring_block_write(cache: dict, k, v, positions, first: int, width: int):
     return cache
 
 
+def ring_block_write(cache: dict, k, v, positions, first: int, width: int):
+    """``ring_cache_fill`` (``k``/``v`` (B, T, Hkv, D), positions (B, T))
+    into one coordinate's block of a ring of ``width`` slots, the block
+    holding slots ``first`` .. ``first + w_loc - 1``: of the last
+    ``min(T, width)`` tokens each writes its slot where the block holds
+    it, in place (:func:`block_write`)."""
+    keep = min(k.shape[1], width)
+    pos = positions[:, -keep:]
+    return block_write(cache, {"k": k[:, -keep:], "v": v[:, -keep:],
+                               "pos": pos}, pos % width, first)
+
+
 def _block_partials(q, k, v, mask, scale: float):
     """Decode attention over one block of slots, unnormalised, in fp32:
     (o (B, 1, Hkv, G, D), the running max m and sum l (B, 1, Hkv, G)).  A
@@ -511,6 +520,21 @@ def _block_partials(q, k, v, mask, scale: float):
     p = torch.where(mask, torch.exp(logits - m[..., None]), 0.0)
     o = einsum_f32("bhgqk,bkhd->bqhgd", p, v)
     return o, m.permute(0, 3, 1, 2), p.sum(-1).permute(0, 3, 1, 2)
+
+
+def merge_partials(parts: list, mesh, seq_axes) -> list:
+    """Each rank's attention output (B, 1, Hkv, G, D) fp32 from the
+    blocks' ``_block_partials`` merged over ``seq_axes`` (flash-decoding:
+    m* = max m, o = sum exp(m - m*) o / sum exp(m - m*) l); a block with
+    no valid slot weighs 0."""
+    from repro_torch.sharding import spmd
+    top = spmd.pmax([m for _, m, _ in parts], mesh, seq_axes)
+    sums = []
+    for (o, m, l), mx in zip(parts, top):
+        e = torch.exp(m - mx)
+        sums.append(torch.cat([o * e[..., None], (l * e)[..., None]], -1))
+    return [t[..., :-1] / t[..., -1:]
+            for t in spmd.psum(sums, mesh, seq_axes)]
 
 
 def attn_seq_sharded(hs: list, ws: list, cfg: ArchConfig, positions: list,
@@ -530,9 +554,9 @@ def attn_seq_sharded(hs: list, ws: list, cfg: ArchConfig, positions: list,
     attends the heads its block serves (the query heads gathered over the
     model axis where needed) over its slots with its own ``pos`` as mask
     (``_block_partials``), and the partials merge over ``seq_axes``
-    (flash-decoding: m* = max m, o = sum exp(m - m*) o / sum exp(m - m*)
-    l); each coordinate keeps its own heads.  Returns each coordinate's
-    share of the output projection, as ``attn_local``."""
+    (:func:`merge_partials`); each coordinate keeps its own heads.
+    Returns each coordinate's share of the output projection, as
+    ``attn_local``."""
     from repro_torch.sharding import spmd
     n = len(hs)
     qkv = [_qkv_local(hs[r], ws[r], cfg, positions[r], mode)
@@ -565,15 +589,8 @@ def attn_seq_sharded(hs: list, ws: list, cfg: ArchConfig, positions: list,
             ring_cache_mask(views[r]["pos"], positions[r],
                             cfg.sliding_window), cfg.head_dim ** -0.5)
             for r in range(n)]
-        top = spmd.pmax([m for _, m, _ in parts], mesh, seq_axes)
-        sums = []
-        for (o, m, l), mx in zip(parts, top):
-            e = torch.exp(m - mx)
-            sums.append(torch.cat([o * e[..., None], (l * e)[..., None]], -1))
-        sums = spmd.psum(sums, mesh, seq_axes)
         outs = []
-        for r, t in enumerate(sums):
-            o = t[..., :-1] / t[..., -1:]
+        for r, o in enumerate(merge_partials(parts, mesh, seq_axes)):
             o = o.reshape(o.shape[0], 1, -1, o.shape[-1])
             if o.shape[2] > n_q:
                 o = o[:, :, q_first[r]:q_first[r] + n_q]

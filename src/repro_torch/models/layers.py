@@ -28,6 +28,16 @@ class SpecModule(nn.Module):
         """Seeded init of this module's parameters (not its children's)."""
         init_params_(self, self.param_specs, generator)
 
+    def _apply(self, fn, *args, **kwargs):
+        # ``.to("meta")`` and other moves across tensor types put new
+        # Parameter objects in place; a mixer's cached ``tree`` (MLA,
+        # Mamba-2, MoE) is rebuilt on them, or it would keep the old ones,
+        # and their memory, alive
+        out = super()._apply(fn, *args, **kwargs)
+        if "tree" in self.__dict__:
+            self.tree = self.param_tree()
+        return out
+
     def param_tree(self) -> dict:
         """This module's parameters as the reference's dict of leaves,
         a child ``SpecModule``'s as a nested dict under its name."""

@@ -11,13 +11,26 @@ width) and the value head ``v_head_dim`` (128), so MLA never reaches the
 flash kernel K3: as in the reference, ``impl="blocked"`` past 1,024
 tokens takes the plain blocked attention and everything else the dot
 path.  The cache is written in place (the reference donates it).
+
+On a mesh (:func:`mla_placed`) each coordinate holds its heads of
+``w_q_up``, ``w_k_up``, ``w_v_up`` and ``wo`` (the reference's "heads"
+over the model axis) and the down projections and norms whole, so every
+coordinate computes the same latents; its share of the output projection
+is summed over the model axis by the caller.  A latent cache whose slots
+split over mesh axes (SP) is written block by block at the absolute slot,
+and the absorbed decode merges each block's partial softmax
+(``attention.merge_partials``).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.attention import NEG_INF, blocked_attention
+from repro_torch.models.attention import (NEG_INF, _block_partials,
+                                          block_write, blocked_attention,
+                                          merge_partials)
 from repro_torch.models.compute import einsum_f32
 from repro_torch.models.layers import (SpecModule, apply_rope, rms_norm,
                                        rope_cos_sin)
@@ -169,6 +182,83 @@ def mla_decode(p, x, cfg: ArchConfig, cache: dict, positions):
                        cache["c_kv"])
     out = torch.einsum("bqhr,rhe->bqhe", o_lat.to(x.dtype), p["w_v_up"])
     return torch.einsum("bshe,hed->bsd", out, p["wo"]), cache
+
+
+def _absorbed_query(p, q_nope, q_rope):
+    """The absorbed decode's query (B, 1, H, kv_lora + rope): ``w_k_up``
+    folded into ``q_nope``, beside ``q_rope``; its product with a cache
+    row [c_kv ; k_rope] is the reference's two score terms."""
+    q_abs = torch.einsum("bqhe,rhe->bqhr", q_nope, p["w_k_up"])
+    return torch.cat([q_abs, q_rope.to(q_abs.dtype)], -1)
+
+
+def mla_placed(hs: list, ws: list, cfg: ArchConfig, positions: list, *,
+               mode: str, views, mesh, model_axis: str, seq_axes,
+               q_first: list, impl: str = "blocked") -> list:
+    """MLA on rank lists (``models/transformer.py::_mesh_block``): ``hs``
+    each coordinate's normed input, ``ws`` its weights (its heads of the
+    up projections and ``wo`` from head ``q_first``, the rest whole),
+    ``views`` its block of the layer's latent cache (None in train mode),
+    whole on the slots or split over ``seq_axes`` (SP).  Returns each
+    coordinate's share of the output projection (the partial sum over its
+    heads).
+
+    Under SP a prefill attends its fresh latents and each coordinate
+    writes the tokens whose slots its block holds; a decode step writes
+    the token at its slot (the position clamped to the last slot, as
+    :func:`mla_decode`), each coordinate scores the heads its block serves
+    (every head, the absorbed queries gathered over the model axis, where
+    the model axis splits the slots) over its slots, masked by slot <=
+    position as there, and the blocks' fp32 partials merge over
+    ``seq_axes``; each coordinate keeps its own heads for ``w_v_up`` and
+    ``wo``."""
+    n = len(hs)
+    if mode == "train":
+        return [mla_forward(ws[r], hs[r], cfg, positions[r], impl)
+                for r in range(n)]
+    if seq_axes is None:
+        step = ((lambda r: mla_prefill(ws[r], hs[r], cfg, views[r],
+                                       positions[r], impl))
+                if mode == "prefill" else
+                (lambda r: mla_decode(ws[r], hs[r], cfg, views[r],
+                                      positions[r])))
+        return [step(r)[0] for r in range(n)]
+    from repro_torch.sharding import spmd
+    m = cfg.mla
+    w_loc = views[0]["c_kv"].shape[1]
+    blk = spmd.axis_index(mesh, seq_axes)
+    width = w_loc * math.prod(mesh.shape[a] for a in spmd._axes(seq_axes))
+    pos = positions if mode == "prefill" else [p[:, None]
+                                               for p in positions]
+    lat = [_latents(ws[r], hs[r], cfg, pos[r]) for r in range(n)]
+    for r, (_, _, c_kv, k_rope) in enumerate(lat):
+        slots = pos[r] if mode == "prefill" else pos[r].clamp(0, width - 1)
+        block_write(views[r], {"c_kv": c_kv, "k_rope": k_rope,
+                               "pos": pos[r]}, slots, blk[r] * w_loc)
+    if mode == "prefill":
+        return [_mla_attend(ws[r], *lat[r], cfg, positions[r], impl)
+                for r in range(n)]
+    qs = [_absorbed_query(ws[r], lat[r][0], lat[r][1]) for r in range(n)]
+    n_q = qs[0].shape[2]
+    if n_q < cfg.num_heads and model_axis in spmd._axes(seq_axes):
+        qs = spmd.all_gather(qs, mesh, model_axis, 2)
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    parts = []
+    for r, v in enumerate(views):
+        slot = blk[r] * w_loc + torch.arange(w_loc, device=v["pos"].device)
+        valid = slot[None] <= positions[r][:, None]           # (B, w_loc)
+        kv = torch.cat([v["c_kv"], v["k_rope"]], -1)[:, :, None]
+        parts.append(_block_partials(qs[r], kv, v["c_kv"][:, :, None],
+                                     valid[:, None, None, None], scale))
+    outs = []
+    for r, o in enumerate(merge_partials(parts, mesh, seq_axes)):
+        o = o.reshape(o.shape[0], 1, -1, o.shape[-1])       # (B,1,H,r)
+        if o.shape[2] > n_q:
+            o = o[:, :, q_first[r]:q_first[r] + n_q]
+        out = torch.einsum("bqhr,rhe->bqhe", o.to(hs[r].dtype),
+                           ws[r]["w_v_up"])
+        outs.append(torch.einsum("bshe,hed->bsd", out, ws[r]["wo"]))
+    return outs
 
 
 class MLA(SpecModule):

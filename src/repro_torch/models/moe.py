@@ -141,6 +141,17 @@ def moe_dense(p: dict, x: torch.Tensor, cfg: ArchConfig):
     chunk, not E x T.  The function is the same; only the order of the
     sum over experts differs."""
     m = cfg.moe
+    y, logits, idx = _routed_dense(p, x, cfg)
+    if m.num_shared_experts:
+        y = y + _shared_ffn(p["shared"], x)
+    aux = aux_losses(logits, idx, m.num_experts, m.aux_loss, m.router_z_loss)
+    return y, aux
+
+
+def _routed_dense(p: dict, x: torch.Tensor, cfg: ArchConfig):
+    """:func:`moe_dense`'s routed experts: (their output in x's dtype, the
+    fp32 router logits, the top-k indices)."""
+    m = cfg.moe
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
@@ -157,11 +168,7 @@ def moe_dense(p: dict, x: torch.Tensor, cfg: ArchConfig):
         eo = _expert_ffn(p["w_gate"][sl], p["w_up"][sl], p["w_down"][sl],
                          xt.expand(n, t, d))
         y += torch.einsum("etd,te->td", eo.to(torch.float32), dense_w[:, sl])
-    y = y.to(x.dtype).reshape(b, s, d)
-    if m.num_shared_experts:
-        y = y + _shared_ffn(p["shared"], x)
-    aux = aux_losses(logits, idx, m.num_experts, m.aux_loss, m.router_z_loss)
-    return y, aux
+    return y.to(x.dtype).reshape(b, s, d), logits, idx
 
 
 # ----------------------------------------------------------- sharded path --
@@ -539,7 +546,7 @@ def moe_placed(bp: dict, xs: list, x_spec, cfg: ArchConfig, ctx,
     impl = _impl_of(cfg, ctx, s)
     if impl == "dense":
         w = _placed_weights(bp, mesh, (P(),) * len(_WEIGHTS))
-        ys = [moe_dense(w[r], x, cfg)[0] for r, x in enumerate(xs)]
+        ys = [_routed_dense(w[r], x, cfg)[0] for r, x in enumerate(xs)]
     else:
         pl = _plan(cfg, ctx, impl, b, s, cf)
         xl = spmd.reshard(xs, mesh, x_spec, pl.x_spec)

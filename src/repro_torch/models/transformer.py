@@ -34,16 +34,22 @@ On a mesh (M18), ``forward``, ``prefill``, ``decode`` and ``logits`` take
 then never read (they may lie on the meta device).  Each coordinate runs
 its blocks: the embedding's d-slice then an all-gather over the model
 axis, attention on its query heads (``attention.attn_local``; K3 in a
-flash prefill, once a coordinate), SwiGLU on its ff columns, each
-followed by a ``psum`` over the model axis where the heads or the ff
-split, the weights' "embed" dim gathered over the data axes first (FSDP);
-an MoE ffn by ``moe.moe_placed`` (its experts over the model axis, its aux
-losses summed as here); norms and the residual stream are replicated over
-the model axis, the batch split over the batch axes where it splits (at
-batch 1 every coordinate holds the row).  A cache whose slots split over
-mesh axes (SP, ``ShardCtx.seq_shard_kv``) goes through
-``attention.attn_seq_sharded``.  The dense decoder and the MoE family
-(``is_attention_decoder``, ``mesh_family_check``) run there.
+flash prefill, once a coordinate), MLA on its heads with the latents
+computed whole (``mla.mla_placed``), Mamba-2 on its inner channels and
+heads with B and C whole and the gated norm's sum of squares summed over
+the model axis (``mamba2.mamba_placed``), SwiGLU on its ff columns, each
+followed by a ``psum`` over the model axis where the heads, channels or
+ff split, the weights' "embed" dim gathered over the data axes first
+(FSDP); an MoE ffn by ``moe.moe_placed`` (its experts over the model
+axis, its aux losses summed as here); norms and the residual stream are
+replicated over the model axis, the batch split over the batch axes
+where it splits (at batch 1 every coordinate holds the row).  A ring or
+latent cache whose slots split over mesh axes (SP,
+``ShardCtx.seq_shard_kv``) goes through ``attention.attn_seq_sharded``
+or ``mla.mla_placed``'s merge.  The MTP head runs on the placed hidden
+states (``_mesh_mtp``).  Every decoder-only family runs there
+(``is_placed_family``, ``mesh_family_check``); the encoder-decoder and
+the vision frontend do not.
 """
 from __future__ import annotations
 
@@ -204,26 +210,33 @@ class MTPHead(SpecModule):
 
 
 # -------------------------------------------------------- on a mesh (M18) --
-def is_attention_decoder(cfg: ArchConfig) -> bool:
-    """Every block attention with a SwiGLU MLP or an MoE ffn, no encoder,
-    frontend or MTP head: the dense decoder and the MoE family, which the
-    sharded steps place."""
-    return (cfg.family in ("dense", "moe") and not cfg.is_encoder_decoder
-            and cfg.frontend is None and not cfg.mtp_depth
+def is_placed_family(cfg: ArchConfig) -> bool:
+    """A decoder-only stack whose blocks are attention, MLA or Mamba-2,
+    each with a SwiGLU MLP, an MoE ffn or none, an MTP head where it has
+    one: the dense decoder and the MoE, MLA, Mamba-2 and hybrid families,
+    which the sharded steps place (not the encoder-decoder or a vision
+    frontend)."""
+    return (not cfg.is_encoder_decoder and cfg.frontend is None
             and cfg.act == "silu"
-            and all(b.mixer == "attn" and b.ffn in ("mlp", "moe")
+            and all(b.mixer in ("attn", "mla", "mamba")
+                    and b.ffn in ("mlp", "moe", "none")
                     for g in cfg.groups for b in g.blocks))
 
 
-def mesh_family_check(cfg: ArchConfig, what: str) -> None:
+def mesh_family_check(cfg: ArchConfig, what: str, ctx: ShardCtx) -> None:
     """Raise ``NotImplementedError`` unless the sharded steps place
-    ``cfg`` (:func:`is_attention_decoder`)."""
-    if not is_attention_decoder(cfg):
+    ``cfg`` (:func:`is_placed_family`), ``ValueError`` where ``ctx``'s
+    rules split a Mamba mixer's inner channels and heads unalike
+    (``mamba2.check_split``)."""
+    if not is_placed_family(cfg):
         raise NotImplementedError(
             f"{what}: {cfg.name} ({cfg.family}) on a mesh of more than one "
-            "coordinate; the sharded steps place the dense decoder and the "
-            "MoE family only (ROADMAP Queue 1, M18c: the MLA, Mamba-2, "
-            "encoder-decoder and frontend families under placement)")
+            "coordinate; the sharded steps place the decoder-only families "
+            "(attention, MLA and Mamba-2 blocks) only (ROADMAP Queue 1, "
+            "M18c: the encoder-decoder and frontend families under "
+            "placement)")
+    if any(b.mixer == "mamba" for g in cfg.groups for b in g.blocks):
+        mamba2.check_split(cfg, ctx)
 
 
 def _norm_blocks(params: dict, prefix: str, x, cfg: ArchConfig) -> list:
@@ -243,45 +256,77 @@ def _local(params: dict, prefix: str, keep) -> dict[str, list]:
             for k, p in params.items() if k.startswith(prefix)}
 
 
-def _mesh_block(cfg: ArchConfig, bp: dict, x: list, positions: list,
-                ctx: ShardCtx, mode: str, views, x_spec, kv_seq=None,
-                stats=None):
-    """One attention + MLP or MoE block over every coordinate.  ``bp``:
-    the block's placed parameters by short name; ``views``: a rank list
-    of the layer's cache views (None in train mode), their slots split
-    over ``kv_seq`` (SP: ``attention.attn_seq_sharded``) or whole;
-    ``x_spec``: the residual stream's placement; ``stats``: the MoE's
-    drop count.  Returns (x, the MoE's aux or None)."""
+#: each mixer's leaf whose dim splits its heads over the model axis
+_HEADS_LEAF = {"attn": ("mixer.wq", 1), "mla": ("mixer.w_q_up", 1),
+               "mamba": ("mixer.A_log", 0)}
+
+
+def _mesh_mixer(cfg: ArchConfig, kind: Block, bp: dict, h: list,
+                positions: list, ctx: ShardCtx, mode: str, views, kv_seq):
+    """The block's mixer on every coordinate's heads, its weights
+    gathered whole on "embed" (FSDP): attention (``attn_local``, or
+    ``attn_seq_sharded`` where the ring's slots split over ``kv_seq``),
+    MLA (``mla.mla_placed``) or Mamba-2 (``mamba2.mamba_placed``; its
+    inner channels split with its heads, ``mesh_family_check``).  Returns
+    (each coordinate's share of the output projection, whether the heads
+    split over the model axis)."""
+    mesh, ma = ctx.mesh, ctx.model_axis
+    n = len(h)
+    leaf, dim = _HEADS_LEAF[kind.mixer]
+    split = spmd.sharded_over(bp[leaf], ma) is not None
+    per = bp[leaf].blocks[0].shape[dim]
+    first = ([j * per for j in spmd.axis_index(mesh, ma)] if split
+             else [0] * n)
+    w = _local(bp, "mixer.", (ma,))
+    ws = [{k: v[r] for k, v in w.items()} for r in range(n)]
+    if kind.mixer == "mla":
+        return mla.mla_placed(h, ws, cfg, positions, mode=mode, views=views,
+                              mesh=mesh, model_axis=ma, seq_axes=kv_seq,
+                              q_first=first, impl=ctx.attn_impl), split
+    if kind.mixer == "mamba":
+        return mamba2.mamba_placed(h, ws, cfg, mode=mode, views=views,
+                                   first=first, mesh=mesh, model_axis=ma,
+                                   split=split), split
+    if kv_seq is not None:
+        return attn.attn_seq_sharded(h, ws, cfg, positions, mode=mode,
+                                     q_first=first, views=views, mesh=mesh,
+                                     model_axis=ma, seq_axes=kv_seq,
+                                     impl=ctx.attn_impl), split
+    return [attn.attn_local(h[r], ws[r], cfg, positions[r], mode=mode,
+                            q_first=first[r],
+                            cache=None if views is None else views[r],
+                            impl=ctx.attn_impl) for r in range(n)], split
+
+
+def _mesh_block(cfg: ArchConfig, kind: Block, bp: dict, x: list,
+                positions: list, ctx: ShardCtx, mode: str, views, x_spec,
+                kv_seq=None, stats=None):
+    """One pre-norm residual block of kind ``kind`` over every
+    coordinate.  ``bp``: the block's placed parameters by short name;
+    ``views``: a rank list of the layer's cache views (None in train
+    mode), their slots split over ``kv_seq`` (SP) or whole; ``x_spec``:
+    the residual stream's placement; ``stats``: the MoE's drop count.
+    The mixer (:func:`_mesh_mixer`), its partial outputs summed over the
+    model axis where it splits; then the MLP, the MoE
+    (``moe.moe_placed``) or no ffn.  Returns (x, the MoE's aux or
+    None)."""
     mesh, ma = ctx.mesh, ctx.model_axis
     n = len(x)
-    keep = (ma,)
     h = _norm_blocks(bp, "norm1.", x, cfg)
-    w = _local(bp, "mixer.", keep)
-    heads = spmd.sharded_over(bp["mixer.wq"], ma) is not None
-    per = bp["mixer.wq"].blocks[0].shape[1]
-    first = ([j * per for j in spmd.axis_index(mesh, ma)] if heads
-             else [0] * n)
-    ws = [{k: v[r] for k, v in w.items()} for r in range(n)]
-    if kv_seq is not None:
-        y = attn.attn_seq_sharded(h, ws, cfg, positions, mode=mode,
-                                  q_first=first, views=views, mesh=mesh,
-                                  model_axis=ma, seq_axes=kv_seq,
-                                  impl=ctx.attn_impl)
-    else:
-        y = [attn.attn_local(h[r], ws[r], cfg, positions[r], mode=mode,
-                             q_first=first[r],
-                             cache=None if views is None else views[r],
-                             impl=ctx.attn_impl) for r in range(n)]
-    if heads:
+    y, split = _mesh_mixer(cfg, kind, bp, h, positions, ctx, mode, views,
+                           kv_seq)
+    if split:
         y = spmd.psum(y, mesh, ma)
     x = [a + b for a, b in zip(x, y)]
+    if kind.ffn == "none":
+        return x, None
     h = _norm_blocks(bp, "norm2.", x, cfg)
-    if "ffn.router" in bp:
+    if kind.ffn == "moe":
         cf = ctx.moe_decode_cf if mode == "decode" else None
         y, aux = moe.moe_placed(_block_params(bp, "ffn."), h, x_spec, cfg,
                                 ctx, cf, stats)
         return [a + b for a, b in zip(x, y)], aux
-    w = _local(bp, "ffn.", keep)
+    w = _local(bp, "ffn.", (ma,))
     y = [apply_mlp(h[r], **{k: v[r] for k, v in w.items()})
          for r in range(n)]
     if spmd.sharded_over(bp["ffn.wo"], ma) is not None:
@@ -322,8 +367,9 @@ class _Remat(torch.autograd.Function):
                                     for t in ts)
 
 
-def _remat_block(cfg: ArchConfig, bp: dict, x: list, positions: list,
-                 ctx: ShardCtx, mode: str, x_spec, stats=None):
+def _remat_block(cfg: ArchConfig, kind: Block, bp: dict, x: list,
+                 positions: list, ctx: ShardCtx, mode: str, x_spec,
+                 stats=None):
     """``_mesh_block`` in train mode under :class:`_Remat` (the drops
     counted in the forward's run only); returns (x, aux or None)."""
     names = list(bp)
@@ -335,8 +381,9 @@ def _remat_block(cfg: ArchConfig, bp: dict, x: list, positions: list,
             local[n] = spmd.Placed(blocks[k:k + len(p.blocks)], p.sharding,
                                    p.shape)
             k += len(p.blocks)
-        out, aux = _mesh_block(cfg, local, xs, positions, ctx, mode, None,
-                               x_spec, stats=stats if first else None)
+        out, aux = _mesh_block(cfg, kind, local, xs, positions, ctx, mode,
+                               None, x_spec,
+                               stats=stats if first else None)
         return out if aux is None else out + [aux]
 
     out = list(_Remat.apply(run, len(x), *x,
@@ -375,20 +422,47 @@ def _mesh_embed(params: dict, tokens: spmd.Placed, ctx: ShardCtx) -> list:
     return xs
 
 
+def _slot_axes(leaves: dict):
+    """The mesh axes a layer's cache splits its slots over (SP), read from
+    the leaf its mixer has: the ring's ``k``, the latent ``c_kv``; None
+    for a Mamba cache, which has no slots, or where they are whole."""
+    leaf = leaves.get("k", leaves.get("c_kv"))
+    return None if leaf is None else leaf.spec[2]   # (layers, B, W, ...)
+
+
+def _run_block(cfg: ArchConfig, kind: Block, bp: dict, x: list,
+               positions: list, ctx: ShardCtx, mode: str, x_spec, stats,
+               leaves=None, layer: int = 0):
+    """One block over every coordinate: under :class:`_Remat` in train
+    mode with ``ctx.remat``, else :func:`_mesh_block` on the views of
+    ``leaves`` (the layer's placed cache leaves by name, None in train
+    mode) at ``layer``."""
+    if mode == "train" and ctx.remat:
+        return _remat_block(cfg, kind, bp, x, positions, ctx, mode, x_spec,
+                            stats)
+    views = kv_seq = None
+    if leaves is not None:
+        views = [{k: t.blocks[r][layer] for k, t in leaves.items()}
+                 for r in range(len(x))]
+        kv_seq = _slot_axes(leaves)
+    return _mesh_block(cfg, kind, bp, x, positions, ctx, mode, views,
+                       x_spec, kv_seq, stats)
+
+
 def _mesh_run(model, params: dict, tokens, positions, ctx: ShardCtx,
               cache, mode: str):
     """The embedding, every block and the final norm on placed
     parameters; returns the hidden states, placed as the tokens' rows
-    (over the batch axes, or whole where the batch does not split), and
-    the MoE layers' summed aux on coordinate 0's device."""
+    (over the batch axes, or whole where the batch does not split), the
+    MoE layers' summed aux on coordinate 0's device, and the embedding's
+    rank list (the MTP head reads it)."""
     cfg = model.cfg
-    mesh_family_check(cfg, f"LM {mode} with placed parameters")
+    mesh_family_check(cfg, f"LM {mode} with placed parameters", ctx)
     _check_inputs(tokens, positions, params, ctx)
-    x = _mesh_embed(params, tokens, ctx)
+    emb = x = _mesh_embed(params, tokens, ctx)
     pos = positions.blocks
     x_spec = P(tokens.spec[0], None, None)
     hs = NamedSharding(ctx.mesh, x_spec)
-    remat = mode == "train" and ctx.remat
     aux = torch.zeros((), dtype=torch.float32, device=x[0].device)
     for gi, group in enumerate(model.groups):
         gc = None if cache is None else cache["groups"][gi]["blocks"]
@@ -396,22 +470,35 @@ def _mesh_run(model, params: dict, tokens, positions, ctx: ShardCtx,
             for bi, blk in enumerate(layer):
                 bp = _block_params(params, f"groups.{gi}.{li}.{bi}.")
                 stats = getattr(getattr(blk, "ffn", None), "stats", None)
-                if remat:
-                    x, a = _remat_block(cfg, bp, x, pos, ctx, mode, x_spec,
-                                        stats)
-                else:
-                    views = kv_seq = None
-                    if gc is not None:
-                        views = [{k: t.blocks[r][li]
-                                  for k, t in gc[bi].items()}
-                                 for r in range(len(x))]
-                        kv_seq = gc[bi]["k"].spec[2]   # (layers, B, W, ...)
-                    x, a = _mesh_block(cfg, bp, x, pos, ctx, mode, views,
-                                       x_spec, kv_seq, stats)
+                x, a = _run_block(cfg, blk.kind, bp, x, pos, ctx, mode,
+                                  x_spec, stats,
+                                  None if gc is None else gc[bi], li)
                 if a is not None:
                     aux = aux + a
         x = ctx.constrain(spmd.Placed(x, hs), x_spec).blocks
-    return spmd.Placed(_norm_blocks(params, "final_norm.", x, cfg), hs), aux
+    hidden = spmd.Placed(_norm_blocks(params, "final_norm.", x, cfg), hs)
+    return hidden, aux, emb
+
+
+def _mesh_mtp(model, params: dict, hidden: spmd.Placed, emb: list,
+              positions, ctx: ShardCtx):
+    """The MTP head on placed parameters: h'_i = Block(proj [h_i ;
+    emb(t_{i+1})]) with ``proj`` gathered over the data axes (FSDP), the
+    head's block by :func:`_run_block`, its norm replicated.  Returns (the
+    head's hidden states (B, S-1, d), placed as ``hidden``; the block's
+    aux or None)."""
+    cfg = model.cfg
+    proj = spmd.unshard(params["mtp.proj"], (ctx.model_axis,))
+    h = [torch.einsum("bsd,dk->bsk", torch.cat(
+        [x[:, :-1], e[:, 1:].to(x.dtype)], dim=-1), w)
+        for x, e, w in zip(hidden.blocks, emb, proj)]
+    pos = [p[:, 1:] for p in positions.blocks]
+    blk = model.mtp.block
+    stats = getattr(getattr(blk, "ffn", None), "stats", None)
+    h, aux = _run_block(cfg, blk.kind, _block_params(params, "mtp.block."),
+                        h, pos, ctx, "train", hidden.spec, stats)
+    return (spmd.Placed(_norm_blocks(params, "mtp.norm.", h, cfg),
+                        hidden.sharding), aux)
 
 
 def mesh_logits(params: dict, hidden: spmd.Placed,
@@ -554,12 +641,19 @@ class LM(nn.Module):
         ``mtp_depth`` and the model its head, ``"mtp_hidden"`` (B,S-1,d):
         h'_i = Block(proj [h_i ; emb(t_{i+1})]) predicts t_{i+2}, and the
         head's block adds its aux.  With placed ``params`` (module
-        docstring) tokens and positions are placed, and ``hidden`` is."""
+        docstring) tokens and positions are placed, and ``hidden`` and
+        ``mtp_hidden`` are (the head where ``params`` hold it)."""
         cfg = self.cfg
         if params is not None:
-            hidden, aux = _mesh_run(self, params, tokens, positions, ctx,
-                                    None, "train")
-            return {"hidden": hidden, "aux": aux}
+            hidden, aux, emb = _mesh_run(self, params, tokens, positions,
+                                         ctx, None, "train")
+            out = {"hidden": hidden, "aux": aux}
+            if cfg.mtp_depth and "mtp.proj" in params:
+                out["mtp_hidden"], mtp_aux = _mesh_mtp(
+                    self, params, hidden, emb, positions, ctx)
+                if mtp_aux is not None:
+                    out["aux"] = aux + mtp_aux
+            return out
         x = self.embed(tokens, embeds)
         x, aux = self._run_groups(x, positions, ctx, None, "train")
         x = self.final_norm(x)
@@ -583,8 +677,8 @@ class LM(nn.Module):
         placed ``params`` the inputs, the cache's leaves and the hidden
         states are placed."""
         if params is not None:
-            hidden, aux = _mesh_run(self, params, tokens, positions, ctx,
-                                    cache, "prefill")
+            hidden, aux, _ = _mesh_run(self, params, tokens, positions,
+                                       ctx, cache, "prefill")
             return hidden, cache, aux
         x = self.embed(tokens, embeds)
         x, aux = self._run_groups(x, positions, ctx, cache, "prefill")
@@ -597,8 +691,8 @@ class LM(nn.Module):
         place.  With placed ``params`` the inputs, the cache's leaves and
         the logits are placed."""
         if params is not None:
-            hidden, _ = _mesh_run(self, params, tokens, positions, ctx,
-                                  cache, "decode")
+            hidden, _, _ = _mesh_run(self, params, tokens, positions, ctx,
+                                     cache, "decode")
             return mesh_logits(params, hidden, ctx), cache
         x = self.embed(tokens)
         x, _ = self._run_groups(x, positions, ctx, cache, "decode")

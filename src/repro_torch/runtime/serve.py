@@ -13,8 +13,10 @@ the model axis first), the tokens and positions placed by the step
 (:func:`batch_pspec`), each coordinate running its rows and heads (K3
 once a coordinate in a flash prefill) and, under SP, its block of the
 cache's slots, the decode's softmax merged across them
-(``models/attention.py::attn_seq_sharded``).  The dense decoder and the
-MoE family (``models/transformer.py::is_attention_decoder``).
+(``models/attention.py::attn_seq_sharded``; the latent cache's by
+``models/mla.py::mla_placed``).  The decoder-only families: attention,
+MLA and Mamba-2 blocks, with MLP, MoE or no ffn
+(``models/transformer.py::is_placed_family``).
 """
 from __future__ import annotations
 
@@ -179,9 +181,9 @@ def jit_decode_step(model, ctx: ShardCtx, batch: int, max_len: int,
 def _eager(model, ctx: ShardCtx) -> bool:
     """No mesh, or a one-coordinate mesh for a family the sharded steps do
     not place: the eager step on the model's own parameters."""
-    from repro_torch.models.transformer import is_attention_decoder
+    from repro_torch.models.transformer import is_placed_family
     return ctx.mesh is None or (ctx.mesh.size == 1
-                                and not is_attention_decoder(model.cfg))
+                                and not is_placed_family(model.cfg))
 
 
 def _clone_tree(cache):

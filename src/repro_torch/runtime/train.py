@@ -28,12 +28,13 @@ reference's partitioned step: the parameters and the AdamW state arrive
 placed on the mesh's devices by :func:`step_shardings`' trees
 (``sharding/spmd.py``, :func:`placed_params`), the batch is placed a
 microbatch at a time over the batch axes, and the forward and backward
-of the dense decoder or the MoE family run on those blocks
+of the decoder-only families (attention, MLA and Mamba-2 blocks, MLP or
+MoE ffn, DeepSeek's MTP head) run on those blocks
 (``models/transformer.py``): DP over ("pod", "data"), FSDP gathers of
-"embed" over "data", TP over heads, ff and vocab, EP over "experts".  The
-loss is vocab-parallel for an untied head and reads the tied table whole
-(:func:`mesh_xent`), and adds the MoE's aux losses (from the global
-router logits); each leaf's gradient is summed over the mesh axes it is
+"embed" over "data", TP over heads, ff, inner channels and vocab, EP over
+"experts".  The loss is vocab-parallel for an untied head and reads the
+tied table whole (:func:`mesh_xent`), and adds the MoE's aux losses (from
+the global router logits) and the MTP term; each leaf's gradient is summed over the mesh axes it is
 replicated on, the global norm counts each distinct block once, and
 AdamW updates a block at a time, so replicas stay equal.  The two-phase
 step, the other
@@ -442,7 +443,8 @@ def _mesh_grads(model, params: dict, tokens: torch.Tensor, ctx: ShardCtx,
                 microbatches: int, xent_chunk: int, accum_dtype):
     """``grads_fn`` on placed parameters: each microbatch (contiguous rows
     of ``tokens``, a global tensor) placed over the batch axes, the loss
-    and every block's gradient; the gradients summed over the axes each
+    (with the MTP head's term where the model has one) and every block's
+    gradient; the gradients summed over the axes each
     leaf is replicated on.  Returns (grads by name, each placed like its
     parameter, metrics)."""
     mesh = ctx.mesh
@@ -466,11 +468,15 @@ def _mesh_grads(model, params: dict, tokens: torch.Tensor, ctx: ShardCtx,
                       .expand(t.shape[0], s))
         out = model.forward(inp, pos, ctx, params=params)
         loss = mesh_xent(out["hidden"], params, lab, ctx, xent_chunk)
+        total = loss + out["aux"]
+        if "mtp_hidden" in out:                 # predict t+2 (DeepSeek MTP)
+            total = total + MTP_WEIGHT * mesh_xent(
+                out["mtp_hidden"].map(lambda h: h[:, :-1]), params,
+                lab.map(lambda t: t[:, 2:]), ctx, xent_chunk)
         # a replica no coordinate read (a head replicated over the model
         # axis is read whole from index 0 there) has no gradient
         gs = [torch.zeros_like(b) if g is None else g for b, g in zip(
-            leaves, torch.autograd.grad(loss + out["aux"], leaves,
-                                        allow_unused=True))]
+            leaves, torch.autograd.grad(total, leaves, allow_unused=True))]
         loss, aux = loss.detach(), out["aux"].detach()
         loss_sum = loss if loss_sum is None else loss_sum + loss
         if microbatches == 1:
@@ -501,7 +507,7 @@ def _mesh_grads(model, params: dict, tokens: torch.Tensor, ctx: ShardCtx,
 def _require_mesh_step(model, ctx: ShardCtx, what: str) -> None:
     """The checks every sharded step makes before it runs."""
     from repro_torch.models.transformer import mesh_family_check
-    mesh_family_check(model.cfg, what)
+    mesh_family_check(model.cfg, what, ctx)
     if ctx.fsdp_pod and ctx.axis_size(ctx.batch_axes) > ctx.axis_size(
             ctx.data_axis):
         raise NotImplementedError(
@@ -537,7 +543,7 @@ def jit_train_step(model, opt_cfg: adamw.AdamWConfig, ctx: ShardCtx, *,
     the step, a microbatch at a time.  ``donate=False`` updates copies and
     leaves the inputs as they were.  int8 moments with a mesh raise
     ``ValueError`` (the reference's rule: a pool-tier feature); the
-    families the steps do not place (``is_attention_decoder``) on a mesh
+    families the steps do not place (``is_placed_family``) on a mesh
     of more than one coordinate raise ``NotImplementedError``; on a
     one-coordinate mesh they take the eager step, where ``donate=False``
     raises ``ValueError`` as without a mesh."""
@@ -551,8 +557,8 @@ def jit_train_step(model, opt_cfg: adamw.AdamWConfig, ctx: ShardCtx, *,
         raise ValueError("int8 moments are a pool-tier feature: use "
                          "make_two_phase_steps (opt state streams from the "
                          "pool tier, shardings inferred from buffers)")
-    from repro_torch.models.transformer import is_attention_decoder
-    if ctx.mesh.size == 1 and not is_attention_decoder(model.cfg):
+    from repro_torch.models.transformer import is_placed_family
+    if ctx.mesh.size == 1 and not is_placed_family(model.cfg):
         if not donate:
             raise ValueError(f"donate=False for {model.cfg.name} on a "
                              "one-coordinate mesh: the eager step updates "

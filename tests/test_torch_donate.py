@@ -1,11 +1,11 @@
 """``runtime/train.py::jit_train_step(..., donate=False)`` never changes
 the caller's tensors: the reference's ``donate=False`` leaves its inputs
 valid (its ``launch/train.py`` passes it).  On a one-coordinate mesh, a
-family the sharded steps do not place (mamba2) takes the eager step,
-which reads and updates the model's own parameters, so ``donate=False``
-raises ``ValueError`` there, as without a mesh, before anything runs; a
-placed family (granite's MoE, qwen2's dense decoder) updates copies and
-returns them.  Beside ``tests/test_torch_spmd.py::
+family the sharded steps do not place (internvl2's vision frontend) takes
+the eager step, which reads and updates the model's own parameters, so
+``donate=False`` raises ``ValueError`` there, as without a mesh, before
+anything runs; a placed family (granite's MoE, qwen2's dense decoder,
+mamba2) updates copies and returns them.  Beside ``tests/test_torch_spmd.py::
 test_decode_without_donation_keeps_the_callers_cache``, which holds the
 serve step to the same contract."""
 import numpy as np
@@ -50,10 +50,10 @@ def _equal(a, b) -> bool:
 
 
 def test_eager_family_on_one_coordinate_refuses_donate_false():
-    """mamba2 on a (1, 1) mesh: ``donate=False`` raises ``ValueError``,
+    """internvl2 on a (1, 1) mesh: ``donate=False`` raises ``ValueError``,
     and the model's parameters and the AdamW state stay as they were;
     with ``donate=True`` the eager step updates them in place."""
-    model, ctx, batch = _setup("mamba2-1.3b", (1, 1))
+    model, ctx, batch = _setup("internvl2-26b", (1, 1))
     params = rt.train_params(model)
     opt = adamw.init_state(params, OCFG)
     before = _snapshot((params, opt))
@@ -66,7 +66,7 @@ def test_eager_family_on_one_coordinate_refuses_donate_false():
 
 @pytest.mark.parametrize("arch,shape", [
     ("granite-moe-1b-a400m", (1, 1)), ("qwen2-1.5b", (1, 1)),
-    ("granite-moe-1b-a400m", (2, 2))], ids=str)
+    ("granite-moe-1b-a400m", (2, 2)), ("mamba2-1.3b", (1, 1))], ids=str)
 def test_placed_step_without_donation_keeps_the_callers_state(arch, shape):
     """A placed family's step with ``donate=False``: every parameter block
     and every AdamW leaf ``torch.equal`` to before the step, the returned

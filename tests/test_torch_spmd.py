@@ -654,10 +654,11 @@ def test_placement_errors():
 
 def test_step_errors():
     """int8 moments with a mesh (``ValueError``, the reference's rule);
-    the families outside the dense decoder and the MoE family on a mesh
-    of more than one coordinate, FSDP over pods and the two-phase step
-    (``NotImplementedError``, naming the ROADMAP item); the SP steps
-    (``seq_shard_kv``) build; an unplaced parameter; ``donate=False``
+    the encoder-decoder and the vision frontend on a mesh of more than one
+    coordinate, FSDP over pods and the two-phase step
+    (``NotImplementedError``, naming the ROADMAP item); the MLA, Mamba-2
+    and hybrid families' placed steps and the SP steps (``seq_shard_kv``)
+    build; an unplaced parameter; ``donate=False``
     without a mesh."""
     mesh = cpu_mesh((2, 2))
     ctx = ctx_of(mesh)
@@ -667,18 +668,23 @@ def test_step_errors():
     with pytest.raises(ValueError, match="int8"):
         adamw.init_state(rt.placed_params(model, ctx),
                          adamw.AdamWConfig(moments_dtype="int8"))
-    for arch in ("deepseek-v3-671b", "mamba2-1.3b", "whisper-small",
-                 "internvl2-26b", "jamba-1.5-large-398b"):
+    for arch in ("whisper-small", "internvl2-26b"):
         other = build_model(get_smoke(arch), device="meta")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="M18c"):
             rt.jit_train_step(other, adamw.AdamWConfig(), ctx)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="M18c"):
             tserve.jit_decode_step(other, ctx, 4, 16)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="M18c"):
             tserve.jit_prefill_step(other, ctx, 4, 16)
         # one coordinate: the eager step, as before
         one = ctx_of(cpu_mesh((1, 1)))
         assert callable(rt.jit_train_step(other, adamw.AdamWConfig(), one))
+    # the MLA (with its MTP head), Mamba-2 and hybrid families are placed
+    for arch in ("deepseek-v3-671b", "mamba2-1.3b", "jamba-1.5-large-398b"):
+        placed = build_model(get_smoke(arch), device="meta")
+        assert callable(rt.jit_train_step(placed, adamw.AdamWConfig(), ctx))
+        assert callable(tserve.jit_decode_step(placed, ctx, 4, 16))
+        assert callable(tserve.jit_prefill_step(placed, ctx, 4, 16))
     for sp in (True, "model"):
         sp_ctx = ctx_of(mesh, seq_shard_kv=sp)
         assert callable(tserve.jit_decode_step(model, sp_ctx, 4, 16))
