@@ -51,6 +51,13 @@ PyTorch version on the card, and drives the port's three paths:
   deepseek-v3's serve and train cuts (MLA, the MTP head) and jamba's
   blocks 3-4 (Mamba-2, MoE, attention with K3 a coordinate) trained and
   served on the mesh, fp32 cuts gated against the unsharded steps;
+  whisper-small whole (the encoder-decoder: its cross K/V written once at
+  prefill, split on their frames under SP) and internvl2-26b (the vision
+  frontend; its first 24 layers served, its first 4 trained) trained and
+  served on the mesh, fp32 cuts gated against the unsharded steps, and
+  Pond's two-phase step on placed parameters (M18d: the AdamW state in
+  pinned host memory, one buffer a distinct block) beside the fused placed
+  step on deepseek-v3's train cut, bit for bit;
 * Pond's provisioning loop (``core/cluster_sim.py::savings_analysis`` over
   ``core/replay_engine.py::CompiledReplay``, the event sweep K1) on a
   cluster row of 256 servers with 16-socket pools and a 7-day trace: the
@@ -106,7 +113,7 @@ PyTorch version on the card, and drives the port's three paths:
   card vs CPU on qwen2-1.5b's smoke config, then qwen2-1.5b at full width
   and depth: fused steps with the AdamW state on the card, Pond's
   two-phase steps with the state pinned in host memory (fp32 and int8
-  moments), a checkpoint round trip and a traced step.  No kernel of this
+  moments) and a checkpoint round trip.  No kernel of this
   path is a TPU kernel's counterpart: the reference trains through its
   plain blocked attention, and so does the port;
 * the families training through the same steps: each family's smoke
@@ -1687,20 +1694,25 @@ def phase_encdec_parity_small(dev):
                   seed=3)
 
 
+#: decode steps of a families_full or encdec_full run, at most: the
+#: script's time limit (RUNS' 16-124 until PR 32)
+FULL_DECODE_STEPS = 8
+
+
 def _full_run(arch, dev, fp32, run):
     """One serving run of ``arch`` at full width on the card, bf16 weights
     or (``fp32``) fp32 ones, at ``run``'s shapes (``configs/one_card.py``:
-    batch, prompt, steps, and the frames or patches of whisper and
-    internvl2): the model built and seeded there, the path driven with
-    K3's count set to 0 just before it and read just after; an encoder's
-    share of a warm prefill timed alone; then K3 checked and timed at the
-    prefill's shapes."""
+    batch, prompt, steps (at most ``FULL_DECODE_STEPS``), and the frames or
+    patches of whisper and internvl2): the model built and seeded there,
+    the path driven with K3's count set to 0 just before it and read just
+    after; then K3 checked and timed at the prefill's shapes.  (Until PR
+    32 a warm prefill and the encoder's share of it were timed again.)"""
     from repro_torch.configs.one_card import (attention_layers,
                                               one_card_config, prompt_inputs)
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.models.model_zoo import build_model
-    from repro_torch.sharding.rules import ShardCtx
     cfg = one_card_config(arch, fp32=fp32)
+    run = dict(run, steps=min(run["steps"], FULL_DECODE_STEPS))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = build_model(cfg, device=dev,
@@ -1764,24 +1776,7 @@ def _full_run(arch, dev, fp32, run):
         max_logit_dev_vs_own_forward=dev_err,
         max_abs_logit_own_forward=float(fwd_logits.abs().max()),
         argmax_agreement_vs_own_forward=agree, **cross)
-    del r
-    # the same prefill again, warm, and the encoder alone, warm
-    again = _prompt_run(model, inp, 0, max_len)
-    out["prefill_ms_warm"] = again["prefill_s"] * 1e3
-    del again
-    if cfg.is_encoder_decoder:
-        enc = []
-        with torch.no_grad():
-            for _ in range(3):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                model.encode(inp["embeds"], ShardCtx(attn_impl="flash"))
-                torch.cuda.synchronize()
-                enc.append(time.perf_counter() - t0)
-        out["encoder_ms_warm"] = statistics.median(enc) * 1e3
-        out["decoder_ms_warm"] = (out["prefill_ms_warm"]
-                                  - out["encoder_ms_warm"])
-    del model, inp
+    del r, model, inp
     torch.cuda.empty_cache()
     b = run["batch"]
     s = run["prompt"] + run.get("patches", 0)
@@ -2006,14 +2001,16 @@ SPMD_SMALL = dict(arch="qwen2-1.5b", shape=(2, 2), seed=0, batch=8, seq=32,
                   tol=2e-5)
 # Phase spmd_full: the mesh 2 x 2, on four distinct cards where four are
 # visible, else the card listed four times.  qwen2-1.5b whole at
-# TRAIN_FULL's batch (2 fused steps, bf16) and an fp32 cut of it (its
-# first 2 layers at full width, one step beside the unsharded step);
-# qwen2-7b whole served at configs/one_card.py's B 4 x 2,048 with 8 greedy
-# steps (the script's time limit), K3 in every
+# TRAIN_FULL's batch (1 fused step, bf16; 2 until PR 33) and an fp32 cut
+# of it (its first 2 layers at full width, one step beside the unsharded
+# step);
+# qwen2-7b whole served at configs/one_card.py's B 4 x 2,048 with 4 greedy
+# steps (the script's time limit; 8 until PR 32), K3 in every
 # coordinate's prefill: 28 layers x 4 coordinates a prefill), beside the
 # unsharded steps on the same prompt, and the same with the
 # sequence-sharded cache (SP, seq_shard_kv) over "model"; at B 1 x 2,048
-# + 8 (the batch does not split: every coordinate holds the row) placed, and with SP over ("data", "model");
+# + 4 (the batch does not split: every coordinate holds the row) placed,
+# and with SP over ("data", "model");
 # each beside the unsharded steps on its prompt.  fp32 cuts (the first 2
 # layers at full width, the same prompt and 4 decode steps fed the
 # unsharded run's tokens), placed and with SP over "model", and a window
@@ -2023,10 +2020,10 @@ SPMD_SMALL = dict(arch="qwen2-1.5b", shape=(2, 2), seed=0, batch=8, seq=32,
 # with four cards also qwen2-7b training whole across them (B 8 x 2,048, 2
 # microbatches, remat: the FSDP gathers again in the backward) and
 # qwen2-1.5b's steps on the four cards beside the card listed four times.
-SPMD_FULL = dict(shape=(2, 2), train_arch="qwen2-1.5b", train_steps=2,
+SPMD_FULL = dict(shape=(2, 2), train_arch="qwen2-1.5b", train_steps=1,
                  cut_layers=2, cut_tol=2e-3, serve_arch="qwen2-7b",
-                 serve_steps=8, serve_cut_steps=4,
-                 b1=dict(batch=1, prompt=2048, steps=8),
+                 serve_steps=4, serve_cut_steps=4,
+                 b1=dict(batch=1, prompt=2048, steps=4),
                  window_arch="h2o-danube-1.8b",
                  window_run=dict(batch=2, prompt=6144, steps=4),
                  train7b=dict(batch=8, seq=2048, microbatches=2, steps=3,
@@ -2168,13 +2165,16 @@ def _reset_peaks(mesh):
 
 
 def _spmd_train(cfg, mesh, *, batch, seq, microbatches, steps, lr, remat,
-                dtype=None, seed=0, unsharded=False, **ctx_kw):
+                dtype=None, seed=0, unsharded=False, batches=None,
+                digests=False, **ctx_kw):
     """``steps`` fused steps of ``jit_train_step`` on ``mesh`` from seeded
     parameters (drawn on the mesh's first device, placed, the model's own
-    then dropped to the meta device), batches from ``ShardedBatches``.
-    With ``unsharded`` the first step is also run unsharded from the same
-    parameters, first.  ``ctx_kw``: more ``ShardCtx`` fields.  Returns a
-    record and the state."""
+    then dropped to the meta device), batches from ``ShardedBatches`` (or
+    ``batches``, a batch dict a step: ``_family_batches``).  With
+    ``unsharded`` the first step is also run unsharded from the same
+    parameters, first; with ``digests`` the record keeps the SHA-1 of
+    every parameter block after step 1 (``_digests``).  ``ctx_kw``: more
+    ``ShardCtx`` fields.  Returns a record and the state."""
     from repro_torch.data.pipeline import DataConfig, ShardedBatches
     from repro_torch.models.model_zoo import build_model
     from repro_torch.optim import adamw
@@ -2184,10 +2184,11 @@ def _spmd_train(cfg, mesh, *, batch, seq, microbatches, steps, lr, remat,
     model = build_model(cfg, device=dev0, dtype=dtype)
     model.init_params(torch.Generator(device=dev0).manual_seed(seed))
     ocfg = adamw.AdamWConfig(lr=lr, warmup_steps=20, total_steps=steps)
-    data = ShardedBatches(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
-                                     global_batch=batch))
-    batches = [torch.from_numpy(data.batch_at(i)["tokens"]).to(dev0)
-               for i in range(steps)]
+    if batches is None:
+        data = ShardedBatches(DataConfig(vocab_size=cfg.vocab_size,
+                                         seq_len=seq, global_batch=batch))
+        batches = [{"tokens": torch.from_numpy(data.batch_at(i)["tokens"])
+                    .to(dev0)} for i in range(steps)]
     rec = {}
     if unsharded:
         params = rt.train_params(model)
@@ -2197,7 +2198,7 @@ def _spmd_train(cfg, mesh, *, batch, seq, microbatches, steps, lr, remat,
         t0 = time.perf_counter()
         m0 = rt.jit_train_step(model, ocfg, ShardCtx(remat=remat),
                                microbatches=microbatches)(
-            params, o0, {"tokens": batches[0]})[2]
+            params, o0, batches[0])[2]
         rec["unsharded_step1_loss"] = float(m0["loss"])
         rec["unsharded_step1_ms"] = (time.perf_counter() - t0) * 1e3
         del o0
@@ -2221,11 +2222,13 @@ def _spmd_train(cfg, mesh, *, batch, seq, microbatches, steps, lr, remat,
     for i in range(steps):
         _sync_all(mesh)
         t0 = time.perf_counter()
-        placed, opt, m = step(placed, opt, {"tokens": batches[i]})
+        placed, opt, m = step(placed, opt, batches[i])
         _sync_all(mesh)
         runs.append(dict(step_ms=(time.perf_counter() - t0) * 1e3,
                          loss=float(m["loss"]), aux=float(m["aux"]),
                          grad_norm=float(m["grad_norm"])))
+        if digests and i == 0:
+            rec["digests_step1"] = _digests(placed)
     rec.update(steps=runs, peak_bytes_by_device=_peaks(mesh),
                replicas_equal=_replicas_equal((placed, opt)),
                finite=all(np.isfinite([r["loss"], r["aux"], r["grad_norm"]])
@@ -2249,25 +2252,27 @@ def _serve_fed(model, mesh, inp, feed, max_len, keep_model=False,
     from repro_torch.runtime import serve as rs
     from repro_torch.runtime import train as rt
     from repro_torch.sharding.rules import ShardCtx
-    b, p = inp["tokens"].shape
+    b = inp["tokens"].shape[0]
     dev0 = inp["tokens"].device
     dtype = model.embed.tok.dtype
+    kw = inp.get("cache_kw", {})
     if mesh is None:
         ctx, sp = ShardCtx(attn_impl="flash"), None
-        cache = model.init_cache(b, max_len, dtype=dtype)
+        cache = model.init_cache(b, max_len, dtype=dtype, **kw)
     else:
         ctx = ShardCtx(mesh=mesh, pod_axis=None, attn_impl="flash",
                        **ctx_kw)
         sp = rt.placed_params(model, ctx, mode="serve")
         if not keep_model:
             model.to("meta")
-        cache = rs.init_cache(model, ctx, b, max_len, dtype=dtype)
-    logits, cache = rs.jit_prefill_step(model, ctx, b, max_len)(
-        sp, inp["tokens"], inp["positions"], cache)
+        cache = rs.init_cache(model, ctx, b, max_len, dtype=dtype, **kw)
+    logits, cache = rs.jit_prefill_step(model, ctx, b, max_len, **kw)(
+        sp, inp["tokens"], inp["positions"], cache, inp.get("embeds"))
     out = [logits[:, -1].cpu()]
-    decode = rs.jit_decode_step(model, ctx, b, max_len)
+    decode = rs.jit_decode_step(model, ctx, b, max_len, **kw)
     for i, tok in enumerate(feed):
-        pos = torch.full((b,), p + i, dtype=torch.int64, device=dev0)
+        pos = torch.full((b,), inp["start"] + i, dtype=torch.int64,
+                         device=dev0)
         logits, cache = decode(sp, torch.tensor(tok, device=dev0)[:, None],
                                pos, cache)
         out.append(logits[:, 0].cpu())
@@ -2314,7 +2319,7 @@ def _fp32_gate(cfg, mesh, inp, steps, dev, seed=0, **ctx_kw):
     agrees."""
     from repro_torch.models.model_zoo import build_model
     each = ctx_kw.pop("each", [ctx_kw])
-    p = inp["tokens"].shape[1]
+    p = inp["start"]
     m32 = build_model(cfg, device=dev, dtype=torch.float32)
     m32.init_params(torch.Generator(device=dev).manual_seed(seed))
     out = {}
@@ -2350,17 +2355,19 @@ def _placed_serve(model, sp, ctx, inp, steps, mesh, plain=None):
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.runtime import serve as rs
     from repro_torch.sharding import spmd
-    b, p = inp["tokens"].shape
+    b, p = inp["tokens"].shape[0], inp["start"]
     max_len = p + steps
     dev0 = inp["tokens"].device
-    cache = rs.init_cache(model, ctx, b, max_len)
-    prefill = rs.jit_prefill_step(model, ctx, b, max_len)
-    decode = rs.jit_decode_step(model, ctx, b, max_len)
+    kw = inp.get("cache_kw", {})
+    cache = rs.init_cache(model, ctx, b, max_len, **kw)
+    prefill = rs.jit_prefill_step(model, ctx, b, max_len, **kw)
+    decode = rs.jit_decode_step(model, ctx, b, max_len, **kw)
     _reset_peaks(mesh)
     k3_0 = ops.launches
     _sync_all(mesh)
     t0 = time.perf_counter()
-    logits, cache = prefill(sp, inp["tokens"], inp["positions"], cache)
+    logits, cache = prefill(sp, inp["tokens"], inp["positions"], cache,
+                            inp.get("embeds"))
     tok = torch.argmax(logits[:, -1], dim=-1)
     stream = [tok.tolist()]
     prefill_s = time.perf_counter() - t0
@@ -2384,6 +2391,8 @@ def _placed_serve(model, sp, ctx, inp, steps, mesh, plain=None):
                    tokens_per_s=b * steps / sum(step_s))
     whole = spmd.gather_tree(cache, "cpu")
     vocab = model.cfg.vocab_size
+    rings = ([whole["self"]] if "self" in whole else
+             [c for g in whole["groups"] for c in g["blocks"]])
     checks = dict(
         logits_finite=bool(torch.isfinite(lg_all).all()),
         tokens_in_vocab=all(0 <= t < vocab for s_ in stream for t in s_),
@@ -2392,8 +2401,13 @@ def _placed_serve(model, sp, ctx, inp, steps, mesh, plain=None):
         cache_pos_every_slot=model.cfg.sliding_window is not None or all(
             torch.equal(c["pos"], torch.arange(max_len, dtype=torch.int32)
                         .expand_as(c["pos"]))
-            for g in whole["groups"] for c in g["blocks"] if "pos" in c),
+            for c in rings if "pos" in c),
         placed_on_coordinates=_placement_ok((sp, cache)))
+    if "cross_k" in whole:
+        # the cross K/V written at prefill (every frame of every layer)
+        checks["cross_kv_written"] = all(
+            bool((whole[k].abs().amax(dim=(-1, -2)) > 0).all())
+            for k in ("cross_k", "cross_v"))
     if plain is not None:
         n_plain = len(plain["stream"])
         rec.update(
@@ -2600,16 +2614,16 @@ def phase_spmd_full(dev):
 # expert ff over data under sharded2d's serve layout, whole experts over
 # (data, model) under sharded_a2a's).  (a) The placed train step at
 # TRAIN_RUNS' B 4 x 2,048 (2 microbatches, remat, bf16, the default
-# moe_impl; 2 steps): ms/step, tokens/s, peak bytes a card, finite loss,
-# aux and grad norm, replicas equal.  (b) Served at RUNS' B 4 x 2,048
-# beside the unsharded steps on the same prompt, each path's prefill and
+# moe_impl; 1 step, 2 until PR 33): ms/step, tokens/s, peak bytes a card,
+# finite loss, aux and grad norm, replicas equal.  (b) Served at RUNS' B 4
+# x 2,048 beside the unsharded steps on the same prompt, each path's prefill and
 # short_steps decode steps timed; then each path again with its drops
 # counted (stats) and each MoE layer's input read, the
 # drops of every call == a plain count of that routing.  (c) A gated fp32
 # cut: 2 layers at FP32_RUNS' B 2 x 512 + 16 at a capacity that drops
 # nothing (cf = E / top_k), each path against the unsharded steps fed the
 # same tokens (_fp32_gate).
-MOE_MESH_FULL = dict(arch="granite-moe-1b-a400m", train_steps=2,
+MOE_MESH_FULL = dict(arch="granite-moe-1b-a400m", train_steps=1,
                      short_steps=4, cut_layers=2,
                      impls=("sharded", "sharded2d", "sharded_a2a"))
 
@@ -2748,7 +2762,7 @@ def phase_moe_mesh_full(dev):
 # inputs, the card holding the two one after the other (the model's own
 # parameters go to meta once placed).
 # (a) mamba2-1.3b whole (48 layers): trained placed at TRAIN_RUNS' B 4 x
-# 2,048 (remat, 2 microbatches, 2 steps; step 1 also unsharded first);
+# 2,048 (remat, 2 microbatches, 1 step, 2 until PR 33; also unsharded first);
 # served at RUNS' B 4 x 2,048 + 4 decode steps with SP "model" (it leaves a
 # Mamba cache whole); a gated fp32 cut of its first 2 layers (FP32_RUNS' B
 # 2 x 512 + 4).
@@ -2757,7 +2771,8 @@ def phase_moe_mesh_full(dev):
 # SP ("data", "model") and sharded2d; one_card_train_config's cut (1 dense
 # MLA layer and the MTP head) trained placed and fused at TRAIN_RUNS' B 2 x
 # 2,048 (remat, one microbatch: two rows do not split into two microbatches
-# over the data axis), 2 steps; a gated fp32 cut of one dense MLA layer
+# over the data axis), 1 step (2 until PR 33; its result the two-phase step
+# of encdec_mesh_full (c) is held to); a gated fp32 cut of one dense MLA layer
 # (B 1 x 256 + 4, SP ("data", "model")).
 # (c) jamba: blocks 3-4 of its period (mamba/moe, attn/mlp:
 # one_card_config(fp32=True)'s cut, here in bf16) at B 1 x 2,048 + 4 with
@@ -2767,7 +2782,7 @@ def phase_moe_mesh_full(dev):
 # and timed beside SDPA at jamba's coordinate shape.
 # Gates: _rounding_bound with every greedy token agreeing (fp32 cuts);
 # the bf16 runs are reported (ROADMAP F14).
-FAMILY_MESH_FULL = dict(train_steps=2, serve_steps=4, cut_layers=2,
+FAMILY_MESH_FULL = dict(train_steps=1, serve_steps=4, cut_layers=2,
                         cut_run=dict(prompt=256, steps=4),
                         mamba_cut_run=dict(batch=2, prompt=512, steps=4))
 
@@ -2785,26 +2800,35 @@ def _family_serve(cfg, mesh, ctx, run):
     model.init_params(torch.Generator(device=dev0).manual_seed(0))
     inp = prompt_inputs(cfg, run, dev0)
     n = run["steps"]
-    plain = _prompt_run(model, inp, n, run["prompt"] + n)
+    plain = _prompt_run(model, inp, n, inp["start"] + n)
     sp = rt.placed_params(model, ctx, mode="serve")
     model.to("meta")
     torch.cuda.empty_cache()
     rec, cache = _placed_serve(model, sp, ctx, inp, n, mesh, plain)
     rec.pop("stream")
+    by_device = {}
+    for p in sp.values():
+        for b in p.blocks:
+            by_device[str(b.device)] = (by_device.get(str(b.device), 0)
+                                        + b.numel() * b.element_size())
     rec.update(params=sum(p.numel() for p in model.parameters()),
-               placed_bytes=sum(b.numel() * b.element_size()
-                                for p in sp.values() for b in p.blocks),
+               placed_bytes=sum(by_device.values()),
+               placed_bytes_by_device=by_device,
                k3_launches_prefill_want=attention_layers(cfg) * mesh.size,
-               cache_specs=sorted({f"{k}: {tuple(v.spec)}" for k, v in
-                                   cache["groups"][0]["blocks"][0].items()}))
+               cache_specs=sorted({f"{k}: {tuple(v.spec)}" for k, v in (
+                   cache["groups"][0]["blocks"][0] if "groups" in cache
+                   else dict(cache["self"], cross_k=cache["cross_k"]))
+                   .items()}))
     del cache, sp, plain, model
     torch.cuda.empty_cache()
     return rec
 
 
 def phase_family_mesh_full(dev):
-    """Returns K3's launches in the main path and K3's record at jamba's
-    coordinate prefill shape."""
+    """Returns K3's launches in the main path, K3's record at jamba's
+    coordinate prefill shape and the deepseek train cut's fused placed
+    step 1 (its loss, its blocks' SHA-1s, the run's peak bytes a card),
+    which ``phase_encdec_mesh_full`` holds the two-phase step to."""
     from repro_torch.configs.base import Block, LayerGroup
     from repro_torch.configs.one_card import (RUNS, TRAIN_RUNS,
                                               one_card_config,
@@ -2819,6 +2843,7 @@ def phase_family_mesh_full(dev):
     mesh = _spmd_mesh(cards)
     checks, out = {}, {"cards": [str(d) for d in cards]}
     base = ShardCtx(mesh=mesh, pod_axis=None, attn_impl="flash")
+    fused = {}
 
     def train(name, cfg, **kw):
         rec, state = _spmd_train(cfg, mesh, steps=f["train_steps"],
@@ -2826,6 +2851,10 @@ def phase_family_mesh_full(dev):
                                  unsharded=True, **kw)
         del state
         torch.cuda.empty_cache()
+        if "digests_step1" in rec:
+            fused.update(digests=rec.pop("digests_step1"),
+                         loss=rec["steps"][0]["loss"],
+                         peak_bytes=max(rec["peak_bytes_by_device"].values()))
         rec["step1_loss_diff_vs_unsharded"] = abs(
             rec["steps"][0]["loss"] - rec["unsharded_step1_loss"])
         rec["peak_gb_by_device"] = {k: v / 1e9 for k, v in
@@ -2873,7 +2902,7 @@ def phase_family_mesh_full(dev):
         serve=serve("deepseek", dcfg, dcfg.name,
                     seq_shard_kv=("data", "model"), moe_impl="sharded2d"),
         train=train("deepseek", tcfg, batch=tr["batch"], seq=tr["seq"],
-                    microbatches=1),
+                    microbatches=1, digests=True),
         fp32_cut=gate("deepseek", d32, dict(f["cut_run"], batch=1),
                       seq_shard_kv=("data", "model")))
     # (c) jamba
@@ -2901,7 +2930,247 @@ def phase_family_mesh_full(dev):
     if not all(checks.values()):
         raise SystemExit("family_mesh_full failed: "
                          f"{[k for k, v in checks.items() if not v]}")
+    return launches, _k3_summary(k3), fused
+
+
+def _digests(placed) -> dict:
+    """The SHA-1 of every block's bytes of placed parameters, by name: a
+    step's result bit for bit, without a second copy on the card (the
+    blocks copied to the host one at a time, hashed on 8 threads)."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(b):
+        return hashlib.sha1(b.detach().reshape(-1).view(torch.uint8).cpu()
+                            .numpy()).hexdigest()
+    jobs = [(n, b) for n, p in placed.items() for b in p.blocks]
+    with ThreadPoolExecutor(8) as ex:
+        hs = list(ex.map(lambda nb: one(nb[1]), jobs))
+    out: dict = {}
+    for (n, _), h in zip(jobs, hs):
+        out.setdefault(n, []).append(h)
+    return out
+
+
+# Phase encdec_mesh_full: the encoder-decoder and the vision frontend on the
+# 2 x 2 mesh (four cards where four are visible, else the card listed four
+# times), and the two-phase step on placed parameters (M18d).  (a)
+# whisper-small whole, bf16: placed training at TRAIN_RUNS' B 8 x (1,500
+# frames + 448 tokens), remat, 2 microbatches; served at ENCDEC_RUNS' B 16 x 1,500 frames + whisper's 4 start
+# tokens with SP over "model" (the cross K/V's frames split), 4 decode
+# steps beside the unsharded steps; an fp32 gate (B 2 x 1,500 + 4 steps)
+# with SP and without.  (b) internvl2-26b, bf16: its first 24 of 48 layers
+# served (the data axis replicates every leaf it does not split in serve
+# mode: the whole model would need 2 x 39.7 GB a card) at B 2 x (1,024
+# patches + 1,024 tokens) + 4 with SP over "model"; placed training on
+# TRAIN_RUNS' 4-layer cut at B 2 x 2,048 (one microbatch: a row a data
+# coordinate); an fp32 gate on a 2-layer cut (B 1 x (256 + 256) + 4); K3
+# at its coordinate's prefill shape.  (c) deepseek-v3's train cut (1 dense
+# MLA layer + the MTP head, B 2 x 2,048): one placed two-phase step from
+# family_mesh_full's seeded parameters and batch, its loss == the fused
+# placed step's, every parameter block's SHA-1 == the fused step's, its
+# peak a card below the fused step's by at least the pool tier less twice
+# the largest block's share of it.
+ENCDEC_MESH_FULL = dict(train_steps=2, serve_steps=4, internvl2_layers=24,
+                        internvl2_cut_run=dict(batch=1, patches=256,
+                                               prompt=256, steps=4),
+                        whisper_fp32_run=dict(batch=2, frames=1500,
+                                              prompt=4, steps=4))
+
+
+def phase_encdec_mesh_full(dev, fused):
+    """``fused``: ``phase_family_mesh_full``'s fused placed step on
+    deepseek's train cut.  Returns K3's launches in the main path and K3's
+    record at internvl2's coordinate prefill shape."""
+    from repro_torch.configs.one_card import (ENCDEC_RUNS, TRAIN_RUNS,
+                                              one_card_train_config,
+                                              prompt_inputs)
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.sharding import spmd
+    from repro_torch.sharding.rules import (ShardCtx, default_rules,
+                                            sharding_tree)
+    t_phase = time.perf_counter()
+    f = ENCDEC_MESH_FULL
+    cards = _mesh_devices() if torch.cuda.device_count() >= 4 else [dev] * 4
+    mesh = _spmd_mesh(cards)
+    dev0 = cards[0]
+    checks, out = {}, {"cards": [str(d) for d in cards]}
+    base = ShardCtx(mesh=mesh, pod_axis=None, attn_impl="flash")
+
+    def train(name, cfg, run, microbatches):
+        batches = _family_batches(cfg, run["batch"], run["seq"],
+                                  f["train_steps"], dev0)
+        rec, state = _spmd_train(cfg, mesh, batch=run["batch"],
+                                 seq=run["seq"], microbatches=microbatches,
+                                 steps=f["train_steps"],
+                                 lr=TRAIN_FAMILIES_FULL["lr"], remat=True,
+                                 batches=batches)
+        del state, batches
+        torch.cuda.empty_cache()
+        rec["peak_gb_by_device"] = {k: v / 1e9 for k, v in
+                                    rec.pop("peak_bytes_by_device").items()}
+        for k in ("finite", "replicas_equal", "placed_on_coordinates"):
+            checks[f"train_{name}_{k}"] = rec[k]
+        return rec
+
+    def serve(name, cfg, run, **kw):
+        rec = _family_serve(cfg, mesh, dataclasses.replace(base, **kw), run)
+        for k, v in rec.pop("checks").items():
+            checks[f"serve_{name}_{k}"] = v
+        checks[f"serve_{name}_k3_launches_a_prefill"] = (
+            rec["k3_launches_prefill"] == rec["k3_launches_prefill_want"])
+        return rec
+
+    def gate(name, cfg, run, **kw):
+        inp = prompt_inputs(cfg, run, dev0)
+        g = _fp32_gate(cfg, mesh, inp, run["steps"], dev0, **kw)
+        for opt, r in g.items():
+            checks[f"fp32_{name}_{opt}_within_bound"] = r["within_bound"]
+            checks[f"fp32_{name}_{opt}_tokens_agree"] = \
+                r["greedy_tokens_all_agree"]
+        return dict(run, layers=cfg.num_layers, params=_param_count(cfg),
+                    **g)
+
+    ops.launches = 0                        # just before the main path ...
+    # (a) whisper-small
+    wcfg = get_config("whisper-small")
+    out["whisper"] = dict(
+        train=train("whisper", wcfg, TRAIN_RUNS["whisper-small"],
+                    TRAIN_FAMILIES_FULL["microbatches"]),
+        serve=serve("whisper", wcfg, ENCDEC_RUNS["whisper-small"],
+                    seq_shard_kv="model"),
+        fp32=gate("whisper", wcfg, f["whisper_fp32_run"],
+                  each=[dict(seq_shard_kv="model"), {}]))
+    spec = dict(s.split(": ", 1) for s in
+                out["whisper"]["serve"]["cache_specs"])
+    checks["serve_whisper_cross_kv_frames_over_model"] = (
+        spec["cross_k"] == str((None, "data", "model", None, None)))
+    # (b) internvl2-26b
+    full = get_config("internvl2-26b")
+    icfg = _cut(full, f["internvl2_layers"])
+    out["internvl2"] = dict(
+        serve=serve("internvl2", icfg, ENCDEC_RUNS["internvl2-26b"],
+                    seq_shard_kv="model"),
+        train=train("internvl2", one_card_train_config("internvl2-26b"),
+                    TRAIN_RUNS["internvl2-26b"], 1),
+        fp32_cut=gate("internvl2", _cut(full, 2), f["internvl2_cut_run"],
+                      seq_shard_kv="model"))
+    launches = ops.launches                 # ... and read just after
+    # the placed bytes a card: each coordinate's blocks of every leaf as
+    # the serve rules cut them, nothing more
+    meta = build_model(icfg, device="meta")
+    named = spmd.named_shardings(meta, sharding_tree(
+        meta.specs(), default_rules(base, mode="serve"), mesh))
+    want = {}
+    for n, p in meta.named_parameters():
+        nb = math.prod(spmd.block_shape(p.shape, named[n].spec, mesh)) \
+            * p.element_size()
+        for c in mesh.coords():
+            d = str(spmd.coordinate_device(mesh, c))
+            want[d] = want.get(d, 0) + nb
+    sv = out["internvl2"]["serve"]
+    sv["placed_gb_by_device"] = {k: v / 1e9 for k, v in
+                                 sv["placed_bytes_by_device"].items()}
+    checks["serve_internvl2_placed_bytes_by_device"] = (
+        sv.pop("placed_bytes_by_device") == want)
+    # K3 at internvl2's coordinate prefill shape, against its plain version
+    coord = full.scaled(num_heads=full.num_heads // mesh.shape["model"],
+                        num_kv_heads=full.num_kv_heads // mesh.shape["model"])
+    k3 = _k3_at_prefill(coord, 1, 2048, torch.bfloat16, dev0)
+    out["k3_at_internvl2_coordinate"] = {k: v for k, v in k3.items()
+                                         if k != "sdpa"}
+    # (c) the two-phase step on placed parameters (M18d)
+    out["two_phase_deepseek"] = _placed_two_phase(mesh, checks, fused)
+    emit("encdec_mesh_full", ok=all(checks.values()), checks=checks,
+         config=f, kernel_launches=launches, **out,
+         phase_s=time.perf_counter() - t_phase)
+    if not all(checks.values()):
+        raise SystemExit("encdec_mesh_full failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
     return launches, _k3_summary(k3)
+
+
+def _placed_two_phase(mesh, checks, fused):
+    """encdec_mesh_full (c): deepseek-v3's train cut from the seeded
+    parameters and the first batch family_mesh_full's fused placed step
+    took (``fused``: its loss, digests and peak), one placed two-phase
+    step, the pool tier built a leaf at a time in pinned host memory
+    (``adamw.init_placed_pool``).  Returns the record; the checks go into
+    ``checks``."""
+    from repro_torch.configs.one_card import (TRAIN_RUNS,
+                                              one_card_train_config)
+    from repro_torch.core import znuma
+    from repro_torch.data.pipeline import DataConfig, ShardedBatches
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train as rt
+    from repro_torch.sharding.rules import ShardCtx
+    cfg = one_card_train_config("deepseek-v3-671b")
+    tr = TRAIN_RUNS["deepseek-v3-671b"]
+    dev0 = mesh.devices.flat[0]
+    model = build_model(cfg, device=dev0)
+    model.init_params(torch.Generator(device=dev0).manual_seed(0))
+    ctx = ShardCtx(mesh=mesh, pod_axis=None, remat=True)
+    t0 = time.perf_counter()
+    placed = rt.placed_params(model, ctx)
+    model.to("meta")
+    torch.cuda.empty_cache()
+    ocfg = adamw.AdamWConfig(lr=TRAIN_FAMILIES_FULL["lr"], warmup_steps=20,
+                             total_steps=FAMILY_MESH_FULL["train_steps"])
+    pool = adamw.init_placed_pool(placed, ocfg, dev0)
+    _sync_all(mesh)
+    place_s = time.perf_counter() - t0
+    acct = znuma.TierAccount()
+    for g in ("master", "m", "v"):
+        acct.add(pool[g], "pool")
+    pool_bytes = acct.pool_bytes
+    largest = max(sum(pool[g][n].blocks[i].numel()
+                      * pool[g][n].blocks[i].element_size()
+                      for g in ("master", "m", "v"))
+                  for n in placed for i in range(len(pool["m"][n].ranks)))
+    data = ShardedBatches(DataConfig(vocab_size=cfg.vocab_size,
+                                     seq_len=tr["seq"],
+                                     global_batch=tr["batch"]))
+    batch = {"tokens": torch.from_numpy(data.batch_at(0)["tokens"]).to(dev0)}
+    grad_step, opt_step = rt.make_two_phase_steps(model, ocfg, ctx)
+    _reset_peaks(mesh)
+    _sync_all(mesh)
+    t0 = time.perf_counter()
+    grads, gm = grad_step(placed, batch)
+    loss = float(gm["loss"])
+    _sync_all(mesh)
+    t1 = time.perf_counter()
+    placed, pool, om = opt_step(placed, pool, grads)
+    _sync_all(mesh)
+    t2 = time.perf_counter()
+    del grads
+    peak = max(_peaks(mesh).values())
+    digests = _digests(placed)
+    rec = dict(
+        batch=tr["batch"], seq=tr["seq"], params=sum(
+            p.numel() for p in model.parameters()),
+        place_and_pool_s=place_s, step_ms=(t2 - t0) * 1e3,
+        grad_ms=(t1 - t0) * 1e3, opt_ms=(t2 - t1) * 1e3,
+        opt_gb_in=om["opt_bytes_in"] / 1e9,
+        opt_gb_out=om["opt_bytes_out"] / 1e9,
+        opt_gb_per_s_each_way=om["opt_bytes_in"] / 1e9 / (t2 - t1),
+        loss=loss, fused_loss=fused["loss"], grad_norm=float(om["grad_norm"]),
+        pool_gb=pool_bytes / 1e9, largest_block_pool_gb=largest / 1e9,
+        peak_gb=peak / 1e9, fused_peak_gb=fused["peak_bytes"] / 1e9,
+        peak_saving_want_gb=(pool_bytes - 2 * largest) / 1e9,
+        blocks_compared=sum(len(v) for v in digests.values()))
+    checks["two_phase_step1_loss_equal"] = loss == fused["loss"]
+    checks["two_phase_blocks_bitwise_equal"] = digests == fused["digests"]
+    checks["two_phase_bytes_each_way_the_pool"] = (
+        om["opt_bytes_in"] == om["opt_bytes_out"] == pool_bytes)
+    checks["two_phase_peak_below_fused_by_the_pool"] = (
+        peak <= fused["peak_bytes"] - (pool_bytes - 2 * largest))
+    checks["two_phase_replicas_equal"] = _replicas_equal(placed)
+    del placed, pool, digests
+    torch.cuda.empty_cache()
+    return rec
 
 
 def _param_count(cfg) -> int:
@@ -3616,18 +3885,6 @@ def phase_provision_full(dev):
     oracle = cluster_sim.replay_reject_rate(vms, dec, cfg, static.server_gb,
                                             static.pool_group_gb)
     oracle_s = time.perf_counter() - t1
-    # the same loop again under the tracer, for the device's busy time
-    # (the sum of kernel times); its idle share is of the untraced wall
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _savings_pair(vms, cfg, frac, None)
-        torch.cuda.synchronize()
-    kernels = sorted(((e.key, e.count, e.self_device_time_total)
-                      for e in prof.key_averages()
-                      if e.self_device_time_total > 0),
-                     key=lambda r: -r[2])
-    busy_s = sum(r[2] for r in kernels) / 1e6
     got = [dataclasses.asdict(r) for r in (local, static)]
     checks = {
         "local_equals_reference": got[0] == PROV_FULL_WANT["local"],
@@ -3654,11 +3911,6 @@ def phase_provision_full(dev):
                            - times.sweep_s,
                            oracle_at_chosen_point=oracle_s),
          wall_seconds=wall,
-         device_busy_seconds=busy_s if kernels else None,
-         device_idle_share_of_untraced_wall=(1 - busy_s / wall) if kernels
-         else None,
-         device_kernels=[dict(name=k[:60], count=c, seconds=us / 1e6)
-                         for k, c, us in kernels[:5]],
          peak_memory_bytes=peak, held_before_bytes=held,
          peak_memory_of_the_loop_bytes=peak - held)
     if not all(checks.values()):
@@ -3758,18 +4010,6 @@ def phase_pond_batch_full(dev):
         vms_list[0], _pond_decisions()[0].as_vmdecisions(), cfg,
         pond0.server_gb, pond0.pool_group_gb)
     oracle_s = time.perf_counter() - t1
-    # the same loop again under the tracer, for the device's busy time
-    # (the sum of kernel times); its idle share is of the untraced wall
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _pond_loop(vms_list, cfg, models, frac, None)
-        torch.cuda.synchronize()
-    kernels = sorted(((e.key, e.count, e.self_device_time_total)
-                      for e in prof.key_averages()
-                      if e.self_device_time_total > 0),
-                     key=lambda r: -r[2])
-    busy_s = sum(r[2] for r in kernels) / 1e6
     got = {p: [dataclasses.asdict(r) for r in rs] for p, rs in res.items()}
     summary = {p: cluster_sim.summarize_savings(rs) for p, rs in res.items()}
     checks = {f"{p}_equals_reference": got[p] == POND_BATCH_WANT[p]
@@ -3808,11 +4048,6 @@ def phase_pond_batch_full(dev):
                            trajectories=times.trajectory_s, other=other,
                            oracle_at_chosen_point=oracle_s),
          wall_seconds=wall,
-         device_busy_seconds=busy_s if kernels else None,
-         device_idle_share_of_untraced_wall=(1 - busy_s / wall) if kernels
-         else None,
-         device_kernels=[dict(name=k[:60], count=c, seconds=us / 1e6)
-                         for k, c, us in kernels[:5]],
          peak_memory_bytes=peak, held_before_bytes=held,
          peak_memory_of_the_loop_bytes=peak - held)
     if not all(checks.values()):
@@ -4400,23 +4635,6 @@ def phase_fig_grids_full(dev):
         np.array_equal(getattr(sg, f), getattr(sg_np, f)) for f in fields)
     fracs = sg.spill_fraction.mean(0)
 
-    # the main path again under the tracer, for the device's busy time;
-    # its idle share is of the untraced wall
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        policy_engine.grid_decisions(vms_list, settings, li, um_models, hist,
-                                     backend="numpy")
-        _fig17_pricing(vms_list, grid, settings, cfg, None)
-        le.spill_grid(spill["kinds"], spill["keys"], spill["nl"],
-                      spill["npl"], backend="torch")
-        torch.cuda.synchronize()
-    kernels = sorted(((e.key, e.count, e.self_device_time_total)
-                      for e in prof.key_averages()
-                      if e.self_device_time_total > 0),
-                     key=lambda r: -r[2])
-    busy_s = sum(r[2] for r in kernels) / 1e6
-
     small_checks, small = _small_figs(dev)
     checks |= small_checks
     got = [dataclasses.asdict(r) for r in res]
@@ -4460,11 +4678,6 @@ def phase_fig_grids_full(dev):
          k6_link_launches=k6_link_launches, sweeps=len(lanes), sweep_lanes=lanes,
          sweep_state_dtypes=[d for _, d in times.sweeps],
          engine_stats=stats, host_seconds=host, wall_seconds=wall,
-         device_busy_seconds=busy_s if kernels else None,
-         device_idle_share_of_untraced_wall=(1 - busy_s / wall) if kernels
-         else None,
-         device_kernels=[dict(name=k[:60], count=c, seconds=us / 1e6)
-                         for k, c, us in kernels[:6]],
          peak_memory_bytes=peak, held_before_bytes=held,
          peak_memory_of_the_path_bytes=peak - held)
     if differ:
@@ -4727,31 +4940,6 @@ def _no_failures(evs):
     return (kind, *evs[1:])
 
 
-def _sass_counts(libs):
-    """SASS instructions of each built kernel whose mangled name matches,
-    from ``cuobjdump -sass`` of its library: ``libs`` is (library,
-    pattern) pairs; returns {function: dict(instructions, by opcode)}."""
-    import subprocess
-
-    from repro_torch.kernels.build import find_nvcc
-    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
-    out = {}
-    for lib, pattern in libs:
-        text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                              text=True, check=True, timeout=300).stdout
-        for block in re.split(r"\n\s*Function : ", text)[1:]:
-            name = block.split("\n", 1)[0].strip()
-            if not re.search(pattern, name):
-                continue
-            ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
-                             r"([A-Z][A-Z0-9]*)", block)
-            by = {}
-            for op in ops:
-                by[op] = by.get(op, 0) + 1
-            out[name] = dict(instructions=len(ops), by_opcode=dict(
-                sorted(by.items(), key=lambda kv: -kv[1])))
-    return out
-
 
 def phase_kernels_fail(dev):
     """K5 against its plain version on the card (``_k5_checks``, and
@@ -4886,12 +5074,7 @@ def phase_kernels_fail(dev):
                       / timings[key]["ms"])
                  for key in (f"batch4x{n_cand}_remigrate",
                              f"batch4x{n_cand}_kill", "mtbf24h_remigrate")]
-    emit("kernels_fail_split", split=split, main_path=main_path,
-         sass=_sass_counts(
-             [(build.library_path(K5.NAME),
-               r"fail_sweep_kernelIsLi8ELb0ELb0E"),
-              (build.library_path(k1_ops.K.NAME),
-               r"sweep_regs_kernelIsLi8ELb0ELb0E")]))
+    emit("kernels_fail_split", split=split, main_path=main_path)
 
     # the kernel through its wrapper against its plain version, == on the
     # counters, the per-FAIL rows and the whole final state, on 2,048-event
@@ -5503,7 +5686,6 @@ def phase_kernels_pod(dev):
                                                 _fleet_capacities,
                                                 _fleet_incidence)
     from repro_torch.kernels import build
-    from repro_torch.kernels.event_sweep import ops as k1_ops
     from repro_torch.kernels.pod_sweep import kernel as K4
     from repro_torch.kernels.pod_sweep import ops
     checked, max_err = _k4_checks(dev)
@@ -5643,21 +5825,11 @@ def phase_kernels_pod(dev):
     cut_ms = k4(ev_c, inc, n_slots, sgb_i, caps_i, [cut])["ms"]
     with open(f"{build.library_path(K4.NAME)}.log") as f:
         report = K4.ptxas_report(f.read())
-    # SASS instructions of the builds the timings above ran (int16, K 8:
-    # the 8-entry table single-trace and batched, the one-entry table) and
-    # of K1's matching builds
     def short(name):            # the kernel's name and template arguments
         m = re.search(r"([a-z_]+kernelI\w*?)EEv", name)
         return m.group(1) if m else name
 
-    emit("kernels_pod_codegen", sass={
-        short(name): dict(instructions=v["instructions"],
-                          top_opcodes=dict(list(v["by_opcode"].items())[:12]))
-        for name, v in _sass_counts(
-            [(build.library_path(K4.NAME),
-              r"pod_sweep_kernelIsLi8ELi(1|8)ELb[01]ELb0E"),
-             (build.library_path(k1_ops.K.NAME),
-              r"sweep_regs_kernelIsLi8ELb[01]ELb0E")]).items()},
+    emit("kernels_pod_codegen",
         ptxas=[dict(r, function=short(r["function"])) for r in report],
         instantiations=len(report),
         with_stack_or_spills=[short(r["function"]) for r in report
@@ -7307,8 +7479,8 @@ def phase_train_full(dev):
     step 1 ``torch.equal``, every pool-tier tensor of (b) and (c) pinned
     on the host, (b)'s peak device memory below (a)'s by at least the pool
     tier less twice the largest parameter's share of it.  Then a
-    checkpoint round trip at a 2-layer cut of the same width and one
-    traced two-phase step."""
+    checkpoint round trip at a 2-layer cut of the same width (the traced
+    two-phase step that followed it until PR 32 is cut)."""
     import shutil
 
     from repro_torch.configs.base import LayerGroup
@@ -7341,7 +7513,7 @@ def phase_train_full(dev):
     del opt_a
     torch.cuda.empty_cache()
     # (b) two-phase, fp32 moments pinned beside the card
-    m_b, opt_b, step_b, data_b, peak_b, snap_b = _train_run(
+    m_b, opt_b, _, _, peak_b, snap_b = _train_run(
         model, params, init, ocfg, True, TRAIN_FULL["steps_two_phase"], dev,
         snapshot_after=1)
     acct_b = _tier_account(opt_b)
@@ -7349,28 +7521,7 @@ def phase_train_full(dev):
                    for t in _pool_tensors(opt_b))
     largest = max(params.values(), key=lambda p: p.numel())
     largest_pool = largest.numel() * 12          # fp32 master + m + v
-    # one more two-phase step under the tracer
-    from torch.profiler import ProfilerActivity, profile
-    batch = {"tokens": torch.from_numpy(next(data_b)["tokens"]).to(dev)}
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step_b(params, opt_b, batch)
-        torch.cuda.synchronize()
-        traced_s = time.perf_counter() - t0
-    # the device's own events (kernels, copies, sets): an operator's
-    # self device time repeats its kernels'
-    from torch.autograd import DeviceType
-    by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            n, us = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    ops = sorted(((k, n, us) for k, (n, us) in by_name.items()),
-                 key=lambda r: -r[2])
-    busy_s = sum(r[2] for r in ops) / 1e6
-    del opt_b, batch, prof
+    del opt_b
     torch.cuda.empty_cache()
     # (c) two-phase, int8 moments
     m_c, opt_c, _, _, peak_c, _ = _train_run(
@@ -7469,12 +7620,6 @@ def phase_train_full(dev):
              opt_ms_b_at_host_link=acct_b.pool_bytes
              / (host_gbps * 1e9) * 1e3,
              host_link_gb_per_s_assumed=host_gbps),
-         traced_step=dict(wall_s=traced_s, device_busy_s=busy_s,
-                          idle_share_of_untraced_step=1 - busy_s / (
-                              step_ms["b_two_phase"] / 1e3),
-                          idle_share_of_traced_wall=1 - busy_s / traced_s,
-                          top5=[dict(name=k[:60], count=c, seconds=us / 1e6)
-                                for k, c, us in ops[:5]]),
          checkpoint=dict(cut_layers=2, bytes=ckpt_bytes, save_s=save_s,
                          restore_s=restore_s),
          phase_s=time.perf_counter() - t_phase)
@@ -7515,11 +7660,12 @@ TRAIN_FAMILY_ARCHS = ("granite-moe-1b-a400m", "mamba2-1.3b",
 # deepseek's first dense MLA layer with its MTP head), bf16 parameters from
 # a seeded init on the card, remat on, 2 microbatches, the trainer's AdamW
 # defaults (lr 3e-3, 20 warmup steps): 2 fused steps, and
-# for deepseek (the reference's plan: two_phase, bf16 accumulation) 2
-# two-phase steps from the same parameters.  Text from ShardedBatches, frames and patch rows
+# for deepseek (the reference's plan: two_phase, bf16 accumulation) 1
+# two-phase step (2 until PR 33) from the same parameters.  Text from
+# ShardedBatches, frames and patch rows
 # from a seeded generator on the card (N(0, 0.02^2), bf16).
 TRAIN_FAMILIES_FULL = dict(seed=0, microbatches=2, lr=3e-3, warmup_steps=20,
-                           steps_fused=2, steps_two_phase=2)
+                           steps_fused=2, steps_two_phase=1)
 
 
 def _family_batch_shapes(cfg, batch, seq):
@@ -8007,7 +8153,12 @@ def main() -> int:
         phase_moe_mesh_full(dev)
     torch.cuda.empty_cache()
     (flash_by_path["family_mesh_full"],
-     flash["at_family_mesh_jamba_prefill"]) = phase_family_mesh_full(dev)
+     flash["at_family_mesh_jamba_prefill"], fused) = \
+        phase_family_mesh_full(dev)
+    torch.cuda.empty_cache()
+    (flash_by_path["encdec_mesh_full"],
+     flash["at_encdec_mesh_internvl2_prefill"]) = \
+        phase_encdec_mesh_full(dev, fused)
     flash["launches"] = sum(flash_by_path.values())
     flash["launches_by_path"] = flash_by_path
     torch.cuda.empty_cache()

@@ -13,8 +13,11 @@ carries a tier tag, ``local`` (the card's memory) or ``pool`` (host memory
 behind it).  ``tier_place`` puts a state's groups where their tags say:
 the pool tier in **pinned** host memory, which the card reads and writes
 with DMA copies (the reference's ``memory_kind="pinned_host"``
-shardings), the local tier on the card.  ``TierAccount`` counts the bytes
-of each tier.
+shardings), the local tier on the card.  A placed state's leaf
+(``sharding/spmd.py::Placed``, M18d) goes to the pool tier as
+:class:`PoolBlocks`: one pinned buffer a distinct block, its replicas
+not again (the placed two-phase step copies each update to them on the
+cards).  ``TierAccount`` counts the bytes of each tier.
 """
 from __future__ import annotations
 
@@ -25,15 +28,35 @@ import torch
 from repro_torch.device import resolve_device
 
 
+@dataclasses.dataclass
+class PoolBlocks:
+    """A placed leaf's pool tier: ``blocks[i]`` holds the block of rank
+    ``ranks[i]``, the leaf's distinct blocks in order
+    (``spmd.Placed.distinct``); ``sharding`` and ``shape`` are the placed
+    leaf's."""
+    blocks: list
+    ranks: list
+    sharding: object
+    shape: tuple
+
+
 def _map_tensors(fn, tree):
     """``fn`` over every tensor of a dict / list / tuple tree, a
-    ``QTensor``'s codes and scales included; None stays None."""
+    ``QTensor``'s codes and scales and every block of a ``PoolBlocks`` or
+    a placed leaf included (a placed leaf gives its list of blocks); None
+    stays None."""
     from repro_torch.optim.compress import QTensor
+    from repro_torch.sharding.spmd import Placed
 
     if tree is None:
         return None
     if isinstance(tree, QTensor):
         return tree.map(fn)
+    if isinstance(tree, PoolBlocks):
+        return PoolBlocks([_map_tensors(fn, b) for b in tree.blocks],
+                          tree.ranks, tree.sharding, tree.shape)
+    if isinstance(tree, Placed):
+        return [_map_tensors(fn, b) for b in tree.blocks]
     if isinstance(tree, dict):
         return {k: _map_tensors(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -66,7 +89,10 @@ def tier_place(state: dict, tiers, device=None) -> dict:
     ``tiers`` is one tag for every group or a dict of tags by group name
     (``optim.adamw.state_tier``).  ``device=None`` is the card, and raises
     where there is none.  A pool tier that cannot be pinned raises;
-    nothing is left pageable."""
+    nothing is left pageable.  A placed leaf stays placed in the local
+    tier and becomes a :class:`PoolBlocks` in the pool tier, its distinct
+    blocks copied a block at a time."""
+    from repro_torch.sharding.spmd import Placed
     device = resolve_device(device)
 
     def where(group):
@@ -74,11 +100,32 @@ def tier_place(state: dict, tiers, device=None) -> dict:
         if tag not in ("local", "pool"):
             raise ValueError(f"tier {tag!r} of {group!r}; local or pool")
         if tag == "local":
-            return lambda t: t.to(device)
-        if device.type == "cuda":
-            return _pinned
-        return lambda t: t.to("cpu")
-    return {g: _map_tensors(where(g), sub) for g, sub in state.items()}
+            fn = lambda t: t.to(device)                 # noqa: E731
+        elif device.type == "cuda":
+            fn = _pinned
+        else:
+            fn = lambda t: t.to("cpu")                  # noqa: E731
+
+        def leaf(x):
+            if not isinstance(x, Placed):
+                return _map_tensors(fn, x)
+            if tag == "local":          # already on its coordinates' cards
+                return x
+            ranks = x.distinct()
+            return PoolBlocks([_map_tensors(fn, x.blocks[r]) for r in ranks],
+                              ranks, x.sharding, x.shape)
+        return leaf
+    return {g: _walk(where(g), sub) for g, sub in state.items()}
+
+
+def _walk(fn, tree):
+    """``fn`` of every leaf of a dict / list / tuple tree (a tensor, a
+    ``QTensor``, a placed leaf or None)."""
+    if isinstance(tree, dict):
+        return {k: _walk(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_walk(fn, v) for v in tree)
+    return fn(tree)
 
 
 @dataclasses.dataclass

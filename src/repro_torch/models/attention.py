@@ -423,9 +423,14 @@ def kv_heads_for(k, v, q_first: int, n_q: int, hq: int):
     return k.index_select(2, ix), v.index_select(2, ix)
 
 
-def _qkv_local(x, w: dict, cfg: ArchConfig, positions, mode: str):
-    """A coordinate's q, k, v (its heads of ``w``), rotated."""
+def _qkv_local(x, w: dict, cfg: ArchConfig, positions, mode: str,
+               causal: bool = True):
+    """A coordinate's q, k, v (its heads of ``w``), rotated where
+    :func:`attn_forward` rotates them (not in an encoder's bidirectional
+    attention)."""
     q, k, v = _project_qkv(x, cfg, **{n: w.get(n) for n in _QKV})
+    if cfg.is_encoder_decoder and not causal:
+        return q, k, v
     pos = positions if mode != "decode" else positions[:, None]
     cos, sin = rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
@@ -441,7 +446,7 @@ def _kv_for_q(k, v, q, q_first: int, cfg: ArchConfig):
 
 def attn_local(x, w: dict, cfg: ArchConfig, positions, *, mode: str,
                q_first: int = 0, cache: dict | None = None,
-               impl: str = "blocked"):
+               impl: str = "blocked", causal: bool = True):
     """One mesh coordinate's attention (``runtime/train.py::
     jit_train_step``, ``runtime/serve.py::jit_decode_step``): ``w`` holds
     its blocks of the layer's weights, gathered whole on "embed" (``wq``
@@ -449,10 +454,13 @@ def attn_local(x, w: dict, cfg: ArchConfig, positions, *, mode: str,
     of its KV heads or of all, ``wo`` (h, hd, d), the biases and qk-norms
     alike).  mode: train (``attn_forward``), prefill (``attn_prefill``:
     ``cache`` is its block of the layer's ring, filled in place), decode
-    (``attn_decode``).  Returns ``x``'s share of the output projection,
-    (B, S, d): the partial sum over its heads, which the caller sums over
-    the model axis where the heads split."""
-    q, k, v = _qkv_local(x, w, cfg, positions, mode)
+    (``attn_decode``); ``causal=False`` (train mode) is an encoder's
+    bidirectional attention, unrotated, the plain product where ``impl``
+    is flash (``_self_attention``).  Returns ``x``'s share of the output
+    projection, (B, S, d), without ``bo``: the partial sum over its heads,
+    which the caller sums over the model axis where the heads split, and
+    adds the bias to once."""
+    q, k, v = _qkv_local(x, w, cfg, positions, mode, causal)
     if mode == "decode":
         cache = ring_cache_update(cache, k, v, positions)
         ks, vs = _kv_for_q(cache["k"], cache["v"], q, q_first, cfg)
@@ -460,7 +468,7 @@ def attn_local(x, w: dict, cfg: ArchConfig, positions, *, mode: str,
         out = grouped_dot_attention(q, ks, vs, mask, cfg.head_dim ** -0.5)
     else:
         ks, vs = _kv_for_q(k, v, q, q_first, cfg)
-        out = _self_attention(q, ks, vs, cfg, positions, True, impl)
+        out = _self_attention(q, ks, vs, cfg, positions, causal, impl)
         if mode == "prefill":
             ring_cache_fill(cache, k, v, positions)
     return torch.einsum("bshe,hed->bsd", out, w["wo"])
@@ -624,9 +632,65 @@ def cross_attn_forward(mixer: Attention, x, enc_kv):
 def encode_cross_kv(mixer: Attention, enc_out):
     """The cross-attention's (k, v) of the encoder's states enc_out
     (B, Senc, d): each (B, Senc, Hkv, D)."""
-    k = torch.einsum("bsd,dhe->bshe", enc_out, mixer.wk)
-    v = torch.einsum("bsd,dhe->bshe", enc_out, mixer.wv)
-    if mixer.cfg.qkv_bias:
-        k = k + mixer.bk.to(k.dtype)
-        v = v + mixer.bv.to(v.dtype)
+    return cross_kv(enc_out, mixer.cfg, wk=mixer.wk, wv=mixer.wv,
+                    bk=getattr(mixer, "bk", None),
+                    bv=getattr(mixer, "bv", None))
+
+
+def cross_kv(enc_out, cfg: ArchConfig, *, wk, wv, bk=None, bv=None):
+    """(k, v) of ``enc_out`` (B, Senc, d) by the KV heads ``wk``/``wv``
+    (d, h, D) hold (every KV head, or a mesh coordinate's)."""
+    k = torch.einsum("bsd,dhe->bshe", enc_out, wk)
+    v = torch.einsum("bsd,dhe->bshe", enc_out, wv)
+    if cfg.qkv_bias:
+        k = k + bk.to(k.dtype)
+        v = v + bv.to(v.dtype)
     return k, v
+
+
+def cross_attn_placed(hs: list, ws: list, cfg: ArchConfig, kvs: list, *,
+                      q_first: list, mesh, model_axis: str, seq_axes=None):
+    """Cross-attention on rank lists: ``hs`` each coordinate's normed
+    decoder input (B, Sq, d), ``ws`` its weights (``wq``, ``bq`` of its
+    query heads from ``q_first`` on, ``wo``), ``kvs`` its (k, v): the KV
+    heads it holds over every encoder frame, or (``seq_axes``, SP: the
+    cache's frames split over those axes) its block of the frames, every
+    KV head or its own.  Every query sees every frame (no RoPE, no mask).
+    Over a block of frames each coordinate gives fp32 partials
+    (``_block_partials``, the query heads gathered over the model axis
+    where its block serves more), merged over ``seq_axes``
+    (:func:`merge_partials`); each keeps its own heads.  Returns each
+    coordinate's share of the output projection, without ``bo``, as
+    :func:`attn_local`."""
+    from repro_torch.sharding import spmd
+    n = len(hs)
+    qs = []
+    for r in range(n):
+        q = torch.einsum("bsd,dhe->bshe", hs[r], ws[r]["wq"])
+        if cfg.qkv_bias:
+            q = q + ws[r]["bq"].to(q.dtype)
+        qs.append(q)
+    scale = cfg.head_dim ** -0.5
+    b, sq, n_q, _ = qs[0].shape
+    every = [torch.ones((1, 1, 1, sq, k.shape[1]), dtype=torch.bool,
+                        device=k.device) for k, _ in kvs]
+    if seq_axes is None:
+        outs = []
+        for r in range(n):
+            k, v = _kv_for_q(kvs[r][0], kvs[r][1], qs[r], q_first[r], cfg)
+            outs.append(grouped_dot_attention(qs[r], k, v, every[r], scale))
+    else:
+        dtype = qs[0].dtype
+        hc = kvs[0][0].shape[2]
+        if n_q < hc * (cfg.num_heads // cfg.num_kv_heads):
+            qs = spmd.all_gather(qs, mesh, model_axis, 2)
+        parts = [_block_partials(qs[r], kvs[r][0], kvs[r][1], every[r],
+                                 scale) for r in range(n)]
+        outs = []
+        for r, o in enumerate(merge_partials(parts, mesh, seq_axes)):
+            o = o.reshape(b, sq, -1, o.shape[-1])
+            if o.shape[2] > n_q:
+                o = o[:, :, q_first[r]:q_first[r] + n_q]
+            outs.append(o.to(dtype))
+    return [torch.einsum("bshe,hed->bsd", o, w["wo"])
+            for o, w in zip(outs, ws)]

@@ -23,6 +23,23 @@ casts them to the weights' dtype, which is bf16 wherever the reference
 runs.  The encoder's bidirectional attention takes the blocked core, or
 with ``attn_impl="flash"`` the plain product, as the reference routes it:
 flash attention (K3) runs only in the decoder's causal prefill.
+
+On a mesh (M18c), ``forward``, ``prefill``, ``decode`` and ``logits``
+take ``params=``, the parameters placed by name (``sharding/spmd.py``),
+and placed inputs, as ``models/transformer.py``'s ``LM`` does: each
+coordinate runs the encoder's and the decoder's blocks on its heads and
+ff columns (``attention.attn_local``: the encoder's unrotated and
+bidirectional), each split product summed over the model axis and its
+replicated ``bo`` added once after the sum; the decoder's learned
+positions are gathered over the data axes (FSDP) in train mode.  The
+cross K/V are computed from each coordinate's encoder states on its KV
+heads; at prefill they are written once into the placed
+``cross_k``/``cross_v`` leaves, whose frames split over the model axis
+under SP (``ShardCtx.seq_shard_kv``) or whose KV heads split without it,
+and every cross-attention reads them (``attention.cross_attn_placed``: a
+coordinate's heads, or fp32 partials over its block of the frames merged
+across the axis).  With ``ShardCtx.remat`` each block of both stacks is
+recomputed in the backward (``transformer.remat_run``).
 """
 from __future__ import annotations
 
@@ -34,12 +51,14 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import transformer as tr
 from repro_torch.models.layers import (MLP, Embedding, Norm, SpecModule,
                                        embed_specs, embed_tokens, lm_logits,
                                        mlp_specs, norm_specs)
 from repro_torch.models.params import (ParamSpec, init_tensor_,
                                        map_with_path, stack_specs)
-from repro_torch.sharding.rules import ShardCtx
+from repro_torch.sharding import spmd
+from repro_torch.sharding.rules import P, NamedSharding, ShardCtx
 
 _NULL_CTX = ShardCtx()
 MAX_DEC_LEN = 448  # whisper decoder context
@@ -158,6 +177,142 @@ class DecoderBlock(nn.Module):
         return x + self.ffn(self.norm2(x))
 
 
+# -------------------------------------------------------- on a mesh (M18c) --
+def _enc_block(cfg: ArchConfig, bp: dict, x: list, positions: list,
+               ctx: ShardCtx) -> list:
+    """One encoder block over every coordinate: bidirectional attention,
+    then the MLP, each residual."""
+    h = tr._norm_blocks(bp, "norm1.", x, cfg)
+    x = [a + b for a, b in zip(x, tr.mesh_mixer(cfg, "attn", bp, "mixer.", h,
+                                                positions, ctx, "train",
+                                                causal=False))]
+    h = tr._norm_blocks(bp, "norm2.", x, cfg)
+    return [a + b for a, b in zip(x, tr.mesh_mlp(bp, "ffn.", h, ctx))]
+
+
+def _cross_kv(cfg: ArchConfig, bp: dict, enc: list, ctx: ShardCtx) -> list:
+    """Each coordinate's cross (k, v) of its encoder states, on the KV
+    heads its ``cross.wk``/``cross.wv`` blocks hold."""
+    return [attn.cross_kv(e, cfg, **{k: w.get(k) for k in
+                                     ("wk", "wv", "bk", "bv")})
+            for e, w in zip(enc, tr.local_weights(bp, "cross.", ctx))]
+
+
+def _dec_block(cfg: ArchConfig, bp: dict, x: list, positions: list,
+               ctx: ShardCtx, mode: str, *, enc=None, views=None,
+               kv_seq=None, cross=None, cross_seq=None) -> list:
+    """One decoder block over every coordinate: causal self-attention (on
+    ``views``, the layer's ring blocks, in prefill and decode),
+    cross-attention over each coordinate's cross (k, v) (``cross``: read
+    from the cache, their frames split over ``cross_seq``; in train mode
+    computed from ``enc``), then the MLP."""
+    h = tr._norm_blocks(bp, "norm1.", x, cfg)
+    x = [a + b for a, b in zip(x, tr.mesh_mixer(cfg, "attn", bp, "self.", h,
+                                                positions, ctx, mode,
+                                                views=views, kv_seq=kv_seq))]
+    h = tr._norm_blocks(bp, "norm_x.", x, cfg)
+    if cross is None:
+        cross = _cross_kv(cfg, bp, enc, ctx)
+    split, first = tr.heads_first(bp["cross.wq"], 1, ctx)
+    y = attn.cross_attn_placed(h, tr.local_weights(bp, "cross.", ctx), cfg,
+                               cross, q_first=first, mesh=ctx.mesh,
+                               model_axis=ctx.model_axis, seq_axes=cross_seq)
+    if split:
+        y = spmd.psum(y, ctx.mesh, ctx.model_axis)
+    y = tr.add_bias_once(y, bp, "cross.bo")
+    x = [a + b for a, b in zip(x, y)]
+    h = tr._norm_blocks(bp, "norm2.", x, cfg)
+    return [a + b for a, b in zip(x, tr.mesh_mlp(bp, "ffn.", h, ctx))]
+
+
+def _write_cross(leaf: spmd.Placed, layer: int, kvs: list, ctx: ShardCtx):
+    """Each coordinate's k (or v) of every encoder frame on its KV heads
+    written into its block of the placed cache leaf at ``layer``: the KV
+    heads gathered over the model axis where the block holds more, the
+    block's frames cut where they split (SP)."""
+    hc, w_loc = leaf.blocks[0].shape[3], leaf.blocks[0].shape[2]
+    if kvs[0].shape[2] < hc:
+        kvs = spmd.all_gather(kvs, ctx.mesh, ctx.model_axis, 2)
+    if leaf.spec[2] is not None:
+        idx = spmd.axis_index(ctx.mesh, leaf.spec[2])
+        kvs = [t[:, i * w_loc:(i + 1) * w_loc] for t, i in zip(kvs, idx)]
+    for blk, t in zip(leaf.blocks, kvs):
+        blk[layer].copy_(t)
+
+
+def _mesh_encode(model, params: dict, frames: spmd.Placed,
+                 ctx: ShardCtx, train: bool) -> list:
+    """The encoder on placed parameters: each coordinate's rows of the
+    frames (cast to the weights' dtype) plus the sinusoids, every block
+    (under remat in train mode with ``ctx.remat``), the final norm.
+    Returns the rank list of encoder states, whole on d."""
+    cfg = model.cfg
+    dtype = params["embed.tok"].dtype
+    x = []
+    for f in frames.blocks:
+        t = f.to(dtype)
+        x.append(t + sinusoid(t.shape[1], cfg.d_model).to(t.device,
+                                                          dtype)[None])
+    s = x[0].shape[1]
+    pos = [torch.arange(s, device=t.device).expand(t.shape[0], s)
+           for t in x]
+    for i in range(len(model.enc_blocks)):
+        bp = tr._block_params(params, f"enc_blocks.{i}.")
+        if train and ctx.remat:
+            x = tr.remat_run(
+                lambda xs, local, _first: _enc_block(cfg, local, xs, pos,
+                                                     ctx), x, bp)
+        else:
+            x = _enc_block(cfg, bp, x, pos, ctx)
+    return tr._norm_blocks(params, "enc_norm.", x, cfg)
+
+
+def _mesh_decoder(model, params: dict, tokens: spmd.Placed, positions,
+                  ctx: ShardCtx, mode: str, *, enc=None, cache=None):
+    """The decoder on placed parameters: the tokens' embedding (the
+    table's d-slices gathered over the model axis) plus the learned
+    positions (gathered over the data axes in train mode), every block,
+    the final norm.  Train mode computes each layer's cross K/V from
+    ``enc`` (under remat with ``ctx.remat``); prefill and decode read
+    them from ``cache``.  Returns the hidden states, placed as the tokens'
+    rows."""
+    cfg = model.cfg
+    x = tr.mesh_embed(params, tokens, ctx)
+    table = spmd.unshard(params["dec_pos"], (ctx.model_axis,))
+    pos = positions.blocks
+    at = pos if mode != "decode" else [p[:, None] for p in pos]
+    x = [t + w[p.clamp(0, MAX_DEC_LEN - 1)].to(t.dtype)
+         for t, w, p in zip(x, table, at)]
+    n = len(x)
+    for li in range(len(model.dec_blocks)):
+        bp = tr._block_params(params, f"dec_blocks.{li}.")
+        if mode == "train":
+            if ctx.remat:
+                x = tr.remat_run(
+                    lambda ts, local, _first: _dec_block(
+                        cfg, local, ts[:n], pos, ctx, mode, enc=ts[n:]),
+                    x + list(enc), bp)
+            else:
+                x = _dec_block(cfg, bp, x, pos, ctx, mode, enc=enc)
+            continue
+        ring = cache["self"]
+        views = [{k: t.blocks[r][li] for k, t in ring.items()}
+                 for r in range(n)]
+        cross = [(cache["cross_k"].blocks[r][li],
+                  cache["cross_v"].blocks[r][li]) for r in range(n)]
+        x = _dec_block(cfg, bp, x, pos, ctx, mode, views=views,
+                       kv_seq=ring["k"].spec[2], cross=cross,
+                       cross_seq=cache["cross_k"].spec[2])
+    hs = NamedSharding(ctx.mesh, P(tokens.spec[0], None, None))
+    return spmd.Placed(tr._norm_blocks(params, "final_norm.", x, cfg), hs)
+
+
+def _check_placed(model, params, tokens, positions, ctx, what, frames=None):
+    tr.mesh_family_check(model.cfg, f"EncDec {what} with placed "
+                         "parameters", ctx)
+    tr.check_inputs(tokens, positions, params, ctx, frames)
+
+
 # ----------------------------------------------------------------- model ---
 class EncDec(nn.Module):
     """Encoder-decoder model (whisper)."""
@@ -268,15 +423,29 @@ class EncDec(nn.Module):
         w = getattr(self.embed, "lm_head", None)
         return self.embed.tok.T if w is None else w
 
-    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
+    def logits(self, hidden, params: dict | None = None,
+               ctx: ShardCtx = _NULL_CTX):
+        """(B, S, V) fp32 logits; with placed ``params`` of placed hidden
+        states (``transformer.mesh_logits``)."""
+        if params is not None:
+            return tr.mesh_logits(params, hidden, ctx)
         return lm_logits(hidden, self.embed.tok,
                          getattr(self.embed, "lm_head", None))
 
     def forward(self, tokens, positions, ctx: ShardCtx = _NULL_CTX,
-                embeds=None) -> dict:
+                embeds=None, params: dict | None = None) -> dict:
         """Training: ``embeds`` are the encoder's frames, ``tokens`` (B, S)
         the decoder's, ``positions`` (B, S) theirs.  Returns ``{"hidden":
-        (B, S, d), "aux": 0}``."""
+        (B, S, d), "aux": 0}``.  With placed ``params`` (module
+        docstring) the inputs and ``hidden`` are placed."""
+        if params is not None:
+            _check_placed(self, params, tokens, positions, ctx, "train",
+                          embeds)
+            enc = _mesh_encode(self, params, embeds, ctx, train=True)
+            hidden = _mesh_decoder(self, params, tokens, positions, ctx,
+                                   "train", enc=enc)
+            return {"hidden": hidden, "aux": torch.zeros(
+                (), dtype=torch.float32, device=hidden.blocks[0].device)}
         enc_out = self.encode(embeds, ctx, train=True)
         x = self._dec_embed(tokens, positions)
         x = self._decoder(x, positions, ctx, enc_out=enc_out, mode="train")
@@ -284,10 +453,28 @@ class EncDec(nn.Module):
                 "aux": torch.zeros((), dtype=torch.float32, device=x.device)}
 
     def prefill(self, tokens, positions, cache: dict,
-                ctx: ShardCtx = _NULL_CTX, embeds=None):
+                ctx: ShardCtx = _NULL_CTX, embeds=None,
+                params: dict | None = None):
         """Encode the frames once, store every layer's cross K/V in the
         cache, prefill the decoder's prompt (tokens, positions: (B, S)).
-        Returns (hidden, cache, aux 0); the cache is written in place."""
+        Returns (hidden, cache, aux 0); the cache is written in place.
+        With placed ``params`` the inputs, the cache's leaves and the
+        hidden states are placed: the cross K/V are written into their
+        placed leaves first, then every layer reads them there."""
+        if params is not None:
+            _check_placed(self, params, tokens, positions, ctx, "prefill",
+                          embeds)
+            enc = _mesh_encode(self, params, embeds, ctx, train=False)
+            for li in range(len(self.dec_blocks)):
+                bp = tr._block_params(params, f"dec_blocks.{li}.")
+                kvs = _cross_kv(self.cfg, bp, enc, ctx)
+                _write_cross(cache["cross_k"], li, [k for k, _ in kvs], ctx)
+                _write_cross(cache["cross_v"], li, [v for _, v in kvs], ctx)
+            del enc
+            hidden = _mesh_decoder(self, params, tokens, positions, ctx,
+                                   "prefill", cache=cache)
+            return hidden, cache, torch.zeros(
+                (), dtype=torch.float32, device=hidden.blocks[0].device)
         enc_out = self.encode(embeds, ctx)
         kvs = [attn.encode_cross_kv(blk.cross, enc_out)
                for blk in self.dec_blocks]
@@ -302,10 +489,16 @@ class EncDec(nn.Module):
                                      device=x.device)
 
     def decode(self, tokens, positions, cache: dict,
-               ctx: ShardCtx = _NULL_CTX):
+               ctx: ShardCtx = _NULL_CTX, params: dict | None = None):
         """One token per sequence. tokens: (B, 1); positions: (B,).
         Returns (logits (B, 1, V) fp32, cache); the ring is written in
-        place, the cross K/V only read."""
+        place, the cross K/V only read.  With placed ``params`` the
+        inputs, the cache's leaves and the logits are placed."""
+        if params is not None:
+            _check_placed(self, params, tokens, positions, ctx, "decode")
+            hidden = _mesh_decoder(self, params, tokens, positions, ctx,
+                                   "decode", cache=cache)
+            return tr.mesh_logits(params, hidden, ctx), cache
         x = self._dec_embed(tokens, positions[:, None])
         x = self._decoder(x, positions, ctx, cache=cache,
                           cross_kv=(cache["cross_k"], cache["cross_v"]),

@@ -137,11 +137,14 @@ def apply_mlp(x: torch.Tensor, *, wo: torch.Tensor,
               bo: torch.Tensor | None = None) -> torch.Tensor:
     """x: (B, S, d).  SwiGLU with ``wi_gate``/``wi_up``; with ``wi`` the
     single-up gelu MLP with biases (tanh approximation, the reference's
-    default)."""
+    default).  ``bo=None`` leaves the output bias out (a mesh coordinate's
+    share, which the caller adds once after the sum over the model
+    axis)."""
     if wi is not None:
         h = x @ wi + bi.to(x.dtype)
         h = F.gelu(h, approximate="tanh")
-        return h @ wo + bo.to(x.dtype)
+        y = h @ wo
+        return y if bo is None else y + bo.to(x.dtype)
     h = F.silu(x @ wi_gate) * (x @ wi_up)
     return h @ wo
 

@@ -48,8 +48,11 @@ latent cache whose slots split over mesh axes (SP,
 ``ShardCtx.seq_shard_kv``) goes through ``attention.attn_seq_sharded``
 or ``mla.mla_placed``'s merge.  The MTP head runs on the placed hidden
 states (``_mesh_mtp``).  Every decoder-only family runs there
-(``is_placed_family``, ``mesh_family_check``); the encoder-decoder and
-the vision frontend do not.
+(``is_placed_family``, ``mesh_family_check``), the vision frontend
+too: its patch rows (placed ``embeds``) go before each coordinate's token
+embeddings.  The encoder-decoder's placed run is ``models/encdec.py``'s,
+on this module's pieces.  A replicated bias after a split product (the
+gelu MLP's and the attention's ``bo``) is added once, after the ``psum``.
 """
 from __future__ import annotations
 
@@ -211,13 +214,16 @@ class MTPHead(SpecModule):
 
 # -------------------------------------------------------- on a mesh (M18) --
 def is_placed_family(cfg: ArchConfig) -> bool:
-    """A decoder-only stack whose blocks are attention, MLA or Mamba-2,
-    each with a SwiGLU MLP, an MoE ffn or none, an MTP head where it has
-    one: the dense decoder and the MoE, MLA, Mamba-2 and hybrid families,
-    which the sharded steps place (not the encoder-decoder or a vision
-    frontend)."""
-    return (not cfg.is_encoder_decoder and cfg.frontend is None
-            and cfg.act == "silu"
+    """A stack the sharded steps place: a decoder-only stack whose blocks
+    are attention, MLA or Mamba-2, each with an MLP (SwiGLU, or gelu with
+    biases), an MoE ffn or none, an MTP head or a vision frontend where it
+    has one (the dense decoder and the MoE, MLA, Mamba-2, hybrid and
+    vision families), or the encoder-decoder's attention and MLP
+    blocks."""
+    if cfg.is_encoder_decoder:
+        return all(b.mixer == "attn" and b.ffn == "mlp"
+                   for g in cfg.groups for b in g.blocks)
+    return (cfg.frontend in (None, "vision")
             and all(b.mixer in ("attn", "mla", "mamba")
                     and b.ffn in ("mlp", "moe", "none")
                     for g in cfg.groups for b in g.blocks))
@@ -230,11 +236,10 @@ def mesh_family_check(cfg: ArchConfig, what: str, ctx: ShardCtx) -> None:
     (``mamba2.check_split``)."""
     if not is_placed_family(cfg):
         raise NotImplementedError(
-            f"{what}: {cfg.name} ({cfg.family}) on a mesh of more than one "
-            "coordinate; the sharded steps place the decoder-only families "
-            "(attention, MLA and Mamba-2 blocks) only (ROADMAP Queue 1, "
-            "M18c: the encoder-decoder and frontend families under "
-            "placement)")
+            f"{what}: {cfg.name} ({cfg.family}) on a mesh; the sharded "
+            "steps place attention, MLA and Mamba-2 blocks with an MLP, an "
+            "MoE ffn or none, and the encoder-decoder's attention and MLP "
+            "blocks")
     if any(b.mixer == "mamba" for g in cfg.groups for b in g.blocks):
         mamba2.check_split(cfg, ctx)
 
@@ -249,53 +254,90 @@ def _norm_blocks(params: dict, prefix: str, x, cfg: ArchConfig) -> list:
                        cfg.norm, cfg.norm_eps) for r, t in enumerate(x)]
 
 
-def _local(params: dict, prefix: str, keep) -> dict[str, list]:
-    """A sub-module's weights by short name, each a rank list of blocks
-    gathered whole on every dim sharded outside ``keep`` (FSDP)."""
-    return {k[len(prefix):]: spmd.unshard(p, keep)
-            for k, p in params.items() if k.startswith(prefix)}
-
-
 #: each mixer's leaf whose dim splits its heads over the model axis
-_HEADS_LEAF = {"attn": ("mixer.wq", 1), "mla": ("mixer.w_q_up", 1),
-               "mamba": ("mixer.A_log", 0)}
+_HEADS_LEAF = {"attn": ("wq", 1), "mla": ("w_q_up", 1), "mamba": ("A_log", 0)}
 
 
-def _mesh_mixer(cfg: ArchConfig, kind: Block, bp: dict, h: list,
-                positions: list, ctx: ShardCtx, mode: str, views, kv_seq):
-    """The block's mixer on every coordinate's heads, its weights
-    gathered whole on "embed" (FSDP): attention (``attn_local``, or
-    ``attn_seq_sharded`` where the ring's slots split over ``kv_seq``),
-    MLA (``mla.mla_placed``) or Mamba-2 (``mamba2.mamba_placed``; its
-    inner channels split with its heads, ``mesh_family_check``).  Returns
-    (each coordinate's share of the output projection, whether the heads
-    split over the model axis)."""
+def local_weights(bp: dict, prefix: str, ctx: ShardCtx) -> list[dict]:
+    """Each coordinate's weights of the sub-module ``prefix`` by short
+    name, gathered whole on every dim sharded outside the model axis
+    (FSDP)."""
+    w = {k[len(prefix):]: spmd.unshard(p, (ctx.model_axis,))
+         for k, p in bp.items() if k.startswith(prefix)}
+    n = len(next(iter(w.values())))
+    return [{k: v[r] for k, v in w.items()} for r in range(n)]
+
+
+def heads_first(p: spmd.Placed, dim: int, ctx: ShardCtx):
+    """Whether ``p``'s heads (dimension ``dim``) split over the model
+    axis, and each coordinate's first head."""
+    ma = ctx.model_axis
+    split = spmd.sharded_over(p, ma) is not None
+    per = p.blocks[0].shape[dim]
+    return split, ([j * per for j in spmd.axis_index(ctx.mesh, ma)]
+                   if split else [0] * len(p.blocks))
+
+
+def add_bias_once(y: list, bp: dict, name: str) -> list:
+    """``y`` (every coordinate's whole output, after the sum over the model
+    axis) plus the replicated bias ``bp[name]`` where the block has one:
+    each coordinate adds its own block (its gradient summed over the
+    replicas after the backward, ``spmd.sum_replicas``)."""
+    bias = bp.get(name)
+    if bias is None:
+        return y
+    return [a + b.to(a.dtype) for a, b in zip(y, bias.blocks)]
+
+
+def mesh_mlp(bp: dict, prefix: str, h: list, ctx: ShardCtx) -> list:
+    """The MLP ``prefix`` on every coordinate's ff columns (SwiGLU, or gelu
+    with ``bi`` split with its columns), its weights gathered whole on
+    "embed" (FSDP), the partial outputs summed over the model axis where
+    ff splits, then ``bo`` added once."""
+    y = [apply_mlp(h[r], **{k: v for k, v in w.items() if k != "bo"})
+         for r, w in enumerate(local_weights(bp, prefix, ctx))]
+    if spmd.sharded_over(bp[prefix + "wo"], ctx.model_axis) is not None:
+        y = spmd.psum(y, ctx.mesh, ctx.model_axis)
+    return add_bias_once(y, bp, prefix + "bo")
+
+
+def mesh_mixer(cfg: ArchConfig, mixer: str, bp: dict, prefix: str, h: list,
+               positions: list, ctx: ShardCtx, mode: str, views=None,
+               kv_seq=None, causal: bool = True) -> list:
+    """The mixer ``prefix`` of kind ``mixer`` on every coordinate's heads,
+    its weights gathered whole on "embed" (FSDP): attention
+    (``attn_local``, ``causal=False`` an encoder's; ``attn_seq_sharded``
+    where the ring's slots split over ``kv_seq``), MLA
+    (``mla.mla_placed``) or Mamba-2 (``mamba2.mamba_placed``; its inner
+    channels split with its heads, ``mesh_family_check``).  Each
+    coordinate's share of the output projection is summed over the model
+    axis where the heads split, and ``bo`` added once: returns every
+    coordinate's whole output."""
     mesh, ma = ctx.mesh, ctx.model_axis
-    n = len(h)
-    leaf, dim = _HEADS_LEAF[kind.mixer]
-    split = spmd.sharded_over(bp[leaf], ma) is not None
-    per = bp[leaf].blocks[0].shape[dim]
-    first = ([j * per for j in spmd.axis_index(mesh, ma)] if split
-             else [0] * n)
-    w = _local(bp, "mixer.", (ma,))
-    ws = [{k: v[r] for k, v in w.items()} for r in range(n)]
-    if kind.mixer == "mla":
-        return mla.mla_placed(h, ws, cfg, positions, mode=mode, views=views,
-                              mesh=mesh, model_axis=ma, seq_axes=kv_seq,
-                              q_first=first, impl=ctx.attn_impl), split
-    if kind.mixer == "mamba":
-        return mamba2.mamba_placed(h, ws, cfg, mode=mode, views=views,
-                                   first=first, mesh=mesh, model_axis=ma,
-                                   split=split), split
-    if kv_seq is not None:
-        return attn.attn_seq_sharded(h, ws, cfg, positions, mode=mode,
-                                     q_first=first, views=views, mesh=mesh,
-                                     model_axis=ma, seq_axes=kv_seq,
-                                     impl=ctx.attn_impl), split
-    return [attn.attn_local(h[r], ws[r], cfg, positions[r], mode=mode,
-                            q_first=first[r],
-                            cache=None if views is None else views[r],
-                            impl=ctx.attn_impl) for r in range(n)], split
+    leaf, dim = _HEADS_LEAF[mixer]
+    split, first = heads_first(bp[prefix + leaf], dim, ctx)
+    ws = local_weights(bp, prefix, ctx)
+    if mixer == "mla":
+        y = mla.mla_placed(h, ws, cfg, positions, mode=mode, views=views,
+                           mesh=mesh, model_axis=ma, seq_axes=kv_seq,
+                           q_first=first, impl=ctx.attn_impl)
+    elif mixer == "mamba":
+        y = mamba2.mamba_placed(h, ws, cfg, mode=mode, views=views,
+                                first=first, mesh=mesh, model_axis=ma,
+                                split=split)
+    elif kv_seq is not None:
+        y = attn.attn_seq_sharded(h, ws, cfg, positions, mode=mode,
+                                  q_first=first, views=views, mesh=mesh,
+                                  model_axis=ma, seq_axes=kv_seq,
+                                  impl=ctx.attn_impl)
+    else:
+        y = [attn.attn_local(h[r], ws[r], cfg, positions[r], mode=mode,
+                             q_first=first[r], causal=causal,
+                             cache=None if views is None else views[r],
+                             impl=ctx.attn_impl) for r in range(len(h))]
+    if split:
+        y = spmd.psum(y, mesh, ma)
+    return add_bias_once(y, bp, prefix + "bo")
 
 
 def _mesh_block(cfg: ArchConfig, kind: Block, bp: dict, x: list,
@@ -306,17 +348,12 @@ def _mesh_block(cfg: ArchConfig, kind: Block, bp: dict, x: list,
     ``views``: a rank list of the layer's cache views (None in train
     mode), their slots split over ``kv_seq`` (SP) or whole; ``x_spec``:
     the residual stream's placement; ``stats``: the MoE's drop count.
-    The mixer (:func:`_mesh_mixer`), its partial outputs summed over the
-    model axis where it splits; then the MLP, the MoE
-    (``moe.moe_placed``) or no ffn.  Returns (x, the MoE's aux or
+    The mixer (:func:`mesh_mixer`), then the MLP (:func:`mesh_mlp`), the
+    MoE (``moe.moe_placed``) or no ffn.  Returns (x, the MoE's aux or
     None)."""
-    mesh, ma = ctx.mesh, ctx.model_axis
-    n = len(x)
     h = _norm_blocks(bp, "norm1.", x, cfg)
-    y, split = _mesh_mixer(cfg, kind, bp, h, positions, ctx, mode, views,
-                           kv_seq)
-    if split:
-        y = spmd.psum(y, mesh, ma)
+    y = mesh_mixer(cfg, kind.mixer, bp, "mixer.", h, positions, ctx, mode,
+                   views, kv_seq)
     x = [a + b for a, b in zip(x, y)]
     if kind.ffn == "none":
         return x, None
@@ -326,11 +363,7 @@ def _mesh_block(cfg: ArchConfig, kind: Block, bp: dict, x: list,
         y, aux = moe.moe_placed(_block_params(bp, "ffn."), h, x_spec, cfg,
                                 ctx, cf, stats)
         return [a + b for a, b in zip(x, y)], aux
-    w = _local(bp, "ffn.", (ma,))
-    y = [apply_mlp(h[r], **{k: v[r] for k, v in w.items()})
-         for r in range(n)]
-    if spmd.sharded_over(bp["ffn.wo"], ma) is not None:
-        y = spmd.psum(y, mesh, ma)
+    y = mesh_mlp(bp, "ffn.", h, ctx)
     return [a + b for a, b in zip(x, y)], None
 
 
@@ -367,27 +400,37 @@ class _Remat(torch.autograd.Function):
                                     for t in ts)
 
 
-def _remat_block(cfg: ArchConfig, kind: Block, bp: dict, x: list,
-                 positions: list, ctx: ShardCtx, mode: str, x_spec,
-                 stats=None):
-    """``_mesh_block`` in train mode under :class:`_Remat` (the drops
-    counted in the forward's run only); returns (x, aux or None)."""
+def remat_run(fn, xs: list, bp: dict) -> list:
+    """``fn(xs, bp, first)`` (a list of tensors of the rank list ``xs``
+    and the placed parameters ``bp``) under :class:`_Remat`: nothing kept
+    for the backward but ``xs`` and ``bp``'s blocks."""
     names = list(bp)
 
-    def run(xs, blocks, first):
+    def run(ts, blocks, first):
         k, local = 0, {}
         for n in names:
             p = bp[n]
             local[n] = spmd.Placed(blocks[k:k + len(p.blocks)], p.sharding,
                                    p.shape)
             k += len(p.blocks)
+        return fn(ts, local, first)
+
+    return list(_Remat.apply(run, len(xs), *xs,
+                             *[b for n in names for b in bp[n].blocks]))
+
+
+def _remat_block(cfg: ArchConfig, kind: Block, bp: dict, x: list,
+                 positions: list, ctx: ShardCtx, mode: str, x_spec,
+                 stats=None):
+    """``_mesh_block`` in train mode under :class:`_Remat` (the drops
+    counted in the forward's run only); returns (x, aux or None)."""
+    def fn(xs, local, first):
         out, aux = _mesh_block(cfg, kind, local, xs, positions, ctx, mode,
                                None, x_spec,
                                stats=stats if first else None)
         return out if aux is None else out + [aux]
 
-    out = list(_Remat.apply(run, len(x), *x,
-                            *[b for n in names for b in bp[n].blocks]))
+    out = remat_run(fn, x, bp)
     return (out, None) if len(out) == len(x) else (out[:-1], out[-1])
 
 
@@ -396,21 +439,30 @@ def _block_params(params: dict, prefix: str) -> dict:
             if k.startswith(prefix)}
 
 
-def _check_inputs(tokens, positions, params: dict, ctx: ShardCtx):
-    for what, t in (("tokens", tokens), ("positions", positions)):
+def check_inputs(tokens, positions, params: dict, ctx: ShardCtx,
+                 embeds=None):
+    """Placed inputs on the ``ShardCtx``'s mesh (``embeds`` where given,
+    their rows placed as the tokens'), every parameter placed there."""
+    for what, t in (("tokens", tokens), ("positions", positions),
+                    ("embeds", embeds)):
+        if what == "embeds" and t is None:
+            continue
         if not isinstance(t, spmd.Placed):
             raise TypeError(f"{what}: placed parameters take placed inputs "
                             f"(got {type(t).__name__})")
         if t.mesh is not ctx.mesh:
             raise ValueError(f"{what}: placed on another mesh than the "
                              "ShardCtx's")
+    if embeds is not None and embeds.spec[0] != tokens.spec[0]:
+        raise ValueError(f"embeds: rows placed as {embeds.spec[0]}, the "
+                         f"tokens' as {tokens.spec[0]}")
     for name, p in params.items():
         if not isinstance(p, spmd.Placed) or p.mesh is not ctx.mesh:
             raise ValueError(f"parameter {name} is not placed on the "
                              "ShardCtx's mesh")
 
 
-def _mesh_embed(params: dict, tokens: spmd.Placed, ctx: ShardCtx) -> list:
+def mesh_embed(params: dict, tokens: spmd.Placed, ctx: ShardCtx) -> list:
     """Each coordinate's rows of the table lookup, whole on d: its
     d-slice of "embed_tbl" looked up, then gathered over the model axis."""
     tok = params["embed.tok"]
@@ -450,16 +502,20 @@ def _run_block(cfg: ArchConfig, kind: Block, bp: dict, x: list,
 
 
 def _mesh_run(model, params: dict, tokens, positions, ctx: ShardCtx,
-              cache, mode: str):
-    """The embedding, every block and the final norm on placed
-    parameters; returns the hidden states, placed as the tokens' rows
-    (over the batch axes, or whole where the batch does not split), the
-    MoE layers' summed aux on coordinate 0's device, and the embedding's
-    rank list (the MTP head reads it)."""
+              cache, mode: str, embeds=None):
+    """The embedding (a vision frontend's placed ``embeds`` rows first),
+    every block and the final norm on placed parameters; returns the
+    hidden states, placed as the tokens' rows (over the batch axes, or
+    whole where the batch does not split), the MoE layers' summed aux on
+    coordinate 0's device, and the tokens' embedding's rank list (the MTP
+    head reads it)."""
     cfg = model.cfg
     mesh_family_check(cfg, f"LM {mode} with placed parameters", ctx)
-    _check_inputs(tokens, positions, params, ctx)
-    emb = x = _mesh_embed(params, tokens, ctx)
+    check_inputs(tokens, positions, params, ctx, embeds)
+    emb = x = mesh_embed(params, tokens, ctx)
+    if embeds is not None:
+        x = [torch.cat([e.to(t.dtype), t], dim=1)
+             for e, t in zip(embeds.blocks, emb)]
     pos = positions.blocks
     x_spec = P(tokens.spec[0], None, None)
     hs = NamedSharding(ctx.mesh, x_spec)
@@ -646,7 +702,7 @@ class LM(nn.Module):
         cfg = self.cfg
         if params is not None:
             hidden, aux, emb = _mesh_run(self, params, tokens, positions,
-                                         ctx, None, "train")
+                                         ctx, None, "train", embeds)
             out = {"hidden": hidden, "aux": aux}
             if cfg.mtp_depth and "mtp.proj" in params:
                 out["mtp_hidden"], mtp_aux = _mesh_mtp(
@@ -672,13 +728,14 @@ class LM(nn.Module):
                 ctx: ShardCtx = _NULL_CTX, embeds=None,
                 params: dict | None = None):
         """Process the prompt, fill the cache in place.  tokens: (B,S);
-        positions: (B,S).  Returns (hidden, cache, aux); aux is the MoE
-        layers' summed load-balance and z loss, 0 without them.  With
-        placed ``params`` the inputs, the cache's leaves and the hidden
-        states are placed."""
+        positions: (B,S[+N]) covering ``embeds``' N rows, which come first.
+        Returns (hidden, cache, aux); aux is the MoE layers' summed
+        load-balance and z loss, 0 without them.  With placed ``params``
+        the inputs, the cache's leaves and the hidden states are
+        placed."""
         if params is not None:
             hidden, aux, _ = _mesh_run(self, params, tokens, positions,
-                                       ctx, cache, "prefill")
+                                       ctx, cache, "prefill", embeds)
             return hidden, cache, aux
         x = self.embed(tokens, embeds)
         x, aux = self._run_groups(x, positions, ctx, cache, "prefill")

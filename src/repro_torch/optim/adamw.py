@@ -22,7 +22,9 @@ On a mesh (``runtime/train.py::jit_train_step``) the parameters, their
 gradients and the state are ``sharding/spmd.py::Placed``: the state is
 made and updated a block at a time on each block's device, the global
 gradient norm counts each distinct block once (not once a replica), and
-``step`` is a placed scalar, one copy a coordinate.
+``step`` is a placed scalar, one copy a coordinate.  ``tier_place`` then
+moves a placed state's pool tier to one host buffer a distinct block for
+the placed two-phase step (int8 moments too, which only that step takes).
 """
 from __future__ import annotations
 
@@ -92,13 +94,12 @@ def init_state(params: dict, cfg: AdamWConfig, device=None) -> dict:
 
 def _init_placed(params: dict, cfg: AdamWConfig, device) -> dict:
     """The state of placed parameters, each leaf placed like its
-    parameter, made block by block."""
+    parameter, made block by block (int8 moments a ``QTensor`` a block:
+    the placed two-phase step's, once ``core/znuma.py::tier_place`` has
+    put them in the pool tier; the fused step raises on them)."""
     if device is not None:
         raise ValueError("placed parameters: the state is placed like them "
                          "(device= is for one device)")
-    if cfg.moments_dtype == "int8":
-        raise ValueError("int8 moments are a pool-tier feature, not placed "
-                         "on a mesh")
     mesh = next(iter(params.values())).mesh
     step = spmd.empty((), torch.int32, NamedSharding(mesh, P()))
     return {
@@ -112,6 +113,27 @@ def _init_placed(params: dict, cfg: AdamWConfig, device) -> dict:
         "v": {n: p.map(lambda b: _zeros_moment(b, cfg, b.device))
               for n, p in params.items()},
     }
+
+
+def init_placed_pool(params: dict, cfg: AdamWConfig, device=None) -> dict:
+    """:func:`init_state` of placed parameters with its pool tier where
+    ``core/znuma.py::tier_place`` puts it (pinned host memory beside the
+    card ``device``, one buffer a distinct block), made a parameter at a
+    time: the whole state is never on the cards at once.  ``step`` stays
+    placed."""
+    from repro_torch.core import znuma
+    tiers = state_tier(None)
+    out = None
+    for n, p in params.items():
+        one = znuma.tier_place(_init_placed({n: p}, cfg, None), tiers,
+                               device)
+        if out is None:
+            out = one
+            continue
+        for g in ("master", "m", "v"):
+            if out[g] is not None:
+                out[g][n] = one[g][n]
+    return out
 
 
 def state_tier(state) -> dict:

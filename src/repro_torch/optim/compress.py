@@ -27,6 +27,10 @@ class QTensor:
     def dtype(self):
         return torch.int8
 
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
     @staticmethod
     def _nblocks(shape) -> int:
         return -(-math.prod(shape) // BLOCK)

@@ -14,9 +14,13 @@ the model axis first), the tokens and positions placed by the step
 once a coordinate in a flash prefill) and, under SP, its block of the
 cache's slots, the decode's softmax merged across them
 (``models/attention.py::attn_seq_sharded``; the latent cache's by
-``models/mla.py::mla_placed``).  The decoder-only families: attention,
-MLA and Mamba-2 blocks, with MLP, MoE or no ffn
-(``models/transformer.py::is_placed_family``).
+``models/mla.py::mla_placed``).  Every family: attention, MLA and
+Mamba-2 blocks, with MLP, MoE or no ffn, the vision frontend's patch rows
+(the prefill's ``embeds``), and the encoder-decoder, whose prefill
+encodes its frames (``embeds``) and writes every layer's cross K/V once
+into the placed cache (``enc_len`` sizes them; their frames split over
+the model axis under SP, their KV heads without it)
+(``models/transformer.py::is_placed_family``, ``models/encdec.py``).
 """
 from __future__ import annotations
 
@@ -77,14 +81,29 @@ def batch_pspec(ctx: ShardCtx, batch: int, ndim: int) -> P:
     return P(*parts)
 
 
+def _cache_kw(model, enc_len: int | None) -> dict:
+    """``cache_specs``' keywords: ``enc_len`` for an encoder-decoder; a
+    decoder-only model's cache has no cross K/V (its ``cache_specs`` takes
+    no ``enc_len``, as the reference's)."""
+    if enc_len is None:
+        return {}
+    if not model.cfg.is_encoder_decoder:
+        raise TypeError(f"enc_len: {model.cfg.name} is decoder-only, its "
+                        "cache has no cross K/V")
+    return {"enc_len": enc_len}
+
+
 def init_cache(model, ctx: ShardCtx, batch: int, max_len: int,
-               dtype: torch.dtype | None = None) -> dict:
+               dtype: torch.dtype | None = None,
+               enc_len: int | None = None) -> dict:
     """``model.init_cache`` placed by :func:`serve_shardings`' cache tree,
     made block by block on the coordinates' devices: every ``pos`` -1,
-    the rest zeros; ``dtype`` casts the bf16 leaves as there."""
+    the rest zeros; ``dtype`` casts the bf16 leaves as there; ``enc_len``
+    sizes an encoder-decoder's cross K/V."""
     _require_serve_mesh(model, ctx, "init_cache")
-    _, cache_sh = serve_shardings(model, ctx, batch, max_len)
-    specs = model.cache_specs(batch, max_len)
+    kw = _cache_kw(model, enc_len)
+    _, cache_sh = serve_shardings(model, ctx, batch, max_len, **kw)
+    specs = model.cache_specs(batch, max_len, **kw)
     leaves = {}
     map_with_path(lambda path, sh: leaves.__setitem__(path, sh), cache_sh)
 
@@ -96,10 +115,12 @@ def init_cache(model, ctx: ShardCtx, batch: int, max_len: int,
     return map_with_path(make, specs)
 
 
-def _mesh_step(model, ctx: ShardCtx, batch: int, max_len: int, what: str):
+def _mesh_step(model, ctx: ShardCtx, batch: int, max_len: int, what: str,
+               enc_len: int | None = None):
     """The checks and layouts both placed serve steps share."""
     _require_serve_mesh(model, ctx, what)
-    params_sh, cache_sh = serve_shardings(model, ctx, batch, max_len)
+    params_sh, cache_sh = serve_shardings(model, ctx, batch, max_len,
+                                          **_cache_kw(model, enc_len))
     named = spmd.named_shardings(model, params_sh)
 
     def check(params, cache):
@@ -110,28 +131,36 @@ def _mesh_step(model, ctx: ShardCtx, batch: int, max_len: int, what: str):
     return check
 
 
-def jit_prefill_step(model, ctx: ShardCtx, batch: int, max_len: int):
+def jit_prefill_step(model, ctx: ShardCtx, batch: int, max_len: int,
+                     enc_len: int | None = None):
     """The prefill step (``make_prefill_step``) on placed parameters and a
-    placed cache (:func:`init_cache`): ``prefill(params, tokens (B,S),
-    positions (B,S), cache) -> (last-position logits (B,1,V) fp32, whole
-    on coordinate 0's device, cache)``, the cache filled in place.
-    Without a mesh, ``params`` must be None: the model's own are read."""
-    if _eager(model, ctx):
+    placed cache (:func:`init_cache`, ``enc_len`` as there):
+    ``prefill(params, tokens (B,S), positions (B,S[+N]), cache[,
+    embeds]) -> (last-position logits (B,1,V) fp32, whole on coordinate
+    0's device, cache)``, the cache filled in place; ``embeds`` (a vision
+    frontend's N patch rows, or an encoder-decoder's frames) placed by the
+    step as the reference's dry run places them
+    (``batch_pspec(ctx, B, 3)``).  Without a mesh, ``params`` must be
+    None: the model's own are read."""
+    if ctx.mesh is None:
         step = make_prefill_step(model, ctx)
 
-        def plain(params, tokens, positions, cache):
+        def plain(params, tokens, positions, cache, embeds=None):
             _own_params(params)
-            return step(tokens, positions, cache)
+            return step(tokens, positions, cache, embeds)
         return plain
-    check = _mesh_step(model, ctx, batch, max_len, "jit_prefill_step")
+    check = _mesh_step(model, ctx, batch, max_len, "jit_prefill_step",
+                       enc_len)
     tok_sh = NamedSharding(ctx.mesh, batch_pspec(ctx, batch, 2))
+    emb_sh = NamedSharding(ctx.mesh, batch_pspec(ctx, batch, 3))
 
     @torch.no_grad()
-    def prefill(params, tokens, positions, cache):
+    def prefill(params, tokens, positions, cache, embeds=None):
         check(params, cache)
         hidden, cache, _ = model.prefill(
             spmd.place(tokens, tok_sh), spmd.place(positions, tok_sh),
-            cache, ctx, params=params)
+            cache, ctx, params=params,
+            embeds=None if embeds is None else spmd.place(embeds, emb_sh))
         last = hidden.map(lambda h: h[:, -1:])
         return spmd.gather(model.logits(last, params, ctx)), cache
     return prefill
@@ -146,9 +175,9 @@ def jit_decode_step(model, ctx: ShardCtx, batch: int, max_len: int,
     device.  The cache is written in place; ``donate=False`` writes a copy
     and returns it, the caller's left as it was, with a mesh or without.
     Without a mesh, ``params`` must be None and the eager step runs on the
-    model's own parameters.  ``enc_len`` (an encoder-decoder's) raises on
-    a mesh (ROADMAP M18c)."""
-    if _eager(model, ctx):
+    model's own parameters.  ``enc_len`` sizes an encoder-decoder's cross
+    K/V (a decoder-only model's raises ``TypeError``)."""
+    if ctx.mesh is None:
         step = make_decode_step(model, ctx)
 
         def plain(params, tokens, positions, cache):
@@ -157,12 +186,8 @@ def jit_decode_step(model, ctx: ShardCtx, batch: int, max_len: int,
                 cache = _clone_tree(cache)
             return step(tokens, positions, cache)
         return plain
-    if enc_len is not None:
-        raise NotImplementedError(
-            "jit_decode_step: an encoder-decoder's cache (enc_len) on a "
-            "mesh (ROADMAP Queue 1, M18c: the encoder-decoder under "
-            "placement)")
-    check = _mesh_step(model, ctx, batch, max_len, "jit_decode_step")
+    check = _mesh_step(model, ctx, batch, max_len, "jit_decode_step",
+                       enc_len)
     tok_sh = NamedSharding(ctx.mesh, batch_pspec(ctx, batch, 2))
     pos_sh = NamedSharding(ctx.mesh, batch_pspec(ctx, batch, 1))
 
@@ -176,14 +201,6 @@ def jit_decode_step(model, ctx: ShardCtx, batch: int, max_len: int,
             cache, ctx, params=params)
         return spmd.gather(logits), cache
     return decode
-
-
-def _eager(model, ctx: ShardCtx) -> bool:
-    """No mesh, or a one-coordinate mesh for a family the sharded steps do
-    not place: the eager step on the model's own parameters."""
-    from repro_torch.models.transformer import is_placed_family
-    return ctx.mesh is None or (ctx.mesh.size == 1
-                                and not is_placed_family(model.cfg))
 
 
 def _clone_tree(cache):

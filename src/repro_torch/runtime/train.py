@@ -27,28 +27,32 @@ With a mesh (``ShardCtx.mesh``), :func:`jit_train_step` is the
 reference's partitioned step: the parameters and the AdamW state arrive
 placed on the mesh's devices by :func:`step_shardings`' trees
 (``sharding/spmd.py``, :func:`placed_params`), the batch is placed a
-microbatch at a time over the batch axes, and the forward and backward
-of the decoder-only families (attention, MLA and Mamba-2 blocks, MLP or
-MoE ffn, DeepSeek's MTP head) run on those blocks
-(``models/transformer.py``): DP over ("pod", "data"), FSDP gathers of
-"embed" over "data", TP over heads, ff, inner channels and vocab, EP over
-"experts".  The loss is vocab-parallel for an untied head and reads the
-tied table whole (:func:`mesh_xent`), and adds the MoE's aux losses (from
-the global router logits) and the MTP term; each leaf's gradient is summed over the mesh axes it is
-replicated on, the global norm counts each distinct block once, and
-AdamW updates a block at a time, so replicas stay equal.  The two-phase
-step, the other
-families and int8 moments do not run on a mesh of more than one
-coordinate (they raise); ``make_train_step`` with a mesh still runs the
-model eagerly on the parameters' device, where only ``shard_map`` code
-(the sharded MoE paths, the tied-head loss with ``replicate_lm_head``)
-splits work over the mesh.
+microbatch at a time over the batch axes (its ``embeds`` too: a vision
+frontend's patch rows, an encoder-decoder's frames), and the forward and
+backward of every family (attention, MLA and Mamba-2 blocks, MLP or MoE
+ffn, DeepSeek's MTP head, the vision frontend, the encoder-decoder) run
+on those blocks (``models/transformer.py``, ``models/encdec.py``): DP
+over ("pod", "data"), FSDP gathers of "embed" over "data", TP over heads,
+ff, inner channels and vocab, EP over "experts".  The loss is
+vocab-parallel for an untied head and reads the tied table whole
+(:func:`mesh_xent`), and adds the MoE's aux losses (from the global
+router logits) and the MTP term; each leaf's gradient is summed over the
+mesh axes it is replicated on, the global norm counts each distinct block
+once, and AdamW updates a block at a time, so replicas stay equal.
+:func:`make_two_phase_steps` on placed parameters (M18d) takes the same
+gradients and streams a pool tier of one buffer a distinct block
+(``core/znuma.py::tier_place``) through the card.  int8 moments on a mesh
+are the two-phase step's (the fused step raises); ``make_train_step``
+with a mesh still runs the model eagerly on the parameters' device, where
+only ``shard_map`` code (the sharded MoE paths, the tied-head loss with
+``replicate_lm_head``) splits work over the mesh.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import znuma
 from repro_torch.launch import op_analysis
 from repro_torch.optim import adamw
 from repro_torch.optim.compress import QTensor
@@ -396,20 +400,27 @@ def make_two_phase_steps(model, opt_cfg: adamw.AdamWConfig, ctx: ShardCtx,
     copied from another device and back, counted copy by copy (0 where
     the state lies on the parameters' device).
     The copies of one parameter are not overlapped with the next
-    parameter's update.  A mesh of more than one coordinate raises: the
-    two-phase step is not placed yet."""
-    if ctx.mesh is not None and ctx.mesh.size > 1 and ctx.mesh.devices.flat[
-            0].type != "meta":
-        raise NotImplementedError(
-            "make_two_phase_steps on a mesh of more than one coordinate "
-            "(ROADMAP Queue 1, M18d: the two-phase step with a mesh)")
+    parameter's update.
 
+    Placed parameters (``spmd.Placed``, :func:`placed_params`; the path is
+    chosen by their type, as ``LM.forward`` chooses by ``params=``) take
+    the placed steps (M18d): ``grad_step`` is :func:`jit_train_step`'s
+    gradients (the same checks, the batch's global tensors placed by the
+    step), placed like the parameters; ``opt_step`` takes a state whose
+    pool tier ``tier_place`` holds as one buffer a distinct block
+    (``znuma.PoolBlocks``) and updates each distinct block on its
+    coordinate's device, then copies the new block to its replicas."""
     def grad_step(params, batch):
+        if _placed(params):
+            return _placed_grads(model, params, batch, ctx, microbatches,
+                                 xent_chunk, accum_dtype)
         return grads_fn(model, params, batch, ctx, microbatches, xent_chunk,
                         accum_dtype)
 
     @torch.no_grad()
     def opt_step(params, opt_state, grads):
+        if _placed(params):
+            return _placed_opt_step(params, opt_state, grads, opt_cfg)
         sc = adamw.step_scalars(opt_state["step"], grads, opt_cfg)
         masters = opt_state["master"]
         moved_in = moved_out = 0
@@ -438,19 +449,96 @@ def make_two_phase_steps(model, opt_cfg: adamw.AdamWConfig, ctx: ShardCtx,
     return grad_step, opt_step
 
 
+def _placed(params: dict) -> bool:
+    return isinstance(next(iter(params.values())), spmd.Placed)
+
+
+def _placed_grads(model, params: dict, batch: dict, ctx: ShardCtx,
+                  microbatches: int, xent_chunk: int, accum_dtype):
+    """The placed two-phase step's phase A: :func:`jit_train_step`'s
+    checks, then :func:`_mesh_grads`."""
+    _require_mesh_step(model, ctx, "make_two_phase_steps")
+    params_sh = step_shardings(model, adamw.AdamWConfig(), ctx)[0]
+    for n, sh in spmd.named_shardings(model, params_sh).items():
+        spmd.check(params.get(n), sh, n)
+    for p in params.values():
+        for b in p.blocks:
+            b.requires_grad_(True)
+    return _mesh_grads(model, params, batch, ctx, microbatches, xent_chunk,
+                       accum_dtype)
+
+
+def _placed_opt_step(params: dict, opt_state: dict, grads: dict,
+                     opt_cfg: adamw.AdamWConfig):
+    """The placed two-phase step's phase B: the shared scalars once (the
+    norm over distinct blocks), then each parameter's distinct blocks in
+    turn: its master, m and v copied from their pool-tier buffers to the
+    block's device, ``adamw.update_leaf``, the block and its replicas
+    written, the state written back into the same buffers.  Returns
+    ``(params, opt_state, metrics)`` as the unplaced step does."""
+    step = opt_state["step"]
+    sc = adamw.step_scalars(step.blocks[0], grads, opt_cfg)
+    on: dict = {}
+    moved_in = moved_out = 0
+    for n, p in params.items():
+        pools = [None if opt_state[g] is None else opt_state[g][n]
+                 for g in ("master", "m", "v")]
+        if not isinstance(pools[1], znuma.PoolBlocks):
+            raise TypeError(f"opt state of {n}: the placed two-phase step "
+                            "takes the pool tier of znuma.tier_place, got "
+                            f"{type(pools[1]).__name__}")
+        home = spmd.home_ranks(p.mesh, p.spec)
+        for i, r in enumerate(pools[1].ranks):
+            b = p.blocks[r]
+            dev = b.device
+            if dev not in on:
+                on[dev] = {k: v.to(dev) for k, v in sc.items()}
+            scd = on[dev]
+            host = [None if q is None else q.blocks[i] for q in pools]
+            mst, m, v = (_to(x, dev) for x in host)
+            moved_in += sum(_crossing_bytes(x, dev) for x in host)
+            new_p, new_mst, new_m, new_v = adamw.update_leaf(
+                b, mst, m, v, grads[n].blocks[r], scd, opt_cfg)
+            for rr, h in enumerate(home):
+                if h == r:
+                    p.blocks[rr].copy_(new_p)
+            for dst, src in zip(host, (new_mst, new_m, new_v)):
+                if dst is not None:
+                    adamw.write_leaf(dst, src)
+                    moved_out += _crossing_bytes(dst, dev)
+            # freed before the next block's; the copies queued on this
+            # stream read them before any later kernel can reuse them
+            del new_p, new_mst, new_m, new_v, mst, m, v
+    for b in step.blocks:
+        b.copy_(sc["step"].to(b.device))
+    for dev in on:
+        if dev.type == "cuda":
+            # the pinned buffers are read back by copies still queued
+            torch.cuda.current_stream(dev).synchronize()
+    return params, opt_state, {"grad_norm": sc["grad_norm"], "lr": sc["lr"],
+                               "opt_bytes_in": moved_in,
+                               "opt_bytes_out": moved_out}
+
+
 # ------------------------------------------------------- on a mesh (M18) --
-def _mesh_grads(model, params: dict, tokens: torch.Tensor, ctx: ShardCtx,
+def _mesh_grads(model, params: dict, batch: dict, ctx: ShardCtx,
                 microbatches: int, xent_chunk: int, accum_dtype):
     """``grads_fn`` on placed parameters: each microbatch (contiguous rows
-    of ``tokens``, a global tensor) placed over the batch axes, the loss
-    (with the MTP head's term where the model has one) and every block's
-    gradient; the gradients summed over the axes each
-    leaf is replicated on.  Returns (grads by name, each placed like its
+    of the batch's global tensors) placed over the batch axes, the
+    tokens', and ``embeds`` by ``serve.batch_pspec`` (the reference's dry
+    run's rule): an encoder-decoder's frames feed its encoder, a vision
+    frontend's patch rows go before the tokens and carry no loss; the
+    loss (with the MTP head's term where the model has one) and every
+    block's gradient; the gradients summed over the axes each leaf is
+    replicated on.  Returns (grads by name, each placed like its
     parameter, metrics)."""
+    from repro_torch.runtime.serve import batch_pspec
     mesh = ctx.mesh
     names = list(params)
     leaves = [b for n in names for b in params[n].blocks]
     tok_sh = NamedSharding(mesh, P(ctx.batch_axes, None))
+    tokens, embeds = batch["tokens"], batch.get("embeds")
+    encdec = model.cfg.is_encoder_decoder
     bsz = tokens.shape[0]
     if bsz % microbatches:
         raise ValueError(f"batch of {bsz} rows does not split into "
@@ -463,11 +551,20 @@ def _mesh_grads(model, params: dict, tokens: torch.Tensor, ctx: ShardCtx,
                                       tok_sh), P(ctx.batch_axes, None))
         inp = spmd.Placed([t[:, :-1] for t in mb.blocks], tok_sh)
         lab = spmd.Placed([t[:, 1:] for t in mb.blocks], tok_sh)
-        s = inp.shape[1]
+        emb = None
+        if embeds is not None:
+            emb = spmd.place(embeds[i * rows:(i + 1) * rows], NamedSharding(
+                mesh, batch_pspec(ctx, rows, 3)))
+        # enc-dec: embeds feed the encoder, not the decoder prefix
+        n_emb = 0 if emb is None or encdec else emb.shape[1]
+        s = inp.shape[1] + n_emb
         pos = inp.map(lambda t: torch.arange(s, device=t.device)[None]
                       .expand(t.shape[0], s))
-        out = model.forward(inp, pos, ctx, params=params)
-        loss = mesh_xent(out["hidden"], params, lab, ctx, xent_chunk)
+        out = model.forward(inp, pos, ctx, embeds=emb, params=params)
+        hidden = out["hidden"]
+        if n_emb:                           # frontend rows carry no loss
+            hidden = hidden.map(lambda h: h[:, n_emb:])
+        loss = mesh_xent(hidden, params, lab, ctx, xent_chunk)
         total = loss + out["aux"]
         if "mtp_hidden" in out:                 # predict t+2 (DeepSeek MTP)
             total = total + MTP_WEIGHT * mesh_xent(
@@ -539,14 +636,13 @@ def jit_train_step(model, opt_cfg: adamw.AdamWConfig, ctx: ShardCtx, *,
     parameters).  With a mesh: ``(params, opt_state, batch) -> (params,
     opt_state, metrics)`` on parameters and an AdamW state placed by
     :func:`step_shardings` (:func:`placed_params`, ``adamw.init_state``;
-    a leaf placed otherwise raises), the batch a global tensor placed by
-    the step, a microbatch at a time.  ``donate=False`` updates copies and
-    leaves the inputs as they were.  int8 moments with a mesh raise
-    ``ValueError`` (the reference's rule: a pool-tier feature); the
-    families the steps do not place (``is_placed_family``) on a mesh
-    of more than one coordinate raise ``NotImplementedError``; on a
-    one-coordinate mesh they take the eager step, where ``donate=False``
-    raises ``ValueError`` as without a mesh."""
+    a leaf placed otherwise raises), the batch's global tensors (tokens,
+    ``embeds``) placed by the step, a microbatch at a time.
+    ``donate=False`` updates copies and leaves the inputs as they were.
+    int8 moments with a mesh raise ``ValueError`` (the reference's rule:
+    a pool-tier feature, :func:`make_two_phase_steps`'); a family the
+    steps do not place (``is_placed_family``) raises
+    ``NotImplementedError``."""
     if ctx.mesh is None:
         if not donate:
             raise ValueError("donate=False without a mesh: the eager step "
@@ -557,14 +653,6 @@ def jit_train_step(model, opt_cfg: adamw.AdamWConfig, ctx: ShardCtx, *,
         raise ValueError("int8 moments are a pool-tier feature: use "
                          "make_two_phase_steps (opt state streams from the "
                          "pool tier, shardings inferred from buffers)")
-    from repro_torch.models.transformer import is_placed_family
-    if ctx.mesh.size == 1 and not is_placed_family(model.cfg):
-        if not donate:
-            raise ValueError(f"donate=False for {model.cfg.name} on a "
-                             "one-coordinate mesh: the eager step updates "
-                             "the model's own parameters")
-        return make_train_step(model, opt_cfg, ctx, microbatches, xent_chunk,
-                               accum_dtype)
     _require_mesh_step(model, ctx, "jit_train_step")
     params_sh, opt_sh, _ = step_shardings(model, opt_cfg, ctx, mode)
     named = spmd.named_shardings(model, params_sh)
@@ -586,7 +674,7 @@ def jit_train_step(model, opt_cfg: adamw.AdamWConfig, ctx: ShardCtx, *,
         for p in params.values():
             for b in p.blocks:
                 b.requires_grad_(True)
-        grads, metrics = _mesh_grads(model, params, batch["tokens"], ctx,
+        grads, metrics = _mesh_grads(model, params, batch, ctx,
                                      microbatches, xent_chunk, accum_dtype)
         params, opt_state, om = adamw.apply_updates(params, opt_state,
                                                     grads, opt_cfg)

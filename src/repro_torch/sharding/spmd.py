@@ -153,6 +153,17 @@ def distinct_ranks(mesh: Mesh, spec) -> list[int]:
             if all(c[i] == 0 for i in rep)]
 
 
+def home_ranks(mesh: Mesh, spec) -> list[int]:
+    """Each rank's holder of its block among :func:`distinct_ranks`: the
+    rank at index 0 of every axis ``spec`` does not name (itself where it
+    holds a distinct block)."""
+    named = spec_axes(spec)
+    rank = {c: r for r, c in enumerate(mesh.coords())}
+    return [rank[tuple(i if a in named else 0
+                       for a, i in zip(mesh.axis_names, c))]
+            for c in mesh.coords()]
+
+
 def _copy_to(t: torch.Tensor, dev) -> torch.Tensor:
     """A contiguous copy of ``t`` on ``dev``, never a view of ``t``."""
     out = torch.empty(t.shape, dtype=t.dtype, device=dev)

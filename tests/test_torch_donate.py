@@ -1,11 +1,11 @@
 """``runtime/train.py::jit_train_step(..., donate=False)`` never changes
 the caller's tensors: the reference's ``donate=False`` leaves its inputs
-valid (its ``launch/train.py`` passes it).  On a one-coordinate mesh, a
-family the sharded steps do not place (internvl2's vision frontend) takes
-the eager step, which reads and updates the model's own parameters, so
-``donate=False`` raises ``ValueError`` there, as without a mesh, before
-anything runs; a placed family (granite's MoE, qwen2's dense decoder,
-mamba2) updates copies and returns them.  Beside ``tests/test_torch_spmd.py::
+valid (its ``launch/train.py`` passes it).  Without a mesh the eager
+step reads and updates the model's own parameters, so ``donate=False``
+raises ``ValueError`` before anything runs; on a mesh, one coordinate or
+more, every family is placed (granite's MoE, qwen2's dense decoder,
+mamba2, internvl2's vision frontend) and updates copies and returns
+them.  Beside ``tests/test_torch_spmd.py::
 test_decode_without_donation_keeps_the_callers_cache``, which holds the
 serve step to the same contract."""
 import numpy as np
@@ -50,17 +50,31 @@ def _equal(a, b) -> bool:
 
 
 def test_eager_family_on_one_coordinate_refuses_donate_false():
-    """internvl2 on a (1, 1) mesh: ``donate=False`` raises ``ValueError``,
-    and the model's parameters and the AdamW state stay as they were;
-    with ``donate=True`` the eager step updates them in place."""
+    """internvl2 (the vision frontend, placed since the sharded steps take
+    every family) on a (1, 1) mesh: ``donate=False`` updates copies and
+    leaves the caller's parameters and AdamW state as they were.  Without
+    a mesh the eager step reads and updates the model's own parameters:
+    ``donate=False`` raises ``ValueError`` before anything runs, the
+    state stays as it was, and with ``donate=True`` the step updates them
+    in place."""
     model, ctx, batch = _setup("internvl2-26b", (1, 1))
+    batch = dict(batch, embeds=torch.randn(
+        4, 3, model.cfg.d_model, generator=torch.Generator().manual_seed(1)))
+    placed = rt.placed_params(model, ctx)
+    opt = adamw.init_state(placed, OCFG)
+    before = _snapshot((placed, opt))
+    p2, o2, m = rt.jit_train_step(model, OCFG, ctx, donate=False)(
+        placed, opt, batch)
+    assert np.isfinite(float(m["loss"]))
+    assert _equal(_snapshot((placed, opt)), before)
+    assert not _equal(_snapshot(p2), before[0])
     params = rt.train_params(model)
     opt = adamw.init_state(params, OCFG)
     before = _snapshot((params, opt))
     with pytest.raises(ValueError, match="donate=False"):
-        rt.jit_train_step(model, OCFG, ctx, donate=False)
+        rt.jit_train_step(model, OCFG, ShardCtx(), donate=False)
     assert _equal(_snapshot((params, opt)), before)
-    rt.jit_train_step(model, OCFG, ctx)(params, opt, batch)
+    rt.jit_train_step(model, OCFG, ShardCtx())(params, opt, batch)
     assert not _equal(_snapshot(params), before[0])
 
 

@@ -653,30 +653,30 @@ def test_placement_errors():
 
 
 def test_step_errors():
-    """int8 moments with a mesh (``ValueError``, the reference's rule);
-    the encoder-decoder and the vision frontend on a mesh of more than one
-    coordinate, FSDP over pods and the two-phase step
-    (``NotImplementedError``, naming the ROADMAP item); the MLA, Mamba-2
-    and hybrid families' placed steps and the SP steps (``seq_shard_kv``)
-    build; an unplaced parameter; ``donate=False``
-    without a mesh."""
+    """int8 moments with a mesh (``ValueError``, the reference's rule: the
+    fused step raises, the two-phase step builds); FSDP over pods
+    (``NotImplementedError``, naming the ROADMAP item); ``enc_len`` for a
+    decoder-only model (``TypeError``: its cache has no cross K/V, as the
+    reference's ``cache_specs`` takes no ``enc_len``); the
+    encoder-decoder's and the vision frontend's placed steps, the MLA,
+    Mamba-2 and hybrid families' and the SP steps (``seq_shard_kv``)
+    build, and the placed two-phase step builds and runs; an unplaced
+    parameter; ``donate=False`` without a mesh."""
     mesh = cpu_mesh((2, 2))
     ctx = ctx_of(mesh)
     model = port_model("qwen2-1.5b")
     with pytest.raises(ValueError, match="int8"):
         rt.jit_train_step(model, adamw.AdamWConfig(moments_dtype="int8"), ctx)
-    with pytest.raises(ValueError, match="int8"):
-        adamw.init_state(rt.placed_params(model, ctx),
-                         adamw.AdamWConfig(moments_dtype="int8"))
+    int8 = adamw.init_state(rt.placed_params(model, ctx),
+                            adamw.AdamWConfig(moments_dtype="int8"))
+    assert int8["m"]["embed.tok"].dtype == torch.int8
     for arch in ("whisper-small", "internvl2-26b"):
         other = build_model(get_smoke(arch), device="meta")
-        with pytest.raises(NotImplementedError, match="M18c"):
-            rt.jit_train_step(other, adamw.AdamWConfig(), ctx)
-        with pytest.raises(NotImplementedError, match="M18c"):
-            tserve.jit_decode_step(other, ctx, 4, 16)
-        with pytest.raises(NotImplementedError, match="M18c"):
-            tserve.jit_prefill_step(other, ctx, 4, 16)
-        # one coordinate: the eager step, as before
+        assert callable(rt.jit_train_step(other, adamw.AdamWConfig(), ctx))
+        kw = {"enc_len": 24} if arch == "whisper-small" else {}
+        assert callable(tserve.jit_decode_step(other, ctx, 4, 16, **kw))
+        assert callable(tserve.jit_prefill_step(other, ctx, 4, 16, **kw))
+        # one coordinate: the placed steps too
         one = ctx_of(cpu_mesh((1, 1)))
         assert callable(rt.jit_train_step(other, adamw.AdamWConfig(), one))
     # the MLA (with its MTP head), Mamba-2 and hybrid families are placed
@@ -691,21 +691,30 @@ def test_step_errors():
         cache = tserve.init_cache(model, sp_ctx, 4, 16)
         assert isinstance(cache["groups"][0]["blocks"][0]["k"], spmd.Placed)
     pod = ctx_of(cpu_mesh((2, 2, 2)), fsdp_pod=True)
-    with pytest.raises(NotImplementedError, match="fsdp_pod"):
+    with pytest.raises(NotImplementedError, match="M18e"):
         rt.jit_train_step(model, adamw.AdamWConfig(), pod)
-    with pytest.raises(NotImplementedError, match="enc_len"):
+    with pytest.raises(TypeError, match="enc_len"):
         tserve.jit_decode_step(model, ctx, 4, 16, enc_len=24)
-    with pytest.raises(NotImplementedError, match="two-phase"):
-        rt.make_two_phase_steps(model, adamw.AdamWConfig(), ctx)
+    with pytest.raises(TypeError, match="enc_len"):
+        tserve.init_cache(model, ctx, 4, 16, enc_len=24)
+    ocfg = adamw.AdamWConfig(**LR)
+    grad_step, opt_step = rt.make_two_phase_steps(model, ocfg, ctx)
+    placed = rt.placed_params(model, ctx)
+    toks = torch.from_numpy(tokens(model.cfg.vocab_size)).long()
+    grads, metrics = grad_step(placed, {"tokens": toks})
+    assert np.isfinite(float(metrics["loss"]))
+    from repro_torch.core import znuma
+    pool = znuma.tier_place(adamw.init_state(placed, ocfg),
+                            adamw.state_tier(None), "cpu")
+    _, pool, om = opt_step(placed, pool, grads)
+    assert all(int(b) == 1 for b in pool["step"].blocks)
+    assert om["opt_bytes_in"] == om["opt_bytes_out"] == 0
     with pytest.raises(ValueError, match="donate"):
         rt.jit_train_step(model, adamw.AdamWConfig(), ShardCtx(),
                           donate=False)
-    ocfg = adamw.AdamWConfig(**LR)
-    placed = rt.placed_params(model, ctx)
     opt = adamw.init_state(placed, ocfg)
     step = rt.jit_train_step(model, ocfg, ctx)
     placed["embed.tok"] = spmd.gather(placed["embed.tok"])
-    toks = torch.from_numpy(tokens(model.cfg.vocab_size)).long()
     with pytest.raises(TypeError, match="embed.tok"):
         step(placed, opt, {"tokens": toks})
     serve_p = rt.placed_params(model, ctx, mode="serve")
